@@ -1,0 +1,176 @@
+"""High-level solver facade over the functional core (PyTorch).
+
+Counterpart of ``lbm2d_tpu/core/engine.py``, with the reference solver's
+public API (run_step, get_force, get_max_velocity, get_physical_fields,
+get_moments) and in-case checkpoint/restore in the same ``.npz`` format, so
+a checkpoint written by either package resumes in the other.
+
+The engine lives on one torch device, ``cuda`` unless the caller asks for
+the CPU. On a CUDA device a chunk runs on the hand-written kernels
+(``ops/cuda_step.run_chunk_cuda``) and a case they do not cover raises; on
+the CPU it runs the eager reference step.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .convert import state_from_numpy, state_to_numpy
+from .solver import (
+    CaseParams,
+    LBMState,
+    init_state,
+    make_params,
+    max_velocity,
+    moments_output,
+    obstacle_force,
+    run_chunk,
+)
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device must exist."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but no CUDA device is available; "
+            "pass device='cpu' to run the eager reference step"
+        )
+    return dev
+
+
+class LBMEngine:
+    """One simulation case on one device."""
+
+    def __init__(
+        self,
+        config: Dict[str, Any],
+        mask_yx: Optional[np.ndarray] = None,
+        dtype=torch.float32,
+        device="cuda",
+        store_dev: Optional[bool] = None,
+        spatial_mesh=None,
+    ):
+        self.config = config
+        sim = config["simulation"]
+        if store_dev or (store_dev is None and sim.get("f16_state", False)):
+            raise NotImplementedError(
+                "16-bit deviation state storage is not ported yet "
+                "(ROADMAP.md queue 2, K1 port order step 4)"
+            )
+        if spatial_mesh or sim.get("spatial_mesh"):
+            raise NotImplementedError(
+                "spatial sharding is not ported yet (ROADMAP.md queue 1, item 10)"
+            )
+        self.device = resolve_device(device)
+        self.nx, self.ny = int(sim["nx"]), int(sim["ny"])
+        self.name = sim.get("name", "case")
+        self.nu = float(sim["nu"])
+        self.tau0 = 3.0 * self.nu + 0.5
+        self.characteristic_length = sim["characteristic_length"]
+        self.rho_in_target = float(sim["rho_in"])
+        self.rho_out_target = float(sim["rho_out"])
+        self.warmup_steps = int(sim["warmup_steps"])
+
+        # Bernoulli estimate of the pressure-driven inlet speed, as the
+        # reference logs at init.
+        delta_rho = self.rho_in_target - self.rho_out_target
+        u_char = math.sqrt(2.0 / 3.0 * delta_rho) if delta_rho > 1e-9 else 0.01
+        self.Re = (
+            (u_char * self.characteristic_length) / self.nu
+            if self.nu > 0
+            else float("inf")
+        )
+        self.u_inlet_estimate = u_char
+
+        self.params: CaseParams = make_params(
+            config, mask_yx, dtype=dtype, device=self.device
+        )
+        self.dtype = dtype
+        self._runner = self._resolve_runner()
+        self.state: LBMState = init_state(self.ny, self.nx, dtype, self.device)
+        self._last_monitors = None
+        self._monitors_np = None
+
+    def _resolve_runner(self):
+        """CUDA kernels on a CUDA device (raising for a case they do not
+        cover), the eager step on the CPU."""
+        if self.device.type != "cuda":
+            return run_chunk
+        from ..ops.cuda_step import run_chunk_cuda, unsupported
+
+        reason = unsupported(self.params)
+        if reason is not None:
+            raise NotImplementedError(f"the CUDA kernels do not cover {reason}")
+        return run_chunk_cuda
+
+    # -- reference-compatible API --------------------------------------------
+
+    def init(self) -> None:
+        self.state = init_state(self.ny, self.nx, self.dtype, self.device)
+        self._last_monitors = None
+        self._monitors_np = None
+
+    def run_step(self, steps: int = 1) -> None:
+        self.state, self._last_monitors = self._runner(self.state, self.params, steps)
+        self._monitors_np = None
+
+    def _fetch_monitors(self) -> np.ndarray:
+        """[Fx, Fy, max_v] in ONE device-to-host transfer."""
+        if self._monitors_np is None:
+            if self._last_monitors is None:
+                force = obstacle_force(self.state.f_post, self.params)
+                max_v = max_velocity(self.state.u)
+            else:
+                force = self._last_monitors["force"]
+                max_v = self._last_monitors["max_v"]
+            self._monitors_np = (
+                torch.cat([force.reshape(-1), max_v.reshape(1)]).cpu().numpy()
+            )
+        return self._monitors_np
+
+    def get_force(self) -> np.ndarray:
+        return self._fetch_monitors()[:2]
+
+    def get_max_velocity(self) -> float:
+        return float(self._fetch_monitors()[2])
+
+    def get_physical_fields(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(u [2,H,W], mask [H,W]) as numpy."""
+        return self.state.u.cpu().numpy(), self.params.mask.cpu().numpy()
+
+    def get_moments(self) -> np.ndarray:
+        """[9, H, W] MRT moments of the post-collision field."""
+        return moments_output(self.state).cpu().numpy()
+
+    def get_moments_device(self) -> torch.Tensor:
+        return moments_output(self.state)
+
+    @property
+    def step_count(self) -> int:
+        return int(self.state.step)
+
+    # -- checkpoint / restore -------------------------------------------------
+
+    def save_checkpoint(self, path: str) -> None:
+        # write-temp-then-rename: a crash mid-write must not corrupt the only
+        # checkpoint
+        data = state_to_numpy(self.state)
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as fh:
+            np.savez_compressed(fh, **data)
+        os.replace(tmp, path)
+
+    def load_checkpoint(self, path: str) -> None:
+        with np.load(path) as data:
+            self.state = state_from_numpy(
+                dict(data), dtype=self.dtype, device=self.device
+            )
+        self._last_monitors = None
+        self._monitors_np = None

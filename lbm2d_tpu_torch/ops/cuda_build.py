@@ -1,0 +1,112 @@
+"""Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source is compiled by ``nvcc`` into its own shared library with a
+plain C interface and loaded with ctypes. Libraries go to ``csrc/_build/``
+(gitignored), named by a hash of the source, the shared header and the
+flags, so a checkout builds them at first use and reuses them afterwards.
+``build_all`` starts one ``nvcc`` per missing library, all at once.
+
+There is no fallback: a failed build raises with nvcc's stderr.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+BUILD_DIR = os.path.join(CSRC, "_build")
+
+# -fmad=false and no --use_fast_math: each operation rounds as the plain
+# PyTorch step's does, so data-dependent branches agree between the two.
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+# kernel name -> (source, C entry, argtypes)
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+KERNELS = {
+    "k1_step": (
+        "k1_step.cu", "k1_step_launch", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    ),
+    "k2_edge_bc": (
+        "k2_edge_bc.cu", "k2_edge_bc_launch",
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    ),
+}
+_HEADERS = ("lbm_common.cuh",)
+
+_LOCK = threading.Lock()
+_LIBS: Dict[str, ctypes.CDLL] = {}
+BUILD_LOG: Dict[str, str] = {}  # kernel -> nvcc's stderr (ptxas usage)
+BUILD_SECONDS: Dict[str, float] = {}
+
+
+def nvcc_path() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return path
+
+
+def _lib_path(name: str) -> str:
+    src = KERNELS[name][0]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for fname in (src,) + _HEADERS:
+        with open(os.path.join(CSRC, fname), "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+
+
+def build_all() -> Dict[str, str]:
+    """Compile every kernel library that is missing, in parallel; return
+    {name: library path}. Raises RuntimeError with nvcc's stderr."""
+    paths = {name: _lib_path(name) for name in KERNELS}
+    todo = {n: p for n, p in paths.items() if not os.path.exists(p)}
+    if not todo:
+        return paths
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    t0 = time.perf_counter()
+    for name, out in todo.items():
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, KERNELS[name][0])]
+        procs[name] = (
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+            tmp, out,
+        )
+    errors = []
+    for name, (proc, tmp, out) in procs.items():
+        _, err = proc.communicate()
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+        BUILD_LOG[name] = err
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {KERNELS[name][0]}:\n{err}")
+        else:
+            os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built on first use."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            path = build_all()[name]
+            lib = ctypes.CDLL(path)
+            entry = getattr(lib, KERNELS[name][1])
+            entry.argtypes = KERNELS[name][2]
+            entry.restype = ctypes.c_int
+            _LIBS[name] = lib
+        return lib

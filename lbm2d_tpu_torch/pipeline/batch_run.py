@@ -1,0 +1,230 @@
+"""Batch CLI: run every case config of a project with crash-safe resume.
+
+Counterpart of ``lbm2d_tpu/pipeline/batch_run.py`` (reference
+pipeline/batch_run.py), serial path only. Resume is keyed by config
+filename through sim_results.json: Success/Failed are skipped, Running (a
+previous crash) is retried, unknown configs run. Status is pre-written as
+Running before each case. After the loop the legacy summary is converted to
+the all_cases_vectors.npz feature matrix.
+
+Usage:
+    python -m lbm2d_tpu_torch.pipeline.batch_run --project_name Urban-1 [--max_success N] [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+from typing import Dict, List, Set, Tuple
+
+from ..core.engine import resolve_device
+from ..io import results_store, summary
+from ..io.vectors import build_npz
+from ..utils.config import load_config
+from . import case_executor, paths
+
+
+def find_config_files(config_dir: str) -> List[str]:
+    if not os.path.isdir(config_dir):
+        print(f"[Error] Config directory not found: {config_dir}")
+        sys.exit(1)
+    files = sorted(f for f in os.listdir(config_dir) if f.endswith(".yaml"))
+    if not files:
+        print(f"[Error] No YAML config files found in {config_dir}")
+        sys.exit(1)
+    return files
+
+
+def build_resume_plan(
+    config_files: List[str], status_map: Dict[str, str]
+) -> Tuple[int, Set[str]]:
+    """Return (already_success_count, filenames to skip)."""
+    if not status_map:
+        return 0, set()
+    skip: Set[str] = set()
+    success = 0
+    for cfg in config_files:
+        status = status_map.get(cfg)
+        if status == results_store.STATUS_SUCCESS:
+            skip.add(cfg)
+            success += 1
+        elif status == results_store.STATUS_FAILED:
+            skip.add(cfg)
+        # Running / unknown -> re-run
+    return success, skip
+
+
+# flags of paths not ported yet -> the ROADMAP.md item that adds them
+NOT_PORTED = {
+    "lockstep": "queue 1, item 8 (lockstep batch path)",
+    "coordinate": "queue 1, item 8 (multi-worker coordination)",
+    "spatial_mesh": "queue 1, item 10 (spatial sharding)",
+    "device_resize": "queue 1, item 7 (device resize and render)",
+    "f16_state": "queue 2, K1 port order step 4 (16-bit state)",
+    "f16_transfer": "queue 1, item 8 (lockstep batch path)",
+    "f16_retry": "queue 1, item 8 (lockstep batch path)",
+}
+
+
+def run_batch(
+    project_name: str,
+    max_success: int | None = None,
+    root: str = ".",
+    progress: bool = True,
+    device="cuda",
+    **not_ported,
+) -> Dict[str, int]:
+    """Run every pending case of a project serially on ``device`` (the
+    reference batch_run contract: resume, status, summary and NPZ).
+
+    The flags of paths not ported yet (``NOT_PORTED``) raise
+    NotImplementedError when set; they are never ignored.
+    """
+    for flag, value in not_ported.items():
+        if flag not in NOT_PORTED:
+            raise TypeError(f"run_batch() got an unexpected keyword argument {flag!r}")
+        if value:
+            raise NotImplementedError(
+                f"--{flag} is not ported yet (ROADMAP.md {NOT_PORTED[flag]})"
+            )
+    resolve_device(device)  # no GPU -> raise here, not once per case
+    project_paths = paths.get_project_paths(project_name, root=root)
+    output_dirs = paths.setup_output_directories(project_paths["outputs"])
+
+    config_meta_path = os.path.join(project_paths["project_base"], "config_meta.json")
+    sim_results_path = os.path.join(output_dirs["plots"], "sim_results.json")
+    legacy_summary_path = os.path.join(output_dirs["plots"], "all_cases_summary.json")
+    npz_path = os.path.join(output_dirs["plots"], "all_cases_vectors.npz")
+
+    config_meta = results_store.load_config_meta(config_meta_path)
+    if config_meta:
+        results_store.init_sim_results(config_meta, sim_results_path)
+
+    config_files = find_config_files(project_paths["configs"])
+    print(f"[Batch] project '{project_name}': {len(config_files)} configs found.")
+
+    status_map = results_store.get_status_map(sim_results_path)
+    already_success, skip_set = build_resume_plan(config_files, status_map)
+
+    if not os.path.exists(legacy_summary_path):
+        summary.init_summary_file(legacy_summary_path)
+
+    if max_success is not None and max_success - already_success <= 0:
+        print(f"[Batch] max_success={max_success} already reached; nothing to do.")
+        return {"success": 0, "skipped": len(skip_set), "failed": 0}
+
+    new_success = new_failed = new_skip = 0
+    for i, cfg_file in enumerate(config_files):
+        full_config_path = os.path.join(project_paths["configs"], cfg_file)
+        job_id = i + 1
+
+        if cfg_file in skip_set:
+            new_skip += 1
+            continue
+        if max_success is not None and already_success + new_success >= max_success:
+            print(f"[Batch] reached max_success={max_success}; stopping.")
+            break
+        print(f"\n--- Job {job_id}/{len(config_files)}: {cfg_file}")
+        # Crash-safe: mark Running before starting.
+        results_store.set_status(
+            cfg_file, results_store.STATUS_RUNNING, sim_results_path
+        )
+        try:
+            cfg = load_config(full_config_path)
+            sim_cfg = cfg.get("simulation", {})
+            summary.update_summary_file(
+                {
+                    "case_name": sim_cfg.get("name", cfg_file),
+                    "status": "Running",
+                    "job_id": job_id,
+                    "parameters": {
+                        "lattice": {
+                            "resolution_px": [sim_cfg.get("nx"), sim_cfg.get("ny")]
+                        }
+                    },
+                    "source_files": {
+                        "config_file": cfg_file,
+                        "mask_file": os.path.basename(
+                            cfg.get("mask", {}).get("path", "N/A")
+                        ),
+                    },
+                },
+                legacy_summary_path,
+            )
+        except Exception as exc:
+            print(f"  [Warning] legacy summary pre-write failed: {exc}")
+
+        wall_t0 = time.perf_counter()
+        entry = case_executor.execute_case(
+            full_config_path, project_paths, output_dirs, job_id,
+            progress=progress, device=device,
+        )
+        wall_time_s = time.perf_counter() - wall_t0
+        entry["wall_time_s"] = round(wall_time_s, 2)
+
+        if entry.get("status") == "Success":
+            results_store.fill_simulation_outputs(
+                config_filename=cfg_file,
+                simulation_outputs=entry.get("parameters", {}).get(
+                    "simulation_outputs", {}
+                ),
+                run_summary=entry.get("run_summary", {}),
+                wall_time_s=wall_time_s,
+                sim_results_path=sim_results_path,
+            )
+            new_success += 1
+        else:
+            results_store.set_status(
+                cfg_file,
+                results_store.STATUS_FAILED,
+                sim_results_path,
+                extra_fields={
+                    "wall_time_s": round(wall_time_s, 2),
+                    "reason": entry.get("reason", "Unknown"),
+                },
+            )
+            new_failed += 1
+
+        summary.update_summary_file(entry, legacy_summary_path)
+        tag = "OK" if entry.get("status") == "Success" else "FAIL"
+        print(f"  [{tag}] {cfg_file}  wall_time={wall_time_s:.1f}s")
+
+    print(
+        f"\n[Batch] done: prev_success={already_success} new_success={new_success} "
+        f"failed={new_failed} skipped={new_skip}"
+    )
+
+    try:
+        build_npz(legacy_summary_path, npz_path)
+    except Exception as exc:
+        print(f"[Warning] NPZ build failed (sim_results.json still valid): {exc}")
+
+    return {"success": new_success, "skipped": new_skip, "failed": new_failed}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description="Multi-case LBM batch runner.")
+    ap.add_argument("--project_name", type=str, required=True)
+    ap.add_argument("--root", type=str, default=".",
+                    help="directory holding SimCases/ and outputs/")
+    ap.add_argument("--max_success", type=int, default=None,
+                    help="stop after N total successful cases (prior runs "
+                    "count; reference CLI contract)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device: cuda (default) or cpu")
+    for flag, item in NOT_PORTED.items():
+        kind = {"default": None, "metavar": "RxC"} if flag == "spatial_mesh" else {
+            "action": "store_true"
+        }
+        ap.add_argument(f"--{flag}", help=f"not ported yet: raises (ROADMAP.md {item})", **kind)
+    args = ap.parse_args()
+    run_batch(
+        args.project_name, args.max_success, root=args.root, device=args.device,
+        **{flag: getattr(args, flag) for flag in NOT_PORTED},
+    )
+
+
+if __name__ == "__main__":
+    main()
