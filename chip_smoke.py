@@ -9,20 +9,36 @@ Phases (any failure raises and the process exits non-zero):
 
 0. the card (nvidia-smi name and power limit), torch and nvcc versions;
 1. build the CUDA kernels from ``lbm2d_tpu_torch/csrc`` with nvcc;
-2. hold each kernel (K1 fast, K1 full, K2) against its plain PyTorch
-   version at the production grid 2432x1152 f32 on a developed state, then a
-   20-step ``run_chunk_cuda`` against the eager ``run_chunk``: max relative
-   error (max |a - b| / max |b|) <= 1e-5 each; time each kernel with CUDA
-   events beside its bound (``ms``: replayed from a CUDA graph, the
-   kernel alone; ``launch_path_ms``: launched from Python one by one);
-3. drive the main path, ``LBMEngine`` + ``run_simulation_loop``, on the
-   production-shaped case in ``lbm2d_tpu_torch/data`` (3000 steps in chunks
-   of 100), and check status Success, finite moments, mean jx > 0, Fx > 0,
-   and that every kernel was launched and no plain step ran.
+2. hold each kernel (K1 fast, K1 full, K2, and K1 and K2 in 16-bit
+   deviation storage) against its plain PyTorch version at the production
+   grid 2432x1152 on a developed state, then a 20-step ``run_chunk_cuda``
+   against the eager ``run_chunk`` and, with ``store_dev``, against its
+   plain version: max relative error (max |a - b| / max |b|) <= 1e-5 each;
+   the ``store_dev`` chunk within the JAX package's 5e-4 budget of the
+   exact chunk (and > 0) under that budget test's conditions; time each
+   kernel with CUDA events beside its bound (``ms``: replayed from a CUDA
+   graph, the kernel alone; ``launch_path_ms``: launched from Python one
+   by one);
+3. drive the serial main path, ``LBMEngine`` + ``run_simulation_loop``, on
+   the production-shaped case in ``lbm2d_tpu_torch/data`` (3000 steps in
+   chunks of 100), and check status Success, finite moments, mean jx > 0,
+   Fx > 0, and that each of its kernels was launched and no plain step ran;
+   then a 20-step ``store_dev`` chunk from the flow it ends with must lie
+   within 1e-4 of the exact chunk (and differ from it);
+4. drive the lockstep production path, ``batch_run --lockstep
+   --device_resize --max_batch 5 --f16_state --f16_transfer --yuv_video
+   --f16_retry``, on a temporary project of three sibling cases of the
+   smoke case (the same mask; nu 0.02, 0.03, 0.05; video on), and check
+   every case Success, finite HDF5 frames with mean jx > 0, one mp4 per
+   case, the launch counts of its kernels (k1_step_dev and k2_edge_bc_dev
+   3 x 2970, k1_step_full and k2_edge_bc 3 x 30) and no plain call. Where
+   the machine has no h5py, the HDF5 writer runs on an in-memory stand-in
+   of ``h5py.File`` and the frames are read back from it.
 
-The last two lines are the kernels' JSON record and
-``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
-package beside this script, it exits non-zero and prints no result.
+The last two lines are the kernels' JSON record (``launches``: the sum over
+the two paths, split in ``launches_by_path``) and ``{"ok": true, "device":
+{...}}``. Without a CUDA device, or without the package beside this
+script, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -32,6 +48,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -39,6 +56,12 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 TOL = 1e-5  # max relative error of a kernel against its plain version
+# max absolute difference of a 20-step deviation-storage chunk from the
+# exact f32 chunk: the JAX package's own budget (tests/test_pallas.py)
+DEV_TOL = 5e-4
+# the same on the developed flow of the smoke case at step 3000, set from
+# its readings on an H100 (f 2.1e-5, rho 4.8e-5, u 2.2e-5; PERF.md)
+DEV_FLOW_TOL = 1e-4
 SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s and
@@ -128,24 +151,13 @@ def bound_ms(nbytes: float, ops: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def load_smoke_case(pkg_dir: str):
-    """(config dict, mask [H, W] float32) of the production-shaped case."""
-    data = os.path.join(pkg_dir, "data")
-    with open(os.path.join(data, "smoke_case.json")) as fh:
-        config = json.load(fh)
-    with np.load(os.path.join(data, "smoke_case_mask.npz")) as z:
-        h, w = (int(v) for v in z["shape"])
-        mask = np.unpackbits(z["mask_yx"], axis=1, count=w)[:h].astype(np.float32)
-    return config, mask
-
-
 class MomentSink:
     """In-memory stand-in for the HDF5 writer: keeps what the loop appends."""
 
     def __init__(self):
         self.frames = []
 
-    def append(self, moments):
+    def append(self, moments, pre_resized=False):
         self.frames.append(np.asarray(moments))
 
 
@@ -164,6 +176,7 @@ def main() -> int:
     from lbm2d_tpu_torch.core.lattice import f_eq
     from lbm2d_tpu_torch.ops import cuda_build, cuda_step as cs
     from lbm2d_tpu_torch.pipeline.sim_loop import run_simulation_loop
+    from lbm2d_tpu_torch.tools import smoke_case
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -188,7 +201,7 @@ def main() -> int:
                 print(f"    {name}: {line.strip()}", flush=True)
 
     # -- phase 2 ------------------------------------------------------------
-    config, mask = load_smoke_case(pkg_dir)
+    config, mask = smoke_case.load_smoke_case()
     p = solver.make_params(config, mask, dtype=torch.float32, device=dev)
     H, W = p.shape
     print(f"[2] kernels vs plain at {H}x{W} f32, bc {p.bc_type}, LES {p.use_les}",
@@ -259,6 +272,54 @@ def main() -> int:
         bound=bound_ms(nbytes, K2_OPS_PER_CELL * ring),
     )
 
+    # K1 and K2 in 16-bit deviation storage, on the same developed state
+    fq = cs.quantize(state.f)
+
+    def kd_buffers():
+        return {"f_out": torch.zeros_like(fq), "edge": cs.new_edge_buffer(H, W, device=dev)}
+
+    def run_k1d(fn, b):
+        fn(fq, b["f_out"], aux, b["edge"], scal, p.use_les)
+
+    bk, bp = kd_buffers(), kd_buffers()
+    run_k1d(cs.k1_step_dev, bk)
+    run_k1d(cs.k1_step_dev_plain, bp)
+    torch.cuda.synchronize()
+    errs = {k: rel_err(bk[k], bp[k]) for k in bk}
+    for k, err in errs.items():
+        check(f"k1_step_dev {k}", err)
+    launch_ms, host_ms = median_ms(lambda: run_k1d(cs.k1_step_dev, bk))
+    n_in = (H - 2) * (W - 2)
+    records["k1_step_dev"] = dict(
+        max_abs_err=max(float((bk[k].float() - bp[k].float()).abs().max()) for k in bk),
+        max_rel_err=max(errs.values()), ms=graph_ms(lambda: run_k1d(cs.k1_step_dev, bk)),
+        launch_ms=launch_ms, host_ms=host_ms,
+        plain_ms=median_ms(lambda: run_k1d(cs.k1_step_dev_plain, bp), batches=5, per_batch=2)[0],
+        # f 18 B in (bf16), aux 4, f 18 B out, the f32 edge export; the
+        # dequantize and quantize add 18 operations per cell
+        bound=bound_ms(18 * H * W + 4 * H * W + 18 * n_in + 4 * bk["edge"].numel(),
+                       (K1_OPS_PER_CELL + 18) * n_in),
+    )
+    bk = {k: v.clone() for k, v in bp.items()}
+
+    def run_k2d(fn, b):
+        fn(b["f_out"], aux, b["edge"], scal, p.bc_type)
+
+    run_k2d(cs.k2_edge_bc_dev, bk)
+    run_k2d(cs.k2_edge_bc_dev_plain, bp)
+    torch.cuda.synchronize()
+    err = rel_err(bk["f_out"], bp["f_out"])
+    check("k2_edge_bc_dev f_out", err)
+    launch_ms, host_ms = median_ms(lambda: run_k2d(cs.k2_edge_bc_dev, bk))
+    records["k2_edge_bc_dev"] = dict(
+        max_abs_err=float((bk["f_out"].float() - bp["f_out"].float()).abs().max()),
+        max_rel_err=err, ms=graph_ms(lambda: run_k2d(cs.k2_edge_bc_dev, bk)),
+        launch_ms=launch_ms, host_ms=host_ms,
+        plain_ms=median_ms(lambda: run_k2d(cs.k2_edge_bc_dev_plain, bp), batches=5, per_batch=2)[0],
+        bound=bound_ms(4 * bk["edge"].numel() + 4 * ring + 18 * ring,
+                       (K2_OPS_PER_CELL + 9) * ring),
+    )
+
     # a 20-step chunk through the kernels against the eager reference step
     sk, mk = cs.run_chunk_cuda(state, p, 20)
     se, me = solver.run_chunk(state, p, 20)
@@ -267,6 +328,29 @@ def main() -> int:
         check(f"run_chunk_cuda(20) {k}", rel_err(getattr(sk, k), getattr(se, k)))
     check("run_chunk_cuda(20) force", rel_err(mk["force"], me["force"]))
     check("run_chunk_cuda(20) max_v", rel_err(mk["max_v"], me["max_v"]))
+    # the same chunk in deviation storage against its plain version, on the
+    # developed state
+    sd, _ = cs.run_chunk_cuda(state, p, 20, store_dev=True)
+    sp, _ = cs.run_chunk_plain(state, p, 20, store_dev=True)
+    torch.cuda.synchronize()
+    for k in ("f", "f_post", "rho", "u"):
+        check(f"run_chunk_cuda(20, store_dev) {k}", rel_err(getattr(sd, k), getattr(sp, k)))
+    # and within the quantization budget of the exact f32 chunk (> 0: the
+    # path engaged), under the JAX package's own budget test's conditions
+    # (tests/test_pallas.py: from rest, rho_in 1.02, warmup 30) on the
+    # production grid and mask
+    budget_cfg = json.loads(json.dumps(config))
+    budget_cfg["simulation"].update(rho_in=1.02, warmup_steps=30)
+    pb = solver.make_params(budget_cfg, mask, dtype=torch.float32, device=dev)
+    rest = solver.init_state(H, W, torch.float32, dev)
+    sd, _ = cs.run_chunk_cuda(rest, pb, 20, store_dev=True)
+    sx, _ = cs.run_chunk_cuda(rest, pb, 20)
+    torch.cuda.synchronize()
+    dev_abs = max(float((getattr(sd, k) - getattr(sx, k)).abs().max()) for k in ("f", "rho", "u"))
+    print(f"  store_dev chunk vs exact f32 chunk (budget conditions): max abs diff {dev_abs:.3e} "
+          f"(must be > 0 and <= {DEV_TOL:g})", flush=True)
+    if not 0 < dev_abs <= DEV_TOL:
+        raise AssertionError(f"store_dev chunk differs from the f32 chunk by {dev_abs:.3e}")
     for name, r in records.items():
         print(f"  {name:<13s} {r['ms'] * 1e3:7.1f} us in a CUDA graph, {r['launch_ms'] * 1e3:.1f} us "
               f"launched from Python (host issue {r['host_ms'] * 1e3:.1f} us)  "
@@ -285,8 +369,10 @@ def main() -> int:
 
         setattr(mod, attr, wrapper)
 
-    for mod, attr in ((solver, "step"), (cs, "k1_step_plain"), (cs, "k2_edge_bc_plain")):
+    for mod, attr in ((solver, "step"), (cs, "k1_step_plain"), (cs, "k2_edge_bc_plain"),
+                      (cs, "k1_step_dev_plain"), (cs, "k2_edge_bc_dev_plain")):
         counting(mod, attr)
+    serial_kernels = ("k1_step", "k1_step_full", "k2_edge_bc")
 
     engine = LBMEngine(config, mask_yx=mask, device="cuda")
     engine.init()
@@ -305,7 +391,7 @@ def main() -> int:
     print(f"    launches {launches}, plain calls {counted}", flush=True)
     if md["status"] != "Success":
         raise AssertionError(f"main path ended {md['status']}: {md['reason']}")
-    if min(launches.values()) <= 0 or any(counted.values()):
+    if min(launches[k] for k in serial_kernels) <= 0 or any(counted.values()):
         raise AssertionError(f"main path did not run on the kernels: {launches}, {counted}")
     if not sink.frames:
         raise AssertionError("no moment frames were written")
@@ -319,6 +405,18 @@ def main() -> int:
     if not (jx > 0 and fx > 0):
         raise AssertionError(f"unphysical flow: mean jx {jx}, Fx {fx}")
 
+    # the deviation-storage loss on the developed flow the main path ends
+    # with: the state the lockstep path runs in
+    sd, _ = cs.run_chunk_cuda(engine.state, p, 20, store_dev=True)
+    sx, _ = cs.run_chunk_cuda(engine.state, p, 20)
+    torch.cuda.synchronize()
+    loss = {k: float((getattr(sd, k) - getattr(sx, k)).abs().max()) for k in ("f", "rho", "u")}
+    print(f"    20-step store_dev chunk vs exact from step {engine.step_count}: max abs diff "
+          + ", ".join(f"{k} {v:.3e}" for k, v in loss.items())
+          + f" (must be > 0 and <= {DEV_FLOW_TOL:g})", flush=True)
+    if not 0 < max(loss.values()) <= DEV_FLOW_TOL:
+        raise AssertionError(f"store_dev loss on the developed flow: {loss}")
+
     # steady chunk rate of the kernel path alone
     chunk = int(config["simulation"]["compute_step_size"])
     a = torch.cuda.Event(enable_timing=True)
@@ -331,22 +429,94 @@ def main() -> int:
     step_ms = a.elapsed_time(b) / (5 * chunk)
     print(f"    kernel path: {step_ms * 1e3:.1f} us/step = {H * W / step_ms / 1e3:.1f} MLUPS "
           f"[{card}]", flush=True)
+    # the same in 16-bit deviation storage (the lockstep path's chunk runner)
+    st = engine.state
+    a.record()
+    for _ in range(5):
+        st, _ = cs.run_chunk_cuda(st, p, chunk, store_dev=True)
+    b.record()
+    b.synchronize()
+    step_ms = a.elapsed_time(b) / (5 * chunk)
+    print(f"    kernel path, store_dev: {step_ms * 1e3:.1f} us/step = "
+          f"{H * W / step_ms / 1e3:.1f} MLUPS [{card}]", flush=True)
+
+    # -- phase 4: the lockstep production path ------------------------------
+    from lbm2d_tpu_torch.pipeline.batch_run import run_batch
+
+    if smoke_case.use_memory_h5():
+        print("[4] h5py is not installed here: the HDF5 writer runs on an in-memory "
+              "stand-in of h5py.File", flush=True)
+    nus = smoke_case.SIBLING_NUS
+    n_cases = len(nus)
+    chunks = max_steps // chunk
+    want = {"k1_step_dev": n_cases * chunks * (chunk - 1),
+            "k2_edge_bc_dev": n_cases * chunks * (chunk - 1),
+            "k1_step_full": n_cases * chunks, "k2_edge_bc": n_cases * chunks, "k1_step": 0}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        names = smoke_case.write_sibling_project(root, config, mask, nus)
+        counted.clear()
+        torch.cuda.synchronize()
+        cs.reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = run_batch("Smoke4", root=root, progress=False, device="cuda",
+                          **smoke_case.PRODUCTION_FLAGS)
+        torch.cuda.synchronize()
+        wall4 = time.perf_counter() - t0
+        launches4 = dict(cs.LAUNCHES)
+        out = os.path.join(root, "outputs", "Smoke4")
+        with open(os.path.join(out, "plots", "sim_results.json")) as fh:
+            results = {e["config_filename"]: e for e in json.load(fh)}
+        print(f"[4] lockstep path, {n_cases} cases x {max_steps} steps: {stats} in {wall4:.2f} s "
+              f"= {n_cases * max_steps * H * W / wall4 / 1e6:.1f} MLUPS aggregate wall "
+              f"(monitors, device resize and render, fetches, HDF5 and mp4 included) [{card}]",
+              flush=True)
+        print(f"    launches {launches4}, plain calls {counted}", flush=True)
+        transfer = results[names[0][0]].get("run_summary", {}).get("transfer", {})
+        print(f"    transfer record: {transfer}", flush=True)
+        loop_s = transfer.get("group_wall_s")
+        if loop_s:
+            print(f"    group loop {loop_s:.2f} s = {n_cases * max_steps * H * W / loop_s / 1e6:.1f} "
+                  f"MLUPS; set-up and wind-down {wall4 - loop_s:.2f} s [{card}]", flush=True)
+        bad = {n: results[n]["status"] for n, _ in names if results[n]["status"] != "Success"}
+        if bad or stats.get("success") != n_cases:
+            raise AssertionError(f"lockstep cases did not all succeed: {stats}, {bad}")
+        if any(launches4[k] != v for k, v in want.items()) or any(counted.values()):
+            raise AssertionError(f"lockstep path: launches {launches4} (want {want}), "
+                                 f"plain calls {counted}")
+        for _, case in names:
+            turb = smoke_case.read_turbulence(os.path.join(out, "raw", f"{case}.h5"))
+            n_frames = (max_steps - int(config["outputs"]["start_record_step"])) // int(
+                config["outputs"]["dataset"]["interval_steps"]) + 1
+            jx4 = float(turb[:, 3].mean())
+            mp4 = os.path.join(out, "vis", f"{case}.mp4")
+            size = os.path.getsize(mp4) if os.path.exists(mp4) else 0
+            print(f"    {case}: turbulence {turb.shape} finite {bool(np.isfinite(turb).all())}, "
+                  f"mean jx {jx4:.4e}, mp4 {size} bytes", flush=True)
+            if turb.shape[:2] != (n_frames, 9) or not np.isfinite(turb).all() or not jx4 > 0:
+                raise AssertionError(f"{case}: bad dataset frames {turb.shape}, mean jx {jx4}")
+            if size <= 0:
+                raise AssertionError(f"{case}: no mp4 at {mp4}")
 
     kernels = []
     replaces = {
         "k1_step": "lbm2d_tpu/ops/pallas_step.py:824",
         "k1_step_full": "lbm2d_tpu/ops/pallas_step.py:824",
         "k2_edge_bc": "lbm2d_tpu/ops/pallas_step.py:1379",
+        "k1_step_dev": "lbm2d_tpu/ops/pallas_step.py:824",
+        "k2_edge_bc_dev": "lbm2d_tpu/ops/pallas_step.py:1379",
     }
     sources = {
         "k1_step": "lbm2d_tpu_torch/csrc/k1_step.cu",
         "k1_step_full": "lbm2d_tpu_torch/csrc/k1_step.cu",
         "k2_edge_bc": "lbm2d_tpu_torch/csrc/k2_edge_bc.cu",
+        "k1_step_dev": "lbm2d_tpu_torch/csrc/k1_step.cu",
+        "k2_edge_bc_dev": "lbm2d_tpu_torch/csrc/k2_edge_bc.cu",
     }
     for name, r in records.items():
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name],
-            "replaces": replaces[name], "launches": launches[name],
+            "replaces": replaces[name], "launches": launches[name] + launches4[name],
+            "launches_by_path": {"serial": launches[name], "lockstep": launches4[name]},
             "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
             "ms": r["ms"], "launch_path_ms": r["launch_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0],

@@ -8,7 +8,10 @@ a checkpoint written by either package resumes in the other.
 The engine lives on one torch device, ``cuda`` unless the caller asks for
 the CPU. On a CUDA device a chunk runs on the hand-written kernels
 (``ops/cuda_step.run_chunk_cuda``) and a case they do not cover raises; on
-the CPU it runs the eager reference step.
+the CPU it runs the eager reference step. 16-bit deviation state storage
+(``store_dev`` or ``simulation.f16_state``) runs the kernels' split path in
+deviation storage: on the card through the kernels, on the CPU through
+their plain versions, so the flag is never ignored.
 """
 
 from __future__ import annotations
@@ -44,6 +47,24 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def resolve_runner(p: CaseParams, device: torch.device, store_dev: bool):
+    """The chunk runner ``(state, p, n) -> (state, monitors)`` of a case:
+    the CUDA kernels on a CUDA device (raising for a case they do not
+    cover), the eager step on the CPU, and the kernels' split path in
+    16-bit deviation storage wherever ``store_dev`` is set."""
+    if device.type != "cuda" and not store_dev:
+        return run_chunk
+    from ..ops.cuda_step import run_chunk_cuda, unsupported
+
+    reason = unsupported(p)
+    if reason is not None:
+        what = "the CUDA kernels" if device.type == "cuda" else "16-bit deviation storage"
+        raise NotImplementedError(f"{what} do not cover {reason}")
+    if store_dev:
+        return lambda state, p, n: run_chunk_cuda(state, p, n, store_dev=True)
+    return run_chunk_cuda
+
+
 class LBMEngine:
     """One simulation case on one device."""
 
@@ -58,11 +79,11 @@ class LBMEngine:
     ):
         self.config = config
         sim = config["simulation"]
-        if store_dev or (store_dev is None and sim.get("f16_state", False)):
-            raise NotImplementedError(
-                "16-bit deviation state storage is not ported yet "
-                "(ROADMAP.md queue 2, K1 port order step 4)"
-            )
+        # 16-bit deviation state storage: lossy, opt-in through the
+        # ``simulation.f16_state`` config key or the constructor argument
+        if store_dev is None:
+            store_dev = bool(sim.get("f16_state", False))
+        self.store_dev = bool(store_dev)
         if spatial_mesh or sim.get("spatial_mesh"):
             raise NotImplementedError(
                 "spatial sharding is not ported yet (ROADMAP.md queue 1, item 10)"
@@ -92,22 +113,10 @@ class LBMEngine:
             config, mask_yx, dtype=dtype, device=self.device
         )
         self.dtype = dtype
-        self._runner = self._resolve_runner()
+        self._runner = resolve_runner(self.params, self.device, self.store_dev)
         self.state: LBMState = init_state(self.ny, self.nx, dtype, self.device)
         self._last_monitors = None
         self._monitors_np = None
-
-    def _resolve_runner(self):
-        """CUDA kernels on a CUDA device (raising for a case they do not
-        cover), the eager step on the CPU."""
-        if self.device.type != "cuda":
-            return run_chunk
-        from ..ops.cuda_step import run_chunk_cuda, unsupported
-
-        reason = unsupported(self.params)
-        if reason is not None:
-            raise NotImplementedError(f"the CUDA kernels do not cover {reason}")
-        return run_chunk_cuda
 
     # -- reference-compatible API --------------------------------------------
 

@@ -8,6 +8,12 @@
 // pressure inlet) or 2 (free-slip); right 0 (velocity inlet), 1 (Zou-He
 // pressure outlet with the backflow guard) or 2; top/bottom 0 or 2.
 //
+// The 16-bit deviation-storage variant (k2_edge_bc_dev, the JAX kernel's
+// store_dev branch) computes the same f32 ring and stores it into the bf16
+// f - w buffer, quantized once per cell. Its inputs stay K1's f32 edge
+// export: the JAX kernel instead dequantizes the stored neighbour strip,
+// so the two differ by one bf16 rounding of that strip.
+//
 // Bound on an H100: launch latency. It touches 2 (H + W) cells, ~14 KB of
 // reads and ~40 KB of writes at 2432x1152, a microsecond of memory time.
 //
@@ -159,8 +165,9 @@ __device__ __forceinline__ Cell bc_horizontal(const Cell& n, const Scalars& s,
   return b;
 }
 
+template <typename S>
 __global__ void __launch_bounds__(256)
-k2_edge_bc_kernel(float* __restrict__ f, const float* __restrict__ aux,
+k2_edge_bc_kernel(typename S::T* __restrict__ f, const float* __restrict__ aux,
                   const float* __restrict__ edge, float* __restrict__ rho_out,
                   float* __restrict__ u_out, const Scalars s, const int H,
                   const int W, const int bc_left_t, const int bc_top_t,
@@ -201,7 +208,8 @@ k2_edge_bc_kernel(float* __restrict__ f, const float* __restrict__ aux,
   const size_t plane = (size_t)H * W;
   const size_t c = (size_t)y * W + x;
   const bool solid = __float_as_int(aux[c]) < 0;
-  for (int k = 0; k < 9; ++k) f[k * plane + c] = solid ? lbm_w(k) * b.rho : b.f[k];
+  for (int k = 0; k < 9; ++k)
+    S::store(f, k * plane + c, k, solid ? lbm_w(k) * b.rho : b.f[k]);
   if (full) {
     rho_out[c] = b.rho;
     u_out[c] = solid ? 0.0f : b.ux;
@@ -218,11 +226,28 @@ extern "C" int k2_edge_bc_launch(void* f, const void* aux, const void* edge,
                                  void* stream) {
   const Scalars s = load_scalars(static_cast<const float*>(scal));
   const int n = 2 * (H - 2) + 2 * W;
-  k2_edge_bc_kernel<<<(n + 255) / 256, 256, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+  k2_edge_bc_kernel<F32Store><<<(n + 255) / 256, 256, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(f), static_cast<const float*>(aux),
       static_cast<const float*>(edge), static_cast<float*>(rho),
       static_cast<float*>(u), s, H, W, bc_left_t, bc_top_t, bc_right_t,
       bc_bottom_t, full);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The ring in 16-bit deviation storage: ``f`` is the bf16 [9, H, W] buffer
+// of f - w that k1_step_dev wrote; no rho/u (never the full variant).
+extern "C" int k2_edge_bc_dev_launch(void* f, const void* aux,
+                                     const void* edge, const void* scal,
+                                     int H, int W, int bc_left_t,
+                                     int bc_top_t, int bc_right_t,
+                                     int bc_bottom_t, void* stream) {
+  const Scalars s = load_scalars(static_cast<const float*>(scal));
+  const int n = 2 * (H - 2) + 2 * W;
+  k2_edge_bc_kernel<DevStore><<<(n + 255) / 256, 256, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<__nv_bfloat16*>(f), static_cast<const float*>(aux),
+      static_cast<const float*>(edge), nullptr, nullptr, s, H, W, bc_left_t,
+      bc_top_t, bc_right_t, bc_bottom_t, 0);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
-// Per-cell D2Q9 MRT-LES arithmetic shared by the step kernel (K1) and the
-// boundary-ring kernel (K2).
+// Per-cell D2Q9 MRT-LES arithmetic and the f storage formats shared by the
+// step kernel (K1) and the boundary-ring kernel (K2).
 //
 // Every expression keeps the evaluation order of the plain PyTorch step
 // (lbm2d_tpu_torch/core/solver.py and core/lattice.py), term by term, and
@@ -9,6 +9,7 @@
 // on both paths.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 // The per-step scalar row, in the order of ops/cuda_step.py SCALAR_FIELDS
@@ -39,6 +40,35 @@ static inline Scalars load_scalars(const float* row) {
 __device__ __forceinline__ float lbm_w(int k) {
   return k == 0 ? LBM_W0 : (k < 5 ? LBM_W1 : LBM_W5);
 }
+
+// How f is kept in device memory. F32Store: the populations themselves.
+// DevStore (16-bit deviation storage, the JAX package's store_dev): bf16
+// f_k - w_k, dequantized on load as float(dev) + w_k and quantized on store
+// as bf16_rn(f_k - w_k) -- the order of ops/cuda_step.py quantize /
+// dequantize, so a kernel and its plain version round alike. All arithmetic
+// between load and store stays f32.
+struct F32Store {
+  typedef float T;
+  static __device__ __forceinline__ float load(const float* p, size_t i, int) {
+    return p[i];
+  }
+  static __device__ __forceinline__ void store(float* p, size_t i, int,
+                                               float v) {
+    p[i] = v;
+  }
+};
+
+struct DevStore {
+  typedef __nv_bfloat16 T;
+  static __device__ __forceinline__ float load(const __nv_bfloat16* p,
+                                               size_t i, int k) {
+    return __bfloat162float(p[i]) + lbm_w(k);
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, size_t i,
+                                               int k, float v) {
+    p[i] = __float2bfloat16_rn(v - lbm_w(k));
+  }
+};
 
 // Velocity set (core/lattice.py E): 0 rest, 1 E, 2 N, 3 W, 4 S, 5 NE, 6 NW,
 // 7 SW, 8 SE.

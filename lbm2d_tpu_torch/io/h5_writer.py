@@ -226,6 +226,10 @@ class AsyncLBMCaseWriter:
 
     def finalize(self) -> None:
         self.stop_event.set()
+        if self.thread.is_alive():
+            # wake the worker behind the queued frames; without it the
+            # worker sees the stop only when its 0.5 s poll times out
+            self.queue.put(None)
         self.thread.join()
         self.writer.finalize()
         if self.errors:

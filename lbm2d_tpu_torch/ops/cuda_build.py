@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
 
 Each source is compiled by ``nvcc`` into its own shared library with a
-plain C interface and loaded with ctypes. Libraries go to ``csrc/_build/``
+plain C interface and loaded with ctypes; a library may hold several
+kernel variants, each behind its own C entry. Libraries go to ``csrc/_build/``
 (gitignored), named by a hash of the source, the shared header and the
 flags, so a checkout builds them at first use and reuses them afterwards.
 ``build_all`` starts one ``nvcc`` per missing library, all at once.
@@ -30,23 +31,31 @@ NVCC_FLAGS = [
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-# kernel name -> (source, C entry, argtypes)
+# library name -> source
+SOURCES = {"k1_step": "k1_step.cu", "k2_edge_bc": "k2_edge_bc.cu"}
+
+# kernel name -> (library, C entry, argtypes)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNELS = {
     "k1_step": (
-        "k1_step.cu", "k1_step_launch", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "k1_step", "k1_step_launch", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     ),
+    "k1_step_dev": ("k1_step", "k1_step_dev_launch", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "k2_edge_bc": (
-        "k2_edge_bc.cu", "k2_edge_bc_launch",
+        "k2_edge_bc", "k2_edge_bc_launch",
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    ),
+    "k2_edge_bc_dev": (
+        "k2_edge_bc", "k2_edge_bc_dev_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     ),
 }
 _HEADERS = ("lbm_common.cuh",)
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
-BUILD_LOG: Dict[str, str] = {}  # kernel -> nvcc's stderr (ptxas usage)
+_ENTRIES: Dict[str, object] = {}
+BUILD_LOG: Dict[str, str] = {}  # library -> nvcc's stderr (ptxas usage)
 BUILD_SECONDS: Dict[str, float] = {}
 
 
@@ -58,7 +67,7 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    src = KERNELS[name][0]
+    src = SOURCES[name]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for fname in (src,) + _HEADERS:
         with open(os.path.join(CSRC, fname), "rb") as fh:
@@ -68,8 +77,8 @@ def _lib_path(name: str) -> str:
 
 def build_all() -> Dict[str, str]:
     """Compile every kernel library that is missing, in parallel; return
-    {name: library path}. Raises RuntimeError with nvcc's stderr."""
-    paths = {name: _lib_path(name) for name in KERNELS}
+    {library: path}. Raises RuntimeError with nvcc's stderr."""
+    paths = {name: _lib_path(name) for name in SOURCES}
     todo = {n: p for n, p in paths.items() if not os.path.exists(p)}
     if not todo:
         return paths
@@ -79,7 +88,7 @@ def build_all() -> Dict[str, str]:
     t0 = time.perf_counter()
     for name, out in todo.items():
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, KERNELS[name][0])]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, SOURCES[name])]
         procs[name] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
             tmp, out,
@@ -90,7 +99,7 @@ def build_all() -> Dict[str, str]:
         BUILD_SECONDS[name] = time.perf_counter() - t0
         BUILD_LOG[name] = err
         if proc.returncode != 0:
-            errors.append(f"nvcc failed for {KERNELS[name][0]}:\n{err}")
+            errors.append(f"nvcc failed for {SOURCES[name]}:\n{err}")
         else:
             os.replace(tmp, out)
     if errors:
@@ -98,15 +107,18 @@ def build_all() -> Dict[str, str]:
     return paths
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built on first use."""
+def load(name: str):
+    """The C entry of kernel ``name`` (a ctypes function returning the CUDA
+    error code), its library built on first use."""
     with _LOCK:
-        lib = _LIBS.get(name)
-        if lib is None:
-            path = build_all()[name]
-            lib = ctypes.CDLL(path)
-            entry = getattr(lib, KERNELS[name][1])
-            entry.argtypes = KERNELS[name][2]
-            entry.restype = ctypes.c_int
-            _LIBS[name] = lib
-        return lib
+        fn = _ENTRIES.get(name)
+        if fn is None:
+            lib_name, entry, argtypes = KERNELS[name]
+            lib = _LIBS.get(lib_name)
+            if lib is None:
+                lib = _LIBS[lib_name] = ctypes.CDLL(build_all()[lib_name])
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _ENTRIES[name] = fn
+        return fn

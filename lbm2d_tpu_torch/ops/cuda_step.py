@@ -10,11 +10,19 @@ Each step is two launches on the current stream:
 * K2 ``k2_edge_bc`` (csrc/k2_edge_bc.cu, replaces ``_edge_bc_kernel``):
   rebuild the boundary ring in ``apply_bc`` order.
 
+With 16-bit deviation storage (``store_dev``, the JAX package's
+``run_chunk_pallas(store_dev=True)``) a chunk's fast steps run
+``k1_step_dev`` + ``k2_edge_bc_dev`` on bf16 buffers of f - w: the state
+is quantized once at the start of the chunk and dequantized for the f32
+full step that closes it. Lossy by design (one bf16 rounding of each
+deviation per step), opt-in, and only for chunks of more than one step.
+
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes its
-plain PyTorch version (``k1_step_plain`` / ``k2_edge_bc_plain``) only for
-CPU tensors. ``LAUNCHES`` counts kernel launches by variant, so a run can
-show that it went through the kernels. The monitors are plain torch
-reductions, as the JAX package computes them outside its kernels.
+plain PyTorch version (``k1_step_plain`` / ``k2_edge_bc_plain`` and the
+``_dev`` pair) only for CPU tensors. ``LAUNCHES`` counts kernel launches by
+variant, so a run can show that it went through the kernels. The monitors
+are plain torch reductions, as the JAX package computes them outside its
+kernels.
 """
 
 from __future__ import annotations
@@ -54,8 +62,16 @@ _S_RAMP = 3
 
 EDGE_C = 12  # f_post[0..8], rho, ux, uy per exported strip cell
 
+# storage type of f under 16-bit deviation storage (the JAX package's
+# _DEV_DTYPE): bf16 keeps f32's exponent range, and storing f - w keeps the
+# absolute rounding near |f - w| / 512 ~ 1e-4 per step
+DEV_DTYPE = torch.bfloat16
+
 # launches of each kernel variant, added to where the launch is made
-LAUNCHES = {"k1_step": 0, "k1_step_full": 0, "k2_edge_bc": 0}
+LAUNCHES = {
+    "k1_step": 0, "k1_step_full": 0, "k2_edge_bc": 0, "k1_step_dev": 0,
+    "k2_edge_bc_dev": 0,
+}
 
 
 def reset_launch_counts() -> None:
@@ -152,10 +168,10 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _check(name: str, t: torch.Tensor, shape, device) -> None:
-    if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
+def _check(name: str, t: torch.Tensor, shape, device, dtype=torch.float32) -> None:
+    if t.device != device or t.dtype != dtype or not t.is_contiguous():
         raise ValueError(
-            f"{name}: need a contiguous float32 tensor on {device}, got "
+            f"{name}: need a contiguous {dtype} tensor on {device}, got "
             f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
         )
     if tuple(t.shape) != tuple(shape):
@@ -166,6 +182,23 @@ def _scal_c(scal: torch.Tensor):
     if scal.numel() != len(SCALAR_FIELDS):
         raise ValueError(f"scalar row has {scal.numel()} entries, not 14")
     return (ctypes.c_float * len(SCALAR_FIELDS))(*scal.tolist())
+
+
+def _w_col(f: torch.Tensor) -> torch.Tensor:
+    """The lattice weights as f32, shaped to broadcast over f's first axis."""
+    w = torch.as_tensor(W_LAT, dtype=torch.float32, device=f.device)
+    return w.reshape((9,) + (1,) * (f.dim() - 1))
+
+
+def quantize(f: torch.Tensor) -> torch.Tensor:
+    """f32 populations [9, ...] -> bf16 deviations f - w (round to nearest
+    even), as the JAX package's ``(f - w).astype(bfloat16)``."""
+    return (f - _w_col(f)).to(DEV_DTYPE)
+
+
+def dequantize(dev: torch.Tensor) -> torch.Tensor:
+    """bf16 deviations [9, ...] -> f32 populations float(dev) + w."""
+    return dev.float() + _w_col(dev)
 
 
 # ---------------------------------------------------------------------------
@@ -219,8 +252,7 @@ def k1_step(f_in, f_out, aux, edge, scal, use_les, rho=None, u=None, f_post=None
     if f_in.data_ptr() == f_out.data_ptr():
         raise ValueError("k1_step: pull streaming needs distinct in/out buffers")
     sc = _scal_c(scal)
-    lib = cuda_build.load("k1_step")
-    rc = lib.k1_step_launch(
+    rc = cuda_build.load("k1_step")(
         _ptr(f_in), _ptr(f_out), _ptr(aux), _ptr(edge), _ptr(rho), _ptr(u),
         _ptr(f_post), ctypes.addressof(sc), H, W, int(bool(use_les)), int(full),
         torch.cuda.current_stream(dev).cuda_stream,
@@ -230,16 +262,50 @@ def k1_step(f_in, f_out, aux, edge, scal, use_les, rho=None, u=None, f_post=None
     LAUNCHES["k1_step_full" if full else "k1_step"] += 1
 
 
+def k1_step_dev_plain(f_in, f_out, aux, edge, scal, use_les):
+    """Plain PyTorch version of K1's deviation-storage fast step: dequantize
+    f_in, step in f32 as ``k1_step_plain``, quantize the interior of f_out.
+    The edge export stays f32."""
+    f32_out = torch.empty(f_in.shape, dtype=torch.float32, device=f_in.device)
+    k1_step_plain(dequantize(f_in), f32_out, aux, edge, scal, use_les)
+    f_out[:, 1:-1, 1:-1] = quantize(f32_out[:, 1:-1, 1:-1])
+
+
+def k1_step_dev(f_in, f_out, aux, edge, scal, use_les):
+    """K1's fast step on bf16 deviation buffers ``f_in`` -> ``f_out``
+    ([9, H, W], distinct); ``edge`` is the f32 export K2 reads."""
+    if not f_in.is_cuda:
+        return k1_step_dev_plain(f_in, f_out, aux, edge, scal, use_les)
+    _, H, W = f_in.shape
+    dev = f_in.device
+    _check("f_in", f_in, (9, H, W), dev, DEV_DTYPE)
+    _check("f_out", f_out, (9, H, W), dev, DEV_DTYPE)
+    _check("aux", aux, (H, W), dev)
+    _check("edge", edge, (2 * EDGE_C * (H + W),), dev)
+    if f_in.data_ptr() == f_out.data_ptr():
+        raise ValueError("k1_step_dev: pull streaming needs distinct in/out buffers")
+    sc = _scal_c(scal)
+    rc = cuda_build.load("k1_step_dev")(
+        _ptr(f_in), _ptr(f_out), _ptr(aux), _ptr(edge), ctypes.addressof(sc), H, W,
+        int(bool(use_les)), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"k1_step_dev launch failed: CUDA error {rc}")
+    LAUNCHES["k1_step_dev"] += 1
+
+
 # ---------------------------------------------------------------------------
 # K2: boundary ring
 # ---------------------------------------------------------------------------
 
 
-def k2_edge_bc_plain(f, aux, edge, scal, bc_type, rho=None, u=None):
-    """Plain PyTorch version of K2: the ring of ``f`` (and of rho/u when
-    given) from the edge export, in apply_bc order."""
+def _k2_ring_plain(f, aux, edge, scal, bc_type, rho, u, to_store):
+    """The ring of ``f`` (and of rho/u when given) from the edge export, in
+    apply_bc order; ``to_store`` maps the f32 ring values [9, n] to f's
+    storage."""
     H, W = f.shape[1:]
-    s = scal.to(device=f.device, dtype=f.dtype)
+    ctype = torch.float32 if f.dtype == DEV_DTYPE else f.dtype
+    s = scal.to(device=f.device, dtype=ctype)
     ramp = float(scal[_S_RAMP])
     bcv = s[6:].view(4, 2)
     cols, rows = edge_views(edge, H, W)
@@ -262,19 +328,31 @@ def k2_edge_bc_plain(f, aux, edge, scal, bc_type, rho=None, u=None):
             nb[10, x] = vals[2][i_nb]
             nb[11, x] = vals[3][i_nb]
         ring[side] = bc_horizontal_values(nb[:9], nb[9], nb[10], nb[11], ramp, t, bcv[side])
-    w9 = torch.as_tensor(W_LAT, dtype=f.dtype, device=f.device).reshape(9, 1)
+    w9 = torch.as_tensor(W_LAT, dtype=ctype, device=f.device).reshape(9, 1)
     solid, _ = unpack_aux(aux)
     for idx, (fb, rho_b, ux_b, uy_b) in (
         ((slice(1, -1), 0), vl), ((slice(1, -1), W - 1), vr),
         ((H - 1, slice(None)), ring[1]), ((0, slice(None)), ring[3]),
     ):
         sol = solid[idx]
-        f[(slice(None),) + idx] = torch.where(sol[None], w9 * rho_b[None], fb)
+        f[(slice(None),) + idx] = to_store(torch.where(sol[None], w9 * rho_b[None], fb))
         if rho is not None:
             zero = torch.zeros_like(ux_b)
             rho[idx] = rho_b
             u[(0,) + idx] = torch.where(sol, zero, ux_b)
             u[(1,) + idx] = torch.where(sol, zero, uy_b)
+
+
+def k2_edge_bc_plain(f, aux, edge, scal, bc_type, rho=None, u=None):
+    """Plain PyTorch version of K2: the ring of ``f`` (and of rho/u when
+    given) from the edge export, in apply_bc order."""
+    _k2_ring_plain(f, aux, edge, scal, bc_type, rho, u, lambda v: v)
+
+
+def k2_edge_bc_dev_plain(f, aux, edge, scal, bc_type):
+    """Plain PyTorch version of K2 on a bf16 deviation buffer: the same f32
+    ring, quantized into ``f``."""
+    _k2_ring_plain(f, aux, edge, scal, bc_type, None, None, quantize)
 
 
 def k2_edge_bc(f, aux, edge, scal, bc_type, rho=None, u=None):
@@ -293,8 +371,7 @@ def k2_edge_bc(f, aux, edge, scal, bc_type, rho=None, u=None):
         _check("u", u, (2, H, W), dev)
     sc = _scal_c(scal)
     lt, tt, rt, bt = (int(t) for t in bc_type)
-    lib = cuda_build.load("k2_edge_bc")
-    rc = lib.k2_edge_bc_launch(
+    rc = cuda_build.load("k2_edge_bc")(
         _ptr(f), _ptr(aux), _ptr(edge), _ptr(rho), _ptr(u), ctypes.addressof(sc),
         H, W, lt, tt, rt, bt, int(full), torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -303,45 +380,92 @@ def k2_edge_bc(f, aux, edge, scal, bc_type, rho=None, u=None):
     LAUNCHES["k2_edge_bc"] += 1
 
 
+def k2_edge_bc_dev(f, aux, edge, scal, bc_type):
+    """K2 on the bf16 deviation buffer ``f`` [9, H, W] in place."""
+    if not f.is_cuda:
+        return k2_edge_bc_dev_plain(f, aux, edge, scal, bc_type)
+    _, H, W = f.shape
+    dev = f.device
+    _check("f", f, (9, H, W), dev, DEV_DTYPE)
+    _check("aux", aux, (H, W), dev)
+    _check("edge", edge, (2 * EDGE_C * (H + W),), dev)
+    sc = _scal_c(scal)
+    lt, tt, rt, bt = (int(t) for t in bc_type)
+    rc = cuda_build.load("k2_edge_bc_dev")(
+        _ptr(f), _ptr(aux), _ptr(edge), ctypes.addressof(sc), H, W, lt, tt, rt, bt,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"k2_edge_bc_dev launch failed: CUDA error {rc}")
+    LAUNCHES["k2_edge_bc_dev"] += 1
+
+
 # ---------------------------------------------------------------------------
 # Chunk runner
 # ---------------------------------------------------------------------------
 
 
-def run_chunk_cuda(state: LBMState, p: CaseParams, n_steps: int):
+def run_chunk_cuda(state: LBMState, p: CaseParams, n_steps: int, store_dev: bool = False):
     """Advance ``n_steps`` through K1 + K2; same contract as
     ``solver.run_chunk``: ``(state, {"force": [2], "max_v": 0-d})``.
 
     Steps 1..n-1 run K1 then K2; the last step runs K1's full variant then
     K2. f_post keeps its ring and takes the last step's interior. The input
-    state is not modified.
+    state is not modified. ``store_dev`` runs steps 1..n-1 in 16-bit
+    deviation storage when n > 1 (the JAX package's run_chunk_pallas
+    engages it under the same condition).
     """
+    return _run_chunk(state, p, n_steps, store_dev, plain=False)
+
+
+def run_chunk_plain(state: LBMState, p: CaseParams, n_steps: int, store_dev: bool = False):
+    """``run_chunk_cuda`` through the kernels' plain versions on any device:
+    the plain version of the whole chunk runner."""
+    return _run_chunk(state, p, n_steps, store_dev, plain=True)
+
+
+def _run_chunk(state: LBMState, p: CaseParams, n_steps: int, store_dev: bool, plain: bool):
     reason = unsupported(p)
     if reason is not None:
         raise ValueError(f"run_chunk_cuda does not support this case: {reason}")
     if n_steps < 1:
         raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+    if plain:
+        k1, k2, k1d, k2d = k1_step_plain, k2_edge_bc_plain, k1_step_dev_plain, k2_edge_bc_dev_plain
+    else:
+        k1, k2, k1d, k2d = k1_step, k2_edge_bc, k1_step_dev, k2_edge_bc_dev
+    dev_store = bool(store_dev) and n_steps > 1
     H, W = p.shape
     dev = state.f.device
     aux = pack_aux(p.damping, p.mask)
     edge = new_edge_buffer(H, W, state.f.dtype, dev)
     row, warmup = _host_scalars(p)
-    bufs = (torch.empty_like(state.f), torch.empty_like(state.f))
-    src = state.f
-    for i in range(n_steps):
+    # quantize once per chunk; the fast steps ping-pong two buffers
+    src = quantize(state.f) if dev_store else state.f
+    bufs = (torch.empty_like(src), torch.empty_like(src))
+    for i in range(n_steps - 1):
         scal = _with_ramp(row, warmup, state.step + i + 1)
         dst = bufs[i % 2]
-        if i < n_steps - 1:
-            k1_step(src, dst, aux, edge, scal, p.use_les)
-            k2_edge_bc(dst, aux, edge, scal, p.bc_type)
+        if dev_store:
+            k1d(src, dst, aux, edge, scal, p.use_les)
+            k2d(dst, aux, edge, scal, p.bc_type)
         else:
-            rho = torch.empty((H, W), dtype=state.f.dtype, device=dev)
-            u = torch.empty((2, H, W), dtype=state.f.dtype, device=dev)
-            f_post = state.f_post.clone()
-            k1_step(src, dst, aux, edge, scal, p.use_les, rho, u, f_post)
-            k2_edge_bc(dst, aux, edge, scal, p.bc_type, rho, u)
+            k1(src, dst, aux, edge, scal, p.use_les)
+            k2(dst, aux, edge, scal, p.bc_type)
         src = dst
-    new_state = LBMState(f=src, f_post=f_post, rho=rho, u=u, step=state.step + n_steps)
+    if dev_store:
+        # the closing full step runs in exact f32
+        src = dequantize(src)
+        dst = torch.empty_like(src)
+    else:
+        dst = bufs[(n_steps - 1) % 2]
+    scal = _with_ramp(row, warmup, state.step + n_steps)
+    rho = torch.empty((H, W), dtype=state.f.dtype, device=dev)
+    u = torch.empty((2, H, W), dtype=state.f.dtype, device=dev)
+    f_post = state.f_post.clone()
+    k1(src, dst, aux, edge, scal, p.use_les, rho, u, f_post)
+    k2(dst, aux, edge, scal, p.bc_type, rho, u)
+    new_state = LBMState(f=dst, f_post=f_post, rho=rho, u=u, step=state.step + n_steps)
     monitors = {
         "force": obstacle_force(new_state.f_post, p),
         "max_v": max_velocity(new_state.u),

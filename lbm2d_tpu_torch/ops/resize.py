@@ -3,13 +3,16 @@
 The dataset pipeline downsizes cropped moment frames to a fixed save height
 (reference io/lbm_writer.py:150-163, cv2.INTER_AREA per channel). Host path
 uses cv2 when present; the numpy fallback implements the identical
-area-weighted average. ``resize_weights`` gives the separable weight
-matrices a device-side resizer is built from.
+area-weighted average. ``make_device_resizer`` expresses the separable
+area average as two small f32 matmuls on the frames' device, so the
+batched datagen resizes on the card and ships only [9, 256, W'] to the
+host instead of the full grid.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 try:
     import cv2
@@ -70,3 +73,34 @@ def resize_nearest(img: np.ndarray, dst_w: int, dst_h: int) -> np.ndarray:
     ys = np.minimum(np.floor(np.arange(dst_h) * h / dst_h).astype(int), h - 1)
     xs = np.minimum(np.floor(np.arange(dst_w) * w / dst_w).astype(int), w - 1)
     return img[np.ix_(ys, xs)]
+
+
+def make_device_resizer(src_h: int, src_w: int, dst_h: int, dst_w: int, dtype=torch.float32):
+    """Return fn [.., src_h, src_w] -> [.., dst_h, dst_w] (area average) on
+    the input's device; channel and batch dims broadcast.
+
+    Full f32 products: TF32 keeps about three decimal digits and would make
+    device-resized dataset frames visibly coarser than the host
+    cv2.INTER_AREA path (the JAX package forces HIGHEST precision for the
+    same reason), so TF32 is switched off around the two products.
+    """
+    wy_np = resize_weights(src_h, dst_h, np.float32)
+    wx_t_np = np.ascontiguousarray(resize_weights(src_w, dst_w, np.float32).T)
+    weights = {}
+
+    @torch.no_grad()
+    def _resize(x: torch.Tensor) -> torch.Tensor:
+        if x.device not in weights:
+            weights[x.device] = (
+                torch.as_tensor(wy_np, dtype=dtype, device=x.device),
+                torch.as_tensor(wx_t_np, dtype=dtype, device=x.device),
+            )
+        wy, wx_t = weights[x.device]
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            return torch.matmul(torch.matmul(wy, x), wx_t)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    return _resize

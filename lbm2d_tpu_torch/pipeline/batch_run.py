@@ -1,14 +1,17 @@
 """Batch CLI: run every case config of a project with crash-safe resume.
 
 Counterpart of ``lbm2d_tpu/pipeline/batch_run.py`` (reference
-pipeline/batch_run.py), serial path only. Resume is keyed by config
-filename through sim_results.json: Success/Failed are skipped, Running (a
-previous crash) is retried, unknown configs run. Status is pre-written as
-Running before each case. After the loop the legacy summary is converted to
-the all_cases_vectors.npz feature matrix.
+pipeline/batch_run.py). Resume is keyed by config filename through
+sim_results.json: Success/Failed are skipped, Running (a previous crash) is
+retried, unknown configs run. Status is pre-written as Running before each
+case. After the loop the legacy summary is converted to the
+all_cases_vectors.npz feature matrix. ``--lockstep`` hands the project to
+the lockstep engine (pipeline/batch_datagen.py) under the same contract.
 
 Usage:
     python -m lbm2d_tpu_torch.pipeline.batch_run --project_name Urban-1 [--max_success N] [--device cpu]
+    python -m lbm2d_tpu_torch.pipeline.batch_run --project_name Urban-1 --lockstep \
+        --device_resize --max_batch 5 --f16_state --f16_transfer --yuv_video --f16_retry
 """
 
 from __future__ import annotations
@@ -58,13 +61,8 @@ def build_resume_plan(
 
 # flags of paths not ported yet -> the ROADMAP.md item that adds them
 NOT_PORTED = {
-    "lockstep": "queue 1, item 8 (lockstep batch path)",
-    "coordinate": "queue 1, item 8 (multi-worker coordination)",
+    "coordinate": "queue 1, item 8 (multi-worker coordination, --coordinate)",
     "spatial_mesh": "queue 1, item 10 (spatial sharding)",
-    "device_resize": "queue 1, item 7 (device resize and render)",
-    "f16_state": "queue 2, K1 port order step 4 (16-bit state)",
-    "f16_transfer": "queue 1, item 8 (lockstep batch path)",
-    "f16_retry": "queue 1, item 8 (lockstep batch path)",
 }
 
 
@@ -73,13 +71,29 @@ def run_batch(
     max_success: int | None = None,
     root: str = ".",
     progress: bool = True,
+    device_resize: bool = False,
+    lockstep: bool = False,
+    max_batch: int = 16,
+    f16_transfer: bool = False,
+    video: bool = True,
+    fetch_overlap: bool = True,
+    f16_state: bool = False,
+    yuv_video: bool = False,
+    f16_retry: bool = False,
+    adaptive_fetch: bool = True,
     device="cuda",
     **not_ported,
 ) -> Dict[str, int]:
-    """Run every pending case of a project serially on ``device`` (the
-    reference batch_run contract: resume, status, summary and NPZ).
+    """Run every pending case of a project on ``device`` (the reference
+    batch_run contract: resume, status, summary and NPZ).
 
-    The flags of paths not ported yet (``NOT_PORTED``) raise
+    ``lockstep=True`` delegates to the lockstep engine
+    (pipeline/batch_datagen.run_batched), which shares this entry's resume/
+    status/summary/NPZ contract and artifact set but advances same-shape
+    cases together; ``max_batch``, ``f16_state``, ``f16_transfer``,
+    ``yuv_video``, ``f16_retry``, ``video``, ``fetch_overlap`` and
+    ``adaptive_fetch`` apply there. ``device_resize`` applies to both
+    loops. The flags of paths not ported yet (``NOT_PORTED``) raise
     NotImplementedError when set; they are never ignored.
     """
     for flag, value in not_ported.items():
@@ -89,7 +103,23 @@ def run_batch(
             raise NotImplementedError(
                 f"--{flag} is not ported yet (ROADMAP.md {NOT_PORTED[flag]})"
             )
+    if f16_retry and not (lockstep and f16_state):
+        # without lockstep + f16_state nothing runs in f16, so a silently
+        # ignored --f16_retry would fake retry protection
+        raise ValueError("--f16_retry requires --lockstep and --f16_state "
+                         "(it re-runs f16-state failures in exact f32)")
     resolve_device(device)  # no GPU -> raise here, not once per case
+    if lockstep:
+        from .batch_datagen import run_batched
+
+        return run_batched(
+            project_name, max_batch=max_batch, root=root, progress=progress,
+            device_resize=device_resize, f16_transfer=f16_transfer,
+            video=video, fetch_overlap=fetch_overlap, f16_state=f16_state,
+            yuv_video=yuv_video, f16_retry=f16_retry,
+            max_success=max_success, adaptive_fetch=adaptive_fetch,
+            device=device,
+        )
     project_paths = paths.get_project_paths(project_name, root=root)
     output_dirs = paths.setup_output_directories(project_paths["outputs"])
 
@@ -159,7 +189,7 @@ def run_batch(
         wall_t0 = time.perf_counter()
         entry = case_executor.execute_case(
             full_config_path, project_paths, output_dirs, job_id,
-            progress=progress, device=device,
+            progress=progress, device_resize=device_resize, device=device,
         )
         wall_time_s = time.perf_counter() - wall_t0
         entry["wall_time_s"] = round(wall_time_s, 2)
@@ -211,9 +241,42 @@ def main() -> None:
                     help="directory holding SimCases/ and outputs/")
     ap.add_argument("--max_success", type=int, default=None,
                     help="stop after N total successful cases (prior runs "
-                    "count; reference CLI contract)")
+                    "count; reference CLI contract). With --lockstep the "
+                    "stop is group-granular: the in-flight group finishes "
+                    "and may overshoot N by up to --max_batch")
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (default) or cpu")
+    ap.add_argument(
+        "--device_resize", action="store_true",
+        help="crop+resize dataset frames and render video frames on device "
+        "before the host fetch (ships [9,256,W'] instead of the full grid)",
+    )
+    ap.add_argument(
+        "--lockstep", action="store_true",
+        help="advance same-shape cases together on the lockstep engine "
+        "(same resume/status/artifact contract, higher throughput)",
+    )
+    ap.add_argument("--max_batch", type=int, default=16,
+                    help="lockstep group size cap (with --lockstep)")
+    ap.add_argument("--f16_transfer", action="store_true",
+                    help="f16 dataset fetches (with --lockstep)")
+    ap.add_argument("--f16_state", action="store_true",
+                    help="16-bit deviation solver state between monitor "
+                    "steps -- half K1's f bytes, bounded quantization noise "
+                    "(with --lockstep)")
+    ap.add_argument("--no_video", action="store_true",
+                    help="skip per-case mp4 (with --lockstep)")
+    ap.add_argument("--yuv_video", action="store_true",
+                    help="fetch video frames as YUV 4:2:0 -- half the bytes, "
+                    "encoder-equivalent quality (with --lockstep)")
+    ap.add_argument("--fetch_at_idle", action="store_true",
+                    help="fetch saves/video right after each chunk instead of "
+                    "on a worker thread (with --lockstep)")
+    ap.add_argument("--no_adaptive_fetch", action="store_true",
+                    help="disable the FetchPacer (with --lockstep)")
+    ap.add_argument("--f16_retry", action="store_true",
+                    help="re-run cases that fail under --f16_state once in "
+                    "exact f32 before recording them Failed")
     for flag, item in NOT_PORTED.items():
         kind = {"default": None, "metavar": "RxC"} if flag == "spatial_mesh" else {
             "action": "store_true"
@@ -221,7 +284,13 @@ def main() -> None:
         ap.add_argument(f"--{flag}", help=f"not ported yet: raises (ROADMAP.md {item})", **kind)
     args = ap.parse_args()
     run_batch(
-        args.project_name, args.max_success, root=args.root, device=args.device,
+        args.project_name, args.max_success, root=args.root,
+        device_resize=args.device_resize, lockstep=args.lockstep,
+        max_batch=args.max_batch, f16_transfer=args.f16_transfer,
+        video=not args.no_video, fetch_overlap=not args.fetch_at_idle,
+        f16_state=args.f16_state, yuv_video=args.yuv_video,
+        f16_retry=args.f16_retry, adaptive_fetch=not args.no_adaptive_fetch,
+        device=args.device,
         **{flag: getattr(args, flag) for flag in NOT_PORTED},
     )
 

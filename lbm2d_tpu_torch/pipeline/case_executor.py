@@ -37,6 +37,7 @@ def execute_case(
     output_dirs: Dict[str, str],
     job_id: int,
     progress: bool = True,
+    device_resize: bool = False,
     device="cuda",
 ) -> Dict[str, Any]:
     resolve_device(device)  # a missing GPU is a set-up error, not a case failure
@@ -58,7 +59,7 @@ def execute_case(
 
         lattice_metadata = run_one_case.main(
             full_config_path, mask_path, h5_path, video_path,
-            progress=progress, device=device,
+            progress=progress, device_resize=device_resize, device=device,
         )
         if lattice_metadata.get("status") != "Success":
             raise RuntimeError(f"Simulation failed: {lattice_metadata.get('reason')}")

@@ -95,12 +95,9 @@ def main(
     device="cuda",
 ) -> Dict[str, Any]:
     """Run one case on ``device`` (``cuda`` unless the caller passes
-    ``cpu``). ``device_resize`` and ``spatial_mesh`` are not ported yet and
-    raise NotImplementedError."""
-    if device_resize:
-        raise NotImplementedError(
-            "device_resize is not ported yet (ROADMAP.md queue 1, item 7)"
-        )
+    ``cpu``). ``device_resize`` crops and resizes dataset frames and renders
+    video frames on the device; ``spatial_mesh`` is not ported yet and
+    raises NotImplementedError."""
     if spatial_mesh:
         raise NotImplementedError(
             "spatial_mesh is not ported yet (ROADMAP.md queue 1, item 10)"
@@ -141,6 +138,7 @@ def main(
                 checkpoint_path=ckpt_path,
                 checkpoint_interval=ckpt_interval,
                 progress=progress,
+                device_resize=device_resize,
             )
         )
         if ckpt_path and metadata.get("status") == "Success":

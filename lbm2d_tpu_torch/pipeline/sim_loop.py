@@ -51,10 +51,34 @@ def run_simulation_loop(
     exit_status = "Success"
     exit_reason = "Reached max_steps"
 
-    if device_resize:
-        raise NotImplementedError(
-            "device_resize (on-device dataset resize and frame render) is not "
-            "ported yet (ROADMAP.md queue 1, item 7)"
+    # Optional on-device dataset resize (same design as the lockstep path,
+    # pipeline/batch_datagen.py): crop + area-average on the device so the
+    # device-to-host transfer ships [9, 256, W'] instead of the full grid.
+    resizer = None
+    _crop = None
+    if device_resize and writer is not None:
+        from ..ops.resize import make_device_resizer
+
+        w0 = writer.writer
+        _crop = (slice(None), w0.slice_y, w0.slice_x)
+        resizer = make_device_resizer(
+            w0.crop_h, w0.crop_w, w0.target_h, w0.target_w
+        )
+    # With device_resize, video/GUI frames are also rendered on the device
+    # (ops/render.py: |u| + vorticity + colormap LUT at display size) and
+    # fetched as uint8 instead of the full-resolution u field.
+    dev_renderer = None
+    if (
+        device_resize
+        and composer is not None
+        and (out_cfg["video"]["enable"] or out_cfg["gui"]["enable"])
+    ):
+        from ..ops.render import make_device_frame_renderer
+
+        dev_renderer = make_device_frame_renderer(
+            composer.width,
+            composer.height,
+            viz_sigma=out_cfg["gui"].get("gaussian_sigma", 1.0),
         )
     timings = {"compute": 0.0, "viz_proc": 0.0, "video_io": 0.0, "moment_fetch": 0.0, "hdf5_io": 0.0}
 
@@ -109,17 +133,25 @@ def run_simulation_loop(
             )
             if (is_vid_frame or is_gui_frame) and composer is not None:
                 t0 = time.perf_counter()
-                u_np, mask_np = engine.get_physical_fields()
-                img = composer.process_frame(u_np, mask_np)
-                if show_overlay:
-                    img = draw_zone_overlay(img, zones)
+                if dev_renderer is not None:
+                    img = dev_renderer(engine.state.u, engine.params.mask).cpu().numpy()
+                    if show_overlay:
+                        img = draw_zone_overlay(img.copy(), zones)
+                else:
+                    u_np, mask_np = engine.get_physical_fields()
+                    img = composer.process_frame(u_np, mask_np)
+                    if show_overlay:
+                        img = draw_zone_overlay(img, zones)
                 timings["viz_proc"] = (time.perf_counter() - t0) * 1000
                 if is_gui_frame and gui is not None:
                     gui.set_image(img)
                     gui.show()
                 if is_vid_frame and recorder:
                     t0 = time.perf_counter()
-                    recorder.write_frame(img)
+                    if dev_renderer is not None:
+                        recorder.write_frame_u8(img)
+                    else:
+                        recorder.write_frame(img)
                     timings["video_io"] = (time.perf_counter() - t0) * 1000
 
             is_data_step = (
@@ -130,10 +162,13 @@ def run_simulation_loop(
             )
             if is_data_step and writer is not None:
                 t0 = time.perf_counter()
-                moments = engine.get_moments()
+                if resizer is not None:
+                    moments = resizer(engine.get_moments_device()[_crop]).cpu().numpy()
+                else:
+                    moments = engine.get_moments()
                 timings["moment_fetch"] = (time.perf_counter() - t0) * 1000
                 t0 = time.perf_counter()
-                writer.append(moments)
+                writer.append(moments, pre_resized=resizer is not None)
                 timings["hdf5_io"] = (time.perf_counter() - t0) * 1000
 
             if (

@@ -42,6 +42,10 @@ def _run_blocked(blocked, code):
 def test_every_module_imports_without_jax():
     mods = port_modules()
     assert len(mods) >= 30
+    assert {
+        "lbm2d_tpu_torch.parallel.batch", "lbm2d_tpu_torch.ops.render",
+        "lbm2d_tpu_torch.pipeline.batch_datagen", "lbm2d_tpu_torch.pipeline.fetch_pacer",
+    } <= set(mods)
     code = (
         "import importlib, importlib.util\n"
         f"for m in {mods!r}:\n"
@@ -62,6 +66,17 @@ def test_solver_path_imports_without_optional_io_libs():
         "import lbm2d_tpu_torch.pipeline.sim_loop\n"
     )
     r = _run_blocked(["jax", "lbm2d_tpu", "h5py", "yaml", "cv2", "matplotlib"], code)
+    assert r.returncode == 0, r.stderr[-3000:]
+
+
+def test_lockstep_path_imports_without_h5py_or_matplotlib():
+    # the render LUTs ship as data, so the lockstep path needs neither
+    code = (
+        "import lbm2d_tpu_torch.pipeline.batch_run, lbm2d_tpu_torch.pipeline.batch_datagen\n"
+        "from lbm2d_tpu_torch.ops.render import make_device_frame_renderer\n"
+        "make_device_frame_renderer(64, 48, yuv420=True, batched=True)\n"
+    )
+    r = _run_blocked(["jax", "lbm2d_tpu", "h5py", "matplotlib"], code)
     assert r.returncode == 0, r.stderr[-3000:]
 
 
