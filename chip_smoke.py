@@ -9,9 +9,14 @@ Phases (any failure raises and the process exits non-zero):
 
 0. the card (nvidia-smi name and power limit), torch and nvcc versions;
 1. build the CUDA kernels from ``lbm2d_tpu_torch/csrc`` with nvcc;
-2. hold each kernel (K1 fast, K1 full, K2, and K1 and K2 in 16-bit
-   deviation storage) against its plain PyTorch version at the production
-   grid 2432x1152 on a developed state, then a 20-step ``run_chunk_cuda``
+2. hold each kernel variant (``cuda_step.KERNEL_VARIANTS``: K1 fast and
+   full for each obstacle scheme -- equilibrium, full-way, half-way and
+   Bouzidi bounce-back, the Bouzidi q planes drawn from a seeded generator
+   on the mask's boundary links -- K1 in 16-bit deviation storage for the
+   equilibrium and full-way schemes, and K2 for left types 0 and 3/4, f32
+   and deviation storage, bounce on and off) against its plain PyTorch
+   version at the production grid 2432x1152 on a developed state, then a
+   20-step ``run_chunk_cuda``
    against the eager ``run_chunk`` and, with ``store_dev``, against its
    plain version: max relative error (max |a - b| / max |b|) <= 1e-5 each;
    the ``store_dev`` chunk within the JAX package's 5e-4 budget of the
@@ -33,12 +38,23 @@ Phases (any failure raises and the process exits non-zero):
    case, the launch counts of its kernels (k1_step_dev and k2_edge_bc_dev
    3 x 2970, k1_step_full and k2_edge_bc 3 x 30) and no plain call. Where
    the machine has no h5py, the HDF5 writer runs on an in-memory stand-in
-   of ``h5py.File`` and the frames are read back from it.
+   of ``h5py.File`` and the frames are read back from it;
+5. drive the DFG-2D validation path, ``analysis.dfg_validation.
+   run_validation(mode="dfg", obstacle="bounce_back_bouzidi", inlet="nebb",
+   ny=165, steps=160000, chunk=500)`` (the JAX package's own benchmark
+   test, tests/test_dfg_bc.py), and check its ranges (St 0.26-0.32, Cd
+   2.7-3.5, Cl amplitude 0.5-1.4, Re 90-110, shedding), its launch counts
+   (k1_step_bouzidi, k1_step_bouzidi_full, k2_edge_bc_vel) and no plain
+   call; print the coefficients beside the recorded row of
+   docs/benchmarks/dfg2d_results.json; then, from its developed state,
+   the five other obstacle x inlet pairs for 200 steps through the kernels
+   and through ``run_chunk_plain`` (and the full-way pairs in deviation
+   storage), within 1e-5 relative.
 
 The last two lines are the kernels' JSON record (``launches``: the sum over
-the two paths, split in ``launches_by_path``) and ``{"ok": true, "device":
-{...}}``. Without a CUDA device, or without the package beside this
-script, it exits non-zero and prints no result.
+the driven paths, split in ``launches_by_path``) and ``{"ok": true,
+"device": {...}}``. Without a CUDA device, or without the package beside
+this script, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -63,6 +79,13 @@ DEV_TOL = 5e-4
 # its readings on an H100 (f 2.1e-5, rho 4.8e-5, u 2.2e-5; PERF.md)
 DEV_FLOW_TOL = 1e-4
 SEED = 0
+# the DFG-2D run of phase 5: the JAX package's benchmark test
+# (tests/test_dfg_bc.py:258-266), its length, chunk and ranges
+DFG_RUN = dict(mode="dfg", obstacle="bounce_back_bouzidi", inlet="nebb", re=100.0,
+               u_target=0.1, ny=165, steps=160000, chunk=500, progress=False)
+DFG_RANGES = {"strouhal": (0.26, 0.32), "cd_mean": (2.7, 3.5),
+              "cl_amplitude": (0.5, 1.4), "re_measured": (90.0, 110.0)}
+DFG_PAIR_STEPS, DFG_PAIR_CHUNK = 200, 100
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s and
 # f32 non-tensor-core FLOP/s. bound = max(bytes / BW, ops / FLOPS).
@@ -71,6 +94,9 @@ PEAK_F32 = 67e12
 # f32 operations per interior cell of K1, counted from csrc/lbm_common.cuh
 # mrt_collide (sqrt and division count one each) plus the overwrite
 K1_OPS_PER_CELL = 120
+# per Bouzidi boundary link: 2q, 1 - 2q, two products and a sum (q < 1/2),
+# or two divisions, a subtraction, a product and a sum (q >= 1/2)
+K1_OPS_PER_LINK = 6
 # per ring cell of K2: one BC (~70 for the Zou-He branches) plus overwrite
 K2_OPS_PER_CELL = 80
 
@@ -173,6 +199,8 @@ def main() -> int:
         raise RuntimeError(f"lbm2d_tpu_torch resolved outside this checkout: {pkg_dir}")
     from lbm2d_tpu_torch.core import solver
     from lbm2d_tpu_torch.core.engine import LBMEngine
+    from lbm2d_tpu_torch.analysis import dfg_validation
+    from lbm2d_tpu_torch.core.lattice import E as E_LAT
     from lbm2d_tpu_torch.core.lattice import f_eq
     from lbm2d_tpu_torch.ops import cuda_build, cuda_step as cs
     from lbm2d_tpu_torch.pipeline.sim_loop import run_simulation_loop
@@ -215,6 +243,23 @@ def main() -> int:
     aux = cs.pack_aux(p.damping, p.mask)
     scal = cs.scalar_row(p, state.step + 1)
 
+    # Bouzidi wall fractions from a seeded generator: q in (0, 1] on the
+    # mask's boundary links (fluid c, solid c + e_j), 0.5 elsewhere, so both
+    # interpolation branches run
+    solid_np = mask > 0.5
+    links = np.zeros((8, H, W), bool)
+    for j in range(1, 9):
+        ex, ey = int(E_LAT[j, 0]), int(E_LAT[j, 1])
+        nb = np.zeros_like(solid_np)
+        nb[max(0, -ey):H - max(0, ey), max(0, -ex):W - max(0, ex)] = solid_np[
+            max(0, ey):H - max(0, -ey), max(0, ex):W - max(0, -ex)]
+        links[j - 1] = ~solid_np & nb
+    q_np = np.where(links, 1.0 - rng.random(links.shape), 0.5).astype(np.float32)
+    qplanes = torch.from_numpy(q_np).to(dev)
+    n_links = int(links.sum())
+    print(f"  Bouzidi q planes: {n_links} boundary links, {int((q_np < 0.5).sum())} with q < 1/2",
+          flush=True)
+
     def k1_buffers(full):
         out = {"f_out": torch.zeros_like(state.f), "edge": cs.new_edge_buffer(H, W, device=dev)}
         if full:
@@ -222,103 +267,131 @@ def main() -> int:
                        f_post=state.f_post.clone())
         return out
 
-    def run_k1(fn, b):
-        fn(state.f, b["f_out"], aux, b["edge"], scal, p.use_les,
-           b.get("rho"), b.get("u"), b.get("f_post"))
+    def run_k1(fn, b, obst):
+        fn(state.f, b["f_out"], aux, b["edge"], scal, p.use_les, b.get("rho"), b.get("u"),
+           b.get("f_post"), obstacle=obst, q=qplanes if obst == cs.OBSTACLE_BOUZIDI else None)
+
+    def abs_err(bk, bp, fields):
+        return max(float((bk[k].float() - bp[k].float()).abs().max()) for k in fields)
+
+    def record(max_abs, errs, kernel_call, plain_call, nbytes, ops):
+        launch_ms, host_ms = median_ms(kernel_call)
+        return dict(max_abs_err=max_abs,
+                    max_rel_err=max(errs.values()), ms=graph_ms(kernel_call), launch_ms=launch_ms,
+                    host_ms=host_ms,
+                    plain_ms=median_ms(plain_call, batches=5, per_batch=2)[0],
+                    bound=bound_ms(nbytes, ops))
 
     records = {}
-    for full in (False, True):
-        name = "k1_step_full" if full else "k1_step"
-        bk, bp = k1_buffers(full), k1_buffers(full)
-        run_k1(cs.k1_step, bk)
-        run_k1(cs.k1_step_plain, bp)
-        torch.cuda.synchronize()
-        errs = {k: rel_err(bk[k], bp[k]) for k in bk}
-        for k, err in errs.items():
-            check(f"{name} {k}", err)
-        launch_ms, host_ms = median_ms(lambda: run_k1(cs.k1_step, bk))
-        ms = graph_ms(lambda: run_k1(cs.k1_step, bk))
-        plain_ms, _ = median_ms(lambda: run_k1(cs.k1_step_plain, bp), batches=5, per_batch=2)
-        n_in = (H - 2) * (W - 2)
-        nbytes = 36 * H * W + 4 * H * W + 36 * n_in + 4 * bk["edge"].numel()
-        if full:
-            nbytes += 4 * H * W + 8 * H * W + 36 * n_in  # rho, u, f_post
-        records[name] = dict(max_abs_err=max(float((bk[k] - bp[k]).abs().max()) for k in bk),
-                             max_rel_err=max(errs.values()), ms=ms, launch_ms=launch_ms,
-                             host_ms=host_ms, plain_ms=plain_ms,
-                             bound=bound_ms(nbytes, K1_OPS_PER_CELL * n_in))
-        k1_out = bp
+    n_in = (H - 2) * (W - 2)
+    for obst in range(4):
+        for full in (False, True):
+            name = cs.k1_variant(obst, full)
+            bk, bp = k1_buffers(full), k1_buffers(full)
+            run_k1(cs.k1_step, bk, obst)
+            run_k1(cs.k1_step_plain, bp, obst)
+            torch.cuda.synchronize()
+            errs = {k: rel_err(bk[k], bp[k]) for k in bk}
+            for k, err in errs.items():
+                check(f"{name} {k}", err)
+            # f in (36 B) and aux (4 B) per cell, f out (36 B) per interior
+            # cell, the edge export; the full variant adds rho, u, f_post.
+            # Bouzidi reads q where this mask has a boundary link (the dense
+            # [8, H, W] planes would add 32 B/cell: PERF.md)
+            nbytes = 36 * H * W + 4 * H * W + 36 * n_in + 4 * bk["edge"].numel()
+            ops = K1_OPS_PER_CELL * n_in
+            if full:
+                nbytes += 4 * H * W + 8 * H * W + 36 * n_in
+            if obst == cs.OBSTACLE_BOUZIDI:
+                nbytes += 4 * n_links
+                ops += K1_OPS_PER_LINK * n_links
+            records[name] = record(abs_err(bk, bp, bk), errs, lambda: run_k1(cs.k1_step, bk, obst),
+                                   lambda: run_k1(cs.k1_step_plain, bp, obst), nbytes, ops)
+            if obst == cs.OBSTACLE_EQ and full:
+                k1_out = bp
 
-    # K2 on K1's output (full variant: f ring plus rho/u ring)
-    ring = 2 * (H - 2) + 2 * W
-    bk = {k: v.clone() for k, v in k1_out.items()}
-    bp = {k: v.clone() for k, v in k1_out.items()}
-
-    def run_k2(fn, b):
-        fn(b["f_out"], aux, b["edge"], scal, p.bc_type, b["rho"], b["u"])
-
-    run_k2(cs.k2_edge_bc, bk)
-    run_k2(cs.k2_edge_bc_plain, bp)
-    torch.cuda.synchronize()
-    for k in ("f_out", "rho", "u"):
-        check(f"k2_edge_bc {k}", rel_err(bk[k], bp[k]))
-    nbytes = 4 * bk["edge"].numel() + 4 * ring + (36 + 12) * ring
-    launch_ms, host_ms = median_ms(lambda: run_k2(cs.k2_edge_bc, bk))
-    records["k2_edge_bc"] = dict(
-        max_abs_err=max(float((bk[k] - bp[k]).abs().max()) for k in ("f_out", "rho", "u")),
-        max_rel_err=max(rel_err(bk[k], bp[k]) for k in ("f_out", "rho", "u")),
-        ms=graph_ms(lambda: run_k2(cs.k2_edge_bc, bk)), launch_ms=launch_ms, host_ms=host_ms,
-        plain_ms=median_ms(lambda: run_k2(cs.k2_edge_bc_plain, bp), batches=5, per_batch=2)[0],
-        bound=bound_ms(nbytes, K2_OPS_PER_CELL * ring),
-    )
-
-    # K1 and K2 in 16-bit deviation storage, on the same developed state
+    # K1 in 16-bit deviation storage, on the same developed state
     fq = cs.quantize(state.f)
 
     def kd_buffers():
         return {"f_out": torch.zeros_like(fq), "edge": cs.new_edge_buffer(H, W, device=dev)}
 
-    def run_k1d(fn, b):
-        fn(fq, b["f_out"], aux, b["edge"], scal, p.use_les)
+    def run_k1d(fn, b, obst):
+        fn(fq, b["f_out"], aux, b["edge"], scal, p.use_les, obst)
 
-    bk, bp = kd_buffers(), kd_buffers()
-    run_k1d(cs.k1_step_dev, bk)
-    run_k1d(cs.k1_step_dev_plain, bp)
-    torch.cuda.synchronize()
-    errs = {k: rel_err(bk[k], bp[k]) for k in bk}
-    for k, err in errs.items():
-        check(f"k1_step_dev {k}", err)
-    launch_ms, host_ms = median_ms(lambda: run_k1d(cs.k1_step_dev, bk))
-    n_in = (H - 2) * (W - 2)
-    records["k1_step_dev"] = dict(
-        max_abs_err=max(float((bk[k].float() - bp[k].float()).abs().max()) for k in bk),
-        max_rel_err=max(errs.values()), ms=graph_ms(lambda: run_k1d(cs.k1_step_dev, bk)),
-        launch_ms=launch_ms, host_ms=host_ms,
-        plain_ms=median_ms(lambda: run_k1d(cs.k1_step_dev_plain, bp), batches=5, per_batch=2)[0],
+    for obst in cs.DEV_OBSTACLES:
+        name = cs.k1_variant(obst, dev=True)
+        bk, bp = kd_buffers(), kd_buffers()
+        run_k1d(cs.k1_step_dev, bk, obst)
+        run_k1d(cs.k1_step_dev_plain, bp, obst)
+        torch.cuda.synchronize()
+        errs = {k: rel_err(bk[k], bp[k]) for k in bk}
+        for k, err in errs.items():
+            check(f"{name} {k}", err)
         # f 18 B in (bf16), aux 4, f 18 B out, the f32 edge export; the
         # dequantize and quantize add 18 operations per cell
-        bound=bound_ms(18 * H * W + 4 * H * W + 18 * n_in + 4 * bk["edge"].numel(),
-                       (K1_OPS_PER_CELL + 18) * n_in),
-    )
-    bk = {k: v.clone() for k, v in bp.items()}
+        records[name] = record(
+            abs_err(bk, bp, bk), errs, lambda: run_k1d(cs.k1_step_dev, bk, obst),
+            lambda: run_k1d(cs.k1_step_dev_plain, bp, obst),
+            18 * H * W + 4 * H * W + 18 * n_in + 4 * bk["edge"].numel(),
+            (K1_OPS_PER_CELL + 18) * n_in)
+        if obst == cs.OBSTACLE_EQ:
+            kd_out = bp
 
-    def run_k2d(fn, b):
-        fn(b["f_out"], aux, b["edge"], scal, p.bc_type)
+    # K2 on K1's outputs (f32: the full variant's f ring plus rho/u ring;
+    # deviation storage: the bf16 f ring), left types 0 (the smoke case) and
+    # 3/4 (a parabolic inlet of u_max 0.1), bounce off (timed) and on
+    ring = 2 * (H - 2) + 2 * W
 
-    run_k2d(cs.k2_edge_bc_dev, bk)
-    run_k2d(cs.k2_edge_bc_dev_plain, bp)
-    torch.cuda.synchronize()
-    err = rel_err(bk["f_out"], bp["f_out"])
-    check("k2_edge_bc_dev f_out", err)
-    launch_ms, host_ms = median_ms(lambda: run_k2d(cs.k2_edge_bc_dev, bk))
-    records["k2_edge_bc_dev"] = dict(
-        max_abs_err=float((bk["f_out"].float() - bp["f_out"].float()).abs().max()),
-        max_rel_err=err, ms=graph_ms(lambda: run_k2d(cs.k2_edge_bc_dev, bk)),
-        launch_ms=launch_ms, host_ms=host_ms,
-        plain_ms=median_ms(lambda: run_k2d(cs.k2_edge_bc_dev_plain, bp), batches=5, per_batch=2)[0],
-        bound=bound_ms(4 * bk["edge"].numel() + 4 * ring + 18 * ring,
-                       (K2_OPS_PER_CELL + 9) * ring),
-    )
+    def vel_params(left_type):
+        cfg = json.loads(json.dumps(config))
+        cfg["boundary_condition"]["type"][0] = left_type
+        cfg["boundary_condition"]["value"][0] = [0.1, 0.0]
+        return solver.make_params(cfg, mask, dtype=torch.float32, device=dev)
+
+    k2_params = {"k2_edge_bc": [p], "k2_edge_bc_vel": [vel_params(4), vel_params(3)]}
+
+    def run_k2(fn, b, pk, bounce):
+        fn(b["f_out"], aux, b["edge"], scal, pk.bc_type, b["rho"], b["u"],
+           prof=pk.inlet_profile, bounce=bounce)
+
+    def run_k2d(fn, b, pk, bounce):
+        fn(b["f_out"], aux, b["edge"], scal, pk.bc_type, prof=pk.inlet_profile, bounce=bounce)
+
+    # storage suffix -> (input, runner, kernel, plain version, checked
+    # buffers, f bytes written per ring cell, operations per ring cell)
+    k2_storages = {
+        "": (k1_out, run_k2, cs.k2_edge_bc, cs.k2_edge_bc_plain, ("f_out", "rho", "u"),
+             36 + 12, K2_OPS_PER_CELL),
+        "_dev": (kd_out, run_k2d, cs.k2_edge_bc_dev, cs.k2_edge_bc_dev_plain, ("f_out",), 18,
+                 K2_OPS_PER_CELL + 9),
+    }
+    for suffix, (src, run, kern, plain, fields, ring_bytes, ring_ops) in k2_storages.items():
+        for base, plist in k2_params.items():
+            name = base + suffix
+            errs, abs_errs = {}, []
+            for pk in plist:
+                for bounce in (False, True):
+                    bk = {k: v.clone() for k, v in src.items()}
+                    bp = {k: v.clone() for k, v in src.items()}
+                    run(kern, bk, pk, bounce)
+                    run(plain, bp, pk, bounce)
+                    torch.cuda.synchronize()
+                    abs_errs.append(abs_err(bk, bp, fields))
+                    for k in fields:
+                        tag = f"{name} left {pk.bc_type[0]} bounce {int(bounce)} {k}"
+                        errs[tag] = rel_err(bk[k], bp[k])
+                        check(tag, errs[tag])
+            pk = plist[0]
+            nbytes = 4 * bk["edge"].numel() + 4 * ring + ring_bytes * ring
+            if pk.inlet_profile is not None:
+                nbytes += 4 * H
+            records[name] = record(
+                max(abs_errs), errs, lambda: run(kern, bk, pk, False),
+                lambda: run(plain, bp, pk, False), nbytes, ring_ops * ring)
+    missing = set(cs.KERNEL_VARIANTS) - set(records)
+    if missing:
+        raise AssertionError(f"phase 2 did not check {sorted(missing)}")
 
     # a 20-step chunk through the kernels against the eager reference step
     sk, mk = cs.run_chunk_cuda(state, p, 20)
@@ -352,7 +425,7 @@ def main() -> int:
     if not 0 < dev_abs <= DEV_TOL:
         raise AssertionError(f"store_dev chunk differs from the f32 chunk by {dev_abs:.3e}")
     for name, r in records.items():
-        print(f"  {name:<13s} {r['ms'] * 1e3:7.1f} us in a CUDA graph, {r['launch_ms'] * 1e3:.1f} us "
+        print(f"  {name:<24s} {r['ms'] * 1e3:7.1f} us in a CUDA graph, {r['launch_ms'] * 1e3:.1f} us "
               f"launched from Python (host issue {r['host_ms'] * 1e3:.1f} us)  "
               f"plain {r['plain_ms'] * 1e3:9.1f} us  "
               f"bound {r['bound'][0] * 1e3:7.1f} us ({r['bound'][1]})  [{card}]", flush=True)
@@ -497,26 +570,92 @@ def main() -> int:
             if size <= 0:
                 raise AssertionError(f"{case}: no mp4 at {mp4}")
 
+    # -- phase 5: the DFG-2D validation path -------------------------------
+    engines = []
+
+    class RecordingEngine(LBMEngine):
+        """LBMEngine that keeps a handle on itself for the checks below."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            engines.append(self)
+
+    dfg_validation.LBMEngine = RecordingEngine
+    print(f"[5] DFG-2D validation path: run_validation({DFG_RUN}, device='cuda')", flush=True)
+    counted.clear()
+    torch.cuda.synchronize()
+    cs.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = dfg_validation.run_validation(device="cuda", **DFG_RUN)
+    torch.cuda.synchronize()
+    wall5 = time.perf_counter() - t0
+    launches5 = dict(cs.LAUNCHES)
+    eng = engines[-1]
+    H5, W5 = eng.params.shape
+    print(f"    {H5}x{W5}, {res['steps']} steps in {wall5:.2f} s = {wall5 / res['steps'] * 1e6:.1f} "
+          f"us/step = {res['steps'] * H5 * W5 / wall5 / 1e6:.1f} MLUPS wall (force, monitors and "
+          f"breaker per chunk included) [{card}]", flush=True)
+    print(f"    launches {({k: v for k, v in launches5.items() if v})}, plain calls {counted}",
+          flush=True)
+    with open(os.path.join(HERE, "docs", "benchmarks", "dfg2d_results.json")) as fh:
+        recorded = next(r for r in json.load(fh) if r.get("ny") == DFG_RUN["ny"]
+                        and r.get("obstacle") == DFG_RUN["obstacle"]
+                        and r.get("inlet") == DFG_RUN["inlet"])
+    for k in ("cd_mean", "strouhal", "strouhal_sine_fit", "cl_amplitude", "re_measured",
+              "u_inlet_measured"):
+        got = res.get(k, float("nan"))
+        print(f"    {k:<18s} {got:.6f}  recorded (TPU, {recorded['steps']} steps) "
+              f"{recorded[k]:.6f}  difference {got - recorded[k]:+.6f}", flush=True)
+    chunks5 = DFG_RUN["steps"] // DFG_RUN["chunk"]
+    want5 = {"k1_step_bouzidi": chunks5 * (DFG_RUN["chunk"] - 1),
+             "k1_step_bouzidi_full": chunks5, "k2_edge_bc_vel": DFG_RUN["steps"]}
+    if res["steps"] != DFG_RUN["steps"] or not res["shedding_detected"]:
+        raise AssertionError(f"DFG run: {res['steps']} steps, shedding {res['shedding_detected']}")
+    for k, (lo, hi) in DFG_RANGES.items():
+        if not lo <= res[k] <= hi:
+            raise AssertionError(f"DFG run: {k} {res[k]} outside [{lo}, {hi}]: {res}")
+    if {k: v for k, v in launches5.items() if v} != want5 or any(counted.values()):
+        raise AssertionError(f"DFG path: launches {launches5} (want {want5}), plain calls {counted}")
+
+    # the other five pairs from the developed flow, kernels against the
+    # plain chunk runner (the full-way pairs in deviation storage too)
+    torch.cuda.synchronize()
+    cs.reset_launch_counts()
+    developed = eng.state
+    for obstacle in ("bounce_back", "bounce_back_halfway", "bounce_back_bouzidi"):
+        for inlet in ("equilibrium", "nebb"):
+            if (obstacle, inlet) == (DFG_RUN["obstacle"], DFG_RUN["inlet"]):
+                continue
+            cfg5, mask5, _ = dfg_validation.dfg_case(ny=DFG_RUN["ny"], u_max=DFG_RUN["u_target"],
+                                                     re=DFG_RUN["re"], obstacle=obstacle,
+                                                     inlet=inlet)
+            p5 = solver.make_params(cfg5, mask5, dtype=torch.float32, device=dev)
+            for store_dev in ((False, True) if obstacle == "bounce_back" else (False,)):
+                sk = sp = developed
+                for _ in range(DFG_PAIR_STEPS // DFG_PAIR_CHUNK):
+                    sk, mk = cs.run_chunk_cuda(sk, p5, DFG_PAIR_CHUNK, store_dev=store_dev)
+                    sp, mp = cs.run_chunk_plain(sp, p5, DFG_PAIR_CHUNK, store_dev=store_dev)
+                torch.cuda.synchronize()
+                for k in ("f", "rho", "u"):
+                    check(f"{obstacle}/{inlet}{' store_dev' if store_dev else ''} {k}",
+                          rel_err(getattr(sk, k), getattr(sp, k)))
+                check(f"{obstacle}/{inlet}{' store_dev' if store_dev else ''} force",
+                      rel_err(mk["force"], mp["force"]))
+    launches5b = dict(cs.LAUNCHES)
+    print(f"    other pairs: launches {({k: v for k, v in launches5b.items() if v})}", flush=True)
+
     kernels = []
-    replaces = {
-        "k1_step": "lbm2d_tpu/ops/pallas_step.py:824",
-        "k1_step_full": "lbm2d_tpu/ops/pallas_step.py:824",
-        "k2_edge_bc": "lbm2d_tpu/ops/pallas_step.py:1379",
-        "k1_step_dev": "lbm2d_tpu/ops/pallas_step.py:824",
-        "k2_edge_bc_dev": "lbm2d_tpu/ops/pallas_step.py:1379",
-    }
-    sources = {
-        "k1_step": "lbm2d_tpu_torch/csrc/k1_step.cu",
-        "k1_step_full": "lbm2d_tpu_torch/csrc/k1_step.cu",
-        "k2_edge_bc": "lbm2d_tpu_torch/csrc/k2_edge_bc.cu",
-        "k1_step_dev": "lbm2d_tpu_torch/csrc/k1_step.cu",
-        "k2_edge_bc_dev": "lbm2d_tpu_torch/csrc/k2_edge_bc.cu",
-    }
-    for name, r in records.items():
+    by_path = {"serial": launches, "lockstep": launches4, "dfg": launches5,
+               "dfg_pairs": launches5b}
+    for name in cs.KERNEL_VARIANTS:
+        r = records[name]
+        k1 = name.startswith("k1")
+        paths = {path: counts[name] for path, counts in by_path.items()}
         kernels.append({
-            "name": name, "route": "cuda", "source": sources[name],
-            "replaces": replaces[name], "launches": launches[name] + launches4[name],
-            "launches_by_path": {"serial": launches[name], "lockstep": launches4[name]},
+            "name": name, "route": "cuda",
+            "source": "lbm2d_tpu_torch/csrc/" + ("k1_step.cu" if k1 else "k2_edge_bc.cu"),
+            "replaces": "lbm2d_tpu/ops/pallas_step.py:" + ("824" if k1 else "1379"),
+            "launches": sum(paths.values()), "launches_by_path": paths,
             "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
             "ms": r["ms"], "launch_path_ms": r["launch_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0],

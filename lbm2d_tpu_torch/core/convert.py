@@ -20,6 +20,7 @@ ARRAY_FIELDS = (
     "mask", "damping", "tau0", "cs_factor", "s_ghost", "rho_in", "rho_out",
     "warmup_steps", "bc_value",
 )
+OPTIONAL_FIELDS = ("inlet_profile", "bouzidi_q")
 STATIC_FIELDS = (
     "use_les", "bc_type", "bounce_obstacle", "halfway_obstacle", "bouzidi_obstacle",
 )
@@ -31,14 +32,12 @@ def _t(x, dtype, device):
 
 
 def params_from_numpy(d: Dict[str, Any], dtype=torch.float32, device="cpu") -> CaseParams:
-    """CaseParams from {field: numpy array or static value}."""
-    if d.get("bouzidi_obstacle"):
-        raise NotImplementedError(
-            "Bouzidi interpolated bounce-back is not ported yet (ROADMAP.md)"
-        )
+    """CaseParams from {field: numpy array or static value}; the optional
+    leaves (``inlet_profile``, ``bouzidi_q``) are carried when present."""
     kw = {k: _t(d[k], dtype, device) for k in ARRAY_FIELDS}
-    if d.get("inlet_profile") is not None:
-        kw["inlet_profile"] = _t(d["inlet_profile"], dtype, device)
+    for k in OPTIONAL_FIELDS:
+        if d.get(k) is not None:
+            kw[k] = _t(d[k], dtype, device)
     for k in STATIC_FIELDS:
         if k in d:
             kw[k] = d[k]

@@ -11,11 +11,14 @@ the CPU. On a CUDA device a chunk runs on the hand-written kernels
 the CPU it runs the eager reference step. 16-bit deviation state storage
 (``store_dev`` or ``simulation.f16_state``) runs the kernels' split path in
 deviation storage: on the card through the kernels, on the CPU through
-their plain versions, so the flag is never ignored.
+their plain versions, so the flag is never ignored. The one exception is
+the JAX package's own rule: half-way and Bouzidi bounce-back run exact f32,
+and the engine logs why and reads ``store_dev`` False.
 """
 
 from __future__ import annotations
 
+import logging
 import math
 import os
 from typing import Any, Dict, Optional, Tuple
@@ -35,6 +38,8 @@ from .solver import (
     run_chunk,
 )
 
+log = logging.getLogger(__name__)
+
 
 def resolve_device(device) -> torch.device:
     """``device`` as a torch.device; a CUDA device must exist."""
@@ -47,11 +52,29 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def resolve_store_dev(p: CaseParams, store_dev: bool) -> bool:
+    """``store_dev`` under the JAX package's rule: half-way and Bouzidi
+    bounce-back run exact f32 (``cuda_step.dev_storage_refusal``). A
+    request that the rule turns down is logged with the reason; the kernels
+    still run, in f32."""
+    if not store_dev:
+        return False
+    from ..ops.cuda_step import dev_storage_refusal
+
+    why = dev_storage_refusal(p)
+    if why is not None:
+        log.warning("16-bit deviation storage (f16_state) not engaged: %s", why)
+        return False
+    return True
+
+
 def resolve_runner(p: CaseParams, device: torch.device, store_dev: bool):
     """The chunk runner ``(state, p, n) -> (state, monitors)`` of a case:
     the CUDA kernels on a CUDA device (raising for a case they do not
     cover), the eager step on the CPU, and the kernels' split path in
-    16-bit deviation storage wherever ``store_dev`` is set."""
+    16-bit deviation storage wherever ``store_dev`` is set and
+    ``resolve_store_dev`` keeps it."""
+    store_dev = resolve_store_dev(p, store_dev)
     if device.type != "cuda" and not store_dev:
         return run_chunk
     from ..ops.cuda_step import run_chunk_cuda, unsupported
@@ -113,6 +136,7 @@ class LBMEngine:
             config, mask_yx, dtype=dtype, device=self.device
         )
         self.dtype = dtype
+        self.store_dev = resolve_store_dev(self.params, self.store_dev)
         self._runner = resolve_runner(self.params, self.device, self.store_dev)
         self.state: LBMState = init_state(self.ny, self.nx, dtype, self.device)
         self._last_monitors = None

@@ -65,6 +65,9 @@ class CaseParams:
     warmup_steps: torch.Tensor  # 0-d ramp denominator
     bc_value: torch.Tensor  # [4, 2] velocity-inlet values
     inlet_profile: Optional[torch.Tensor] = None  # [H] for BC types 3/4
+    # [8, H, W] Bouzidi wall fractions: plane j-1 holds q_j(c) in (0, 1] for
+    # fluid cells whose +e_j neighbour is solid, 0.5 elsewhere
+    bouzidi_q: Optional[torch.Tensor] = None
     use_les: bool = True
     bc_type: Tuple[int, int, int, int] = (
         BC_INLET, BC_FREE_SLIP, BC_OUTLET, BC_FREE_SLIP,
@@ -150,10 +153,13 @@ def make_params(
         "bounce_back_bouzidi",
     ):
         raise ValueError(f"unknown boundary_condition.obstacle {obstacle!r}")
+    bouzidi_q = None
     if obstacle == "bounce_back_bouzidi":
-        raise NotImplementedError(
-            "obstacle 'bounce_back_bouzidi' is not ported yet "
-            "(ROADMAP.md, Bouzidi interpolated bounce-back)"
+        # obstacle_geometry gives the analytic surface; without one the q
+        # planes derive from the mask's own signed-distance field
+        np_dtype = torch.empty((), dtype=dtype).numpy().dtype.type
+        bouzidi_q = t(
+            bouzidi_q_planes(np.asarray(mask), bc.get("obstacle_geometry"), np_dtype)
         )
     c_smag = float(sim["smagorinsky_constant"])
     return CaseParams(
@@ -171,6 +177,8 @@ def make_params(
         bc_type=tuple(bc_types),
         bounce_obstacle=obstacle == "bounce_back",
         halfway_obstacle=obstacle == "bounce_back_halfway",
+        bouzidi_obstacle=obstacle == "bounce_back_bouzidi",
+        bouzidi_q=bouzidi_q,
     )
 
 
@@ -179,6 +187,186 @@ def parabolic_profile(ny: int, u_max: float, dtype=np.float64) -> np.ndarray:
     y = np.arange(ny, dtype=dtype)
     h = dtype(ny - 1)
     return (4.0 * dtype(u_max) * y * (h - y) / (h * h)).astype(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Bouzidi wall fractions (numpy, once per case)
+# ---------------------------------------------------------------------------
+
+
+def _link_t_cylinder(geom: dict, dx, dy, ex: int, ey: int) -> np.ndarray:
+    """Smallest t in (0, 1] where cell-center + t e hits the circle; inf
+    where the link misses it.  dx/dy are cell-center offsets from (cx, cy)."""
+    r = float(geom["r"])
+    cc = dx * dx + dy * dy - r * r
+    a = float(ex * ex + ey * ey)
+    b = 2.0 * (dx * ex + dy * ey)
+    disc = b * b - 4.0 * a * cc
+    sq = np.sqrt(np.maximum(disc, 0.0))
+    t1 = (-b - sq) / (2.0 * a)
+    t2 = (-b + sq) / (2.0 * a)
+    in1 = (disc >= 0.0) & (t1 > 0.0) & (t1 <= 1.0)
+    in2 = (disc >= 0.0) & (t2 > 0.0) & (t2 <= 1.0)
+    return np.where(in1, t1, np.where(in2, t2, np.inf))
+
+
+def _link_t_polygon(verts: np.ndarray, xx, yy, ex: int, ey: int) -> np.ndarray:
+    """Smallest t in (0, 1] where cell-center + t e crosses any polygon
+    edge; inf where the link misses the polygon.  Solves
+    c + t d = p + s (pn - p) per edge via 2D cross products."""
+    t_min = np.full(xx.shape, np.inf)
+    verts = np.asarray(verts, np.float64)
+    n = len(verts)
+    for i in range(n):
+        px, py = verts[i]
+        qx, qy = verts[(i + 1) % n]
+        egx, egy = qx - px, qy - py
+        denom = ex * egy - ey * egx  # cross(d, edge)
+        if abs(denom) < 1e-12:
+            continue  # link parallel to this edge; neighbors cover corners
+        rx = px - xx
+        ry = py - yy
+        t = (rx * egy - ry * egx) / denom  # cross(p-c, e) / cross(d, e)
+        s = (rx * ey - ry * ex) / denom  # cross(p-c, d) / cross(d, e)
+        hit = (t > 0.0) & (t <= 1.0) & (s >= 0.0) & (s <= 1.0)
+        t_min = np.where(hit & (t < t_min), t, t_min)
+    return t_min
+
+
+def _link_t_sdf(phi: np.ndarray, xx, yy, ex: int, ey: int,
+                samples: int = 32) -> np.ndarray:
+    """First zero crossing of a bilinearly-interpolated signed-distance
+    field along each link (mask-derived geometry: composite shapes with no
+    analytic description).  phi > 0 in fluid, < 0 in solid; flat walls
+    reduce to q = 1/2 (half-way)."""
+    from scipy.ndimage import map_coordinates
+
+    h, w = phi.shape
+    ts = np.linspace(0.0, 1.0, samples + 1)
+    prev_phi = phi.copy()
+    t_hit = np.full(phi.shape, np.inf)
+    for i in range(1, samples + 1):
+        t = ts[i]
+        cy = np.clip(yy + t * ey, 0, h - 1)
+        cx = np.clip(xx + t * ex, 0, w - 1)
+        cur = map_coordinates(phi, [cy, cx], order=1, mode="nearest")
+        # first crossing only: cells whose t_hit is already set keep it
+        crossing = (prev_phi > 0.0) & (cur <= 0.0) & np.isinf(t_hit)
+        denom = prev_phi - cur
+        frac = np.where(denom > 1e-12, prev_phi / np.maximum(denom, 1e-12), 0.0)
+        t_cross = ts[i - 1] + frac * (ts[i] - ts[i - 1])
+        t_hit = np.where(crossing, t_cross, t_hit)
+        prev_phi = cur
+    return t_hit
+
+
+def signed_distance(mask: np.ndarray) -> np.ndarray:
+    """Pseudo signed distance whose zero level approximates the surface the
+    binary mask was rasterized from: > 0 in fluid, < 0 in solid
+    (phi = 1/2 - box3(mask), a 3x3 volume-fraction smoothing). Near-boundary
+    accuracy only, which is all the q-plane crossing search samples."""
+    from scipy.ndimage import uniform_filter
+
+    solid = np.asarray(mask) > 0.5
+    if not solid.any():
+        return np.full(solid.shape, np.inf)
+    return 0.5 - uniform_filter(solid.astype(np.float64), 3, mode="nearest")
+
+
+def _geom_link_t(geom: dict, mask: np.ndarray, xx, yy, ex: int, ey: int,
+                 _phi_cache: dict = None) -> np.ndarray:
+    shape = str(geom.get("shape", "cylinder"))
+    if shape == "cylinder":
+        return _link_t_cylinder(
+            geom, xx - float(geom["cx"]), yy - float(geom["cy"]), ex, ey
+        )
+    if shape == "polygon":
+        return _link_t_polygon(np.asarray(geom["vertices"]), xx, yy, ex, ey)
+    if shape == "rect":
+        from ..tools.shapes import rect_points_f
+
+        verts = rect_points_f(
+            float(geom["cx"]), float(geom["cy"]), float(geom["w"]),
+            float(geom["h"]), float(geom.get("angle_deg", 0.0)),
+        )
+        return _link_t_polygon(verts, xx, yy, ex, ey)
+    if shape == "triangle":
+        from ..tools.shapes import triangle_points_f
+
+        verts = triangle_points_f(
+            float(geom["cx"]), float(geom["cy"]), float(geom["size"]),
+            float(geom.get("angle_deg", 0.0)),
+            geom.get("orientation", "vertex_left"),
+        )
+        return _link_t_polygon(verts, xx, yy, ex, ey)
+    if shape == "union":
+        t = np.full(xx.shape, np.inf)
+        for part in geom["parts"]:
+            t = np.minimum(
+                t, _geom_link_t(part, mask, xx, yy, ex, ey, _phi_cache)
+            )
+        return t
+    if shape == "sdf":
+        if _phi_cache is not None and "phi" in _phi_cache:
+            phi = _phi_cache["phi"]
+        else:
+            phi = signed_distance(mask)
+            if _phi_cache is not None:
+                _phi_cache["phi"] = phi
+        return _link_t_sdf(phi, xx, yy, ex, ey)
+    raise ValueError(f"unsupported obstacle_geometry {geom!r}")
+
+
+def bouzidi_q_planes(
+    mask: np.ndarray, geom: Optional[dict] = None, dtype=np.float32
+) -> np.ndarray:
+    """[8, H, W] sub-grid wall fractions for Bouzidi interpolated bounce-back.
+
+    Plane j-1 (j = 1..8) holds, for every fluid cell c whose +e_j neighbor
+    is solid, the smallest t in (0, 1] with c + t e_j on the wall surface.
+    Where the fraction is undefined (no root, or a q < 1/2 link whose
+    interpolation cell c - e_j is solid) it falls back to q = 1/2, where the
+    scheme is exactly half-way bounce-back.
+
+    ``geom`` (lattice cell-center coordinates) is the analytic surface:
+    ``{"shape": "cylinder", "cx", "cy", "r"}``, ``"rect"`` (cx, cy, w, h,
+    angle_deg), ``"triangle"`` (cx, cy, size, angle_deg, orientation),
+    ``"polygon"`` (vertices), ``"union"`` (parts; q = min over parts), or
+    ``"sdf"`` / None: the zero level of the mask's own signed distance.
+    """
+    if geom is None:
+        geom = {"shape": "sdf"}
+    solid = np.asarray(mask) > 0.5
+    h, w = solid.shape
+    yy, xx = np.mgrid[0:h, 0:w]
+    xx = xx.astype(np.float64)
+    yy = yy.astype(np.float64)
+
+    def shifted_solid(ddy, ddx):
+        """solid[y + ddy, x + ddx], out-of-bounds -> True (treat the domain
+        edge like a wall so no formula reaches past it)."""
+        out = np.ones_like(solid)
+        ys = slice(max(0, -ddy), min(h, h - ddy))
+        xs = slice(max(0, -ddx), min(w, w - ddx))
+        out[ys, xs] = solid[
+            max(0, ddy) : max(0, ddy) + (ys.stop - ys.start),
+            max(0, ddx) : max(0, ddx) + (xs.stop - xs.start),
+        ]
+        return out
+
+    phi_cache: dict = {}
+    q = np.full((8, h, w), 0.5, np.float64)
+    for j in range(1, 9):
+        ex, ey = int(E[j, 0]), int(E[j, 1])
+        link = (~solid) & shifted_solid(ey, ex)  # fluid c, solid c + e_j
+        t = _geom_link_t(geom, mask, xx, yy, ex, ey, phi_cache)
+        t = np.where(np.isfinite(t), t, 0.5)  # no root -> half-way fallback
+        # the q < 1/2 two-point formula interpolates with cell c - e_j;
+        # if that cell is solid the link degrades to half-way
+        behind_solid = shifted_solid(-ey, -ex)
+        t = np.where((t < 0.5) & behind_solid, 0.5, t)
+        q[j - 1] = np.where(link, t, 0.5)
+    return q.astype(dtype)
 
 
 def init_state(ny: int, nx: int, dtype=torch.float32, device="cpu") -> LBMState:
@@ -314,27 +502,55 @@ def shift2d(a: torch.Tensor, dy: int, dx: int, fill=0.0) -> torch.Tensor:
     return out
 
 
+def link_bounce(f: torch.Tensor, fs: torch.Tensor, solid: torch.Tensor,
+                q: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``fs`` with the links whose pull source c - e_k is solid replaced:
+    half-way bounce-back (``q`` None) returns this cell's own f_opp(c) from
+    the previous field ``f``; Bouzidi interpolated bounce-back (``q`` the
+    [8, H, W] wall fractions) puts the wall at fraction q along the link
+    j = opp(k):
+      q < 1/2:  f_k <- 2q f_j(c) + (1 - 2q) f_j(c + e_k)
+      q >= 1/2: f_k <- f_j(c)/(2q) + (2q - 1)/(2q) f_k(c)
+    q = 1/2 gives f_j(c) exactly, the half-way value. Applied on every cell,
+    solid ones included (their f is overwritten afterwards)."""
+    planes = [fs[0]]
+    for k in range(1, 9):
+        ex, ey = int(E[k, 0]), int(E[k, 1])
+        j = int(OPP[k])
+        nb_solid = shift2d(solid, -ey, -ex, False)
+        if q is None:
+            planes.append(torch.where(nb_solid, f[j], fs[k]))
+            continue
+        qj = q[j - 1]
+        f_j = f[j]
+        f_j_up = shift2d(f[j], ey, ex, 0.0)  # f_j at c + e_k = c - e_j
+        lo = 2.0 * qj * f_j + (1.0 - 2.0 * qj) * f_j_up
+        hi = f_j / (2.0 * qj) + (2.0 * qj - 1.0) / (2.0 * qj) * f[k]
+        planes.append(torch.where(nb_solid, torch.where(qj < 0.5, lo, hi), fs[k]))
+    return torch.stack(planes)
+
+
+def full_way_bounce(fs: torch.Tensor, f_post: torch.Tensor, solid: torch.Tensor):
+    """Full-way bounce-back: on solid cells the streamed populations leave
+    reversed, in place of the collision output."""
+    f_bb = torch.stack([fs[int(OPP[k])] for k in range(9)])
+    return torch.where(solid[None], f_bb, f_post)
+
+
 def collide_stream_full(f: torch.Tensor, p: CaseParams):
-    """Fused pull-stream + MRT-LES collision over the full grid."""
+    """Fused pull-stream + MRT-LES collision over the full grid, with the
+    obstacle scheme's link substitution or full-way bounce."""
     fs = pull_stream(f)
+    solid = p.mask > 0.5
     if p.halfway_obstacle:
-        # a pull whose source cell is solid returns this cell's own opposite
-        # population from the previous post-collision field
-        solid = p.mask > 0.5
-        planes = [fs[0]]
-        for k in range(1, 9):
-            ex, ey = int(E[k, 0]), int(E[k, 1])
-            nb_solid = shift2d(solid, -ey, -ex, False)
-            planes.append(torch.where(nb_solid, f[int(OPP[k])], fs[k]))
-        fs = torch.stack(planes)
+        fs = link_bounce(f, fs, solid)
+    if p.bouzidi_obstacle:
+        fs = link_bounce(f, fs, solid, p.bouzidi_q)
     f_post, rho, ux, uy = mrt_collide_arrays(
         fs, p.damping, p.tau0, p.cs_factor, p.s_ghost, p.use_les
     )
     if p.bounce_obstacle:
-        # full-way bounce-back replaces collision on solid cells
-        solid = p.mask > 0.5
-        f_bb = torch.stack([fs[int(OPP[k])] for k in range(9)])
-        f_post = torch.where(solid[None], f_bb, f_post)
+        f_post = full_way_bounce(fs, f_post, solid)
     return f_post, rho, ux, uy
 
 
@@ -573,11 +789,45 @@ def force_on_obstacle_halfway(f_post: torch.Tensor, mask: torch.Tensor) -> torch
     return torch.stack([fx, fy])
 
 
+def force_on_obstacle_bouzidi(
+    f_post: torch.Tensor, mask: torch.Tensor, q_planes: torch.Tensor
+) -> torch.Tensor:
+    """Momentum-exchange force for Bouzidi bounce-back -> [2] (fx, fy).
+
+    Per boundary link (fluid c, solid c + e_j) the wall absorbs f_j(c) and
+    emits the interpolated return f_ret (the streaming step's formulas), so
+    the link carries (f_j + f_ret) e_j; at q = 1/2 this is the half-way 2 f_j.
+    """
+    solid = mask > 0.5
+    zero = torch.zeros((), dtype=f_post.dtype, device=f_post.device)
+    fx = zero
+    fy = zero
+    for j in range(1, 9):
+        ex, ey = int(E[j, 0]), int(E[j, 1])
+        k = int(OPP[j])
+        nb_solid = shift2d(solid, ey, ex, False)
+        q = q_planes[j - 1]
+        f_j = f_post[j]
+        f_j_up = shift2d(f_post[j], -ey, -ex, 0.0)  # f_j at c - e_j
+        lo = 2.0 * q * f_j + (1.0 - 2.0 * q) * f_j_up
+        hi = f_j / (2.0 * q) + (2.0 * q - 1.0) / (2.0 * q) * f_post[k]
+        f_ret = torch.where(q < 0.5, lo, hi)
+        s = torch.where((~solid) & nb_solid, f_j + f_ret, zero).sum()
+        fx = fx + s * ex
+        fy = fy + s * ey
+    return torch.stack([fx, fy])
+
+
 def obstacle_force(
     f_post: torch.Tensor, p: CaseParams, mask: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
-    """Momentum-exchange force with the scheme matching the obstacle mode."""
+    """Momentum-exchange force with the scheme matching the obstacle mode.
+
+    ``mask`` overrides ``p.mask`` (the DFG validation measures the cylinder
+    alone)."""
     m = p.mask if mask is None else mask
+    if p.bouzidi_obstacle:
+        return force_on_obstacle_bouzidi(f_post, m, p.bouzidi_q)
     if p.halfway_obstacle:
         return force_on_obstacle_halfway(f_post, m)
     return force_on_obstacle(f_post, m)

@@ -5,8 +5,17 @@
 // reference apply_bc order: the left/right columns on the inner rows, the
 // bottom/top rows including the corners, then the obstacle overwrite
 // f = w rho (and u = 0) on solid ring cells. Types: left 0 (Zou-He
-// pressure inlet) or 2 (free-slip); right 0 (velocity inlet), 1 (Zou-He
-// pressure outlet with the backflow guard) or 2; top/bottom 0 or 2.
+// pressure inlet), 2 (free-slip), 3 or 4 (the profiled velocity inlets,
+// equilibrium and NEBB, from the case's inlet_profile); right 0 (velocity
+// inlet), 1 (Zou-He pressure outlet with the backflow guard) or 2;
+// top/bottom 0 or 2. Under full-way bounce-back (``bounce``, the JAX
+// kernel's :1543 and :1625) the f overwrite is skipped and solids keep
+// their BC values; u = 0 on solids still holds in the full variant.
+//
+// The inlet profile is read from the [H] f32 tensor make_params built, one
+// value per row, never recomputed: the JAX kernel recomputes the parabola
+// in-kernel (:1511-1518) and has to match make_params' f32 operation order;
+// reading the same tensor the eager step reads removes that trap.
 //
 // The 16-bit deviation-storage variant (k2_edge_bc_dev, the JAX kernel's
 // store_dev branch) computes the same f32 ring and stores it into the bf16
@@ -65,11 +74,15 @@ __device__ __forceinline__ void nebb(const Cell& n, const float gb[9],
   for (int k = 0; k < 9; ++k) b->f[k] = n.rho * (gb[k] - g[k]) + n.f[k];
 }
 
-// solver.bc_left_values for types 0 (pressure inlet) and 2 (free-slip).
+// solver.bc_left_values for types 0 (pressure inlet), 2 (free-slip) and
+// 3/4 (profiled velocity inlets; ``u_prof`` is the row's profile value).
 __device__ __forceinline__ Cell bc_left(const Cell& n, const Scalars& s,
-                                        int t) {
+                                        int t, float u_prof) {
   Cell b;
-  if (t == 0) {
+  if (t == LBM_BC_VEL_INLET || t == LBM_BC_VEL_INLET_NEBB) {
+    bc_vel_inlet(t, u_prof, s.ramp, n.f, n.rho, n.ux, n.uy, b.f, &b.rho,
+                 &b.ux, &b.uy);
+  } else if (t == 0) {
     const float* fn = n.f;
     const float rho_c = 1.0f + (s.rho_in - 1.0f) * s.ramp;
     const float ux =
@@ -168,11 +181,15 @@ __device__ __forceinline__ Cell bc_horizontal(const Cell& n, const Scalars& s,
 template <typename S>
 __global__ void __launch_bounds__(256)
 k2_edge_bc_kernel(typename S::T* __restrict__ f, const float* __restrict__ aux,
-                  const float* __restrict__ edge, float* __restrict__ rho_out,
+                  const float* __restrict__ edge,
+                  const float* __restrict__ prof, float* __restrict__ rho_out,
                   float* __restrict__ u_out, const Scalars s, const int H,
                   const int W, const int bc_left_t, const int bc_top_t,
                   const int bc_right_t, const int bc_bottom_t,
-                  const int full) {
+                  const int bounce, const int full) {
+  // the profile is read only for left types 3/4 (prof may be null else)
+  const bool vel = bc_left_t == LBM_BC_VEL_INLET ||
+                   bc_left_t == LBM_BC_VEL_INLET_NEBB;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   const int n_in = H - 2;
   int x, y;
@@ -180,7 +197,7 @@ k2_edge_bc_kernel(typename S::T* __restrict__ f, const float* __restrict__ aux,
   if (t < n_in) {
     y = t + 1;
     x = 0;
-    b = bc_left(load_col(edge, 0, y, H), s, bc_left_t);
+    b = bc_left(load_col(edge, 0, y, H), s, bc_left_t, vel ? prof[y] : 0.0f);
   } else if (t < 2 * n_in) {
     y = t - n_in + 1;
     x = W - 1;
@@ -194,7 +211,8 @@ k2_edge_bc_kernel(typename S::T* __restrict__ f, const float* __restrict__ aux,
     // the inward neighbour: a ring cell of the side BC at the corners
     Cell n;
     if (x == 0)
-      n = bc_left(load_col(edge, 0, nb_y, H), s, bc_left_t);
+      n = bc_left(load_col(edge, 0, nb_y, H), s, bc_left_t,
+                  vel ? prof[nb_y] : 0.0f);
     else if (x == W - 1)
       n = bc_right(load_col(edge, 1, nb_y, H), s, bc_right_t);
     else
@@ -208,8 +226,9 @@ k2_edge_bc_kernel(typename S::T* __restrict__ f, const float* __restrict__ aux,
   const size_t plane = (size_t)H * W;
   const size_t c = (size_t)y * W + x;
   const bool solid = __float_as_int(aux[c]) < 0;
+  const bool overwrite = solid && !bounce;
   for (int k = 0; k < 9; ++k)
-    S::store(f, k * plane + c, k, solid ? lbm_w(k) * b.rho : b.f[k]);
+    S::store(f, k * plane + c, k, overwrite ? lbm_w(k) * b.rho : b.f[k]);
   if (full) {
     rho_out[c] = b.rho;
     u_out[c] = solid ? 0.0f : b.ux;
@@ -218,36 +237,40 @@ k2_edge_bc_kernel(typename S::T* __restrict__ f, const float* __restrict__ aux,
 }
 
 // Launches K2 on ``stream``; returns cudaGetLastError() as an int.
-// rho/u are written only when full.
+// ``prof`` ([H] f32) is read only for left types 3/4; rho/u are written
+// only when full.
 extern "C" int k2_edge_bc_launch(void* f, const void* aux, const void* edge,
-                                 void* rho, void* u, const void* scal, int H,
-                                 int W, int bc_left_t, int bc_top_t,
-                                 int bc_right_t, int bc_bottom_t, int full,
+                                 const void* prof, void* rho, void* u,
+                                 const void* scal, int H, int W,
+                                 int bc_left_t, int bc_top_t, int bc_right_t,
+                                 int bc_bottom_t, int bounce, int full,
                                  void* stream) {
   const Scalars s = load_scalars(static_cast<const float*>(scal));
   const int n = 2 * (H - 2) + 2 * W;
   k2_edge_bc_kernel<F32Store><<<(n + 255) / 256, 256, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(f), static_cast<const float*>(aux),
-      static_cast<const float*>(edge), static_cast<float*>(rho),
-      static_cast<float*>(u), s, H, W, bc_left_t, bc_top_t, bc_right_t,
-      bc_bottom_t, full);
+      static_cast<const float*>(edge), static_cast<const float*>(prof),
+      static_cast<float*>(rho), static_cast<float*>(u), s, H, W, bc_left_t,
+      bc_top_t, bc_right_t, bc_bottom_t, bounce, full);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The ring in 16-bit deviation storage: ``f`` is the bf16 [9, H, W] buffer
 // of f - w that k1_step_dev wrote; no rho/u (never the full variant).
 extern "C" int k2_edge_bc_dev_launch(void* f, const void* aux,
-                                     const void* edge, const void* scal,
-                                     int H, int W, int bc_left_t,
-                                     int bc_top_t, int bc_right_t,
-                                     int bc_bottom_t, void* stream) {
+                                     const void* edge, const void* prof,
+                                     const void* scal, int H, int W,
+                                     int bc_left_t, int bc_top_t,
+                                     int bc_right_t, int bc_bottom_t,
+                                     int bounce, void* stream) {
   const Scalars s = load_scalars(static_cast<const float*>(scal));
   const int n = 2 * (H - 2) + 2 * W;
   k2_edge_bc_kernel<DevStore><<<(n + 255) / 256, 256, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<__nv_bfloat16*>(f), static_cast<const float*>(aux),
-      static_cast<const float*>(edge), nullptr, nullptr, s, H, W, bc_left_t,
-      bc_top_t, bc_right_t, bc_bottom_t, 0);
+      static_cast<const float*>(edge), static_cast<const float*>(prof),
+      nullptr, nullptr, s, H, W, bc_left_t, bc_top_t, bc_right_t, bc_bottom_t,
+      bounce, 0);
   return static_cast<int>(cudaGetLastError());
 }

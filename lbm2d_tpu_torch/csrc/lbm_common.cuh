@@ -71,9 +71,22 @@ struct DevStore {
 };
 
 // Velocity set (core/lattice.py E): 0 rest, 1 E, 2 N, 3 W, 4 S, 5 NE, 6 NW,
-// 7 SW, 8 SE.
+// 7 SW, 8 SE; LBM_OPP[k] is the direction with e = -e_k (lattice.OPP).
 __device__ __constant__ int LBM_EX[9] = {0, 1, 0, -1, 0, 1, -1, -1, 1};
 __device__ __constant__ int LBM_EY[9] = {0, 0, 1, 0, -1, 1, 1, -1, -1};
+__device__ __constant__ int LBM_OPP[9] = {0, 3, 4, 1, 2, 7, 8, 5, 6};
+
+// Obstacle schemes (ops/cuda_step.py OBSTACLE_*): the equilibrium overwrite
+// f = w rho, full-way bounce-back, half-way bounce-back and Bouzidi
+// interpolated bounce-back.
+#define LBM_OBST_EQ 0
+#define LBM_OBST_BOUNCE 1
+#define LBM_OBST_HALFWAY 2
+#define LBM_OBST_BOUZIDI 3
+
+// Left-BC types of the profiled velocity inlets (solver.BC_VEL_INLET*).
+#define LBM_BC_VEL_INLET 3
+#define LBM_BC_VEL_INLET_NEBB 4
 
 // Edge-export layout written by K1 and read by K2, all f32:
 //   columns: edge[(side * 12 + c) * H + y], side 0 = x 1, side 1 = x W-2
@@ -213,4 +226,29 @@ __device__ __forceinline__ void feq_unit_y(float uy, float g[9]) {
     const int ey = LBM_EY[k];
     g[k] = lbm_w(k) * (ey == 0 ? b[0] : (ey > 0 ? b[1] : b[2]));
   }
+}
+
+// The profiled velocity inlets of the left edge (solver.bc_left_values,
+// types 3 and 4) for one row: ``u_prof`` is that row of the case's
+// inlet_profile, (fn, rho_nb, uxn, uyn) the neighbour cell's collide
+// output. ux = u_prof ramp, uy = 0, and
+//   type 3: rho = 1, f = f_eq(1, ux, 0);
+//   type 4 (NEBB): rho = rho_nb, f = rho_nb (f_eq_x(ux) - f_eq(u_nb)) + f_nb.
+__device__ __forceinline__ void bc_vel_inlet(int t, float u_prof, float ramp,
+                                             const float fn[9], float rho_nb,
+                                             float uxn, float uyn, float fb[9],
+                                             float* rho_b, float* ux_b,
+                                             float* uy_b) {
+  const float ux = u_prof * ramp;
+  feq_unit_x(ux, fb);
+  if (t == LBM_BC_VEL_INLET_NEBB) {
+    float g[9];
+    feq_unit(uxn, uyn, g);
+    for (int k = 0; k < 9; ++k) fb[k] = rho_nb * (fb[k] - g[k]) + fn[k];
+    *rho_b = rho_nb;
+  } else {
+    *rho_b = 1.0f;
+  }
+  *ux_b = ux;
+  *uy_b = 0.0f;
 }

@@ -34,21 +34,15 @@ NVCC_FLAGS = [
 # library name -> source
 SOURCES = {"k1_step": "k1_step.cu", "k2_edge_bc": "k2_edge_bc.cu"}
 
-# kernel name -> (library, C entry, argtypes)
+# C entry name -> (library, C entry, argtypes); each entry launches the
+# variants ops/cuda_step.py counts under their own names
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNELS = {
-    "k1_step": (
-        "k1_step", "k1_step_launch", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    ),
-    "k1_step_dev": ("k1_step", "k1_step_dev_launch", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
-    "k2_edge_bc": (
-        "k2_edge_bc", "k2_edge_bc_launch",
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    ),
-    "k2_edge_bc_dev": (
-        "k2_edge_bc", "k2_edge_bc_dev_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    ),
+    "k1_step": ("k1_step", "k1_step_launch", [_P] * 9 + [_I] * 5 + [_P]),
+    "k1_step_dev": ("k1_step", "k1_step_dev_launch", [_P] * 5 + [_I] * 4 + [_P]),
+    "k2_edge_bc": ("k2_edge_bc", "k2_edge_bc_launch", [_P] * 7 + [_I] * 8 + [_P]),
+    "k2_edge_bc_dev": ("k2_edge_bc", "k2_edge_bc_dev_launch", [_P] * 5 + [_I] * 7 + [_P]),
 }
 _HEADERS = ("lbm_common.cuh",)
 

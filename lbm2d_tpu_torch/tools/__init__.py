@@ -1,1 +1,2 @@
-"""Command-line tools of the port that measure it on a GPU."""
+"""Tools of the port: the command-line tools that measure it on a GPU, the
+smoke case they share, and the analytic obstacle outlines."""

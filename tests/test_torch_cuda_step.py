@@ -8,6 +8,7 @@ round the same f32 operations in the same order.
 """
 
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
@@ -132,24 +133,40 @@ def test_pack_aux_round_trips():
 
 def test_supports():
     ok = [((0, 2, 1, 2), "equilibrium"), ((2, 0, 0, 2), "equilibrium"),
-          ((0, 0, 2, 0), "equilibrium")]
+          ((0, 0, 2, 0), "equilibrium"), ((3, 2, 1, 2), "equilibrium"),
+          ((4, 2, 1, 2), "equilibrium"), ((0, 2, 1, 2), "bounce_back"),
+          ((0, 2, 1, 2), "bounce_back_halfway"), ((0, 2, 1, 2), "bounce_back_bouzidi"),
+          ((4, 0, 1, 0), "bounce_back_bouzidi")]
     for bc, obst in ok:
-        assert cs.supports(ts.make_params(make_config(bc, obst), make_mask())), bc
+        assert cs.supports(ts.make_params(make_config(bc, obst), make_mask())), (bc, obst)
+    p = ts.make_params(make_config((1, 2, 1, 2)), make_mask())
     bad = [
-        ((3, 2, 1, 2), "equilibrium", "velocity inlets"),
-        ((4, 2, 1, 2), "equilibrium", "velocity inlets"),
-        ((1, 2, 1, 2), "equilibrium", "every side"),
-        ((0, 2, 1, 2), "bounce_back", "bounce-back"),
-        ((0, 2, 1, 2), "bounce_back_halfway", "bounce-back"),
+        (p, "every side"),
+        (dataclasses.replace(ts.make_params(make_config((3, 2, 1, 2)), make_mask()),
+                             inlet_profile=None), "inlet_profile"),
+        (dataclasses.replace(ts.make_params(make_config(obstacle="bounce_back_bouzidi"),
+                                            make_mask()), bouzidi_q=None), "q planes"),
     ]
-    for bc, obst, why in bad:
-        p = ts.make_params(make_config(bc, obst), make_mask())
+    for p, why in bad:
         assert not cs.supports(p)
         assert why in cs.unsupported(p)
         with pytest.raises(ValueError, match=why):
             cs.run_chunk_cuda(seeded_state(), p, 2)
     p64 = ts.make_params(make_config(), make_mask(), dtype=torch.float64)
     assert "f32 only" in cs.unsupported(p64)
+
+
+@pytest.mark.parametrize("obstacle", ["bounce_back", "bounce_back_halfway",
+                                      "bounce_back_bouzidi"])
+@pytest.mark.parametrize("bc_type", [(0, 2, 1, 2), (3, 0, 1, 0), (4, 2, 1, 2)],
+                         ids=["0212", "3010", "4212"])
+def test_plain_chunk_runner_bounce_schemes_equal_eager(obstacle, bc_type):
+    # solids on the strips the BCs read and on the ring itself
+    p = ts.make_params(make_config(bc_type, obstacle), make_mask())
+    a, ma = cs.run_chunk_cuda(seeded_state(4), p, 9)
+    b, mb = ts.run_chunk(seeded_state(4), p, 9)
+    assert_same(a, b)
+    assert torch.equal(ma["force"], mb["force"])
 
 
 def test_kernel_wrappers_reject_bad_tensors():
@@ -173,8 +190,36 @@ def test_kernels_match_plain_on_card():
     s0 = seeded_state(device=dev)
     cs.reset_launch_counts()
     a, ma = cs.run_chunk_cuda(s0, p, 9)
-    assert cs.LAUNCHES == {"k1_step": 8, "k1_step_full": 1, "k2_edge_bc": 9}
+    assert {k: v for k, v in cs.LAUNCHES.items() if v} == {
+        "k1_step": 8, "k1_step_full": 1, "k2_edge_bc": 9}
     b, mb = ts.run_chunk(s0, p, 9)
     assert_same(a, b, tol=1e-5)
     cfg = copy.deepcopy(make_config())
     assert cs.supports(ts.make_params(cfg, make_mask(), device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("obstacle", ["bounce_back", "bounce_back_halfway",
+                                      "bounce_back_bouzidi"])
+@pytest.mark.parametrize("bc_type", [(0, 2, 1, 2), (3, 0, 1, 0), (4, 2, 1, 2)],
+                         ids=["0212", "3010", "4212"])
+def test_bounce_and_inlet_variants_match_plain_on_card(obstacle, bc_type):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU build)")
+    dev = torch.device("cuda")
+    p = ts.make_params(make_config(bc_type, obstacle), make_mask(), device=dev)
+    s0 = seeded_state(device=dev)
+    cs.reset_launch_counts()
+    a, _ = cs.run_chunk_cuda(s0, p, 9)
+    scheme = cs.obstacle_scheme(p)
+    assert {k: v for k, v in cs.LAUNCHES.items() if v} == {
+        cs.k1_variant(scheme): 8, cs.k1_variant(scheme, full=True): 1,
+        cs.k2_variant(bc_type[0]): 9}
+    b, _ = cs.run_chunk_plain(s0, p, 9)
+    assert_same(a, b)
+    if obstacle == "bounce_back":  # deviation storage: EQ and BOUNCE only
+        a, _ = cs.run_chunk_cuda(s0, p, 9, store_dev=True)
+        b, _ = cs.run_chunk_plain(s0, p, 9, store_dev=True)
+        assert_same(a, b)
+        assert cs.LAUNCHES[cs.k1_variant(scheme, dev=True)] == 8
+        assert cs.LAUNCHES[cs.k2_variant(bc_type[0], dev=True)] == 8

@@ -135,11 +135,6 @@ def test_eager_step_matches_jax_f32(name):
     assert np.abs(mt["force"].numpy() - fj).max() <= 1e-5 * np.abs(fj).max()
 
 
-def test_bouzidi_raises():
-    with pytest.raises(NotImplementedError, match="bouzidi"):
-        ts.make_params(make_config(obstacle="bounce_back_bouzidi"), make_mask())
-
-
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_scalar_row_matches_jax(dtype):
     cfg = make_config()
