@@ -49,7 +49,25 @@ Phases (any failure raises and the process exits non-zero):
    docs/benchmarks/dfg2d_results.json; then, from its developed state,
    the five other obstacle x inlet pairs for 200 steps through the kernels
    and through ``run_chunk_plain`` (and the full-way pairs in deviation
-   storage), within 1e-5 relative.
+   storage), within 1e-5 relative;
+6. drive the serial main path of phase 3 again with temporal blocking on
+   (``cuda_step._FUSE_STEPS = 4``, opt-in, as the JAX package's
+   ``_FUSE_STEPS``): check Success, finite moments, mean jx > 0, Fx > 0,
+   the launch counts (k3_fused 720, k1_step 90, k1_step_full 30,
+   k2_edge_bc 120) and no plain call, and its final f against phase 3's
+   (bitwise expected; gated at the relative tolerance); print its
+   kernel-path and wall MLUPS beside phase 3's; then every other scheme K3
+   runs, fused through the kernels against the unfused plain chunk runner:
+   the equilibrium, full-way and half-way DFG pairs with both inlets for 200
+   steps from phase 5's developed flow, and full-way and half-way on the
+   smoke case for one chunk, so that every K3 variant is launched;
+   phase 2 also holds each K3 variant (``k3_fused[_bounce|_halfway][_vel]``
+   at S = 4) against its plain version, one K3 pass against four K1 + K2
+   steps through the kernels, and times K3 at S = 8;
+7. run the roofline tool's measurement (``tools/roofline.measure``) at
+   4096^2 with two chunks of 50 steps, and hold the copy probe, with and
+   without the aux read, against its plain version at that size, timed
+   beside ``torch.Tensor.copy_``.
 
 The last two lines are the kernels' JSON record (``launches``: the sum over
 the driven paths, split in ``launches_by_path``) and ``{"ok": true,
@@ -99,6 +117,12 @@ K1_OPS_PER_CELL = 120
 K1_OPS_PER_LINK = 6
 # per ring cell of K2: one BC (~70 for the Zou-He branches) plus overwrite
 K2_OPS_PER_CELL = 80
+# shared memory of an H100 SXM: 128 B per clock per SM, 132 SMs, 1.98 GHz
+PEAK_SMEM = 33e12
+# phase 6: temporal blocking at S = 4 (K3's default tile), and S = 8 timed
+FUSE_S, FUSE_S_MAX = 4, 8
+# phase 7: the roofline tool at 4096^2 with a few short chunks
+ROOF_N, ROOF_CHUNKS, ROOF_SPC = 4096, 2, 50
 
 
 def card_line() -> str:
@@ -175,6 +199,27 @@ def bound_ms(nbytes: float, ops: float):
     t_bytes = nbytes / PEAK_BW * 1e3
     t_ops = ops / PEAK_F32 * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def k3_work(cs, H: int, W: int, S: int, tile):
+    """Work of one K3 pass of S sub-steps on an H x W grid.
+
+    The function's own work sets the bound: f (36 B) and aux (4 B) read once,
+    f (36 B) written once, 76 B a cell whatever S is, and 120 operations
+    (K1's count; the ring's BCs are cheaper) per cell and sub-step. The tile
+    at centre ``tile`` does more, and that is a design figure beside the
+    bound: each window's cells inside the grid read once (halo re-reads
+    included), each grid cell written once, and 72 B of shared-memory
+    traffic (9 populations read, 9 written) per cell of each sub-step's
+    region. Returns (bytes, operations, tile bytes, shared-memory bytes)."""
+    gy, gx, _ = cs._k3_windows(H, W, S, *tile, "cpu")
+    ingrid = (gy >= 0) & (gy < H) & (gx >= 0) & (gx < W)
+    wh, ww = gy.shape[1:]
+    i = torch.arange(wh)[:, None]
+    j = torch.arange(ww)[None, :]
+    cells = sum(int((ingrid & (i > s) & (i < wh - s - 1) & (j > s) & (j < ww - s - 1)).sum())
+                for s in range(S))
+    return 76 * H * W, K1_OPS_PER_CELL * H * W * S, 40 * int(ingrid.sum()) + 36 * H * W, 72 * cells
 
 
 class MomentSink:
@@ -389,6 +434,67 @@ def main() -> int:
             records[name] = record(
                 max(abs_errs), errs, lambda: run(kern, bk, pk, False),
                 lambda: run(plain, bp, pk, False), nbytes, ring_ops * ring)
+
+    # K3 at S = 4 on its default tile, each variant against its plain
+    # version (the windowed algorithm) on the same state, left types 0 and
+    # 3/4; output buffers start as NaN so an unwritten cell fails the check
+    tile3 = cs.k3_tile(FUSE_S)
+    rows3 = torch.stack([cs.scalar_row(p, state.step + 1 + i) for i in range(FUSE_S)])
+    k3_bytes, k3_ops, k3_tile_bytes, k3_smem = k3_work(cs, H, W, FUSE_S, tile3)
+    print(f"  K3: S = {FUSE_S}, centre tile {tile3}, {cs.k3_smem_bytes(FUSE_S, *tile3)} B of "
+          f"shared memory a block; bound from {k3_bytes / (H * W * FUSE_S):.2f} B and "
+          f"{k3_ops / (H * W * FUSE_S):.1f} operations per cell-step; the tile moves "
+          f"{k3_tile_bytes / (H * W * FUSE_S):.2f} B of device memory per cell-step (halo "
+          f"re-reads included)", flush=True)
+
+    def run_k3(fn, out, obst, pk, rows=rows3, tile=tile3):
+        fn(state.f, out, aux, rows, pk.bc_type, p.use_les, obst, pk.inlet_profile, tile)
+
+    def nan_f():
+        return torch.full_like(state.f, float("nan"))
+
+    k3_params = {solver.BC_INLET: [p], solver.BC_VEL_INLET: [vel_params(4), vel_params(3)]}
+    for obst in cs.FUSE_OBSTACLES:
+        for lt, plist in k3_params.items():
+            name = cs.k3_variant(obst, lt)
+            errs, abs_errs = {}, []
+            for pk in plist:
+                bk, bp = nan_f(), nan_f()
+                run_k3(cs.k3_fused, bk, obst, pk)
+                run_k3(cs.k3_fused_plain, bp, obst, pk)
+                torch.cuda.synchronize()
+                tag = f"{name} left {pk.bc_type[0]} f"
+                errs[tag] = rel_err(bk, bp)
+                abs_errs.append(float((bk - bp).abs().max()))
+                check(tag, errs[tag])
+            pk = plist[0]
+            prof_bytes = 4 * H if pk.inlet_profile is not None else 0
+            records[name] = record(max(abs_errs), errs, lambda: run_k3(cs.k3_fused, bk, obst, pk),
+                                   lambda: run_k3(cs.k3_fused_plain, bp, obst, pk),
+                                   k3_bytes + prof_bytes, k3_ops)
+    # one K3 pass against S single steps of K1 + K2, all through the kernels
+    f_k, edge3 = state.f, cs.new_edge_buffer(H, W, device=dev)
+    for i in range(FUSE_S):
+        nxt = torch.empty_like(f_k)
+        cs.k1_step(f_k, nxt, aux, edge3, rows3[i], p.use_les)
+        cs.k2_edge_bc(nxt, aux, edge3, rows3[i], p.bc_type)
+        f_k = nxt
+    bk = nan_f()
+    run_k3(cs.k3_fused, bk, cs.OBSTACLE_EQ, p)
+    torch.cuda.synchronize()
+    check(f"k3_fused pass vs {FUSE_S} x (K1 + K2)", rel_err(bk, f_k))
+    # the deepest fusion, held against its plain version and timed beside S = 4
+    tile8 = cs.k3_tile(FUSE_S_MAX)
+    rows8 = torch.stack([cs.scalar_row(p, state.step + 1 + i) for i in range(FUSE_S_MAX)])
+    b8, b8p = nan_f(), nan_f()
+    run_k3(cs.k3_fused, b8, cs.OBSTACLE_EQ, p, rows8, tile8)
+    run_k3(cs.k3_fused_plain, b8p, cs.OBSTACLE_EQ, p, rows8, tile8)
+    torch.cuda.synchronize()
+    check(f"k3_fused S = {FUSE_S_MAX} tile {tile8} f", rel_err(b8, b8p))
+    k3_s8 = dict(zip(("bytes", "ops", "tile_bytes", "smem"),
+                     k3_work(cs, H, W, FUSE_S_MAX, tile8)))
+    k3_s8.update(tile=tile8, ms=graph_ms(lambda: run_k3(cs.k3_fused, b8, cs.OBSTACLE_EQ, p,
+                                                        rows8, tile8)))
     missing = set(cs.KERNEL_VARIANTS) - set(records)
     if missing:
         raise AssertionError(f"phase 2 did not check {sorted(missing)}")
@@ -429,6 +535,17 @@ def main() -> int:
               f"launched from Python (host issue {r['host_ms'] * 1e3:.1f} us)  "
               f"plain {r['plain_ms'] * 1e3:9.1f} us  "
               f"bound {r['bound'][0] * 1e3:7.1f} us ({r['bound'][1]})  [{card}]", flush=True)
+        if name.startswith("k3_"):
+            print(f"  {'':<24s} = {r['ms'] * 1e3 / FUSE_S:.1f} us/step; the tile's device-memory "
+                  f"traffic {k3_tile_bytes / PEAK_BW * 1e6:.1f} us, its shared-memory traffic "
+                  f"{k3_smem / PEAK_SMEM * 1e6:.1f} us at {PEAK_SMEM / 1e12:.0f} TB/s (estimates)",
+                  flush=True)
+    b8_bound = bound_ms(k3_s8["bytes"], k3_s8["ops"])
+    print(f"  k3_fused at S = {FUSE_S_MAX}, tile {k3_s8['tile']}: {k3_s8['ms'] * 1e3:.1f} us/pass = "
+          f"{k3_s8['ms'] * 1e3 / FUSE_S_MAX:.1f} us/step; bound {b8_bound[0] * 1e3:.1f} us "
+          f"({b8_bound[1]}); the tile's device-memory traffic "
+          f"{k3_s8['tile_bytes'] / PEAK_BW * 1e6:.1f} us, shared-memory traffic "
+          f"{k3_s8['smem'] / PEAK_SMEM * 1e6:.1f} us (estimates) [{card}]", flush=True)
 
     # -- phase 3: the main path --------------------------------------------
     counted = {}
@@ -443,7 +560,8 @@ def main() -> int:
         setattr(mod, attr, wrapper)
 
     for mod, attr in ((solver, "step"), (cs, "k1_step_plain"), (cs, "k2_edge_bc_plain"),
-                      (cs, "k1_step_dev_plain"), (cs, "k2_edge_bc_dev_plain")):
+                      (cs, "k1_step_dev_plain"), (cs, "k2_edge_bc_dev_plain"),
+                      (cs, "k3_fused_plain")):
         counting(mod, attr)
     serial_kernels = ("k1_step", "k1_step_full", "k2_edge_bc")
 
@@ -458,8 +576,10 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(cs.LAUNCHES)
+    f_serial = engine.state.f.clone()  # phase 6 runs the same case fused
+    wall3 = max_steps * H * W / wall / 1e6
     print(f"[3] main path: {md['status']} ({md['reason']}) after {md['final_steps']} steps "
-          f"in {wall:.2f} s = {max_steps * H * W / wall / 1e6:.1f} MLUPS wall "
+          f"in {wall:.2f} s = {wall3:.1f} MLUPS wall "
           f"(monitors and {len(sink.frames)} moment fetches included) [{card}]", flush=True)
     print(f"    launches {launches}, plain calls {counted}", flush=True)
     if md["status"] != "Success":
@@ -500,7 +620,8 @@ def main() -> int:
     b.record()
     b.synchronize()
     step_ms = a.elapsed_time(b) / (5 * chunk)
-    print(f"    kernel path: {step_ms * 1e3:.1f} us/step = {H * W / step_ms / 1e3:.1f} MLUPS "
+    mlups3 = H * W / step_ms / 1e3
+    print(f"    kernel path: {step_ms * 1e3:.1f} us/step = {mlups3:.1f} MLUPS "
           f"[{card}]", flush=True)
     # the same in 16-bit deviation storage (the lockstep path's chunk runner)
     st = engine.state
@@ -644,23 +765,167 @@ def main() -> int:
     launches5b = dict(cs.LAUNCHES)
     print(f"    other pairs: launches {({k: v for k, v in launches5b.items() if v})}", flush=True)
 
+    # -- phase 6: the fused serial path -------------------------------------
+    print(f"[6] fused serial path: cuda_step._FUSE_STEPS = {FUSE_S}, the phase 3 case", flush=True)
+    chunks = max_steps // chunk
+    passes6, split6 = divmod(chunk - 1, FUSE_S)
+    want6 = {"k3_fused": chunks * passes6, "k1_step": chunks * split6, "k1_step_full": chunks,
+             "k2_edge_bc": chunks * (split6 + 1)}
+    cs._FUSE_STEPS = FUSE_S
+    try:
+        engine6 = LBMEngine(config, mask_yx=mask, device="cuda")
+        engine6.init()
+        sink6 = MomentSink()
+        counted.clear()
+        torch.cuda.synchronize()
+        cs.reset_launch_counts()
+        t0 = time.perf_counter()
+        md6 = run_simulation_loop(config, engine6, None, None, sink6, max_steps, progress=False)
+        torch.cuda.synchronize()
+        wall6 = time.perf_counter() - t0
+        launches6 = dict(cs.LAUNCHES)
+        wall6_mlups = max_steps * H * W / wall6 / 1e6
+        print(f"    {md6['status']} ({md6['reason']}) after {md6['final_steps']} steps in "
+              f"{wall6:.2f} s = {wall6_mlups:.1f} MLUPS wall (phase 3: {wall3:.1f}) [{card}]",
+              flush=True)
+        print(f"    launches {({k: v for k, v in launches6.items() if v})}, plain calls {counted}",
+              flush=True)
+        if md6["status"] != "Success":
+            raise AssertionError(f"fused path ended {md6['status']}: {md6['reason']}")
+        if {k: v for k, v in launches6.items() if v} != want6 or any(counted.values()):
+            raise AssertionError(f"fused path: launches {launches6} (want {want6}), "
+                                 f"plain calls {counted}")
+        mom6 = sink6.frames[-1]
+        fx6, _ = engine6.get_force()
+        jx6 = float(mom6[3].mean())
+        if mom6.shape != (9, H, W) or not np.isfinite(mom6).all() or not (jx6 > 0 and fx6 > 0):
+            raise AssertionError(f"fused path: moments {mom6.shape}, mean jx {jx6}, Fx {fx6}")
+        diff6 = float((engine6.state.f - f_serial).abs().max())
+        print(f"    mean jx {jx6:.4e}, Fx {fx6:.4e}; final f vs phase 3: max abs diff {diff6:.3e}"
+              + (" (bitwise equal)" if diff6 == 0 else ""), flush=True)
+        check("fused path final f vs phase 3", rel_err(engine6.state.f, f_serial))
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(5):
+            engine6.run_step(chunk)
+        e1.record()
+        e1.synchronize()
+        step_ms6 = e0.elapsed_time(e1) / (5 * chunk)
+        print(f"    kernel path: {step_ms6 * 1e3:.1f} us/step = {H * W / step_ms6 / 1e3:.1f} MLUPS "
+              f"(phase 3: {mlups3:.1f}) [{card}]", flush=True)
+
+        # the other schemes K3 runs, fused through the kernels against the
+        # unfused plain chunk runner: each with both DFG inlets (left types
+        # 3/4) from phase 5's developed flow, and full-way and half-way on
+        # the smoke case (left type 0) from this phase's final state
+        pairs6 = []
+        for obstacle in ("equilibrium", "bounce_back", "bounce_back_halfway"):
+            for inlet in ("equilibrium", "nebb"):
+                cfg6, mask6, _ = dfg_validation.dfg_case(
+                    ny=DFG_RUN["ny"], u_max=DFG_RUN["u_target"], re=DFG_RUN["re"],
+                    obstacle=obstacle, inlet=inlet)
+                pairs6.append((f"DFG {obstacle}/{inlet}", developed,
+                               solver.make_params(cfg6, mask6, dtype=torch.float32, device=dev),
+                               DFG_PAIR_CHUNK, DFG_PAIR_STEPS // DFG_PAIR_CHUNK))
+        for obstacle in ("bounce_back", "bounce_back_halfway"):
+            cfg6 = json.loads(json.dumps(config))
+            cfg6["boundary_condition"]["obstacle"] = obstacle
+            pairs6.append((f"smoke {obstacle}", engine6.state,
+                           solver.make_params(cfg6, mask, dtype=torch.float32, device=dev),
+                           chunk, 1))
+        torch.cuda.synchronize()
+        cs.reset_launch_counts()
+        for tag, s0, p6, n6, reps in pairs6:
+            cs._FUSE_STEPS = None
+            sp = s0
+            for _ in range(reps):
+                sp, mp = cs.run_chunk_plain(sp, p6, n6)
+            cs._FUSE_STEPS = FUSE_S
+            sk = s0
+            for _ in range(reps):
+                sk, mk = cs.run_chunk_cuda(sk, p6, n6)
+            torch.cuda.synchronize()
+            for k in ("f", "rho", "u"):
+                check(f"fused {tag} {k}", rel_err(getattr(sk, k), getattr(sp, k)))
+            check(f"fused {tag} force", rel_err(mk["force"], mp["force"]))
+        launches6b = dict(cs.LAUNCHES)
+        print(f"    other schemes: launches {({k: v for k, v in launches6b.items() if v})}",
+              flush=True)
+        idle6 = [v for v in cs.KERNEL_VARIANTS
+                 if v.startswith("k3") and launches6[v] + launches6b[v] == 0]
+        if idle6:
+            raise AssertionError(f"phase 6 did not launch {idle6}: {launches6b}")
+    finally:
+        cs._FUSE_STEPS = None
+
+    # -- phase 7: the roofline tool --------------------------------------------
+    from lbm2d_tpu_torch.ops import copy_probe as cp
+    from lbm2d_tpu_torch.tools import roofline
+
+    print(f"[7] roofline tool at {ROOF_N}^2: measure({ROOF_N}, {ROOF_CHUNKS}, {ROOF_SPC})",
+          flush=True)
+    torch.cuda.synchronize()
+    cs.reset_launch_counts()
+    cp.reset_launch_counts()
+    roof = roofline.measure(ROOF_N, ROOF_CHUNKS, ROOF_SPC)
+    torch.cuda.synchronize()
+    launches7, copies7 = dict(cs.LAUNCHES), dict(cp.LAUNCHES)
+    print("    " + json.dumps(roof), flush=True)
+    print(f"    launches {({k: v for k, v in launches7.items() if v})}, {copies7}", flush=True)
+    if not all(v > 0 for v in copies7.values()) or not np.isfinite(roof["mlups"]):
+        raise AssertionError(f"roofline tool: {roof}, copy launches {copies7}")
+    # the copy probe against its plain version and against copy_ at that size
+    gen7 = torch.Generator(device=dev).manual_seed(SEED)
+    f7 = torch.randn((9, ROOF_N, ROOF_N), generator=gen7, device=dev)
+    aux7 = torch.randn((ROOF_N, ROOF_N), generator=gen7, device=dev)
+    ok7, op7 = torch.empty_like(f7), torch.empty_like(f7)
+    for variant, a7 in (("copy_probe", None), ("copy_probe_aux", aux7)):
+        cp.copy_probe(f7, ok7, a7)
+        cp.copy_probe_plain(f7, op7, a7)
+        torch.cuda.synchronize()
+        err = rel_err(ok7, op7)
+        check(f"{variant} {ROOF_N}^2", err)
+        records[variant] = record(
+            float((ok7 - op7).abs().max()), {variant: err}, lambda a7=a7: cp.copy_probe(f7, ok7, a7),
+            lambda a7=a7: cp.copy_probe_plain(f7, op7, a7),
+            roofline.copy_traffic(ROOF_N, ROOF_N, a7 is not None), 0)
+    records["copy_probe"]["library_ms"] = graph_ms(lambda: op7.copy_(f7))
+    records["copy_probe_aux"]["library_ms"] = None
+    for name in cp.VARIANTS:
+        r = records[name]
+        lib = r["library_ms"]
+        print(f"  {name:<24s} {r['ms'] * 1e3:7.1f} us in a CUDA graph, bound {r['bound'][0] * 1e3:.1f} "
+              f"us, plain {r['plain_ms'] * 1e3:.1f} us"
+              + (f", copy_ {lib * 1e3:.1f} us" if lib else "") + f"  [{card}]", flush=True)
+
     kernels = []
     by_path = {"serial": launches, "lockstep": launches4, "dfg": launches5,
-               "dfg_pairs": launches5b}
-    for name in cs.KERNEL_VARIANTS:
+               "dfg_pairs": launches5b, "fused": launches6, "fused_pairs": launches6b,
+               "roofline": launches7}
+    sources = {"k1": ("k1_step.cu", "lbm2d_tpu/ops/pallas_step.py:824"),
+               "k2": ("k2_edge_bc.cu", "lbm2d_tpu/ops/pallas_step.py:1379"),
+               "k3": ("k3_fused.cu", "lbm2d_tpu/ops/pallas_step.py:610"),
+               "co": ("copy_probe.cu", "tools_roofline_4096.py:95")}
+    for name in list(cs.KERNEL_VARIANTS) + list(cp.VARIANTS):
         r = records[name]
-        k1 = name.startswith("k1")
-        paths = {path: counts[name] for path, counts in by_path.items()}
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "lbm2d_tpu_torch/csrc/" + ("k1_step.cu" if k1 else "k2_edge_bc.cu"),
-            "replaces": "lbm2d_tpu/ops/pallas_step.py:" + ("824" if k1 else "1379"),
+        if name in cp.VARIANTS:
+            paths = {"roofline": copies7[name]}
+        else:
+            paths = {path: counts[name] for path, counts in by_path.items()}
+        src, replaces = sources[name[:2]]
+        entry = {
+            "name": name, "route": "cuda", "source": "lbm2d_tpu_torch/csrc/" + src,
+            "replaces": replaces,
             "launches": sum(paths.values()), "launches_by_path": paths,
             "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
             "ms": r["ms"], "launch_path_ms": r["launch_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0],
-            "bound_by": r["bound"][1], "library_ms": None,
-        })
+            "bound_by": r["bound"][1], "library_ms": r.get("library_ms"),
+        }
+        if name == "k3_fused":
+            entry[f"ms_s{FUSE_S_MAX}"] = k3_s8["ms"]
+        kernels.append(entry)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,12 @@ the CPU. On a CUDA device a chunk runs on the hand-written kernels
 the CPU it runs the eager reference step. 16-bit deviation state storage
 (``store_dev`` or ``simulation.f16_state``) runs the kernels' split path in
 deviation storage: on the card through the kernels, on the CPU through
-their plain versions, so the flag is never ignored. The one exception is
-the JAX package's own rule: half-way and Bouzidi bounce-back run exact f32,
-and the engine logs why and reads ``store_dev`` False.
+their plain versions, so the flag is never ignored. The exceptions are the
+JAX package's own rules: half-way and Bouzidi bounce-back run exact f32,
+and so does every case while temporal blocking is requested; the engine
+logs why and reads ``store_dev`` False. Temporal blocking
+(``ops/cuda_step._FUSE_STEPS``, opt-in) runs K3 on the card and its plain
+version on the CPU; Bouzidi bounce-back turns it down, logged.
 """
 
 from __future__ import annotations
@@ -68,23 +71,45 @@ def resolve_store_dev(p: CaseParams, store_dev: bool) -> bool:
     return True
 
 
+def resolve_fuse(p: CaseParams) -> bool:
+    """True when temporal blocking (``cuda_step._FUSE_STEPS`` > 1, opt-in as
+    in the JAX package) is requested and case ``p`` takes it; a request that
+    ``cuda_step.fuse_refusal`` turns down is logged with the reason and the
+    case runs unfused."""
+    from ..ops.cuda_step import fuse_refusal, fuse_requested
+
+    if not fuse_requested():
+        return False
+    why = fuse_refusal(p)
+    if why is not None:
+        log.warning("temporal blocking (cuda_step._FUSE_STEPS) not engaged: %s", why)
+        return False
+    return True
+
+
 def resolve_runner(p: CaseParams, device: torch.device, store_dev: bool):
     """The chunk runner ``(state, p, n) -> (state, monitors)`` of a case:
     the CUDA kernels on a CUDA device (raising for a case they do not
     cover), the eager step on the CPU, and the kernels' split path in
     16-bit deviation storage wherever ``store_dev`` is set and
-    ``resolve_store_dev`` keeps it."""
+    ``resolve_store_dev`` keeps it. While temporal blocking is requested,
+    a CPU case runs the kernels' plain chunk runner, K3's plain version
+    included, so the request is never silently ignored."""
     store_dev = resolve_store_dev(p, store_dev)
-    if device.type != "cuda" and not store_dev:
+    fuse = resolve_fuse(p)
+    if device.type != "cuda" and not store_dev and not fuse:
         return run_chunk
-    from ..ops.cuda_step import run_chunk_cuda, unsupported
+    from ..ops.cuda_step import run_chunk_cuda, run_chunk_plain, unsupported
 
     reason = unsupported(p)
     if reason is not None:
-        what = "the CUDA kernels" if device.type == "cuda" else "16-bit deviation storage"
+        what = ("the CUDA kernels" if device.type == "cuda"
+                else "16-bit deviation storage" if store_dev else "temporal blocking")
         raise NotImplementedError(f"{what} do not cover {reason}")
     if store_dev:
         return lambda state, p, n: run_chunk_cuda(state, p, n, store_dev=True)
+    if device.type != "cuda":
+        return run_chunk_plain
     return run_chunk_cuda
 
 

@@ -8,8 +8,9 @@
 // (full != 0) closes a chunk and also writes rho, u (zero on solids) and
 // f_post on the interior.
 //
-// The obstacle scheme is a template parameter (LBM_OBST_*, the JAX
-// kernel's branches at :967-1024 and :1139/:1157):
+// The per-cell body is lbm_cell_update (lbm_cell.cuh), shared with K3
+// (k3_fused.cu). The obstacle scheme is a template parameter (LBM_OBST_*,
+// the JAX kernel's branches at :967-1024 and :1139/:1157):
 //   EQ       solid cells store f = w rho after the collision;
 //   BOUNCE   full-way bounce-back: a solid cell's collision output is
 //            replaced by its streamed populations reversed, f_k = fs[opp k],
@@ -38,7 +39,9 @@
 // the BCs' data-dependent branches.
 //
 // Bound on an H100: memory. A fast step moves 76 B/cell (f 36 in + 36 out,
-// aux 4) for ~200 flops, plus 32 B/cell of dense q planes under BOUZIDI,
+// aux 4) for 120 f32 operations (mrt_collide counted term by term, a sqrt
+// or a division one each; chip_smoke.K1_OPS_PER_CELL), plus 32 B/cell of
+// dense q planes under BOUZIDI,
 // and 40 B/cell in deviation storage (f 18 + 18, aux 4), far below the
 // card's ~20 flop/B balance point, so the design aims only at full-width
 // coalesced traffic: one thread per interior cell, neighbouring threads on
@@ -53,7 +56,7 @@
 // the boundary conditions read the neighbour strip before the obstacle
 // overwrite (solver.apply_bc), so K2 must not read K1's stored f there,
 // and recomputing the macros from f would flip the backflow guard.
-#include "lbm_common.cuh"
+#include "lbm_cell.cuh"
 
 template <typename S, int OBST>
 __global__ void __launch_bounds__(256)
@@ -70,40 +73,13 @@ k1_step_kernel(const typename S::T* __restrict__ f_in,
   const size_t plane = (size_t)H * W;
   const size_t c = (size_t)y * W + x;
 
-  // pull: f_k(y, x) <- f_k(y - ey_k, x - ex_k)
-  float fs[9];
-  fs[0] = S::load(f_in, c, 0);
-  fs[1] = S::load(f_in, 1 * plane + c - 1, 1);
-  fs[2] = S::load(f_in, 2 * plane + c - W, 2);
-  fs[3] = S::load(f_in, 3 * plane + c + 1, 3);
-  fs[4] = S::load(f_in, 4 * plane + c + W, 4);
-  fs[5] = S::load(f_in, 5 * plane + c - W - 1, 5);
-  fs[6] = S::load(f_in, 6 * plane + c - W + 1, 6);
-  fs[7] = S::load(f_in, 7 * plane + c + W + 1, 7);
-  fs[8] = S::load(f_in, 8 * plane + c + W - 1, 8);
-
-  if (OBST == LBM_OBST_HALFWAY || OBST == LBM_OBST_BOUZIDI) {
-#pragma unroll
-    for (int k = 1; k < 9; ++k) {
-      const long off = (long)LBM_EY[k] * W + LBM_EX[k];
-      if (__float_as_int(aux[c - off]) >= 0) continue;  // pull source fluid
-      const int ko = LBM_OPP[k];
-      const float f_o = S::load(f_in, ko * plane + c, ko);
-      if (OBST == LBM_OBST_HALFWAY) {
-        fs[k] = f_o;
-      } else {
-        const float qv = q[(ko - 1) * plane + c];
-        const float q2 = 2.0f * qv;
-        if (qv < 0.5f) {
-          const float f_o_up = S::load(f_in, ko * plane + c + off, ko);
-          fs[k] = q2 * f_o + (1.0f - q2) * f_o_up;
-        } else {
-          const float f_c = S::load(f_in, k * plane + c, k);
-          fs[k] = f_o / q2 + ((q2 - 1.0f) / q2) * f_c;
-        }
-      }
-    }
-  }
+  auto f_at = [&](int k, int dy, int dx) {
+    return S::load(f_in, k * plane + c + (long)dy * W + dx, k);
+  };
+  auto solid_at = [&](int dy, int dx) {
+    return __float_as_int(aux[c + (long)dy * W + dx]) < 0;
+  };
+  auto q_at = [&](int j) { return q[j * plane + c]; };
 
   // aux packs the sponge damping with the solid flag in the sign bit
   const float a = aux[c];
@@ -111,16 +87,10 @@ k1_step_kernel(const typename S::T* __restrict__ f_in,
   const float damp = fabsf(a);
 
   float fp[9], rho, ux, uy;
-  mrt_collide(fs, damp, s, use_les, fp, &rho, &ux, &uy);
-  if (OBST == LBM_OBST_BOUNCE && solid) {
-#pragma unroll
-    for (int k = 0; k < 9; ++k) fp[k] = fs[LBM_OPP[k]];
-  }
-
-  for (int k = 0; k < 9; ++k) {
-    const bool overwrite = OBST != LBM_OBST_BOUNCE && solid;
-    S::store(f_out, k * plane + c, k, overwrite ? lbm_w(k) * rho : fp[k]);
-  }
+  lbm_cell_update<OBST>(f_at, solid_at, q_at, damp, solid, s, use_les, fp, &rho, &ux,
+                        &uy);
+  for (int k = 0; k < 9; ++k)
+    S::store(f_out, k * plane + c, k, lbm_stored<OBST>(k, fp, rho, solid));
 
   if (x == 1 || x == W - 2) {
     float* col = edge + (size_t)(x == 1 ? 0 : LBM_EDGE_C) * H;

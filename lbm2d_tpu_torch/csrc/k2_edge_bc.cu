@@ -35,12 +35,7 @@
 // thread at x = 0 or x = W-1 recomputes the side BC of its inward
 // neighbour (row 1 or H-2) itself, which costs a handful of flops and
 // needs no second launch.
-#include "lbm_common.cuh"
-
-struct Cell {
-  float f[9];
-  float rho, ux, uy;
-};
+#include "lbm_cell.cuh"
 
 __device__ __forceinline__ Cell load_col(const float* edge, int side, int y,
                                          int H) {
@@ -63,119 +58,6 @@ __device__ __forceinline__ Cell load_row(const float* edge, int side, int x,
   n.ux = row[(size_t)10 * W + x];
   n.uy = row[(size_t)11 * W + x];
   return n;
-}
-
-// fb = rho_nb (g_b - g(u_nb)) + f_nb, the non-equilibrium extrapolation
-// shared by free-slip and the non-west velocity inlets.
-__device__ __forceinline__ void nebb(const Cell& n, const float gb[9],
-                                     Cell* b) {
-  float g[9];
-  feq_unit(n.ux, n.uy, g);
-  for (int k = 0; k < 9; ++k) b->f[k] = n.rho * (gb[k] - g[k]) + n.f[k];
-}
-
-// solver.bc_left_values for types 0 (pressure inlet), 2 (free-slip) and
-// 3/4 (profiled velocity inlets; ``u_prof`` is the row's profile value).
-__device__ __forceinline__ Cell bc_left(const Cell& n, const Scalars& s,
-                                        int t, float u_prof) {
-  Cell b;
-  if (t == LBM_BC_VEL_INLET || t == LBM_BC_VEL_INLET_NEBB) {
-    bc_vel_inlet(t, u_prof, s.ramp, n.f, n.rho, n.ux, n.uy, b.f, &b.rho,
-                 &b.ux, &b.uy);
-  } else if (t == 0) {
-    const float* fn = n.f;
-    const float rho_c = 1.0f + (s.rho_in - 1.0f) * s.ramp;
-    const float ux =
-        1.0f - (((fn[0] + fn[2]) + fn[4]) + 2.0f * ((fn[3] + fn[6]) + fn[7])) /
-                   rho_c;
-    float g[9];
-    feq_unit_x(ux, g);
-    for (int k = 0; k < 9; ++k) b.f[k] = rho_c * g[k];
-    b.f[1] = fn[3] + ((float)(2.0 / 3.0) * rho_c) * ux;
-    b.f[5] = (fn[7] - 0.5f * (fn[2] - fn[4])) + ((float)(1.0 / 6.0) * rho_c) * ux;
-    b.f[8] = (fn[6] + 0.5f * (fn[2] - fn[4])) + ((float)(1.0 / 6.0) * rho_c) * ux;
-    b.rho = rho_c;
-    b.ux = ux;
-    b.uy = 0.0f;
-  } else {  // free-slip: normal (x) velocity zeroed, tangential kept
-    float gb[9];
-    feq_unit_y(n.uy, gb);
-    nebb(n, gb, &b);
-    b.rho = n.rho;
-    b.ux = 0.0f;
-    b.uy = n.uy;
-  }
-  return b;
-}
-
-// solver.bc_right_values for types 0 (velocity inlet), 1 (pressure outlet)
-// and 2 (free-slip).
-__device__ __forceinline__ Cell bc_right(const Cell& n, const Scalars& s,
-                                         int t) {
-  Cell b;
-  if (t == 1) {
-    const float* fn = n.f;
-    const float rho_o = s.rho_out;
-    const float ux =
-        -1.0f + (((fn[0] + fn[2]) + fn[4]) + 2.0f * ((fn[1] + fn[5]) + fn[8])) /
-                    rho_o;
-    if (ux < 0.0f) {  // backflow guard: zero-gradient extrapolation
-      float g[9];
-      feq_unit(n.ux, n.uy, g);
-      for (int k = 0; k < 9; ++k) b.f[k] = (rho_o - n.rho) * g[k] + fn[k];
-      b.ux = n.ux;
-      b.uy = n.uy;
-    } else {
-      float g[9];
-      feq_unit_x(ux, g);
-      for (int k = 0; k < 9; ++k) b.f[k] = rho_o * g[k];
-      b.f[3] = fn[1] - ((float)(2.0 / 3.0) * rho_o) * ux;
-      b.f[6] = (fn[8] - 0.5f * (fn[2] - fn[4])) - ((float)(1.0 / 6.0) * rho_o) * ux;
-      b.f[7] = (fn[5] + 0.5f * (fn[2] - fn[4])) - ((float)(1.0 / 6.0) * rho_o) * ux;
-      b.ux = ux;
-      b.uy = 0.0f;
-    }
-    b.rho = rho_o;
-  } else if (t == 0) {
-    const float vx = s.bcv[4] * s.ramp;
-    const float vy = s.bcv[5] * s.ramp;
-    float gb[9];
-    feq_unit(vx, vy, gb);
-    nebb(n, gb, &b);
-    b.rho = n.rho;
-    b.ux = vx;
-    b.uy = vy;
-  } else {
-    float gb[9];
-    feq_unit_y(n.uy, gb);
-    nebb(n, gb, &b);
-    b.rho = n.rho;
-    b.ux = 0.0f;
-    b.uy = n.uy;
-  }
-  return b;
-}
-
-// solver.bc_horizontal_values for types 0 (velocity inlet) and 2
-// (free-slip); ``side`` is 1 (top) or 3 (bottom), the bc_value row.
-__device__ __forceinline__ Cell bc_horizontal(const Cell& n, const Scalars& s,
-                                              int t, int side) {
-  Cell b;
-  float gb[9];
-  if (t == 2) {  // tangential (x) kept, normal (y) zeroed
-    feq_unit_x(n.ux, gb);
-    b.ux = n.ux;
-    b.uy = 0.0f;
-  } else {
-    const float vx = s.bcv[2 * side] * s.ramp;
-    const float vy = s.bcv[2 * side + 1] * s.ramp;
-    feq_unit(vx, vy, gb);
-    b.ux = vx;
-    b.uy = vy;
-  }
-  nebb(n, gb, &b);
-  b.rho = n.rho;
-  return b;
 }
 
 template <typename S>

@@ -32,7 +32,8 @@ NVCC_FLAGS = [
 ]
 
 # library name -> source
-SOURCES = {"k1_step": "k1_step.cu", "k2_edge_bc": "k2_edge_bc.cu"}
+SOURCES = {"k1_step": "k1_step.cu", "k2_edge_bc": "k2_edge_bc.cu", "k3_fused": "k3_fused.cu",
+           "copy_probe": "copy_probe.cu"}
 
 # C entry name -> (library, C entry, argtypes); each entry launches the
 # variants ops/cuda_step.py counts under their own names
@@ -43,8 +44,10 @@ KERNELS = {
     "k1_step_dev": ("k1_step", "k1_step_dev_launch", [_P] * 5 + [_I] * 4 + [_P]),
     "k2_edge_bc": ("k2_edge_bc", "k2_edge_bc_launch", [_P] * 7 + [_I] * 8 + [_P]),
     "k2_edge_bc_dev": ("k2_edge_bc", "k2_edge_bc_dev_launch", [_P] * 5 + [_I] * 7 + [_P]),
+    "k3_fused": ("k3_fused", "k3_fused_launch", [_P] * 5 + [_I] * 11 + [_P]),
+    "copy_probe": ("copy_probe", "copy_probe_launch", [_P] * 3 + [_I] * 2 + [_P]),
 }
-_HEADERS = ("lbm_common.cuh",)
+_HEADERS = ("lbm_common.cuh", "lbm_cell.cuh")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}

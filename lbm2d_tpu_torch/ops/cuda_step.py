@@ -21,10 +21,17 @@ deviation per step), opt-in, only for chunks of more than one step, and,
 as in the JAX package, not for half-way or Bouzidi bounce-back
 (``dev_storage_refusal``).
 
+Temporal blocking is opt-in, as in the JAX package (``_FUSE_STEPS`` = S >
+1): a chunk's first n - 1 steps then run as passes of K3 ``k3_fused``
+(csrc/k3_fused.cu, replaces ``_fused_kernel``: S steps on 2-D tiles in
+shared memory, the BCs inside every window after each sub-step), the
+remainder as single K1 + K2 steps; Bouzidi bounce-back is never fused
+(``fuse_refusal``) and deviation storage is off while it is requested.
+
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes its
-plain PyTorch version (``k1_step_plain`` / ``k2_edge_bc_plain`` and the
-``_dev`` pair) only for CPU tensors. ``LAUNCHES`` counts kernel launches by
-variant (``k1_variant`` / ``k2_variant`` names), so a run can show that
+plain PyTorch version (``k1_step_plain`` / ``k2_edge_bc_plain``, the
+``_dev`` pair and ``k3_fused_plain``) only for CPU tensors. ``LAUNCHES`` counts kernel launches by
+variant (``k1_variant`` / ``k2_variant`` / ``k3_variant`` names), so a run can show that
 it went through the kernels. The monitors
 are plain torch reductions, as the JAX package computes them outside its
 kernels.
@@ -37,6 +44,8 @@ from typing import Optional
 
 import torch
 
+from ..core.lattice import E as E_LAT
+from ..core.lattice import OPP as OPP_LAT
 from ..core.lattice import W as W_LAT
 from ..core.solver import (
     BC_FREE_SLIP,
@@ -104,10 +113,21 @@ def k2_variant(left_type: int, dev: bool = False) -> str:
     return "k2_edge_bc" + ("_vel" if vel else "") + ("_dev" if dev else "")
 
 
+def k3_variant(obstacle: int, left_type: int) -> str:
+    """Launch-count name of a K3 variant: k3_fused[_bounce|_halfway][_vel],
+    ``_vel`` for the profiled velocity inlets (left types 3/4)."""
+    vel = left_type in (BC_VEL_INLET, BC_VEL_INLET_NEBB)
+    return "k3_fused" + _OBSTACLE_SUFFIX[obstacle] + ("_vel" if vel else "")
+
+
+# the schemes temporal blocking runs (the JAX package's rule: no Bouzidi)
+FUSE_OBSTACLES = (OBSTACLE_EQ, OBSTACLE_BOUNCE, OBSTACLE_HALFWAY)
+
 KERNEL_VARIANTS = (
     [k1_variant(o, full) for o in range(4) for full in (False, True)]
     + [k1_variant(o, dev=True) for o in DEV_OBSTACLES]
     + [k2_variant(t, dev) for t in (BC_INLET, BC_VEL_INLET) for dev in (False, True)]
+    + [k3_variant(o, t) for o in FUSE_OBSTACLES for t in (BC_INLET, BC_VEL_INLET)]
 )
 
 # launches of each kernel variant, added to where the launch is made
@@ -163,12 +183,65 @@ def supports(p: CaseParams) -> bool:
 
 def dev_storage_refusal(p: CaseParams) -> Optional[str]:
     """Why 16-bit deviation storage does not engage for case ``p``, or None.
-    The JAX package's ``run_chunk_pallas`` rule: half-way and Bouzidi
+    The JAX package's ``run_chunk_pallas`` rules: half-way and Bouzidi
     bounce-back read the cell's own previous populations on their links
-    and run exact f32."""
+    and run exact f32, and while temporal blocking is requested the state
+    stays f32."""
     if obstacle_scheme(p) not in DEV_OBSTACLES:
         return "half-way and Bouzidi bounce-back run exact f32 (the JAX run_chunk_pallas rule)"
+    if fuse_requested():
+        return (f"temporal blocking is requested (cuda_step._FUSE_STEPS = {_FUSE_STEPS}): "
+                "the state stays f32 (the JAX run_chunk_pallas rule)")
     return None
+
+
+# Temporal blocking (K3), opt-in as in the JAX package: _FUSE_STEPS = S > 1
+# runs a chunk's steps S at a time through K3 (S capped at FUSE_MAX_STEPS);
+# None or 1 leaves it off. The chunk runner takes K3's centre tile from
+# k3_tile (tests patch it for tiny tiles, as the JAX tests set _FUSE_BH).
+_FUSE_STEPS = None
+FUSE_MAX_STEPS = 8
+# shared memory one block can opt into on an H100 (232,448 bytes)
+K3_SMEM_LIMIT = 227 * 1024
+K3_TILE_W = 64
+
+
+def fuse_requested() -> bool:
+    return bool(_FUSE_STEPS) and int(_FUSE_STEPS) > 1
+
+
+def fuse_refusal(p: CaseParams) -> Optional[str]:
+    """Why temporal blocking does not engage for case ``p`` while it is
+    requested, or None: the JAX package's rule, Bouzidi bounce-back is
+    never fused."""
+    if p.bouzidi_obstacle:
+        return "Bouzidi bounce-back is never fused (the JAX run_chunk_pallas rule)"
+    return None
+
+
+def fuse_steps(p: CaseParams, n_steps: int) -> int:
+    """K3's sub-steps per pass for a chunk of ``n_steps`` of case ``p``, or
+    0 when the chunk runs unfused."""
+    if not fuse_requested() or n_steps <= 1 or fuse_refusal(p) is not None:
+        return 0
+    return min(int(_FUSE_STEPS), FUSE_MAX_STEPS)
+
+
+def k3_smem_bytes(S: int, th: int, tw: int) -> int:
+    """Shared memory of one K3 block (csrc/k3_fused.cu k3_smem_floats): two
+    f windows, aux, and the four 12-value edge strips."""
+    wh, ww = th + 2 * S, tw + 2 * S
+    return 4 * (19 * wh * ww + 2 * EDGE_C * (wh + ww))
+
+
+def k3_tile(S: int):
+    """K3's (TH, TW) centre tile for S sub-steps: 64 columns and the most
+    rows whose window fits a block's shared memory (32 x 64 at S = 4,
+    20 x 64 at S = 8)."""
+    th = 2
+    while k3_smem_bytes(S, th + 1, K3_TILE_W) <= K3_SMEM_LIMIT:
+        th += 1
+    return th, K3_TILE_W
 
 
 def _host_scalars(p: CaseParams):
@@ -491,6 +564,136 @@ def k2_edge_bc_dev(f, aux, edge, scal, bc_type, prof=None, bounce=False):
 
 
 # ---------------------------------------------------------------------------
+# K3: temporal blocking
+# ---------------------------------------------------------------------------
+
+
+def _k3_windows(H: int, W: int, S: int, th: int, tw: int, device):
+    """K3's tiles as window coordinates: (gy [T, WH, WW], gx [T, WH, WW], the
+    flat (tile, window row, window column) index of each grid cell's
+    unshifted centre copy [H, W]). The last tile of each axis is shifted
+    back to end on the grid's edge, as in the kernel."""
+    nty, ntx = -(-H // th), -(-W // tw)
+    wh, ww = th + 2 * S, tw + 2 * S
+    ar = lambda n: torch.arange(n, device=device)  # noqa: E731
+    y0 = torch.clamp(ar(nty) * th, max=max(H - th, 0)) - S
+    x0 = torch.clamp(ar(ntx) * tw, max=max(W - tw, 0)) - S
+    gy = (y0[:, None] + ar(wh))[:, None, :, None].expand(nty, ntx, wh, ww).reshape(-1, wh, ww)
+    gx = (x0[:, None] + ar(ww))[None, :, None, :].expand(nty, ntx, wh, ww).reshape(-1, wh, ww)
+    ty, tx = ar(H) // th, ar(W) // tw
+    wy, wx = ar(H) - y0[ty], ar(W) - x0[tx]
+    flat = ((ty[:, None] * ntx + tx[None, :]) * wh + wy[:, None]) * ww + wx[None, :]
+    return gy, gx, flat
+
+
+def _roll(a: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    """a[..., i - dy, j - dx] over the window's last two axes."""
+    return torch.roll(a, (dy, dx), dims=(-2, -1))
+
+
+def k3_fused_plain(f_in, f_out, aux, scal_rows, bc_type, use_les, obstacle=OBSTACLE_EQ,
+                   prof=None, tile=None):
+    """Plain PyTorch version of K3, the windowed algorithm itself: every
+    tile's window (its centre plus S halo cells a side, clipped to the grid)
+    advances S sub-steps on its own, region R_s shrinking by one cell a side
+    per sub-step, with the boundary ring applied inside each window in
+    apply_bc order; then each cell's unshifted centre copy is stored. The
+    windows run batched, [9, T, WH, WW]; cells outside R_s or the grid keep
+    whatever they held and are never read into a stored value."""
+    _check_obstacle(obstacle, None, f_in.shape[1:], f_in.device, FUSE_OBSTACLES)
+    S = scal_rows.shape[0]
+    th, tw = tile or k3_tile(S)
+    H, W = f_in.shape[1:]
+    dev = f_in.device
+    gy, gx, flat = _k3_windows(H, W, S, th, tw, dev)
+    wh, ww = gy.shape[1:]
+    gyc, gxc = gy.clamp(0, H - 1), gx.clamp(0, W - 1)
+    cur = f_in[:, gyc, gxc]
+    solid, damp = unpack_aux(aux[gyc, gxc])
+    ingrid = (gy >= 0) & (gy < H) & (gx >= 0) & (gx < W)
+    inner_row = (gy >= 1) & (gy <= H - 2)
+    side_l, side_r = inner_row & (gx == 0), inner_row & (gx == W - 1)
+    row_b, row_t = gy == 0, gy == H - 1
+    wi = torch.arange(wh, device=dev)[:, None]
+    wj = torch.arange(ww, device=dev)[None, :]
+    u_prof = None if prof is None else prof[gyc]
+    w9 = torch.as_tensor(W_LAT, dtype=f_in.dtype, device=dev).reshape(9, 1, 1, 1)
+    lt, tt, rt, bt = bc_type
+    for step in range(S):
+        sc = scal_rows[step]
+        s = sc.to(device=dev, dtype=f_in.dtype)
+        ramp = float(sc[_S_RAMP])
+        bcv = s[6:].view(4, 2)
+        region = ((wi >= step + 1) & (wi < wh - step - 1) & (wj >= step + 1)
+                  & (wj < ww - step - 1) & ingrid)
+        fs = torch.stack([_roll(cur[k], int(E_LAT[k, 1]), int(E_LAT[k, 0])) for k in range(9)])
+        if obstacle == OBSTACLE_HALFWAY:
+            fs = torch.stack([fs[0]] + [
+                torch.where(_roll(solid, int(E_LAT[k, 1]), int(E_LAT[k, 0])),
+                            cur[int(OPP_LAT[k])], fs[k])
+                for k in range(1, 9)])
+        fp, r, ux, uy = mrt_collide_arrays(fs, damp, s[0], s[1], s[2], use_les)
+        if obstacle == OBSTACLE_BOUNCE:
+            fp = full_way_bounce(fs, fp, solid)
+        vals = [fp, r, ux, uy]
+        # the side columns from the collide output of columns 1 / W-2
+        vl = bc_left_values(*[_roll(v, 0, -1) for v in vals], ramp, lt, s[4], u_prof=u_prof)
+        vr = bc_right_values(*[_roll(v, 0, 1) for v in vals], ramp, rt, s[5], bcv[2])
+        for m, bv in ((side_l, vl), (side_r, vr)):
+            vals = [torch.where(m, b, v) for b, v in zip(bv, vals)]
+        # then the bottom/top rows, corners from the side BCs just merged
+        vt = bc_horizontal_values(*[_roll(v, 1, 0) for v in vals], ramp, tt, bcv[1])
+        vb = bc_horizontal_values(*[_roll(v, -1, 0) for v in vals], ramp, bt, bcv[3])
+        for m, bv in ((row_t, vt), (row_b, vb)):
+            vals = [torch.where(m, b, v) for b, v in zip(bv, vals)]
+        f_new, rho = vals[0], vals[1]
+        if obstacle != OBSTACLE_BOUNCE:
+            f_new = torch.where(solid, w9 * rho, f_new)
+        cur = torch.where(region, f_new, cur)
+    f_out.copy_(cur.reshape(9, -1)[:, flat])
+
+
+def k3_fused(f_in, f_out, aux, scal_rows, bc_type, use_les, obstacle=OBSTACLE_EQ, prof=None,
+             tile=None):
+    """K3 on ``f_in`` -> ``f_out`` (distinct [9, H, W] f32 buffers): S =
+    len(scal_rows) lattice steps in one pass, ``scal_rows`` [S, 14] the CPU
+    scalar rows of those steps. ``obstacle`` is an ``OBSTACLE_*`` scheme
+    other than Bouzidi, ``prof`` [H] the inlet profile of left types 3/4,
+    ``tile`` the (TH, TW) centre (``k3_tile(S)`` by default)."""
+    S = int(scal_rows.shape[0])
+    tile = tuple(tile or k3_tile(S))
+    if not f_in.is_cuda:
+        return k3_fused_plain(f_in, f_out, aux, scal_rows, bc_type, use_les, obstacle, prof,
+                              tile)
+    _, H, W = f_in.shape
+    dev = f_in.device
+    _check("f_in", f_in, (9, H, W), dev)
+    _check("f_out", f_out, (9, H, W), dev)
+    _check("aux", aux, (H, W), dev)
+    _check_obstacle(obstacle, None, (H, W), dev, FUSE_OBSTACLES)
+    if not 1 <= S <= FUSE_MAX_STEPS or tuple(scal_rows.shape) != (S, len(SCALAR_FIELDS)):
+        raise ValueError(f"k3_fused: scalar rows {tuple(scal_rows.shape)}, need "
+                         f"[S <= {FUSE_MAX_STEPS}, 14]")
+    th, tw = tile
+    if min(th, tw) < 2 or k3_smem_bytes(S, th, tw) > K3_SMEM_LIMIT:
+        raise ValueError(f"k3_fused: tile {tile} at S = {S} needs "
+                         f"{k3_smem_bytes(S, th, tw)} B of shared memory (limit {K3_SMEM_LIMIT})")
+    if f_in.data_ptr() == f_out.data_ptr():
+        raise ValueError("k3_fused: needs distinct in/out buffers")
+    prof_ptr = _k2_prof(bc_type, prof, H, dev)
+    rows = scal_rows.to(torch.float32).reshape(-1).tolist()
+    sc = (ctypes.c_float * len(rows))(*rows)
+    lt, tt, rt, bt = (int(t) for t in bc_type)
+    rc = cuda_build.load("k3_fused")(
+        _ptr(f_in), _ptr(f_out), _ptr(aux), prof_ptr, ctypes.addressof(sc), S, H, W, th, tw,
+        lt, tt, rt, bt, int(bool(use_les)), obstacle, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"k3_fused launch failed: CUDA error {rc}")
+    LAUNCHES[k3_variant(obstacle, lt)] += 1
+
+
+# ---------------------------------------------------------------------------
 # Chunk runner
 # ---------------------------------------------------------------------------
 
@@ -504,6 +707,10 @@ def run_chunk_cuda(state: LBMState, p: CaseParams, n_steps: int, store_dev: bool
     state is not modified. ``store_dev`` runs steps 1..n-1 in 16-bit
     deviation storage when n > 1 and the obstacle scheme allows it (the JAX
     package's run_chunk_pallas engages it under the same conditions).
+    While temporal blocking is requested (``_FUSE_STEPS`` = S > 1) and the
+    case allows it, steps 1..n-1 run as ``divmod(n - 1, S)`` = (k, r): k
+    passes of K3, then r single K1 + K2 steps, as the JAX package's
+    run_chunk_pallas does.
     """
     return _run_chunk(state, p, n_steps, store_dev, plain=False)
 
@@ -522,9 +729,11 @@ def _run_chunk(state: LBMState, p: CaseParams, n_steps: int, store_dev: bool, pl
         raise ValueError(f"n_steps must be >= 1, got {n_steps}")
     if plain:
         k1, k2, k1d, k2d = k1_step_plain, k2_edge_bc_plain, k1_step_dev_plain, k2_edge_bc_dev_plain
+        k3 = k3_fused_plain
     else:
-        k1, k2, k1d, k2d = k1_step, k2_edge_bc, k1_step_dev, k2_edge_bc_dev
+        k1, k2, k1d, k2d, k3 = k1_step, k2_edge_bc, k1_step_dev, k2_edge_bc_dev, k3_fused
     dev_store = bool(store_dev) and n_steps > 1 and dev_storage_refusal(p) is None
+    fuse = fuse_steps(p, n_steps)
     obst = obstacle_scheme(p)
     q = p.bouzidi_q if obst == OBSTACLE_BOUZIDI else None
     prof = p.inlet_profile if p.bc_type[0] in (BC_VEL_INLET, BC_VEL_INLET_NEBB) else None
@@ -537,9 +746,25 @@ def _run_chunk(state: LBMState, p: CaseParams, n_steps: int, store_dev: bool, pl
     # quantize once per chunk; the fast steps ping-pong two buffers
     src = quantize(state.f) if dev_store else state.f
     bufs = (torch.empty_like(src), torch.empty_like(src))
-    for i in range(n_steps - 1):
-        scal = _with_ramp(row, warmup, state.step + i + 1)
-        dst = bufs[i % 2]
+
+    def other(t):
+        return bufs[1] if t is bufs[0] else bufs[0]
+
+    step = state.step
+    n_split = n_steps - 1
+    if fuse:
+        passes, n_split = divmod(n_steps - 1, fuse)
+        tile = k3_tile(fuse)
+        for _ in range(passes):
+            rows = torch.stack([_with_ramp(row, warmup, step + 1 + i) for i in range(fuse)])
+            dst = other(src)
+            k3(src, dst, aux, rows, p.bc_type, p.use_les, obst, prof, tile)
+            src = dst
+            step += fuse
+    for _ in range(n_split):
+        step += 1
+        scal = _with_ramp(row, warmup, step)
+        dst = other(src)
         if dev_store:
             k1d(src, dst, aux, edge, scal, p.use_les, obst)
             k2d(dst, aux, edge, scal, p.bc_type, prof, bounce)
@@ -552,8 +777,8 @@ def _run_chunk(state: LBMState, p: CaseParams, n_steps: int, store_dev: bool, pl
         src = dequantize(src)
         dst = torch.empty_like(src)
     else:
-        dst = bufs[(n_steps - 1) % 2]
-    scal = _with_ramp(row, warmup, state.step + n_steps)
+        dst = other(src)
+    scal = _with_ramp(row, warmup, step + 1)
     rho = torch.empty((H, W), dtype=state.f.dtype, device=dev)
     u = torch.empty((2, H, W), dtype=state.f.dtype, device=dev)
     f_post = state.f_post.clone()

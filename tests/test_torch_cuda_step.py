@@ -223,3 +223,50 @@ def test_bounce_and_inlet_variants_match_plain_on_card(obstacle, bc_type):
         assert_same(a, b)
         assert cs.LAUNCHES[cs.k1_variant(scheme, dev=True)] == 8
         assert cs.LAUNCHES[cs.k2_variant(bc_type[0], dev=True)] == 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("obstacle", ["equilibrium", "bounce_back", "bounce_back_halfway"])
+@pytest.mark.parametrize("bc_type", [(0, 2, 1, 2), (3, 0, 1, 0)], ids=["0212", "3010"])
+@pytest.mark.parametrize("S, tile", [(3, (8, 16)), (4, None), (8, None)],
+                         ids=["S3-small-tiles", "S4-default", "S8-default"])
+def test_k3_matches_plain_on_card(obstacle, bc_type, S, tile, monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU build)")
+    dev = torch.device("cuda")
+    p = ts.make_params(make_config(bc_type, obstacle), make_mask(), device=dev)
+    s0 = seeded_state(device=dev)
+    unfused, _ = cs.run_chunk_plain(s0, p, 9)
+    monkeypatch.setattr(cs, "_FUSE_STEPS", S)
+    if tile is not None:
+        monkeypatch.setattr(cs, "k3_tile", lambda S_: tile)
+    cs.reset_launch_counts()
+    a, _ = cs.run_chunk_cuda(s0, p, 9)
+    scheme = cs.obstacle_scheme(p)
+    passes, split = divmod(8, S)
+    want = {cs.k3_variant(scheme, bc_type[0]): passes, cs.k1_variant(scheme): split,
+            cs.k1_variant(scheme, full=True): 1, cs.k2_variant(bc_type[0]): split + 1}
+    assert {k: v for k, v in cs.LAUNCHES.items() if v} == {k: v for k, v in want.items() if v}
+    b, _ = cs.run_chunk_plain(s0, p, 9)
+    assert_same(a, b)
+    assert_same(a, unfused)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 128), (7, 9)], ids=["vector", "scalar-tail"])
+def test_copy_probe_matches_plain_on_card(shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU build)")
+    from lbm2d_tpu_torch.ops import copy_probe as cp
+
+    rng = np.random.default_rng(0)
+    f = torch.tensor(rng.standard_normal((9,) + shape), dtype=torch.float32, device="cuda")
+    aux = torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device="cuda")
+    cp.reset_launch_counts()
+    for a in (None, aux):
+        out = torch.full_like(f, float("nan"))
+        ref = torch.full_like(f, float("nan"))
+        cp.copy_probe(f, out, a)
+        cp.copy_probe_plain(f, ref, a)
+        assert torch.equal(out, ref)
+    assert cp.LAUNCHES == {"copy_probe": 1, "copy_probe_aux": 1}
