@@ -36,7 +36,9 @@ Phases (any failure raises and the process exits non-zero):
    smoke case (the same mask; nu 0.02, 0.03, 0.05; video on), and check
    every case Success, finite HDF5 frames with mean jx > 0, one mp4 per
    case, the launch counts of its kernels (k1_step_dev and k2_edge_bc_dev
-   3 x 2970, k1_step_full and k2_edge_bc 3 x 30) and no plain call. Where
+   3 x 2970, k1_step_full and k2_edge_bc 3 x 30) and no plain call, and
+   print the fetch pacer's record (stall fraction, final group size, its
+   chunk-wall estimate and the chunks that calibrated it). Where
    the machine has no h5py, the HDF5 writer runs on an in-memory stand-in
    of ``h5py.File`` and the frames are read back from it;
 5. drive the DFG-2D validation path, ``analysis.dfg_validation.
@@ -63,11 +65,30 @@ Phases (any failure raises and the process exits non-zero):
    smoke case for one chunk, so that every K3 variant is launched;
    phase 2 also holds each K3 variant (``k3_fused[_bounce|_halfway][_vel]``
    at S = 4) against its plain version, one K3 pass against four K1 + K2
-   steps through the kernels, and times K3 at S = 8;
+   steps through the kernels, and times K3 at S = 8, and each sharded
+   form of K1 and K2 (``k1_step[_bounce|_halfway|_bouzidi]_shard[_full|
+   _dev]``, ``k2_edge_bc[_vel]_shard[_dev]``) on the four blocks of a 2x2
+   mesh of the card (local 1216x576, halos cut from the developed state),
+   bitwise against its plain version, timed on block (0, 0);
 7. run the roofline tool's measurement (``tools/roofline.measure``) at
    4096^2 with two chunks of 50 steps, and hold the copy probe, with and
    without the aux read, against its plain version at that size, timed
-   beside ``torch.Tensor.copy_``.
+   beside ``torch.Tensor.copy_``;
+8. drive the sharded path (``parallel/sharded.py``): (a) on a 2x2 mesh of
+   the card, ``run_chunk_sharded_cuda`` from phase 3's final state for 200
+   steps, f32 and ``store_dev``, bitwise against ``run_chunk_cuda``; (b) on
+   a (5, 1) mesh at the DFG grid, whose seams cut the cylinder, the
+   Bouzidi, half-way and full-way pairs with the NEBB inlet (full-way in
+   ``store_dev`` too) from phase 5's flow, 200 steps, bitwise against the
+   single-device kernels; (c) the production entry ``run_batch(...,
+   spatial_mesh="1x1")`` on the smoke case: Success, final f bitwise equal
+   to phase 3's, only ``_shard`` launches and no plain call; (d) on a 2x2
+   mesh at 4096^2 (the demo case), a 6-step chunk from a seeded random
+   state bitwise against ``run_chunk_sharded_plain`` (the kernels at this
+   block size), then us/step, the device time of one step
+   (a CUDA graph of K1 + K2 on every block and the halo copies), the halo
+   exchange's share and the scatter and gather cost of a chunk. Every
+   ``_shard`` variant is launched in phase 8.
 
 The last two lines are the kernels' JSON record (``launches``: the sum over
 the driven paths, split in ``launches_by_path``) and ``{"ok": true,
@@ -123,6 +144,9 @@ PEAK_SMEM = 33e12
 FUSE_S, FUSE_S_MAX = 4, 8
 # phase 7: the roofline tool at 4096^2 with a few short chunks
 ROOF_N, ROOF_CHUNKS, ROOF_SPC = 4096, 2, 50
+# phase 8(d): the chunk that holds the sharded kernels against their plain
+# versions on the 2x2 mesh at 4096^2 (K1 fast and full, K2)
+CHECK_4K_STEPS = 6
 
 
 def card_line() -> str:
@@ -248,6 +272,8 @@ def main() -> int:
     from lbm2d_tpu_torch.core.lattice import E as E_LAT
     from lbm2d_tpu_torch.core.lattice import f_eq
     from lbm2d_tpu_torch.ops import cuda_build, cuda_step as cs
+    from lbm2d_tpu_torch.parallel import sharded as sh
+    from lbm2d_tpu_torch.parallel.topology import make_mesh
     from lbm2d_tpu_torch.pipeline.sim_loop import run_simulation_loop
     from lbm2d_tpu_torch.tools import smoke_case
 
@@ -495,6 +521,158 @@ def main() -> int:
                      k3_work(cs, H, W, FUSE_S_MAX, tile8)))
     k3_s8.update(tile=tile8, ms=graph_ms(lambda: run_k3(cs.k3_fused, b8, cs.OBSTACLE_EQ, p,
                                                         rows8, tile8)))
+    # the sharded forms, on the four blocks of a 2x2 mesh of this card with
+    # real halos cut from the developed state (NaN beyond the global edge,
+    # so a read of one would show): each variant on every block against
+    # its plain version, bitwise; timed on block (0, 0), which holds the
+    # global left column and bottom row
+    mesh22 = make_mesh((2, 2), [dev] * 4)
+    hl2, wl2 = H // 2, W // 2
+    blocks2 = [(iy, ix) for iy in range(2) for ix in range(2)]
+    geoms2 = {b: cs.BlockGeom.shard(hl2, wl2, b[0] * hl2, b[1] * wl2, H, W) for b in blocks2}
+    pitch2 = geoms2[0, 0].pitch
+    T2 = (0, 0)
+
+    def cut(x, fill=sh.NAN):
+        bl = sh.halo_blocks(x, mesh22, fill, pitch2)
+        return {b: bl[b[0]][b[1]] for b in blocks2}
+
+    # f_post is an output buffer (compared whole): a finite halo
+    fS, auxS, qS, fpS = cut(state.f), cut(aux), cut(qplanes), cut(state.f_post, 0.0)
+    fqS = {b: cs.quantize(v) for b, v in fS.items()}
+    print(f"  sharded forms: 2x2 mesh of {dev}, blocks {hl2}x{wl2} in [{hl2 + 2}, {pitch2}] "
+          f"planes; each variant on all four blocks, bitwise", flush=True)
+
+    def interior_box(g):
+        i0, i1, j0, j1 = g.interior()
+        return (slice(g.y_off + i0, g.y_off + i1 + 1), slice(g.x_off + j0, g.x_off + j1 + 1))
+
+    def ring_cells(g):
+        inner = min(g.hl - 1, g.Hg - 2 - g.y_off) - max(0, 1 - g.y_off) + 1
+        return (inner * ((g.x_off == 0) + (g.x_off + g.wl == g.Wg))
+                + g.wl * ((g.y_off == 0) + (g.y_off + g.hl == g.Hg)))
+
+    def exact(tag, a, b):
+        """Max relative error of a sharded variant's output, which must be
+        0 (bitwise: the same per-cell code in the same order)."""
+        err = rel_err(a, b)
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag}: not bitwise equal to its plain version "
+                                 f"(max rel err {err:.3e})")
+        return err
+
+    def ks_buffers(b, full, dtype=torch.float32):
+        g = geoms2[b]
+        out = {"f_out": torch.zeros((9,) + g.plane, dtype=dtype, device=dev),
+               "edge": cs.new_edge_buffer(g.hl, g.wl, device=dev)}
+        if full:
+            out.update(rho=torch.zeros(g.plane, device=dev),
+                       u=torch.zeros((2,) + g.plane, device=dev), f_post=fpS[b].clone())
+        return out
+
+    def run_ks(fn, b, bufs, obst):
+        fn(fS[b], bufs["f_out"], auxS[b], bufs["edge"], scal, p.use_les, bufs.get("rho"),
+           bufs.get("u"), bufs.get("f_post"), obstacle=obst,
+           q=qS[b] if obst == cs.OBSTACLE_BOUZIDI else None, geom=geoms2[b])
+
+    def run_kds(fn, b, bufs, obst):
+        fn(fqS[b], bufs["f_out"], auxS[b], bufs["edge"], scal, p.use_les, obst, geom=geoms2[b])
+
+    def shard_checked(name, new_buffers, run, kern, plain, fields=None, keep=None):
+        """Every block through the kernel and its plain version; returns
+        (max abs err, {tag: rel err}); ``keep`` collects the plain outputs."""
+        errs, abs_errs = {}, []
+        for b in blocks2:
+            bk, bp = new_buffers(b), new_buffers(b)
+            run(kern, b, bk)
+            run(plain, b, bp)
+            torch.cuda.synchronize()
+            abs_errs.append(abs_err(bk, bp, fields or bk))
+            for k in fields or bk:
+                errs[f"{name} block {b} {k}"] = exact(f"{name} block {b} {k}", bk[k], bp[k])
+            if keep is not None:
+                keep[b] = bp
+        print(f"  {name:<34s} {len(errs)} outputs on 4 blocks bitwise (max rel err "
+              f"{max(errs.values()):.1e})", flush=True)
+        return max(abs_errs), errs
+
+    g2 = geoms2[T2]
+    cells2 = (g2.hl + 2) * (g2.wl + 2)  # the block read with its halo
+    n_in2 = (g2.interior()[1] - g2.interior()[0] + 1) * (g2.interior()[3] - g2.interior()[2] + 1)
+    links2 = int(links[(slice(None),) + interior_box(g2)].sum())
+    k1S_out, kdS_out = {}, {}
+    for obst in range(4):
+        for full in (False, True):
+            name = cs.k1_variant(obst, full, shard=True)
+            keep = k1S_out if (obst == cs.OBSTACLE_EQ and full) else None
+            max_abs, errs = shard_checked(
+                name, lambda b: ks_buffers(b, full), lambda fn, b, bufs: run_ks(fn, b, bufs, obst),
+                cs.k1_step, cs.k1_step_plain, keep=keep)
+            # as K1 above, on block (0, 0) read with its halo ring
+            nbytes = 36 * cells2 + 4 * cells2 + 36 * n_in2 + 4 * g2.edge_len
+            ops = K1_OPS_PER_CELL * n_in2
+            if full:
+                nbytes += 12 * g2.hl * g2.wl + 36 * n_in2
+            if obst == cs.OBSTACLE_BOUZIDI:
+                nbytes += 4 * links2
+                ops += K1_OPS_PER_LINK * links2
+            bk, bp = ks_buffers(T2, full), ks_buffers(T2, full)
+            records[name] = record(max_abs, errs, lambda: run_ks(cs.k1_step, T2, bk, obst),
+                                   lambda: run_ks(cs.k1_step_plain, T2, bp, obst), nbytes, ops)
+    for obst in cs.DEV_OBSTACLES:
+        name = cs.k1_variant(obst, dev=True, shard=True)
+        keep = kdS_out if obst == cs.OBSTACLE_EQ else None
+        max_abs, errs = shard_checked(
+            name, lambda b: ks_buffers(b, False, cs.DEV_DTYPE),
+            lambda fn, b, bufs: run_kds(fn, b, bufs, obst), cs.k1_step_dev,
+            cs.k1_step_dev_plain, keep=keep)
+        bk, bp = ks_buffers(T2, False, cs.DEV_DTYPE), ks_buffers(T2, False, cs.DEV_DTYPE)
+        records[name] = record(
+            max_abs, errs, lambda: run_kds(cs.k1_step_dev, T2, bk, obst),
+            lambda: run_kds(cs.k1_step_dev_plain, T2, bp, obst),
+            18 * cells2 + 4 * cells2 + 18 * n_in2 + 4 * g2.edge_len,
+            (K1_OPS_PER_CELL + 18) * n_in2)
+
+    def prof_rows(pk, b):
+        prof = pk.inlet_profile
+        return None if prof is None else prof[b[0] * hl2:(b[0] + 1) * hl2].contiguous()
+
+    def run_k2s(fn, b, bufs, pk, bounce):
+        fn(bufs["f_out"], auxS[b], bufs["edge"], scal, pk.bc_type, bufs["rho"], bufs["u"],
+           prof=prof_rows(pk, b), bounce=bounce, geom=geoms2[b])
+
+    def run_k2sd(fn, b, bufs, pk, bounce):
+        fn(bufs["f_out"], auxS[b], bufs["edge"], scal, pk.bc_type, prof=prof_rows(pk, b),
+           bounce=bounce, geom=geoms2[b])
+
+    k2s_storages = {
+        False: (k1S_out, run_k2s, cs.k2_edge_bc, cs.k2_edge_bc_plain,
+                ("f_out", "rho", "u"), 36 + 12, K2_OPS_PER_CELL),
+        True: (kdS_out, run_k2sd, cs.k2_edge_bc_dev, cs.k2_edge_bc_dev_plain,
+               ("f_out",), 18, K2_OPS_PER_CELL + 9),
+    }
+    ring2 = ring_cells(g2)
+    for dev_store, (srcs, run, kern, plain, fields, ring_bytes, ring_ops) in k2s_storages.items():
+        for plist in k2_params.values():
+            name = cs.k2_variant(plist[0].bc_type[0], dev=dev_store, shard=True)
+            max_abs, errs = 0.0, {}
+            for pk in plist:
+                for bounce in (False, True):
+                    m, e = shard_checked(
+                        f"{name} left {pk.bc_type[0]} bounce {int(bounce)}",
+                        lambda b: {k: v.clone() for k, v in srcs[b].items()},
+                        lambda fn, b, bufs: run(fn, b, bufs, pk, bounce), kern, plain, fields)
+                    max_abs, errs = max(max_abs, m), {**errs, **e}
+            pk = plist[0]
+            nbytes = 4 * g2.edge_len + 4 * ring2 + ring_bytes * ring2
+            if pk.inlet_profile is not None:
+                nbytes += 4 * hl2
+            bk = {k: v.clone() for k, v in srcs[T2].items()}
+            bp = {k: v.clone() for k, v in srcs[T2].items()}
+            records[name] = record(max_abs, errs, lambda: run(kern, T2, bk, pk, False),
+                                   lambda: run(plain, T2, bp, pk, False), nbytes,
+                                   ring_ops * ring2)
+
     missing = set(cs.KERNEL_VARIANTS) - set(records)
     if missing:
         raise AssertionError(f"phase 2 did not check {sorted(missing)}")
@@ -561,7 +739,7 @@ def main() -> int:
 
     for mod, attr in ((solver, "step"), (cs, "k1_step_plain"), (cs, "k2_edge_bc_plain"),
                       (cs, "k1_step_dev_plain"), (cs, "k2_edge_bc_dev_plain"),
-                      (cs, "k3_fused_plain")):
+                      (cs, "k3_fused_plain"), (sh, "local_step")):
         counting(mod, attr)
     serial_kernels = ("k1_step", "k1_step_full", "k2_edge_bc")
 
@@ -620,7 +798,9 @@ def main() -> int:
     b.record()
     b.synchronize()
     step_ms = a.elapsed_time(b) / (5 * chunk)
+    us_step3 = step_ms * 1e3
     mlups3 = H * W / step_ms / 1e3
+    s3 = engine.state  # phase 8 runs the sharded path from here
     print(f"    kernel path: {step_ms * 1e3:.1f} us/step = {mlups3:.1f} MLUPS "
           f"[{card}]", flush=True)
     # the same in 16-bit deviation storage (the lockstep path's chunk runner)
@@ -640,6 +820,18 @@ def main() -> int:
     if smoke_case.use_memory_h5():
         print("[4] h5py is not installed here: the HDF5 writer runs on an in-memory "
               "stand-in of h5py.File", flush=True)
+    from lbm2d_tpu_torch.pipeline import batch_datagen
+
+    pacers = []
+
+    class RecordingPacer(batch_datagen.FetchPacer):
+        """FetchPacer that keeps a handle on itself for the record below."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            pacers.append(self)
+
+    batch_datagen.FetchPacer = RecordingPacer
     nus = smoke_case.SIBLING_NUS
     n_cases = len(nus)
     chunks = max_steps // chunk
@@ -667,6 +859,11 @@ def main() -> int:
         print(f"    launches {launches4}, plain calls {counted}", flush=True)
         transfer = results[names[0][0]].get("run_summary", {}).get("transfer", {})
         print(f"    transfer record: {transfer}", flush=True)
+        pacer = pacers[-1]
+        print(f"    fetch pacer: fetch_stall_fraction {transfer.get('fetch_stall_fraction')}, "
+              f"fetch_group_size_final {transfer.get('fetch_group_size_final')}, chunk-wall "
+              f"estimate c_est {pacer.chunk_wall_est} s from {pacer.calibrating_chunks} "
+              f"calibrating chunks", flush=True)
         loop_s = transfer.get("group_wall_s")
         if loop_s:
             print(f"    group loop {loop_s:.2f} s = {n_cases * max_steps * H * W / loop_s / 1e6:.1f} "
@@ -899,10 +1096,201 @@ def main() -> int:
               f"us, plain {r['plain_ms'] * 1e3:.1f} us"
               + (f", copy_ {lib * 1e3:.1f} us" if lib else "") + f"  [{card}]", flush=True)
 
+    # -- phase 8: the sharded path -------------------------------------------
+    from lbm2d_tpu_torch.pipeline import run_one_case
+    from lbm2d_tpu_torch.tools.demo_case import cylinder_mask, demo_config
+
+    def exact_state(tag, a, b, ma, mb):
+        for k in ("f", "f_post", "rho", "u"):
+            exact(f"{tag} {k}", getattr(a, k), getattr(b, k))
+        exact(f"{tag} force", ma["force"], mb["force"])
+        print(f"    {tag}: f, f_post, rho, u and force bitwise equal", flush=True)
+
+    def shard_launches(counts):
+        return {k: v for k, v in counts.items() if "_shard" in k and v}
+
+    # (a) a 2x2 mesh of the card against the single-device kernels, from
+    # phase 3's final state, f32 and deviation storage
+    print(f"[8] sharded path: (a) 2x2 mesh of {dev} on the smoke case, 2 x {chunk} steps",
+          flush=True)
+    case22 = sh.ShardedCase(p, mesh22)
+    counted.clear()
+    torch.cuda.synchronize()
+    cs.reset_launch_counts()
+    for store_dev in (False, True):
+        sa = sb = s3
+        for _ in range(2):
+            sa, ma = sh.run_chunk_sharded_cuda(sa, p, chunk, mesh22, store_dev, case22)
+            sb, mb = cs.run_chunk_cuda(sb, p, chunk, store_dev=store_dev)
+        torch.cuda.synchronize()
+        exact_state(f"2x2 vs run_chunk_cuda{' store_dev' if store_dev else ''}", sa, sb, ma, mb)
+    launches8a = dict(cs.LAUNCHES)
+    fast8 = 4 * 2 * (chunk - 1)
+    want8a = {"k1_step_shard": fast8, "k1_step_shard_full": 16, "k2_edge_bc_shard": fast8 + 16,
+              "k1_step_shard_dev": fast8, "k2_edge_bc_shard_dev": fast8}
+    print(f"    launches {({k: v for k, v in launches8a.items() if v})}, plain calls {counted}",
+          flush=True)
+    if shard_launches(launches8a) != want8a or any(counted.values()):
+        raise AssertionError(f"phase 8(a): launches {launches8a} (want {want8a}), {counted}")
+
+    # (b) a (5, 1) mesh at the DFG grid: the seams at rows 66 and 99 cut the
+    # cylinder; from phase 5's developed flow
+    mesh51 = make_mesh((5, 1), [dev] * 5)
+    print(f"    (b) (5, 1) mesh at {H5}x{W5}, 2 x {DFG_PAIR_CHUNK} steps a pair", flush=True)
+    counted.clear()
+    torch.cuda.synchronize()
+    cs.reset_launch_counts()
+    for obstacle, modes in (("bounce_back_bouzidi", (False,)), ("bounce_back_halfway", (False,)),
+                            ("bounce_back", (False, True))):
+        cfg8, mask8, _ = dfg_validation.dfg_case(ny=DFG_RUN["ny"], u_max=DFG_RUN["u_target"],
+                                                 re=DFG_RUN["re"], obstacle=obstacle,
+                                                 inlet="nebb")
+        p8 = solver.make_params(cfg8, mask8, dtype=torch.float32, device=dev)
+        case8 = sh.ShardedCase(p8, mesh51)
+        for store_dev in modes:
+            sa = sb = developed
+            for _ in range(DFG_PAIR_STEPS // DFG_PAIR_CHUNK):
+                sa, ma = sh.run_chunk_sharded_cuda(sa, p8, DFG_PAIR_CHUNK, mesh51, store_dev,
+                                                   case8)
+                sb, mb = cs.run_chunk_cuda(sb, p8, DFG_PAIR_CHUNK, store_dev=store_dev)
+            torch.cuda.synchronize()
+            exact_state(f"(5, 1) {obstacle}/nebb{' store_dev' if store_dev else ''}", sa, sb,
+                        ma, mb)
+    launches8b = dict(cs.LAUNCHES)
+    print(f"    launches {shard_launches(launches8b)}, plain calls {counted}", flush=True)
+    if any(counted.values()):
+        raise AssertionError(f"phase 8(b): plain calls {counted}")
+
+    # (c) the production entry on a 1x1 mesh: the smoke case through
+    # run_batch -> execute_case -> run_one_case -> LBMEngine(spatial_mesh)
+    engines8 = []
+
+    class RecordingEngine8(LBMEngine):
+        """LBMEngine that keeps a handle on itself for the checks below."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            engines8.append(self)
+
+    run_one_case.LBMEngine = RecordingEngine8
+    smoke_case.use_memory_h5()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        # no video: the serial path's frame composer needs matplotlib, which
+        # the card's machine lacks (the lockstep path renders from LUTs)
+        smoke_case.write_sibling_project(root, config, mask, (config["simulation"]["nu"],),
+                                         name="SmokeS", video=False)
+        counted.clear()
+        torch.cuda.synchronize()
+        cs.reset_launch_counts()
+        t0 = time.perf_counter()
+        stats8 = run_batch("SmokeS", root=root, progress=False, device="cuda",
+                           spatial_mesh="1x1")
+        torch.cuda.synchronize()
+        wall8 = time.perf_counter() - t0
+        launches8c = dict(cs.LAUNCHES)
+        with open(os.path.join(root, "outputs", "SmokeS", "plots", "sim_results.json")) as fh:
+            status8 = {e["config_filename"]: e["status"] for e in json.load(fh)}
+    e8 = engines8[-1]
+    want8c = {"k1_step_shard": chunks * (chunk - 1), "k1_step_shard_full": chunks,
+              "k2_edge_bc_shard": max_steps}
+    print(f"    (c) run_batch(spatial_mesh='1x1'): {stats8}, {status8} in {wall8:.2f} s "
+          f"(HDF5 and monitors included) [{card}]", flush=True)
+    print(f"    launches {({k: v for k, v in launches8c.items() if v})}, plain calls {counted}",
+          flush=True)
+    if stats8.get("success") != 1 or set(status8.values()) != {"Success"}:
+        raise AssertionError(f"phase 8(c): {stats8}, {status8}")
+    if {k: v for k, v in launches8c.items() if v} != want8c or any(counted.values()):
+        raise AssertionError(f"phase 8(c): launches {launches8c} (want {want8c}), {counted}")
+    if e8.mesh is None or e8.mesh.grid != (1, 1) or e8.step_count != max_steps:
+        raise AssertionError(f"phase 8(c): engine mesh {e8.mesh}, step {e8.step_count}")
+    exact("phase 8(c) final f vs phase 3", e8.state.f, f_serial)
+    print("    final f bitwise equal to phase 3's", flush=True)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(5):
+        e8.run_step(chunk)
+    b.record()
+    b.synchronize()
+    us8 = a.elapsed_time(b) * 1e3 / (5 * chunk)
+    print(f"    kernel path on the 1x1 mesh: {us8:.1f} us/step = {H * W / us8:.1f} MLUPS "
+          f"(phase 3: {us_step3:.1f} us/step) [{card}]", flush=True)
+
+    # (d) a 2x2 mesh of the card at 4096^2, the demo case (README 3c's grid
+    # class): us/step of the chunk runner, and one step's device time from
+    # a CUDA graph of K1 + K2 on every block and the halo copies
+    N8 = ROOF_N
+    p4k = solver.make_params(demo_config(N8, N8, nu=0.01, warmup=2000), cylinder_mask(N8, N8),
+                             device=dev)
+    case4k = sh.ShardedCase(p4k, mesh22)
+    # first, the sharded kernels at this block size (2048 x 2048 cells in
+    # [2050, pitch] planes) against their plain versions: a short chunk
+    # from a seeded random state, whose cells all differ, so a misplaced
+    # read would show; bitwise, as in phase 2
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rho_r = 1.0 + 1e-3 * torch.randn((N8, N8), generator=gen, device=dev)
+    u_r = 0.02 * torch.randn((2, N8, N8), generator=gen, device=dev)
+    f_r = f_eq(rho_r, u_r[0], u_r[1])
+    s_r = solver.LBMState(f=f_r, f_post=f_r.clone(), rho=rho_r, u=u_r, step=0)
+    sa, ma = sh.run_chunk_sharded_cuda(s_r, p4k, CHECK_4K_STEPS, mesh22, case=case4k)
+    sb, mb = sh.run_chunk_sharded_plain(s_r, p4k, CHECK_4K_STEPS, mesh22, case=case4k)
+    torch.cuda.synchronize()
+    exact_state(f"(d) 2x2 at {N8}^2 from a random state, {CHECK_4K_STEPS} steps, kernels vs "
+                "their plain versions", sa, sb, ma, mb)
+    del s_r, sa, sb, f_r
+    s4k = solver.init_state(N8, N8, torch.float32, dev)
+    counted.clear()
+    torch.cuda.synchronize()
+    cs.reset_launch_counts()
+    s4k, _ = sh.run_chunk_sharded_cuda(s4k, p4k, ROOF_SPC, mesh22, case=case4k)
+    a.record()
+    for _ in range(ROOF_CHUNKS):
+        s4k, m4k = sh.run_chunk_sharded_cuda(s4k, p4k, ROOF_SPC, mesh22, case=case4k)
+    b.record()
+    b.synchronize()
+    launches8d = dict(cs.LAUNCHES)
+    us4k = a.elapsed_time(b) * 1e3 / (ROOF_CHUNKS * ROOF_SPC)
+    if not (torch.isfinite(s4k.f).all() and torch.isfinite(m4k["force"]).all()):
+        raise AssertionError("phase 8(d): non-finite state at 4096^2")
+    src4 = sh.halo_blocks(s4k.f, mesh22, sh.NAN, case4k.pitch)
+    dst4 = [[t.clone() for t in r] for r in src4]
+    edges4 = [[cs.new_edge_buffer(case4k.hl, case4k.wl, device=dev) for _ in r] for r in src4]
+    scal4 = cs.scalar_row(p4k, s4k.step + 1)
+    step4k_ms = graph_ms(lambda: sh.fast_step(src4, dst4, edges4, case4k, scal4, False),
+                         per_graph=10)
+    exch4k_ms = graph_ms(lambda: sh.exchange_halos(dst4, mesh22, case4k.hl, case4k.wl),
+                         per_graph=10)
+
+    def scatter_gather():
+        blk = sh.halo_blocks(s4k.f, mesh22, sh.NAN, case4k.pitch)
+        _ = [[t.clone() for t in r] for r in blk]
+        for _ in range(4):  # f, f_post, rho and u come back
+            sh.gather_halo_blocks(blk, case4k.hl, case4k.wl, dev)
+
+    sg4k_ms = median_ms(scatter_gather, batches=3, per_batch=2)[0]
+    print(f"    (d) 2x2 mesh at {N8}^2: {us4k:.1f} us/step = {N8 * N8 / us4k:.1f} MLUPS "
+          f"(chunks of {ROOF_SPC}, scatter and gather included); one step's device time "
+          f"{step4k_ms * 1e3:.1f} us (CUDA graph: K1 + K2 on 4 blocks and "
+          f"{2 * 2 * 2} halo copies), halo exchange {exch4k_ms * 1e3:.1f} us = "
+          f"{100 * exch4k_ms / step4k_ms:.1f}% of it; scatter + gather {sg4k_ms:.2f} ms a "
+          f"chunk = {sg4k_ms * 1e3 / ROOF_SPC:.1f} us/step at {ROOF_SPC} steps; unsharded "
+          f"(phase 7) K1 {roof['k1_us']:.1f} + K2 {roof['k2_us']:.1f} us, "
+          f"{roof['us_per_step']:.1f} us/step [{card}]", flush=True)
+    print(f"    launches {({k: v for k, v in launches8d.items() if v})}, plain calls {counted}",
+          flush=True)
+    if any(counted.values()):
+        raise AssertionError(f"phase 8(d): plain calls {counted}")
+    launches8 = {k: launches8a[k] + launches8b[k] + launches8c[k] + launches8d[k]
+                 for k in cs.KERNEL_VARIANTS}
+    idle8 = [k for k in cs.KERNEL_VARIANTS if "_shard" in k and not launches8[k]]
+    if idle8:
+        raise AssertionError(f"phase 8 did not launch {idle8}")
+
     kernels = []
     by_path = {"serial": launches, "lockstep": launches4, "dfg": launches5,
                "dfg_pairs": launches5b, "fused": launches6, "fused_pairs": launches6b,
-               "roofline": launches7}
+               "roofline": launches7, "sharded": launches8c, "sharded_pairs": launches8a,
+               "sharded_dfg": launches8b, "sharded_4096": launches8d}
     sources = {"k1": ("k1_step.cu", "lbm2d_tpu/ops/pallas_step.py:824"),
                "k2": ("k2_edge_bc.cu", "lbm2d_tpu/ops/pallas_step.py:1379"),
                "k3": ("k3_fused.cu", "lbm2d_tpu/ops/pallas_step.py:610"),

@@ -17,6 +17,15 @@ and so does every case while temporal blocking is requested; the engine
 logs why and reads ``store_dev`` False. Temporal blocking
 (``ops/cuda_step._FUSE_STEPS``, opt-in) runs K3 on the card and its plain
 version on the CPU; Bouzidi bounce-back turns it down, logged.
+
+With ``spatial_mesh`` (or ``simulation.spatial_mesh``: "RxC", "auto") the
+case runs on the blocks of a device mesh (``parallel/sharded.py``), a 1x1
+mesh included, as in the JAX package: on the card through K1 and K2 in
+their sharded forms, the blocks on the first ry * rx CUDA devices; on the
+CPU through the eager sharded step, or the kernels' plain sharded runner
+with ``store_dev``. The sharded runner never fuses (logged when temporal
+blocking is requested). The state stays one global ``LBMState``: the
+runner scatters it into blocks and gathers it every chunk.
 """
 
 from __future__ import annotations
@@ -55,7 +64,52 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def resolve_store_dev(p: CaseParams, store_dev: bool) -> bool:
+def parse_spatial_mesh(spec, device="cuda") -> Optional[Tuple[int, int]]:
+    """Mesh-shape spec -> (rows, cols) | None, as the JAX package's.
+
+    Accepts "2x4" / [2, 4] / (2, 4); "auto" means the most-square
+    factorization of the CUDA devices (1x1 on the CPU ``device``), an int N
+    that of N devices. None/""/0 -> no spatial sharding.
+    """
+    if spec in (None, "", 0, False):
+        return None
+    from ..parallel.topology import best_grid
+
+    if isinstance(spec, str):
+        if spec.strip().lower() == "auto":
+            on_card = torch.device(device).type == "cuda"
+            return best_grid(max(1, torch.cuda.device_count()) if on_card else 1)
+        parts = spec.lower().replace("x", " ").split()
+        if len(parts) != 2:
+            raise ValueError(f"spatial_mesh {spec!r}: expected 'RxC'")
+        return int(parts[0]), int(parts[1])
+    if isinstance(spec, int):
+        return best_grid(spec)
+    ry, rx = spec
+    return int(ry), int(rx)
+
+
+def make_spatial_mesh(mesh_shape: Tuple[int, int], device: torch.device, grid_shape):
+    """The mesh of a sharded case: its blocks on the first ry * rx CUDA
+    devices, or all on the CPU. Raises ValueError when the card has too
+    few devices or the grid does not cut into the mesh's blocks."""
+    from ..parallel.topology import make_mesh, mesh_refusal
+
+    ry, rx = mesh_shape
+    if device.type == "cuda":
+        n_dev = torch.cuda.device_count()
+        if ry * rx > n_dev:
+            raise ValueError(f"spatial_mesh {ry}x{rx} needs {ry * rx} devices, found {n_dev}")
+        devices = [torch.device("cuda", i) for i in range(ry * rx)]
+    else:
+        devices = [device] * (ry * rx)
+    why = mesh_refusal(grid_shape, mesh_shape)
+    if why is not None:
+        raise ValueError(why)
+    return make_mesh(mesh_shape, devices)
+
+
+def resolve_store_dev(p: CaseParams, store_dev: bool, sharded: bool = False) -> bool:
     """``store_dev`` under the JAX package's rule: half-way and Bouzidi
     bounce-back run exact f32 (``cuda_step.dev_storage_refusal``). A
     request that the rule turns down is logged with the reason; the kernels
@@ -64,7 +118,7 @@ def resolve_store_dev(p: CaseParams, store_dev: bool) -> bool:
         return False
     from ..ops.cuda_step import dev_storage_refusal
 
-    why = dev_storage_refusal(p)
+    why = dev_storage_refusal(p, sharded)
     if why is not None:
         log.warning("16-bit deviation storage (f16_state) not engaged: %s", why)
         return False
@@ -113,8 +167,30 @@ def resolve_runner(p: CaseParams, device: torch.device, store_dev: bool):
     return run_chunk_cuda
 
 
+def resolve_sharded_runner(p: CaseParams, device: torch.device, store_dev: bool, mesh):
+    """The chunk runner of a case on a spatial ``mesh``: K1 + K2 in their
+    sharded forms on a CUDA device (raising for a case they do not cover),
+    the eager sharded step on the CPU, and the kernels' plain sharded
+    runner on the CPU with ``store_dev``, so the flag is never ignored.
+    Temporal blocking is not engaged on a mesh (logged)."""
+    from ..ops.cuda_step import fuse_requested, unsupported
+    from ..parallel.sharded import make_runner
+
+    if fuse_requested():
+        log.warning("temporal blocking (cuda_step._FUSE_STEPS) not engaged: the sharded "
+                    "runner never fuses (the JAX run_chunk_sharded_pallas rule)")
+    if device.type != "cuda" and not store_dev:
+        return make_runner(mesh, "eager")
+    reason = unsupported(p)
+    if reason is not None:
+        what = "the CUDA kernels" if device.type == "cuda" else "16-bit deviation storage"
+        raise NotImplementedError(f"{what} do not cover {reason}")
+    return make_runner(mesh, "cuda" if device.type == "cuda" else "plain", store_dev)
+
+
 class LBMEngine:
-    """One simulation case on one device."""
+    """One simulation case on one device, or on the blocks of a spatial
+    mesh (``spatial_mesh``)."""
 
     def __init__(
         self,
@@ -132,12 +208,13 @@ class LBMEngine:
         if store_dev is None:
             store_dev = bool(sim.get("f16_state", False))
         self.store_dev = bool(store_dev)
-        if spatial_mesh or sim.get("spatial_mesh"):
-            raise NotImplementedError(
-                "spatial sharding is not ported yet (ROADMAP.md queue 1, item 10)"
-            )
         self.device = resolve_device(device)
         self.nx, self.ny = int(sim["nx"]), int(sim["ny"])
+        mesh_shape = parse_spatial_mesh(
+            spatial_mesh if spatial_mesh is not None else sim.get("spatial_mesh"), self.device
+        )
+        self.mesh = (None if mesh_shape is None
+                     else make_spatial_mesh(mesh_shape, self.device, (self.ny, self.nx)))
         self.name = sim.get("name", "case")
         self.nu = float(sim["nu"])
         self.tau0 = 3.0 * self.nu + 0.5
@@ -161,8 +238,13 @@ class LBMEngine:
             config, mask_yx, dtype=dtype, device=self.device
         )
         self.dtype = dtype
-        self.store_dev = resolve_store_dev(self.params, self.store_dev)
-        self._runner = resolve_runner(self.params, self.device, self.store_dev)
+        self.store_dev = resolve_store_dev(self.params, self.store_dev,
+                                           sharded=self.mesh is not None)
+        if self.mesh is not None:
+            self._runner = resolve_sharded_runner(self.params, self.device, self.store_dev,
+                                                  self.mesh)
+        else:
+            self._runner = resolve_runner(self.params, self.device, self.store_dev)
         self.state: LBMState = init_state(self.ny, self.nx, dtype, self.device)
         self._last_monitors = None
         self._monitors_np = None

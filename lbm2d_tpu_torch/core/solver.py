@@ -513,19 +513,30 @@ def link_bounce(f: torch.Tensor, fs: torch.Tensor, solid: torch.Tensor,
       q >= 1/2: f_k <- f_j(c)/(2q) + (2q - 1)/(2q) f_k(c)
     q = 1/2 gives f_j(c) exactly, the half-way value. Applied on every cell,
     solid ones included (their f is overwritten afterwards)."""
+    return link_bounce_at(
+        lambda k, dy, dx: shift2d(f[k], dy, dx, 0.0) if dy or dx else f[k],
+        lambda dy, dx: shift2d(solid, dy, dx, False), fs, q,
+    )
+
+
+def link_bounce_at(f_at, solid_at, fs: torch.Tensor, q: Optional[torch.Tensor] = None):
+    """``link_bounce`` with the neighbourhood read through accessors, for a
+    block that holds its neighbours' cells in a halo: ``f_at(k, dy, dx)`` is
+    f_k of the previous field at c + (dy, dx) and ``solid_at(dy, dx)`` the
+    solid flag there, each shaped like ``fs[0]``."""
     planes = [fs[0]]
     for k in range(1, 9):
         ex, ey = int(E[k, 0]), int(E[k, 1])
         j = int(OPP[k])
-        nb_solid = shift2d(solid, -ey, -ex, False)
+        nb_solid = solid_at(-ey, -ex)
         if q is None:
-            planes.append(torch.where(nb_solid, f[j], fs[k]))
+            planes.append(torch.where(nb_solid, f_at(j, 0, 0), fs[k]))
             continue
         qj = q[j - 1]
-        f_j = f[j]
-        f_j_up = shift2d(f[j], ey, ex, 0.0)  # f_j at c + e_k = c - e_j
+        f_j = f_at(j, 0, 0)
+        f_j_up = f_at(j, ey, ex)  # f_j at c + e_k = c - e_j
         lo = 2.0 * qj * f_j + (1.0 - 2.0 * qj) * f_j_up
-        hi = f_j / (2.0 * qj) + (2.0 * qj - 1.0) / (2.0 * qj) * f[k]
+        hi = f_j / (2.0 * qj) + (2.0 * qj - 1.0) / (2.0 * qj) * f_at(k, 0, 0)
         planes.append(torch.where(nb_solid, torch.where(qj < 0.5, lo, hi), fs[k]))
     return torch.stack(planes)
 

@@ -56,28 +56,50 @@
 // the boundary conditions read the neighbour strip before the obstacle
 // overwrite (solver.apply_bc), so K2 must not read K1's stored f there,
 // and recomputing the macros from f would flip the backflow guard.
+//
+// The sharded form (k1_step_shard*, the JAX kernel on a shard of
+// run_chunk_sharded_pallas, its interior and BCs gated by the shard's global
+// origin ``offs``, :320-379) is the same body on another BlockGeom
+// (lbm_common.cuh): the shard's [hl, wl] cells sit inside a 1-cell halo
+// ring that the runner (parallel/sharded.py) refreshes from the neighbours
+// after every step, so the pull, the link predicate (aux has the same
+// halo) and Bouzidi's f(c + e_k) read across a seam exactly as the whole
+// grid reads its own cells. Only cells interior in the global grid are
+// updated; the halo of a block side on the global edge is never read. The
+// row pitch is rounded up to 32 floats, so a block's rows start aligned as
+// the whole grid's do. Bound and design as above: 76 B/cell (40 in
+// deviation storage) plus the halo ring, one thread a cell.
+#include <algorithm>
+
 #include "lbm_cell.cuh"
 
-template <typename S, int OBST>
+// One thread per cell of the block whose global coordinates are interior;
+// the whole grid (SHARD false) has no halo and its rows 1 .. H-2 and
+// columns 1 .. W-2, a shard reads its neighbours through the halo.
+template <typename S, int OBST, bool SHARD>
 __global__ void __launch_bounds__(256)
 k1_step_kernel(const typename S::T* __restrict__ f_in,
                typename S::T* __restrict__ f_out,
                const float* __restrict__ aux, const float* __restrict__ q,
                float* __restrict__ edge, float* __restrict__ rho_out,
                float* __restrict__ u_out, float* __restrict__ fpost_out,
-               const Scalars s, const int H, const int W, const int use_les,
+               const Scalars s, const BlockGeom geom, const int use_les,
                const int full) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x + 1;
-  const int y = blockIdx.y + 1;
-  if (x > W - 2 || y > H - 2) return;
-  const size_t plane = (size_t)H * W;
-  const size_t c = (size_t)y * W + x;
+  const BlockGeom g = fold_geom<SHARD>(geom);
+  const int i0 = max(0, 1 - g.y_off);
+  const int j0 = max(0, 1 - g.x_off), j1 = min(g.wl - 1, g.Wg - 2 - g.x_off);
+  const int x = j0 + blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = i0 + blockIdx.y;
+  if (x > j1) return;
+  const size_t plane = geom_plane(g);
+  const size_t c = geom_at(g, y, x);
+  const long pitch = g.pitch;
 
   auto f_at = [&](int k, int dy, int dx) {
-    return S::load(f_in, k * plane + c + (long)dy * W + dx, k);
+    return S::load(f_in, k * plane + c + dy * pitch + dx, k);
   };
   auto solid_at = [&](int dy, int dx) {
-    return __float_as_int(aux[c + (long)dy * W + dx]) < 0;
+    return __float_as_int(aux[c + dy * pitch + dx]) < 0;
   };
   auto q_at = [&](int j) { return q[j * plane + c]; };
 
@@ -92,20 +114,21 @@ k1_step_kernel(const typename S::T* __restrict__ f_in,
   for (int k = 0; k < 9; ++k)
     S::store(f_out, k * plane + c, k, lbm_stored<OBST>(k, fp, rho, solid));
 
-  if (x == 1 || x == W - 2) {
-    float* col = edge + (size_t)(x == 1 ? 0 : LBM_EDGE_C) * H;
-    for (int k = 0; k < 9; ++k) col[(size_t)k * H + y] = fp[k];
-    col[(size_t)9 * H + y] = rho;
-    col[(size_t)10 * H + y] = ux;
-    col[(size_t)11 * H + y] = uy;
+  const int gx = g.x_off + x, gy = g.y_off + y;
+  if (gx == 1 || gx == g.Wg - 2) {
+    float* col = edge + (size_t)(gx == 1 ? 0 : LBM_EDGE_C) * g.hl;
+    for (int k = 0; k < 9; ++k) col[(size_t)k * g.hl + y] = fp[k];
+    col[(size_t)9 * g.hl + y] = rho;
+    col[(size_t)10 * g.hl + y] = ux;
+    col[(size_t)11 * g.hl + y] = uy;
   }
-  if (y == 1 || y == H - 2) {
-    float* row = edge + (size_t)2 * LBM_EDGE_C * H +
-                 (size_t)(y == 1 ? 0 : LBM_EDGE_C) * W;
-    for (int k = 0; k < 9; ++k) row[(size_t)k * W + x] = fp[k];
-    row[(size_t)9 * W + x] = rho;
-    row[(size_t)10 * W + x] = ux;
-    row[(size_t)11 * W + x] = uy;
+  if (gy == 1 || gy == g.Hg - 2) {
+    float* row = edge + (size_t)2 * LBM_EDGE_C * g.hl +
+                 (size_t)(gy == 1 ? 0 : LBM_EDGE_C) * g.wl;
+    for (int k = 0; k < 9; ++k) row[(size_t)k * g.wl + x] = fp[k];
+    row[(size_t)9 * g.wl + x] = rho;
+    row[(size_t)10 * g.wl + x] = ux;
+    row[(size_t)11 * g.wl + x] = uy;
   }
 
   if (full) {
@@ -116,48 +139,100 @@ k1_step_kernel(const typename S::T* __restrict__ f_in,
   }
 }
 
-template <typename S, int OBST>
+template <typename S, int OBST, bool SHARD>
 static void launch(const void* f_in, void* f_out, const void* aux,
                    const void* q, void* edge, void* rho, void* u, void* f_post,
-                   const Scalars& s, int H, int W, int use_les, int full,
+                   const Scalars& s, const BlockGeom& g, int use_les, int full,
                    cudaStream_t stream) {
+  // the block's cells that are interior in the global grid
+  const int i0 = std::max(0, 1 - g.y_off);
+  const int i1 = std::min(g.hl - 1, g.Hg - 2 - g.y_off);
+  const int j0 = std::max(0, 1 - g.x_off);
+  const int j1 = std::min(g.wl - 1, g.Wg - 2 - g.x_off);
+  if (i1 < i0 || j1 < j0) return;
   const dim3 block(256, 1, 1);
-  const dim3 grid((W - 2 + 255) / 256, H - 2, 1);
-  k1_step_kernel<S, OBST><<<grid, block, 0, stream>>>(
+  const dim3 grid((j1 - j0 + 256) / 256, i1 - i0 + 1, 1);
+  k1_step_kernel<S, OBST, SHARD><<<grid, block, 0, stream>>>(
       static_cast<const typename S::T*>(f_in),
       static_cast<typename S::T*>(f_out), static_cast<const float*>(aux),
       static_cast<const float*>(q), static_cast<float*>(edge),
       static_cast<float*>(rho), static_cast<float*>(u),
-      static_cast<float*>(f_post), s, H, W, use_les, full);
+      static_cast<float*>(f_post), s, g, use_les, full);
+}
+
+template <bool SHARD>
+static int dispatch(const void* f_in, void* f_out, const void* aux,
+                    const void* q, void* edge, void* rho, void* u, void* f_post,
+                    const void* scal, const BlockGeom& g, int use_les, int full,
+                    int obst, void* stream) {
+  const Scalars s = load_scalars(static_cast<const float*>(scal));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (obst) {
+    case LBM_OBST_EQ:
+      launch<F32Store, LBM_OBST_EQ, SHARD>(f_in, f_out, aux, q, edge, rho, u,
+                                           f_post, s, g, use_les, full, st);
+      break;
+    case LBM_OBST_BOUNCE:
+      launch<F32Store, LBM_OBST_BOUNCE, SHARD>(f_in, f_out, aux, q, edge, rho,
+                                               u, f_post, s, g, use_les, full,
+                                               st);
+      break;
+    case LBM_OBST_HALFWAY:
+      launch<F32Store, LBM_OBST_HALFWAY, SHARD>(f_in, f_out, aux, q, edge, rho,
+                                                u, f_post, s, g, use_les, full,
+                                                st);
+      break;
+    case LBM_OBST_BOUZIDI:
+      launch<F32Store, LBM_OBST_BOUZIDI, SHARD>(f_in, f_out, aux, q, edge, rho,
+                                                u, f_post, s, g, use_les, full,
+                                                st);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Launches K1 on ``stream``; returns cudaGetLastError() as an int, or
 // cudaErrorInvalidValue for an unknown scheme. ``scal`` is a host pointer
 // to the 14-float scalar row (copied into the kernel's parameters at
-// launch). ``obst`` is LBM_OBST_*; ``q`` ([8, H, W] f32) is read only under
-// BOUZIDI, rho/u/f_post only when full.
+// launch), ``geom`` one to the block's 8 ints (load_geom): the whole
+// [H, W] grid (halo 0, the single-device step) or one shard of a spatial
+// mesh (the JAX kernel's sharded form, launched by run_chunk_sharded_pallas
+// through _pallas_step(offs, h_lo, h_hi)), whose [hl + 2, pitch] planes hold
+// the 1-cell halo ring its neighbours' cells were copied into; only cells
+// interior in the Hg x Wg grid are updated, and only a block on the global
+// edge exports a strip. ``obst`` is LBM_OBST_*; ``q`` ([8] planes of the
+// block) is read only under BOUZIDI, rho/u/f_post only when full; all share
+// the block's geometry.
 extern "C" int k1_step_launch(const void* f_in, void* f_out, const void* aux,
                               const void* q, void* edge, void* rho, void* u,
-                              void* f_post, const void* scal, int H, int W,
+                              void* f_post, const void* scal, const int* geom,
                               int use_les, int full, int obst, void* stream) {
+  const BlockGeom g = load_geom(geom);
+  return g.halo ? dispatch<true>(f_in, f_out, aux, q, edge, rho, u, f_post,
+                                 scal, g, use_les, full, obst, stream)
+                : dispatch<false>(f_in, f_out, aux, q, edge, rho, u, f_post,
+                                  scal, g, use_les, full, obst, stream);
+}
+
+// The fast step in 16-bit deviation storage (EQ and BOUNCE only).
+template <bool SHARD>
+static int dispatch_dev(const void* f_in, void* f_out, const void* aux,
+                        void* edge, const void* scal, const BlockGeom& g,
+                        int use_les, int obst, void* stream) {
   const Scalars s = load_scalars(static_cast<const float*>(scal));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (obst) {
     case LBM_OBST_EQ:
-      launch<F32Store, LBM_OBST_EQ>(f_in, f_out, aux, q, edge, rho, u, f_post,
-                                    s, H, W, use_les, full, st);
+      launch<DevStore, LBM_OBST_EQ, SHARD>(f_in, f_out, aux, nullptr, edge,
+                                           nullptr, nullptr, nullptr, s, g,
+                                           use_les, 0, st);
       break;
     case LBM_OBST_BOUNCE:
-      launch<F32Store, LBM_OBST_BOUNCE>(f_in, f_out, aux, q, edge, rho, u,
-                                        f_post, s, H, W, use_les, full, st);
-      break;
-    case LBM_OBST_HALFWAY:
-      launch<F32Store, LBM_OBST_HALFWAY>(f_in, f_out, aux, q, edge, rho, u,
-                                         f_post, s, H, W, use_les, full, st);
-      break;
-    case LBM_OBST_BOUZIDI:
-      launch<F32Store, LBM_OBST_BOUZIDI>(f_in, f_out, aux, q, edge, rho, u,
-                                         f_post, s, H, W, use_les, full, st);
+      launch<DevStore, LBM_OBST_BOUNCE, SHARD>(f_in, f_out, aux, nullptr, edge,
+                                               nullptr, nullptr, nullptr, s, g,
+                                               use_les, 0, st);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -166,26 +241,15 @@ extern "C" int k1_step_launch(const void* f_in, void* f_out, const void* aux,
 }
 
 // The fast step in 16-bit deviation storage: f_in and f_out are bf16
-// [9, H, W] buffers of f - w; the edge export is f32 as above. Schemes EQ
-// and BOUNCE only.
+// planes of f - w in the block's geometry (halos included on a shard); the
+// edge export is f32 as above. Schemes EQ and BOUNCE only.
 extern "C" int k1_step_dev_launch(const void* f_in, void* f_out,
                                   const void* aux, void* edge,
-                                  const void* scal, int H, int W,
+                                  const void* scal, const int* geom,
                                   int use_les, int obst, void* stream) {
-  const Scalars s = load_scalars(static_cast<const float*>(scal));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (obst) {
-    case LBM_OBST_EQ:
-      launch<DevStore, LBM_OBST_EQ>(f_in, f_out, aux, nullptr, edge, nullptr,
-                                    nullptr, nullptr, s, H, W, use_les, 0, st);
-      break;
-    case LBM_OBST_BOUNCE:
-      launch<DevStore, LBM_OBST_BOUNCE>(f_in, f_out, aux, nullptr, edge,
-                                        nullptr, nullptr, nullptr, s, H, W,
-                                        use_les, 0, st);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const BlockGeom g = load_geom(geom);
+  return g.halo ? dispatch_dev<true>(f_in, f_out, aux, edge, scal, g, use_les,
+                                     obst, stream)
+                : dispatch_dev<false>(f_in, f_out, aux, edge, scal, g, use_les,
+                                      obst, stream);
 }

@@ -32,6 +32,41 @@ static inline Scalars load_scalars(const float* row) {
   return s;
 }
 
+// Where K1 and K2 find a block of the lattice (ops/cuda_step.py
+// BlockGeom). Local cell (i, j), i in [0, hl), j in [0, wl), is element
+// (i + halo) * pitch + (j + halo) of each [hl + 2 halo, pitch] plane and is
+// cell (y_off + i, x_off + j) of the Hg x Wg grid. The single-device step
+// is the whole grid with no halo (hl = Hg, wl = Wg = pitch); a shard of a
+// spatial mesh keeps a 1-cell halo ring of its neighbours' cells
+// (halo = 1), and its columns past wl + 1 are padding, never read.
+struct BlockGeom {
+  int hl, wl, pitch, halo;
+  int y_off, x_off, Hg, Wg;
+};
+
+// A launch's block from the host row (hl, wl, pitch, halo, y_off, x_off,
+// Hg, Wg) of ops/cuda_step.BlockGeom; halo 0 is the whole grid.
+static inline BlockGeom load_geom(const int* g) {
+  return BlockGeom{g[0], g[1], g[2], g[3], g[4], g[5], g[6], g[7]};
+}
+
+// The geometry a kernel indexes with: a shard's as given; the whole
+// grid's rebuilt from its extent, so that the compiler folds the halo, the
+// origin and the pitch into the single-device kernels' indexing.
+template <bool SHARD>
+__device__ __forceinline__ BlockGeom fold_geom(const BlockGeom& g) {
+  return SHARD ? g : BlockGeom{g.hl, g.wl, g.wl, 0, 0, 0, g.hl, g.wl};
+}
+
+__host__ __device__ __forceinline__ size_t geom_plane(const BlockGeom& g) {
+  return (size_t)(g.hl + 2 * g.halo) * g.pitch;
+}
+
+__host__ __device__ __forceinline__ size_t geom_at(const BlockGeom& g, int i,
+                                                   int j) {
+  return (size_t)(i + g.halo) * g.pitch + (j + g.halo);
+}
+
 // Lattice weights, rounded once from the f64 values (W in core/lattice.py).
 #define LBM_W0 ((float)(4.0 / 9.0))
 #define LBM_W1 ((float)(1.0 / 9.0))
@@ -92,7 +127,9 @@ __device__ __constant__ int LBM_OPP[9] = {0, 3, 4, 1, 2, 7, 8, 5, 6};
 //   columns: edge[(side * 12 + c) * H + y], side 0 = x 1, side 1 = x W-2
 //   rows:    edge[24 * H + (side * 12 + c) * W + x], side 0 = y 1, 1 = y H-2
 // c = 0..8 the collide output f_post (before the obstacle overwrite),
-// 9 rho, 10 ux, 11 uy.
+// 9 rho, 10 ux, 11 uy. On a block H, W are its hl, wl, y and x are local,
+// and the sides are global column 1 / Wg-2 and row 1 / Hg-2: only a block
+// that holds them writes them.
 #define LBM_EDGE_C 12
 
 // MRT-LES collision of the streamed populations fs (solver.mrt_collide_arrays).

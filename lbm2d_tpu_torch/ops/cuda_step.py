@@ -28,19 +28,28 @@ shared memory, the BCs inside every window after each sub-step), the
 remainder as single K1 + K2 steps; Bouzidi bounce-back is never fused
 (``fuse_refusal``) and deviation storage is off while it is requested.
 
+On a spatial mesh (``parallel/sharded.py``) K1 and K2 run in their sharded
+forms on one block of the grid each: the same wrappers and kernels given
+the block's ``BlockGeom`` (``geom=``), a [hl, wl] block inside a 1-cell
+halo ring of its neighbours' cells, whose BCs act only where the block
+lies on the global edge; they count as the ``_shard`` variants.
+
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes its
 plain PyTorch version (``k1_step_plain`` / ``k2_edge_bc_plain``, the
-``_dev`` pair and ``k3_fused_plain``) only for CPU tensors. ``LAUNCHES`` counts kernel launches by
-variant (``k1_variant`` / ``k2_variant`` / ``k3_variant`` names), so a run can show that
-it went through the kernels. The monitors
-are plain torch reductions, as the JAX package computes them outside its
-kernels.
+``_dev`` pair and ``k3_fused_plain``, each with the same ``geom``) only
+for CPU tensors. ``LAUNCHES`` counts kernel launches by variant
+(``k1_variant`` / ``k2_variant`` / ``k3_variant`` names), so a run can
+show that it went through the kernels. The monitors are plain torch reductions, as the JAX
+package computes them outside its kernels.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Optional
+import functools
+from dataclasses import astuple, dataclass
+from typing import Optional, Tuple
 
 import torch
 
@@ -59,11 +68,10 @@ from ..core.solver import (
     bc_left_values,
     bc_right_values,
     full_way_bounce,
-    link_bounce,
+    link_bounce_at,
     max_velocity,
     mrt_collide_arrays,
     obstacle_force,
-    pull_stream,
     warmup_ramp,
 )
 from . import cuda_build
@@ -100,17 +108,20 @@ def obstacle_scheme(p: CaseParams) -> int:
     return OBSTACLE_EQ
 
 
-def k1_variant(obstacle: int, full: bool = False, dev: bool = False) -> str:
+def k1_variant(obstacle: int, full: bool = False, dev: bool = False,
+               shard: bool = False) -> str:
     """Launch-count name of a K1 variant: k1_step[_bounce|_halfway|_bouzidi]
-    [_full|_dev]."""
-    return "k1_step" + _OBSTACLE_SUFFIX[obstacle] + ("_full" if full else "_dev" if dev else "")
+    [_shard][_full|_dev]."""
+    return ("k1_step" + _OBSTACLE_SUFFIX[obstacle] + ("_shard" if shard else "")
+            + ("_full" if full else "_dev" if dev else ""))
 
 
-def k2_variant(left_type: int, dev: bool = False) -> str:
-    """Launch-count name of a K2 variant: k2_edge_bc[_vel][_dev], ``_vel``
-    for the profiled velocity inlets (left types 3/4)."""
+def k2_variant(left_type: int, dev: bool = False, shard: bool = False) -> str:
+    """Launch-count name of a K2 variant: k2_edge_bc[_vel][_shard][_dev],
+    ``_vel`` for the profiled velocity inlets (left types 3/4)."""
     vel = left_type in (BC_VEL_INLET, BC_VEL_INLET_NEBB)
-    return "k2_edge_bc" + ("_vel" if vel else "") + ("_dev" if dev else "")
+    return ("k2_edge_bc" + ("_vel" if vel else "") + ("_shard" if shard else "")
+            + ("_dev" if dev else ""))
 
 
 def k3_variant(obstacle: int, left_type: int) -> str:
@@ -128,6 +139,9 @@ KERNEL_VARIANTS = (
     + [k1_variant(o, dev=True) for o in DEV_OBSTACLES]
     + [k2_variant(t, dev) for t in (BC_INLET, BC_VEL_INLET) for dev in (False, True)]
     + [k3_variant(o, t) for o in FUSE_OBSTACLES for t in (BC_INLET, BC_VEL_INLET)]
+    + [k1_variant(o, full, shard=True) for o in range(4) for full in (False, True)]
+    + [k1_variant(o, dev=True, shard=True) for o in DEV_OBSTACLES]
+    + [k2_variant(t, dev, shard=True) for t in (BC_INLET, BC_VEL_INLET) for dev in (False, True)]
 )
 
 # launches of each kernel variant, added to where the launch is made
@@ -150,8 +164,82 @@ def unpack_aux(aux: torch.Tensor):
     return torch.signbit(aux), aux.abs()
 
 
+# a shard's row pitch is rounded up to this many floats, so its rows start
+# 128-byte aligned as the whole grid's rows do
+SHARD_PITCH_ALIGN = 32
+
+
+@dataclass(frozen=True)
+class BlockGeom:
+    """Where K1 and K2 find a block of the lattice (csrc/lbm_common.cuh
+    BlockGeom): local cell (i, j), i < hl, j < wl, is element (i + halo,
+    j + halo) of each [hl + 2 halo, pitch] plane and cell (y_off + i,
+    x_off + j) of the Hg x Wg grid. The single-device step runs
+    ``whole(H, W)``; a shard of a spatial mesh a halo'd block (``shard``).
+    A block without a halo is the whole grid, whose geometry the kernels
+    fold at compile time."""
+
+    hl: int
+    wl: int
+    pitch: int
+    halo: int
+    y_off: int
+    x_off: int
+    Hg: int
+    Wg: int
+
+    def __post_init__(self):
+        if self.halo == 0 and (self.pitch, self.y_off, self.x_off, self.Hg, self.Wg) != (
+                self.wl, 0, 0, self.hl, self.wl):
+            raise ValueError(f"a block without a halo must be the whole grid, got {self}")
+
+    @classmethod
+    def whole(cls, H: int, W: int) -> "BlockGeom":
+        return _whole_grid(H, W)
+
+    @classmethod
+    def shard(cls, hl: int, wl: int, y_off: int, x_off: int, Hg: int, Wg: int) -> "BlockGeom":
+        pitch = -(-(wl + 2) // SHARD_PITCH_ALIGN) * SHARD_PITCH_ALIGN
+        return cls(hl, wl, pitch, 1, y_off, x_off, Hg, Wg)
+
+    @property
+    def plane(self) -> Tuple[int, int]:
+        """Shape of one stored plane."""
+        return (self.hl + 2 * self.halo, self.pitch)
+
+    @property
+    def edge_len(self) -> int:
+        """Length of the block's edge export buffer."""
+        return 2 * EDGE_C * (self.hl + self.wl)
+
+    def interior(self):
+        """(i0, i1, j0, j1), inclusive local bounds of the block's cells that
+        are interior in the global grid, or None if it has none."""
+        i0, i1 = max(0, 1 - self.y_off), min(self.hl - 1, self.Hg - 2 - self.y_off)
+        j0, j1 = max(0, 1 - self.x_off), min(self.wl - 1, self.Wg - 2 - self.x_off)
+        return None if i1 < i0 or j1 < j0 else (i0, i1, j0, j1)
+
+    def cells(self, i0: int, i1: int, j0: int, j1: int):
+        """(rows, columns) slices of the stored planes for local cells
+        [i0, i1] x [j0, j1]."""
+        h = self.halo
+        return slice(i0 + h, i1 + h + 1), slice(j0 + h, j1 + h + 1)
+
+    @functools.cached_property
+    def c_row(self):
+        """The geometry as the kernels' host row of 8 ints (lbm_common.cuh
+        load_geom), built once: the launch path reuses it."""
+        return (ctypes.c_int * 8)(*astuple(self))
+
+
+@functools.lru_cache(maxsize=None)
+def _whole_grid(H: int, W: int) -> BlockGeom:
+    return BlockGeom(H, W, W, 0, 0, 0, H, W)
+
+
 def unsupported(p: CaseParams) -> Optional[str]:
-    """Why the kernels cannot run case ``p``, or None when they can."""
+    """Why the kernels cannot run case ``p``, or None when they can (a
+    spatial mesh's own rule is ``parallel/topology.mesh_refusal``)."""
     lt, tt, rt, bt = p.bc_type
     if lt in (BC_VEL_INLET, BC_VEL_INLET_NEBB) and p.inlet_profile is None:
         return f"left bc_type {lt} without CaseParams.inlet_profile"
@@ -181,15 +269,16 @@ def supports(p: CaseParams) -> bool:
     return unsupported(p) is None
 
 
-def dev_storage_refusal(p: CaseParams) -> Optional[str]:
+def dev_storage_refusal(p: CaseParams, sharded: bool = False) -> Optional[str]:
     """Why 16-bit deviation storage does not engage for case ``p``, or None.
     The JAX package's ``run_chunk_pallas`` rules: half-way and Bouzidi
     bounce-back read the cell's own previous populations on their links
     and run exact f32, and while temporal blocking is requested the state
-    stays f32."""
+    stays f32. The sharded runner (``sharded``) never fuses, so only the
+    first rule holds there (``run_chunk_sharded_pallas``)."""
     if obstacle_scheme(p) not in DEV_OBSTACLES:
         return "half-way and Bouzidi bounce-back run exact f32 (the JAX run_chunk_pallas rule)"
-    if fuse_requested():
+    if fuse_requested() and not sharded:
         return (f"temporal blocking is requested (cuda_step._FUSE_STEPS = {_FUSE_STEPS}): "
                 "the state stays f32 (the JAX run_chunk_pallas rule)")
     return None
@@ -323,20 +412,50 @@ def dequantize(dev: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _geom(geom: Optional[BlockGeom], t: torch.Tensor) -> BlockGeom:
+    """``geom``, or the whole grid of the [C, H, W] buffer ``t``."""
+    return geom or BlockGeom.whole(*t.shape[1:])
+
+
+def _launch_device(dev: torch.device):
+    """The device context a launch on ``dev`` needs: none when ``dev`` is
+    current (a mesh may put blocks on other cards)."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
 def k1_step_plain(f_in, f_out, aux, edge, scal, use_les, rho=None, u=None, f_post=None,
-                  obstacle=OBSTACLE_EQ, q=None):
-    """Plain PyTorch version of K1, writing the same cells of the same
-    buffers: the interior of f_out (and of rho/u/f_post when given) and the
-    edge export. The link predicate of half-way and Bouzidi bounce-back is
-    the solid flag of ``aux`` at the pull source, as in the kernel."""
+                  obstacle=OBSTACLE_EQ, q=None, geom=None):
+    """Plain PyTorch version of K1 on block ``geom`` (the whole grid by
+    default), writing the same cells of the same buffers: the cells
+    interior in the global grid of f_out (and of rho/u/f_post when given)
+    and the block's edge export. Every read goes through the block's own
+    cells and halo; the link predicate of half-way and Bouzidi bounce-back
+    is the solid flag of ``aux`` at the pull source, as in the kernel."""
     if obstacle == OBSTACLE_BOUZIDI and q is None:
         raise ValueError("Bouzidi bounce-back needs the q planes")
-    H, W = f_in.shape[1:]
+    g = _geom(geom, f_in)
+    box = g.interior()
+    if box is None:
+        return
+    i0, i1, j0, j1 = box
+    ni, nj, h = i1 - i0 + 1, j1 - j0 + 1, g.halo
+
+    def at(a, dy=0, dx=0):
+        """``a`` at the interior cells shifted by (dy, dx)."""
+        r, c = i0 + h + dy, j0 + h + dx
+        return a[..., r:r + ni, c:c + nj]
+
+    def f_at(k, dy, dx):
+        return at(f_in[k], dy, dx)
+
     s = scal.to(device=f_in.device, dtype=f_in.dtype)
-    solid, damp = unpack_aux(aux)
-    fs = pull_stream(f_in)
+    solid, damp = unpack_aux(at(aux))
+    fs = torch.stack([f_at(k, -int(E_LAT[k, 1]), -int(E_LAT[k, 0])) for k in range(9)])
     if obstacle in (OBSTACLE_HALFWAY, OBSTACLE_BOUZIDI):
-        fs = link_bounce(f_in, fs, solid, q if obstacle == OBSTACLE_BOUZIDI else None)
+        fs = link_bounce_at(f_at, lambda dy, dx: torch.signbit(at(aux, dy, dx)), fs,
+                            at(q) if obstacle == OBSTACLE_BOUZIDI else None)
     fp, r, ux, uy = mrt_collide_arrays(fs, damp, s[0], s[1], s[2], use_les)
     if obstacle == OBSTACLE_BOUNCE:
         fp = full_way_bounce(fs, fp, solid)
@@ -344,20 +463,24 @@ def k1_step_plain(f_in, f_out, aux, edge, scal, use_les, rho=None, u=None, f_pos
     else:
         w9 = torch.as_tensor(W_LAT, dtype=f_in.dtype, device=f_in.device).reshape(9, 1, 1)
         f_store = torch.where(solid[None], w9 * r[None], fp)
-    f_out[:, 1:-1, 1:-1] = f_store[:, 1:-1, 1:-1]
-    cols, rows = edge_views(edge, H, W)
-    for side, x in ((0, 1), (1, W - 2)):
-        cols[side, :9, 1:-1] = fp[:, 1:-1, x]
-        cols[side, 9:, 1:-1] = torch.stack([r, ux, uy])[:, 1:-1, x]
-    for side, y in ((0, 1), (1, H - 2)):
-        rows[side, :9, 1:-1] = fp[:, y, 1:-1]
-        rows[side, 9:, 1:-1] = torch.stack([r, ux, uy])[:, y, 1:-1]
+    rows_, cols_ = g.cells(i0, i1, j0, j1)
+    f_out[:, rows_, cols_] = f_store
+    cols, rows = edge_views(edge, g.hl, g.wl)
+    macros = torch.stack([r, ux, uy])
+    for side, x in ((0, 1 - g.x_off), (1, g.Wg - 2 - g.x_off)):
+        if j0 <= x <= j1:
+            cols[side, :9, i0:i1 + 1] = fp[:, :, x - j0]
+            cols[side, 9:, i0:i1 + 1] = macros[:, :, x - j0]
+    for side, y in ((0, 1 - g.y_off), (1, g.Hg - 2 - g.y_off)):
+        if i0 <= y <= i1:
+            rows[side, :9, j0:j1 + 1] = fp[:, y - i0]
+            rows[side, 9:, j0:j1 + 1] = macros[:, y - i0]
     if rho is not None:
         zero = torch.zeros_like(ux)
-        rho[1:-1, 1:-1] = r[1:-1, 1:-1]
-        u[0, 1:-1, 1:-1] = torch.where(solid, zero, ux)[1:-1, 1:-1]
-        u[1, 1:-1, 1:-1] = torch.where(solid, zero, uy)[1:-1, 1:-1]
-        f_post[:, 1:-1, 1:-1] = fp[:, 1:-1, 1:-1]
+        rho[rows_, cols_] = r
+        u[0, rows_, cols_] = torch.where(solid, zero, ux)
+        u[1, rows_, cols_] = torch.where(solid, zero, uy)
+        f_post[:, rows_, cols_] = fp
 
 
 def _check_obstacle(obstacle: int, q, shape, device, allowed=tuple(range(4))) -> None:
@@ -369,74 +492,89 @@ def _check_obstacle(obstacle: int, q, shape, device, allowed=tuple(range(4))) ->
         _check("q", q, (8,) + tuple(shape), device)
 
 
-def k1_step(f_in, f_out, aux, edge, scal, use_les, rho=None, u=None, f_post=None,
-            obstacle=OBSTACLE_EQ, q=None):
-    """K1 on ``f_in`` -> ``f_out`` (distinct [9, H, W] buffers). The full
-    variant runs when ``rho`` [H, W], ``u`` [2, H, W] and ``f_post``
-    [9, H, W] are given. ``scal`` is the CPU scalar row of this step;
-    ``obstacle`` an ``OBSTACLE_*`` scheme, Bouzidi with ``q`` [8, H, W]."""
-    if not f_in.is_cuda:
-        return k1_step_plain(f_in, f_out, aux, edge, scal, use_les, rho, u, f_post,
-                             obstacle, q)
-    full = rho is not None
-    _, H, W = f_in.shape
-    dev = f_in.device
-    _check("f_in", f_in, (9, H, W), dev)
-    _check("f_out", f_out, (9, H, W), dev)
-    _check("aux", aux, (H, W), dev)
-    _check("edge", edge, (2 * EDGE_C * (H + W),), dev)
-    _check_obstacle(obstacle, q, (H, W), dev)
-    if full:
-        _check("rho", rho, (H, W), dev)
-        _check("u", u, (2, H, W), dev)
-        _check("f_post", f_post, (9, H, W), dev)
+def _check_k1(f_in, f_out, aux, edge, g: BlockGeom, dtype, obstacle, q, rho, u, f_post,
+              allowed=tuple(range(4))):
+    """K1's argument checks, for the stored planes of block ``g``."""
+    dev, plane = f_in.device, g.plane
+    _check("f_in", f_in, (9,) + plane, dev, dtype)
+    _check("f_out", f_out, (9,) + plane, dev, dtype)
+    _check("aux", aux, plane, dev)
+    _check("edge", edge, (g.edge_len,), dev)
+    _check_obstacle(obstacle, q, plane, dev, allowed)
+    if rho is not None:
+        _check("rho", rho, plane, dev)
+        _check("u", u, (2,) + plane, dev)
+        _check("f_post", f_post, (9,) + plane, dev)
     if f_in.data_ptr() == f_out.data_ptr():
-        raise ValueError("k1_step: pull streaming needs distinct in/out buffers")
+        raise ValueError("K1: pull streaming needs distinct in/out buffers")
+
+
+def k1_step(f_in, f_out, aux, edge, scal, use_les, rho=None, u=None, f_post=None,
+            obstacle=OBSTACLE_EQ, q=None, geom=None):
+    """K1 on ``f_in`` -> ``f_out``: distinct [9, H, W] buffers, or with
+    ``geom`` the [9, hl + 2, pitch] blocks of one shard of a spatial mesh,
+    halos filled, of which the cells interior in the global grid are
+    updated. The full variant runs when ``rho``, ``u`` [2, ...] and
+    ``f_post`` [9, ...] are given; aux, q and those share f's geometry, the
+    edge export is [``geom.edge_len``]. ``scal`` is the CPU scalar row of
+    this step; ``obstacle`` an ``OBSTACLE_*`` scheme, Bouzidi with ``q``
+    [8, ...]. Counted as ``k1_variant(obstacle, full, shard=geom.halo > 0)``."""
+    if not f_in.is_cuda:
+        return k1_step_plain(f_in, f_out, aux, edge, scal, use_les, rho, u, f_post, obstacle, q,
+                             geom)
+    g = _geom(geom, f_in)
+    full = rho is not None
+    _check_k1(f_in, f_out, aux, edge, g, torch.float32, obstacle, q, rho, u, f_post)
     sc = _scal_c(scal)
     q_ptr = _ptr(q) if obstacle == OBSTACLE_BOUZIDI else None
-    rc = cuda_build.load("k1_step")(
-        _ptr(f_in), _ptr(f_out), _ptr(aux), q_ptr, _ptr(edge), _ptr(rho), _ptr(u),
-        _ptr(f_post), ctypes.addressof(sc), H, W, int(bool(use_les)), int(full), obstacle,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    dev = f_in.device
+    with _launch_device(dev):
+        rc = cuda_build.load("k1_step")(
+            _ptr(f_in), _ptr(f_out), _ptr(aux), q_ptr, _ptr(edge), _ptr(rho), _ptr(u),
+            _ptr(f_post), ctypes.addressof(sc), ctypes.addressof(g.c_row), int(bool(use_les)),
+            int(full), obstacle, torch.cuda.current_stream(dev).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"k1_step launch failed: CUDA error {rc}")
-    LAUNCHES[k1_variant(obstacle, full)] += 1
+    LAUNCHES[k1_variant(obstacle, full, shard=g.halo > 0)] += 1
 
 
-def k1_step_dev_plain(f_in, f_out, aux, edge, scal, use_les, obstacle=OBSTACLE_EQ):
+def k1_step_dev_plain(f_in, f_out, aux, edge, scal, use_les, obstacle=OBSTACLE_EQ, geom=None):
     """Plain PyTorch version of K1's deviation-storage fast step: dequantize
-    f_in, step in f32 as ``k1_step_plain``, quantize the interior of f_out.
-    The edge export stays f32."""
-    _check_obstacle(obstacle, None, f_in.shape[1:], f_in.device, DEV_OBSTACLES)
+    f_in, step in f32 as ``k1_step_plain``, quantize the updated cells of
+    f_out. The edge export stays f32."""
+    g = _geom(geom, f_in)
+    _check_obstacle(obstacle, None, g.plane, f_in.device, DEV_OBSTACLES)
     f32_out = torch.empty(f_in.shape, dtype=torch.float32, device=f_in.device)
-    k1_step_plain(dequantize(f_in), f32_out, aux, edge, scal, use_les, obstacle=obstacle)
-    f_out[:, 1:-1, 1:-1] = quantize(f32_out[:, 1:-1, 1:-1])
+    k1_step_plain(dequantize(f_in), f32_out, aux, edge, scal, use_les, obstacle=obstacle,
+                  geom=g)
+    box = g.interior()
+    if box is not None:
+        rows_, cols_ = g.cells(*box)
+        f_out[:, rows_, cols_] = quantize(f32_out[:, rows_, cols_])
 
 
-def k1_step_dev(f_in, f_out, aux, edge, scal, use_les, obstacle=OBSTACLE_EQ):
+def k1_step_dev(f_in, f_out, aux, edge, scal, use_les, obstacle=OBSTACLE_EQ, geom=None):
     """K1's fast step on bf16 deviation buffers ``f_in`` -> ``f_out``
-    ([9, H, W], distinct); ``edge`` is the f32 export K2 reads. Equilibrium
-    and full-way bounce-back only."""
+    ([9, H, W], distinct, or one shard's blocks of ``geom``, halos
+    included); ``edge`` is the f32 export K2 reads. Equilibrium and
+    full-way bounce-back only."""
     if not f_in.is_cuda:
-        return k1_step_dev_plain(f_in, f_out, aux, edge, scal, use_les, obstacle)
-    _, H, W = f_in.shape
-    dev = f_in.device
-    _check("f_in", f_in, (9, H, W), dev, DEV_DTYPE)
-    _check("f_out", f_out, (9, H, W), dev, DEV_DTYPE)
-    _check("aux", aux, (H, W), dev)
-    _check("edge", edge, (2 * EDGE_C * (H + W),), dev)
-    _check_obstacle(obstacle, None, (H, W), dev, DEV_OBSTACLES)
-    if f_in.data_ptr() == f_out.data_ptr():
-        raise ValueError("k1_step_dev: pull streaming needs distinct in/out buffers")
+        return k1_step_dev_plain(f_in, f_out, aux, edge, scal, use_les, obstacle, geom)
+    g = _geom(geom, f_in)
+    _check_k1(f_in, f_out, aux, edge, g, DEV_DTYPE, obstacle, None, None, None, None,
+              DEV_OBSTACLES)
     sc = _scal_c(scal)
-    rc = cuda_build.load("k1_step_dev")(
-        _ptr(f_in), _ptr(f_out), _ptr(aux), _ptr(edge), ctypes.addressof(sc), H, W,
-        int(bool(use_les)), obstacle, torch.cuda.current_stream(dev).cuda_stream,
-    )
+    dev = f_in.device
+    with _launch_device(dev):
+        rc = cuda_build.load("k1_step_dev")(
+            _ptr(f_in), _ptr(f_out), _ptr(aux), _ptr(edge), ctypes.addressof(sc),
+            ctypes.addressof(g.c_row), int(bool(use_les)), obstacle,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"k1_step_dev launch failed: CUDA error {rc}")
-    LAUNCHES[k1_variant(obstacle, dev=True)] += 1
+    LAUNCHES[k1_variant(obstacle, dev=True, shard=g.halo > 0)] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -444,41 +582,56 @@ def k1_step_dev(f_in, f_out, aux, edge, scal, use_les, obstacle=OBSTACLE_EQ):
 # ---------------------------------------------------------------------------
 
 
-def _k2_ring_plain(f, aux, edge, scal, bc_type, rho, u, to_store, prof, bounce):
-    """The ring of ``f`` (and of rho/u when given) from the edge export, in
-    apply_bc order; ``to_store`` maps the f32 ring values [9, n] to f's
-    storage."""
-    H, W = f.shape[1:]
+def _k2_ring_plain(f, aux, edge, scal, bc_type, rho, u, to_store, prof, bounce,
+                   g: BlockGeom):
+    """The global ring cells that block ``g`` holds, of ``f`` (and of rho/u
+    when given), from the block's edge export in apply_bc order; ``prof``
+    is the block's rows of the inlet profile and ``to_store`` maps the f32
+    ring values [9, n] to f's storage."""
     ctype = torch.float32 if f.dtype == DEV_DTYPE else f.dtype
     s = scal.to(device=f.device, dtype=ctype)
     ramp = float(scal[_S_RAMP])
     bcv = s[6:].view(4, 2)
-    cols, rows = edge_views(edge, H, W)
+    hl, wl, h = g.hl, g.wl, g.halo
+    cols, rows = edge_views(edge, hl, wl)
     lt, tt, rt, bt = bc_type
-    vl = bc_left_values(
-        cols[0, :9, 1:-1], cols[0, 9, 1:-1], cols[0, 10, 1:-1], cols[0, 11, 1:-1],
-        ramp, lt, s[4], u_prof=None if prof is None else prof[1:-1],
-    )
-    vr = bc_right_values(
-        cols[1, :9, 1:-1], cols[1, 9, 1:-1], cols[1, 10, 1:-1], cols[1, 11, 1:-1],
-        ramp, rt, s[5], bcv[2],
-    )
+    # the block's rows that are inner rows of the global grid
+    i0, i1 = max(0, 1 - g.y_off), min(hl - 1, g.Hg - 2 - g.y_off)
+    inner = slice(i0, i1 + 1)
+    left, right = g.x_off == 0, g.x_off + wl == g.Wg
+    vl = vr = None
+    if left:
+        vl = bc_left_values(
+            cols[0, :9, inner], cols[0, 9, inner], cols[0, 10, inner], cols[0, 11, inner],
+            ramp, lt, s[4], u_prof=None if prof is None else prof[inner],
+        )
+    if right:
+        vr = bc_right_values(
+            cols[1, :9, inner], cols[1, 9, inner], cols[1, 10, inner], cols[1, 11, inner],
+            ramp, rt, s[5], bcv[2],
+        )
+    writes = []
+    if left:
+        writes.append(((slice(i0 + h, i1 + h + 1), h), vl))
+    if right:
+        writes.append(((slice(i0 + h, i1 + h + 1), wl - 1 + h), vr))
     # rows, with the corner-adjacent neighbours taken from the side BCs
-    ring = {}
-    for side, t, r_side, i_nb in ((1, tt, 1, -1), (3, bt, 0, 0)):
+    for side, t, r_side, y, y_nb, on in ((1, tt, 1, hl - 1, hl - 2, g.y_off + hl == g.Hg),
+                                         (3, bt, 0, 0, 1, g.y_off == 0)):
+        if not on:
+            continue
         nb = rows[r_side].clone()
-        for x, vals in ((0, vl), (W - 1, vr)):
-            nb[:9, x] = vals[0][:, i_nb]
-            nb[9, x] = vals[1][i_nb]
-            nb[10, x] = vals[2][i_nb]
-            nb[11, x] = vals[3][i_nb]
-        ring[side] = bc_horizontal_values(nb[:9], nb[9], nb[10], nb[11], ramp, t, bcv[side])
+        for x, vals in ((0, vl), (wl - 1, vr)):
+            if vals is not None:
+                nb[:9, x] = vals[0][:, y_nb - i0]
+                nb[9, x] = vals[1][y_nb - i0]
+                nb[10, x] = vals[2][y_nb - i0]
+                nb[11, x] = vals[3][y_nb - i0]
+        vals = bc_horizontal_values(nb[:9], nb[9], nb[10], nb[11], ramp, t, bcv[side])
+        writes.append(((y + h, slice(h, wl + h)), vals))
     w9 = torch.as_tensor(W_LAT, dtype=ctype, device=f.device).reshape(9, 1)
     solid, _ = unpack_aux(aux)
-    for idx, (fb, rho_b, ux_b, uy_b) in (
-        ((slice(1, -1), 0), vl), ((slice(1, -1), W - 1), vr),
-        ((H - 1, slice(None)), ring[1]), ((0, slice(None)), ring[3]),
-    ):
+    for idx, (fb, rho_b, ux_b, uy_b) in writes:
         sol = solid[idx]
         # full-way bounce-back keeps the BC values on solid ring cells
         f[(slice(None),) + idx] = to_store(
@@ -491,16 +644,20 @@ def _k2_ring_plain(f, aux, edge, scal, bc_type, rho, u, to_store, prof, bounce):
             u[(1,) + idx] = torch.where(sol, zero, uy_b)
 
 
-def k2_edge_bc_plain(f, aux, edge, scal, bc_type, rho=None, u=None, prof=None, bounce=False):
-    """Plain PyTorch version of K2: the ring of ``f`` (and of rho/u when
-    given) from the edge export, in apply_bc order."""
-    _k2_ring_plain(f, aux, edge, scal, bc_type, rho, u, lambda v: v, prof, bounce)
+def k2_edge_bc_plain(f, aux, edge, scal, bc_type, rho=None, u=None, prof=None, bounce=False,
+                     geom=None):
+    """Plain PyTorch version of K2: the ring cells of ``f`` (and of rho/u
+    when given) that block ``geom`` (the whole grid by default) holds, from
+    the edge export, in apply_bc order."""
+    _k2_ring_plain(f, aux, edge, scal, bc_type, rho, u, lambda v: v, prof, bounce,
+                   _geom(geom, f))
 
 
-def k2_edge_bc_dev_plain(f, aux, edge, scal, bc_type, prof=None, bounce=False):
+def k2_edge_bc_dev_plain(f, aux, edge, scal, bc_type, prof=None, bounce=False, geom=None):
     """Plain PyTorch version of K2 on a bf16 deviation buffer: the same f32
     ring, quantized into ``f``."""
-    _k2_ring_plain(f, aux, edge, scal, bc_type, None, None, quantize, prof, bounce)
+    _k2_ring_plain(f, aux, edge, scal, bc_type, None, None, quantize, prof, bounce,
+                   _geom(geom, f))
 
 
 def _k2_prof(bc_type, prof, H: int, dev):
@@ -513,54 +670,64 @@ def _k2_prof(bc_type, prof, H: int, dev):
     return _ptr(prof)
 
 
-def k2_edge_bc(f, aux, edge, scal, bc_type, rho=None, u=None, prof=None, bounce=False):
-    """K2 on ``f`` [9, H, W] in place; with ``rho``/``u`` (the full
-    variant) also their ring. ``prof`` [H] is the inlet profile of left
-    types 3/4; ``bounce`` (full-way bounce-back) skips the f overwrite of
-    solid ring cells."""
+def _check_k2(f, aux, edge, g: BlockGeom, dtype, rho, u):
+    dev, plane = f.device, g.plane
+    _check("f", f, (9,) + plane, dev, dtype)
+    _check("aux", aux, plane, dev)
+    _check("edge", edge, (g.edge_len,), dev)
+    if rho is not None:
+        _check("rho", rho, plane, dev)
+        _check("u", u, (2,) + plane, dev)
+
+
+def k2_edge_bc(f, aux, edge, scal, bc_type, rho=None, u=None, prof=None, bounce=False,
+               geom=None):
+    """K2 on ``f`` [9, H, W] in place, or with ``geom`` on one shard's
+    block [9, hl + 2, pitch]: the global ring cells the block holds, from
+    its edge export. With ``rho``/``u`` (the full variant, in f's geometry)
+    also their ring. ``prof`` [hl] is the block's rows of the inlet profile
+    of left types 3/4; ``bounce`` (full-way bounce-back) skips the f
+    overwrite of solid ring cells."""
     if not f.is_cuda:
-        return k2_edge_bc_plain(f, aux, edge, scal, bc_type, rho, u, prof, bounce)
+        return k2_edge_bc_plain(f, aux, edge, scal, bc_type, rho, u, prof, bounce, geom)
+    g = _geom(geom, f)
     full = rho is not None
-    _, H, W = f.shape
     dev = f.device
-    _check("f", f, (9, H, W), dev)
-    _check("aux", aux, (H, W), dev)
-    _check("edge", edge, (2 * EDGE_C * (H + W),), dev)
-    if full:
-        _check("rho", rho, (H, W), dev)
-        _check("u", u, (2, H, W), dev)
-    prof_ptr = _k2_prof(bc_type, prof, H, dev)
+    _check_k2(f, aux, edge, g, torch.float32, rho, u)
+    prof_ptr = _k2_prof(bc_type, prof, g.hl, dev)
     sc = _scal_c(scal)
     lt, tt, rt, bt = (int(t) for t in bc_type)
-    rc = cuda_build.load("k2_edge_bc")(
-        _ptr(f), _ptr(aux), _ptr(edge), prof_ptr, _ptr(rho), _ptr(u), ctypes.addressof(sc),
-        H, W, lt, tt, rt, bt, int(bool(bounce)), int(full),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with _launch_device(dev):
+        rc = cuda_build.load("k2_edge_bc")(
+            _ptr(f), _ptr(aux), _ptr(edge), prof_ptr, _ptr(rho), _ptr(u), ctypes.addressof(sc),
+            ctypes.addressof(g.c_row), lt, tt, rt, bt, int(bool(bounce)), int(full),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"k2_edge_bc launch failed: CUDA error {rc}")
-    LAUNCHES[k2_variant(lt)] += 1
+    LAUNCHES[k2_variant(lt, shard=g.halo > 0)] += 1
 
 
-def k2_edge_bc_dev(f, aux, edge, scal, bc_type, prof=None, bounce=False):
-    """K2 on the bf16 deviation buffer ``f`` [9, H, W] in place."""
+def k2_edge_bc_dev(f, aux, edge, scal, bc_type, prof=None, bounce=False, geom=None):
+    """K2 on the bf16 deviation buffer ``f`` [9, H, W] (or one shard's
+    block of ``geom``) in place."""
     if not f.is_cuda:
-        return k2_edge_bc_dev_plain(f, aux, edge, scal, bc_type, prof, bounce)
-    _, H, W = f.shape
+        return k2_edge_bc_dev_plain(f, aux, edge, scal, bc_type, prof, bounce, geom)
+    g = _geom(geom, f)
     dev = f.device
-    _check("f", f, (9, H, W), dev, DEV_DTYPE)
-    _check("aux", aux, (H, W), dev)
-    _check("edge", edge, (2 * EDGE_C * (H + W),), dev)
-    prof_ptr = _k2_prof(bc_type, prof, H, dev)
+    _check_k2(f, aux, edge, g, DEV_DTYPE, None, None)
+    prof_ptr = _k2_prof(bc_type, prof, g.hl, dev)
     sc = _scal_c(scal)
     lt, tt, rt, bt = (int(t) for t in bc_type)
-    rc = cuda_build.load("k2_edge_bc_dev")(
-        _ptr(f), _ptr(aux), _ptr(edge), prof_ptr, ctypes.addressof(sc), H, W, lt, tt, rt, bt,
-        int(bool(bounce)), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with _launch_device(dev):
+        rc = cuda_build.load("k2_edge_bc_dev")(
+            _ptr(f), _ptr(aux), _ptr(edge), prof_ptr, ctypes.addressof(sc),
+            ctypes.addressof(g.c_row), lt, tt, rt, bt, int(bool(bounce)),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"k2_edge_bc_dev launch failed: CUDA error {rc}")
-    LAUNCHES[k2_variant(lt, dev=True)] += 1
+    LAUNCHES[k2_variant(lt, dev=True, shard=g.halo > 0)] += 1
 
 
 # ---------------------------------------------------------------------------

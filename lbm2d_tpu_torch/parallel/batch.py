@@ -115,7 +115,7 @@ class BatchEngine:
         if runner == "sharded":
             raise NotImplementedError(
                 "runner='sharded' (cases spread over several cards) is not ported "
-                "yet (ROADMAP.md queue 1, item 11)"
+                "yet (ROADMAP.md queue 1, item 4)"
             )
         if runner != "auto":
             raise ValueError(f"unknown runner {runner!r}")

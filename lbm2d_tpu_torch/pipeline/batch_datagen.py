@@ -45,7 +45,7 @@ from .batch_run import build_resume_plan, find_config_files
 from .fetch_pacer import FetchPacer, probe_d2h_mbps
 
 # multi-worker claims (batch_run --coordinate) -> the ROADMAP.md item that adds them
-COORDINATE_ITEM = "queue 1, item 8 (multi-worker coordination, --coordinate)"
+COORDINATE_ITEM = "queue 1, item 2 (multi-worker coordination, --coordinate)"
 
 
 def _group_key(cfg: Dict[str, Any]) -> Tuple:
@@ -394,24 +394,18 @@ def run_lockstep_group(
     fetched = {}
 
     t0 = time.perf_counter()
-    # Device-bound chunk-wall estimate for the pacer's true-stall signal:
-    # the join wait is the full transfer duration, not the un-hidden
-    # residual, so a chunk only truly lost wall time when its total wall
-    # exceeds the device-bound wall. Chunks whose monitor wait is
-    # non-trivial are device-bound (transfers hidden -> stall 0) and
-    # calibrate the estimate; host-bound chunks charge the excess over it.
-    c_est = None
-    _M_EPS = 0.05  # monitor waits below this are the bare sync floor
     while steps < max_steps:
         tp0 = time.perf_counter()
         mon_dev = engine.run_step(chunk, sync=False)
         tp1 = time.perf_counter()
         steps += chunk
         stall_s = 0.0
-        if fetch_thread is not None:
+        fetching = fetch_thread is not None
+        if fetching:
             tj = time.perf_counter()
             fetched = join_fetch()
             stall_s = time.perf_counter() - tj
+        tw = time.perf_counter()
         write_fetched(fetched)  # host-only IO
         fetched = {}
         tp2 = time.perf_counter()
@@ -421,18 +415,9 @@ def run_lockstep_group(
         prof["write"] += tp2 - tp1
         prof["monitor"] += tp3 - tp2
         if pacer is not None:
-            chunk_wall = tp3 - tp0
-            if (tp3 - tp2) > _M_EPS:
-                true_stall = 0.0  # device-bound: transfer fully hidden
-                c_est = (
-                    chunk_wall if c_est is None
-                    else 0.7 * c_est + 0.3 * chunk_wall
-                )
-            elif c_est is not None:
-                true_stall = max(0.0, chunk_wall - c_est)
-            else:
-                true_stall = stall_s  # no estimate yet: conservative
-            pacer.record_chunk(chunk_wall - true_stall, true_stall)
+            # the chunk's wall without the host writes: they take as long
+            # however the fetches are grouped
+            pacer.record_wall(tp3 - tp0 - (tp2 - tw), tp3 - tp2, stall_s, fetching)
         alive = engine.alive_mask
         for b in range(n_cases):
             if fail_reason[b] is None and not alive[b]:

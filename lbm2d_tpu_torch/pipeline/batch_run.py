@@ -6,10 +6,12 @@ sim_results.json: Success/Failed are skipped, Running (a previous crash) is
 retried, unknown configs run. Status is pre-written as Running before each
 case. After the loop the legacy summary is converted to the
 all_cases_vectors.npz feature matrix. ``--lockstep`` hands the project to
-the lockstep engine (pipeline/batch_datagen.py) under the same contract.
+the lockstep engine (pipeline/batch_datagen.py) under the same contract;
+``--spatial_mesh RxC`` runs each case on the blocks of a device mesh.
 
 Usage:
     python -m lbm2d_tpu_torch.pipeline.batch_run --project_name Urban-1 [--max_success N] [--device cpu]
+    python -m lbm2d_tpu_torch.pipeline.batch_run --project_name Urban-1 --spatial_mesh 2x2 [--device cpu]
     python -m lbm2d_tpu_torch.pipeline.batch_run --project_name Urban-1 --lockstep \
         --device_resize --max_batch 5 --f16_state --f16_transfer --yuv_video --f16_retry
 """
@@ -61,8 +63,7 @@ def build_resume_plan(
 
 # flags of paths not ported yet -> the ROADMAP.md item that adds them
 NOT_PORTED = {
-    "coordinate": "queue 1, item 8 (multi-worker coordination, --coordinate)",
-    "spatial_mesh": "queue 1, item 10 (spatial sharding)",
+    "coordinate": "queue 1, item 2 (multi-worker coordination, --coordinate)",
 }
 
 
@@ -82,6 +83,7 @@ def run_batch(
     f16_retry: bool = False,
     adaptive_fetch: bool = True,
     device="cuda",
+    spatial_mesh=None,
     **not_ported,
 ) -> Dict[str, int]:
     """Run every pending case of a project on ``device`` (the reference
@@ -93,8 +95,10 @@ def run_batch(
     cases together; ``max_batch``, ``f16_state``, ``f16_transfer``,
     ``yuv_video``, ``f16_retry``, ``video``, ``fetch_overlap`` and
     ``adaptive_fetch`` apply there. ``device_resize`` applies to both
-    loops. The flags of paths not ported yet (``NOT_PORTED``) raise
-    NotImplementedError when set; they are never ignored.
+    loops. ``spatial_mesh`` ("2x4" / "auto") runs each case spatially
+    sharded over a device mesh (parallel/sharded.py), with the serial
+    path's artifacts. The flags of paths not ported yet (``NOT_PORTED``)
+    raise NotImplementedError when set; they are never ignored.
     """
     for flag, value in not_ported.items():
         if flag not in NOT_PORTED:
@@ -108,6 +112,13 @@ def run_batch(
         # ignored --f16_retry would fake retry protection
         raise ValueError("--f16_retry requires --lockstep and --f16_state "
                          "(it re-runs f16-state failures in exact f32)")
+    if lockstep and spatial_mesh:
+        raise ValueError(
+            "--spatial_mesh shards one case over many devices; --lockstep "
+            "batches many cases per device -- pick one (case-parallel "
+            "cross-chip lockstep, BatchEngine(runner='sharded'), is ROADMAP.md "
+            "queue 1, item 4)"
+        )
     resolve_device(device)  # no GPU -> raise here, not once per case
     if lockstep:
         from .batch_datagen import run_batched
@@ -190,6 +201,7 @@ def run_batch(
         entry = case_executor.execute_case(
             full_config_path, project_paths, output_dirs, job_id,
             progress=progress, device_resize=device_resize, device=device,
+            spatial_mesh=spatial_mesh,
         )
         wall_time_s = time.perf_counter() - wall_t0
         entry["wall_time_s"] = round(wall_time_s, 2)
@@ -277,11 +289,13 @@ def main() -> None:
     ap.add_argument("--f16_retry", action="store_true",
                     help="re-run cases that fail under --f16_state once in "
                     "exact f32 before recording them Failed")
+    ap.add_argument("--spatial_mesh", default=None, metavar="RxC",
+                    help="run each case spatially sharded over a device "
+                    "mesh, e.g. '2x4' or 'auto' (most-square over all "
+                    "CUDA devices; 1x1 with --device cpu)")
     for flag, item in NOT_PORTED.items():
-        kind = {"default": None, "metavar": "RxC"} if flag == "spatial_mesh" else {
-            "action": "store_true"
-        }
-        ap.add_argument(f"--{flag}", help=f"not ported yet: raises (ROADMAP.md {item})", **kind)
+        ap.add_argument(f"--{flag}", action="store_true",
+                        help=f"not ported yet: raises (ROADMAP.md {item})")
     args = ap.parse_args()
     run_batch(
         args.project_name, args.max_success, root=args.root,
@@ -290,7 +304,7 @@ def main() -> None:
         video=not args.no_video, fetch_overlap=not args.fetch_at_idle,
         f16_state=args.f16_state, yuv_video=args.yuv_video,
         f16_retry=args.f16_retry, adaptive_fetch=not args.no_adaptive_fetch,
-        device=args.device,
+        device=args.device, spatial_mesh=args.spatial_mesh,
         **{flag: getattr(args, flag) for flag in NOT_PORTED},
     )
 

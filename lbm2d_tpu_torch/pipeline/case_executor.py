@@ -39,6 +39,7 @@ def execute_case(
     progress: bool = True,
     device_resize: bool = False,
     device="cuda",
+    spatial_mesh=None,
 ) -> Dict[str, Any]:
     resolve_device(device)  # a missing GPU is a set-up error, not a case failure
     h5_path = ""
@@ -60,6 +61,7 @@ def execute_case(
         lattice_metadata = run_one_case.main(
             full_config_path, mask_path, h5_path, video_path,
             progress=progress, device_resize=device_resize, device=device,
+            spatial_mesh=spatial_mesh,
         )
         if lattice_metadata.get("status") != "Success":
             raise RuntimeError(f"Simulation failed: {lattice_metadata.get('reason')}")

@@ -39,6 +39,7 @@ def init_simulation_env(
     h5_output_path: Optional[str],
     video_output_path: Optional[str],
     device="cuda",
+    spatial_mesh=None,
 ):
     sim_cfg = config["simulation"]
     gui_cfg = config["outputs"]["gui"]
@@ -52,7 +53,8 @@ def init_simulation_env(
     )
     composer = FrameComposer(gui_w, gui_h, viz_sigma=gui_cfg.get("gaussian_sigma", 1.0))
 
-    engine = LBMEngine(config, mask_yx=mask.astype(np.float32), device=device)
+    engine = LBMEngine(config, mask_yx=mask.astype(np.float32), device=device,
+                       spatial_mesh=spatial_mesh)
     engine.init()
 
     # only rank 0 of a torch.distributed group owns artifacts
@@ -96,12 +98,10 @@ def main(
 ) -> Dict[str, Any]:
     """Run one case on ``device`` (``cuda`` unless the caller passes
     ``cpu``). ``device_resize`` crops and resizes dataset frames and renders
-    video frames on the device; ``spatial_mesh`` is not ported yet and
-    raises NotImplementedError."""
-    if spatial_mesh:
-        raise NotImplementedError(
-            "spatial_mesh is not ported yet (ROADMAP.md queue 1, item 10)"
-        )
+    video frames on the device; ``spatial_mesh`` ("2x4" / (2, 4) / "auto")
+    runs the case on the blocks of a device mesh (overrides the config's
+    ``simulation.spatial_mesh``), with the serial path's artifacts
+    (``tests/test_torch_spatial_pipeline.py``)."""
     resolve_device(device)
     metadata: Dict[str, Any] = {"status": "Failed", "reason": "Unknown error"}
     engine = composer = gui = recorder = writer = None
@@ -112,7 +112,7 @@ def main(
 
         engine, composer, gui, recorder, writer = init_simulation_env(
             config, mask_path, h5_output_path, video_output_path,
-            device=device,
+            device=device, spatial_mesh=spatial_mesh,
         )
 
         max_steps = int(config["simulation"]["max_steps"])
@@ -204,6 +204,10 @@ if __name__ == "__main__":
     ap.add_argument("--video", default="outputs/test_run/test_case.mp4")
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (default) or cpu")
+    ap.add_argument("--spatial_mesh", default=None,
+                    help="run spatially sharded over a device mesh, e.g. "
+                    "'2x4' or 'auto' (most-square over all devices)")
     args = ap.parse_args()
-    md = main(args.config, args.mask, args.h5, args.video, device=args.device)
+    md = main(args.config, args.mask, args.h5, args.video, device=args.device,
+              spatial_mesh=args.spatial_mesh)
     print(md)

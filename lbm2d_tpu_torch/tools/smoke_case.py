@@ -91,9 +91,10 @@ def read_turbulence(path: str) -> np.ndarray:
 
 
 def write_sibling_project(root: str, config: dict, mask: np.ndarray, nus=SIBLING_NUS,
-                          name: str = "Smoke4") -> list:
+                          name: str = "Smoke4", video: bool = True) -> list:
     """SimCases/<name> under ``root``: the smoke case at each nu, one mask
-    PNG, video on. Returns [(config file name, case name)]."""
+    PNG, video on unless ``video`` is False (the serial path's composer
+    needs matplotlib). Returns [(config file name, case name)]."""
     import cv2
     import yaml
 
@@ -109,7 +110,7 @@ def write_sibling_project(root: str, config: dict, mask: np.ndarray, nus=SIBLING
         cfg["simulation"]["nu"] = nu
         cfg["simulation"]["name"] = f"L114_0000_{tag}"
         cfg["mask"]["path"] = mask_file
-        cfg["outputs"]["video"]["enable"] = True
+        cfg["outputs"]["video"]["enable"] = video
         cfg["outputs"]["video"]["filename"] = f"L114_0000_{tag}.mp4"
         names.append((f"L114_0000_cfg_{tag}.yaml", cfg["simulation"]["name"]))
         with open(os.path.join(base, "configs", names[-1][0]), "w") as fh:

@@ -156,6 +156,6 @@ def test_stacked_params_and_rest_state_match_jax_layout():
 
 def test_case_sharded_runner_is_not_ported():
     nx, ny = 48, 24
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
         BatchEngine([grid_config(nx, ny)], [block_mask(ny, nx)], runner="sharded",
                     device="cpu")

@@ -190,7 +190,7 @@ def test_batch_run_lockstep_delegation_and_checks(tmp_path):
         run_batch("LK", root=root, f16_retry=True, device="cpu")
     with pytest.raises(ValueError, match="f16_retry"):
         run_batch("LK", root=root, lockstep=True, f16_retry=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
         run_batched("LK", root=root, coordinate=True, device="cpu")
 
 

@@ -270,3 +270,49 @@ def test_copy_probe_matches_plain_on_card(shape):
         cp.copy_probe_plain(f, ref, a)
         assert torch.equal(out, ref)
     assert cp.LAUNCHES == {"copy_probe": 1, "copy_probe_aux": 1}
+
+
+def seam_mask():
+    """``make_mask`` plus a solid across both seams of a 2x2 mesh (row 10,
+    column 18): half-way and Bouzidi links cross them."""
+    mask = make_mask()
+    mask[8:13, 15:21] = 1.0
+    return mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("obstacle", ["equilibrium", "bounce_back", "bounce_back_halfway",
+                                      "bounce_back_bouzidi"])
+@pytest.mark.parametrize("bc_type", [(0, 2, 1, 2), (4, 2, 1, 2)], ids=["0212", "4212"])
+def test_shard_kernels_match_plain_on_card(obstacle, bc_type):
+    # every _shard variant on a 2x2 mesh of one card: bitwise against its
+    # plain version and against the single-device kernels
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU build)")
+    from lbm2d_tpu_torch.parallel import sharded as sh
+    from lbm2d_tpu_torch.parallel.topology import make_mesh
+
+    dev = torch.device("cuda")
+    mesh = make_mesh((2, 2), [dev] * 4)
+    p = ts.make_params(make_config(bc_type, obstacle), seam_mask(), device=dev)
+    s0 = seeded_state(device=dev)
+    scheme = cs.obstacle_scheme(p)
+    cs.reset_launch_counts()
+    a, ma = sh.run_chunk_sharded_cuda(s0, p, 9, mesh)
+    assert {k: v for k, v in cs.LAUNCHES.items() if v} == {
+        cs.k1_variant(scheme, shard=True): 32, cs.k1_variant(scheme, full=True, shard=True): 4,
+        cs.k2_variant(bc_type[0], shard=True): 36}
+    b, mb = sh.run_chunk_sharded_plain(s0, p, 9, mesh)
+    assert_same(a, b)
+    assert torch.equal(ma["force"], mb["force"])
+    c, _ = cs.run_chunk_cuda(s0, p, 9)
+    assert_same(a, c)
+    if scheme in cs.DEV_OBSTACLES:
+        cs.reset_launch_counts()
+        a, _ = sh.run_chunk_sharded_cuda(s0, p, 9, mesh, store_dev=True)
+        assert cs.LAUNCHES[cs.k1_variant(scheme, dev=True, shard=True)] == 32
+        assert cs.LAUNCHES[cs.k2_variant(bc_type[0], dev=True, shard=True)] == 32
+        b, _ = sh.run_chunk_sharded_plain(s0, p, 9, mesh, store_dev=True)
+        assert_same(a, b)
+        c, _ = cs.run_chunk_cuda(s0, p, 9, store_dev=True)
+        assert_same(a, c)

@@ -100,3 +100,25 @@ def test_grouped_fetch_byte_parity(tmp_path):
         assert tr["link_d2h_mbps_pre"] > 0 and tr["link_d2h_mbps_post"] > 0
         assert tr["bytes_fetched"] > 0
     assert runs["grouped"][0][0]["run_summary"]["transfer"]["fetch_group_size_final"] == 4
+
+
+def test_stall_calibration_from_chunks_without_a_fetch():
+    # a host-paced loop (the H100's): monitor waits far below the 50 ms
+    # gate. Chunks with no fetch in flight calibrate the chunk-wall
+    # estimate, so a fetch whose join wait the chunk hid charges no stall
+    pacer = FetchPacer(window=4)
+    assert pacer.record_wall(0.020, 0.001, 0.0, fetching=False) == 0.0
+    assert pacer.chunk_wall_est == 0.020 and pacer.calibrating_chunks == 1
+    assert pacer.record_wall(0.020, 0.001, 0.015) == 0.0
+    assert pacer.record_wall(0.028, 0.001, 0.015) == pytest.approx(0.008)
+    assert pacer.calibrating_chunks == 1
+    # a device-bound chunk still calibrates, fetch or not
+    assert pacer.record_wall(0.030, 0.060, 0.015) == 0.0
+    assert pacer.chunk_wall_est == pytest.approx(0.7 * 0.020 + 0.3 * 0.030)
+    # the reference's rule alone (a fetch joined every chunk, host-paced)
+    # never forms an estimate: the raw join wait counts as stall and the
+    # group grows although the chunk hid the transfer
+    ref = FetchPacer()
+    for _ in range(16):
+        assert ref.record_wall(0.020, 0.001, 0.015) == 0.015
+    assert ref.chunk_wall_est is None and ref.group_size > 1

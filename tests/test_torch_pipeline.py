@@ -119,7 +119,6 @@ def test_resume_skips_finished_cases(roots):
 
 @pytest.mark.parametrize("flag", sorted(NOT_PORTED))
 def test_unported_flags_raise(tmp_path, flag):
-    value = "2x1" if flag == "spatial_mesh" else True
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_batch("TestProj", root=str(tmp_path), progress=False, device="cpu",
-                  **{flag: value})
+                  **{flag: True})
