@@ -12,11 +12,14 @@ Phases (any failure raises and the process exits non-zero):
 2. hold each kernel variant (``cuda_step.KERNEL_VARIANTS``: K1 fast and
    full for each obstacle scheme -- equilibrium, full-way, half-way and
    Bouzidi bounce-back, the Bouzidi q planes drawn from a seeded generator
-   on the mask's boundary links -- K1 in 16-bit deviation storage for the
-   equilibrium and full-way schemes, and K2 for left types 0 and 3/4, f32
-   and deviation storage, bounce on and off) against its plain PyTorch
-   version at the production grid 2432x1152 on a developed state, then a
-   20-step ``run_chunk_cuda``
+   on the mask's boundary links -- and K1 in 16-bit deviation storage for
+   the equilibrium and full-way schemes, each with the boundary ring its
+   ring threads write, over BC combinations that take every side's types:
+   left 0/2/3/4, right 0/1/2, top/bottom 0/2; full-way bounce-back keeps
+   the BC values on solid ring cells, the other schemes overwrite them)
+   against its plain PyTorch version at the production grid 2432x1152 on a
+   developed state, with each variant's time, bound, registers per thread
+   and host issue per launch; then a 20-step ``run_chunk_cuda``
    against the eager ``run_chunk`` and, with ``store_dev``, against its
    plain version: max relative error (max |a - b| / max |b|) <= 1e-5 each;
    the ``store_dev`` chunk within the JAX package's 5e-4 budget of the
@@ -27,7 +30,8 @@ Phases (any failure raises and the process exits non-zero):
 3. drive the serial main path, ``LBMEngine`` + ``run_simulation_loop``, on
    the production-shaped case in ``lbm2d_tpu_torch/data`` (3000 steps in
    chunks of 100), and check status Success, finite moments, mean jx > 0,
-   Fx > 0, and that each of its kernels was launched and no plain step ran;
+   Fx > 0, and that each of its kernels was launched (one launch a step)
+   and no plain step ran;
    then a 20-step ``store_dev`` chunk from the flow it ends with must lie
    within 1e-4 of the exact chunk (and differ from it);
 4. drive the lockstep production path, ``batch_run --lockstep
@@ -35,8 +39,8 @@ Phases (any failure raises and the process exits non-zero):
    --f16_retry``, on a temporary project of three sibling cases of the
    smoke case (the same mask; nu 0.02, 0.03, 0.05; video on), and check
    every case Success, finite HDF5 frames with mean jx > 0, one mp4 per
-   case, the launch counts of its kernels (k1_step_dev and k2_edge_bc_dev
-   3 x 2970, k1_step_full and k2_edge_bc 3 x 30) and no plain call, and
+   case, the launch counts of its kernels (k1_step_dev 3 x 2970,
+   k1_step_full 3 x 30: one a step) and no plain call, and
    print the fetch pacer's record (stall fraction, final group size, its
    chunk-wall estimate and the chunks that calibrated it). Where
    the machine has no h5py, the HDF5 writer runs on an in-memory stand-in
@@ -46,8 +50,9 @@ Phases (any failure raises and the process exits non-zero):
    ny=165, steps=160000, chunk=500)`` (the JAX package's own benchmark
    test, tests/test_dfg_bc.py), and check its ranges (St 0.26-0.32, Cd
    2.7-3.5, Cl amplitude 0.5-1.4, Re 90-110, shedding), its launch counts
-   (k1_step_bouzidi, k1_step_bouzidi_full, k2_edge_bc_vel) and no plain
-   call; print the coefficients beside the recorded row of
+   (k1_step_bouzidi, k1_step_bouzidi_full: one a step) and no plain call,
+   and the device time of one step at 881x165 (a CUDA graph); print the
+   coefficients beside the recorded row of
    docs/benchmarks/dfg2d_results.json; then, from its developed state,
    the five other obstacle x inlet pairs for 200 steps through the kernels
    and through ``run_chunk_plain`` (and the full-way pairs in deviation
@@ -55,8 +60,8 @@ Phases (any failure raises and the process exits non-zero):
 6. drive the serial main path of phase 3 again with temporal blocking on
    (``cuda_step._FUSE_STEPS = 4``, opt-in, as the JAX package's
    ``_FUSE_STEPS``): check Success, finite moments, mean jx > 0, Fx > 0,
-   the launch counts (k3_fused 720, k1_step 90, k1_step_full 30,
-   k2_edge_bc 120) and no plain call, and its final f against phase 3's
+   the launch counts (k3_fused 720, k1_step 90, k1_step_full 30) and no
+   plain call, and its final f against phase 3's
    (bitwise expected; gated at the relative tolerance); print its
    kernel-path and wall MLUPS beside phase 3's; then every other scheme K3
    runs, fused through the kernels against the unfused plain chunk runner:
@@ -64,16 +69,16 @@ Phases (any failure raises and the process exits non-zero):
    steps from phase 5's developed flow, and full-way and half-way on the
    smoke case for one chunk, so that every K3 variant is launched;
    phase 2 also holds each K3 variant (``k3_fused[_bounce|_halfway][_vel]``
-   at S = 4) against its plain version, one K3 pass against four K1 + K2
-   steps through the kernels, and times K3 at S = 8, and each sharded
-   form of K1 and K2 (``k1_step[_bounce|_halfway|_bouzidi]_shard[_full|
-   _dev]``, ``k2_edge_bc[_vel]_shard[_dev]``) on the four blocks of a 2x2
-   mesh of the card (local 1216x576, halos cut from the developed state),
-   bitwise against its plain version, timed on block (0, 0);
+   at S = 4) against its plain version, one K3 pass against four K1 steps
+   through the kernels, and times K3 at S = 8, and each sharded form of K1
+   (``k1_step[_bounce|_halfway|_bouzidi]_shard[_full|_dev]``) on the four
+   blocks of a 2x2 mesh of the card (local 1216x576, halos cut from the
+   developed state) over the same BC combinations, bitwise against its
+   plain version, timed on block (0, 0);
 7. run the roofline tool's measurement (``tools/roofline.measure``) at
    4096^2 with two chunks of 50 steps, and hold the copy probe, with and
-   without the aux read, against its plain version at that size, timed
-   beside ``torch.Tensor.copy_``;
+   without the aux read, against its plain version at that size, both
+   forms timed beside ``torch.Tensor.copy_`` in the same run;
 8. drive the sharded path (``parallel/sharded.py``): (a) on a 2x2 mesh of
    the card, ``run_chunk_sharded_cuda`` from phase 3's final state for 200
    steps, f32 and ``store_dev``, bitwise against ``run_chunk_cuda``; (b) on
@@ -86,9 +91,9 @@ Phases (any failure raises and the process exits non-zero):
    mesh at 4096^2 (the demo case), a 6-step chunk from a seeded random
    state bitwise against ``run_chunk_sharded_plain`` (the kernels at this
    block size), then us/step, the device time of one step
-   (a CUDA graph of K1 + K2 on every block and the halo copies), the halo
+   (a CUDA graph of K1 on every block and the halo copies), the halo
    exchange's share and the scatter and gather cost of a chunk. Every
-   ``_shard`` variant is launched in phase 8.
+   ``_shard`` variant is launched in phase 8, one launch a block a step.
 
 The last two lines are the kernels' JSON record (``launches``: the sum over
 the driven paths, split in ``launches_by_path``) and ``{"ok": true,
@@ -100,6 +105,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -136,8 +142,15 @@ K1_OPS_PER_CELL = 120
 # per Bouzidi boundary link: 2q, 1 - 2q, two products and a sum (q < 1/2),
 # or two divisions, a subtraction, a product and a sum (q >= 1/2)
 K1_OPS_PER_LINK = 6
-# per ring cell of K2: one BC (~70 for the Zou-He branches) plus overwrite
-K2_OPS_PER_CELL = 80
+# per ring cell of K1's ring threads: one BC (~70 for the Zou-He
+# branches) plus the overwrite
+RING_OPS_PER_CELL = 80
+# the BC combinations phase 2 holds every K1 variant to: each side's types
+# (left 0/2/3/4, right 0/1/2, top/bottom 0/2) and each corner pairing of a
+# side type with both row types; the first is the smoke case's and is
+# the one timed
+BC_COMBOS = ((0, 2, 1, 2), (2, 0, 0, 0), (3, 2, 2, 0), (4, 0, 1, 2), (4, 2, 0, 0),
+             (0, 0, 2, 2))
 # shared memory of an H100 SXM: 128 B per clock per SM, 132 SMs, 1.98 GHz
 PEAK_SMEM = 33e12
 # phase 6: temporal blocking at S = 4 (K3's default tile), and S = 8 timed
@@ -145,7 +158,7 @@ FUSE_S, FUSE_S_MAX = 4, 8
 # phase 7: the roofline tool at 4096^2 with a few short chunks
 ROOF_N, ROOF_CHUNKS, ROOF_SPC = 4096, 2, 50
 # phase 8(d): the chunk that holds the sharded kernels against their plain
-# versions on the 2x2 mesh at 4096^2 (K1 fast and full, K2)
+# versions on the 2x2 mesh at 4096^2 (K1 fast and full)
 CHECK_4K_STEPS = 6
 
 
@@ -217,6 +230,23 @@ def graph_ms(fn, per_graph: int = 20, replays: int = 7) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / per_graph)
     return statistics.median(times)
+
+
+def k1_registers(log: str):
+    """{(storage, scheme, shard): registers per thread} of the K1 kernel
+    instances (k1_step_kernel<S, OBST, SHARD>) in ptxas's -v output."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        k = entry and re.search(r"k1_step_kernelI\d+(F32Store|DevStore)Li(\d)ELb([01])E", entry)
+        if m and k:
+            out[k.group(1), int(k.group(2)), k.group(3) == "1"] = int(m.group(1))
+            entry = None
+    return out
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -331,135 +361,131 @@ def main() -> int:
     print(f"  Bouzidi q planes: {n_links} boundary links, {int((q_np < 0.5).sum())} with q < 1/2",
           flush=True)
 
+    def combo_params(bc):
+        """The smoke case with BC types ``bc``; left types 3/4 get a
+        parabolic inlet of u_max 0.1."""
+        cfg = json.loads(json.dumps(config))
+        cfg["boundary_condition"]["type"] = list(bc)
+        if bc[0] in (solver.BC_VEL_INLET, solver.BC_VEL_INLET_NEBB):
+            cfg["boundary_condition"]["value"][0] = [0.1, 0.0]
+        return solver.make_params(cfg, mask, dtype=torch.float32, device=dev)
+
+    def prof_of(pk):
+        vel = pk.bc_type[0] in (solver.BC_VEL_INLET, solver.BC_VEL_INLET_NEBB)
+        return pk.inlet_profile if vel else None
+
+    def bc_tag(pk):
+        return "".join(str(int(t)) for t in pk.bc_type)
+
+    combos = [(pk, cs.scalar_row(pk, state.step + 1)) for pk in map(combo_params, BC_COMBOS)]
+    regs = k1_registers(cuda_build.BUILD_LOG.get("k1_step", ""))
+
+    def exact(tag, a, b):
+        """Max relative error of a variant's output, which must be 0
+        (bitwise: the same per-cell code in the same order)."""
+        err = rel_err(a, b)
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag}: not bitwise equal to its plain version "
+                                 f"(max rel err {err:.3e})")
+        return err
+
     def k1_buffers(full):
-        out = {"f_out": torch.zeros_like(state.f), "edge": cs.new_edge_buffer(H, W, device=dev)}
+        # NaN, so a cell the kernel leaves unwritten fails the check
+        nan = float("nan")
+        out = {"f_out": torch.full_like(state.f, nan)}
         if full:
-            out.update(rho=torch.zeros((H, W), device=dev), u=torch.zeros((2, H, W), device=dev),
-                       f_post=state.f_post.clone())
+            out.update(rho=torch.full((H, W), nan, device=dev),
+                       u=torch.full((2, H, W), nan, device=dev), f_post=state.f_post.clone())
         return out
 
-    def run_k1(fn, b, obst):
-        fn(state.f, b["f_out"], aux, b["edge"], scal, p.use_les, b.get("rho"), b.get("u"),
-           b.get("f_post"), obstacle=obst, q=qplanes if obst == cs.OBSTACLE_BOUZIDI else None)
+    def run_k1(fn, b, obst, pk, sc):
+        fn(state.f, b["f_out"], aux, sc, p.use_les, pk.bc_type, b.get("rho"), b.get("u"),
+           b.get("f_post"), obstacle=obst, q=qplanes if obst == cs.OBSTACLE_BOUZIDI else None,
+           prof=prof_of(pk))
 
     def abs_err(bk, bp, fields):
         return max(float((bk[k].float() - bp[k].float()).abs().max()) for k in fields)
 
-    def record(max_abs, errs, kernel_call, plain_call, nbytes, ops):
+    def record(max_abs, errs, kernel_call, plain_call, nbytes, ops, registers=None):
         launch_ms, host_ms = median_ms(kernel_call)
         return dict(max_abs_err=max_abs,
                     max_rel_err=max(errs.values()), ms=graph_ms(kernel_call), launch_ms=launch_ms,
                     host_ms=host_ms,
                     plain_ms=median_ms(plain_call, batches=5, per_batch=2)[0],
-                    bound=bound_ms(nbytes, ops))
+                    bound=bound_ms(nbytes, ops), registers=registers)
+
+    def over_combos(name, new_buffers, run, kern, plain):
+        """Kernel and plain version over every BC combination, bitwise;
+        returns (max abs err, {tag: rel err})."""
+        errs, abs_errs = {}, []
+        for pk, sc in combos:
+            bk, bp = new_buffers(), new_buffers()
+            run(kern, bk, pk, sc)
+            run(plain, bp, pk, sc)
+            torch.cuda.synchronize()
+            abs_errs.append(abs_err(bk, bp, bk))
+            for k in bk:
+                tag = f"{name} bc {bc_tag(pk)} {k}"
+                errs[tag] = exact(tag, bk[k], bp[k])
+        print(f"  {name:<30s} {len(errs)} outputs over {len(combos)} BC combinations bitwise "
+              f"(max rel err {max(errs.values()):.1e})", flush=True)
+        return max(abs_errs), errs
 
     records = {}
     n_in = (H - 2) * (W - 2)
+    ring = 2 * (H - 2) + 2 * W
     for obst in range(4):
         for full in (False, True):
             name = cs.k1_variant(obst, full)
-            bk, bp = k1_buffers(full), k1_buffers(full)
-            run_k1(cs.k1_step, bk, obst)
-            run_k1(cs.k1_step_plain, bp, obst)
-            torch.cuda.synchronize()
-            errs = {k: rel_err(bk[k], bp[k]) for k in bk}
-            for k, err in errs.items():
-                check(f"{name} {k}", err)
-            # f in (36 B) and aux (4 B) per cell, f out (36 B) per interior
-            # cell, the edge export; the full variant adds rho, u, f_post.
-            # Bouzidi reads q where this mask has a boundary link (the dense
-            # [8, H, W] planes would add 32 B/cell: PERF.md)
-            nbytes = 36 * H * W + 4 * H * W + 36 * n_in + 4 * bk["edge"].numel()
-            ops = K1_OPS_PER_CELL * n_in
+            max_abs, errs = over_combos(
+                name, lambda: k1_buffers(full),
+                lambda fn, b, pk, sc: run_k1(fn, b, obst, pk, sc), cs.k1_step, cs.k1_step_plain)
+            # f in (36 B) and aux (4 B) read, f out (36 B) written on every
+            # cell, the ring included; the full variant adds rho and u on
+            # every cell and f_post on the interior. Bouzidi reads q where
+            # this mask has a boundary link (the dense [8, H, W] planes
+            # would add 32 B/cell: PERF.md)
+            nbytes = 76 * H * W
+            ops = K1_OPS_PER_CELL * n_in + RING_OPS_PER_CELL * ring
             if full:
-                nbytes += 4 * H * W + 8 * H * W + 36 * n_in
+                nbytes += 12 * H * W + 36 * n_in
             if obst == cs.OBSTACLE_BOUZIDI:
                 nbytes += 4 * n_links
                 ops += K1_OPS_PER_LINK * n_links
-            records[name] = record(abs_err(bk, bp, bk), errs, lambda: run_k1(cs.k1_step, bk, obst),
-                                   lambda: run_k1(cs.k1_step_plain, bp, obst), nbytes, ops)
-            if obst == cs.OBSTACLE_EQ and full:
-                k1_out = bp
+            bk, bp = k1_buffers(full), k1_buffers(full)
+            records[name] = record(
+                max_abs, errs, lambda: run_k1(cs.k1_step, bk, obst, p, scal),
+                lambda: run_k1(cs.k1_step_plain, bp, obst, p, scal), nbytes, ops,
+                regs.get(("F32Store", obst, False)))
 
     # K1 in 16-bit deviation storage, on the same developed state
     fq = cs.quantize(state.f)
 
     def kd_buffers():
-        return {"f_out": torch.zeros_like(fq), "edge": cs.new_edge_buffer(H, W, device=dev)}
+        return {"f_out": torch.full_like(fq, float("nan"))}
 
-    def run_k1d(fn, b, obst):
-        fn(fq, b["f_out"], aux, b["edge"], scal, p.use_les, obst)
+    def run_k1d(fn, b, obst, pk, sc):
+        fn(fq, b["f_out"], aux, sc, p.use_les, pk.bc_type, obst, prof_of(pk))
 
     for obst in cs.DEV_OBSTACLES:
         name = cs.k1_variant(obst, dev=True)
+        max_abs, errs = over_combos(name, kd_buffers,
+                                    lambda fn, b, pk, sc: run_k1d(fn, b, obst, pk, sc),
+                                    cs.k1_step_dev, cs.k1_step_dev_plain)
+        # f 18 B in (bf16), aux 4, f 18 B out; the dequantize and quantize
+        # add 18 operations per cell, 9 per ring cell
         bk, bp = kd_buffers(), kd_buffers()
-        run_k1d(cs.k1_step_dev, bk, obst)
-        run_k1d(cs.k1_step_dev_plain, bp, obst)
-        torch.cuda.synchronize()
-        errs = {k: rel_err(bk[k], bp[k]) for k in bk}
-        for k, err in errs.items():
-            check(f"{name} {k}", err)
-        # f 18 B in (bf16), aux 4, f 18 B out, the f32 edge export; the
-        # dequantize and quantize add 18 operations per cell
         records[name] = record(
-            abs_err(bk, bp, bk), errs, lambda: run_k1d(cs.k1_step_dev, bk, obst),
-            lambda: run_k1d(cs.k1_step_dev_plain, bp, obst),
-            18 * H * W + 4 * H * W + 18 * n_in + 4 * bk["edge"].numel(),
-            (K1_OPS_PER_CELL + 18) * n_in)
-        if obst == cs.OBSTACLE_EQ:
-            kd_out = bp
-
-    # K2 on K1's outputs (f32: the full variant's f ring plus rho/u ring;
-    # deviation storage: the bf16 f ring), left types 0 (the smoke case) and
-    # 3/4 (a parabolic inlet of u_max 0.1), bounce off (timed) and on
-    ring = 2 * (H - 2) + 2 * W
+            max_abs, errs, lambda: run_k1d(cs.k1_step_dev, bk, obst, p, scal),
+            lambda: run_k1d(cs.k1_step_dev_plain, bp, obst, p, scal), 40 * H * W,
+            (K1_OPS_PER_CELL + 18) * n_in + (RING_OPS_PER_CELL + 9) * ring,
+            regs.get(("DevStore", obst, False)))
 
     def vel_params(left_type):
         cfg = json.loads(json.dumps(config))
         cfg["boundary_condition"]["type"][0] = left_type
         cfg["boundary_condition"]["value"][0] = [0.1, 0.0]
         return solver.make_params(cfg, mask, dtype=torch.float32, device=dev)
-
-    k2_params = {"k2_edge_bc": [p], "k2_edge_bc_vel": [vel_params(4), vel_params(3)]}
-
-    def run_k2(fn, b, pk, bounce):
-        fn(b["f_out"], aux, b["edge"], scal, pk.bc_type, b["rho"], b["u"],
-           prof=pk.inlet_profile, bounce=bounce)
-
-    def run_k2d(fn, b, pk, bounce):
-        fn(b["f_out"], aux, b["edge"], scal, pk.bc_type, prof=pk.inlet_profile, bounce=bounce)
-
-    # storage suffix -> (input, runner, kernel, plain version, checked
-    # buffers, f bytes written per ring cell, operations per ring cell)
-    k2_storages = {
-        "": (k1_out, run_k2, cs.k2_edge_bc, cs.k2_edge_bc_plain, ("f_out", "rho", "u"),
-             36 + 12, K2_OPS_PER_CELL),
-        "_dev": (kd_out, run_k2d, cs.k2_edge_bc_dev, cs.k2_edge_bc_dev_plain, ("f_out",), 18,
-                 K2_OPS_PER_CELL + 9),
-    }
-    for suffix, (src, run, kern, plain, fields, ring_bytes, ring_ops) in k2_storages.items():
-        for base, plist in k2_params.items():
-            name = base + suffix
-            errs, abs_errs = {}, []
-            for pk in plist:
-                for bounce in (False, True):
-                    bk = {k: v.clone() for k, v in src.items()}
-                    bp = {k: v.clone() for k, v in src.items()}
-                    run(kern, bk, pk, bounce)
-                    run(plain, bp, pk, bounce)
-                    torch.cuda.synchronize()
-                    abs_errs.append(abs_err(bk, bp, fields))
-                    for k in fields:
-                        tag = f"{name} left {pk.bc_type[0]} bounce {int(bounce)} {k}"
-                        errs[tag] = rel_err(bk[k], bp[k])
-                        check(tag, errs[tag])
-            pk = plist[0]
-            nbytes = 4 * bk["edge"].numel() + 4 * ring + ring_bytes * ring
-            if pk.inlet_profile is not None:
-                nbytes += 4 * H
-            records[name] = record(
-                max(abs_errs), errs, lambda: run(kern, bk, pk, False),
-                lambda: run(plain, bp, pk, False), nbytes, ring_ops * ring)
 
     # K3 at S = 4 on its default tile, each variant against its plain
     # version (the windowed algorithm) on the same state, left types 0 and
@@ -498,17 +524,16 @@ def main() -> int:
             records[name] = record(max(abs_errs), errs, lambda: run_k3(cs.k3_fused, bk, obst, pk),
                                    lambda: run_k3(cs.k3_fused_plain, bp, obst, pk),
                                    k3_bytes + prof_bytes, k3_ops)
-    # one K3 pass against S single steps of K1 + K2, all through the kernels
-    f_k, edge3 = state.f, cs.new_edge_buffer(H, W, device=dev)
+    # one K3 pass against S single K1 steps, all through the kernels
+    f_k = state.f
     for i in range(FUSE_S):
         nxt = torch.empty_like(f_k)
-        cs.k1_step(f_k, nxt, aux, edge3, rows3[i], p.use_les)
-        cs.k2_edge_bc(nxt, aux, edge3, rows3[i], p.bc_type)
+        cs.k1_step(f_k, nxt, aux, rows3[i], p.use_les, p.bc_type)
         f_k = nxt
     bk = nan_f()
     run_k3(cs.k3_fused, bk, cs.OBSTACLE_EQ, p)
     torch.cuda.synchronize()
-    check(f"k3_fused pass vs {FUSE_S} x (K1 + K2)", rel_err(bk, f_k))
+    check(f"k3_fused pass vs {FUSE_S} x K1", rel_err(bk, f_k))
     # the deepest fusion, held against its plain version and timed beside S = 4
     tile8 = cs.k3_tile(FUSE_S_MAX)
     rows8 = torch.stack([cs.scalar_row(p, state.step + 1 + i) for i in range(FUSE_S_MAX)])
@@ -552,126 +577,86 @@ def main() -> int:
         return (inner * ((g.x_off == 0) + (g.x_off + g.wl == g.Wg))
                 + g.wl * ((g.y_off == 0) + (g.y_off + g.hl == g.Hg)))
 
-    def exact(tag, a, b):
-        """Max relative error of a sharded variant's output, which must be
-        0 (bitwise: the same per-cell code in the same order)."""
-        err = rel_err(a, b)
-        if not torch.equal(a, b):
-            raise AssertionError(f"{tag}: not bitwise equal to its plain version "
-                                 f"(max rel err {err:.3e})")
-        return err
-
     def ks_buffers(b, full, dtype=torch.float32):
+        # zeros: the halo, which no variant writes, compares equal
         g = geoms2[b]
-        out = {"f_out": torch.zeros((9,) + g.plane, dtype=dtype, device=dev),
-               "edge": cs.new_edge_buffer(g.hl, g.wl, device=dev)}
+        out = {"f_out": torch.zeros((9,) + g.plane, dtype=dtype, device=dev)}
         if full:
             out.update(rho=torch.zeros(g.plane, device=dev),
                        u=torch.zeros((2,) + g.plane, device=dev), f_post=fpS[b].clone())
         return out
 
-    def run_ks(fn, b, bufs, obst):
-        fn(fS[b], bufs["f_out"], auxS[b], bufs["edge"], scal, p.use_les, bufs.get("rho"),
+    def prof_rows(pk, b):
+        prof = prof_of(pk)
+        return None if prof is None else prof[b[0] * hl2:(b[0] + 1) * hl2].contiguous()
+
+    def run_ks(fn, b, bufs, obst, pk, sc):
+        fn(fS[b], bufs["f_out"], auxS[b], sc, p.use_les, pk.bc_type, bufs.get("rho"),
            bufs.get("u"), bufs.get("f_post"), obstacle=obst,
-           q=qS[b] if obst == cs.OBSTACLE_BOUZIDI else None, geom=geoms2[b])
+           q=qS[b] if obst == cs.OBSTACLE_BOUZIDI else None, prof=prof_rows(pk, b),
+           geom=geoms2[b])
 
-    def run_kds(fn, b, bufs, obst):
-        fn(fqS[b], bufs["f_out"], auxS[b], bufs["edge"], scal, p.use_les, obst, geom=geoms2[b])
+    def run_kds(fn, b, bufs, obst, pk, sc):
+        fn(fqS[b], bufs["f_out"], auxS[b], sc, p.use_les, pk.bc_type, obst, prof_rows(pk, b),
+           geom=geoms2[b])
 
-    def shard_checked(name, new_buffers, run, kern, plain, fields=None, keep=None):
-        """Every block through the kernel and its plain version; returns
-        (max abs err, {tag: rel err}); ``keep`` collects the plain outputs."""
+    def shard_checked(name, new_buffers, run, kern, plain):
+        """Every block and BC combination through the kernel and its plain
+        version, bitwise; returns (max abs err, {tag: rel err})."""
         errs, abs_errs = {}, []
-        for b in blocks2:
-            bk, bp = new_buffers(b), new_buffers(b)
-            run(kern, b, bk)
-            run(plain, b, bp)
-            torch.cuda.synchronize()
-            abs_errs.append(abs_err(bk, bp, fields or bk))
-            for k in fields or bk:
-                errs[f"{name} block {b} {k}"] = exact(f"{name} block {b} {k}", bk[k], bp[k])
-            if keep is not None:
-                keep[b] = bp
-        print(f"  {name:<34s} {len(errs)} outputs on 4 blocks bitwise (max rel err "
-              f"{max(errs.values()):.1e})", flush=True)
+        for pk, sc in combos:
+            for b in blocks2:
+                bk, bp = new_buffers(b), new_buffers(b)
+                run(kern, b, bk, pk, sc)
+                run(plain, b, bp, pk, sc)
+                torch.cuda.synchronize()
+                abs_errs.append(abs_err(bk, bp, bk))
+                for k in bk:
+                    tag = f"{name} bc {bc_tag(pk)} block {b} {k}"
+                    errs[tag] = exact(tag, bk[k], bp[k])
+        print(f"  {name:<30s} {len(errs)} outputs on 4 blocks x {len(combos)} BC combinations "
+              f"bitwise (max rel err {max(errs.values()):.1e})", flush=True)
         return max(abs_errs), errs
 
     g2 = geoms2[T2]
     cells2 = (g2.hl + 2) * (g2.wl + 2)  # the block read with its halo
     n_in2 = (g2.interior()[1] - g2.interior()[0] + 1) * (g2.interior()[3] - g2.interior()[2] + 1)
     links2 = int(links[(slice(None),) + interior_box(g2)].sum())
-    k1S_out, kdS_out = {}, {}
+    ring2 = ring_cells(g2)
     for obst in range(4):
         for full in (False, True):
             name = cs.k1_variant(obst, full, shard=True)
-            keep = k1S_out if (obst == cs.OBSTACLE_EQ and full) else None
             max_abs, errs = shard_checked(
-                name, lambda b: ks_buffers(b, full), lambda fn, b, bufs: run_ks(fn, b, bufs, obst),
-                cs.k1_step, cs.k1_step_plain, keep=keep)
-            # as K1 above, on block (0, 0) read with its halo ring
-            nbytes = 36 * cells2 + 4 * cells2 + 36 * n_in2 + 4 * g2.edge_len
-            ops = K1_OPS_PER_CELL * n_in2
+                name, lambda b: ks_buffers(b, full),
+                lambda fn, b, bufs, pk, sc: run_ks(fn, b, bufs, obst, pk, sc),
+                cs.k1_step, cs.k1_step_plain)
+            # as K1 above, on block (0, 0) read with its halo ring and
+            # written on its own cells (its interior and its global ring)
+            nbytes = 40 * cells2 + 36 * g2.hl * g2.wl
+            ops = K1_OPS_PER_CELL * n_in2 + RING_OPS_PER_CELL * ring2
             if full:
                 nbytes += 12 * g2.hl * g2.wl + 36 * n_in2
             if obst == cs.OBSTACLE_BOUZIDI:
                 nbytes += 4 * links2
                 ops += K1_OPS_PER_LINK * links2
             bk, bp = ks_buffers(T2, full), ks_buffers(T2, full)
-            records[name] = record(max_abs, errs, lambda: run_ks(cs.k1_step, T2, bk, obst),
-                                   lambda: run_ks(cs.k1_step_plain, T2, bp, obst), nbytes, ops)
+            records[name] = record(max_abs, errs,
+                                   lambda: run_ks(cs.k1_step, T2, bk, obst, p, scal),
+                                   lambda: run_ks(cs.k1_step_plain, T2, bp, obst, p, scal),
+                                   nbytes, ops, regs.get(("F32Store", obst, True)))
     for obst in cs.DEV_OBSTACLES:
         name = cs.k1_variant(obst, dev=True, shard=True)
-        keep = kdS_out if obst == cs.OBSTACLE_EQ else None
         max_abs, errs = shard_checked(
             name, lambda b: ks_buffers(b, False, cs.DEV_DTYPE),
-            lambda fn, b, bufs: run_kds(fn, b, bufs, obst), cs.k1_step_dev,
-            cs.k1_step_dev_plain, keep=keep)
+            lambda fn, b, bufs, pk, sc: run_kds(fn, b, bufs, obst, pk, sc), cs.k1_step_dev,
+            cs.k1_step_dev_plain)
         bk, bp = ks_buffers(T2, False, cs.DEV_DTYPE), ks_buffers(T2, False, cs.DEV_DTYPE)
         records[name] = record(
-            max_abs, errs, lambda: run_kds(cs.k1_step_dev, T2, bk, obst),
-            lambda: run_kds(cs.k1_step_dev_plain, T2, bp, obst),
-            18 * cells2 + 4 * cells2 + 18 * n_in2 + 4 * g2.edge_len,
-            (K1_OPS_PER_CELL + 18) * n_in2)
-
-    def prof_rows(pk, b):
-        prof = pk.inlet_profile
-        return None if prof is None else prof[b[0] * hl2:(b[0] + 1) * hl2].contiguous()
-
-    def run_k2s(fn, b, bufs, pk, bounce):
-        fn(bufs["f_out"], auxS[b], bufs["edge"], scal, pk.bc_type, bufs["rho"], bufs["u"],
-           prof=prof_rows(pk, b), bounce=bounce, geom=geoms2[b])
-
-    def run_k2sd(fn, b, bufs, pk, bounce):
-        fn(bufs["f_out"], auxS[b], bufs["edge"], scal, pk.bc_type, prof=prof_rows(pk, b),
-           bounce=bounce, geom=geoms2[b])
-
-    k2s_storages = {
-        False: (k1S_out, run_k2s, cs.k2_edge_bc, cs.k2_edge_bc_plain,
-                ("f_out", "rho", "u"), 36 + 12, K2_OPS_PER_CELL),
-        True: (kdS_out, run_k2sd, cs.k2_edge_bc_dev, cs.k2_edge_bc_dev_plain,
-               ("f_out",), 18, K2_OPS_PER_CELL + 9),
-    }
-    ring2 = ring_cells(g2)
-    for dev_store, (srcs, run, kern, plain, fields, ring_bytes, ring_ops) in k2s_storages.items():
-        for plist in k2_params.values():
-            name = cs.k2_variant(plist[0].bc_type[0], dev=dev_store, shard=True)
-            max_abs, errs = 0.0, {}
-            for pk in plist:
-                for bounce in (False, True):
-                    m, e = shard_checked(
-                        f"{name} left {pk.bc_type[0]} bounce {int(bounce)}",
-                        lambda b: {k: v.clone() for k, v in srcs[b].items()},
-                        lambda fn, b, bufs: run(fn, b, bufs, pk, bounce), kern, plain, fields)
-                    max_abs, errs = max(max_abs, m), {**errs, **e}
-            pk = plist[0]
-            nbytes = 4 * g2.edge_len + 4 * ring2 + ring_bytes * ring2
-            if pk.inlet_profile is not None:
-                nbytes += 4 * hl2
-            bk = {k: v.clone() for k, v in srcs[T2].items()}
-            bp = {k: v.clone() for k, v in srcs[T2].items()}
-            records[name] = record(max_abs, errs, lambda: run(kern, T2, bk, pk, False),
-                                   lambda: run(plain, T2, bp, pk, False), nbytes,
-                                   ring_ops * ring2)
+            max_abs, errs, lambda: run_kds(cs.k1_step_dev, T2, bk, obst, p, scal),
+            lambda: run_kds(cs.k1_step_dev_plain, T2, bp, obst, p, scal),
+            22 * cells2 + 18 * g2.hl * g2.wl,
+            (K1_OPS_PER_CELL + 18) * n_in2 + (RING_OPS_PER_CELL + 9) * ring2,
+            regs.get(("DevStore", obst, True)))
 
     missing = set(cs.KERNEL_VARIANTS) - set(records)
     if missing:
@@ -712,7 +697,8 @@ def main() -> int:
         print(f"  {name:<24s} {r['ms'] * 1e3:7.1f} us in a CUDA graph, {r['launch_ms'] * 1e3:.1f} us "
               f"launched from Python (host issue {r['host_ms'] * 1e3:.1f} us)  "
               f"plain {r['plain_ms'] * 1e3:9.1f} us  "
-              f"bound {r['bound'][0] * 1e3:7.1f} us ({r['bound'][1]})  [{card}]", flush=True)
+              f"bound {r['bound'][0] * 1e3:7.1f} us ({r['bound'][1]})  "
+              f"registers/thread {r['registers']}  [{card}]", flush=True)
         if name.startswith("k3_"):
             print(f"  {'':<24s} = {r['ms'] * 1e3 / FUSE_S:.1f} us/step; the tile's device-memory "
                   f"traffic {k3_tile_bytes / PEAK_BW * 1e6:.1f} us, its shared-memory traffic "
@@ -737,11 +723,15 @@ def main() -> int:
 
         setattr(mod, attr, wrapper)
 
-    for mod, attr in ((solver, "step"), (cs, "k1_step_plain"), (cs, "k2_edge_bc_plain"),
-                      (cs, "k1_step_dev_plain"), (cs, "k2_edge_bc_dev_plain"),
+    for mod, attr in ((solver, "step"), (cs, "k1_step_plain"), (cs, "k1_step_dev_plain"),
                       (cs, "k3_fused_plain"), (sh, "local_step")):
         counting(mod, attr)
-    serial_kernels = ("k1_step", "k1_step_full", "k2_edge_bc")
+    serial_kernels = ("k1_step", "k1_step_full")
+
+    def per_step(counts, steps):
+        """Kernel launches per lattice step, and the names launched."""
+        n = sum(counts.values())
+        return f"{n / steps:g} kernel launches a step ({n} over {steps} steps)"
 
     engine = LBMEngine(config, mask_yx=mask, device="cuda")
     engine.init()
@@ -759,10 +749,12 @@ def main() -> int:
     print(f"[3] main path: {md['status']} ({md['reason']}) after {md['final_steps']} steps "
           f"in {wall:.2f} s = {wall3:.1f} MLUPS wall "
           f"(monitors and {len(sink.frames)} moment fetches included) [{card}]", flush=True)
-    print(f"    launches {launches}, plain calls {counted}", flush=True)
+    print(f"    launches {({k: v for k, v in launches.items() if v})}, plain calls {counted}; "
+          f"{per_step(launches, max_steps)}", flush=True)
     if md["status"] != "Success":
         raise AssertionError(f"main path ended {md['status']}: {md['reason']}")
-    if min(launches[k] for k in serial_kernels) <= 0 or any(counted.values()):
+    if ({k for k, v in launches.items() if v} != set(serial_kernels)
+            or sum(launches.values()) != max_steps or any(counted.values())):
         raise AssertionError(f"main path did not run on the kernels: {launches}, {counted}")
     if not sink.frames:
         raise AssertionError("no moment frames were written")
@@ -801,8 +793,9 @@ def main() -> int:
     us_step3 = step_ms * 1e3
     mlups3 = H * W / step_ms / 1e3
     s3 = engine.state  # phase 8 runs the sharded path from here
-    print(f"    kernel path: {step_ms * 1e3:.1f} us/step = {mlups3:.1f} MLUPS "
-          f"[{card}]", flush=True)
+    print(f"    kernel path: {step_ms * 1e3:.1f} us/step = {mlups3:.1f} MLUPS; one step's "
+          f"device time {records['k1_step']['ms'] * 1e3:.1f} us (k1_step in a CUDA graph, phase "
+          f"2) [{card}]", flush=True)
     # the same in 16-bit deviation storage (the lockstep path's chunk runner)
     st = engine.state
     a.record()
@@ -835,9 +828,7 @@ def main() -> int:
     nus = smoke_case.SIBLING_NUS
     n_cases = len(nus)
     chunks = max_steps // chunk
-    want = {"k1_step_dev": n_cases * chunks * (chunk - 1),
-            "k2_edge_bc_dev": n_cases * chunks * (chunk - 1),
-            "k1_step_full": n_cases * chunks, "k2_edge_bc": n_cases * chunks, "k1_step": 0}
+    want = {"k1_step_dev": n_cases * chunks * (chunk - 1), "k1_step_full": n_cases * chunks}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         names = smoke_case.write_sibling_project(root, config, mask, nus)
         counted.clear()
@@ -856,7 +847,8 @@ def main() -> int:
               f"= {n_cases * max_steps * H * W / wall4 / 1e6:.1f} MLUPS aggregate wall "
               f"(monitors, device resize and render, fetches, HDF5 and mp4 included) [{card}]",
               flush=True)
-        print(f"    launches {launches4}, plain calls {counted}", flush=True)
+        print(f"    launches {({k: v for k, v in launches4.items() if v})}, plain calls {counted}; "
+              f"{per_step(launches4, n_cases * max_steps)}", flush=True)
         transfer = results[names[0][0]].get("run_summary", {}).get("transfer", {})
         print(f"    transfer record: {transfer}", flush=True)
         pacer = pacers[-1]
@@ -871,7 +863,7 @@ def main() -> int:
         bad = {n: results[n]["status"] for n, _ in names if results[n]["status"] != "Success"}
         if bad or stats.get("success") != n_cases:
             raise AssertionError(f"lockstep cases did not all succeed: {stats}, {bad}")
-        if any(launches4[k] != v for k, v in want.items()) or any(counted.values()):
+        if {k: v for k, v in launches4.items() if v} != want or any(counted.values()):
             raise AssertionError(f"lockstep path: launches {launches4} (want {want}), "
                                  f"plain calls {counted}")
         for _, case in names:
@@ -913,7 +905,19 @@ def main() -> int:
     print(f"    {H5}x{W5}, {res['steps']} steps in {wall5:.2f} s = {wall5 / res['steps'] * 1e6:.1f} "
           f"us/step = {res['steps'] * H5 * W5 / wall5 / 1e6:.1f} MLUPS wall (force, monitors and "
           f"breaker per chunk included) [{card}]", flush=True)
-    print(f"    launches {({k: v for k, v in launches5.items() if v})}, plain calls {counted}",
+    print(f"    launches {({k: v for k, v in launches5.items() if v})}, plain calls {counted}; "
+          f"{per_step(launches5, res['steps'])}", flush=True)
+    # one fast step's device time on the developed flow (a CUDA graph)
+    p5 = eng.params
+    f5 = torch.empty_like(eng.state.f)
+    aux5 = cs.pack_aux(p5.damping, p5.mask)
+    scal5 = cs.scalar_row(p5, eng.state.step + 1)
+    obst5 = cs.obstacle_scheme(p5)
+    dfg_step_ms = graph_ms(lambda: cs.k1_step(
+        eng.state.f, f5, aux5, scal5, p5.use_les, p5.bc_type, obstacle=obst5, q=p5.bouzidi_q,
+        prof=p5.inlet_profile))
+    print(f"    one step's device time {dfg_step_ms * 1e3:.1f} us ({cs.k1_variant(obst5)} in a CUDA "
+          f"graph) against {wall5 / res['steps'] * 1e6:.1f} us/step on the path [{card}]",
           flush=True)
     with open(os.path.join(HERE, "docs", "benchmarks", "dfg2d_results.json")) as fh:
         recorded = next(r for r in json.load(fh) if r.get("ny") == DFG_RUN["ny"]
@@ -926,7 +930,7 @@ def main() -> int:
               f"{recorded[k]:.6f}  difference {got - recorded[k]:+.6f}", flush=True)
     chunks5 = DFG_RUN["steps"] // DFG_RUN["chunk"]
     want5 = {"k1_step_bouzidi": chunks5 * (DFG_RUN["chunk"] - 1),
-             "k1_step_bouzidi_full": chunks5, "k2_edge_bc_vel": DFG_RUN["steps"]}
+             "k1_step_bouzidi_full": chunks5}
     if res["steps"] != DFG_RUN["steps"] or not res["shedding_detected"]:
         raise AssertionError(f"DFG run: {res['steps']} steps, shedding {res['shedding_detected']}")
     for k, (lo, hi) in DFG_RANGES.items():
@@ -966,8 +970,7 @@ def main() -> int:
     print(f"[6] fused serial path: cuda_step._FUSE_STEPS = {FUSE_S}, the phase 3 case", flush=True)
     chunks = max_steps // chunk
     passes6, split6 = divmod(chunk - 1, FUSE_S)
-    want6 = {"k3_fused": chunks * passes6, "k1_step": chunks * split6, "k1_step_full": chunks,
-             "k2_edge_bc": chunks * (split6 + 1)}
+    want6 = {"k3_fused": chunks * passes6, "k1_step": chunks * split6, "k1_step_full": chunks}
     cs._FUSE_STEPS = FUSE_S
     try:
         engine6 = LBMEngine(config, mask_yx=mask, device="cuda")
@@ -985,8 +988,9 @@ def main() -> int:
         print(f"    {md6['status']} ({md6['reason']}) after {md6['final_steps']} steps in "
               f"{wall6:.2f} s = {wall6_mlups:.1f} MLUPS wall (phase 3: {wall3:.1f}) [{card}]",
               flush=True)
-        print(f"    launches {({k: v for k, v in launches6.items() if v})}, plain calls {counted}",
-              flush=True)
+        print(f"    launches {({k: v for k, v in launches6.items() if v})}, plain calls {counted}; "
+              f"{per_step(launches6, max_steps)} (K3 passes of {FUSE_S} steps, single K1 "
+              f"steps)", flush=True)
         if md6["status"] != "Success":
             raise AssertionError(f"fused path ended {md6['status']}: {md6['reason']}")
         if {k: v for k, v in launches6.items() if v} != want6 or any(counted.values()):
@@ -1072,29 +1076,35 @@ def main() -> int:
     print(f"    launches {({k: v for k, v in launches7.items() if v})}, {copies7}", flush=True)
     if not all(v > 0 for v in copies7.values()) or not np.isfinite(roof["mlups"]):
         raise AssertionError(f"roofline tool: {roof}, copy launches {copies7}")
-    # the copy probe against its plain version and against copy_ at that size
+    # the copy probe against its plain version, bitwise, and timed beside
+    # copy_ at that size in the same run, in turns (copy_, probe, probe,
+    # copy_); copy_ computes the probe's function only without the aux read
     gen7 = torch.Generator(device=dev).manual_seed(SEED)
     f7 = torch.randn((9, ROOF_N, ROOF_N), generator=gen7, device=dev)
     aux7 = torch.randn((ROOF_N, ROOF_N), generator=gen7, device=dev)
     ok7, op7 = torch.empty_like(f7), torch.empty_like(f7)
-    for variant, a7 in (("copy_probe", None), ("copy_probe_aux", aux7)):
+    lib7 = [graph_ms(lambda: op7.copy_(f7))]
+    forms7 = (("copy_probe", None), ("copy_probe_aux", aux7))
+    for variant, a7 in forms7:
         cp.copy_probe(f7, ok7, a7)
         cp.copy_probe_plain(f7, op7, a7)
         torch.cuda.synchronize()
-        err = rel_err(ok7, op7)
-        check(f"{variant} {ROOF_N}^2", err)
+        err = exact(f"{variant} {ROOF_N}^2", ok7, op7)
         records[variant] = record(
             float((ok7 - op7).abs().max()), {variant: err}, lambda a7=a7: cp.copy_probe(f7, ok7, a7),
             lambda a7=a7: cp.copy_probe_plain(f7, op7, a7),
             roofline.copy_traffic(ROOF_N, ROOF_N, a7 is not None), 0)
-    records["copy_probe"]["library_ms"] = graph_ms(lambda: op7.copy_(f7))
+    lib7.append(graph_ms(lambda: op7.copy_(f7)))
+    copy_ms = statistics.mean(lib7)
+    records["copy_probe"]["library_ms"] = copy_ms
     records["copy_probe_aux"]["library_ms"] = None
     for name in cp.VARIANTS:
         r = records[name]
-        lib = r["library_ms"]
+        r["copy_ms"] = copy_ms
         print(f"  {name:<24s} {r['ms'] * 1e3:7.1f} us in a CUDA graph, bound {r['bound'][0] * 1e3:.1f} "
-              f"us, plain {r['plain_ms'] * 1e3:.1f} us"
-              + (f", copy_ {lib * 1e3:.1f} us" if lib else "") + f"  [{card}]", flush=True)
+              f"us, plain {r['plain_ms'] * 1e3:.1f} us, copy_ {copy_ms * 1e3:.1f} us (before "
+              f"{lib7[0] * 1e3:.1f}, after {lib7[1] * 1e3:.1f}): {r['ms'] / copy_ms:.3f} x copy_  "
+              f"[{card}]", flush=True)
 
     # -- phase 8: the sharded path -------------------------------------------
     from lbm2d_tpu_torch.pipeline import run_one_case
@@ -1126,10 +1136,10 @@ def main() -> int:
         exact_state(f"2x2 vs run_chunk_cuda{' store_dev' if store_dev else ''}", sa, sb, ma, mb)
     launches8a = dict(cs.LAUNCHES)
     fast8 = 4 * 2 * (chunk - 1)
-    want8a = {"k1_step_shard": fast8, "k1_step_shard_full": 16, "k2_edge_bc_shard": fast8 + 16,
-              "k1_step_shard_dev": fast8, "k2_edge_bc_shard_dev": fast8}
-    print(f"    launches {({k: v for k, v in launches8a.items() if v})}, plain calls {counted}",
-          flush=True)
+    want8a = {"k1_step_shard": fast8, "k1_step_shard_full": 16, "k1_step_shard_dev": fast8}
+    print(f"    launches {({k: v for k, v in launches8a.items() if v})}, plain calls {counted}; "
+          f"{per_step(shard_launches(launches8a), 4 * chunk)} on 4 blocks = one a block a "
+          f"step", flush=True)
     if shard_launches(launches8a) != want8a or any(counted.values()):
         raise AssertionError(f"phase 8(a): launches {launches8a} (want {want8a}), {counted}")
 
@@ -1191,12 +1201,11 @@ def main() -> int:
         with open(os.path.join(root, "outputs", "SmokeS", "plots", "sim_results.json")) as fh:
             status8 = {e["config_filename"]: e["status"] for e in json.load(fh)}
     e8 = engines8[-1]
-    want8c = {"k1_step_shard": chunks * (chunk - 1), "k1_step_shard_full": chunks,
-              "k2_edge_bc_shard": max_steps}
+    want8c = {"k1_step_shard": chunks * (chunk - 1), "k1_step_shard_full": chunks}
     print(f"    (c) run_batch(spatial_mesh='1x1'): {stats8}, {status8} in {wall8:.2f} s "
           f"(HDF5 and monitors included) [{card}]", flush=True)
-    print(f"    launches {({k: v for k, v in launches8c.items() if v})}, plain calls {counted}",
-          flush=True)
+    print(f"    launches {({k: v for k, v in launches8c.items() if v})}, plain calls {counted}; "
+          f"{per_step(launches8c, max_steps)}", flush=True)
     if stats8.get("success") != 1 or set(status8.values()) != {"Success"}:
         raise AssertionError(f"phase 8(c): {stats8}, {status8}")
     if {k: v for k, v in launches8c.items() if v} != want8c or any(counted.values()):
@@ -1218,7 +1227,7 @@ def main() -> int:
 
     # (d) a 2x2 mesh of the card at 4096^2, the demo case (README 3c's grid
     # class): us/step of the chunk runner, and one step's device time from
-    # a CUDA graph of K1 + K2 on every block and the halo copies
+    # a CUDA graph of K1 on every block and the halo copies
     N8 = ROOF_N
     p4k = solver.make_params(demo_config(N8, N8, nu=0.01, warmup=2000), cylinder_mask(N8, N8),
                              device=dev)
@@ -1254,9 +1263,8 @@ def main() -> int:
         raise AssertionError("phase 8(d): non-finite state at 4096^2")
     src4 = sh.halo_blocks(s4k.f, mesh22, sh.NAN, case4k.pitch)
     dst4 = [[t.clone() for t in r] for r in src4]
-    edges4 = [[cs.new_edge_buffer(case4k.hl, case4k.wl, device=dev) for _ in r] for r in src4]
     scal4 = cs.scalar_row(p4k, s4k.step + 1)
-    step4k_ms = graph_ms(lambda: sh.fast_step(src4, dst4, edges4, case4k, scal4, False),
+    step4k_ms = graph_ms(lambda: sh.fast_step(src4, dst4, case4k, scal4, False),
                          per_graph=10)
     exch4k_ms = graph_ms(lambda: sh.exchange_halos(dst4, mesh22, case4k.hl, case4k.wl),
                          per_graph=10)
@@ -1270,14 +1278,14 @@ def main() -> int:
     sg4k_ms = median_ms(scatter_gather, batches=3, per_batch=2)[0]
     print(f"    (d) 2x2 mesh at {N8}^2: {us4k:.1f} us/step = {N8 * N8 / us4k:.1f} MLUPS "
           f"(chunks of {ROOF_SPC}, scatter and gather included); one step's device time "
-          f"{step4k_ms * 1e3:.1f} us (CUDA graph: K1 + K2 on 4 blocks and "
+          f"{step4k_ms * 1e3:.1f} us (CUDA graph: K1 on 4 blocks and "
           f"{2 * 2 * 2} halo copies), halo exchange {exch4k_ms * 1e3:.1f} us = "
           f"{100 * exch4k_ms / step4k_ms:.1f}% of it; scatter + gather {sg4k_ms:.2f} ms a "
           f"chunk = {sg4k_ms * 1e3 / ROOF_SPC:.1f} us/step at {ROOF_SPC} steps; unsharded "
-          f"(phase 7) K1 {roof['k1_us']:.1f} + K2 {roof['k2_us']:.1f} us, "
+          f"(phase 7) K1 {roof['k1_us']:.1f} us, "
           f"{roof['us_per_step']:.1f} us/step [{card}]", flush=True)
-    print(f"    launches {({k: v for k, v in launches8d.items() if v})}, plain calls {counted}",
-          flush=True)
+    print(f"    launches {({k: v for k, v in launches8d.items() if v})}, plain calls {counted}; "
+          f"{per_step(launches8d, (ROOF_CHUNKS + 1) * ROOF_SPC)} on 4 blocks", flush=True)
     if any(counted.values()):
         raise AssertionError(f"phase 8(d): plain calls {counted}")
     launches8 = {k: launches8a[k] + launches8b[k] + launches8c[k] + launches8d[k]
@@ -1292,7 +1300,6 @@ def main() -> int:
                "roofline": launches7, "sharded": launches8c, "sharded_pairs": launches8a,
                "sharded_dfg": launches8b, "sharded_4096": launches8d}
     sources = {"k1": ("k1_step.cu", "lbm2d_tpu/ops/pallas_step.py:824"),
-               "k2": ("k2_edge_bc.cu", "lbm2d_tpu/ops/pallas_step.py:1379"),
                "k3": ("k3_fused.cu", "lbm2d_tpu/ops/pallas_step.py:610"),
                "co": ("copy_probe.cu", "tools_roofline_4096.py:95")}
     for name in list(cs.KERNEL_VARIANTS) + list(cp.VARIANTS):
@@ -1310,7 +1317,10 @@ def main() -> int:
             "ms": r["ms"], "launch_path_ms": r["launch_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r.get("library_ms"),
+            "registers": r["registers"],
         }
+        if "copy_ms" in r:
+            entry["copy_ms"] = r["copy_ms"]
         if name == "k3_fused":
             entry[f"ms_s{FUSE_S_MAX}"] = k3_s8["ms"]
         kernels.append(entry)

@@ -3,7 +3,8 @@
 Counterpart of ``lbm2d_tpu/analysis/dfg_validation.py`` on the port's
 engine: on a CUDA device every chunk runs on the hand-written kernels
 (``ops/cuda_step.run_chunk_cuda``: K1 with the cylinder's bounce-back
-scheme, K2 with the profiled inlet), on the CPU the eager step.
+scheme and the profiled inlet, one launch a step), on the CPU the eager
+step.
 
 The reference ships DFG-benchmark machinery (momentum-exchange force,
 LBM2D_MRT_LES.py:588-641; Cd/Cl, physics_utils.py:112-126; Karman-street

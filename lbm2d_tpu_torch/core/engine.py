@@ -20,8 +20,8 @@ version on the CPU; Bouzidi bounce-back turns it down, logged.
 
 With ``spatial_mesh`` (or ``simulation.spatial_mesh``: "RxC", "auto") the
 case runs on the blocks of a device mesh (``parallel/sharded.py``), a 1x1
-mesh included, as in the JAX package: on the card through K1 and K2 in
-their sharded forms, the blocks on the first ry * rx CUDA devices; on the
+mesh included, as in the JAX package: on the card through K1 in its
+sharded form, the blocks on the first ry * rx CUDA devices; on the
 CPU through the eager sharded step, or the kernels' plain sharded runner
 with ``store_dev``. The sharded runner never fuses (logged when temporal
 blocking is requested). The state stays one global ``LBMState``: the
@@ -168,8 +168,8 @@ def resolve_runner(p: CaseParams, device: torch.device, store_dev: bool):
 
 
 def resolve_sharded_runner(p: CaseParams, device: torch.device, store_dev: bool, mesh):
-    """The chunk runner of a case on a spatial ``mesh``: K1 + K2 in their
-    sharded forms on a CUDA device (raising for a case they do not cover),
+    """The chunk runner of a case on a spatial ``mesh``: K1 in its
+    sharded form on a CUDA device (raising for a case it does not cover),
     the eager sharded step on the CPU, and the kernels' plain sharded
     runner on the CPU with ``store_dev``, so the flag is never ignored.
     Temporal blocking is not engaged on a mesh (logged)."""

@@ -1,12 +1,16 @@
-// K1: one D2Q9 MRT-LES lattice update of the interior cells.
+// K1: one D2Q9 MRT-LES lattice update, the boundary ring included.
 //
 // Replaces the TPU kernel _step_kernel (lbm2d_tpu/ops/pallas_step.py:824,
-// launched by _pallas_step :1180) in its split-BC mode: pull streaming,
-// butterfly MRT-LES collision with the sponge from the packed aux plane,
-// the obstacle rule, and the export of the edge strips that K2
-// (k2_edge_bc.cu) builds the boundary ring from. The full variant
-// (full != 0) closes a chunk and also writes rho, u (zero on solids) and
-// f_post on the interior.
+// launched by _pallas_step :1180) in its in-kernel-BC form (apply_bc=True,
+// _apply_bc_band on f_post before the obstacle overwrite, :1028-1034):
+// pull streaming, butterfly MRT-LES collision with the sponge from the
+// packed aux plane, the boundary conditions of the ring and the obstacle
+// rule, in solver.apply_bc order. The full variant (full != 0) closes a
+// chunk and also writes rho, u (zero on solids) on every cell and f_post
+// on the interior. One launch is one lattice step. The TPU's split form
+// (_step_kernel with an edge export, then _edge_bc_kernel :1379 rebuilding
+// the ring) is folded in: the ring is written by ring threads of the same
+// launch.
 //
 // The per-cell body is lbm_cell_update (lbm_cell.cuh), shared with K3
 // (k3_fused.cu). The obstacle scheme is a template parameter (LBM_OBST_*,
@@ -29,33 +33,50 @@
 // next to the ring lands on the ring itself, a real neighbour here: the
 // port has no lane-roll wrap.
 //
+// The ring: a ring cell's BC values depend only on the collide output of
+// its inward neighbour before the obstacle overwrite (f_post, rho, ux,
+// uy). Before the interior's rows of blocks the launch has a few rows of
+// ring blocks, one thread a ring cell (K2's layout, the job of the TPU's
+// _edge_bc_kernel): the thread computes its neighbour's collide output
+// itself -- the update's arithmetic on the same read-only f_in, so the same
+// bits as the neighbour's own thread -- and stores the cell's BC values
+// (lbm_ring_values, in apply_bc's order: at a corner the side BC first).
+// Each ring cell has one writer and no thread reads another's output, so
+// there is no grid-wide sync, no export buffer, no shared memory and no
+// second launch. Left types 0 (Zou-He pressure inlet), 2 (free-slip), 3/4
+// (the profiled velocity inlets, read from the case's [H] inlet_profile
+// tensor, never recomputed); right 0 (velocity inlet), 1 (Zou-He pressure
+// outlet with the backflow guard) or 2; top/bottom 0 or 2.
+// Why not the neighbour's own thread, which holds these values in
+// registers: ptxas gives a kernel the register count of its hungriest
+// path, and the ring's branches inlined after the update took several
+// times the update's registers a thread, cutting the blocks a SM holds,
+// or, capped by launch bounds, spilled the update's own values on every
+// thread; either way K1 ran slower than K1 + K2 had (PERF.md). The ring
+// threads' path is one update and one BC chain, in a branch of its own.
+//
 // The fast variant also comes in 16-bit deviation storage (k1_step_dev,
 // the JAX kernel's store_dev branch, :865-870 and _to_store :1114-1120),
 // for the EQ and BOUNCE schemes only (the JAX rule, :1815-1819): f_in and
 // f_out hold bf16 f_k - w_k, each loaded population is dequantized as
-// float(dev) + w_k, the collision runs in f32 exactly as in the f32
-// variant, and f is quantized once on the way out. The edge export stays
-// f32 (pre-overwrite f_post and rho/ux/uy): quantized macros would flip
-// the BCs' data-dependent branches.
+// float(dev) + w_k, the collision and the ring's BCs run in f32 exactly as
+// in the f32 variant (the BCs read the f32 collide output, never the
+// quantized neighbour), and f is quantized once on the way out.
 //
 // Bound on an H100: memory. A fast step moves 76 B/cell (f 36 in + 36 out,
 // aux 4) for 120 f32 operations (mrt_collide counted term by term, a sqrt
 // or a division one each; chip_smoke.K1_OPS_PER_CELL), plus 32 B/cell of
-// dense q planes under BOUZIDI,
-// and 40 B/cell in deviation storage (f 18 + 18, aux 4), far below the
-// card's ~20 flop/B balance point, so the design aims only at full-width
-// coalesced traffic: one thread per interior cell, neighbouring threads on
-// neighbouring x, each population pulled straight from global memory (the
-// 3-row reuse of the pull stencil is left to L1/L2). The TPU kernel's row
-// padding, lane rolls, band heights and two-slot DMA pipeline are TPU
-// schedules and have no counterpart here; the state is an unpadded
-// [9, H, W] tensor and the caller ping-pongs two buffers, since pull
-// streaming cannot run in place.
-//
-// The edge export carries the pre-overwrite f_post as well as rho/ux/uy:
-// the boundary conditions read the neighbour strip before the obstacle
-// overwrite (solver.apply_bc), so K2 must not read K1's stored f there,
-// and recomputing the macros from f would flip the backflow guard.
+// dense q planes under BOUZIDI, and 40 B/cell in deviation storage (f 18 +
+// 18, aux 4); the ring adds 2 (H + W) threads that each repeat one
+// neighbour's update and one BC.
+// All far below the card's ~20 flop/B balance point, so the design aims
+// only at full-width coalesced traffic: one thread per interior cell,
+// neighbouring threads on neighbouring x, each population pulled straight
+// from global memory (the 3-row reuse of the pull stencil is left to
+// L1/L2). The TPU kernel's row padding, lane rolls, band heights and
+// two-slot DMA pipeline are TPU schedules and have no counterpart here;
+// the state is an unpadded [9, H, W] tensor and the caller ping-pongs two
+// buffers, since pull streaming cannot run in place.
 //
 // The sharded form (k1_step_shard*, the JAX kernel on a shard of
 // run_chunk_sharded_pallas, its interior and BCs gated by the shard's global
@@ -65,36 +86,22 @@
 // after every step, so the pull, the link predicate (aux has the same
 // halo) and Bouzidi's f(c + e_k) read across a seam exactly as the whole
 // grid reads its own cells. Only cells interior in the global grid are
-// updated; the halo of a block side on the global edge is never read. The
-// row pitch is rounded up to 32 floats, so a block's rows start aligned as
-// the whole grid's do. Bound and design as above: 76 B/cell (40 in
-// deviation storage) plus the halo ring, one thread a cell.
+// updated, and only a block on the global edge writes ring cells; the halo
+// of a block side on the global edge is never read. The row pitch is
+// rounded up to 32 floats, so a block's rows start aligned as the whole
+// grid's do. Bound and design as above, plus the halo ring.
 #include <algorithm>
 
 #include "lbm_cell.cuh"
 
-// One thread per cell of the block whose global coordinates are interior;
-// the whole grid (SHARD false) has no halo and its rows 1 .. H-2 and
-// columns 1 .. W-2, a shard reads its neighbours through the halo.
-template <typename S, int OBST, bool SHARD>
-__global__ void __launch_bounds__(256)
-k1_step_kernel(const typename S::T* __restrict__ f_in,
-               typename S::T* __restrict__ f_out,
-               const float* __restrict__ aux, const float* __restrict__ q,
-               float* __restrict__ edge, float* __restrict__ rho_out,
-               float* __restrict__ u_out, float* __restrict__ fpost_out,
-               const Scalars s, const BlockGeom geom, const int use_les,
-               const int full) {
-  const BlockGeom g = fold_geom<SHARD>(geom);
-  const int i0 = max(0, 1 - g.y_off);
-  const int j0 = max(0, 1 - g.x_off), j1 = min(g.wl - 1, g.Wg - 2 - g.x_off);
-  const int x = j0 + blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = i0 + blockIdx.y;
-  if (x > j1) return;
-  const size_t plane = geom_plane(g);
-  const size_t c = geom_at(g, y, x);
-  const long pitch = g.pitch;
-
+// The update of local cell ``c`` through global memory: its collide
+// output (before the obstacle overwrite) into ``n``; returns its solid flag.
+template <typename S, int OBST>
+__device__ __forceinline__ bool k1_collide(const typename S::T* __restrict__ f_in,
+                                           const float* __restrict__ aux,
+                                           const float* __restrict__ q, size_t plane,
+                                           size_t c, long pitch, const Scalars& s,
+                                           int use_les, Cell* n) {
   auto f_at = [&](int k, int dy, int dx) {
     return S::load(f_in, k * plane + c + dy * pitch + dx, k);
   };
@@ -102,47 +109,122 @@ k1_step_kernel(const typename S::T* __restrict__ f_in,
     return __float_as_int(aux[c + dy * pitch + dx]) < 0;
   };
   auto q_at = [&](int j) { return q[j * plane + c]; };
-
   // aux packs the sponge damping with the solid flag in the sign bit
   const float a = aux[c];
   const bool solid = __float_as_int(a) < 0;
-  const float damp = fabsf(a);
+  lbm_cell_update<OBST>(f_at, solid_at, q_at, fabsf(a), solid, s, use_les, n->f, &n->rho,
+                        &n->ux, &n->uy);
+  return solid;
+}
 
-  float fp[9], rho, ux, uy;
-  lbm_cell_update<OBST>(f_at, solid_at, q_at, damp, solid, s, use_les, fp, &rho, &ux,
-                        &uy);
+// Ring thread ``t`` of block ``g``: threads 0 .. 2 hl - 1 take the block's
+// left and right columns, the next 2 wl its bottom and top rows; a thread
+// whose cell is not on the global ring (or whose side column is not on a
+// global inner row) returns. It computes the collide output of the cell's
+// inward neighbour (k1_collide: the update's own arithmetic on the same
+// read-only inputs, so the same bits as the neighbour's thread), then the
+// cell's BC values (lbm_ring_values) and stores them.
+template <typename S, int OBST>
+__device__ __forceinline__ void k1_ring(const typename S::T* __restrict__ f_in,
+                                        typename S::T* __restrict__ f_out,
+                                        const float* __restrict__ aux,
+                                        const float* __restrict__ q,
+                                        const float* __restrict__ prof,
+                                        float* __restrict__ rho_out, float* __restrict__ u_out,
+                                        const Scalars& s, const BlockGeom& g, const BcTypes& bc,
+                                        int use_les, int full, int t) {
+  const int hl = g.hl, wl = g.wl;
+  bool column, far;
+  int y, x, yn, xn;
+  if (t < 2 * hl) {
+    column = true;
+    far = t >= hl;
+    y = yn = far ? t - hl : t;
+    const int gy = g.y_off + y;
+    if (gy < 1 || gy > g.Hg - 2) return;
+    if (far ? g.x_off + wl != g.Wg : g.x_off != 0) return;
+    x = far ? wl - 1 : 0;
+    xn = far ? wl - 2 : 1;
+  } else if (t < 2 * hl + 2 * wl) {
+    column = false;
+    const int r = t - 2 * hl;
+    far = r >= wl;
+    if (far ? g.y_off + hl != g.Hg : g.y_off != 0) return;
+    x = far ? r - wl : r;
+    y = far ? hl - 1 : 0;
+    yn = far ? hl - 2 : 1;
+    const int gx = g.x_off + x;
+    xn = gx == 0 ? x + 1 : (gx == g.Wg - 1 ? x - 1 : x);
+  } else {
+    return;
+  }
+  const size_t plane = geom_plane(g);
+  Cell n;
+  k1_collide<S, OBST>(f_in, aux, q, plane, geom_at(g, yn, xn), g.pitch, s, use_les, &n);
+  const bool vel = bc.left == LBM_BC_VEL_INLET || bc.left == LBM_BC_VEL_INLET_NEBB;
+  lbm_store_ring<S, OBST>(
+      f_out, aux, rho_out, u_out, plane, geom_at(g, y, x),
+      lbm_ring_values(n, column, far, g.x_off + x, g.Wg, s, bc, vel ? prof[yn] : 0.0f),
+      full != 0);
+}
+
+// Blocks a SM the launch bounds keep: what the update alone needs (40
+// registers a thread, 56 under Bouzidi, by ptxas) fits 6 blocks of 256,
+// 4 under Bouzidi. The ring threads' path needs a few more and spills
+// instead, in those few threads only.
+template <int OBST>
+constexpr int k1_min_blocks() {
+  return OBST == LBM_OBST_BOUZIDI ? 4 : 6;
+}
+
+// The first ``nr`` rows of blocks take the ring, one thread a ring cell
+// (k1_ring): first, so their longer chains (a neighbour's update, then a
+// BC) overlap the interior's blocks instead of trailing them. The rows
+// after them take the block's cells whose global coordinates are
+// interior, one thread a cell: the whole grid (SHARD false) has no halo
+// and its rows 1 .. H-2 and columns 1 .. W-2, a shard reads its neighbours
+// through the halo. Both roles read only f_in, so they need no order.
+template <typename S, int OBST, bool SHARD>
+__global__ void __launch_bounds__(256, k1_min_blocks<OBST>())
+k1_step_kernel(const typename S::T* __restrict__ f_in,
+               typename S::T* __restrict__ f_out,
+               const float* __restrict__ aux, const float* __restrict__ q,
+               const float* __restrict__ prof, float* __restrict__ rho_out,
+               float* __restrict__ u_out, float* __restrict__ fpost_out,
+               const Scalars s, const BlockGeom geom, const BcTypes bc,
+               const int use_les, const int full, const int nr) {
+  const BlockGeom g = fold_geom<SHARD>(geom);
+  if ((int)blockIdx.y < nr) {
+    k1_ring<S, OBST>(f_in, f_out, aux, q, prof, rho_out, u_out, s, g, bc, use_les, full,
+                     (blockIdx.y * gridDim.x + blockIdx.x) * blockDim.x + threadIdx.x);
+    return;
+  }
+  const int i0 = max(0, 1 - g.y_off);
+  const int j0 = max(0, 1 - g.x_off), j1 = min(g.wl - 1, g.Wg - 2 - g.x_off);
+  const int x = j0 + blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = i0 + blockIdx.y - nr;
+  if (x > j1) return;
+  const size_t plane = geom_plane(g);
+  const size_t c = geom_at(g, y, x);
+
+  Cell n;
+  const bool solid = k1_collide<S, OBST>(f_in, aux, q, plane, c, g.pitch, s, use_les, &n);
   for (int k = 0; k < 9; ++k)
-    S::store(f_out, k * plane + c, k, lbm_stored<OBST>(k, fp, rho, solid));
-
-  const int gx = g.x_off + x, gy = g.y_off + y;
-  if (gx == 1 || gx == g.Wg - 2) {
-    float* col = edge + (size_t)(gx == 1 ? 0 : LBM_EDGE_C) * g.hl;
-    for (int k = 0; k < 9; ++k) col[(size_t)k * g.hl + y] = fp[k];
-    col[(size_t)9 * g.hl + y] = rho;
-    col[(size_t)10 * g.hl + y] = ux;
-    col[(size_t)11 * g.hl + y] = uy;
-  }
-  if (gy == 1 || gy == g.Hg - 2) {
-    float* row = edge + (size_t)2 * LBM_EDGE_C * g.hl +
-                 (size_t)(gy == 1 ? 0 : LBM_EDGE_C) * g.wl;
-    for (int k = 0; k < 9; ++k) row[(size_t)k * g.wl + x] = fp[k];
-    row[(size_t)9 * g.wl + x] = rho;
-    row[(size_t)10 * g.wl + x] = ux;
-    row[(size_t)11 * g.wl + x] = uy;
-  }
+    S::store(f_out, k * plane + c, k, lbm_stored<OBST>(k, n.f, n.rho, solid));
 
   if (full) {
-    rho_out[c] = rho;
-    u_out[c] = solid ? 0.0f : ux;
-    u_out[plane + c] = solid ? 0.0f : uy;
-    for (int k = 0; k < 9; ++k) fpost_out[k * plane + c] = fp[k];
+    rho_out[c] = n.rho;
+    u_out[c] = solid ? 0.0f : n.ux;
+    u_out[plane + c] = solid ? 0.0f : n.uy;
+    for (int k = 0; k < 9; ++k) fpost_out[k * plane + c] = n.f[k];
   }
 }
 
 template <typename S, int OBST, bool SHARD>
 static void launch(const void* f_in, void* f_out, const void* aux,
-                   const void* q, void* edge, void* rho, void* u, void* f_post,
-                   const Scalars& s, const BlockGeom& g, int use_les, int full,
+                   const void* q, const void* prof, void* rho, void* u,
+                   void* f_post, const Scalars& s, const BlockGeom& g,
+                   const BcTypes& bc, int use_les, int full,
                    cudaStream_t stream) {
   // the block's cells that are interior in the global grid
   const int i0 = std::max(0, 1 - g.y_off);
@@ -150,42 +232,47 @@ static void launch(const void* f_in, void* f_out, const void* aux,
   const int j0 = std::max(0, 1 - g.x_off);
   const int j1 = std::min(g.wl - 1, g.Wg - 2 - g.x_off);
   if (i1 < i0 || j1 < j0) return;
+  // enough rows of blocks for 2 (hl + wl) ring threads (K2's count: those
+  // off the global ring return), then the interior's rows
+  const int bx = (j1 - j0 + 256) / 256;
+  const int nr = (2 * (g.hl + g.wl) + 256 * bx - 1) / (256 * bx);
   const dim3 block(256, 1, 1);
-  const dim3 grid((j1 - j0 + 256) / 256, i1 - i0 + 1, 1);
+  const dim3 grid(bx, nr + i1 - i0 + 1, 1);
   k1_step_kernel<S, OBST, SHARD><<<grid, block, 0, stream>>>(
       static_cast<const typename S::T*>(f_in),
       static_cast<typename S::T*>(f_out), static_cast<const float*>(aux),
-      static_cast<const float*>(q), static_cast<float*>(edge),
+      static_cast<const float*>(q), static_cast<const float*>(prof),
       static_cast<float*>(rho), static_cast<float*>(u),
-      static_cast<float*>(f_post), s, g, use_les, full);
+      static_cast<float*>(f_post), s, g, bc, use_les, full, nr);
 }
 
 template <bool SHARD>
 static int dispatch(const void* f_in, void* f_out, const void* aux,
-                    const void* q, void* edge, void* rho, void* u, void* f_post,
-                    const void* scal, const BlockGeom& g, int use_les, int full,
-                    int obst, void* stream) {
+                    const void* q, const void* prof, void* rho, void* u,
+                    void* f_post, const void* scal, const BlockGeom& g,
+                    const BcTypes& bc, int use_les, int full, int obst,
+                    void* stream) {
   const Scalars s = load_scalars(static_cast<const float*>(scal));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (obst) {
     case LBM_OBST_EQ:
-      launch<F32Store, LBM_OBST_EQ, SHARD>(f_in, f_out, aux, q, edge, rho, u,
-                                           f_post, s, g, use_les, full, st);
+      launch<F32Store, LBM_OBST_EQ, SHARD>(f_in, f_out, aux, q, prof, rho, u,
+                                           f_post, s, g, bc, use_les, full, st);
       break;
     case LBM_OBST_BOUNCE:
-      launch<F32Store, LBM_OBST_BOUNCE, SHARD>(f_in, f_out, aux, q, edge, rho,
-                                               u, f_post, s, g, use_les, full,
-                                               st);
+      launch<F32Store, LBM_OBST_BOUNCE, SHARD>(f_in, f_out, aux, q, prof, rho,
+                                               u, f_post, s, g, bc, use_les,
+                                               full, st);
       break;
     case LBM_OBST_HALFWAY:
-      launch<F32Store, LBM_OBST_HALFWAY, SHARD>(f_in, f_out, aux, q, edge, rho,
-                                                u, f_post, s, g, use_les, full,
-                                                st);
+      launch<F32Store, LBM_OBST_HALFWAY, SHARD>(f_in, f_out, aux, q, prof, rho,
+                                                u, f_post, s, g, bc, use_les,
+                                                full, st);
       break;
     case LBM_OBST_BOUZIDI:
-      launch<F32Store, LBM_OBST_BOUZIDI, SHARD>(f_in, f_out, aux, q, edge, rho,
-                                                u, f_post, s, g, use_les, full,
-                                                st);
+      launch<F32Store, LBM_OBST_BOUZIDI, SHARD>(f_in, f_out, aux, q, prof, rho,
+                                                u, f_post, s, g, bc, use_les,
+                                                full, st);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -201,38 +288,44 @@ static int dispatch(const void* f_in, void* f_out, const void* aux,
 // mesh (the JAX kernel's sharded form, launched by run_chunk_sharded_pallas
 // through _pallas_step(offs, h_lo, h_hi)), whose [hl + 2, pitch] planes hold
 // the 1-cell halo ring its neighbours' cells were copied into; only cells
-// interior in the Hg x Wg grid are updated, and only a block on the global
-// edge exports a strip. ``obst`` is LBM_OBST_*; ``q`` ([8] planes of the
-// block) is read only under BOUZIDI, rho/u/f_post only when full; all share
-// the block's geometry.
+// interior in the Hg x Wg grid are updated, and only the global ring cells
+// the block holds are written as ring. ``bc_*`` are the four sides' BC
+// types, ``obst`` is LBM_OBST_*; ``q`` ([8] planes of the block) is read
+// only under BOUZIDI, ``prof`` (the block's [hl] rows of the inlet
+// profile) only for left types 3/4, rho/u/f_post written only when full;
+// all share the block's geometry.
 extern "C" int k1_step_launch(const void* f_in, void* f_out, const void* aux,
-                              const void* q, void* edge, void* rho, void* u,
-                              void* f_post, const void* scal, const int* geom,
-                              int use_les, int full, int obst, void* stream) {
+                              const void* q, const void* prof, void* rho,
+                              void* u, void* f_post, const void* scal,
+                              const int* geom, int bc_left, int bc_top,
+                              int bc_right, int bc_bottom, int use_les,
+                              int full, int obst, void* stream) {
   const BlockGeom g = load_geom(geom);
-  return g.halo ? dispatch<true>(f_in, f_out, aux, q, edge, rho, u, f_post,
-                                 scal, g, use_les, full, obst, stream)
-                : dispatch<false>(f_in, f_out, aux, q, edge, rho, u, f_post,
-                                  scal, g, use_les, full, obst, stream);
+  const BcTypes bc{bc_left, bc_top, bc_right, bc_bottom};
+  return g.halo ? dispatch<true>(f_in, f_out, aux, q, prof, rho, u, f_post,
+                                 scal, g, bc, use_les, full, obst, stream)
+                : dispatch<false>(f_in, f_out, aux, q, prof, rho, u, f_post,
+                                  scal, g, bc, use_les, full, obst, stream);
 }
 
 // The fast step in 16-bit deviation storage (EQ and BOUNCE only).
 template <bool SHARD>
 static int dispatch_dev(const void* f_in, void* f_out, const void* aux,
-                        void* edge, const void* scal, const BlockGeom& g,
-                        int use_les, int obst, void* stream) {
+                        const void* prof, const void* scal, const BlockGeom& g,
+                        const BcTypes& bc, int use_les, int obst,
+                        void* stream) {
   const Scalars s = load_scalars(static_cast<const float*>(scal));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (obst) {
     case LBM_OBST_EQ:
-      launch<DevStore, LBM_OBST_EQ, SHARD>(f_in, f_out, aux, nullptr, edge,
-                                           nullptr, nullptr, nullptr, s, g,
+      launch<DevStore, LBM_OBST_EQ, SHARD>(f_in, f_out, aux, nullptr, prof,
+                                           nullptr, nullptr, nullptr, s, g, bc,
                                            use_les, 0, st);
       break;
     case LBM_OBST_BOUNCE:
-      launch<DevStore, LBM_OBST_BOUNCE, SHARD>(f_in, f_out, aux, nullptr, edge,
+      launch<DevStore, LBM_OBST_BOUNCE, SHARD>(f_in, f_out, aux, nullptr, prof,
                                                nullptr, nullptr, nullptr, s, g,
-                                               use_les, 0, st);
+                                               bc, use_les, 0, st);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -241,15 +334,18 @@ static int dispatch_dev(const void* f_in, void* f_out, const void* aux,
 }
 
 // The fast step in 16-bit deviation storage: f_in and f_out are bf16
-// planes of f - w in the block's geometry (halos included on a shard); the
-// edge export is f32 as above. Schemes EQ and BOUNCE only.
+// planes of f - w in the block's geometry (halos included on a shard), the
+// ring quantized as the interior is. Schemes EQ and BOUNCE only.
 extern "C" int k1_step_dev_launch(const void* f_in, void* f_out,
-                                  const void* aux, void* edge,
+                                  const void* aux, const void* prof,
                                   const void* scal, const int* geom,
-                                  int use_les, int obst, void* stream) {
+                                  int bc_left, int bc_top, int bc_right,
+                                  int bc_bottom, int use_les, int obst,
+                                  void* stream) {
   const BlockGeom g = load_geom(geom);
-  return g.halo ? dispatch_dev<true>(f_in, f_out, aux, edge, scal, g, use_les,
-                                     obst, stream)
-                : dispatch_dev<false>(f_in, f_out, aux, edge, scal, g, use_les,
-                                      obst, stream);
+  const BcTypes bc{bc_left, bc_top, bc_right, bc_bottom};
+  return g.halo ? dispatch_dev<true>(f_in, f_out, aux, prof, scal, g, bc,
+                                     use_les, obst, stream)
+                : dispatch_dev<false>(f_in, f_out, aux, prof, scal, g, bc,
+                                      use_les, obst, stream);
 }

@@ -6,10 +6,10 @@
 // block owns one 2-D tile of TH x TW centre cells. It loads the window of
 // the tile plus S halo cells on every side (clipped to the grid) into
 // shared memory, advances it S lattice steps there, and stores the centre.
-// Every sub-step is one K1 + K2 step: the interior update of lbm_cell.cuh
-// (pull, link rule, MRT-LES collision, obstacle rule) and then the
-// boundary ring in solver.apply_bc order, so the stored centre equals S
-// calls of K1 + K2 bitwise.
+// Every sub-step is one K1 step: the interior update of lbm_cell.cuh
+// (pull, link rule, MRT-LES collision, obstacle rule) and the boundary
+// ring in solver.apply_bc order, so the stored centre equals S calls of K1
+// bitwise.
 //
 // Trapezoid: sub-step s updates the window region R_s, the window shrunk
 // by s + 1 cells per side and clipped to the grid. Its interior cells pull
@@ -33,7 +33,7 @@
 //      (the corner neighbours as phase 2 left them).
 // Ring cells take the obstacle overwrite f = w rho on solids (not under
 // full-way bounce-back). The velocity inlets (left types 3/4) read the
-// case's inlet_profile tensor, as K2 does. Global memory is read only
+// case's inlet_profile tensor, as K1 does. Global memory is read only
 // inside [0, H) x [0, W): window cells outside the grid are never loaded
 // nor read.
 //

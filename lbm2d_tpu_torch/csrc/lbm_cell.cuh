@@ -1,10 +1,12 @@
 // Device functions of one lattice cell shared by the kernels that update
 // whole cells: K1 (k1_step.cu) and K3 (k3_fused.cu) call the interior
-// update, K2 (k2_edge_bc.cu) and K3 the boundary conditions of the ring.
+// update and the boundary conditions of the ring; K1's ring threads pick a
+// ring cell's BCs with lbm_ring_values and store it with lbm_store_ring.
 //
-// Each function reads its inputs through the caller's accessors, so the
-// same arithmetic runs on global memory (K1, K2) and on a shared-memory
-// window (K3), in the eager step's operation order (see lbm_common.cuh).
+// Each function reads its inputs through the caller's accessors or
+// arguments, so the same arithmetic runs on global memory (K1) and on a
+// shared-memory window (K3), in the eager step's operation order (see
+// lbm_common.cuh).
 #pragma once
 
 #include "lbm_common.cuh"
@@ -193,4 +195,51 @@ __device__ __forceinline__ Cell bc_horizontal(const Cell& n, const Scalars& s, i
   nebb(n, gb, &b);
   b.rho = n.rho;
   return b;
+}
+
+// The four sides' BC types, in solver.bc_type order.
+struct BcTypes {
+  int left, top, right, bottom;
+};
+
+// Stores ring cell ``c`` from its BC values ``b``, as solver.apply_bc's
+// obstacle pass leaves it: f in S's format, w rho on a solid cell unless
+// under full-way bounce-back (which keeps the BC values); with ``full``,
+// rho and u (zero on solids).
+template <typename S, int OBST>
+__device__ __forceinline__ void lbm_store_ring(typename S::T* f, const float* aux,
+                                               float* rho_out, float* u_out, size_t plane,
+                                               size_t c, const Cell& b, bool full) {
+  const bool solid = __float_as_int(aux[c]) < 0;
+  const bool overwrite = solid && OBST != LBM_OBST_BOUNCE;
+  for (int k = 0; k < 9; ++k)
+    S::store(f, k * plane + c, k, overwrite ? lbm_w(k) * b.rho : b.f[k]);
+  if (full) {
+    rho_out[c] = b.rho;
+    u_out[c] = solid ? 0.0f : b.ux;
+    u_out[plane + c] = solid ? 0.0f : b.uy;
+  }
+}
+
+// The BC values of one ring cell from ``n``, the collide output of its
+// inward neighbour before the obstacle overwrite (what solver.apply_bc
+// reads), in apply_bc's order: a side column cell (``column``) takes
+// bc_left or bc_right (``far``: the right one); a bottom or top row cell
+// (``far``: the top one) takes bc_horizontal of its neighbour in row 1 /
+// H-2, except at the corners (global column ``gx`` 0 or ``Wg`` - 1), where
+// that neighbour is a side cell and its side BC comes first, as apply_bc
+// reads the side column it has just written. ``u_prof`` is the neighbour
+// row's inlet profile (left types 3/4).
+__device__ __forceinline__ Cell lbm_ring_values(const Cell& n, bool column, bool far, int gx,
+                                                int Wg, const Scalars& s, const BcTypes& bc,
+                                                float u_prof) {
+  if (column) return far ? bc_right(n, s, bc.right) : bc_left(n, s, bc.left, u_prof);
+  Cell m;
+  if (gx == 0)
+    m = bc_left(n, s, bc.left, u_prof);
+  else if (gx == Wg - 1)
+    m = bc_right(n, s, bc.right);
+  else
+    m = n;
+  return far ? bc_horizontal(m, s, bc.top, 1) : bc_horizontal(m, s, bc.bottom, 3);
 }

@@ -1,5 +1,5 @@
 // Per-cell D2Q9 MRT-LES arithmetic and the f storage formats shared by the
-// step kernel (K1) and the boundary-ring kernel (K2).
+// step kernel (K1) and the temporal-blocking kernel (K3).
 //
 // Every expression keeps the evaluation order of the plain PyTorch step
 // (lbm2d_tpu_torch/core/solver.py and core/lattice.py), term by term, and
@@ -32,7 +32,7 @@ static inline Scalars load_scalars(const float* row) {
   return s;
 }
 
-// Where K1 and K2 find a block of the lattice (ops/cuda_step.py
+// Where K1 finds a block of the lattice (ops/cuda_step.py
 // BlockGeom). Local cell (i, j), i in [0, hl), j in [0, wl), is element
 // (i + halo) * pitch + (j + halo) of each [hl + 2 halo, pitch] plane and is
 // cell (y_off + i, x_off + j) of the Hg x Wg grid. The single-device step
@@ -123,13 +123,9 @@ __device__ __constant__ int LBM_OPP[9] = {0, 3, 4, 1, 2, 7, 8, 5, 6};
 #define LBM_BC_VEL_INLET 3
 #define LBM_BC_VEL_INLET_NEBB 4
 
-// Edge-export layout written by K1 and read by K2, all f32:
-//   columns: edge[(side * 12 + c) * H + y], side 0 = x 1, side 1 = x W-2
-//   rows:    edge[24 * H + (side * 12 + c) * W + x], side 0 = y 1, 1 = y H-2
-// c = 0..8 the collide output f_post (before the obstacle overwrite),
-// 9 rho, 10 ux, 11 uy. On a block H, W are its hl, wl, y and x are local,
-// and the sides are global column 1 / Wg-2 and row 1 / Hg-2: only a block
-// that holds them writes them.
+// Values K3 keeps per cell of its shared edge strips (columns 1 / W-2 and
+// rows 1 / H-2 of a window): the collide output f_post[0..8] before the
+// obstacle overwrite, rho, ux, uy.
 #define LBM_EDGE_C 12
 
 // MRT-LES collision of the streamed populations fs (solver.mrt_collide_arrays).

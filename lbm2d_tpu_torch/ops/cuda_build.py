@@ -32,20 +32,18 @@ NVCC_FLAGS = [
 ]
 
 # library name -> source
-SOURCES = {"k1_step": "k1_step.cu", "k2_edge_bc": "k2_edge_bc.cu", "k3_fused": "k3_fused.cu",
-           "copy_probe": "copy_probe.cu"}
+SOURCES = {"k1_step": "k1_step.cu", "k3_fused": "k3_fused.cu", "copy_probe": "copy_probe.cu"}
 
 # C entry name -> (library, C entry, argtypes); each entry launches the
 # variants ops/cuda_step.py counts under their own names
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNELS = {
-    # K1 and K2 take a host pointer to the block's geometry (8 ints,
-    # cuda_step.BlockGeom): the whole grid or one shard of a spatial mesh
-    "k1_step": ("k1_step", "k1_step_launch", [_P] * 10 + [_I] * 3 + [_P]),
-    "k1_step_dev": ("k1_step", "k1_step_dev_launch", [_P] * 6 + [_I] * 2 + [_P]),
-    "k2_edge_bc": ("k2_edge_bc", "k2_edge_bc_launch", [_P] * 8 + [_I] * 6 + [_P]),
-    "k2_edge_bc_dev": ("k2_edge_bc", "k2_edge_bc_dev_launch", [_P] * 6 + [_I] * 5 + [_P]),
+    # K1 takes host pointers to the block's geometry (8 ints,
+    # cuda_step.BlockGeom: the whole grid or one shard of a spatial mesh)
+    # and to the scalar row, then the four sides' BC types
+    "k1_step": ("k1_step", "k1_step_launch", [_P] * 10 + [_I] * 7 + [_P]),
+    "k1_step_dev": ("k1_step", "k1_step_dev_launch", [_P] * 6 + [_I] * 6 + [_P]),
     "k3_fused": ("k3_fused", "k3_fused_launch", [_P] * 5 + [_I] * 11 + [_P]),
     "copy_probe": ("copy_probe", "copy_probe_launch", [_P] * 3 + [_I] * 2 + [_P]),
 }

@@ -1,46 +1,46 @@
 """Chunk runner on the hand-written CUDA kernels (counterpart of
 ``lbm2d_tpu/ops/pallas_step.py``).
 
-Each step is two launches on the current stream:
-
-* K1 ``k1_step`` (csrc/k1_step.cu, replaces ``_step_kernel``): stream,
-  collide and write the interior of the next f buffer, plus the edge
-  export K2 reads; its full variant, on a chunk's last step, also writes
-  rho, u and f_post. The obstacle scheme (``OBSTACLE_*``: equilibrium,
-  full-way, half-way or Bouzidi bounce-back) picks a compiled variant.
-* K2 ``k2_edge_bc`` (csrc/k2_edge_bc.cu, replaces ``_edge_bc_kernel``):
-  rebuild the boundary ring in ``apply_bc`` order, the profiled velocity
-  inlets (left types 3/4) from the case's ``inlet_profile``.
+Each step is one launch on the current stream: K1 ``k1_step``
+(csrc/k1_step.cu, replaces ``_step_kernel`` in its in-kernel-BC form)
+streams, collides and writes the next f buffer, the boundary ring
+included: the threads of the cells next to the ring write it from the
+collide output they hold, in ``apply_bc`` order, the profiled velocity
+inlets (left types 3/4) from the case's ``inlet_profile``. The JAX
+package's split form (``_step_kernel`` with an edge export, then
+``_edge_bc_kernel`` rebuilding the ring) is folded into that one launch.
+Its full variant, on a chunk's last step, also writes rho, u and f_post.
+The obstacle scheme (``OBSTACLE_*``: equilibrium, full-way, half-way or
+Bouzidi bounce-back) picks a compiled variant.
 
 With 16-bit deviation storage (``store_dev``, the JAX package's
 ``run_chunk_pallas(store_dev=True)``) a chunk's fast steps run
-``k1_step_dev`` + ``k2_edge_bc_dev`` on bf16 buffers of f - w: the state
-is quantized once at the start of the chunk and dequantized for the f32
-full step that closes it. Lossy by design (one bf16 rounding of each
-deviation per step), opt-in, only for chunks of more than one step, and,
-as in the JAX package, not for half-way or Bouzidi bounce-back
-(``dev_storage_refusal``).
+``k1_step_dev`` on bf16 buffers of f - w: the state is quantized once at
+the start of the chunk and dequantized for the f32 full step that closes
+it. Lossy by design (one bf16 rounding of each deviation per step),
+opt-in, only for chunks of more than one step, and, as in the JAX package,
+not for half-way or Bouzidi bounce-back (``dev_storage_refusal``).
 
 Temporal blocking is opt-in, as in the JAX package (``_FUSE_STEPS`` = S >
 1): a chunk's first n - 1 steps then run as passes of K3 ``k3_fused``
 (csrc/k3_fused.cu, replaces ``_fused_kernel``: S steps on 2-D tiles in
 shared memory, the BCs inside every window after each sub-step), the
-remainder as single K1 + K2 steps; Bouzidi bounce-back is never fused
+remainder as single K1 steps; Bouzidi bounce-back is never fused
 (``fuse_refusal``) and deviation storage is off while it is requested.
 
-On a spatial mesh (``parallel/sharded.py``) K1 and K2 run in their sharded
-forms on one block of the grid each: the same wrappers and kernels given
-the block's ``BlockGeom`` (``geom=``), a [hl, wl] block inside a 1-cell
-halo ring of its neighbours' cells, whose BCs act only where the block
-lies on the global edge; they count as the ``_shard`` variants.
+On a spatial mesh (``parallel/sharded.py``) K1 runs in its sharded form on
+one block of the grid each: the same wrappers and kernels given the
+block's ``BlockGeom`` (``geom=``), a [hl, wl] block inside a 1-cell halo
+ring of its neighbours' cells, whose ring cells are written only where the
+block lies on the global edge; they count as the ``_shard`` variants.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes its
-plain PyTorch version (``k1_step_plain`` / ``k2_edge_bc_plain``, the
-``_dev`` pair and ``k3_fused_plain``, each with the same ``geom``) only
-for CPU tensors. ``LAUNCHES`` counts kernel launches by variant
-(``k1_variant`` / ``k2_variant`` / ``k3_variant`` names), so a run can
-show that it went through the kernels. The monitors are plain torch reductions, as the JAX
-package computes them outside its kernels.
+plain PyTorch version (``k1_step_plain``, ``k1_step_dev_plain`` and
+``k3_fused_plain``, each with the same arguments) only for CPU tensors.
+``LAUNCHES`` counts kernel launches by variant (``k1_variant`` /
+``k3_variant`` names), so a run can show that it went through the kernels.
+The monitors are plain torch reductions, as the JAX package computes them
+outside its kernels.
 """
 
 from __future__ import annotations
@@ -84,7 +84,7 @@ SCALAR_FIELDS = (
 )
 _S_RAMP = 3
 
-EDGE_C = 12  # f_post[0..8], rho, ux, uy per exported strip cell
+EDGE_C = 12  # f_post[0..8], rho, ux, uy per cell of K3's shared edge strips
 
 # storage type of f under 16-bit deviation storage (the JAX package's
 # _DEV_DTYPE): bf16 keeps f32's exponent range, and storing f - w keeps the
@@ -116,14 +116,6 @@ def k1_variant(obstacle: int, full: bool = False, dev: bool = False,
             + ("_full" if full else "_dev" if dev else ""))
 
 
-def k2_variant(left_type: int, dev: bool = False, shard: bool = False) -> str:
-    """Launch-count name of a K2 variant: k2_edge_bc[_vel][_shard][_dev],
-    ``_vel`` for the profiled velocity inlets (left types 3/4)."""
-    vel = left_type in (BC_VEL_INLET, BC_VEL_INLET_NEBB)
-    return ("k2_edge_bc" + ("_vel" if vel else "") + ("_shard" if shard else "")
-            + ("_dev" if dev else ""))
-
-
 def k3_variant(obstacle: int, left_type: int) -> str:
     """Launch-count name of a K3 variant: k3_fused[_bounce|_halfway][_vel],
     ``_vel`` for the profiled velocity inlets (left types 3/4)."""
@@ -137,11 +129,9 @@ FUSE_OBSTACLES = (OBSTACLE_EQ, OBSTACLE_BOUNCE, OBSTACLE_HALFWAY)
 KERNEL_VARIANTS = (
     [k1_variant(o, full) for o in range(4) for full in (False, True)]
     + [k1_variant(o, dev=True) for o in DEV_OBSTACLES]
-    + [k2_variant(t, dev) for t in (BC_INLET, BC_VEL_INLET) for dev in (False, True)]
     + [k3_variant(o, t) for o in FUSE_OBSTACLES for t in (BC_INLET, BC_VEL_INLET)]
     + [k1_variant(o, full, shard=True) for o in range(4) for full in (False, True)]
     + [k1_variant(o, dev=True, shard=True) for o in DEV_OBSTACLES]
-    + [k2_variant(t, dev, shard=True) for t in (BC_INLET, BC_VEL_INLET) for dev in (False, True)]
 )
 
 # launches of each kernel variant, added to where the launch is made
@@ -171,7 +161,7 @@ SHARD_PITCH_ALIGN = 32
 
 @dataclass(frozen=True)
 class BlockGeom:
-    """Where K1 and K2 find a block of the lattice (csrc/lbm_common.cuh
+    """Where K1 finds a block of the lattice (csrc/lbm_common.cuh
     BlockGeom): local cell (i, j), i < hl, j < wl, is element (i + halo,
     j + halo) of each [hl + 2 halo, pitch] plane and cell (y_off + i,
     x_off + j) of the Hg x Wg grid. The single-device step runs
@@ -206,11 +196,6 @@ class BlockGeom:
     def plane(self) -> Tuple[int, int]:
         """Shape of one stored plane."""
         return (self.hl + 2 * self.halo, self.pitch)
-
-    @property
-    def edge_len(self) -> int:
-        """Length of the block's edge export buffer."""
-        return 2 * EDGE_C * (self.hl + self.wl)
 
     def interior(self):
         """(i0, i1, j0, j1), inclusive local bounds of the block's cells that
@@ -262,7 +247,7 @@ def unsupported(p: CaseParams) -> Optional[str]:
 
 
 def supports(p: CaseParams) -> bool:
-    """True if K1 + K2 implement case ``p`` (the JAX ``pallas_step.supports``
+    """True if K1 implements case ``p`` (the JAX ``pallas_step.supports``
     layouts): left BC in {0, 2, 3, 4} (3/4 with the inlet profile), right in
     {0, 1, 2}, top/bottom in {0, 2}, any obstacle scheme (Bouzidi with its q
     planes), f32, LES on or off."""
@@ -358,18 +343,6 @@ def scalar_row(p: CaseParams, step: int) -> torch.Tensor:
     return _with_ramp(row, warmup, step)
 
 
-def edge_views(edge: torch.Tensor, H: int, W: int):
-    """(cols [2, 12, H], rows [2, 12, W]) views of the edge export buffer:
-    side 0/1 = column 1 / W-2 and row 1 / H-2."""
-    cols = edge[: 2 * EDGE_C * H].view(2, EDGE_C, H)
-    rows = edge[2 * EDGE_C * H :].view(2, EDGE_C, W)
-    return cols, rows
-
-
-def new_edge_buffer(H: int, W: int, dtype=torch.float32, device="cpu") -> torch.Tensor:
-    return torch.zeros(2 * EDGE_C * (H + W), dtype=dtype, device=device)
-
-
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
@@ -408,7 +381,7 @@ def dequantize(dev: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# K1: interior step
+# K1: one lattice step, the boundary ring included
 # ---------------------------------------------------------------------------
 
 
@@ -425,17 +398,75 @@ def _launch_device(dev: torch.device):
     return torch.cuda.device(dev)
 
 
-def k1_step_plain(f_in, f_out, aux, edge, scal, use_les, rho=None, u=None, f_post=None,
-                  obstacle=OBSTACLE_EQ, q=None, geom=None):
-    """Plain PyTorch version of K1 on block ``geom`` (the whole grid by
-    default), writing the same cells of the same buffers: the cells
-    interior in the global grid of f_out (and of rho/u/f_post when given)
-    and the block's edge export. Every read goes through the block's own
-    cells and halo; the link predicate of half-way and Bouzidi bounce-back
-    is the solid flag of ``aux`` at the pull source, as in the kernel."""
+def _ring_plain(f, aux, cell, box, scal, bc_type, rho, u, to_store, prof, bounce,
+                g: BlockGeom):
+    """The global ring cells that block ``g`` holds, of ``f`` (and of rho/u
+    when given), in apply_bc order, from ``cell`` [12, ni, nj]: the collide
+    output (f_post before the obstacle overwrite, rho, ux, uy) of the
+    block's globally interior cells ``box`` = (i0, i1, j0, j1), the values
+    the kernel's ring threads compute for a ring cell's inward neighbour.
+    ``prof`` is the block's rows of the inlet profile and ``to_store`` maps
+    the f32 ring values [9, n] to f's storage."""
+    i0, i1, j0, j1 = box
+    ctype = cell.dtype
+    s = scal.to(device=f.device, dtype=ctype)
+    ramp = float(scal[_S_RAMP])
+    bcv = s[6:].view(4, 2)
+    hl, wl, h = g.hl, g.wl, g.halo
+    lt, tt, rt, bt = bc_type
+    # the side columns on the block's inner rows i0..i1, from global column
+    # 1 / Wg-2 (the first / last column of the box on such a block)
+    left, right = g.x_off == 0, g.x_off + wl == g.Wg
+    vl = vr = None
+    if left:
+        vl = bc_left_values(cell[:9, :, 0], cell[9, :, 0], cell[10, :, 0], cell[11, :, 0],
+                            ramp, lt, s[4], u_prof=None if prof is None else prof[i0:i1 + 1])
+    if right:
+        vr = bc_right_values(cell[:9, :, -1], cell[9, :, -1], cell[10, :, -1], cell[11, :, -1],
+                             ramp, rt, s[5], bcv[2])
+    writes = []
+    if left:
+        writes.append(((slice(i0 + h, i1 + h + 1), h), vl))
+    if right:
+        writes.append(((slice(i0 + h, i1 + h + 1), wl - 1 + h), vr))
+    # rows from global row 1 / Hg-2 (the first / last row of the box), the
+    # corner-adjacent neighbours taken from the side BCs
+    for side, t, r_box, y, y_nb, on in ((1, tt, -1, hl - 1, hl - 2, g.y_off + hl == g.Hg),
+                                        (3, bt, 0, 0, 1, g.y_off == 0)):
+        if not on:
+            continue
+        nb = torch.zeros((12, wl), dtype=ctype, device=f.device)
+        nb[:, j0:j1 + 1] = cell[:, r_box]
+        for x, vals in ((0, vl), (wl - 1, vr)):
+            if vals is not None:
+                nb[:9, x] = vals[0][:, y_nb - i0]
+                nb[9, x] = vals[1][y_nb - i0]
+                nb[10, x] = vals[2][y_nb - i0]
+                nb[11, x] = vals[3][y_nb - i0]
+        vals = bc_horizontal_values(nb[:9], nb[9], nb[10], nb[11], ramp, t, bcv[side])
+        writes.append(((y + h, slice(h, wl + h)), vals))
+    w9 = torch.as_tensor(W_LAT, dtype=ctype, device=f.device).reshape(9, 1)
+    solid, _ = unpack_aux(aux)
+    for idx, (fb, rho_b, ux_b, uy_b) in writes:
+        sol = solid[idx]
+        # full-way bounce-back keeps the BC values on solid ring cells
+        f[(slice(None),) + idx] = to_store(
+            fb if bounce else torch.where(sol[None], w9 * rho_b[None], fb)
+        )
+        if rho is not None:
+            zero = torch.zeros_like(ux_b)
+            rho[idx] = rho_b
+            u[(0,) + idx] = torch.where(sol, zero, ux_b)
+            u[(1,) + idx] = torch.where(sol, zero, uy_b)
+
+
+def _k1_plain(f_in, f_out, aux, scal, use_les, bc_type, rho, u, f_post, obstacle, q, prof,
+              g: BlockGeom, to_store):
+    """K1's plain version on block ``g``: the interior update, then the ring
+    from the interior's collide output; ``to_store`` maps f32 populations to
+    f_out's storage."""
     if obstacle == OBSTACLE_BOUZIDI and q is None:
         raise ValueError("Bouzidi bounce-back needs the q planes")
-    g = _geom(geom, f_in)
     box = g.interior()
     if box is None:
         return
@@ -464,23 +495,31 @@ def k1_step_plain(f_in, f_out, aux, edge, scal, use_les, rho=None, u=None, f_pos
         w9 = torch.as_tensor(W_LAT, dtype=f_in.dtype, device=f_in.device).reshape(9, 1, 1)
         f_store = torch.where(solid[None], w9 * r[None], fp)
     rows_, cols_ = g.cells(i0, i1, j0, j1)
-    f_out[:, rows_, cols_] = f_store
-    cols, rows = edge_views(edge, g.hl, g.wl)
-    macros = torch.stack([r, ux, uy])
-    for side, x in ((0, 1 - g.x_off), (1, g.Wg - 2 - g.x_off)):
-        if j0 <= x <= j1:
-            cols[side, :9, i0:i1 + 1] = fp[:, :, x - j0]
-            cols[side, 9:, i0:i1 + 1] = macros[:, :, x - j0]
-    for side, y in ((0, 1 - g.y_off), (1, g.Hg - 2 - g.y_off)):
-        if i0 <= y <= i1:
-            rows[side, :9, j0:j1 + 1] = fp[:, y - i0]
-            rows[side, 9:, j0:j1 + 1] = macros[:, y - i0]
+    f_out[:, rows_, cols_] = to_store(f_store)
     if rho is not None:
         zero = torch.zeros_like(ux)
         rho[rows_, cols_] = r
         u[0, rows_, cols_] = torch.where(solid, zero, ux)
         u[1, rows_, cols_] = torch.where(solid, zero, uy)
         f_post[:, rows_, cols_] = fp
+    cell = torch.cat([fp, torch.stack([r, ux, uy])])
+    _ring_plain(f_out, aux, cell, box, scal, bc_type, rho, u, to_store, prof,
+                obstacle == OBSTACLE_BOUNCE, g)
+
+
+def k1_step_plain(f_in, f_out, aux, scal, use_les, bc_type, rho=None, u=None, f_post=None,
+                  obstacle=OBSTACLE_EQ, q=None, prof=None, geom=None):
+    """Plain PyTorch version of K1 on block ``geom`` (the whole grid by
+    default), writing the same cells of the same buffers: the cells
+    interior in the global grid of f_out (and of rho/u/f_post when given),
+    then the global ring cells the block holds (f_out, and rho/u when
+    given) from the interior's collide output, the values the kernel's
+    ring threads compute for themselves. Every read goes through the
+    block's own cells and halo; the link predicate of half-way and Bouzidi
+    bounce-back is the solid flag of ``aux`` at the pull source, as in the
+    kernel."""
+    _k1_plain(f_in, f_out, aux, scal, use_les, bc_type, rho, u, f_post, obstacle, q, prof,
+              _geom(geom, f_in), lambda v: v)
 
 
 def _check_obstacle(obstacle: int, q, shape, device, allowed=tuple(range(4))) -> None:
@@ -492,175 +531,7 @@ def _check_obstacle(obstacle: int, q, shape, device, allowed=tuple(range(4))) ->
         _check("q", q, (8,) + tuple(shape), device)
 
 
-def _check_k1(f_in, f_out, aux, edge, g: BlockGeom, dtype, obstacle, q, rho, u, f_post,
-              allowed=tuple(range(4))):
-    """K1's argument checks, for the stored planes of block ``g``."""
-    dev, plane = f_in.device, g.plane
-    _check("f_in", f_in, (9,) + plane, dev, dtype)
-    _check("f_out", f_out, (9,) + plane, dev, dtype)
-    _check("aux", aux, plane, dev)
-    _check("edge", edge, (g.edge_len,), dev)
-    _check_obstacle(obstacle, q, plane, dev, allowed)
-    if rho is not None:
-        _check("rho", rho, plane, dev)
-        _check("u", u, (2,) + plane, dev)
-        _check("f_post", f_post, (9,) + plane, dev)
-    if f_in.data_ptr() == f_out.data_ptr():
-        raise ValueError("K1: pull streaming needs distinct in/out buffers")
-
-
-def k1_step(f_in, f_out, aux, edge, scal, use_les, rho=None, u=None, f_post=None,
-            obstacle=OBSTACLE_EQ, q=None, geom=None):
-    """K1 on ``f_in`` -> ``f_out``: distinct [9, H, W] buffers, or with
-    ``geom`` the [9, hl + 2, pitch] blocks of one shard of a spatial mesh,
-    halos filled, of which the cells interior in the global grid are
-    updated. The full variant runs when ``rho``, ``u`` [2, ...] and
-    ``f_post`` [9, ...] are given; aux, q and those share f's geometry, the
-    edge export is [``geom.edge_len``]. ``scal`` is the CPU scalar row of
-    this step; ``obstacle`` an ``OBSTACLE_*`` scheme, Bouzidi with ``q``
-    [8, ...]. Counted as ``k1_variant(obstacle, full, shard=geom.halo > 0)``."""
-    if not f_in.is_cuda:
-        return k1_step_plain(f_in, f_out, aux, edge, scal, use_les, rho, u, f_post, obstacle, q,
-                             geom)
-    g = _geom(geom, f_in)
-    full = rho is not None
-    _check_k1(f_in, f_out, aux, edge, g, torch.float32, obstacle, q, rho, u, f_post)
-    sc = _scal_c(scal)
-    q_ptr = _ptr(q) if obstacle == OBSTACLE_BOUZIDI else None
-    dev = f_in.device
-    with _launch_device(dev):
-        rc = cuda_build.load("k1_step")(
-            _ptr(f_in), _ptr(f_out), _ptr(aux), q_ptr, _ptr(edge), _ptr(rho), _ptr(u),
-            _ptr(f_post), ctypes.addressof(sc), ctypes.addressof(g.c_row), int(bool(use_les)),
-            int(full), obstacle, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"k1_step launch failed: CUDA error {rc}")
-    LAUNCHES[k1_variant(obstacle, full, shard=g.halo > 0)] += 1
-
-
-def k1_step_dev_plain(f_in, f_out, aux, edge, scal, use_les, obstacle=OBSTACLE_EQ, geom=None):
-    """Plain PyTorch version of K1's deviation-storage fast step: dequantize
-    f_in, step in f32 as ``k1_step_plain``, quantize the updated cells of
-    f_out. The edge export stays f32."""
-    g = _geom(geom, f_in)
-    _check_obstacle(obstacle, None, g.plane, f_in.device, DEV_OBSTACLES)
-    f32_out = torch.empty(f_in.shape, dtype=torch.float32, device=f_in.device)
-    k1_step_plain(dequantize(f_in), f32_out, aux, edge, scal, use_les, obstacle=obstacle,
-                  geom=g)
-    box = g.interior()
-    if box is not None:
-        rows_, cols_ = g.cells(*box)
-        f_out[:, rows_, cols_] = quantize(f32_out[:, rows_, cols_])
-
-
-def k1_step_dev(f_in, f_out, aux, edge, scal, use_les, obstacle=OBSTACLE_EQ, geom=None):
-    """K1's fast step on bf16 deviation buffers ``f_in`` -> ``f_out``
-    ([9, H, W], distinct, or one shard's blocks of ``geom``, halos
-    included); ``edge`` is the f32 export K2 reads. Equilibrium and
-    full-way bounce-back only."""
-    if not f_in.is_cuda:
-        return k1_step_dev_plain(f_in, f_out, aux, edge, scal, use_les, obstacle, geom)
-    g = _geom(geom, f_in)
-    _check_k1(f_in, f_out, aux, edge, g, DEV_DTYPE, obstacle, None, None, None, None,
-              DEV_OBSTACLES)
-    sc = _scal_c(scal)
-    dev = f_in.device
-    with _launch_device(dev):
-        rc = cuda_build.load("k1_step_dev")(
-            _ptr(f_in), _ptr(f_out), _ptr(aux), _ptr(edge), ctypes.addressof(sc),
-            ctypes.addressof(g.c_row), int(bool(use_les)), obstacle,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"k1_step_dev launch failed: CUDA error {rc}")
-    LAUNCHES[k1_variant(obstacle, dev=True, shard=g.halo > 0)] += 1
-
-
-# ---------------------------------------------------------------------------
-# K2: boundary ring
-# ---------------------------------------------------------------------------
-
-
-def _k2_ring_plain(f, aux, edge, scal, bc_type, rho, u, to_store, prof, bounce,
-                   g: BlockGeom):
-    """The global ring cells that block ``g`` holds, of ``f`` (and of rho/u
-    when given), from the block's edge export in apply_bc order; ``prof``
-    is the block's rows of the inlet profile and ``to_store`` maps the f32
-    ring values [9, n] to f's storage."""
-    ctype = torch.float32 if f.dtype == DEV_DTYPE else f.dtype
-    s = scal.to(device=f.device, dtype=ctype)
-    ramp = float(scal[_S_RAMP])
-    bcv = s[6:].view(4, 2)
-    hl, wl, h = g.hl, g.wl, g.halo
-    cols, rows = edge_views(edge, hl, wl)
-    lt, tt, rt, bt = bc_type
-    # the block's rows that are inner rows of the global grid
-    i0, i1 = max(0, 1 - g.y_off), min(hl - 1, g.Hg - 2 - g.y_off)
-    inner = slice(i0, i1 + 1)
-    left, right = g.x_off == 0, g.x_off + wl == g.Wg
-    vl = vr = None
-    if left:
-        vl = bc_left_values(
-            cols[0, :9, inner], cols[0, 9, inner], cols[0, 10, inner], cols[0, 11, inner],
-            ramp, lt, s[4], u_prof=None if prof is None else prof[inner],
-        )
-    if right:
-        vr = bc_right_values(
-            cols[1, :9, inner], cols[1, 9, inner], cols[1, 10, inner], cols[1, 11, inner],
-            ramp, rt, s[5], bcv[2],
-        )
-    writes = []
-    if left:
-        writes.append(((slice(i0 + h, i1 + h + 1), h), vl))
-    if right:
-        writes.append(((slice(i0 + h, i1 + h + 1), wl - 1 + h), vr))
-    # rows, with the corner-adjacent neighbours taken from the side BCs
-    for side, t, r_side, y, y_nb, on in ((1, tt, 1, hl - 1, hl - 2, g.y_off + hl == g.Hg),
-                                         (3, bt, 0, 0, 1, g.y_off == 0)):
-        if not on:
-            continue
-        nb = rows[r_side].clone()
-        for x, vals in ((0, vl), (wl - 1, vr)):
-            if vals is not None:
-                nb[:9, x] = vals[0][:, y_nb - i0]
-                nb[9, x] = vals[1][y_nb - i0]
-                nb[10, x] = vals[2][y_nb - i0]
-                nb[11, x] = vals[3][y_nb - i0]
-        vals = bc_horizontal_values(nb[:9], nb[9], nb[10], nb[11], ramp, t, bcv[side])
-        writes.append(((y + h, slice(h, wl + h)), vals))
-    w9 = torch.as_tensor(W_LAT, dtype=ctype, device=f.device).reshape(9, 1)
-    solid, _ = unpack_aux(aux)
-    for idx, (fb, rho_b, ux_b, uy_b) in writes:
-        sol = solid[idx]
-        # full-way bounce-back keeps the BC values on solid ring cells
-        f[(slice(None),) + idx] = to_store(
-            fb if bounce else torch.where(sol[None], w9 * rho_b[None], fb)
-        )
-        if rho is not None:
-            zero = torch.zeros_like(ux_b)
-            rho[idx] = rho_b
-            u[(0,) + idx] = torch.where(sol, zero, ux_b)
-            u[(1,) + idx] = torch.where(sol, zero, uy_b)
-
-
-def k2_edge_bc_plain(f, aux, edge, scal, bc_type, rho=None, u=None, prof=None, bounce=False,
-                     geom=None):
-    """Plain PyTorch version of K2: the ring cells of ``f`` (and of rho/u
-    when given) that block ``geom`` (the whole grid by default) holds, from
-    the edge export, in apply_bc order."""
-    _k2_ring_plain(f, aux, edge, scal, bc_type, rho, u, lambda v: v, prof, bounce,
-                   _geom(geom, f))
-
-
-def k2_edge_bc_dev_plain(f, aux, edge, scal, bc_type, prof=None, bounce=False, geom=None):
-    """Plain PyTorch version of K2 on a bf16 deviation buffer: the same f32
-    ring, quantized into ``f``."""
-    _k2_ring_plain(f, aux, edge, scal, bc_type, None, None, quantize, prof, bounce,
-                   _geom(geom, f))
-
-
-def _k2_prof(bc_type, prof, H: int, dev):
+def _prof_ptr(bc_type, prof, H: int, dev):
     """The inlet profile's pointer for left types 3/4 (checked), else None."""
     if int(bc_type[0]) not in (BC_VEL_INLET, BC_VEL_INLET_NEBB):
         return None
@@ -670,64 +541,91 @@ def _k2_prof(bc_type, prof, H: int, dev):
     return _ptr(prof)
 
 
-def _check_k2(f, aux, edge, g: BlockGeom, dtype, rho, u):
-    dev, plane = f.device, g.plane
-    _check("f", f, (9,) + plane, dev, dtype)
+def _check_k1(f_in, f_out, aux, g: BlockGeom, dtype, obstacle, q, rho, u, f_post,
+              allowed=tuple(range(4))):
+    """K1's argument checks, for the stored planes of block ``g``."""
+    dev, plane = f_in.device, g.plane
+    _check("f_in", f_in, (9,) + plane, dev, dtype)
+    _check("f_out", f_out, (9,) + plane, dev, dtype)
     _check("aux", aux, plane, dev)
-    _check("edge", edge, (g.edge_len,), dev)
+    _check_obstacle(obstacle, q, plane, dev, allowed)
     if rho is not None:
         _check("rho", rho, plane, dev)
         _check("u", u, (2,) + plane, dev)
+        _check("f_post", f_post, (9,) + plane, dev)
+    if f_in.data_ptr() == f_out.data_ptr():
+        raise ValueError("K1: pull streaming needs distinct in/out buffers")
 
 
-def k2_edge_bc(f, aux, edge, scal, bc_type, rho=None, u=None, prof=None, bounce=False,
-               geom=None):
-    """K2 on ``f`` [9, H, W] in place, or with ``geom`` on one shard's
-    block [9, hl + 2, pitch]: the global ring cells the block holds, from
-    its edge export. With ``rho``/``u`` (the full variant, in f's geometry)
-    also their ring. ``prof`` [hl] is the block's rows of the inlet profile
-    of left types 3/4; ``bounce`` (full-way bounce-back) skips the f
-    overwrite of solid ring cells."""
-    if not f.is_cuda:
-        return k2_edge_bc_plain(f, aux, edge, scal, bc_type, rho, u, prof, bounce, geom)
-    g = _geom(geom, f)
+def k1_step(f_in, f_out, aux, scal, use_les, bc_type, rho=None, u=None, f_post=None,
+            obstacle=OBSTACLE_EQ, q=None, prof=None, geom=None):
+    """K1 on ``f_in`` -> ``f_out``: one lattice step, one launch. Distinct
+    [9, H, W] buffers, or with ``geom`` the [9, hl + 2, pitch] blocks of one
+    shard of a spatial mesh, halos filled, of which the cells interior in
+    the global grid are updated and the global ring cells held are written
+    from ``bc_type`` (left, top, right, bottom). The full variant runs when
+    ``rho``, ``u`` [2, ...] and ``f_post`` [9, ...] are given; aux, q and
+    those share f's geometry. ``scal`` is the CPU scalar row of this step;
+    ``obstacle`` an ``OBSTACLE_*`` scheme, Bouzidi with ``q`` [8, ...];
+    ``prof`` [hl] the block's rows of the inlet profile of left types 3/4.
+    Counted as ``k1_variant(obstacle, full, shard=geom.halo > 0)``."""
+    if not f_in.is_cuda:
+        return k1_step_plain(f_in, f_out, aux, scal, use_les, bc_type, rho, u, f_post,
+                             obstacle, q, prof, geom)
+    g = _geom(geom, f_in)
     full = rho is not None
-    dev = f.device
-    _check_k2(f, aux, edge, g, torch.float32, rho, u)
-    prof_ptr = _k2_prof(bc_type, prof, g.hl, dev)
+    dev = f_in.device
+    _check_k1(f_in, f_out, aux, g, torch.float32, obstacle, q, rho, u, f_post)
+    prof_ptr = _prof_ptr(bc_type, prof, g.hl, dev)
+    sc = _scal_c(scal)
+    q_ptr = _ptr(q) if obstacle == OBSTACLE_BOUZIDI else None
+    lt, tt, rt, bt = (int(t) for t in bc_type)
+    with _launch_device(dev):
+        rc = cuda_build.load("k1_step")(
+            _ptr(f_in), _ptr(f_out), _ptr(aux), q_ptr, prof_ptr, _ptr(rho), _ptr(u),
+            _ptr(f_post), ctypes.addressof(sc), ctypes.addressof(g.c_row), lt, tt, rt, bt,
+            int(bool(use_les)), int(full), obstacle, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"k1_step launch failed: CUDA error {rc}")
+    LAUNCHES[k1_variant(obstacle, full, shard=g.halo > 0)] += 1
+
+
+def k1_step_dev_plain(f_in, f_out, aux, scal, use_les, bc_type, obstacle=OBSTACLE_EQ,
+                      prof=None, geom=None):
+    """Plain PyTorch version of K1's deviation-storage fast step: dequantize
+    f_in, step in f32 as ``k1_step_plain``, ring included, and quantize each
+    written cell of f_out."""
+    g = _geom(geom, f_in)
+    _check_obstacle(obstacle, None, g.plane, f_in.device, DEV_OBSTACLES)
+    _k1_plain(dequantize(f_in), f_out, aux, scal, use_les, bc_type, None, None, None,
+              obstacle, None, prof, g, quantize)
+
+
+def k1_step_dev(f_in, f_out, aux, scal, use_les, bc_type, obstacle=OBSTACLE_EQ, prof=None,
+                geom=None):
+    """K1's fast step on bf16 deviation buffers ``f_in`` -> ``f_out``
+    ([9, H, W], distinct, or one shard's blocks of ``geom``, halos
+    included), ring included. Equilibrium and full-way bounce-back only."""
+    if not f_in.is_cuda:
+        return k1_step_dev_plain(f_in, f_out, aux, scal, use_les, bc_type, obstacle, prof,
+                                 geom)
+    g = _geom(geom, f_in)
+    dev = f_in.device
+    _check_k1(f_in, f_out, aux, g, DEV_DTYPE, obstacle, None, None, None, None,
+              DEV_OBSTACLES)
+    prof_ptr = _prof_ptr(bc_type, prof, g.hl, dev)
     sc = _scal_c(scal)
     lt, tt, rt, bt = (int(t) for t in bc_type)
     with _launch_device(dev):
-        rc = cuda_build.load("k2_edge_bc")(
-            _ptr(f), _ptr(aux), _ptr(edge), prof_ptr, _ptr(rho), _ptr(u), ctypes.addressof(sc),
-            ctypes.addressof(g.c_row), lt, tt, rt, bt, int(bool(bounce)), int(full),
+        rc = cuda_build.load("k1_step_dev")(
+            _ptr(f_in), _ptr(f_out), _ptr(aux), prof_ptr, ctypes.addressof(sc),
+            ctypes.addressof(g.c_row), lt, tt, rt, bt, int(bool(use_les)), obstacle,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(f"k2_edge_bc launch failed: CUDA error {rc}")
-    LAUNCHES[k2_variant(lt, shard=g.halo > 0)] += 1
-
-
-def k2_edge_bc_dev(f, aux, edge, scal, bc_type, prof=None, bounce=False, geom=None):
-    """K2 on the bf16 deviation buffer ``f`` [9, H, W] (or one shard's
-    block of ``geom``) in place."""
-    if not f.is_cuda:
-        return k2_edge_bc_dev_plain(f, aux, edge, scal, bc_type, prof, bounce, geom)
-    g = _geom(geom, f)
-    dev = f.device
-    _check_k2(f, aux, edge, g, DEV_DTYPE, None, None)
-    prof_ptr = _k2_prof(bc_type, prof, g.hl, dev)
-    sc = _scal_c(scal)
-    lt, tt, rt, bt = (int(t) for t in bc_type)
-    with _launch_device(dev):
-        rc = cuda_build.load("k2_edge_bc_dev")(
-            _ptr(f), _ptr(aux), _ptr(edge), prof_ptr, ctypes.addressof(sc),
-            ctypes.addressof(g.c_row), lt, tt, rt, bt, int(bool(bounce)),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"k2_edge_bc_dev launch failed: CUDA error {rc}")
-    LAUNCHES[k2_variant(lt, dev=True, shard=g.halo > 0)] += 1
+        raise RuntimeError(f"k1_step_dev launch failed: CUDA error {rc}")
+    LAUNCHES[k1_variant(obstacle, dev=True, shard=g.halo > 0)] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -847,7 +745,7 @@ def k3_fused(f_in, f_out, aux, scal_rows, bc_type, use_les, obstacle=OBSTACLE_EQ
                          f"{k3_smem_bytes(S, th, tw)} B of shared memory (limit {K3_SMEM_LIMIT})")
     if f_in.data_ptr() == f_out.data_ptr():
         raise ValueError("k3_fused: needs distinct in/out buffers")
-    prof_ptr = _k2_prof(bc_type, prof, H, dev)
+    prof_ptr = _prof_ptr(bc_type, prof, H, dev)
     rows = scal_rows.to(torch.float32).reshape(-1).tolist()
     sc = (ctypes.c_float * len(rows))(*rows)
     lt, tt, rt, bt = (int(t) for t in bc_type)
@@ -866,17 +764,17 @@ def k3_fused(f_in, f_out, aux, scal_rows, bc_type, use_les, obstacle=OBSTACLE_EQ
 
 
 def run_chunk_cuda(state: LBMState, p: CaseParams, n_steps: int, store_dev: bool = False):
-    """Advance ``n_steps`` through K1 + K2; same contract as
+    """Advance ``n_steps`` through K1, one launch a step; same contract as
     ``solver.run_chunk``: ``(state, {"force": [2], "max_v": 0-d})``.
 
-    Steps 1..n-1 run K1 then K2; the last step runs K1's full variant then
-    K2. f_post keeps its ring and takes the last step's interior. The input
+    Steps 1..n-1 run K1's fast variant, the last step its full variant.
+    f_post keeps its ring and takes the last step's interior. The input
     state is not modified. ``store_dev`` runs steps 1..n-1 in 16-bit
     deviation storage when n > 1 and the obstacle scheme allows it (the JAX
     package's run_chunk_pallas engages it under the same conditions).
     While temporal blocking is requested (``_FUSE_STEPS`` = S > 1) and the
     case allows it, steps 1..n-1 run as ``divmod(n - 1, S)`` = (k, r): k
-    passes of K3, then r single K1 + K2 steps, as the JAX package's
+    passes of K3, then r single K1 steps, as the JAX package's
     run_chunk_pallas does.
     """
     return _run_chunk(state, p, n_steps, store_dev, plain=False)
@@ -895,20 +793,17 @@ def _run_chunk(state: LBMState, p: CaseParams, n_steps: int, store_dev: bool, pl
     if n_steps < 1:
         raise ValueError(f"n_steps must be >= 1, got {n_steps}")
     if plain:
-        k1, k2, k1d, k2d = k1_step_plain, k2_edge_bc_plain, k1_step_dev_plain, k2_edge_bc_dev_plain
-        k3 = k3_fused_plain
+        k1, k1d, k3 = k1_step_plain, k1_step_dev_plain, k3_fused_plain
     else:
-        k1, k2, k1d, k2d, k3 = k1_step, k2_edge_bc, k1_step_dev, k2_edge_bc_dev, k3_fused
+        k1, k1d, k3 = k1_step, k1_step_dev, k3_fused
     dev_store = bool(store_dev) and n_steps > 1 and dev_storage_refusal(p) is None
     fuse = fuse_steps(p, n_steps)
     obst = obstacle_scheme(p)
     q = p.bouzidi_q if obst == OBSTACLE_BOUZIDI else None
     prof = p.inlet_profile if p.bc_type[0] in (BC_VEL_INLET, BC_VEL_INLET_NEBB) else None
-    bounce = obst == OBSTACLE_BOUNCE
     H, W = p.shape
     dev = state.f.device
     aux = pack_aux(p.damping, p.mask)
-    edge = new_edge_buffer(H, W, state.f.dtype, dev)
     row, warmup = _host_scalars(p)
     # quantize once per chunk; the fast steps ping-pong two buffers
     src = quantize(state.f) if dev_store else state.f
@@ -918,9 +813,9 @@ def _run_chunk(state: LBMState, p: CaseParams, n_steps: int, store_dev: bool, pl
         return bufs[1] if t is bufs[0] else bufs[0]
 
     step = state.step
-    n_split = n_steps - 1
+    n_single = n_steps - 1
     if fuse:
-        passes, n_split = divmod(n_steps - 1, fuse)
+        passes, n_single = divmod(n_steps - 1, fuse)
         tile = k3_tile(fuse)
         for _ in range(passes):
             rows = torch.stack([_with_ramp(row, warmup, step + 1 + i) for i in range(fuse)])
@@ -928,16 +823,14 @@ def _run_chunk(state: LBMState, p: CaseParams, n_steps: int, store_dev: bool, pl
             k3(src, dst, aux, rows, p.bc_type, p.use_les, obst, prof, tile)
             src = dst
             step += fuse
-    for _ in range(n_split):
+    for _ in range(n_single):
         step += 1
         scal = _with_ramp(row, warmup, step)
         dst = other(src)
         if dev_store:
-            k1d(src, dst, aux, edge, scal, p.use_les, obst)
-            k2d(dst, aux, edge, scal, p.bc_type, prof, bounce)
+            k1d(src, dst, aux, scal, p.use_les, p.bc_type, obst, prof)
         else:
-            k1(src, dst, aux, edge, scal, p.use_les, obstacle=obst, q=q)
-            k2(dst, aux, edge, scal, p.bc_type, prof=prof, bounce=bounce)
+            k1(src, dst, aux, scal, p.use_les, p.bc_type, obstacle=obst, q=q, prof=prof)
         src = dst
     if dev_store:
         # the closing full step runs in exact f32
@@ -949,8 +842,8 @@ def _run_chunk(state: LBMState, p: CaseParams, n_steps: int, store_dev: bool, pl
     rho = torch.empty((H, W), dtype=state.f.dtype, device=dev)
     u = torch.empty((2, H, W), dtype=state.f.dtype, device=dev)
     f_post = state.f_post.clone()
-    k1(src, dst, aux, edge, scal, p.use_les, rho, u, f_post, obstacle=obst, q=q)
-    k2(dst, aux, edge, scal, p.bc_type, rho, u, prof=prof, bounce=bounce)
+    k1(src, dst, aux, scal, p.use_les, p.bc_type, rho, u, f_post, obstacle=obst, q=q,
+       prof=prof)
     new_state = LBMState(f=dst, f_post=f_post, rho=rho, u=u, step=state.step + n_steps)
     monitors = {
         "force": obstacle_force(new_state.f_post, p),

@@ -21,12 +21,12 @@ Three chunk runners, each with ``solver.run_chunk``'s contract
   ``make_local_step``, ``exchange_halo_f`` and ``_sharded_apply_bc``);
   the engine's runner on the CPU.
 * ``run_chunk_sharded_cuda``: the counterpart of
-  ``run_chunk_sharded_pallas``. Each step runs K1 then K2 in their sharded
-  forms (``cuda_step.k1_step`` and ``k2_edge_bc`` given each block's
-  ``BlockGeom``) on every block, then refreshes the halos; the last step
-  is K1's full variant. With ``store_dev`` the blocks and their halos
-  stay bf16 deviations and the closing full step dequantizes, as the
-  single-device runner does.
+  ``run_chunk_sharded_pallas``. Each step runs K1 in its sharded form
+  (``cuda_step.k1_step`` given each block's ``BlockGeom``; one launch a
+  block, the global ring written by the blocks that hold it) on every
+  block, then refreshes the halos; the last step is K1's full variant.
+  With ``store_dev`` the blocks and their halos stay bf16 deviations and
+  the closing full step dequantizes, as the single-device runner does.
 * ``run_chunk_sharded_plain``: the same through the kernels' plain
   versions.
 
@@ -224,7 +224,7 @@ def run_chunk_sharded(state: LBMState, p: CaseParams, n_steps: int, mesh: Mesh):
 
 
 # ---------------------------------------------------------------------------
-# K1 + K2 on every block (run_chunk_sharded_pallas)
+# K1 on every block (run_chunk_sharded_pallas)
 # ---------------------------------------------------------------------------
 
 
@@ -283,39 +283,34 @@ def exchange_halos(blocks, mesh: Mesh, hl: int, wl: int) -> None:
 
 
 def _kernels(plain: bool):
-    """(K1, K2, K1 dev, K2 dev) wrappers or plain versions, looked up at
-    call time."""
-    names = ("k1_step", "k2_edge_bc", "k1_step_dev", "k2_edge_bc_dev")
+    """(K1, K1 dev) wrappers or plain versions, looked up at call time."""
+    names = ("k1_step", "k1_step_dev")
     return tuple(getattr(cs, n + ("_plain" if plain else "")) for n in names)
 
 
-def fast_step(src, dst, edges, case: ShardedCase, scal: torch.Tensor, dev_store: bool,
+def fast_step(src, dst, case: ShardedCase, scal: torch.Tensor, dev_store: bool,
               plain: bool = False) -> None:
-    """One split step on every block, ``src`` -> ``dst`` ([ry][rx] halo'd
-    blocks, bf16 deviations when ``dev_store``): K1 then K2 on each block,
-    then the halo refresh of ``dst``."""
-    k1, k2, k1d, k2d = _kernels(plain)
+    """One fast step on every block, ``src`` -> ``dst`` ([ry][rx] halo'd
+    blocks, bf16 deviations when ``dev_store``): one K1 launch a block, then
+    the halo refresh of ``dst``."""
+    k1, k1d = _kernels(plain)
     p, obst = case.p, case.obstacle
-    bounce = obst == cs.OBSTACLE_BOUNCE
     for iy, ix in _coords(case.mesh):
-        g, aux, edge = case.geoms[iy][ix], case.aux[iy][ix], edges[iy][ix]
-        prof = _at(case.prof, iy, ix)
+        g, aux, prof = case.geoms[iy][ix], case.aux[iy][ix], _at(case.prof, iy, ix)
         if dev_store:
-            k1d(src[iy][ix], dst[iy][ix], aux, edge, scal, p.use_les, obst, geom=g)
-            k2d(dst[iy][ix], aux, edge, scal, p.bc_type, prof, bounce, geom=g)
+            k1d(src[iy][ix], dst[iy][ix], aux, scal, p.use_les, p.bc_type, obst, prof, geom=g)
         else:
-            k1(src[iy][ix], dst[iy][ix], aux, edge, scal, p.use_les, obstacle=obst,
-               q=_at(case.q, iy, ix), geom=g)
-            k2(dst[iy][ix], aux, edge, scal, p.bc_type, prof=prof, bounce=bounce, geom=g)
+            k1(src[iy][ix], dst[iy][ix], aux, scal, p.use_les, p.bc_type, obstacle=obst,
+               q=_at(case.q, iy, ix), prof=prof, geom=g)
     exchange_halos(dst, case.mesh, case.hl, case.wl)
 
 
 def run_chunk_sharded_cuda(state: LBMState, p: CaseParams, n_steps: int, mesh: Mesh,
                            store_dev: bool = False, case: Optional[ShardedCase] = None):
-    """Advance ``n_steps`` on ``mesh`` through K1 + K2 in their sharded
-    forms; the contract and the rules of ``cuda_step.run_chunk_cuda``
-    (``store_dev`` for chunks of more than one step, equilibrium and
-    full-way bounce-back only; never fused). ``case`` is the
+    """Advance ``n_steps`` on ``mesh`` through K1 in its sharded form; the
+    contract and the rules of ``cuda_step.run_chunk_cuda`` (``store_dev``
+    for chunks of more than one step, equilibrium and full-way bounce-back
+    only; never fused). ``case`` is the
     ``ShardedCase`` of (p, mesh), cut here when not given."""
     return _run_chunk_blocks(state, p, n_steps, mesh, store_dev, False, case)
 
@@ -332,7 +327,7 @@ def _run_chunk_blocks(state, p, n_steps, mesh, store_dev, plain, case):
         raise ValueError(f"n_steps must be >= 1, got {n_steps}")
     if case is None or case.p is not p or case.mesh != mesh:
         case = ShardedCase(p, mesh)
-    k1, k2, _, _ = _kernels(plain)
+    k1, _ = _kernels(plain)
     dev_store = (bool(store_dev) and n_steps > 1
                  and cs.dev_storage_refusal(p, sharded=True) is None)
     hl, wl = case.hl, case.wl
@@ -342,29 +337,26 @@ def _run_chunk_blocks(state, p, n_steps, mesh, store_dev, plain, case):
         # bf16 deviations, as the JAX package's ppermute rows do
         src = [[cs.quantize(b) for b in row] for row in src]
     dst = [[b.clone() for b in row] for row in src]
-    edges = [[cs.new_edge_buffer(hl, wl, torch.float32, b.device) for b in row] for row in src]
     row, warmup = cs._host_scalars(p)
     step = state.step
     for _ in range(n_steps - 1):
         step += 1
-        fast_step(src, dst, edges, case, cs._with_ramp(row, warmup, step), dev_store, plain)
+        fast_step(src, dst, case, cs._with_ramp(row, warmup, step), dev_store, plain)
         src, dst = dst, src
     if dev_store:
         # the closing full step runs in exact f32
         src = [[cs.dequantize(b) for b in r] for r in src]
         dst = [[torch.empty_like(b) for b in r] for r in src]
     scal = cs._with_ramp(row, warmup, step + 1)
-    bounce = case.obstacle == cs.OBSTACLE_BOUNCE
     rho, u, f_post = ([[None] * len(r) for r in src] for _ in range(3))
     for iy, ix in _coords(mesh):
-        g, aux, edge, b = case.geoms[iy][ix], case.aux[iy][ix], edges[iy][ix], src[iy][ix]
+        g, aux, b = case.geoms[iy][ix], case.aux[iy][ix], src[iy][ix]
         rho[iy][ix] = torch.empty(g.plane, dtype=torch.float32, device=b.device)
         u[iy][ix] = torch.empty((2,) + g.plane, dtype=torch.float32, device=b.device)
         f_post[iy][ix] = torch.empty_like(b)
-        k1(b, dst[iy][ix], aux, edge, scal, p.use_les, rho[iy][ix], u[iy][ix], f_post[iy][ix],
-           obstacle=case.obstacle, q=_at(case.q, iy, ix), geom=g)
-        k2(dst[iy][ix], aux, edge, scal, p.bc_type, rho[iy][ix], u[iy][ix],
-           prof=_at(case.prof, iy, ix), bounce=bounce, geom=g)
+        k1(b, dst[iy][ix], aux, scal, p.use_les, p.bc_type, rho[iy][ix], u[iy][ix],
+           f_post[iy][ix], obstacle=case.obstacle, q=_at(case.q, iy, ix),
+           prof=_at(case.prof, iy, ix), geom=g)
     out = state.f.device
     fp = gather_halo_blocks(f_post, hl, wl, out)
     new_f_post = state.f_post.clone()

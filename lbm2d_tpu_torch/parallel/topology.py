@@ -69,8 +69,9 @@ def make_mesh(shape: Optional[Tuple[int, int]] = None,
 def mesh_refusal(shape, mesh_shape) -> Optional[str]:
     """Why a grid of ``shape`` (H, W) cannot be cut into the blocks of an
     ``mesh_shape`` (ry, rx) spatial mesh, or None: the grid must divide by
-    the mesh, and each block must be at least 3x3 (the kernels' K2 then
-    finds every input of a ring cell on the block that holds it)."""
+    the mesh, and each block must be at least 3x3 (K1's ring threads then
+    find the inward neighbour of every ring cell on the block that holds
+    it)."""
     (H, W), (ry, rx) = shape, mesh_shape
     if H % ry or W % rx:
         return f"grid {H}x{W} (HxW) not divisible by spatial_mesh {ry}x{rx}"

@@ -8,15 +8,15 @@ Run from the repository root on a machine with an NVIDIA GPU:
 On the demo case (``tools/demo_case.py``) at N x N (default 4096), it
 prints:
 
-1. the default step's MLUPS and us/step through ``run_chunk_cuda`` (K1 +
-   K2, CUDA events around ``chunks`` chunks of ``steps_per_chunk`` steps);
+1. the default step's MLUPS and us/step through ``run_chunk_cuda`` (K1,
+   one launch a step, CUDA events around ``chunks`` chunks of
+   ``steps_per_chunk`` steps);
 2. the bytes that step moves per cell, from the port's real buffers (f in
-   and out, aux, the edge export K1 writes and K2 reads; no padding), and
-   the rate they give;
+   and out, aux; no padding), and the rate they give;
 3. the copy probe (``ops/copy_probe``, a copy of the [9, N, N] field) with
    and without the aux read, in GB/s against the 3.35 TB/s nominal of an
    H100 SXM and against ``torch.Tensor.copy_`` of the same field;
-4. K1 (one fast step) and K2 (one ring) alone;
+4. K1 (one fast step, its ring included) alone;
 5. one JSON line: grid, mlups, us_per_step, bytes_per_cell, achieved_gbps.
 
 Without a CUDA device it exits non-zero.
@@ -33,13 +33,10 @@ NOMINAL_GBPS = 3350.0  # H100 SXM HBM3 (NVIDIA data sheet)
 
 
 def step_traffic(H: int, W: int) -> dict:
-    """Bytes one fast K1 + K2 step moves, from the buffers it touches: f read
-    (9 planes) and written (9 planes), aux read, and the f32 edge export
-    (2 x 12 values per cell of columns 1 / W-2 and rows 1 / H-2) that K1
-    writes and K2 reads."""
+    """Bytes one fast K1 step moves, from the buffers it touches: f read (9
+    planes) and written (9 planes, the ring included), aux read."""
     cells = H * W
-    edge = 4 * 2 * 12 * (H + W)
-    t = {"f_in": 36 * cells, "f_out": 36 * cells, "aux": 4 * cells, "edge": 2 * edge}
+    t = {"f_in": 36 * cells, "f_out": 36 * cells, "aux": 4 * cells}
     t["total"] = sum(t.values())
     t["per_cell"] = t["total"] / cells
     return t
@@ -103,13 +100,10 @@ def measure(n_grid: int = 4096, chunks: int = 5, spc: int = 100) -> dict:
     out["copy_lib_us"] = lib * 1e3
     out["copy_lib_gbps"] = copy_traffic(H, W, False) / (lib * 1e-3) / 1e9
 
-    edge = cs.new_edge_buffer(H, W, device=dev)
     scal = cs.scalar_row(p, state.step + 1)
     obst = cs.obstacle_scheme(p)
     out["k1_us"] = event_ms(
-        lambda: cs.k1_step(f, dst, aux, edge, scal, p.use_les, obstacle=obst), n_copy) * 1e3
-    out["k2_us"] = event_ms(
-        lambda: cs.k2_edge_bc(dst, aux, edge, scal, p.bc_type), n_copy) * 1e3
+        lambda: cs.k1_step(f, dst, aux, scal, p.use_les, p.bc_type, obstacle=obst), n_copy) * 1e3
     return out
 
 
@@ -132,7 +126,7 @@ def main(argv=None) -> int:
               f"{r[f'{tag}_gbps'] / r['copy_lib_gbps']:.1%} of copy_)")
     print(f"[copy_]   {r['copy_lib_us']:.1f} us/pass {r['copy_lib_gbps']:.1f} GB/s "
           "(torch.Tensor.copy_, the library call)")
-    print(f"[split]  K1 {r['k1_us']:.1f} us + K2 {r['k2_us']:.1f} us per step")
+    print(f"[k1]     {r['k1_us']:.1f} us per step (one launch, the ring included)")
     print(json.dumps({k: r[k] for k in ("grid", "mlups", "us_per_step", "bytes_per_cell",
                                          "achieved_gbps")}))
     return 0

@@ -1,10 +1,10 @@
 """The CUDA chunk runner's contract, checked through the kernels' plain
 versions on the CPU, and (on a card only) the kernels themselves.
 
-On CPU tensors ``run_chunk_cuda`` runs ``k1_step_plain`` + ``k2_edge_bc_plain``:
-the same split into an interior step, an edge export and a ring rebuild as
-the kernels. It must equal the eager ``run_chunk`` exactly, since both
-round the same f32 operations in the same order.
+On CPU tensors ``run_chunk_cuda`` runs ``k1_step_plain``: the interior
+step, then the ring from the interior's collide output, the values the
+kernel's ring threads compute. It must equal the eager ``run_chunk`` exactly,
+since both round the same f32 operations in the same order.
 """
 
 import copy
@@ -113,12 +113,13 @@ def test_k1_full_writes_zero_velocity_on_solids():
     f_out = torch.zeros_like(s.f)
     rho = torch.zeros((H, W))
     u = torch.full((2, H, W), 7.0)
-    cs.k1_step(s.f, f_out, aux, cs.new_edge_buffer(H, W), cs.scalar_row(p, 1), True,
-               rho, u, s.f_post.clone())
-    solid = p.mask[1:-1, 1:-1] > 0.5
-    assert (u[:, 1:-1, 1:-1][:, solid] == 0).all()
-    assert (u[:, 1:-1, 1:-1][:, ~solid] != 7.0).all()
-    assert (rho[1:-1, 1:-1] > 0.9).all()
+    cs.k1_step(s.f, f_out, aux, cs.scalar_row(p, 1), True, p.bc_type, rho, u, s.f_post.clone())
+    # every cell, the ring included (make_mask puts solids on it)
+    solid = p.mask > 0.5
+    assert solid[0].any() and solid[:, 0].any()
+    assert (u[:, solid] == 0).all()
+    assert (u[:, ~solid] != 7.0).all()
+    assert (rho > 0.9).all()
 
 
 def test_pack_aux_round_trips():
@@ -190,8 +191,7 @@ def test_kernels_match_plain_on_card():
     s0 = seeded_state(device=dev)
     cs.reset_launch_counts()
     a, ma = cs.run_chunk_cuda(s0, p, 9)
-    assert {k: v for k, v in cs.LAUNCHES.items() if v} == {
-        "k1_step": 8, "k1_step_full": 1, "k2_edge_bc": 9}
+    assert {k: v for k, v in cs.LAUNCHES.items() if v} == {"k1_step": 8, "k1_step_full": 1}
     b, mb = ts.run_chunk(s0, p, 9)
     assert_same(a, b, tol=1e-5)
     cfg = copy.deepcopy(make_config())
@@ -213,8 +213,7 @@ def test_bounce_and_inlet_variants_match_plain_on_card(obstacle, bc_type):
     a, _ = cs.run_chunk_cuda(s0, p, 9)
     scheme = cs.obstacle_scheme(p)
     assert {k: v for k, v in cs.LAUNCHES.items() if v} == {
-        cs.k1_variant(scheme): 8, cs.k1_variant(scheme, full=True): 1,
-        cs.k2_variant(bc_type[0]): 9}
+        cs.k1_variant(scheme): 8, cs.k1_variant(scheme, full=True): 1}
     b, _ = cs.run_chunk_plain(s0, p, 9)
     assert_same(a, b)
     if obstacle == "bounce_back":  # deviation storage: EQ and BOUNCE only
@@ -222,7 +221,6 @@ def test_bounce_and_inlet_variants_match_plain_on_card(obstacle, bc_type):
         b, _ = cs.run_chunk_plain(s0, p, 9, store_dev=True)
         assert_same(a, b)
         assert cs.LAUNCHES[cs.k1_variant(scheme, dev=True)] == 8
-        assert cs.LAUNCHES[cs.k2_variant(bc_type[0], dev=True)] == 8
 
 
 @pytest.mark.cuda
@@ -245,11 +243,69 @@ def test_k3_matches_plain_on_card(obstacle, bc_type, S, tile, monkeypatch):
     scheme = cs.obstacle_scheme(p)
     passes, split = divmod(8, S)
     want = {cs.k3_variant(scheme, bc_type[0]): passes, cs.k1_variant(scheme): split,
-            cs.k1_variant(scheme, full=True): 1, cs.k2_variant(bc_type[0]): split + 1}
+            cs.k1_variant(scheme, full=True): 1}
     assert {k: v for k, v in cs.LAUNCHES.items() if v} == {k: v for k, v in want.items() if v}
     b, _ = cs.run_chunk_plain(s0, p, 9)
     assert_same(a, b)
     assert_same(a, unfused)
+
+
+# every side's BC types the ring takes: left 0/2/3/4, right 0/1/2,
+# top/bottom 0/2, each with an overwrite scheme and full-way bounce-back
+FOLD_CASES = [((0, 2, 1, 2), "equilibrium"), ((2, 0, 0, 0), "bounce_back"),
+              ((3, 2, 2, 0), "bounce_back_halfway"), ((4, 0, 1, 2), "bounce_back_bouzidi"),
+              ((4, 2, 0, 2), "bounce_back"), ((3, 0, 1, 2), "equilibrium")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bc_type, obstacle", FOLD_CASES,
+                         ids=["".join(map(str, b)) + "-" + o for b, o in FOLD_CASES])
+def test_folded_ring_matches_plain_on_card(bc_type, obstacle):
+    # K1 with the ring folded in, fast and full, and in deviation storage
+    # where the scheme allows it: every cell of every output bitwise equal
+    # to the plain version's (outputs start as NaN), then the same on each
+    # block of a 2x2 mesh through the sharded runner
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU build)")
+    dev = torch.device("cuda")
+    p = ts.make_params(make_config(bc_type, obstacle), make_mask(), device=dev)
+    s0 = seeded_state(5, device=dev)
+    aux = cs.pack_aux(p.damping, p.mask)
+    scal = cs.scalar_row(p, 1)
+    scheme = cs.obstacle_scheme(p)
+    q = p.bouzidi_q if scheme == cs.OBSTACLE_BOUZIDI else None
+    prof = p.inlet_profile if bc_type[0] in (3, 4) else None
+    cs.reset_launch_counts()
+    for full in (False, True):
+        outs = []
+        for fn in (cs.k1_step, cs.k1_step_plain):
+            b = [torch.full_like(s0.f, float("nan"))]
+            if full:
+                b += [torch.full((H, W), float("nan"), device=dev),
+                      torch.full((2, H, W), float("nan"), device=dev), s0.f_post.clone()]
+            fn(s0.f, b[0], aux, scal, True, p.bc_type, *(b[1:] or [None] * 3),
+               obstacle=scheme, q=q, prof=prof)
+            outs.append(b)
+        torch.cuda.synchronize()
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
+    want = {cs.k1_variant(scheme): 1, cs.k1_variant(scheme, full=True): 1}
+    if scheme in cs.DEV_OBSTACLES:
+        fq = cs.quantize(s0.f)
+        a, b = torch.full_like(fq, float("nan")), torch.full_like(fq, float("nan"))
+        cs.k1_step_dev(fq, a, aux, scal, True, p.bc_type, scheme, prof)
+        cs.k1_step_dev_plain(fq, b, aux, scal, True, p.bc_type, scheme, prof)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+        want[cs.k1_variant(scheme, dev=True)] = 1
+    assert {k: v for k, v in cs.LAUNCHES.items() if v} == want
+    from lbm2d_tpu_torch.parallel import sharded as sh
+    from lbm2d_tpu_torch.parallel.topology import make_mesh
+
+    mesh = make_mesh((2, 2), [dev] * 4)
+    a, _ = sh.run_chunk_sharded_cuda(s0, p, 5, mesh)
+    b, _ = sh.run_chunk_sharded_plain(s0, p, 5, mesh)
+    assert_same(a, b)
 
 
 @pytest.mark.cuda
@@ -300,8 +356,7 @@ def test_shard_kernels_match_plain_on_card(obstacle, bc_type):
     cs.reset_launch_counts()
     a, ma = sh.run_chunk_sharded_cuda(s0, p, 9, mesh)
     assert {k: v for k, v in cs.LAUNCHES.items() if v} == {
-        cs.k1_variant(scheme, shard=True): 32, cs.k1_variant(scheme, full=True, shard=True): 4,
-        cs.k2_variant(bc_type[0], shard=True): 36}
+        cs.k1_variant(scheme, shard=True): 32, cs.k1_variant(scheme, full=True, shard=True): 4}
     b, mb = sh.run_chunk_sharded_plain(s0, p, 9, mesh)
     assert_same(a, b)
     assert torch.equal(ma["force"], mb["force"])
@@ -310,8 +365,9 @@ def test_shard_kernels_match_plain_on_card(obstacle, bc_type):
     if scheme in cs.DEV_OBSTACLES:
         cs.reset_launch_counts()
         a, _ = sh.run_chunk_sharded_cuda(s0, p, 9, mesh, store_dev=True)
-        assert cs.LAUNCHES[cs.k1_variant(scheme, dev=True, shard=True)] == 32
-        assert cs.LAUNCHES[cs.k2_variant(bc_type[0], dev=True, shard=True)] == 32
+        assert {k: v for k, v in cs.LAUNCHES.items() if v} == {
+            cs.k1_variant(scheme, dev=True, shard=True): 32,
+            cs.k1_variant(scheme, full=True, shard=True): 4}
         b, _ = sh.run_chunk_sharded_plain(s0, p, 9, mesh, store_dev=True)
         assert_same(a, b)
         c, _ = cs.run_chunk_cuda(s0, p, 9, store_dev=True)

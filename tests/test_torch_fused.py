@@ -164,11 +164,10 @@ def test_one_k3_pass_equals_split_steps():
     rows = torch.stack([cs.scalar_row(p, 1 + i) for i in range(4)])
     out = torch.full_like(s0.f, float("nan"))
     cs.k3_fused(s0.f, out, aux, rows, p.bc_type, p.use_les, tile=TILE)
-    f, edge = s0.f, cs.new_edge_buffer(H, W)
+    f = s0.f
     for i in range(4):
         nxt = torch.empty_like(f)
-        cs.k1_step(f, nxt, aux, edge, rows[i], p.use_les)
-        cs.k2_edge_bc(nxt, aux, edge, rows[i], p.bc_type)
+        cs.k1_step(f, nxt, aux, rows[i], p.use_les, p.bc_type)
         f = nxt
     assert torch.equal(out, f)
 

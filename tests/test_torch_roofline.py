@@ -34,12 +34,12 @@ def test_copy_probe_plain_equals_copy(shape):
 def test_step_traffic_hand_count():
     t = roofline.step_traffic(4096, 4096)
     cells = 4096 * 4096
-    # f 9 x 4 B read and written, aux 4 B, the edge export of 2 x 12 f32 per
-    # cell of 2 columns of 4096 and 2 rows of 4096, written once, read once
+    # f 9 x 4 B read and written (the ring is written by K1 itself, no edge
+    # export), aux 4 B
     assert t["f_in"] == t["f_out"] == 36 * cells and t["aux"] == 4 * cells
-    assert t["edge"] == 2 * (2 * 12 * 4 * 4096 + 2 * 12 * 4 * 4096)
-    assert t["total"] == 76 * cells + 1572864
-    assert t["per_cell"] == pytest.approx(76.09375, abs=0)
+    assert set(t) == {"f_in", "f_out", "aux", "total", "per_cell"}
+    assert t["total"] == 76 * cells
+    assert t["per_cell"] == pytest.approx(76.0, abs=0)
     assert roofline.copy_traffic(4096, 4096, aux=False) == 72 * cells
     assert roofline.copy_traffic(4096, 4096, aux=True) == 76 * cells
 

@@ -211,7 +211,7 @@ def test_single_step_and_geometry():
     b, _ = ts.run_chunk(seeded_state(4), p, 1)
     assert_same(a, b)
     g = cs.BlockGeom.shard(16, 32, 16, 32, H, W)
-    assert g.pitch == 64 and g.plane == (18, 64) and g.edge_len == 2 * 12 * 48
+    assert g.pitch == 64 and g.plane == (18, 64)
     assert g.interior() == (0, 14, 0, 30)
     assert cs.BlockGeom.whole(H, W).interior() == (1, H - 2, 1, W - 2)
 

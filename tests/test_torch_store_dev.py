@@ -2,7 +2,7 @@
 against the JAX package, on the CPU.
 
 The port's ``run_chunk_cuda(..., store_dev=True)`` runs the kernels' plain
-versions on CPU tensors (``k1_step_dev_plain`` + ``k2_edge_bc_dev_plain``):
+versions on CPU tensors (``k1_step_dev_plain``, the ring included):
 f kept as bf16 f - w between the fast steps, arithmetic in f32, the chunk
 closed by the exact f32 full step. The JAX reference is
 ``run_chunk_pallas(interpret=True, split_bc=True, store_dev=True)``, set up
@@ -12,8 +12,8 @@ the exact f32 chunk the contract is the JAX package's own budget: within
 are held tighter, to limits set from their readings on the CPU (f, rho, u
 at most 1.53e-5 apart, max_v 9.5e-7; PERF.md). The two differ by design in
 one place: the JAX edge kernel dequantizes the stored neighbour strip, the
-port's K2 reads K1's f32 edge export, so the ring differs by one bf16
-rounding of that strip.
+port's K1 writes the ring from the f32 collide output its ring threads
+compute, so the ring differs by one bf16 rounding of that strip.
 """
 
 import jax.numpy as jnp
@@ -125,16 +125,17 @@ def test_engine_engages_store_dev_on_cpu():
 def test_dev_plain_versions_write_interior_then_ring():
     pt = ts.make_params(_config((0, 2, 1, 2), True), block_mask(NY, NX))
     aux = cs.pack_aux(pt.damping, pt.mask)
-    edge = cs.new_edge_buffer(NY, NX)
     scal = cs.scalar_row(pt, 1)
     f = ts.init_state(NY, NX).f
-    # the plain versions write bf16 deviations and leave f's ring to K2
+    # one call writes bf16 deviations of the interior, then of the ring from
+    # the f32 collide output: each cell the f32 step's, quantized once
     fq = cs.quantize(f)
-    out = torch.zeros_like(fq)
-    cs.k1_step_dev(fq, out, aux, edge, scal, pt.use_les)
+    out = torch.full_like(fq, float("nan"))
+    cs.k1_step_dev(fq, out, aux, scal, pt.use_les, pt.bc_type)
     assert out.dtype == torch.bfloat16
-    assert torch.equal(out[:, 0], torch.zeros_like(out[:, 0]))
-    cs.k2_edge_bc_dev(out, aux, edge, scal, pt.bc_type)
+    ref = torch.full_like(f, float("nan"))
+    cs.k1_step(cs.dequantize(fq), ref, aux, scal, pt.use_les, pt.bc_type)
+    assert torch.equal(out, cs.quantize(ref))
     assert out[:, 0].abs().sum() > 0
 
 
@@ -149,14 +150,12 @@ def test_dev_kernels_match_plain_on_card():
     scal = cs.scalar_row(pt, state.step + 1)
     fq = cs.quantize(state.f)
     outs = []
-    for k1, k2 in ((cs.k1_step_dev, cs.k2_edge_bc_dev),
-                   (cs.k1_step_dev_plain, cs.k2_edge_bc_dev_plain)):
-        out, edge = torch.zeros_like(fq), cs.new_edge_buffer(NY, NX, device=dev)
-        k1(fq, out, aux, edge, scal, pt.use_les)
-        k2(out, aux, edge, scal, pt.bc_type)
-        outs.append((out, edge))
+    for k1 in (cs.k1_step_dev, cs.k1_step_dev_plain):
+        out = torch.full_like(fq, float("nan"))
+        k1(fq, out, aux, scal, pt.use_les, pt.bc_type)
+        outs.append(out)
     torch.cuda.synchronize()
-    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    assert torch.equal(outs[0], outs[1])
     a, _ = cs.run_chunk_cuda(state, pt, 9, store_dev=True)
     b, _ = cs.run_chunk_plain(state, pt, 9, store_dev=True)
     for k in ("f", "f_post", "rho", "u"):
