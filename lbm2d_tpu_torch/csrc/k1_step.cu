@@ -5,9 +5,9 @@
 // _apply_bc_band on f_post before the obstacle overwrite, :1028-1034):
 // pull streaming, butterfly MRT-LES collision with the sponge from the
 // packed aux plane, the boundary conditions of the ring and the obstacle
-// rule, in solver.apply_bc order. The full variant (full != 0) closes a
-// chunk and also writes rho, u (zero on solids) on every cell and f_post
-// on the interior. One launch is one lattice step. The TPU's split form
+// rule, in solver.apply_bc order. The full variant (its own instance,
+// FULL) closes a chunk and also writes rho, u (zero on solids) on every
+// cell and f_post on the interior. One launch is one lattice step. The TPU's split form
 // (_step_kernel with an edge export, then _edge_bc_kernel :1379 rebuilding
 // the ring) is folded in: the ring is written by ring threads of the same
 // launch.
@@ -71,7 +71,8 @@
 // neighbour's update and one BC.
 // All far below the card's ~20 flop/B balance point, so the design aims
 // only at full-width coalesced traffic: one thread per interior cell,
-// neighbouring threads on neighbouring x, each population pulled straight
+// neighbouring threads on neighbouring x, each warp's stores on whole
+// sectors (a warp starts on a 128-byte line), each population pulled straight
 // from global memory (the 3-row reuse of the pull stencil is left to
 // L1/L2). The TPU kernel's row padding, lane rolls, band heights and
 // two-slot DMA pipeline are TPU schedules and have no counterpart here;
@@ -117,6 +118,20 @@ __device__ __forceinline__ bool k1_collide(const typename S::T* __restrict__ f_i
   return solid;
 }
 
+// A ring cell's BC chain and stores, from its inward neighbour's collide
+// output ``n``: out of line, so its registers stay out of the update's
+// budget (inlined, ptxas spilled a few of the update's values in some fast
+// instances; the ring threads are 0.3% of a step's cells).
+template <typename S, int OBST, bool FULL>
+__device__ __noinline__ void k1_ring_store(const Cell* n, bool column, bool far, int gx,
+                                           int Wg, const Scalars s, const BcTypes bc,
+                                           float u_prof, typename S::T* f_out,
+                                           const float* aux, float* rho_out, float* u_out,
+                                           size_t plane, size_t c) {
+  lbm_store_ring<S, OBST, FULL>(f_out, aux, rho_out, u_out, plane, c,
+                                lbm_ring_values(*n, column, far, gx, Wg, s, bc, u_prof));
+}
+
 // Ring thread ``t`` of block ``g``: threads 0 .. 2 hl - 1 take the block's
 // left and right columns, the next 2 wl its bottom and top rows; a thread
 // whose cell is not on the global ring (or whose side column is not on a
@@ -124,7 +139,7 @@ __device__ __forceinline__ bool k1_collide(const typename S::T* __restrict__ f_i
 // inward neighbour (k1_collide: the update's own arithmetic on the same
 // read-only inputs, so the same bits as the neighbour's thread), then the
 // cell's BC values (lbm_ring_values) and stores them.
-template <typename S, int OBST>
+template <typename S, int OBST, bool FULL>
 __device__ __forceinline__ void k1_ring(const typename S::T* __restrict__ f_in,
                                         typename S::T* __restrict__ f_out,
                                         const float* __restrict__ aux,
@@ -132,7 +147,7 @@ __device__ __forceinline__ void k1_ring(const typename S::T* __restrict__ f_in,
                                         const float* __restrict__ prof,
                                         float* __restrict__ rho_out, float* __restrict__ u_out,
                                         const Scalars& s, const BlockGeom& g, const BcTypes& bc,
-                                        int use_les, int full, int t) {
+                                        int use_les, int t) {
   const int hl = g.hl, wl = g.wl;
   bool column, far;
   int y, x, yn, xn;
@@ -162,19 +177,21 @@ __device__ __forceinline__ void k1_ring(const typename S::T* __restrict__ f_in,
   Cell n;
   k1_collide<S, OBST>(f_in, aux, q, plane, geom_at(g, yn, xn), g.pitch, s, use_les, &n);
   const bool vel = bc.left == LBM_BC_VEL_INLET || bc.left == LBM_BC_VEL_INLET_NEBB;
-  lbm_store_ring<S, OBST>(
-      f_out, aux, rho_out, u_out, plane, geom_at(g, y, x),
-      lbm_ring_values(n, column, far, g.x_off + x, g.Wg, s, bc, vel ? prof[yn] : 0.0f),
-      full != 0);
+  k1_ring_store<S, OBST, FULL>(&n, column, far, g.x_off + x, g.Wg, s, bc,
+                               vel ? prof[yn] : 0.0f, f_out, aux, rho_out, u_out, plane,
+                               geom_at(g, y, x));
 }
 
-// Blocks a SM the launch bounds keep: what the update alone needs (40
-// registers a thread, 56 under Bouzidi, by ptxas) fits 6 blocks of 256,
-// 4 under Bouzidi. The ring threads' path needs a few more and spills
-// instead, in those few threads only.
-template <int OBST>
+// Blocks a SM the launch bounds keep. The fast step: what the update alone
+// needs (40 registers a thread, 56 under Bouzidi, by ptxas) fits 6 blocks
+// of 256, 4 under Bouzidi; the ring threads' path needs a few more and
+// spills instead, in those few threads only. The full step (FULL, once a
+// chunk) is its own instance with its own budget (46-64 registers by
+// ptxas, no spills): holding it to the fast step's 6 blocks made it slower
+// (PERF.md).
+template <int OBST, bool FULL>
 constexpr int k1_min_blocks() {
-  return OBST == LBM_OBST_BOUZIDI ? 4 : 6;
+  return FULL ? (OBST == LBM_OBST_BOUZIDI ? 3 : 4) : (OBST == LBM_OBST_BOUZIDI ? 4 : 6);
 }
 
 // The first ``nr`` rows of blocks take the ring, one thread a ring cell
@@ -184,26 +201,34 @@ constexpr int k1_min_blocks() {
 // interior, one thread a cell: the whole grid (SHARD false) has no halo
 // and its rows 1 .. H-2 and columns 1 .. W-2, a shard reads its neighbours
 // through the halo. Both roles read only f_in, so they need no order.
-template <typename S, int OBST, bool SHARD>
-__global__ void __launch_bounds__(256, k1_min_blocks<OBST>())
+// The interior's threads sit on the stored rows' 128-byte lines: thread t
+// of a row of blocks takes stored column t (local column t - halo), and the
+// threads on columns outside the interior return, so each warp's stores
+// of a plane fill whole 32-byte sectors. Shifted one column (the first
+// interior column on lane 0), every warp store split two sectors with its
+// neighbour, and the card took partial-sector writes at about half the
+// rate of whole ones: the full step, 21 store planes a cell, ran at half
+// its bound (PERF.md). FULL also writes rho, u and f_post.
+template <typename S, int OBST, bool SHARD, bool FULL>
+__global__ void __launch_bounds__(256, k1_min_blocks<OBST, FULL>())
 k1_step_kernel(const typename S::T* __restrict__ f_in,
                typename S::T* __restrict__ f_out,
                const float* __restrict__ aux, const float* __restrict__ q,
                const float* __restrict__ prof, float* __restrict__ rho_out,
                float* __restrict__ u_out, float* __restrict__ fpost_out,
                const Scalars s, const BlockGeom geom, const BcTypes bc,
-               const int use_les, const int full, const int nr) {
+               const int use_les, const int nr) {
   const BlockGeom g = fold_geom<SHARD>(geom);
   if ((int)blockIdx.y < nr) {
-    k1_ring<S, OBST>(f_in, f_out, aux, q, prof, rho_out, u_out, s, g, bc, use_les, full,
-                     (blockIdx.y * gridDim.x + blockIdx.x) * blockDim.x + threadIdx.x);
+    k1_ring<S, OBST, FULL>(f_in, f_out, aux, q, prof, rho_out, u_out, s, g, bc, use_les,
+                           (blockIdx.y * gridDim.x + blockIdx.x) * blockDim.x + threadIdx.x);
     return;
   }
   const int i0 = max(0, 1 - g.y_off);
   const int j0 = max(0, 1 - g.x_off), j1 = min(g.wl - 1, g.Wg - 2 - g.x_off);
-  const int x = j0 + blockIdx.x * blockDim.x + threadIdx.x;
+  const int x = blockIdx.x * blockDim.x + threadIdx.x - g.halo;
   const int y = i0 + blockIdx.y - nr;
-  if (x > j1) return;
+  if (x < j0 || x > j1) return;
   const size_t plane = geom_plane(g);
   const size_t c = geom_at(g, y, x);
 
@@ -212,7 +237,7 @@ k1_step_kernel(const typename S::T* __restrict__ f_in,
   for (int k = 0; k < 9; ++k)
     S::store(f_out, k * plane + c, k, lbm_stored<OBST>(k, n.f, n.rho, solid));
 
-  if (full) {
+  if (FULL) {
     rho_out[c] = n.rho;
     u_out[c] = solid ? 0.0f : n.ux;
     u_out[plane + c] = solid ? 0.0f : n.uy;
@@ -220,12 +245,11 @@ k1_step_kernel(const typename S::T* __restrict__ f_in,
   }
 }
 
-template <typename S, int OBST, bool SHARD>
+template <typename S, int OBST, bool SHARD, bool FULL>
 static void launch(const void* f_in, void* f_out, const void* aux,
                    const void* q, const void* prof, void* rho, void* u,
                    void* f_post, const Scalars& s, const BlockGeom& g,
-                   const BcTypes& bc, int use_les, int full,
-                   cudaStream_t stream) {
+                   const BcTypes& bc, int use_les, cudaStream_t stream) {
   // the block's cells that are interior in the global grid
   const int i0 = std::max(0, 1 - g.y_off);
   const int i1 = std::min(g.hl - 1, g.Hg - 2 - g.y_off);
@@ -233,17 +257,33 @@ static void launch(const void* f_in, void* f_out, const void* aux,
   const int j1 = std::min(g.wl - 1, g.Wg - 2 - g.x_off);
   if (i1 < i0 || j1 < j0) return;
   // enough rows of blocks for 2 (hl + wl) ring threads (K2's count: those
-  // off the global ring return), then the interior's rows
-  const int bx = (j1 - j0 + 256) / 256;
+  // off the global ring return), then the interior's rows, one thread a
+  // stored column up to the last interior one
+  const int bx = (j1 + g.halo + 256) / 256;
   const int nr = (2 * (g.hl + g.wl) + 256 * bx - 1) / (256 * bx);
   const dim3 block(256, 1, 1);
   const dim3 grid(bx, nr + i1 - i0 + 1, 1);
-  k1_step_kernel<S, OBST, SHARD><<<grid, block, 0, stream>>>(
+  k1_step_kernel<S, OBST, SHARD, FULL><<<grid, block, 0, stream>>>(
       static_cast<const typename S::T*>(f_in),
       static_cast<typename S::T*>(f_out), static_cast<const float*>(aux),
       static_cast<const float*>(q), static_cast<const float*>(prof),
       static_cast<float*>(rho), static_cast<float*>(u),
-      static_cast<float*>(f_post), s, g, bc, use_les, full, nr);
+      static_cast<float*>(f_post), s, g, bc, use_les, nr);
+}
+
+// The f32 step of one scheme: the full instance closes a chunk, the fast
+// one runs every other step.
+template <int OBST, bool SHARD>
+static void launch_f32(const void* f_in, void* f_out, const void* aux, const void* q,
+                       const void* prof, void* rho, void* u, void* f_post, const Scalars& s,
+                       const BlockGeom& g, const BcTypes& bc, int use_les, int full,
+                       cudaStream_t st) {
+  if (full)
+    launch<F32Store, OBST, SHARD, true>(f_in, f_out, aux, q, prof, rho, u, f_post, s, g, bc,
+                                        use_les, st);
+  else
+    launch<F32Store, OBST, SHARD, false>(f_in, f_out, aux, q, prof, rho, u, f_post, s, g, bc,
+                                         use_les, st);
 }
 
 template <bool SHARD>
@@ -256,23 +296,20 @@ static int dispatch(const void* f_in, void* f_out, const void* aux,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (obst) {
     case LBM_OBST_EQ:
-      launch<F32Store, LBM_OBST_EQ, SHARD>(f_in, f_out, aux, q, prof, rho, u,
-                                           f_post, s, g, bc, use_les, full, st);
+      launch_f32<LBM_OBST_EQ, SHARD>(f_in, f_out, aux, q, prof, rho, u, f_post, s, g, bc,
+                                     use_les, full, st);
       break;
     case LBM_OBST_BOUNCE:
-      launch<F32Store, LBM_OBST_BOUNCE, SHARD>(f_in, f_out, aux, q, prof, rho,
-                                               u, f_post, s, g, bc, use_les,
-                                               full, st);
+      launch_f32<LBM_OBST_BOUNCE, SHARD>(f_in, f_out, aux, q, prof, rho, u, f_post, s, g, bc,
+                                         use_les, full, st);
       break;
     case LBM_OBST_HALFWAY:
-      launch<F32Store, LBM_OBST_HALFWAY, SHARD>(f_in, f_out, aux, q, prof, rho,
-                                                u, f_post, s, g, bc, use_les,
-                                                full, st);
+      launch_f32<LBM_OBST_HALFWAY, SHARD>(f_in, f_out, aux, q, prof, rho, u, f_post, s, g,
+                                          bc, use_les, full, st);
       break;
     case LBM_OBST_BOUZIDI:
-      launch<F32Store, LBM_OBST_BOUZIDI, SHARD>(f_in, f_out, aux, q, prof, rho,
-                                                u, f_post, s, g, bc, use_les,
-                                                full, st);
+      launch_f32<LBM_OBST_BOUZIDI, SHARD>(f_in, f_out, aux, q, prof, rho, u, f_post, s, g,
+                                          bc, use_les, full, st);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -318,14 +355,14 @@ static int dispatch_dev(const void* f_in, void* f_out, const void* aux,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (obst) {
     case LBM_OBST_EQ:
-      launch<DevStore, LBM_OBST_EQ, SHARD>(f_in, f_out, aux, nullptr, prof,
-                                           nullptr, nullptr, nullptr, s, g, bc,
-                                           use_les, 0, st);
+      launch<DevStore, LBM_OBST_EQ, SHARD, false>(f_in, f_out, aux, nullptr, prof,
+                                                  nullptr, nullptr, nullptr, s, g, bc,
+                                                  use_les, st);
       break;
     case LBM_OBST_BOUNCE:
-      launch<DevStore, LBM_OBST_BOUNCE, SHARD>(f_in, f_out, aux, nullptr, prof,
-                                               nullptr, nullptr, nullptr, s, g,
-                                               bc, use_les, 0, st);
+      launch<DevStore, LBM_OBST_BOUNCE, SHARD, false>(f_in, f_out, aux, nullptr, prof,
+                                                      nullptr, nullptr, nullptr, s, g,
+                                                      bc, use_les, st);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

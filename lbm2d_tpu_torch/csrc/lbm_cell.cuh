@@ -204,17 +204,17 @@ struct BcTypes {
 
 // Stores ring cell ``c`` from its BC values ``b``, as solver.apply_bc's
 // obstacle pass leaves it: f in S's format, w rho on a solid cell unless
-// under full-way bounce-back (which keeps the BC values); with ``full``,
-// rho and u (zero on solids).
-template <typename S, int OBST>
+// under full-way bounce-back (which keeps the BC values); with FULL, rho
+// and u (zero on solids).
+template <typename S, int OBST, bool FULL>
 __device__ __forceinline__ void lbm_store_ring(typename S::T* f, const float* aux,
                                                float* rho_out, float* u_out, size_t plane,
-                                               size_t c, const Cell& b, bool full) {
+                                               size_t c, const Cell& b) {
   const bool solid = __float_as_int(aux[c]) < 0;
   const bool overwrite = solid && OBST != LBM_OBST_BOUNCE;
   for (int k = 0; k < 9; ++k)
     S::store(f, k * plane + c, k, overwrite ? lbm_w(k) * b.rho : b.f[k]);
-  if (full) {
+  if (FULL) {
     rho_out[c] = b.rho;
     u_out[c] = solid ? 0.0f : b.ux;
     u_out[plane + c] = solid ? 0.0f : b.uy;

@@ -123,11 +123,6 @@ __device__ __constant__ int LBM_OPP[9] = {0, 3, 4, 1, 2, 7, 8, 5, 6};
 #define LBM_BC_VEL_INLET 3
 #define LBM_BC_VEL_INLET_NEBB 4
 
-// Values K3 keeps per cell of its shared edge strips (columns 1 / W-2 and
-// rows 1 / H-2 of a window): the collide output f_post[0..8] before the
-// obstacle overwrite, rho, ux, uy.
-#define LBM_EDGE_C 12
-
 // MRT-LES collision of the streamed populations fs (solver.mrt_collide_arrays).
 __device__ __forceinline__ void mrt_collide(const float fs[9], float damp,
                                             const Scalars& s, int use_les,

@@ -5,7 +5,9 @@ plain C interface and loaded with ctypes; a library may hold several
 kernel variants, each behind its own C entry. Libraries go to ``csrc/_build/``
 (gitignored), named by a hash of the source, the shared header and the
 flags, so a checkout builds them at first use and reuses them afterwards.
-``build_all`` starts one ``nvcc`` per missing library, all at once.
+``build_all`` starts one ``nvcc`` per missing library, all at once, and
+keeps nvcc's stderr (ptxas's registers and spills) beside each library,
+so ``BUILD_LOG`` holds it in every process that uses the build.
 
 There is no fallback: a failed build raises with nvcc's stderr.
 """
@@ -77,6 +79,10 @@ def build_all() -> Dict[str, str]:
     {library: path}. Raises RuntimeError with nvcc's stderr."""
     paths = {name: _lib_path(name) for name in SOURCES}
     todo = {n: p for n, p in paths.items() if not os.path.exists(p)}
+    for name, out in paths.items():  # an earlier process's build: its ptxas log
+        if name not in todo and name not in BUILD_LOG and os.path.exists(out + ".log"):
+            with open(out + ".log") as fh:
+                BUILD_LOG[name] = fh.read()
     if not todo:
         return paths
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -98,6 +104,8 @@ def build_all() -> Dict[str, str]:
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {SOURCES[name]}:\n{err}")
         else:
+            with open(out + ".log", "w") as fh:
+                fh.write(err)
             os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))

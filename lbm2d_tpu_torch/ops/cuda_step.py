@@ -23,9 +23,10 @@ not for half-way or Bouzidi bounce-back (``dev_storage_refusal``).
 
 Temporal blocking is opt-in, as in the JAX package (``_FUSE_STEPS`` = S >
 1): a chunk's first n - 1 steps then run as passes of K3 ``k3_fused``
-(csrc/k3_fused.cu, replaces ``_fused_kernel``: S steps on 2-D tiles in
-shared memory, the BCs inside every window after each sub-step), the
-remainder as single K1 steps; Bouzidi bounce-back is never fused
+(csrc/k3_fused.cu, replaces ``_fused_kernel``: S steps a pass, each tile's
+window swept row by row with its S levels skewed in shared memory, the
+BCs inside every window at each sub-step), the remainder as single K1
+steps; Bouzidi bounce-back is never fused
 (``fuse_refusal``) and deviation storage is off while it is requested.
 
 On a spatial mesh (``parallel/sharded.py``) K1 runs in its sharded form on
@@ -83,8 +84,6 @@ SCALAR_FIELDS = (
     "bc_value[2,0]", "bc_value[2,1]", "bc_value[3,0]", "bc_value[3,1]",
 )
 _S_RAMP = 3
-
-EDGE_C = 12  # f_post[0..8], rho, ux, uy per cell of K3's shared edge strips
 
 # storage type of f under 16-bit deviation storage (the JAX package's
 # _DEV_DTYPE): bf16 keeps f32's exponent range, and storing f - w keeps the
@@ -275,9 +274,21 @@ def dev_storage_refusal(p: CaseParams, sharded: bool = False) -> Optional[str]:
 # k3_tile (tests patch it for tiny tiles, as the JAX tests set _FUSE_BH).
 _FUSE_STEPS = None
 FUSE_MAX_STEPS = 8
-# shared memory one block can opt into on an H100 (232,448 bytes)
+# K3's block (csrc/k3_fused.cu): S levels of WW window columns, one
+# thread a column, WW = 64 where the tile's TW + 2 S fits, else 128. The
+# default centre tiles (rows of the sweep, columns), the fastest of those
+# measured at 2432x1152 on an H100 (PERF.md; tools/kernel_ab.py): 24 x 112
+# (128-column windows) up to S = 4, 48 x 48 (64-column windows) above;
+# both widths are multiples of 8, so the windows' rows start 32-byte
+# aligned, and both hold two blocks a SM.
+K3_TILE_SHORT = (24, 112)
+K3_TILE_DEEP = (48, 48)
+# shared memory of an H100 SM (1 KB of it reserved per resident block),
+# what one block can opt into (232,448 bytes), and the registers a thread
+# K3's launch bounds allow
+SM_SMEM = 228 * 1024
 K3_SMEM_LIMIT = 227 * 1024
-K3_TILE_W = 64
+K3_MAX_REGISTERS = 64
 
 
 def fuse_requested() -> bool:
@@ -301,21 +312,42 @@ def fuse_steps(p: CaseParams, n_steps: int) -> int:
     return min(int(_FUSE_STEPS), FUSE_MAX_STEPS)
 
 
-def k3_smem_bytes(S: int, th: int, tw: int) -> int:
-    """Shared memory of one K3 block (csrc/k3_fused.cu k3_smem_floats): two
-    f windows, aux, and the four 12-value edge strips."""
-    wh, ww = th + 2 * S, tw + 2 * S
-    return 4 * (19 * wh * ww + 2 * EDGE_C * (wh + ww))
+def k3_window_w(S: int, tw: int) -> int:
+    """Window columns of a K3 block (csrc/k3_fused.cu k3_window_w): 64 where
+    the tile's TW + 2 S fits them, else 128."""
+    return 64 if tw + 2 * S <= 64 else 128
+
+
+def k3_smem_bytes(S: int, tw: int) -> int:
+    """Shared memory of one K3 block (csrc/k3_fused.cu k3_smem_floats): an
+    8-row ring of level 0 and a 4-row ring of each level 1 .. S - 1, rows
+    of 9 x WW floats, and a 32-row ring of aux. The tile's height does not
+    change it."""
+    ww = k3_window_w(S, tw)
+    return 4 * ww * (9 * (8 + 4 * (S - 1)) + 32)
+
+
+def k3_blocks_per_sm(S: int, tw: int) -> int:
+    """K3 blocks an H100 SM holds at S sub-steps: by shared memory, and by
+    registers at K3_MAX_REGISTERS a thread (the kernel's launch bounds)."""
+    by_smem = SM_SMEM // (k3_smem_bytes(S, tw) + 1024)
+    by_regs = 65536 // (K3_MAX_REGISTERS * k3_window_w(S, tw) * S)
+    return min(by_smem, by_regs)
+
+
+def k3_window_x0(xc: int, S: int, tw: int, W: int) -> int:
+    """The first global column of the K3 window whose shifted centre starts
+    on column ``xc`` (csrc/k3_fused.cu xw0): 8 columns (32 bytes) aligned
+    where the window still covers the level-0 columns the tile reads, else
+    S columns left of the centre."""
+    xa = (xc - S) // 8 * 8
+    return xa if xa + k3_window_w(S, tw) >= min(W, xc + tw + S) else xc - S
 
 
 def k3_tile(S: int):
-    """K3's (TH, TW) centre tile for S sub-steps: 64 columns and the most
-    rows whose window fits a block's shared memory (32 x 64 at S = 4,
-    20 x 64 at S = 8)."""
-    th = 2
-    while k3_smem_bytes(S, th + 1, K3_TILE_W) <= K3_SMEM_LIMIT:
-        th += 1
-    return th, K3_TILE_W
+    """K3's (TH, TW) centre tile for S sub-steps. The block's shared memory
+    depends on S and TW only."""
+    return K3_TILE_SHORT if S <= 4 else K3_TILE_DEEP
 
 
 def _host_scalars(p: CaseParams):
@@ -740,9 +772,9 @@ def k3_fused(f_in, f_out, aux, scal_rows, bc_type, use_les, obstacle=OBSTACLE_EQ
         raise ValueError(f"k3_fused: scalar rows {tuple(scal_rows.shape)}, need "
                          f"[S <= {FUSE_MAX_STEPS}, 14]")
     th, tw = tile
-    if min(th, tw) < 2 or k3_smem_bytes(S, th, tw) > K3_SMEM_LIMIT:
-        raise ValueError(f"k3_fused: tile {tile} at S = {S} needs "
-                         f"{k3_smem_bytes(S, th, tw)} B of shared memory (limit {K3_SMEM_LIMIT})")
+    if min(th, tw) < 2 or tw + 2 * S > 128:
+        raise ValueError(f"k3_fused: tile {tile} at S = {S}: need TH, TW >= 2 and "
+                         f"TW + 2 S <= 128")
     if f_in.data_ptr() == f_out.data_ptr():
         raise ValueError("k3_fused: needs distinct in/out buffers")
     prof_ptr = _prof_ptr(bc_type, prof, H, dev)

@@ -226,8 +226,10 @@ def test_bounce_and_inlet_variants_match_plain_on_card(obstacle, bc_type):
 @pytest.mark.cuda
 @pytest.mark.parametrize("obstacle", ["equilibrium", "bounce_back", "bounce_back_halfway"])
 @pytest.mark.parametrize("bc_type", [(0, 2, 1, 2), (3, 0, 1, 0)], ids=["0212", "3010"])
-@pytest.mark.parametrize("S, tile", [(3, (8, 16)), (4, None), (8, None)],
-                         ids=["S3-small-tiles", "S4-default", "S8-default"])
+@pytest.mark.parametrize("S, tile", [(3, (8, 16)), (4, None), (8, None), (4, (32, 64)),
+                                     (2, (5, 124))],
+                         ids=["S3-small-tiles", "S4-default", "S8-default", "S4-first-tile",
+                              "S2-widest"])
 def test_k3_matches_plain_on_card(obstacle, bc_type, S, tile, monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU build)")
