@@ -99,10 +99,32 @@ Phases (any failure raises and the process exits non-zero):
    block size), then us/step, the device time of one step
    (a CUDA graph of K1 on every block and the halo copies), the halo
    exchange's share and the scatter and gather cost of a chunk. Every
-   ``_shard`` variant is launched in phase 8, one launch a block a step.
+   ``_shard`` variant is launched in phase 8, one launch a block a step;
+9. drive the multi-worker and multi-process paths, each worker an OS
+   process (``lbm2d_tpu_torch/tools/smoke_workers.py``, hard time limit)
+   on sibling cases of the smoke case (nu 0.02, 0.03, 0.04, 0.05): (a) two
+   ``batch_run --coordinate`` workers on one 4-case project, video on:
+   every case Success once, disjoint owners, ``.claims/`` empty, the NPZ
+   complete, one mp4 each, each case's HDF5 datasets byte-equal to a
+   one-worker run, one launch a step and no plain call in each worker;
+   (b) ``batch_run --coordinate --lockstep --f16_state --max_batch 2``,
+   one worker alone, then two at once, on fresh copies of the project:
+   the same checks, and wall, aggregate wall MLUPS and cases/hour of each;
+   (c) ``BatchEngine(runner="sharded")``, 3 cases on a case mesh naming
+   cuda:0 twice (one inert pad), one chunk, f32 and ``store_dev``: states
+   and monitors bitwise equal to ``runner="auto"``, the pad launching
+   nothing; (d) two processes in a gloo group (``parallel/multihost``),
+   both on cuda:0, the smoke case through ``run_one_case.main`` on a
+   global 2x1 mesh: Success on both ranks, the final f bitwise equal to
+   phase 3's, the monitors equal across ranks and within 5e-6 of 8(c)'s
+   final state's force in float64, rank 0's HDF5 datasets byte-equal to
+   8(c)'s, only ``_shard`` launches, us/step; then a resume from a
+   checkpoint only rank 0's path holds: both ranks resume at its step and
+   end with phase 3's final f.
 
 The last two lines are the kernels' JSON record (``launches``: the sum over
-the driven paths, split in ``launches_by_path``) and ``{"ok": true,
+the driven paths, split in ``launches_by_path``, phase 9's under
+``coord``, ``coord_lock``, ``case_sharded`` and ``multihost``) and ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or without the package beside
 this script, it exits non-zero and prints no result.
 """
@@ -301,6 +323,311 @@ class MomentSink:
 
     def append(self, moments, pre_resized=False):
         self.frames.append(np.asarray(moments))
+
+
+# phase 9: the sibling cases of the multi-worker runs, the per-worker
+# time limit and the multi-host mesh
+COORD_NUS = (0.02, 0.03, 0.04, 0.05)
+WORKER_TIMEOUT_S = 300
+MH_MESH = "2x1"
+
+
+def spawn_workers(mode: str, arg_list, timeout: float = WORKER_TIMEOUT_S):
+    """Start one ``tools/smoke_workers`` process per JSON args, all at
+    once, each with a hard time limit; returns ([(record, stdout)], wall
+    seconds from the first start to the last exit). A worker that fails,
+    hangs or prints no record raises with its output; none outlives this
+    call."""
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               SMOKE_WORKER_TRIPWIRE_S=str(timeout - 20))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", "lbm2d_tpu_torch.tools.smoke_workers", mode,
+                               json.dumps(a)], cwd=HERE, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for a in arg_list]
+    outs = []
+    try:
+        for proc in procs:
+            left = max(1.0, timeout - (time.perf_counter() - t0))
+            try:
+                outs.append(proc.communicate(timeout=left))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"phase 9 {mode} worker exceeded {timeout} s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    recs = []
+    for proc, (out, err) in zip(procs, outs):
+        lines = [x for x in out.splitlines() if x.startswith("WORKER ")]
+        if proc.returncode != 0 or not lines:
+            raise AssertionError(f"phase 9 {mode} worker exited {proc.returncode}:\n"
+                                 f"{out[-3000:]}\n{err[-6000:]}")
+        recs.append((json.loads(lines[-1][len("WORKER "):]), out))
+    return recs, wall
+
+
+def sum_launches(records, variants):
+    """{variant: launches summed over worker records}."""
+    return {k: sum(r["launches"].get(k, 0) for r in records) for k in variants}
+
+
+def check_coordinated(out_dir: str, names, recs, tag: str):
+    """Every case Success, owned by one of the workers; the claims released;
+    the NPZ complete. Returns {worker id: [case file names]}."""
+    with open(os.path.join(out_dir, "plots", "sim_results.json")) as fh:
+        results = {e["config_filename"]: e for e in json.load(fh)}
+    ids = []
+    for _, out in recs:
+        ids += [x.split("worker=", 1)[1] for x in out.splitlines() if "multi-worker mode, worker=" in x]
+    owners = {}
+    for fname, _ in names:
+        e = results[fname]
+        if e["status"] != "Success" or e.get("worker") not in ids:
+            raise AssertionError(f"{tag}: {fname} {e['status']} owned by {e.get('worker')} "
+                                 f"(workers {ids})")
+        owners.setdefault(e["worker"], []).append(fname)
+    claims = os.listdir(os.path.join(out_dir, "plots", ".claims"))
+    vec = np.load(os.path.join(out_dir, "plots", "all_cases_vectors.npz"), allow_pickle=True)
+    if claims or len(vec["case_names"]) != len(names):
+        raise AssertionError(f"{tag}: claims left {claims}, NPZ cases {list(vec['case_names'])}")
+    return owners
+
+
+def phase9(config, mask, f_serial, force8c, h5_8c, counted, card):
+    """The multi-worker and multi-process paths (see the module docstring);
+    returns their launches by path. ``f_serial``: phase 3's final f;
+    ``force8c``, ``h5_8c``: the final force (float64, and the run's float32
+    monitor) and the datasets of phase 8(c)'s one-process run of the smoke
+    case on a 1x1 mesh."""
+    import hashlib
+    import socket
+
+    from lbm2d_tpu_torch.core.engine import LBMEngine
+    from lbm2d_tpu_torch.ops import cuda_step as cs
+    from lbm2d_tpu_torch.parallel.batch import BatchEngine
+    from lbm2d_tpu_torch.pipeline.batch_run import run_batch
+    from lbm2d_tpu_torch.tools import smoke_case
+
+    H, W = mask.shape
+    max_steps = int(config["simulation"]["max_steps"])
+    chunk = int(config["simulation"]["compute_step_size"])
+    chunks = max_steps // chunk
+    per_case = {"k1_step": chunks * (chunk - 1), "k1_step_full": chunks}
+    n = len(COORD_NUS)
+    by_path = {}
+
+    # (a) serial --coordinate: two OS processes on one project, video on
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_9a_") as root:
+        names = smoke_case.write_sibling_project(root, config, mask, COORD_NUS, name="Coord")
+        argv = ["--project_name", "Coord", "--root", root, "--coordinate"]
+        recs, wall = spawn_workers("batch", [{"argv": argv}] * 2)
+        out_dir = os.path.join(root, "outputs", "Coord")
+        owners = check_coordinated(out_dir, names, recs, "9(a)")
+        ran = [r["launches"].get("k1_step_full", 0) // chunks for r, _ in recs]
+        print(f"[9] (a) serial --coordinate, 2 workers x {n} cases: {wall:.2f} s wall; "
+              f"cases run per worker {ran}; owners {owners} [{card}]", flush=True)
+        for r, _ in recs:
+            k = r["launches"].get("k1_step_full", 0) // chunks
+            want = {v: c * k for v, c in per_case.items() if k}
+            print(f"    worker launches {r['launches']}, plain calls {r['plain_calls']}", flush=True)
+            if r["launches"] != want or any(r["plain_calls"].values()):
+                raise AssertionError(f"9(a): launches {r['launches']} (want {want}), "
+                                     f"plain calls {r['plain_calls']}")
+        if sum(ran) != n:
+            raise AssertionError(f"9(a): {sum(ran)} case runs for {n} cases")
+        if len(owners) < 2:
+            print("    (one worker won every claim race)", flush=True)
+        for _, case in names:
+            mp4 = os.path.join(out_dir, "vis", f"{case}.mp4")
+            if not os.path.exists(mp4) or os.path.getsize(mp4) <= 0:
+                raise AssertionError(f"9(a): no mp4 for {case}")
+        # the same configs run by one in-process worker (video off: the
+        # datasets do not depend on it)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_9a1_") as root1:
+            smoke_case.write_sibling_project(root1, config, mask, COORD_NUS, name="Coord",
+                                             video=False)
+            one = run_batch("Coord", root=root1, progress=False, device="cuda")
+            if one.get("success") != n:
+                raise AssertionError(f"9(a) one-worker run: {one}")
+            for _, case in names:
+                got = smoke_case.read_datasets(os.path.join(out_dir, "raw", f"{case}.h5"))
+                ref = smoke_case.read_datasets(
+                    os.path.join(root1, "outputs", "Coord", "raw", f"{case}.h5"))
+                if sorted(got) != sorted(ref) or any(
+                        got[k].tobytes() != ref[k].tobytes() for k in ref):
+                    raise AssertionError(f"9(a): {case} datasets differ from the one-worker run")
+        print(f"    every case Success once, owners disjoint, .claims/ empty, NPZ {n} cases, "
+              f"{n} mp4; each case's HDF5 datasets byte-equal to a one-worker run", flush=True)
+        by_path["coord"] = sum_launches([r for r, _ in recs], cs.KERNEL_VARIANTS)
+
+    # (b) lockstep --coordinate --f16_state --max_batch 2: one worker alone,
+    # then two at once, each on a fresh copy of the project
+    lock = {"k1_step_dev": chunks * (chunk - 1), "k1_step_full": chunks}
+    runs = {}
+    lock_records = []
+    for n_workers in (1, 2):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_9b_") as root:
+            names = smoke_case.write_sibling_project(root, config, mask, COORD_NUS, name="Lock")
+            argv = ["--project_name", "Lock", "--root", root, "--coordinate", "--lockstep",
+                    "--f16_state", "--max_batch", "2"]
+            recs, wall = spawn_workers("batch", [{"argv": argv}] * n_workers)
+            owners = check_coordinated(os.path.join(root, "outputs", "Lock"), names, recs,
+                                       f"9(b) x{n_workers}")
+        for r, _ in recs:
+            k = r["launches"].get("k1_step_full", 0) // chunks
+            want = {v: c * k for v, c in lock.items() if k}
+            if r["launches"] != want or any(r["plain_calls"].values()):
+                raise AssertionError(f"9(b): launches {r['launches']} (want {want}), "
+                                     f"plain calls {r['plain_calls']}")
+        lock_records += [r for r, _ in recs]
+        span = max(r["t1"] for r, _ in recs) - min(r["t0"] for r, _ in recs)
+        cells = n * max_steps * H * W
+        runs[n_workers] = (wall, span)
+        print(f"[9] (b) lockstep --coordinate --f16_state --max_batch 2, {n_workers} worker(s) x "
+              f"{n} cases: {wall:.2f} s from spawn to exit = {cells / wall / 1e6:.1f} MLUPS, "
+              f"{n / wall * 3600:.0f} cases/hour; run_batch span {span:.2f} s = "
+              f"{cells / span / 1e6:.1f} MLUPS aggregate wall, {n / span * 3600:.0f} cases/hour; "
+              f"owners {owners} [{card}]", flush=True)
+    (w1, s1), (w2, s2) = runs[1], runs[2]
+    print(f"    two workers against one: spawn-to-exit {w1 / w2:.3f}x, run_batch span "
+          f"{s1 / s2:.3f}x the cases/hour [{card}]", flush=True)
+    by_path["coord_lock"] = sum_launches(lock_records, cs.KERNEL_VARIANTS)
+
+    # (c) BatchEngine(runner="sharded"): 3 cases on a case mesh naming
+    # cuda:0 twice (one inert pad), one chunk, f32 and store_dev, bitwise
+    # against runner="auto"
+    dev = torch.device("cuda", 0)
+    cfgs = []
+    for nu in COORD_NUS[:3]:
+        c = json.loads(json.dumps(config))
+        c["simulation"]["nu"] = nu
+        cfgs.append(c)
+    launches_c = {k: 0 for k in cs.KERNEL_VARIANTS}
+    for store_dev in (False, True):
+        sh9 = BatchEngine(cfgs, [mask] * 3, store_dev=store_dev, device="cuda",
+                          runner="sharded", case_devices=[dev, dev])
+        counted.clear()
+        torch.cuda.synchronize()
+        cs.reset_launch_counts()
+        m_sh = sh9.run_step(chunk)
+        torch.cuda.synchronize()
+        got = dict(cs.LAUNCHES)
+        auto = BatchEngine(cfgs, [mask] * 3, store_dev=store_dev, device="cuda")
+        m_auto = auto.run_step(chunk)
+        kind = "k1_step_dev" if store_dev else "k1_step"
+        want = {kind: 3 * (chunk - 1), "k1_step_full": 3}
+        if {k: v for k, v in got.items() if v} != want or any(counted.values()):
+            raise AssertionError(f"9(c): launches {got} (want {want}), plain calls {counted}")
+        if sh9._shard_pad != 1 or len(sh9.mesh) != 2 or any(
+                len(m_sh[k]) != 3 for k in ("force", "max_v", "stable")):
+            raise AssertionError(f"9(c): pad {sh9._shard_pad}, mesh {sh9.mesh}, "
+                                 f"monitors {[len(v) for v in m_sh.values()]}")
+        for k in ("force", "max_v", "stable"):
+            if not np.array_equal(m_sh[k], m_auto[k]):
+                raise AssertionError(f"9(c) store_dev={store_dev}: monitor {k} differs")
+        a, b = sh9.state, auto.state
+        for k in ("f", "f_post", "rho", "u", "step"):
+            if not torch.equal(getattr(a, k), getattr(b, k)):
+                raise AssertionError(f"9(c) store_dev={store_dev}: state {k} differs")
+        launches_c = {k: launches_c[k] + got[k] for k in launches_c}
+        print(f"[9] (c) BatchEngine(runner='sharded'), 3 cases on [cuda:0, cuda:0] + 1 pad, "
+              f"store_dev={store_dev}: states and monitors bitwise equal to runner='auto'; "
+              f"launches {({k: v for k, v in got.items() if v})} (the pad launches nothing), "
+              f"plain calls {counted}", flush=True)
+        del sh9, auto
+    by_path["case_sharded"] = launches_c
+
+    # (d) multi-host: two processes in a gloo group, both on cuda:0, the
+    # smoke case through run_one_case.main on a global 2x1 mesh
+    f_sha = hashlib.sha256(f_serial.cpu().numpy().tobytes()).hexdigest()
+    mh_records = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_9d_") as root:
+        names = smoke_case.write_sibling_project(root, config, mask, (config["simulation"]["nu"],),
+                                                 name="SmokeS", video=False)
+        base = os.path.join(root, "SimCases", "SmokeS")
+        cfg_path = os.path.join(base, "configs", names[0][0])
+        mask_png = os.path.join(base, "masks", "smoke_mask.png")
+        h5 = [os.path.join(root, f"rank{r}", "case.h5") for r in (0, 1)]
+        for path in h5:
+            os.makedirs(os.path.dirname(path))
+
+        def multihost(cfg, timed, start=0):
+            """Both ranks on ``cfg`` (resuming at step ``start``)."""
+            with socket.socket() as s_:
+                s_.bind(("127.0.0.1", 0))
+                port = s_.getsockname()[1]
+            args = [{"coord": f"127.0.0.1:{port}", "rank": r, "cfg": cfg, "mask": mask_png,
+                     "h5": h5, "mesh": MH_MESH, "chunk": chunk, "timed_chunks": timed}
+                    for r in (0, 1)]
+            recs, wall = spawn_workers("multihost", args)
+            mh_records.extend(r for r, _ in recs)
+            left = (max_steps - start) // chunk
+            want = {"k1_step_shard": left * (chunk - 1), "k1_step_shard_full": left}
+            for r, out in recs:
+                if r["status"] != "Success" or not r.get("multihost"):
+                    raise AssertionError(f"9(d): rank {r['rank']}: {r['status']} ({r['reason']})")
+                if r["launches"] != want or any(r["plain_calls"].values()):
+                    raise AssertionError(f"9(d) rank {r['rank']}: launches {r['launches']} "
+                                         f"(want {want}), plain calls {r['plain_calls']}")
+                if r["f_sha256"] != f_sha:
+                    raise AssertionError(f"9(d) rank {r['rank']}: final f differs from phase 3's")
+            return recs, wall
+
+        recs, wall = multihost(cfg_path, 5)
+        r0, r1 = recs[0][0], recs[1][0]
+        if r0["force"] != r1["force"] or r0["max_v"] != r1["max_v"]:
+            raise AssertionError(f"9(d): monitors differ across ranks: {r0['force']}, "
+                                 f"{r1['force']}")
+        force64, force32 = force8c
+        dforce = float(np.abs(np.array(r0["force"]) - force64).max())
+        if dforce > 5e-6 * max(1.0, float(np.abs(force64).max())):
+            raise AssertionError(f"9(d): force {r0['force']} vs phase 8(c)'s {force64}")
+        got = smoke_case.read_datasets(h5[0])
+        if sorted(got) != sorted(h5_8c) or any(
+                got[k].tobytes() != h5_8c[k].tobytes() for k in h5_8c):
+            raise AssertionError("9(d): rank 0's datasets differ from phase 8(c)'s")
+        if os.path.exists(h5[1]) or os.path.exists(h5[1] + ".npz"):
+            raise AssertionError("9(d): rank 1 wrote a case file")
+        print(f"[9] (d) multi-host, 2 processes x 1 block ({MH_MESH} mesh on cuda:0, backend "
+              f"{r0['backend']}, halos staged through pinned host buffers): both ranks Success "
+              f"in {wall:.2f} s wall; final f bitwise equal to phase 3's on both; monitors equal "
+              f"across ranks, force {r0['force']} vs phase 8(c)'s state in float64 "
+              f"{force64.tolist()} (max diff {dforce:.3e}; 8(c)'s float32 monitor "
+              f"{force32.tolist()}, {float(np.abs(force32 - force64).max()):.3e} off); rank 0's HDF5 datasets byte-equal to phase 8(c)'s; launches a "
+              f"rank {r0['launches']}, plain calls {r0['plain_calls']}; "
+              f"{r0['us_per_step']:.1f} us/step = {H * W / r0['us_per_step']:.1f} MLUPS [{card}]",
+              flush=True)
+
+        # resume from a checkpoint that only rank 0's path holds
+        ckpt_cfg = json.loads(json.dumps(config))
+        ckpt_cfg["mask"]["path"] = mask_png
+        # interval 0: resume without writing checkpoints along the way
+        ckpt_cfg["outputs"]["checkpoint"] = {"enable": True, "interval_steps": 0,
+                                             "resume": True}
+        ckpt_path = os.path.join(root, "checkpointed.json")
+        with open(ckpt_path, "w") as fh:
+            json.dump(ckpt_cfg, fh)
+        eng = LBMEngine(ckpt_cfg, mask_yx=mask, device="cuda")
+        for _ in range(1000 // chunk):
+            eng.run_step(chunk)
+        eng.save_checkpoint(h5[0] + ".ckpt.npz")
+        del eng
+        for path in h5:
+            for f in (path, path + ".npz"):
+                if os.path.exists(f):
+                    os.remove(f)
+        t0 = time.perf_counter()
+        recs, wall = multihost(ckpt_path, 0, start=1000)
+        resumed = ["[Checkpoint] resumed at step 1000" in out for _, out in recs]
+        if not all(resumed):
+            raise AssertionError(f"9(d) resume: ranks resumed {resumed}")
+        print(f"    resume from a step-1000 checkpoint only rank 0's path holds: both ranks "
+              f"resumed at step 1000 and ended Success with phase 3's final f, "
+              f"{time.perf_counter() - t0:.2f} s [{card}]", flush=True)
+    by_path["multihost"] = sum_launches(mh_records, cs.KERNEL_VARIANTS)
+    return by_path
 
 
 def main() -> int:
@@ -1236,8 +1563,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         # no video: the serial path's frame composer needs matplotlib, which
         # the card's machine lacks (the lockstep path renders from LUTs)
-        smoke_case.write_sibling_project(root, config, mask, (config["simulation"]["nu"],),
-                                         name="SmokeS", video=False)
+        names8c = smoke_case.write_sibling_project(root, config, mask,
+                                                   (config["simulation"]["nu"],),
+                                                   name="SmokeS", video=False)
         counted.clear()
         torch.cuda.synchronize()
         cs.reset_launch_counts()
@@ -1249,6 +1577,21 @@ def main() -> int:
         launches8c = dict(cs.LAUNCHES)
         with open(os.path.join(root, "outputs", "SmokeS", "plots", "sim_results.json")) as fh:
             status8 = {e["config_filename"]: e["status"] for e in json.load(fh)}
+        # phase 9(d) holds the multi-host entry's datasets and monitors to
+        # these (the sharded runners keep f_post's global ring, so their
+        # force is not the unsharded run's)
+        h5_8c = smoke_case.read_datasets(
+            os.path.join(root, "outputs", "SmokeS", "raw", f"{names8c[0][1]}.h5"))
+    # the force of 8(c)'s final state evaluated in float64: the multi-host
+    # force sums each process's part in float64, so it is held to this; the
+    # float32 one-process sum carries its own order's rounding
+    import dataclasses
+
+    p8 = engines8[-1].params
+    p64 = dataclasses.replace(p8, **{k: v.double() for k, v in vars(p8).items()
+                                     if torch.is_tensor(v) and v.is_floating_point()})
+    force8c = (solver.obstacle_force(engines8[-1].state.f_post.double(), p64).cpu().numpy(),
+               np.array(engines8[-1].get_force()))
     e8 = engines8[-1]
     want8c = {"k1_step_shard": chunks * (chunk - 1), "k1_step_shard_full": chunks}
     print(f"    (c) run_batch(spatial_mesh='1x1'): {stats8}, {status8} in {wall8:.2f} s "
@@ -1343,11 +1686,13 @@ def main() -> int:
     if idle8:
         raise AssertionError(f"phase 8 did not launch {idle8}")
 
+    launches9 = phase9(config, mask, f_serial, force8c, h5_8c, counted, card)
+
     kernels = []
     by_path = {"serial": launches, "lockstep": launches4, "dfg": launches5,
                "dfg_pairs": launches5b, "fused": launches6, "fused_pairs": launches6b,
                "roofline": launches7, "sharded": launches8c, "sharded_pairs": launches8a,
-               "sharded_dfg": launches8b, "sharded_4096": launches8d}
+               "sharded_dfg": launches8b, "sharded_4096": launches8d, **launches9}
     sources = {"k1": ("k1_step.cu", "lbm2d_tpu/ops/pallas_step.py:824"),
                "k3": ("k3_fused.cu", "lbm2d_tpu/ops/pallas_step.py:610"),
                "co": ("copy_probe.cu", "tools_roofline_4096.py:95")}

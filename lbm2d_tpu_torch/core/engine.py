@@ -26,6 +26,15 @@ CPU through the eager sharded step, or the kernels' plain sharded runner
 with ``store_dev``. The sharded runner never fuses (logged when temporal
 blocking is requested). The state stays one global ``LBMState``: the
 runner scatters it into blocks and gathers it every chunk.
+
+Inside a ``torch.distributed`` group of several processes
+(``parallel/multihost.init_multihost``) the spatial mesh is laid over the
+global device list (``multihost.make_global_mesh``); when its blocks
+belong to several processes the engine is multi-host (``_multihost``):
+each process keeps the global-shaped state, advances its own blocks only,
+and the host reads (``get_moments``, ``get_physical_fields``,
+checkpoints) are collectives every process joins, of which rank 0 alone
+writes files.
 """
 
 from __future__ import annotations
@@ -77,6 +86,10 @@ def parse_spatial_mesh(spec, device="cuda") -> Optional[Tuple[int, int]]:
 
     if isinstance(spec, str):
         if spec.strip().lower() == "auto":
+            from ..parallel import multihost
+
+            if multihost.is_multihost():
+                return best_grid(len(multihost.global_devices()))
             on_card = torch.device(device).type == "cuda"
             return best_grid(max(1, torch.cuda.device_count()) if on_card else 1)
         parts = spec.lower().replace("x", " ").split()
@@ -91,11 +104,23 @@ def parse_spatial_mesh(spec, device="cuda") -> Optional[Tuple[int, int]]:
 
 def make_spatial_mesh(mesh_shape: Tuple[int, int], device: torch.device, grid_shape):
     """The mesh of a sharded case: its blocks on the first ry * rx CUDA
-    devices, or all on the CPU. Raises ValueError when the card has too
-    few devices or the grid does not cut into the mesh's blocks."""
+    devices, or all on the CPU; inside a group of several processes, on
+    the global device list (``multihost.make_global_mesh``, a collective).
+    Raises ValueError when there are too few devices or the grid does not
+    cut into the mesh's blocks."""
+    from ..parallel import multihost
     from ..parallel.topology import make_mesh, mesh_refusal
 
     ry, rx = mesh_shape
+    if multihost.is_multihost():
+        n_dev = len(multihost.global_devices())
+        if ry * rx != n_dev:
+            raise ValueError(f"spatial_mesh {ry}x{rx} needs {ry * rx} devices; the "
+                             f"{multihost.process_count()} processes hold {n_dev}")
+        why = mesh_refusal(grid_shape, mesh_shape)
+        if why is not None:
+            raise ValueError(why)
+        return multihost.make_global_mesh(mesh_shape)
     if device.type == "cuda":
         n_dev = torch.cuda.device_count()
         if ry * rx > n_dev:
@@ -215,6 +240,9 @@ class LBMEngine:
         )
         self.mesh = (None if mesh_shape is None
                      else make_spatial_mesh(mesh_shape, self.device, (self.ny, self.nx)))
+        from ..parallel.multihost import is_cross_rank
+
+        self._multihost = is_cross_rank(self.mesh)
         self.name = sim.get("name", "case")
         self.nu = float(sim["nu"])
         self.tau0 = 3.0 * self.nu + 0.5
@@ -280,13 +308,24 @@ class LBMEngine:
     def get_max_velocity(self) -> float:
         return float(self._fetch_monitors()[2])
 
+    def _fetch(self, x: torch.Tensor) -> np.ndarray:
+        """A field of the state -> numpy for host IO. Multi-host: the
+        blocks of every process, a collective every process must call at
+        the same point (the loop is deterministic and the monitors are the
+        same on every rank, so all processes branch identically)."""
+        if self._multihost:
+            from ..parallel.multihost import gather_for_io
+
+            return gather_for_io(x, self.mesh)
+        return x.cpu().numpy()
+
     def get_physical_fields(self) -> Tuple[np.ndarray, np.ndarray]:
         """(u [2,H,W], mask [H,W]) as numpy."""
-        return self.state.u.cpu().numpy(), self.params.mask.cpu().numpy()
+        return self._fetch(self.state.u), self.params.mask.cpu().numpy()
 
     def get_moments(self) -> np.ndarray:
         """[9, H, W] MRT moments of the post-collision field."""
-        return moments_output(self.state).cpu().numpy()
+        return self._fetch(moments_output(self.state))
 
     def get_moments_device(self) -> torch.Tensor:
         return moments_output(self.state)
@@ -299,8 +338,17 @@ class LBMEngine:
 
     def save_checkpoint(self, path: str) -> None:
         # write-temp-then-rename: a crash mid-write must not corrupt the only
-        # checkpoint
-        data = state_to_numpy(self.state)
+        # checkpoint. Multi-host: the gathers are collectives every process
+        # joins; rank 0 alone converts to host and writes
+        state = self.state
+        if self._multihost:
+            from ..parallel import multihost
+
+            state = LBMState(**{k: multihost.gather_replicated(getattr(state, k), self.mesh)
+                                for k in ("f", "f_post", "rho", "u")}, step=state.step)
+            if multihost.process_index() != 0:
+                return
+        data = state_to_numpy(state)
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         tmp = path + ".tmp"
         with open(tmp, "wb") as fh:
@@ -308,9 +356,36 @@ class LBMEngine:
         os.replace(tmp, path)
 
     def load_checkpoint(self, path: str) -> None:
-        with np.load(path) as data:
-            self.state = state_from_numpy(
-                dict(data), dtype=self.dtype, device=self.device
-            )
+        """Resume from ``path``. Multi-host: rank 0 reads the file and
+        broadcasts the state, so the other processes need not see it; a
+        read that fails on rank 0 raises the same error on every rank."""
+        if self._multihost:
+            self.state = self._load_broadcast(path)
+        else:
+            with np.load(path) as data:
+                self.state = state_from_numpy(
+                    dict(data), dtype=self.dtype, device=self.device
+                )
         self._last_monitors = None
         self._monitors_np = None
+
+    def _load_broadcast(self, path: str) -> LBMState:
+        from ..parallel import multihost
+
+        data, err = None, None
+        if multihost.process_index() == 0:
+            try:
+                with np.load(path) as z:
+                    data = {k: z[k] for k in ("f", "f_post", "rho", "u", "step")}
+            except Exception as exc:  # every rank raises it below, naming rank 0's path
+                err = f"checkpoint {path!r} unreadable on rank 0: {type(exc).__name__}: {exc}"
+        err = multihost.broadcast_object(err)
+        if err is not None:
+            raise RuntimeError(err)
+        state = init_state(self.ny, self.nx, self.dtype, self.device)
+        if data is not None:
+            state = state_from_numpy(data, dtype=self.dtype, device=self.device)
+        step = multihost.broadcast_object(int(state.step))
+        fields = {k: multihost.broadcast_tensor(getattr(state, k))
+                  for k in ("f", "f_post", "rho", "u")}
+        return LBMState(step=step, **fields)

@@ -764,44 +764,63 @@ def neighbor_solid_bits(mask: torch.Tensor) -> torch.Tensor:
     return bits
 
 
-def force_on_obstacle(f_post: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _acc(f_post: torch.Tensor, region: Optional[torch.Tensor]):
+    """(zero, sum dtype) of a force's sums: the field's dtype, or float64
+    for a ``region``'s partial sums. The force is a small difference of
+    large sums, so its float32 rounding depends on the order of the sum
+    (about 1e-3 on the production grid); summing each process's partial in
+    float64 makes the multi-host force the terms' sum rounded once."""
+    acc = None if region is None else torch.float64
+    return torch.zeros((), dtype=acc or f_post.dtype, device=f_post.device), acc
+
+
+def force_on_obstacle(f_post: torch.Tensor, mask: torch.Tensor,
+                      region: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Momentum-exchange force on all solid cells -> [2] (fx, fy).
 
     For each solid cell and direction k with an in-bounds fluid neighbor at
-    +e_k: force += 2 * f_post[OPP[k]](neighbor) * (-e_k).
+    +e_k: force += 2 * f_post[OPP[k]](neighbor) * (-e_k). ``region`` (bool
+    [H, W]) restricts the sum to the links of its cells, as the three
+    force functions do: a process's own blocks of a multi-host mesh, whose
+    partial sums accumulate in float64 (``_acc``).
     """
     solid = mask > 0.5
     fluid = (~solid).to(f_post.dtype)
-    zero = torch.zeros((), dtype=f_post.dtype, device=f_post.device)
+    if region is not None:
+        solid = solid & region
+    zero, acc = _acc(f_post, region)
     fx = zero
     fy = zero
     for k in range(1, 9):
         ex, ey = int(E[k, 0]), int(E[k, 1])
         nb_fluid = shift2d(fluid, ey, ex, 0.0)
         nb_f = shift2d(f_post[int(OPP[k])], ey, ex, 0.0)
-        s = torch.where(solid, 2.0 * nb_f * nb_fluid, zero).sum()
+        s = torch.where(solid, 2.0 * nb_f * nb_fluid, zero).sum(dtype=acc)
         fx = fx + s * (-ex)
         fy = fy + s * (-ey)
     return torch.stack([fx, fy])
 
 
-def force_on_obstacle_halfway(f_post: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def force_on_obstacle_halfway(f_post: torch.Tensor, mask: torch.Tensor,
+                              region: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Momentum-exchange force for half-way bounce-back -> [2] (fx, fy)."""
     solid = mask > 0.5
-    zero = torch.zeros((), dtype=f_post.dtype, device=f_post.device)
+    fluid = ~solid if region is None else (~solid) & region
+    zero, acc = _acc(f_post, region)
     fx = zero
     fy = zero
     for k in range(1, 9):
         ex, ey = int(E[k, 0]), int(E[k, 1])
         nb_solid = shift2d(solid, ey, ex, False)
-        s = torch.where((~solid) & nb_solid, 2.0 * f_post[k], zero).sum()
+        s = torch.where(fluid & nb_solid, 2.0 * f_post[k], zero).sum(dtype=acc)
         fx = fx + s * ex
         fy = fy + s * ey
     return torch.stack([fx, fy])
 
 
 def force_on_obstacle_bouzidi(
-    f_post: torch.Tensor, mask: torch.Tensor, q_planes: torch.Tensor
+    f_post: torch.Tensor, mask: torch.Tensor, q_planes: torch.Tensor,
+    region: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Momentum-exchange force for Bouzidi bounce-back -> [2] (fx, fy).
 
@@ -810,7 +829,8 @@ def force_on_obstacle_bouzidi(
     the link carries (f_j + f_ret) e_j; at q = 1/2 this is the half-way 2 f_j.
     """
     solid = mask > 0.5
-    zero = torch.zeros((), dtype=f_post.dtype, device=f_post.device)
+    fluid = ~solid if region is None else (~solid) & region
+    zero, acc = _acc(f_post, region)
     fx = zero
     fy = zero
     for j in range(1, 9):
@@ -823,25 +843,26 @@ def force_on_obstacle_bouzidi(
         lo = 2.0 * q * f_j + (1.0 - 2.0 * q) * f_j_up
         hi = f_j / (2.0 * q) + (2.0 * q - 1.0) / (2.0 * q) * f_post[k]
         f_ret = torch.where(q < 0.5, lo, hi)
-        s = torch.where((~solid) & nb_solid, f_j + f_ret, zero).sum()
+        s = torch.where(fluid & nb_solid, f_j + f_ret, zero).sum(dtype=acc)
         fx = fx + s * ex
         fy = fy + s * ey
     return torch.stack([fx, fy])
 
 
 def obstacle_force(
-    f_post: torch.Tensor, p: CaseParams, mask: Optional[torch.Tensor] = None
+    f_post: torch.Tensor, p: CaseParams, mask: Optional[torch.Tensor] = None,
+    region: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Momentum-exchange force with the scheme matching the obstacle mode.
 
     ``mask`` overrides ``p.mask`` (the DFG validation measures the cylinder
-    alone)."""
+    alone); ``region`` restricts the sum to its cells' links."""
     m = p.mask if mask is None else mask
     if p.bouzidi_obstacle:
-        return force_on_obstacle_bouzidi(f_post, m, p.bouzidi_q)
+        return force_on_obstacle_bouzidi(f_post, m, p.bouzidi_q, region)
     if p.halfway_obstacle:
-        return force_on_obstacle_halfway(f_post, m)
-    return force_on_obstacle(f_post, m)
+        return force_on_obstacle_halfway(f_post, m, region)
+    return force_on_obstacle(f_post, m, region)
 
 
 def max_velocity(u: torch.Tensor) -> torch.Tensor:

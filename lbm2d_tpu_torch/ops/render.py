@@ -40,17 +40,37 @@ def _gaussian_kernel1d(sigma: float, radius: int) -> np.ndarray:
     return phi / phi.sum()
 
 
+# the colormaps shipped in LUTS_PATH: plasma for |u|, the 5-stop vorticity
+# map, RdBu_r for pressure (viz/colorize.py)
+COLORMAPS = ("plasma", "vorticity", "RdBu_r")
+
+
 @functools.lru_cache(maxsize=None)
+def _lut_file():
+    with np.load(LUTS_PATH) as z:
+        return {k: z[k].copy() for k in z.files}
+
+
 def render_luts():
     """(plasma, vorticity) colormap LUTs, float32 [256, 3] each."""
-    with np.load(LUTS_PATH) as z:
-        return z["plasma"].copy(), z["vorticity"].copy()
+    z = _lut_file()
+    return z["plasma"], z["vorticity"]
+
+
+def colormap_lut(name: str):
+    """(LUT [256, 3], under, over, bad) of the shipped colormap ``name``,
+    float32, as matplotlib samples them (its ``_lut`` rows and its
+    ``get_under``, ``get_over`` and ``get_bad`` colours)."""
+    z = _lut_file()
+    under, over, bad = z[name + "_extremes"]
+    return z[name], under, over, bad
 
 
 def build_render_luts(path: str = LUTS_PATH) -> None:
-    """Sample the host composer's colormaps (matplotlib's plasma and
-    viz.colorize.vorticity_cmap) at 256 points into ``path``, the file
-    ``render_luts`` reads. Needs matplotlib; run it when a colormap
+    """Sample the host composer's colormaps (matplotlib's plasma and RdBu_r
+    and viz.colorize.vorticity_cmap) at 256 points, with their under, over
+    and bad colours, into ``path``, the file ``render_luts`` and
+    ``colormap_lut`` read. Needs matplotlib; run it when a colormap
     changes: ``python -c "from lbm2d_tpu_torch.ops.render import
     build_render_luts; build_render_luts()"``."""
     from matplotlib import colormaps
@@ -58,11 +78,14 @@ def build_render_luts(path: str = LUTS_PATH) -> None:
     from ..viz.colorize import vorticity_cmap
 
     x = np.arange(256) / 255.0
-    np.savez_compressed(
-        path,
-        plasma=np.asarray(colormaps["plasma"](x)[:, :3], np.float32),
-        vorticity=np.asarray(vorticity_cmap()(x)[:, :3], np.float32),
-    )
+    maps = {"plasma": colormaps["plasma"], "vorticity": vorticity_cmap(),
+            "RdBu_r": colormaps["RdBu_r"]}
+    out = {}
+    for name, cmap in maps.items():
+        out[name] = np.asarray(cmap(x)[:, :3], np.float32)
+        out[name + "_extremes"] = np.asarray(
+            [cmap.get_under()[:3], cmap.get_over()[:3], cmap.get_bad()[:3]], np.float32)
+    np.savez_compressed(path, **out)
 
 
 def _symmetric_index(n: int, radius: int, device) -> torch.Tensor:

@@ -14,11 +14,22 @@ donation exist to bound XLA recompiles and TPU HBM; eager PyTorch has
 neither problem (a skipped case costs nothing), so they have no
 counterpart here.
 
+``runner="sharded"`` spreads the cases over a 1-D case mesh of devices
+(``case_mesh``; the JAX package's ``shard_map`` over a ``('cases',)``
+mesh): device d owns cases d * B/D .. (d + 1) * B/D - 1 and runs them as
+the ``auto`` runner does, with no host sync between devices inside a
+chunk, so the devices run concurrently; each device sends its monitors
+back in one transfer. A batch that does not divide by D is padded with
+inert duplicates of the last case that start dead, as in the JAX package
+(5 cases on 4 devices must not collapse onto one); here a dead case
+launches nothing, so a pad slot holds no state and costs nothing.
+
 All cases of a batch must share (ny, nx), bc_type and the LES on/off flag.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import fields
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -61,6 +72,36 @@ def stack_params(params: Sequence[CaseParams]) -> CaseParams:
     return CaseParams(**out)
 
 
+def case_mesh(n_devices: Optional[int] = None, device="cuda",
+              devices: Optional[Sequence] = None) -> List[torch.device]:
+    """1-D case mesh: ``devices`` as given (a device may repeat, as in a
+    spatial mesh, which gives the CPU tests and the one-card machine a real
+    case mesh), else the first ``n_devices`` CUDA devices (default all) for
+    a CUDA ``device``, or the CPU named ``n_devices`` times (default once)."""
+    if devices is not None:
+        out = [torch.device(d) for d in devices]
+        if n_devices is not None and n_devices != len(out):
+            raise ValueError(f"n_devices={n_devices} but {len(out)} devices given")
+        if not out:
+            raise ValueError("a case mesh needs at least one device")
+        return out
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return [dev] * (n_devices or 1)
+    count = torch.cuda.device_count()
+    n = count if n_devices is None else n_devices
+    if not 1 <= n <= count:
+        raise ValueError(f"n_devices={n_devices}: {count} CUDA device(s) found")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def params_to(p: CaseParams, device) -> CaseParams:
+    """``p`` with every tensor leaf on ``device``."""
+    return dataclasses.replace(p, **{
+        f.name: getattr(p, f.name).to(device) for f in fields(CaseParams)
+        if isinstance(getattr(p, f.name), torch.Tensor)})
+
+
 def init_batch_state(batch: int, ny: int, nx: int, dtype=torch.float32, device="cpu") -> LBMState:
     """A batched rest state: [B, ...] tensors and a [B] int32 step."""
     one = init_state(ny, nx, dtype, device)
@@ -101,6 +142,10 @@ class BatchEngine:
     [B]}; a case whose monitors fail the circuit breaker is frozen from the
     next chunk on. ``store_dev`` (or the first config's
     ``simulation.f16_state``) runs the chunks in 16-bit deviation storage.
+    ``runner="sharded"`` spreads the cases over ``case_mesh(n_devices,
+    device, case_devices)``, at most one device a case; the batched
+    outputs (``state``, the moments and velocity) are gathered on the
+    first device of the mesh, ``device``.
     """
 
     def __init__(
@@ -111,35 +156,57 @@ class BatchEngine:
         runner: str = "auto",
         store_dev: Optional[bool] = None,
         device="cuda",
+        n_devices: Optional[int] = None,
+        case_devices: Optional[Sequence] = None,
     ):
-        if runner == "sharded":
-            raise NotImplementedError(
-                "runner='sharded' (cases spread over several cards) is not ported "
-                "yet (ROADMAP.md queue 1, item 4)"
-            )
-        if runner != "auto":
+        if runner not in ("auto", "sharded"):
             raise ValueError(f"unknown runner {runner!r}")
+        if runner == "auto" and (n_devices is not None or case_devices is not None):
+            raise ValueError("n_devices / case_devices need runner='sharded'")
         if len(configs) != len(masks_yx):
             raise ValueError("configs and masks must align")
         self.configs = list(configs)
         if store_dev is None:
             store_dev = bool(configs[0]["simulation"].get("f16_state", False))
         self._store_dev = bool(store_dev)
-        self.device = resolve_device(device)
         sim0 = configs[0]["simulation"]
         self.ny, self.nx = int(sim0["ny"]), int(sim0["nx"])
         self.batch = len(configs)
         self.dtype = dtype
+        self.mesh: Optional[List[torch.device]] = None
+        self._shard_pad = 0
+        if runner == "sharded":
+            mesh = case_mesh(n_devices, device, case_devices)[: self.batch]
+            self._shard_pad = (-self.batch) % len(mesh)
+            if self._shard_pad:
+                print(f"[BatchEngine] batch {self.batch} padded with "
+                      f"{self._shard_pad} inert duplicate(s) to fill "
+                      f"{len(mesh)} devices")
+            self.mesh = mesh
+            lb = (self.batch + self._shard_pad) // len(mesh)
+            # case i on device i // lb; the pad slots are the last ones, so
+            # the last devices may hold pads only
+            self._case_device = [mesh[i // lb] for i in range(self.batch)]
+            self._parts = [r for r in (range(d * lb, min((d + 1) * lb, self.batch))
+                                       for d in range(len(mesh))) if len(r)]
+            self.device = mesh[0]
+        else:
+            self.device = resolve_device(device)
+            self._case_device = [self.device] * self.batch
         self.case_params = [
             make_params(c, m, dtype=dtype, device=self.device)
             for c, m in zip(configs, masks_yx)
         ]
         self.params = stack_params(self.case_params)
+        if self.mesh is not None:
+            self.case_params = [params_to(p, d)
+                                for p, d in zip(self.case_params, self._case_device)]
         self._runners = [
-            resolve_runner(p, self.device, self._store_dev) for p in self.case_params
+            resolve_runner(p, d, self._store_dev)
+            for p, d in zip(self.case_params, self._case_device)
         ]
         self._states: List[LBMState] = [
-            init_state(self.ny, self.nx, dtype, self.device) for _ in range(self.batch)
+            init_state(self.ny, self.nx, dtype, d) for d in self._case_device
         ]
         self._alive_np = np.ones((self.batch,), bool)
         self._pending = None  # a run_step(sync=False) monitor array not read yet
@@ -153,39 +220,44 @@ class BatchEngine:
         if self._pending is not None:
             # a dead case must not advance: read the flags it left behind
             self.sync_monitors(self._pending)
-        forces, maxvs, stables = [], [], []
-        for i, (p, run) in enumerate(zip(self.case_params, self._runners)):
-            if self._alive_np[i]:
-                self._states[i], mon = run(self._states[i], p, n)
-                force, max_v = mon["force"], mon["max_v"]
-            else:  # frozen: the monitors of the state it keeps
-                st = self._states[i]
-                force, max_v = obstacle_force(st.f_post, p), max_velocity(st.u)
-            forces.append(force.reshape(2))
-            maxvs.append(max_v.reshape(()))
-            stables.append(
-                is_stable_device(force, max_v, self._states[i].step, p.warmup_steps)
-            )
-        # ONE device-to-host transfer for all monitors of the chunk
-        packed = torch.cat([
-            torch.stack(forces).reshape(-1).float(),
-            torch.stack(maxvs).float(),
-            torch.stack(stables).float(),
-        ])
+        # every case's chunk is issued before any monitor is read, so the
+        # devices of a case mesh run concurrently
+        mons = [self._run_case(i, n) for i in range(self.batch)]
+        if self.mesh is None:
+            # ONE device-to-host transfer for all monitors of the chunk
+            packed = _pack(mons)
+        else:
+            # one transfer a device: each packs its own cases' monitors
+            packed = [_pack([mons[i] for i in part]) for part in self._parts]
         self._pending = packed
         if not sync:
             return packed
         return self.sync_monitors(packed)
 
+    def _run_case(self, i: int, n: int):
+        """Case i's chunk (alive) or the monitors of the state it keeps
+        (frozen): (force [2], max_v, stable) on its device."""
+        p = self.case_params[i]
+        if self._alive_np[i]:
+            self._states[i], mon = self._runners[i](self._states[i], p, n)
+            force, max_v = mon["force"], mon["max_v"]
+        else:
+            st = self._states[i]
+            force, max_v = obstacle_force(st.f_post, p), max_velocity(st.u)
+        return (force.reshape(2), max_v.reshape(()),
+                is_stable_device(force, max_v, self._states[i].step, p.warmup_steps))
+
     def sync_monitors(self, packed_dev) -> Dict[str, np.ndarray]:
-        """Fetch and unpack a run_step(sync=False) monitor array."""
+        """Fetch and unpack a run_step(sync=False) monitor array (a list of
+        one array a device under the case-sharded runner)."""
         b = self.batch
-        packed = packed_dev.cpu().numpy()
-        out = {
-            "force": packed[: 2 * b].reshape(b, 2),
-            "max_v": packed[2 * b : 3 * b],
-            "stable": packed[3 * b :] > 0.5,
-        }
+        if isinstance(packed_dev, list):
+            parts = [_unpack(x.cpu().numpy(), len(part))
+                     for part, x in zip(self._parts, packed_dev)]
+            force, max_v, stable = (np.concatenate([q[k] for q in parts]) for k in range(3))
+        else:
+            force, max_v, stable = _unpack(packed_dev.cpu().numpy(), b)
+        out = {"force": force, "max_v": max_v, "stable": stable}
         if packed_dev is self._pending:
             self._pending = None
         self.last_monitors = out
@@ -194,14 +266,21 @@ class BatchEngine:
 
     @property
     def state(self) -> LBMState:
-        """The batched state ([B, ...] tensors, [B] int32 step)."""
-        return stack_states(self._states)
+        """The batched state ([B, ...] tensors, [B] int32 step), on
+        ``device``."""
+        return stack_states([self._on_device(s) for s in self._states])
+
+    def _on_device(self, st: LBMState) -> LBMState:
+        if st.f.device == self.device:
+            return st
+        return LBMState(f=st.f.to(self.device), f_post=st.f_post.to(self.device),
+                        rho=st.rho.to(self.device), u=st.u.to(self.device), step=st.step)
 
     def set_state(self, state: LBMState, alive) -> None:
         """Restore engine state + alive flags (checkpoint resume)."""
-        to = dict(device=self.device, dtype=self.dtype)
         self._states = []
         for i in range(self.batch):
+            to = dict(device=self._case_device[i], dtype=self.dtype)
             st = unstack_state(state, i)
             self._states.append(LBMState(
                 f=st.f.to(**to), f_post=st.f_post.to(**to), rho=st.rho.to(**to),
@@ -216,11 +295,27 @@ class BatchEngine:
 
     def get_moments_device(self) -> torch.Tensor:
         """[B, 9, H, W] moments on the device (for on-device resize)."""
-        return torch.stack([moments_output(s) for s in self._states])
+        return torch.stack([moments_output(s).to(self.device) for s in self._states])
 
     def get_moments(self) -> np.ndarray:
         return self.get_moments_device().cpu().numpy()
 
     def get_velocity_device(self) -> torch.Tensor:
         """[B, 2, H, W] velocity on the device (for the frame renderer)."""
-        return torch.stack([s.u for s in self._states])
+        return torch.stack([s.u.to(self.device) for s in self._states])
+
+
+def _pack(mons) -> torch.Tensor:
+    """[(force [2], max_v, stable)] -> one array [Fx, Fy per case | max_v |
+    stable] on the cases' device."""
+    forces, maxvs, stables = zip(*mons)
+    return torch.cat([
+        torch.stack(forces).reshape(-1).float(),
+        torch.stack(maxvs).float(),
+        torch.stack(stables).float(),
+    ])
+
+
+def _unpack(packed: np.ndarray, b: int):
+    """(force [b, 2], max_v [b], stable [b]) of a ``_pack`` array."""
+    return packed[: 2 * b].reshape(b, 2), packed[2 * b: 3 * b], packed[3 * b:] > 0.5

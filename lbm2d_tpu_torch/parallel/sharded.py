@@ -35,6 +35,17 @@ and gathers it at the end, so the engine, checkpoints and writers see one
 global ``LBMState``; the monitors are computed on the gathered f_post and
 u, as the JAX package's are global reductions. f_post keeps the global
 ring's initial values.
+
+On a mesh whose blocks belong to several processes
+(``multihost.make_global_mesh``) each process cuts, advances and writes
+back only its own blocks, into its global-shaped state: the other
+processes' parts of it are stale, and ``multihost.gather_for_io`` reads
+the whole field. Halos between a process's own blocks are device copies,
+halos that cross processes go through ``multihost.exchange`` (P2P in one
+fixed order), and the monitors are each process's sums and maxima over
+its own cells, reduced over the processes in rank order. The f_post
+halos are refreshed once at the end of the chunk, so the force's
+neighbour reads across a seam see the neighbour's values.
 """
 
 from __future__ import annotations
@@ -65,15 +76,17 @@ NAN = float("nan")
 
 
 def _coords(mesh: Mesh):
+    """This process's blocks of ``mesh`` (every block unless the mesh
+    spans processes)."""
     ry, rx = mesh.grid
-    return [(iy, ix) for iy in range(ry) for ix in range(rx)]
+    return [(iy, ix) for iy in range(ry) for ix in range(rx) if mesh.owns(iy, ix)]
 
 
 def halo_blocks(x: torch.Tensor, mesh: Mesh, fill, pitch: Optional[int] = None):
     """[ry][rx] blocks [..., hl + 2, pitch] of the global [..., H, W]
     tensor ``x``, each on its mesh device, with the 1-cell halo ring cut
     from the neighbours' cells; halo cells beyond the global edge and the
-    padding columns hold ``fill``."""
+    padding columns hold ``fill``. Blocks another process owns are None."""
     hl, wl = block_shape(x.shape[-2:], mesh)
     pitch = pitch or wl + 2
     lead = tuple(x.shape[:-2])
@@ -84,6 +97,9 @@ def halo_blocks(x: torch.Tensor, mesh: Mesh, fill, pitch: Optional[int] = None):
     for iy, row in enumerate(mesh.devices):
         out.append([])
         for ix, dev in enumerate(row):
+            if not mesh.owns(iy, ix):
+                out[-1].append(None)
+                continue
             b = torch.full(lead + (hl + 2, pitch), fill, dtype=x.dtype, device=dev)
             b[..., :, :wl + 2] = xp[..., iy * hl:iy * hl + hl + 2, ix * wl:ix * wl + wl + 2]
             out[-1].append(b)
@@ -103,25 +119,18 @@ def gather_halo_blocks(blocks, hl: int, wl: int, device) -> torch.Tensor:
 def exchange_halo_f(blocks, mesh: Mesh):
     """[ry][rx] blocks [C, h, w] -> [C, h + 2, w + 2] with the neighbours'
     cells in the halo, corners included: x edges first, then y edges of
-    the x-extended blocks. Sides on the global edge get zeros, which no
-    interior cell reads."""
+    the x-extended blocks (``exchange_halos``). Sides on the global edge
+    get zeros, which no interior cell reads."""
     ry, rx = mesh.grid
-    fx = [[None] * rx for _ in range(ry)]
+    out = [[None] * rx for _ in range(ry)]
+    hl = wl = 0
     for iy, ix in _coords(mesh):
         b = blocks[iy][ix]
-        lo = (blocks[iy][ix - 1][..., -1:].to(b.device) if ix > 0
-              else torch.zeros_like(b[..., :1]))
-        hi = (blocks[iy][ix + 1][..., :1].to(b.device) if ix + 1 < rx
-              else torch.zeros_like(b[..., :1]))
-        fx[iy][ix] = torch.cat([lo, b, hi], dim=-1)
-    out = [[None] * rx for _ in range(ry)]
-    for iy, ix in _coords(mesh):
-        b = fx[iy][ix]
-        lo = (fx[iy - 1][ix][..., -1:, :].to(b.device) if iy > 0
-              else torch.zeros_like(b[..., :1, :]))
-        hi = (fx[iy + 1][ix][..., :1, :].to(b.device) if iy + 1 < ry
-              else torch.zeros_like(b[..., :1, :]))
-        out[iy][ix] = torch.cat([lo, b, hi], dim=-2)
+        hl, wl = b.shape[-2:]
+        out[iy][ix] = torch.zeros(b.shape[:-2] + (hl + 2, wl + 2), dtype=b.dtype,
+                                  device=b.device)
+        out[iy][ix][..., 1:hl + 1, 1:wl + 1] = b
+    exchange_halos(out, mesh, hl, wl)
     return out
 
 
@@ -207,6 +216,43 @@ def _monitors(state: LBMState, p: CaseParams):
     return {"force": obstacle_force(state.f_post, p), "max_v": max_velocity(state.u)}
 
 
+def _own_region(mesh: Mesh, shape, hl: int, wl: int, device) -> torch.Tensor:
+    """bool [H, W]: the cells of this process's blocks."""
+    own = torch.zeros(shape, dtype=torch.bool, device=device)
+    for iy, ix in _coords(mesh):
+        own[iy * hl:(iy + 1) * hl, ix * wl:(ix + 1) * wl] = True
+    return own
+
+
+def _own_state(state: LBMState, n_steps: int, mesh: Mesh, hl: int, wl: int, off: int,
+               f, f_post, rho, u, p: CaseParams):
+    """The chunk's new global-shaped state on a mesh spanning processes:
+    ``state`` with this process's blocks written back (``f``, ``rho``,
+    ``u`` [ry][rx] blocks whose own cells start at (off, off)), and f_post
+    from the halo'd blocks ``f_post`` (halos refreshed) on the blocks'
+    cells and their halo ring, inside the global ring; and the global
+    monitors."""
+    from . import multihost
+
+    H, W = p.shape
+    out = {k: getattr(state, k).clone() for k in ("f", "f_post", "rho", "u")}
+    for iy, ix in _coords(mesh):
+        ys, xs = slice(iy * hl, (iy + 1) * hl), slice(ix * wl, (ix + 1) * wl)
+        for k, blocks in (("f", f), ("rho", rho), ("u", u)):
+            out[k][..., ys, xs] = blocks[iy][ix][..., off:off + hl, off:off + wl]
+        y0, y1 = max(iy * hl - 1, 1), min((iy + 1) * hl + 1, H - 1)
+        x0, x1 = max(ix * wl - 1, 1), min((ix + 1) * wl + 1, W - 1)
+        by, bx = iy * hl - 1, ix * wl - 1  # the halo'd block's origin
+        out["f_post"][:, y0:y1, x0:x1] = f_post[iy][ix][:, y0 - by:y1 - by, x0 - bx:x1 - bx]
+    new_state = LBMState(step=state.step + n_steps, **out)
+    own = _own_region(mesh, (H, W), hl, wl, new_state.f.device)
+    force = obstacle_force(new_state.f_post, p, region=own)
+    speed = torch.sqrt(new_state.u[0] * new_state.u[0] + new_state.u[1] * new_state.u[1])
+    max_v = torch.where(own, speed, torch.zeros_like(speed)).max()
+    force, max_v = multihost.reduce_monitors(force, max_v)
+    return new_state, {"force": force, "max_v": max_v}
+
+
 def run_chunk_sharded(state: LBMState, p: CaseParams, n_steps: int, mesh: Mesh):
     """Advance ``n_steps`` on ``mesh`` with the eager per-shard step;
     monitors computed on the gathered state."""
@@ -215,10 +261,17 @@ def run_chunk_sharded(state: LBMState, p: CaseParams, n_steps: int, mesh: Mesh):
     blocks, params = shard_state(state, p, mesh)
     solid = halo_blocks(p.mask > 0.5, mesh, False)
     for _ in range(n_steps):
-        halos = exchange_halo_f([[b.f for b in row] for row in blocks], mesh)
+        halos = exchange_halo_f([[b and b.f for b in row] for row in blocks], mesh)
         blocks = [[local_step(blocks[iy][ix], params[iy][ix], halos[iy][ix], solid[iy][ix],
-                              iy * hl, ix * wl, ny, nx)
+                              iy * hl, ix * wl, ny, nx) if mesh.owns(iy, ix) else None
                    for ix in range(len(row))] for iy, row in enumerate(blocks)]
+    if mesh.owners is not None:
+        def part(k):
+            return [[b and getattr(b, k) for b in row] for row in blocks]
+
+        f_post = exchange_halo_f(part("f_post"), mesh)
+        return _own_state(state, n_steps, mesh, hl, wl, 0, part("f"), f_post, part("rho"),
+                          part("u"), p)
     new_state = gather_state(blocks, state.f.device)
     return new_state, _monitors(new_state, p)
 
@@ -252,7 +305,8 @@ class ShardedCase:
         self.prof = None
         if p.bc_type[0] in (cs.BC_VEL_INLET, cs.BC_VEL_INLET_NEBB):
             self.prof = [[p.inlet_profile[iy * hl:(iy + 1) * hl].to(dev).contiguous()
-                          for dev in row] for iy, row in enumerate(mesh.devices)]
+                          if mesh.owns(iy, ix) else None
+                          for ix, dev in enumerate(row)] for iy, row in enumerate(mesh.devices)]
 
 
 def _at(blocks, iy: int, ix: int):
@@ -264,7 +318,13 @@ def exchange_halos(blocks, mesh: Mesh, hl: int, wl: int) -> None:
     """Refresh the 1-cell halo of halo'd blocks [C, hl + 2, pitch] in place:
     the x edges first, then the y edges with the x halos just written
     (corners in two hops). Block sides on the global edge are left alone:
-    no interior cell reads them, and a 1x1 mesh copies nothing."""
+    no interior cell reads them, and a 1x1 mesh copies nothing. On a mesh
+    spanning processes only this process's blocks are given (others None):
+    a seam between two of them is a device copy, a seam to another
+    process's block a P2P transfer (``_exchange_cross``)."""
+    if mesh.owners is not None:
+        _exchange_cross(blocks, mesh, hl, wl)
+        return
     ry, rx = mesh.grid
     rows = slice(1, hl + 1)
     for iy, ix in _coords(mesh):
@@ -280,6 +340,42 @@ def exchange_halos(blocks, mesh: Mesh, hl: int, wl: int) -> None:
             b[:, 0, cols].copy_(blocks[iy - 1][ix][:, hl, cols])
         if iy + 1 < ry:
             b[:, hl + 1, cols].copy_(blocks[iy + 1][ix][:, 1, cols])
+
+
+def _exchange_cross(blocks, mesh: Mesh, hl: int, wl: int) -> None:
+    """``exchange_halos`` on a mesh spanning processes. Each phase walks
+    every seam of the mesh in one global order, the same on every
+    process; a transfer between two blocks this process owns is a copy,
+    one to or from another process's block a tagged P2P send or receive,
+    so the posts of every process pair match and cannot deadlock. The
+    x phase completes before the y phase reads the x halos."""
+    from . import multihost
+
+    ry, rx = mesh.grid
+    rows, cols = slice(1, hl + 1), slice(0, wl + 2)
+    # (source block, its edge, destination block, its halo) per transfer
+    x_phase = []
+    for iy in range(ry):
+        for ix in range(rx - 1):
+            x_phase.append(((iy, ix), (rows, wl), (iy, ix + 1), (rows, 0)))
+            x_phase.append(((iy, ix + 1), (rows, 1), (iy, ix), (rows, wl + 1)))
+    y_phase = []
+    for iy in range(ry - 1):
+        for ix in range(rx):
+            y_phase.append(((iy, ix), (hl, cols), (iy + 1, ix), (0, cols)))
+            y_phase.append(((iy + 1, ix), (1, cols), (iy, ix), (hl + 1, cols)))
+    for phase in (x_phase, y_phase):
+        sends, recvs = [], []
+        for tag, (src, (sr, sc), dst, (dr, dc)) in enumerate(phase):
+            mine_src, mine_dst = mesh.owns(*src), mesh.owns(*dst)
+            if mine_src and mine_dst:
+                b = blocks[dst[0]][dst[1]]
+                b[:, dr, dc].copy_(blocks[src[0]][src[1]][:, sr, sc])
+            elif mine_src:
+                sends.append((blocks[src[0]][src[1]][:, sr, sc], mesh.owner(*dst), tag))
+            elif mine_dst:
+                recvs.append((blocks[dst[0]][dst[1]][:, dr, dc], mesh.owner(*src), tag))
+        multihost.exchange(sends, recvs)
 
 
 def _kernels(plain: bool):
@@ -332,11 +428,15 @@ def _run_chunk_blocks(state, p, n_steps, mesh, store_dev, plain, case):
                  and cs.dev_storage_refusal(p, sharded=True) is None)
     hl, wl = case.hl, case.wl
     src = halo_blocks(state.f, mesh, NAN, case.pitch)
+    if mesh.owners is not None:
+        # the halos cut from this process's state are other processes'
+        # stale cells: refresh them from their owners
+        exchange_halos(src, mesh, hl, wl)
     if dev_store:
         # quantize once per chunk, halos included: the halo copies then move
         # bf16 deviations, as the JAX package's ppermute rows do
-        src = [[cs.quantize(b) for b in row] for row in src]
-    dst = [[b.clone() for b in row] for row in src]
+        src = [[b if b is None else cs.quantize(b) for b in row] for row in src]
+    dst = [[b if b is None else b.clone() for b in row] for row in src]
     row, warmup = cs._host_scalars(p)
     step = state.step
     for _ in range(n_steps - 1):
@@ -345,8 +445,8 @@ def _run_chunk_blocks(state, p, n_steps, mesh, store_dev, plain, case):
         src, dst = dst, src
     if dev_store:
         # the closing full step runs in exact f32
-        src = [[cs.dequantize(b) for b in r] for r in src]
-        dst = [[torch.empty_like(b) for b in r] for r in src]
+        src = [[b if b is None else cs.dequantize(b) for b in r] for r in src]
+        dst = [[b if b is None else torch.empty_like(b) for b in r] for r in src]
     scal = cs._with_ramp(row, warmup, step + 1)
     rho, u, f_post = ([[None] * len(r) for r in src] for _ in range(3))
     for iy, ix in _coords(mesh):
@@ -357,6 +457,9 @@ def _run_chunk_blocks(state, p, n_steps, mesh, store_dev, plain, case):
         k1(b, dst[iy][ix], aux, scal, p.use_les, p.bc_type, rho[iy][ix], u[iy][ix],
            f_post[iy][ix], obstacle=case.obstacle, q=_at(case.q, iy, ix),
            prof=_at(case.prof, iy, ix), geom=g)
+    if mesh.owners is not None:
+        exchange_halos(f_post, mesh, hl, wl)
+        return _own_state(state, n_steps, mesh, hl, wl, 1, dst, f_post, rho, u, p)
     out = state.f.device
     fp = gather_halo_blocks(f_post, hl, wl, out)
     new_f_post = state.f_post.clone()

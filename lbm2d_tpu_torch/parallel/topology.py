@@ -8,6 +8,9 @@ JAX package's ``shard_map`` runs over the local devices of one process;
 the halos move by device-to-device copies (``parallel/sharded.py``). A
 device may appear more than once: the blocks then share it and their seams
 are real all the same, which is how the CPU tests and one card run a mesh.
+A mesh made by ``multihost.make_global_mesh`` spans processes: each block
+records its owning rank, and a process holds and advances only its own
+blocks (``Mesh.owns``).
 """
 
 from __future__ import annotations
@@ -35,9 +38,20 @@ def best_grid(n_devices: int) -> Tuple[int, int]:
 
 @dataclass(frozen=True)
 class Mesh:
-    """An ry x rx grid of torch devices, ``devices[iy][ix]``."""
+    """An ry x rx grid of torch devices, ``devices[iy][ix]``. ``owners``
+    (a global mesh) gives each block's rank, ``rank`` this process's; with
+    no ``owners`` every block is this process's."""
 
     devices: Tuple[Tuple[torch.device, ...], ...]
+    owners: Optional[Tuple[Tuple[int, ...], ...]] = None
+    rank: int = 0
+
+    def owns(self, iy: int, ix: int) -> bool:
+        """Whether this process holds block (iy, ix)."""
+        return self.owners is None or self.owners[iy][ix] == self.rank
+
+    def owner(self, iy: int, ix: int) -> int:
+        return self.rank if self.owners is None else self.owners[iy][ix]
 
     @property
     def grid(self) -> Tuple[int, int]:
@@ -100,7 +114,7 @@ def shard_state(state: LBMState, p: CaseParams, mesh: Mesh):
     [hl, wl] part of f, f_post, rho and u, and of mask, damping and
     bouzidi_q ([8, hl, wl]), its rows of inlet_profile ([hl]), the scalars
     replicated -- the JAX ``state_specs`` / ``params_specs`` -- each on its
-    mesh device."""
+    mesh device. Blocks another process owns are None."""
     hl, wl = block_shape(p.shape, mesh)
     scalars = ("tau0", "cs_factor", "s_ghost", "rho_in", "rho_out", "warmup_steps", "bc_value")
     states: List[List[LBMState]] = []
@@ -109,6 +123,10 @@ def shard_state(state: LBMState, p: CaseParams, mesh: Mesh):
         states.append([])
         params.append([])
         for ix, dev in enumerate(row):
+            if not mesh.owns(iy, ix):
+                states[-1].append(None)
+                params[-1].append(None)
+                continue
             states[-1].append(LBMState(
                 f=_cut(state.f, iy, ix, hl, wl, dev), f_post=_cut(state.f_post, iy, ix, hl, wl, dev),
                 rho=_cut(state.rho, iy, ix, hl, wl, dev), u=_cut(state.u, iy, ix, hl, wl, dev),

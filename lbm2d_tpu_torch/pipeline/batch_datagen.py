@@ -11,8 +11,14 @@ All cases in one lockstep group must share (ny, nx), bc_type, LES on/off,
 and the save/record cadence (guaranteed for sibling configs emitted by
 config_batch_gen for the same mask).
 
+``coordinate`` lets N concurrent workers split a project through per-case
+claim files (pipeline/coordination.py); ``runner="sharded"`` spreads each
+group's cases over several devices (parallel/batch.py).
+
 Usage:
   python -m lbm2d_tpu_torch.pipeline.batch_datagen --project_name Urban-1 [--max_batch 16]
+  python -m lbm2d_tpu_torch.pipeline.batch_datagen --project_name Urban-1 --coordinate \
+      [--runner sharded --n_devices 4]
 """
 
 from __future__ import annotations
@@ -43,10 +49,6 @@ from ..utils.scaling import calculate_physical_params
 from . import paths
 from .batch_run import build_resume_plan, find_config_files
 from .fetch_pacer import FetchPacer, probe_d2h_mbps
-
-# multi-worker claims (batch_run --coordinate) -> the ROADMAP.md item that adds them
-COORDINATE_ITEM = "queue 1, item 2 (multi-worker coordination, --coordinate)"
-
 
 def _group_key(cfg: Dict[str, Any]) -> Tuple:
     sim = cfg["simulation"]
@@ -118,6 +120,9 @@ def run_lockstep_group(
     adaptive_fetch: bool = True,
     pacer: Optional[Any] = None,
     device="cuda",
+    runner: str = "auto",
+    n_devices: Optional[int] = None,
+    heartbeat_cb: Optional[Any] = None,
 ) -> List[Dict[str, Any]]:
     """Run one same-shape group in lockstep; returns per-case summary entries.
 
@@ -143,6 +148,11 @@ def run_lockstep_group(
     FetchPacer that coalesces save/video events into grouped transfers when
     the link can't hide them; artifact bytes are identical either way.
     ``pacer`` injects a pre-built controller (tests).
+
+    ``runner`` / ``n_devices``: the BatchEngine runner ("sharded" spreads
+    the cases over ``n_devices`` devices). ``heartbeat_cb``: zero-arg
+    callable invoked at each progress interval (the multi-worker claim
+    heartbeat, pipeline/coordination.py).
     """
     cfg0 = members[0][1]
     sim0 = cfg0["simulation"]
@@ -210,7 +220,7 @@ def run_lockstep_group(
 
     engine = BatchEngine(
         [cfg for _, cfg in members], masks, store_dev=f16_state or None,
-        device=device,
+        device=device, runner=runner, n_devices=n_devices,
     )
     n_cases = len(members)
 
@@ -466,6 +476,8 @@ def run_lockstep_group(
         elif n_pending:
             fetched = fetch_pending()
         prof["fetch"] += time.perf_counter() - tp4
+        if heartbeat_cb is not None and steps % (chunk * 50) == 0:
+            heartbeat_cb()
         if progress and steps % (chunk * 50) == 0:
             done = steps / max_steps
             line = f"  [lockstep x{n_cases}] {steps}/{max_steps} ({done:.0%})"
@@ -591,6 +603,10 @@ def run_batched(
     coordinate: bool = False,
     adaptive_fetch: bool = True,
     device="cuda",
+    runner: str = "auto",
+    n_devices: Optional[int] = None,
+    reclaim_stale_s: Optional[float] = None,
+    worker_id: Optional[str] = None,
 ) -> Dict[str, int]:
     """Run every pending case of a project on the lockstep engine.
 
@@ -608,12 +624,22 @@ def run_batched(
     groups once the project's Success count (prior runs + this one)
     reaches N. Stopping is group-granular.
 
-    ``coordinate`` (multi-worker claims) is not ported yet and raises.
+    ``coordinate``: multi-worker mode. N invocations -- processes on one
+    host or across hosts sharing the project filesystem -- split the
+    pending cases: each case is claimed via atomic O_EXCL file creation
+    before it joins a lockstep group, statuses merge under a file lock, and
+    every worker's final NPZ/summary build is idempotent so the last worker
+    out writes the complete matrix. ``reclaim_stale_s`` additionally lets a
+    worker steal claims whose heartbeat is older than that many seconds
+    (crashed remote workers; same-host dead pids are reclaimed
+    automatically) -- set it well above a group's wall time. ``worker_id``
+    names this worker in the claims and the Running entries.
+
+    ``runner`` / ``n_devices``: the BatchEngine runner of every group
+    ("auto", or "sharded" over ``n_devices`` devices).
     """
-    if coordinate:
-        raise NotImplementedError(
-            f"--coordinate is not ported yet (ROADMAP.md {COORDINATE_ITEM})"
-        )
+    if reclaim_stale_s is not None and not coordinate:
+        raise ValueError("--reclaim_stale requires --coordinate")
     resolve_device(device)  # no GPU -> raise here, not once per group
     project_paths = paths.get_project_paths(project_name, root=root)
     output_dirs = paths.setup_output_directories(project_paths["outputs"])
@@ -646,6 +672,26 @@ def run_batched(
     )
     stats = {"success": 0, "failed": 0, "skipped": len(skip)}
 
+    claims = None
+    if coordinate:
+        from .coordination import ClaimStore
+
+        claims = ClaimStore(
+            output_dirs["plots"], worker_id=worker_id, stale_s=reclaim_stale_s
+        )
+        print(f"[BatchDatagen] multi-worker mode, worker={claims.worker_id}")
+
+    def _global_success() -> int:
+        """Project-wide Success count; re-read in multi-worker mode (other
+        workers advance it), local tally otherwise."""
+        if claims is None:
+            return already_success + stats["success"]
+        return sum(
+            1
+            for s in results_store.get_status_map(sim_results_path).values()
+            if s == results_store.STATUS_SUCCESS
+        )
+
     def _run_groups(groups, use_f16, label="",
                     fail_status=results_store.STATUS_FAILED,
                     stop_at_max=False):
@@ -655,24 +701,42 @@ def run_batched(
             if (
                 stop_at_max
                 and max_success is not None
-                and already_success + stats["success"] >= max_success
+                and _global_success() >= max_success
             ):
                 left = sum(len(m) for m in groups[gi:])
                 print(f"\n[BatchDatagen] reached max_success={max_success}; "
-                      f"leaving {left} case(s) for later.")
+                      f"leaving {left} case(s) for later/other workers.")
                 break
+            if claims is not None:
+                # another worker may have finished a case since our scan:
+                # terminal cases are skipped, the rest are claimed; members
+                # another worker owns right now are simply not ours
+                status_now = results_store.get_status_map(sim_results_path)
+                members = [
+                    m for m in members
+                    if status_now.get(m[0]) not in (
+                        results_store.STATUS_SUCCESS,
+                        results_store.STATUS_FAILED,
+                    )
+                    and claims.claim(m[0])
+                ]
+                if not members:
+                    continue
             names = [f for f, _ in members]
             print(f"\n--- {label}Group {gi + 1}/{len(groups)}: "
                   f"{len(members)} cases")
+            extra = {"worker": claims.worker_id} if claims is not None else None
+            run_extra = {"heartbeat_cb": claims.heartbeat} if claims is not None else {}
             for fname in names:
                 results_store.set_status(
-                    fname, results_store.STATUS_RUNNING, sim_results_path)
+                    fname, results_store.STATUS_RUNNING, sim_results_path,
+                    extra_fields=extra)
             entries = run_lockstep_group(
                 members, project_paths, output_dirs, progress, device_resize,
                 f16_transfer=f16_transfer, video=video,
                 fetch_overlap=fetch_overlap, f16_state=use_f16,
                 yuv_video=yuv_video, adaptive_fetch=adaptive_fetch,
-                device=device,
+                device=device, runner=runner, n_devices=n_devices, **run_extra,
             )
             for entry in entries:
                 fname = entry["config_filename"]
@@ -693,6 +757,13 @@ def run_batched(
                     stats["failed"] += 1
                     failed_names.append(fname)
                 summary.update_summary_file(entry, legacy_summary_path)
+                if claims is not None and (
+                    entry.get("status") == "Success"
+                    or fail_status != results_store.STATUS_RETRY_PENDING
+                ):
+                    # terminal -> the claim's job is done; RetryPending keeps
+                    # its claim so this worker's own f32 retry owns the case
+                    claims.release(fname)
         return failed_names
 
     # With the retry armed, pass-1 f16 failures persist as RetryPending: a
@@ -719,6 +790,8 @@ def run_batched(
         stats["failed"] -= len(failed)
         stats["f16_retried"] = len(failed)
         stats["f16_recovered"] = recovered
+    if claims is not None:
+        claims.release_all()
     try:
         build_npz(legacy_summary_path, npz_path)
     except Exception as exc:
@@ -780,8 +853,25 @@ def main() -> None:
         "(group-granular; prior runs count)",
     )
     ap.add_argument(
+        "--runner", choices=("auto", "sharded"), default="auto",
+        help="batch execution strategy; 'sharded' spreads each group's cases "
+        "over --n_devices devices (cross-card independent-case parallelism)",
+    )
+    ap.add_argument(
+        "--n_devices", type=int, default=None,
+        help="device count for --runner sharded (default: all CUDA devices; "
+        "with --device cpu, the CPU named that many times)",
+    )
+    ap.add_argument(
         "--coordinate", action="store_true",
-        help=f"multi-worker mode: not ported yet, raises (ROADMAP.md {COORDINATE_ITEM})",
+        help="multi-worker mode: claim cases via atomic files so N "
+        "concurrent invocations sharing this project split the work",
+    )
+    ap.add_argument(
+        "--reclaim_stale", type=float, default=None, metavar="SECONDS",
+        help="with --coordinate: steal claims whose heartbeat is older "
+        "than SECONDS (crashed cross-host workers; same-host dead pids "
+        "are reclaimed automatically). Set well above a group's wall time",
     )
     args = ap.parse_args()
     run_batched(
@@ -792,6 +882,8 @@ def main() -> None:
         yuv_video=args.yuv_video, f16_retry=args.f16_retry,
         max_success=args.max_success, coordinate=args.coordinate,
         adaptive_fetch=not args.no_adaptive_fetch, device=args.device,
+        runner=args.runner, n_devices=args.n_devices,
+        reclaim_stale_s=args.reclaim_stale,
     )
 
 

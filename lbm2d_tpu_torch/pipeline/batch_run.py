@@ -7,13 +7,18 @@ retried, unknown configs run. Status is pre-written as Running before each
 case. After the loop the legacy summary is converted to the
 all_cases_vectors.npz feature matrix. ``--lockstep`` hands the project to
 the lockstep engine (pipeline/batch_datagen.py) under the same contract;
-``--spatial_mesh RxC`` runs each case on the blocks of a device mesh.
+``--spatial_mesh RxC`` runs each case on the blocks of a device mesh;
+``--coordinate`` lets N concurrent invocations split the project through
+per-case claim files (pipeline/coordination.py).
 
 Usage:
     python -m lbm2d_tpu_torch.pipeline.batch_run --project_name Urban-1 [--max_success N] [--device cpu]
     python -m lbm2d_tpu_torch.pipeline.batch_run --project_name Urban-1 --spatial_mesh 2x2 [--device cpu]
     python -m lbm2d_tpu_torch.pipeline.batch_run --project_name Urban-1 --lockstep \
         --device_resize --max_batch 5 --f16_state --f16_transfer --yuv_video --f16_retry
+    # two workers splitting one project (run each in its own shell)
+    python -m lbm2d_tpu_torch.pipeline.batch_run --project_name Urban-1 --coordinate \
+        [--reclaim_stale 600]
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import threading
 import time
 from typing import Dict, List, Set, Tuple
 
@@ -61,12 +67,6 @@ def build_resume_plan(
     return success, skip
 
 
-# flags of paths not ported yet -> the ROADMAP.md item that adds them
-NOT_PORTED = {
-    "coordinate": "queue 1, item 2 (multi-worker coordination, --coordinate)",
-}
-
-
 def run_batch(
     project_name: str,
     max_success: int | None = None,
@@ -84,7 +84,10 @@ def run_batch(
     adaptive_fetch: bool = True,
     device="cuda",
     spatial_mesh=None,
-    **not_ported,
+    coordinate: bool = False,
+    reclaim_stale_s: float | None = None,
+    runner: str = "auto",
+    n_devices: int | None = None,
 ) -> Dict[str, int]:
     """Run every pending case of a project on ``device`` (the reference
     batch_run contract: resume, status, summary and NPZ).
@@ -97,16 +100,21 @@ def run_batch(
     ``adaptive_fetch`` apply there. ``device_resize`` applies to both
     loops. ``spatial_mesh`` ("2x4" / "auto") runs each case spatially
     sharded over a device mesh (parallel/sharded.py), with the serial
-    path's artifacts. The flags of paths not ported yet (``NOT_PORTED``)
-    raise NotImplementedError when set; they are never ignored.
+    path's artifacts. ``runner`` and ``n_devices`` pick the lockstep
+    engine's runner ("sharded" spreads each group's cases over
+    ``n_devices`` devices, parallel/batch.py).
+
+    ``coordinate``: multi-worker mode -- N concurrent invocations sharing
+    this project split the pending cases via atomic per-case claim files
+    (pipeline/coordination.py); statuses merge under a file lock, and the
+    last worker out writes the complete NPZ. Works on both loops.
+    ``reclaim_stale_s`` (with ``coordinate``) also steals claims whose
+    heartbeat is older than that many seconds.
     """
-    for flag, value in not_ported.items():
-        if flag not in NOT_PORTED:
-            raise TypeError(f"run_batch() got an unexpected keyword argument {flag!r}")
-        if value:
-            raise NotImplementedError(
-                f"--{flag} is not ported yet (ROADMAP.md {NOT_PORTED[flag]})"
-            )
+    if reclaim_stale_s is not None and not coordinate:
+        raise ValueError("--reclaim_stale requires --coordinate")
+    if runner != "auto" and not lockstep:
+        raise ValueError(f"runner={runner!r} requires --lockstep")
     if f16_retry and not (lockstep and f16_state):
         # without lockstep + f16_state nothing runs in f16, so a silently
         # ignored --f16_retry would fake retry protection
@@ -116,8 +124,7 @@ def run_batch(
         raise ValueError(
             "--spatial_mesh shards one case over many devices; --lockstep "
             "batches many cases per device -- pick one (case-parallel "
-            "cross-chip lockstep, BatchEngine(runner='sharded'), is ROADMAP.md "
-            "queue 1, item 4)"
+            "cross-chip lockstep is batch_datagen --runner sharded)"
         )
     resolve_device(device)  # no GPU -> raise here, not once per case
     if lockstep:
@@ -129,7 +136,8 @@ def run_batch(
             video=video, fetch_overlap=fetch_overlap, f16_state=f16_state,
             yuv_video=yuv_video, f16_retry=f16_retry,
             max_success=max_success, adaptive_fetch=adaptive_fetch,
-            device=device,
+            device=device, coordinate=coordinate, reclaim_stale_s=reclaim_stale_s,
+            runner=runner, n_devices=n_devices,
         )
     project_paths = paths.get_project_paths(project_name, root=root)
     output_dirs = paths.setup_output_directories(project_paths["outputs"])
@@ -156,82 +164,56 @@ def run_batch(
         print(f"[Batch] max_success={max_success} already reached; nothing to do.")
         return {"success": 0, "skipped": len(skip_set), "failed": 0}
 
+    claims = None
+    hb_stop = threading.Event()
+    if coordinate:
+        from .coordination import ClaimStore
+
+        claims = ClaimStore(output_dirs["plots"], stale_s=reclaim_stale_s)
+        print(f"[Batch] multi-worker mode, worker={claims.worker_id}")
+
+        # a case runs far longer than any sane --reclaim_stale and the serial
+        # loop has no in-case hook, so a timer thread refreshes the owned
+        # claim's mtime while the case computes (os.utime only)
+        def _hb_loop():
+            while not hb_stop.wait(30.0):
+                claims.heartbeat()
+
+        threading.Thread(target=_hb_loop, daemon=True).start()
+
     new_success = new_failed = new_skip = 0
-    for i, cfg_file in enumerate(config_files):
-        full_config_path = os.path.join(project_paths["configs"], cfg_file)
-        job_id = i + 1
-
-        if cfg_file in skip_set:
-            new_skip += 1
-            continue
-        if max_success is not None and already_success + new_success >= max_success:
-            print(f"[Batch] reached max_success={max_success}; stopping.")
-            break
-        print(f"\n--- Job {job_id}/{len(config_files)}: {cfg_file}")
-        # Crash-safe: mark Running before starting.
-        results_store.set_status(
-            cfg_file, results_store.STATUS_RUNNING, sim_results_path
-        )
-        try:
-            cfg = load_config(full_config_path)
-            sim_cfg = cfg.get("simulation", {})
-            summary.update_summary_file(
-                {
-                    "case_name": sim_cfg.get("name", cfg_file),
-                    "status": "Running",
-                    "job_id": job_id,
-                    "parameters": {
-                        "lattice": {
-                            "resolution_px": [sim_cfg.get("nx"), sim_cfg.get("ny")]
-                        }
-                    },
-                    "source_files": {
-                        "config_file": cfg_file,
-                        "mask_file": os.path.basename(
-                            cfg.get("mask", {}).get("path", "N/A")
-                        ),
-                    },
-                },
-                legacy_summary_path,
+    # an escaping exception must still stop the heartbeat thread: a leaked
+    # one would keep this worker's claims fresh, never stealable
+    try:
+        for i, cfg_file in enumerate(config_files):
+            if cfg_file in skip_set:
+                new_skip += 1
+                continue
+            if max_success is not None and already_success + new_success >= max_success:
+                print(f"[Batch] reached max_success={max_success}; stopping.")
+                break
+            if claims is not None:
+                # skip cases other workers finished since our scan, then claim
+                status_now = results_store.get_status_map(sim_results_path).get(cfg_file)
+                if status_now in (results_store.STATUS_SUCCESS, results_store.STATUS_FAILED):
+                    new_skip += 1
+                    continue
+                if not claims.claim(cfg_file):
+                    continue  # another live worker owns it
+                claims.heartbeat()
+            ok = _run_case(
+                i + 1, cfg_file, len(config_files), project_paths, output_dirs,
+                sim_results_path, legacy_summary_path,
+                claims.worker_id if claims is not None else None,
+                progress=progress, device_resize=device_resize, device=device,
+                spatial_mesh=spatial_mesh,
             )
-        except Exception as exc:
-            print(f"  [Warning] legacy summary pre-write failed: {exc}")
-
-        wall_t0 = time.perf_counter()
-        entry = case_executor.execute_case(
-            full_config_path, project_paths, output_dirs, job_id,
-            progress=progress, device_resize=device_resize, device=device,
-            spatial_mesh=spatial_mesh,
-        )
-        wall_time_s = time.perf_counter() - wall_t0
-        entry["wall_time_s"] = round(wall_time_s, 2)
-
-        if entry.get("status") == "Success":
-            results_store.fill_simulation_outputs(
-                config_filename=cfg_file,
-                simulation_outputs=entry.get("parameters", {}).get(
-                    "simulation_outputs", {}
-                ),
-                run_summary=entry.get("run_summary", {}),
-                wall_time_s=wall_time_s,
-                sim_results_path=sim_results_path,
-            )
-            new_success += 1
-        else:
-            results_store.set_status(
-                cfg_file,
-                results_store.STATUS_FAILED,
-                sim_results_path,
-                extra_fields={
-                    "wall_time_s": round(wall_time_s, 2),
-                    "reason": entry.get("reason", "Unknown"),
-                },
-            )
-            new_failed += 1
-
-        summary.update_summary_file(entry, legacy_summary_path)
-        tag = "OK" if entry.get("status") == "Success" else "FAIL"
-        print(f"  [{tag}] {cfg_file}  wall_time={wall_time_s:.1f}s")
+            new_success += ok
+            new_failed += not ok
+            if claims is not None:
+                claims.release(cfg_file)  # terminal status: the claim's job is done
+    finally:
+        hb_stop.set()
 
     print(
         f"\n[Batch] done: prev_success={already_success} new_success={new_success} "
@@ -244,6 +226,78 @@ def run_batch(
         print(f"[Warning] NPZ build failed (sim_results.json still valid): {exc}")
 
     return {"success": new_success, "skipped": new_skip, "failed": new_failed}
+
+
+def _run_case(job_id, cfg_file, n_configs, project_paths, output_dirs, sim_results_path,
+              legacy_summary_path, worker, **run_kw) -> bool:
+    """Run one case of the serial loop and record its terminal status;
+    True on Success. ``worker`` (multi-worker mode) goes into the Running
+    entry."""
+    full_config_path = os.path.join(project_paths["configs"], cfg_file)
+    print(f"\n--- Job {job_id}/{n_configs}: {cfg_file}")
+    # Crash-safe: mark Running before starting.
+    results_store.set_status(
+        cfg_file, results_store.STATUS_RUNNING, sim_results_path,
+        extra_fields={"worker": worker} if worker is not None else None,
+    )
+    try:
+        cfg = load_config(full_config_path)
+        sim_cfg = cfg.get("simulation", {})
+        summary.update_summary_file(
+            {
+                "case_name": sim_cfg.get("name", cfg_file),
+                "status": "Running",
+                "job_id": job_id,
+                "parameters": {
+                    "lattice": {
+                        "resolution_px": [sim_cfg.get("nx"), sim_cfg.get("ny")]
+                    }
+                },
+                "source_files": {
+                    "config_file": cfg_file,
+                    "mask_file": os.path.basename(
+                        cfg.get("mask", {}).get("path", "N/A")
+                    ),
+                },
+            },
+            legacy_summary_path,
+        )
+    except Exception as exc:
+        print(f"  [Warning] legacy summary pre-write failed: {exc}")
+
+    wall_t0 = time.perf_counter()
+    entry = case_executor.execute_case(
+        full_config_path, project_paths, output_dirs, job_id, **run_kw
+    )
+    wall_time_s = time.perf_counter() - wall_t0
+    entry["wall_time_s"] = round(wall_time_s, 2)
+
+    ok = entry.get("status") == "Success"
+    if ok:
+        results_store.fill_simulation_outputs(
+            config_filename=cfg_file,
+            simulation_outputs=entry.get("parameters", {}).get(
+                "simulation_outputs", {}
+            ),
+            run_summary=entry.get("run_summary", {}),
+            wall_time_s=wall_time_s,
+            sim_results_path=sim_results_path,
+        )
+    else:
+        results_store.set_status(
+            cfg_file,
+            results_store.STATUS_FAILED,
+            sim_results_path,
+            extra_fields={
+                "wall_time_s": round(wall_time_s, 2),
+                "reason": entry.get("reason", "Unknown"),
+            },
+        )
+
+    summary.update_summary_file(entry, legacy_summary_path)
+    tag = "OK" if ok else "FAIL"
+    print(f"  [{tag}] {cfg_file}  wall_time={wall_time_s:.1f}s")
+    return ok
 
 
 def main() -> None:
@@ -293,9 +347,17 @@ def main() -> None:
                     help="run each case spatially sharded over a device "
                     "mesh, e.g. '2x4' or 'auto' (most-square over all "
                     "CUDA devices; 1x1 with --device cpu)")
-    for flag, item in NOT_PORTED.items():
-        ap.add_argument(f"--{flag}", action="store_true",
-                        help=f"not ported yet: raises (ROADMAP.md {item})")
+    ap.add_argument("--coordinate", action="store_true",
+                    help="multi-worker mode: claim cases via atomic files "
+                    "so N concurrent invocations sharing this project "
+                    "split the work without double-running")
+    ap.add_argument("--reclaim_stale", type=float, default=None,
+                    metavar="SECONDS",
+                    help="with --coordinate: steal claims whose heartbeat "
+                    "is older than SECONDS (crashed cross-host workers). "
+                    "Live workers heartbeat every ~30s (serial timer thread"
+                    " / lockstep progress), so a few minutes is safe "
+                    "regardless of case wall time")
     args = ap.parse_args()
     run_batch(
         args.project_name, args.max_success, root=args.root,
@@ -305,7 +367,7 @@ def main() -> None:
         f16_state=args.f16_state, yuv_video=args.yuv_video,
         f16_retry=args.f16_retry, adaptive_fetch=not args.no_adaptive_fetch,
         device=args.device, spatial_mesh=args.spatial_mesh,
-        **{flag: getattr(args, flag) for flag in NOT_PORTED},
+        coordinate=args.coordinate, reclaim_stale_s=args.reclaim_stale,
     )
 
 

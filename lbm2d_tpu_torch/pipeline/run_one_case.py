@@ -5,6 +5,14 @@ Counterpart of ``lbm2d_tpu/pipeline/run_one_case.py`` (reference
 pipeline/run_one_case.py, init_simulation_env:18, main:71): max_steps comes straight from config; the measured inlet velocity
 is the y-average of u_x on the x=1 column (x=0 is a BC node); tensor shapes
 are collected from the writer for the summary.
+
+A case on a spatial mesh spanning several processes
+(``parallel/multihost.py``, ``--coordinator``) runs this entry on every
+rank; rank 0 alone writes artifacts, and it alone decides whether to
+resume from a checkpoint (``_resume_decision``).
+
+    python -m lbm2d_tpu_torch.pipeline.run_one_case --config C --mask M --h5 H --video V \
+        --spatial_mesh 2x1 --coordinator 127.0.0.1:29500 --num_processes 2 --process_id R
 """
 
 from __future__ import annotations
@@ -31,6 +39,20 @@ def process_rank() -> int:
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank()
     return 0
+
+
+def _resume_decision(engine: LBMEngine, ckpt_path: str) -> bool:
+    """Whether to resume from ``ckpt_path``. Multi-host: rank 0, the only
+    writer of checkpoints, decides from its own filesystem and every rank
+    takes its decision (the engine then broadcasts rank 0's state), so the
+    ranks never start from different steps, whatever the other ranks'
+    filesystems hold."""
+    exists = os.path.exists(ckpt_path)
+    if getattr(engine, "_multihost", False):
+        from ..parallel.multihost import broadcast_object
+
+        exists = broadcast_object(exists)
+    return exists
 
 
 def init_simulation_env(
@@ -127,7 +149,7 @@ def main(
                 (h5_output_path or "case") + ".ckpt.npz"
             )
             ckpt_interval = int(ckpt_cfg.get("interval_steps", 0))
-            if ckpt_cfg.get("resume") and os.path.exists(ckpt_path):
+            if ckpt_cfg.get("resume") and _resume_decision(engine, ckpt_path):
                 engine.load_checkpoint(ckpt_path)
                 print(f"[Checkpoint] resumed at step {engine.step_count}")
 
@@ -207,7 +229,25 @@ if __name__ == "__main__":
     ap.add_argument("--spatial_mesh", default=None,
                     help="run spatially sharded over a device mesh, e.g. "
                     "'2x4' or 'auto' (most-square over all devices)")
+    ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                    help="multi-process run: rank 0's address; start one process "
+                    "per rank with --num_processes and --process_id, the same "
+                    "--spatial_mesh over all ranks' devices")
+    ap.add_argument("--num_processes", type=int, default=1)
+    ap.add_argument("--process_id", type=int, default=0)
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="torch.distributed backend (default: nccl when every "
+                    "rank has a card of its own, else gloo)")
     args = ap.parse_args()
+    if args.coordinator:
+        from ..parallel.multihost import init_multihost
+
+        init_multihost(args.coordinator, args.num_processes, args.process_id,
+                       backend=args.backend, device=args.device)
     md = main(args.config, args.mask, args.h5, args.video, device=args.device,
               spatial_mesh=args.spatial_mesh)
+    if args.coordinator:
+        from ..parallel.multihost import sync
+
+        sync()  # rank 0's writer is closed before any rank exits
     print(md)

@@ -51,6 +51,26 @@ def run_simulation_loop(
     exit_status = "Success"
     exit_reason = "Reached max_steps"
 
+    # Multi-host runs (a spatial mesh spanning processes): every host fetch
+    # below is a collective, so all ranks must reach it -- writer and
+    # recorder are None on rank != 0, but the fetch still runs there (see
+    # the frame and data-step gates below).
+    multihost = getattr(engine, "_multihost", False)
+    if multihost and device_resize:
+        raise ValueError(
+            "device_resize is not supported on multi-host runs: the resizer "
+            "is built from the rank-0 writer, and mismatched collectives "
+            "across ranks would deadlock -- use the host-side resize path"
+        )
+    # config-gated (NOT on the gui object, which only rank 0 holds) so every
+    # rank raises identically before the first collective
+    if multihost and out_cfg["gui"].get("enable"):
+        raise ValueError(
+            "an interactive GUI is not supported on multi-host runs: only "
+            "rank 0 has a window, so a user-close would break rank 0 out of "
+            "the loop while other ranks still wait in collectives (deadlock)"
+        )
+
     # Optional on-device dataset resize (same design as the lockstep path,
     # pipeline/batch_datagen.py): crop + area-average on the device so the
     # device-to-host transfer ships [9, 256, W'] instead of the full grid.
@@ -138,10 +158,12 @@ def run_simulation_loop(
                     if show_overlay:
                         img = draw_zone_overlay(img.copy(), zones)
                 else:
-                    u_np, mask_np = engine.get_physical_fields()
-                    img = composer.process_frame(u_np, mask_np)
-                    if show_overlay:
-                        img = draw_zone_overlay(img, zones)
+                    u_np, mask_np = engine.get_physical_fields()  # collective on multihost
+                    # a rank with no window and no recorder joins the fetch only
+                    if recorder is not None or gui is not None:
+                        img = composer.process_frame(u_np, mask_np)
+                        if show_overlay:
+                            img = draw_zone_overlay(img, zones)
                 timings["viz_proc"] = (time.perf_counter() - t0) * 1000
                 if is_gui_frame and gui is not None:
                     gui.set_image(img)
@@ -160,16 +182,17 @@ def run_simulation_loop(
                 and current_steps % data_interval == 0
                 and current_steps >= start_record
             )
-            if is_data_step and writer is not None:
+            if is_data_step and (writer is not None or multihost):
                 t0 = time.perf_counter()
                 if resizer is not None:
                     moments = resizer(engine.get_moments_device()[_crop]).cpu().numpy()
                 else:
-                    moments = engine.get_moments()
+                    moments = engine.get_moments()  # collective on multihost
                 timings["moment_fetch"] = (time.perf_counter() - t0) * 1000
-                t0 = time.perf_counter()
-                writer.append(moments, pre_resized=resizer is not None)
-                timings["hdf5_io"] = (time.perf_counter() - t0) * 1000
+                if writer is not None:
+                    t0 = time.perf_counter()
+                    writer.append(moments, pre_resized=resizer is not None)
+                    timings["hdf5_io"] = (time.perf_counter() - t0) * 1000
 
             if (
                 checkpoint_path

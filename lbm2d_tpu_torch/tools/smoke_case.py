@@ -82,12 +82,22 @@ def use_memory_h5() -> bool:
 
 def read_turbulence(path: str) -> np.ndarray:
     """The ``turbulence`` dataset of a case file, from disk or the stand-in."""
+    return read_datasets(path)["turbulence"]
+
+
+def read_datasets(path: str) -> dict:
+    """{name: array} of every dataset of a case file, from the stand-in,
+    or from disk (the ``<path>.npz`` dump of another process where the
+    file itself is not there)."""
     if path in MemH5File.FILES:
-        return MemH5File.FILES[path].datasets["turbulence"].a
+        return {k: d.a for k, d in MemH5File.FILES[path].datasets.items()}
+    if not os.path.exists(path) and os.path.exists(path + ".npz"):
+        with np.load(path + ".npz") as z:
+            return {k: z[k] for k in z.files}
     import h5py
 
     with h5py.File(path, "r") as f:
-        return f["turbulence"][()]
+        return {k: f[k][()] for k in f}
 
 
 def write_sibling_project(root: str, config: dict, mask: np.ndarray, nus=SIBLING_NUS,

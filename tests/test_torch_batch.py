@@ -152,10 +152,3 @@ def test_stacked_params_and_rest_state_match_jax_layout():
     mixed["boundary_condition"]["type"] = [0, 0, 1, 0]
     with pytest.raises(ValueError, match="bc_type"):
         stack_params([ts.make_params(cfgs[0]), ts.make_params(mixed)])
-
-
-def test_case_sharded_runner_is_not_ported():
-    nx, ny = 48, 24
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        BatchEngine([grid_config(nx, ny)], [block_mask(ny, nx)], runner="sharded",
-                    device="cpu")

@@ -190,8 +190,13 @@ def test_batch_run_lockstep_delegation_and_checks(tmp_path):
         run_batch("LK", root=root, f16_retry=True, device="cpu")
     with pytest.raises(ValueError, match="f16_retry"):
         run_batch("LK", root=root, lockstep=True, f16_retry=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        run_batched("LK", root=root, coordinate=True, device="cpu")
+    with pytest.raises(ValueError, match="coordinate"):
+        run_batched("LK", root=root, reclaim_stale_s=60.0, device="cpu")
+    with pytest.raises(ValueError, match="coordinate"):
+        run_batch("LK", root=root, lockstep=True, reclaim_stale_s=60.0, device="cpu")
+    # multi-worker mode on a finished project: nothing left to claim
+    stats3 = run_batched("LK", root=root, coordinate=True, device="cpu", progress=False)
+    assert stats3["success"] == 0 and stats3["skipped"] == 2
 
 
 def test_lockstep_max_success_stops_group_launches(tmp_path):

@@ -45,6 +45,7 @@ def test_every_module_imports_without_jax():
     assert {
         "lbm2d_tpu_torch.parallel.batch", "lbm2d_tpu_torch.ops.render",
         "lbm2d_tpu_torch.pipeline.batch_datagen", "lbm2d_tpu_torch.pipeline.fetch_pacer",
+        "lbm2d_tpu_torch.pipeline.coordination", "lbm2d_tpu_torch.parallel.multihost",
     } <= set(mods)
     code = (
         "import importlib, importlib.util\n"

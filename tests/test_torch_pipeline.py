@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 
 from lbm2d_tpu.pipeline.batch_run import run_batch as jax_run_batch
-from lbm2d_tpu_torch.pipeline.batch_run import NOT_PORTED, run_batch
+from lbm2d_tpu_torch.pipeline.batch_run import run_batch
 from test_pipeline_e2e import make_project
 
 CASE = "mask_00_Nu0-0500"
@@ -115,10 +115,3 @@ def test_resume_skips_finished_cases(roots):
     _, root_t = roots
     r = run_batch("TestProj", root=root_t, progress=False, device="cpu")
     assert r == {"success": 0, "skipped": 1, "failed": 0}
-
-
-@pytest.mark.parametrize("flag", sorted(NOT_PORTED))
-def test_unported_flags_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_batch("TestProj", root=str(tmp_path), progress=False, device="cpu",
-                  **{flag: True})

@@ -120,7 +120,8 @@ def test_batch_run_rejects_lockstep_plus_spatial(tmp_path):
     with pytest.raises(ValueError, match="spatial_mesh"):
         batch_run.run_batch("X", root=str(tmp_path), lockstep=True, spatial_mesh="2x4",
                             device="cpu")
-    assert "spatial_mesh" not in batch_run.NOT_PORTED
+    with pytest.raises(ValueError, match="lockstep"):
+        batch_run.run_batch("X", root=str(tmp_path), runner="sharded", device="cpu")
 
 
 def _h5_tree(path):
