@@ -7,7 +7,9 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 Phases (any failure raises and the process exits non-zero):
 
-0. the card (nvidia-smi name and power limit), torch and nvcc versions;
+0. the card (nvidia-smi name and power limit), torch and nvcc versions,
+   and the environment doctor (``python -m lbm2d_tpu_torch.native``, which
+   builds and loads the kernels), which must name the card;
 1. build the CUDA kernels from ``lbm2d_tpu_torch/csrc`` with nvcc, and
    print ptxas's registers a thread and spill bytes of every K1 instance
    (the fast and full steps are instances of their own) and of K3, and
@@ -120,11 +122,32 @@ Phases (any failure raises and the process exits non-zero):
    final state's force in float64, rank 0's HDF5 datasets byte-equal to
    8(c)'s, only ``_shard`` launches, us/step; then a resume from a
    checkpoint only rank 0's path holds: both ranks resume at its step and
-   end with phase 3's final f.
+   end with phase 3's final f;
+10. drive the README quickstart through the port's own CLIs and functions
+   in a temporary directory, at the production width: (1) ``gen_masks -c
+   master_config.yaml -n 1 --mode hybrid --seed 7``, whose mask must equal
+   ``data/smoke_case_mask.npz`` bit for bit at 2432x1152 with pads 256,
+   640, 192, 192; (2) ``config_batch_gen``: five configs, nu 0.007, 0.01,
+   0.02, 0.03, 0.05, the nu 0.02 one equal to ``data/smoke_case.json``
+   outside the depth, video, project and mask keys, ``config_meta.json``
+   with five Pending cases; the configs cut in depth only, as the smoke
+   case is (warmup 1000, chunk 100, 3000 steps, recording and intervals
+   1000, video on); (3) ``run_batch`` with the production flags over the
+   five cases, one group: every case Success, finite frames with mean jx
+   > 0, one mp4 each, k1_step_dev 5 x 2970 and k1_step_full 5 x 30
+   launches and no plain call; (4) ``post.h5_to_zarr.run`` on the
+   project's summary: ``global_stats.json`` lists the five cases, each
+   case's ``turbulence`` read back with ``zarrlite.read_region`` equals
+   the HDF5 frames normalised in numpy, bit for bit, and the sampling-
+   weight maps lie in [0, 1]; then ``video_stats.process_video`` on each
+   mp4 (where cv2 imports), one ``io_bench._timed_zarr`` crop, and one
+   100-step chunk of the smoke case under ``utils.profiling.device_trace``,
+   whose trace must name a ``k1_step`` kernel; each step's wall seconds.
 
 The last two lines are the kernels' JSON record (``launches``: the sum over
 the driven paths, split in ``launches_by_path``, phase 9's under
-``coord``, ``coord_lock``, ``case_sharded`` and ``multihost``) and ``{"ok": true,
+``coord``, ``coord_lock``, ``case_sharded`` and ``multihost``, phase 10's under
+``quickstart`` and ``quickstart_trace``) and ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or without the package beside
 this script, it exits non-zero and prints no result.
 """
@@ -630,6 +653,219 @@ def phase9(config, mask, f_serial, force8c, h5_8c, counted, card):
     return by_path
 
 
+# phase 10: the README quickstart; its master config, the mask seed, the
+# viscosities config_batch_gen must emit for it, and the depth cut
+QS_PROJECT = "Urban-1"
+QS_SEED = 7
+QS_NUS = (0.007, 0.01, 0.02, 0.03, 0.05)
+QS_DEPTH = dict(warmup=1000, chunk=100, max_steps=3000, interval=1000, video=True)
+QS_PADS = {"pad_left": 256, "pad_right": 640, "pad_top": 192, "pad_bot": 192}
+
+
+def phase10(config, mask, counted, card):
+    """The README quickstart through the port's own CLIs and functions, at
+    the production width (see the module docstring); returns its launches
+    by path."""
+    import contextlib
+    import random
+    import shutil
+
+    import yaml
+
+    from lbm2d_tpu_torch.analysis import io_bench, video_stats
+    from lbm2d_tpu_torch.core.engine import LBMEngine
+    from lbm2d_tpu_torch.ops import cuda_step as cs
+    from lbm2d_tpu_torch.pipeline.batch_run import run_batch
+    from lbm2d_tpu_torch.post import h5_to_zarr, zarrlite
+    from lbm2d_tpu_torch.tools import config_batch_gen, gen_masks, smoke_case
+    from lbm2d_tpu_torch.utils.masks import load_grayscale
+    from lbm2d_tpu_torch.utils.profiling import device_trace
+
+    H, W = mask.shape
+    n = len(QS_NUS)
+    chunks = QS_DEPTH["max_steps"] // QS_DEPTH["chunk"]
+    want = {"k1_step_dev": n * chunks * (QS_DEPTH["chunk"] - 1), "k1_step_full": n * chunks}
+    walls = {}
+    by_path = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_qs_") as root, contextlib.chdir(root):
+        shutil.copy(os.path.join(HERE, "master_config.yaml"), "master_config.yaml")
+        base = os.path.join(root, "SimCases", QS_PROJECT)
+        out = os.path.join(root, "outputs", QS_PROJECT)
+
+        # step 1: gen_masks
+        t0 = time.perf_counter()
+        gen_masks.main(["-c", "master_config.yaml", "-n", "1", "--mode", "hybrid",
+                        "--seed", str(QS_SEED)])
+        walls["1 gen_masks"] = time.perf_counter() - t0
+        with open(os.path.join(base, "masks", "metadata.json")) as fh:
+            meta = json.load(fh)
+        png = load_grayscale(os.path.join(base, "masks", meta[0]["file_name"]))
+        same = bool(np.array_equal(png < 127, mask > 0.5))
+        grid = (meta[0]["domain_W_total"], meta[0]["domain_H_total"])
+        pads = {k: meta[0][k] for k in QS_PADS}
+        print(f"[10] step 1, gen_masks -n 1 --mode hybrid --seed {QS_SEED}: "
+              f"{meta[0]['file_name']} {grid[0]}x{grid[1]}, pads {pads}, {int((png < 127).sum())} "
+              f"solid cells, equal to data/smoke_case_mask.npz bit for bit: {same}", flush=True)
+        if len(meta) != 1 or not same or grid != (W, H) or pads != QS_PADS:
+            raise AssertionError(f"step 1: {meta[0]['file_name']} {grid} {pads}, mask equal {same}")
+
+        # step 2: config_batch_gen
+        t0 = time.perf_counter()
+        config_batch_gen.main(["-c", "master_config.yaml"])
+        walls["2 config_batch_gen"] = time.perf_counter() - t0
+        cfg_dir = os.path.join(base, "configs")
+        cfgs = {}
+        for fname in sorted(os.listdir(cfg_dir)):
+            with open(os.path.join(cfg_dir, fname)) as fh:
+                cfgs[fname] = yaml.safe_load(fh)
+        nus = sorted(c["simulation"]["nu"] for c in cfgs.values())
+        ref = json.loads(json.dumps(config))
+        mid = next(c for c in cfgs.values() if c["simulation"]["name"] == ref["simulation"]["name"])
+        diff = smoke_case.config_diff(mid, ref)
+        with open(os.path.join(base, "config_meta.json")) as fh:
+            metas = json.load(fh)
+        print(f"[10] step 2, config_batch_gen: {len(cfgs)} configs, nu {nus}, "
+              f"{mid['simulation']['max_steps']} steps each; {mid['simulation']['name']} differs "
+              f"from data/smoke_case.json in {sorted(diff)}; config_meta.json "
+              f"{[m['status'] for m in metas]}", flush=True)
+        if (tuple(nus) != QS_NUS or not diff <= smoke_case.QUICKSTART_FREE_KEYS
+                or [m["status"] for m in metas] != ["Pending"] * n):
+            raise AssertionError(f"step 2: nu {nus}, differing keys "
+                                 f"{diff - smoke_case.QUICKSTART_FREE_KEYS}, metas {len(metas)}")
+
+        # cut in depth only, as the smoke case is
+        smoke_case.cut_depth(cfg_dir, **QS_DEPTH)
+        print(f"[10] cut in depth only: {QS_DEPTH} (warmup, chunk, max steps, the start of "
+              f"recording and every interval), for each of the {n} configs", flush=True)
+
+        # step 3: batch_run --lockstep with the production flags
+        if smoke_case.use_memory_h5():
+            print("[10] h5py is not installed here: the HDF5 writer and readers run on the "
+                  "in-memory stand-in of h5py.File", flush=True)
+        counted.clear()
+        torch.cuda.synchronize()
+        cs.reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = run_batch(QS_PROJECT, root=root, progress=False, device="cuda",
+                          **smoke_case.PRODUCTION_FLAGS)
+        torch.cuda.synchronize()
+        walls["3 batch_run --lockstep"] = time.perf_counter() - t0
+        launches = {k: v for k, v in cs.LAUNCHES.items() if v}
+        by_path["quickstart"] = dict(cs.LAUNCHES)
+        with open(os.path.join(out, "plots", "sim_results.json")) as fh:
+            results = {e["config_filename"]: e for e in json.load(fh)}
+        statuses = {f: results[f]["status"] for f in cfgs}
+        flags = " ".join(f"--{k}" if v is True else f"--{k} {v}"
+                         for k, v in smoke_case.PRODUCTION_FLAGS.items() if k != "lockstep")
+        print(f"[10] step 3, batch_run --lockstep {flags}: {stats} in "
+              f"{walls['3 batch_run --lockstep']:.2f} s = "
+              f"{n * QS_DEPTH['max_steps'] * H * W / walls['3 batch_run --lockstep'] / 1e6:.1f} "
+              f"MLUPS aggregate wall [{card}]", flush=True)
+        print(f"    statuses {statuses}; launches {launches} (want {want}), plain calls "
+              f"{counted}", flush=True)
+        if set(statuses.values()) != {"Success"} or stats.get("success") != n:
+            for f, e in results.items():
+                if e["status"] != "Success":
+                    print(f"    {f}: {json.dumps(e.get('run_summary', e))[:600]}", flush=True)
+            raise AssertionError(f"step 3: not every case succeeded: {statuses}")
+        if launches != want or any(counted.values()):
+            raise AssertionError(f"step 3: launches {launches} (want {want}), plain {counted}")
+        frames = {}
+        n_frames = (QS_DEPTH["max_steps"] - QS_DEPTH["interval"]) // QS_DEPTH["interval"] + 1
+        for c in cfgs.values():
+            case = c["simulation"]["name"]
+            turb = smoke_case.read_turbulence(os.path.join(out, "raw", f"{case}.h5"))
+            jx = float(turb[:, 3].mean())
+            mp4 = os.path.join(out, "vis", f"{case}.mp4")
+            size = os.path.getsize(mp4) if os.path.exists(mp4) else 0
+            print(f"    {case}: turbulence {turb.shape} finite {bool(np.isfinite(turb).all())}, "
+                  f"mean jx {jx:.4e}, mp4 {size} bytes", flush=True)
+            if turb.shape[:2] != (n_frames, 9) or not np.isfinite(turb).all() or not jx > 0:
+                raise AssertionError(f"step 3, {case}: frames {turb.shape}, mean jx {jx}")
+            if size <= 0:
+                raise AssertionError(f"step 3, {case}: no mp4")
+            frames[case] = turb
+
+        # step 4: h5_to_zarr, and the dataset read back
+        zarr_dir = os.path.join(out, "zarr")
+        t0 = time.perf_counter()
+        zstats = h5_to_zarr.run(os.path.join(out, "plots", "all_cases_summary.json"),
+                                os.path.join(out, "raw"), zarr_dir)
+        walls["4 h5_to_zarr"] = time.perf_counter() - t0
+        with open(os.path.join(zarr_dir, "global_stats.json")) as fh:
+            gstats = json.load(fh)
+        if sorted(gstats["cases"]) != sorted(frames):
+            raise AssertionError(f"step 4: global_stats lists {gstats['cases']}")
+        m = np.asarray(gstats["mean"]).reshape(1, 9, 1, 1).astype(np.float32)
+        sd = np.asarray(gstats["std"]).reshape(1, 9, 1, 1).astype(np.float32)
+        t0 = time.perf_counter()
+        for case, turb in frames.items():
+            zcase = os.path.join(zarr_dir, f"{case}.zarr")
+            got = zarrlite.read_region(os.path.join(zcase, "turbulence"),
+                                       tuple(slice(0, k) for k in turb.shape))
+            if not np.array_equal(got, ((turb - m) / sd).astype(np.float16)):
+                raise AssertionError(f"step 4, {case}: the Zarr frames differ from the HDF5's")
+            for name in ("vor", "sdf", "mix"):
+                wmap = zarrlite.open_array(os.path.join(zcase, "sampling_weights", name))
+                if not (wmap.min() >= 0.0 and wmap.max() <= 1.0):
+                    raise AssertionError(f"step 4, {case}: {name} map outside [0, 1]")
+        walls["4 read back"] = time.perf_counter() - t0
+        codec = zarrlite.DEFAULT_CODEC
+        print(f"[10] step 4, h5_to_zarr: {len(zstats['cases'])} cases -> {zarr_dir} (codec "
+              f"{codec}); each case's turbulence read back with zarrlite.read_region equals "
+              f"((frames - mean) / std).astype(float16) bit for bit; vor, sdf, mix maps in "
+              f"[0, 1]", flush=True)
+
+        # the analysis tools
+        t0 = time.perf_counter()
+        try:
+            import cv2  # noqa: F401
+        except ImportError as exc:
+            print(f"[10] video_stats skipped: cv2 is not installed here ({exc})", flush=True)
+        else:
+            for case in frames:
+                pngs = video_stats.process_video(os.path.join(out, "vis", f"{case}.mp4"))
+                if not pngs or not all(os.path.getsize(p) > 0 for p in pngs):
+                    raise AssertionError(f"video_stats, {case}: {pngs}")
+            print(f"[10] video_stats: last and mean frames of {len(frames)} mp4s written",
+                  flush=True)
+        walls["5 video_stats"] = time.perf_counter() - t0
+        case0 = sorted(frames)[0]
+        t_read = io_bench._timed_zarr(os.path.join(zarr_dir, f"{case0}.zarr"), n_frames, 64,
+                                      random.Random(SEED))
+        print(f"[10] io_bench: one random {n_frames} x 9 x 64 x 64 crop of {case0}.zarr read "
+              f"in {t_read * 1e3:.3f} ms [{card}]", flush=True)
+
+        # one 100-step chunk of the smoke case under the profiler
+        engine = LBMEngine(config, mask_yx=mask, device="cuda")
+        engine.init()
+        engine.run_step(QS_DEPTH["chunk"])  # warm-up
+        torch.cuda.synchronize()
+        trace_dir = os.path.join(root, "trace")
+        cs.reset_launch_counts()
+        t0 = time.perf_counter()
+        with device_trace(trace_dir):
+            engine.run_step(QS_DEPTH["chunk"])
+        walls["6 traced chunk"] = time.perf_counter() - t0
+        by_path["quickstart_trace"] = dict(cs.LAUNCHES)
+        traces = sorted(os.listdir(trace_dir))
+        with open(os.path.join(trace_dir, traces[0])) as fh:
+            events = json.load(fh)["traceEvents"]
+        kernels = sorted({e["name"] for e in events if str(e.get("cat", "")).lower() == "kernel"
+                          and "k1_step" in e.get("name", "")})
+        print(f"[10] device_trace: {traces} ({os.path.getsize(os.path.join(trace_dir, traces[0]))} "
+              f"bytes), {sum(e.get('cat') == 'kernel' for e in events)} kernel events, "
+              f"k1_step kernels named: {[k[:60] for k in kernels]}", flush=True)
+        if len(traces) != 1 or not kernels:
+            cats = sorted({str(e.get("cat")) for e in events})
+            raise AssertionError(f"device_trace: {traces}, no k1_step kernel in the trace "
+                                 f"(event categories {cats})")
+        del engine
+        print("[10] wall seconds a step: " + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
+              + f" [{card}]", flush=True)
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -662,13 +898,26 @@ def main() -> int:
     nv = subprocess.run([cuda_build.nvcc_path(), "--version"], capture_output=True,
                         text=True, check=True, timeout=60)
     print(f"[0] nvcc: {nv.stdout.strip().splitlines()[-1]}", flush=True)
+    # the environment doctor, as a user runs it: it must name this card
+    t0 = time.perf_counter()
+    doc = subprocess.run([sys.executable, "-m", "lbm2d_tpu_torch.native"], cwd=HERE,
+                         capture_output=True, text=True, timeout=600)
+    print(f"[0] doctor (python -m lbm2d_tpu_torch.native), exit {doc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s:", flush=True)
+    print("\n".join("    " + line for line in doc.stdout.strip().splitlines()), flush=True)
+    smi_name = card.split(",")[0].strip()
+    if doc.returncode != 0 or f"device 0: {smi_name}" not in doc.stdout:
+        raise AssertionError(f"the doctor does not name the card {smi_name!r}: "
+                             f"{doc.stderr[-2000:]}")
 
     # -- phase 1 ------------------------------------------------------------
     t0 = time.perf_counter()
     cuda_build.build_all()
     for name in cuda_build.KERNELS:
         cuda_build.load(name)
-    print(f"[1] built kernels in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[1] built kernels in {time.perf_counter() - t0:.1f} s"
+          + ("" if cuda_build.BUILD_SECONDS else " (the doctor of phase 0 built them)"),
+          flush=True)
     # ptxas's registers a thread and spill bytes (stores / loads) of every
     # K1 instance, the fast and full steps apart, and of K3, beside K3's
     # resident blocks a SM, its shared-memory rows and its tile
@@ -1688,11 +1937,15 @@ def main() -> int:
 
     launches9 = phase9(config, mask, f_serial, force8c, h5_8c, counted, card)
 
+    # -- phase 10: the README quickstart --------------------------------------
+    launches10 = phase10(config, mask, counted, card)
+
     kernels = []
     by_path = {"serial": launches, "lockstep": launches4, "dfg": launches5,
                "dfg_pairs": launches5b, "fused": launches6, "fused_pairs": launches6b,
                "roofline": launches7, "sharded": launches8c, "sharded_pairs": launches8a,
-               "sharded_dfg": launches8b, "sharded_4096": launches8d, **launches9}
+               "sharded_dfg": launches8b, "sharded_4096": launches8d, **launches9,
+               **launches10}
     sources = {"k1": ("k1_step.cu", "lbm2d_tpu/ops/pallas_step.py:824"),
                "k3": ("k3_fused.cu", "lbm2d_tpu/ops/pallas_step.py:610"),
                "co": ("copy_probe.cu", "tools_roofline_4096.py:95")}

@@ -6,8 +6,9 @@ The case is the production configuration of ``master_config.yaml`` at
 2432x1152, cut in depth only (3000 steps). Its sibling project is the group
 ``config_batch_gen`` emits for one mask: the same case at several
 viscosities, video on. Where h5py is missing (the GPU machine has none),
-``use_memory_h5`` puts the HDF5 writer on an in-memory stand-in of
-``h5py.File`` and ``read_turbulence`` reads the frames back from it.
+``use_memory_h5`` puts the HDF5 writer and readers (``post/h5_to_zarr``,
+``analysis/h5_inspect``, ``analysis/io_bench``) on an in-memory stand-in of
+``h5py.File``, and ``read_turbulence`` reads the frames back from it.
 """
 
 from __future__ import annotations
@@ -32,15 +33,24 @@ def load_smoke_case():
 
 
 class MemDataset:
-    """The part of h5py.Dataset the case writer uses, kept in memory."""
+    """The part of h5py.Dataset the case writer and the readers use, kept in
+    memory."""
 
-    def __init__(self, data=None, shape=None, dtype=None):
+    def __init__(self, data=None, shape=None, dtype=None, compression=None):
         self.a = np.array(data, dtype=dtype) if data is not None else np.zeros(shape, dtype)
         self.attrs = {}
+        self.compression = compression
 
     @property
     def shape(self):
         return self.a.shape
+
+    @property
+    def dtype(self):
+        return self.a.dtype
+
+    def __getitem__(self, idx):
+        return self.a[idx].copy()
 
     def resize(self, n, axis=0):
         grown = np.zeros((n,) + self.a.shape[1:], self.a.dtype)
@@ -52,31 +62,69 @@ class MemDataset:
 
 
 class MemH5File:
-    """The part of h5py.File the case writer uses; files stay in ``FILES``."""
+    """The part of h5py.File the case writer and the readers use; files
+    stay in ``FILES``. Mode "r" opens a stored file (FileNotFoundError for
+    a path it does not hold); any other mode makes a new, empty one."""
 
     FILES = {}
 
-    def __init__(self, path, mode="w", **kw):
+    def __new__(cls, path, mode="r", **kw):
+        if mode == "r":
+            if path not in cls.FILES:
+                raise FileNotFoundError(f"no in-memory HDF5 file {path}")
+            return cls.FILES[path]
+        self = super().__new__(cls)
         self.datasets, self.attrs = {}, {}
-        MemH5File.FILES[path] = self
+        cls.FILES[path] = self
+        return self
 
-    def create_dataset(self, name, data=None, shape=None, dtype=None, **kw):
-        self.datasets[name] = MemDataset(data, shape, dtype)
+    def create_dataset(self, name, data=None, shape=None, dtype=None, compression=None,
+                       **kw):
+        self.datasets[name] = MemDataset(data, shape, dtype, compression)
         return self.datasets[name]
+
+    def __getitem__(self, name):
+        return self.datasets[name]
+
+    def __contains__(self, name):
+        return name in self.datasets
+
+    def keys(self):
+        return sorted(self.datasets)
+
+    def visititems(self, fn):
+        """Call ``fn(name, dataset)`` in name order, as h5py visits a flat
+        file."""
+        for name in sorted(self.datasets):
+            fn(name, self.datasets[name])
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
     def close(self):
         pass
 
 
+# what the h5py module offers the writer and the readers
+MemH5 = type("MemH5", (), {"File": MemH5File, "Dataset": MemDataset})
+
+
 def use_memory_h5() -> bool:
-    """Put the HDF5 case writer on ``MemH5File`` where h5py is missing.
-    Returns True if it did."""
+    """Put the HDF5 case writer and readers on ``MemH5File`` where h5py is
+    missing. Returns True if it did."""
+    from ..analysis import h5_inspect, io_bench
     from ..io import h5_writer
+    from ..post import h5_to_zarr
 
     if h5_writer._HAS_H5PY:
         return False
-    h5_writer.h5py = type("MemH5", (), {"File": MemH5File})
+    h5_writer.h5py = MemH5
     h5_writer._HAS_H5PY = True
+    for reader in (h5_to_zarr, h5_inspect, io_bench):
+        reader._h5py = lambda: MemH5
     return True
 
 
@@ -124,6 +172,61 @@ def write_sibling_project(root: str, config: dict, mask: np.ndarray, nus=SIBLING
         cfg["outputs"]["video"]["filename"] = f"L114_0000_{tag}.mp4"
         names.append((f"L114_0000_cfg_{tag}.yaml", cfg["simulation"]["name"]))
         with open(os.path.join(base, "configs", names[-1][0]), "w") as fh:
+            yaml.safe_dump(cfg, fh, sort_keys=False)
+    return names
+
+
+# the keys in which a case config_batch_gen writes from master_config.yaml
+# may differ from the smoke case: its depth, video, project and mask path
+QUICKSTART_FREE_KEYS = frozenset({
+    "simulation.warmup_steps", "simulation.max_steps", "simulation.compute_step_size",
+    "outputs.start_record_step", "outputs.gui.interval_steps",
+    "outputs.video.interval_steps", "outputs.dataset.interval_steps",
+    "outputs.video.enable", "outputs.project_name", "outputs.data_save_root",
+    "mask.path", "_source",
+})
+
+
+def flat_keys(d: dict, prefix: str = "") -> dict:
+    """{"a.b.c": value} of a nested config."""
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out.update(flat_keys(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def config_diff(a: dict, b: dict) -> set:
+    """The dotted keys whose values differ between configs ``a`` and ``b``
+    (a key missing on one side differs)."""
+    fa, fb = flat_keys(a), flat_keys(b)
+    missing = object()
+    return {k for k in fa.keys() | fb.keys() if fa.get(k, missing) != fb.get(k, missing)}
+
+
+def cut_depth(cfg_dir: str, warmup: int = 1000, chunk: int = 100, max_steps: int = 3000,
+              interval: int = 1000, video: bool = True) -> list:
+    """Cut every case YAML in ``cfg_dir`` in depth only, as the smoke case
+    is cut: ``warmup`` steps, chunks of ``chunk``, ``max_steps`` in all,
+    recording and the GUI, video and dataset intervals at ``interval``
+    (recording from step ``interval``), video on or off. Returns the file
+    names, sorted."""
+    import yaml
+
+    names = sorted(f for f in os.listdir(cfg_dir) if f.endswith(".yaml"))
+    for fname in names:
+        path = os.path.join(cfg_dir, fname)
+        with open(path) as fh:
+            cfg = yaml.safe_load(fh)
+        sim, out = cfg["simulation"], cfg["outputs"]
+        sim.update(warmup_steps=warmup, compute_step_size=chunk, max_steps=max_steps)
+        out["start_record_step"] = interval
+        for sec in ("gui", "video", "dataset"):
+            out[sec]["interval_steps"] = interval
+        out["video"]["enable"] = video
+        with open(path, "w") as fh:
             yaml.safe_dump(cfg, fh, sort_keys=False)
     return names
 

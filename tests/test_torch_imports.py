@@ -81,6 +81,40 @@ def test_lockstep_path_imports_without_h5py_or_matplotlib():
     assert r.returncode == 0, r.stderr[-3000:]
 
 
+# the modules that copy the JAX package's host tools: they import where
+# h5py, matplotlib and cv2 are missing (the card's machine lacks the first
+# two), importing each at first use
+HOST_TOOL_MODULES = [
+    "lbm2d_tpu_torch.tools." + m for m in (
+        "sampling", "shapes", "validators", "map_generators", "gen_masks", "config_batch_gen",
+        "re_calc", "file_ops", "configgen", "configgen.assembler", "configgen.blockage",
+        "configgen.constants", "configgen.context", "configgen.feasibility",
+        "configgen.geometry", "configgen.nu_sampler", "configgen.preview", "configgen.steps",
+        "smoke_case")
+] + [
+    "lbm2d_tpu_torch.post", "lbm2d_tpu_torch.post.bloscmini", "lbm2d_tpu_torch.post.zarrlite",
+    "lbm2d_tpu_torch.post.h5_to_zarr", "lbm2d_tpu_torch.analysis.h5_inspect",
+    "lbm2d_tpu_torch.analysis.io_bench", "lbm2d_tpu_torch.analysis.video_stats",
+    "lbm2d_tpu_torch.utils.system", "lbm2d_tpu_torch.utils.profiling",
+    "lbm2d_tpu_torch.native.__main__",
+]
+
+
+def test_host_tools_import_without_h5py_matplotlib_or_cv2():
+    assert set(HOST_TOOL_MODULES) <= set(port_modules())
+    code = (
+        "import importlib\n"
+        f"for m in {HOST_TOOL_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from lbm2d_tpu_torch.tools import smoke_case\n"
+        "assert smoke_case.use_memory_h5()\n"
+        "from lbm2d_tpu_torch.post import h5_to_zarr\n"
+        "assert h5_to_zarr._h5py() is smoke_case.MemH5\n"
+    )
+    r = _run_blocked(["jax", "lbm2d_tpu", "h5py", "matplotlib", "cv2"], code)
+    assert r.returncode == 0, r.stderr[-3000:]
+
+
 def _imported_names(tree):
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -115,3 +149,18 @@ def test_smoke_script_refuses_to_run_without_a_card(tmp_path):
                            text=True, timeout=300)
         assert r.returncode != 0
         assert '"ok"' not in r.stdout
+
+
+def test_console_scripts_have_port_counterparts():
+    import importlib
+    import tomllib
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as fh:
+        scripts = tomllib.load(fh)["project"]["scripts"]
+    jax_scripts = {k: v for k, v in scripts.items() if not k.startswith("lbm2d-torch-")}
+    for name, target in jax_scripts.items():
+        port = scripts["lbm2d-torch-" + name[len("lbm2d-"):]]
+        assert port == target.replace("lbm2d_tpu.", "lbm2d_tpu_torch.", 1), name
+        module, attr = port.split(":")
+        assert callable(getattr(importlib.import_module(module), attr)), port
+    assert len(scripts) == 2 * len(jax_scripts) == 12

@@ -4,11 +4,13 @@ trace tool drive on the card, and the in-memory ``h5py.File`` stand-in they
 write through where h5py is missing: here it must hold what a real HDF5
 file holds."""
 
+import json
 import os
 
 import cv2
 import h5py
 import numpy as np
+import pytest
 import yaml
 
 from lbm2d_tpu_torch.io import h5_writer
@@ -60,9 +62,7 @@ def test_memory_h5_holds_what_h5py_writes(tmp_path, monkeypatch):
     frames = [rng.standard_normal(shape).astype(np.float32) for _ in range(3)]
     _write_case(real, config, mask, frames)
 
-    monkeypatch.setattr(h5_writer, "h5py", h5_writer.h5py)
-    monkeypatch.setattr(h5_writer, "_HAS_H5PY", False)
-    assert smoke_case.use_memory_h5()
+    _use_memory_h5(monkeypatch)
     mem = str(tmp_path / "mem.h5")
     _write_case(mem, config, mask, frames)
     assert not os.path.exists(mem)
@@ -75,3 +75,69 @@ def test_memory_h5_holds_what_h5py_writes(tmp_path, monkeypatch):
             np.testing.assert_array_equal(held.datasets[k].a, f[k][()], err_msg=k)
         for k in ("stats_min", "stats_max", "stats_mean"):
             np.testing.assert_array_equal(held.attrs[k], f.attrs[k])
+
+
+
+def _use_memory_h5(monkeypatch):
+    """Put the writer and the readers on the stand-in, as where h5py is
+    missing; monkeypatch restores them."""
+    from lbm2d_tpu_torch.analysis import h5_inspect, io_bench
+    from lbm2d_tpu_torch.post import h5_to_zarr
+
+    monkeypatch.setattr(h5_writer, "h5py", h5_writer.h5py)
+    monkeypatch.setattr(h5_writer, "_HAS_H5PY", False)
+    for reader in (h5_to_zarr, h5_inspect, io_bench):
+        monkeypatch.setattr(reader, "_h5py", reader._h5py)
+    monkeypatch.setattr(smoke_case.MemH5File, "FILES", {})
+    assert smoke_case.use_memory_h5()
+    assert h5_to_zarr._h5py() is h5_inspect._h5py() is io_bench._h5py() is smoke_case.MemH5
+
+
+def test_memory_h5_reads_back_as_h5py_does(tmp_path, monkeypatch, capsys):
+    """h5_to_zarr and h5_inspect read a file written through the stand-in
+    as they read the same file written by h5py: the same Zarr tree byte for
+    byte, the same printed tree."""
+    from lbm2d_tpu_torch.analysis import h5_inspect
+    from lbm2d_tpu_torch.post import h5_to_zarr
+    from test_torch_tools import assert_same_tree
+
+    config, mask = smoke_case.load_smoke_case()
+    rng = np.random.default_rng(1)
+    frames = [rng.normal(1.0, 0.05, (9, 256, 554)).astype(np.float32) for _ in range(3)]
+    summary = str(tmp_path / "summary.json")
+    with open(summary, "w") as fh:
+        json.dump([{"case_name": "case", "status": "Success",
+                    "run_summary": {"h5_file": "case.h5"}}], fh)
+    trees = {}
+    for tag in ("real", "mem"):
+        if tag == "mem":
+            _use_memory_h5(monkeypatch)
+        (tmp_path / tag).mkdir()
+        _write_case(str(tmp_path / tag / "case.h5"), config, mask, frames)
+        assert (tmp_path / tag / "case.h5").exists() == (tag == "real")
+        stats = h5_to_zarr.run(summary, str(tmp_path / tag), str(tmp_path / f"zarr_{tag}"))
+        assert stats["cases"] == ["case"]
+        h5_inspect.print_structure(str(tmp_path / tag / "case.h5"))
+        trees[tag] = capsys.readouterr().out.replace(str(tmp_path / tag), "<dir>")
+    assert_same_tree(str(tmp_path / "zarr_real"), str(tmp_path / "zarr_mem"))
+    assert trees["real"] == trees["mem"]
+    assert "turbulence: (3, 9, 256, 554) float32 [lzf]" in trees["mem"]
+
+
+def test_memory_h5_read_mode(tmp_path, monkeypatch):
+    _use_memory_h5(monkeypatch)
+    path = str(tmp_path / "x.h5")
+    with pytest.raises(FileNotFoundError):
+        smoke_case.MemH5File(path, "r")
+    f = smoke_case.MemH5File(path, "w")
+    f.create_dataset("a", data=np.arange(6, dtype=np.float32).reshape(2, 3), compression="lzf")
+    f.attrs["k"] = 1
+    with smoke_case.MemH5File(path, "r") as g:
+        assert g is f and "a" in g and g.keys() == ["a"]
+        assert g["a"].dtype == np.float32 and g["a"].compression == "lzf"
+        np.testing.assert_array_equal(g["a"][1:], [[3, 4, 5]])
+        seen = []
+        g.visititems(lambda name, obj: seen.append((name, obj.shape)))
+        assert seen == [("a", (2, 3))]
+    # "w" again starts an empty file
+    assert smoke_case.MemH5File(path, "w").keys() == []
