@@ -87,21 +87,31 @@ Phases (any failure raises and the process exits non-zero):
    4096^2 with two chunks of 50 steps, and hold the copy probe, with and
    without the aux read, against its plain version at that size, both
    forms timed beside ``torch.Tensor.copy_`` in the same run;
-8. drive the sharded path (``parallel/sharded.py``): (a) on a 2x2 mesh of
-   the card, ``run_chunk_sharded_cuda`` from phase 3's final state for 200
-   steps, f32 and ``store_dev``, bitwise against ``run_chunk_cuda``; (b) on
-   a (5, 1) mesh at the DFG grid, whose seams cut the cylinder, the
-   Bouzidi, half-way and full-way pairs with the NEBB inlet (full-way in
-   ``store_dev`` too) from phase 5's flow, 200 steps, bitwise against the
-   single-device kernels; (c) the production entry ``run_batch(...,
-   spatial_mesh="1x1")`` on the smoke case: Success, final f bitwise equal
-   to phase 3's, only ``_shard`` launches and no plain call; (d) on a 2x2
-   mesh at 4096^2 (the demo case), a 6-step chunk from a seeded random
-   state bitwise against ``run_chunk_sharded_plain`` (the kernels at this
-   block size), then us/step, the device time of one step
-   (a CUDA graph of K1 on every block and the halo copies), the halo
-   exchange's share and the scatter and gather cost of a chunk. Every
-   ``_shard`` variant is launched in phase 8, one launch a block a step;
+8. drive the sharded path (``parallel/sharded.py``) through its resident
+   blocks (``sharded.BlockRunner``: the state placed once, chunks run on
+   the blocks, a field gathered only where it is read): (a) on a 2x2 mesh
+   of the card, phase 3's final state placed and run for 2 chunks of 100
+   steps, f32 and ``store_dev``, bitwise against ``run_chunk_cuda`` (f,
+   f_post, rho, u, force, max_v); (b) on a (5, 1) mesh at the DFG grid,
+   whose seams cut the cylinder, the Bouzidi, half-way and full-way pairs
+   with the NEBB inlet (full-way in ``store_dev`` too) from phase 5's
+   flow, 200 steps, bitwise against the single-device kernels; (c) the
+   production entry ``run_batch(..., spatial_mesh="1x1")`` on the smoke
+   case (the engine keeps its blocks across chunks): Success, final f
+   bitwise equal to phase 3's, only ``_shard`` launches and no plain call;
+   (d) on a 2x2 mesh at 4096^2 (the demo case), a 6-step chunk from a
+   seeded random state bitwise against the plain runner (the kernels at
+   this block size), then the chunk loop in turns, the state placed and
+   gathered every chunk (``run_chunk_sharded_cuda``) and resident:
+   host-paced us/step beside the host's time to issue the loop and the
+   garbage collector's pauses in it, the memory the state holds and the
+   loop's peak
+   (``torch.cuda.max_memory_allocated``); the device time of one step (a
+   CUDA graph of K1 on every block and the halo copies), the halo
+   exchange's share, the per-chunk cost of what is still gathered (the
+   closing f_post into the global f_post) and of the chunk's monitors.
+   Every ``_shard`` variant is launched in phase 8, one launch a block a
+   step;
 9. drive the multi-worker and multi-process paths, each worker an OS
    process (``lbm2d_tpu_torch/tools/smoke_workers.py``, hard time limit)
    on sibling cases of the smoke case (nu 0.02, 0.03, 0.04, 0.05): (a) two
@@ -154,6 +164,7 @@ this script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -209,8 +220,10 @@ FUSE_S, FUSE_S_MAX = 4, 8
 # phase 7: the roofline tool at 4096^2 with a few short chunks
 ROOF_N, ROOF_CHUNKS, ROOF_SPC = 4096, 2, 50
 # phase 8(d): the chunk that holds the sharded kernels against their plain
-# versions on the 2x2 mesh at 4096^2 (K1 fast and full)
+# versions on the 2x2 mesh at 4096^2 (K1 fast and full), and the chunks of
+# each timed turn (scatter and gather every chunk, then resident, in turns)
 CHECK_4K_STEPS = 6
+SHARD_4K_CHUNKS = 8
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1738,8 +1751,18 @@ def main() -> int:
     def exact_state(tag, a, b, ma, mb):
         for k in ("f", "f_post", "rho", "u"):
             exact(f"{tag} {k}", getattr(a, k), getattr(b, k))
-        exact(f"{tag} force", ma["force"], mb["force"])
-        print(f"    {tag}: f, f_post, rho, u and force bitwise equal", flush=True)
+        for k in ("force", "max_v"):
+            exact(f"{tag} {k}", ma[k], mb[k])
+        print(f"    {tag}: f, f_post, rho, u, force and max_v bitwise equal", flush=True)
+
+    def resident(mesh, p_, state, n_chunks, n, store_dev=False, case=None, kind="cuda"):
+        """``state`` placed once on ``mesh``'s blocks, ``n_chunks`` chunks of
+        ``n`` steps on the resident blocks: (blocks, last monitors)."""
+        runner = sh.BlockRunner(mesh, kind, store_dev, case)
+        bs = runner.place(state, p_)
+        for _ in range(n_chunks):
+            mon = runner.advance(bs, p_, n)
+        return bs, mon
 
     def shard_launches(counts):
         return {k: v for k, v in counts.items() if "_shard" in k and v}
@@ -1753,12 +1776,14 @@ def main() -> int:
     torch.cuda.synchronize()
     cs.reset_launch_counts()
     for store_dev in (False, True):
-        sa = sb = s3
+        bs, ma = resident(mesh22, p, s3, 2, chunk, store_dev, case22)
+        sb = s3
         for _ in range(2):
-            sa, ma = sh.run_chunk_sharded_cuda(sa, p, chunk, mesh22, store_dev, case22)
             sb, mb = cs.run_chunk_cuda(sb, p, chunk, store_dev=store_dev)
         torch.cuda.synchronize()
-        exact_state(f"2x2 vs run_chunk_cuda{' store_dev' if store_dev else ''}", sa, sb, ma, mb)
+        exact_state(f"2x2 resident vs run_chunk_cuda{' store_dev' if store_dev else ''}",
+                    bs.snapshot(), sb, ma, mb)
+        del bs
     launches8a = dict(cs.LAUNCHES)
     fast8 = 4 * 2 * (chunk - 1)
     want8a = {"k1_step_shard": fast8, "k1_step_shard_full": 16, "k1_step_shard_dev": fast8}
@@ -1783,14 +1808,15 @@ def main() -> int:
         p8 = solver.make_params(cfg8, mask8, dtype=torch.float32, device=dev)
         case8 = sh.ShardedCase(p8, mesh51)
         for store_dev in modes:
-            sa = sb = developed
-            for _ in range(DFG_PAIR_STEPS // DFG_PAIR_CHUNK):
-                sa, ma = sh.run_chunk_sharded_cuda(sa, p8, DFG_PAIR_CHUNK, mesh51, store_dev,
-                                                   case8)
+            n8 = DFG_PAIR_STEPS // DFG_PAIR_CHUNK
+            bs, ma = resident(mesh51, p8, developed, n8, DFG_PAIR_CHUNK, store_dev, case8)
+            sb = developed
+            for _ in range(n8):
                 sb, mb = cs.run_chunk_cuda(sb, p8, DFG_PAIR_CHUNK, store_dev=store_dev)
             torch.cuda.synchronize()
-            exact_state(f"(5, 1) {obstacle}/nebb{' store_dev' if store_dev else ''}", sa, sb,
-                        ma, mb)
+            exact_state(f"(5, 1) {obstacle}/nebb{' store_dev' if store_dev else ''}",
+                        bs.snapshot(), sb, ma, mb)
+            del bs
     launches8b = dict(cs.LAUNCHES)
     print(f"    launches {shard_launches(launches8b)}, plain calls {counted}", flush=True)
     if any(counted.values()):
@@ -1882,51 +1908,114 @@ def main() -> int:
     u_r = 0.02 * torch.randn((2, N8, N8), generator=gen, device=dev)
     f_r = f_eq(rho_r, u_r[0], u_r[1])
     s_r = solver.LBMState(f=f_r, f_post=f_r.clone(), rho=rho_r, u=u_r, step=0)
-    sa, ma = sh.run_chunk_sharded_cuda(s_r, p4k, CHECK_4K_STEPS, mesh22, case=case4k)
-    sb, mb = sh.run_chunk_sharded_plain(s_r, p4k, CHECK_4K_STEPS, mesh22, case=case4k)
+    bs_a, ma = resident(mesh22, p4k, s_r, 1, CHECK_4K_STEPS, case=case4k)
+    bs_b, mb = resident(mesh22, p4k, s_r, 1, CHECK_4K_STEPS, case=case4k, kind="plain")
     torch.cuda.synchronize()
     exact_state(f"(d) 2x2 at {N8}^2 from a random state, {CHECK_4K_STEPS} steps, kernels vs "
-                "their plain versions", sa, sb, ma, mb)
-    del s_r, sa, sb, f_r
+                "their plain versions", bs_a.snapshot(), bs_b.snapshot(), ma, mb)
+    del s_r, bs_a, bs_b, f_r, rho_r, u_r
+    # then the chunk loop in turns: the state placed and gathered every
+    # chunk (run_chunk_sharded_cuda: scatter, chunk, gather, as the runner
+    # ran before the blocks stayed resident), and the resident blocks;
+    # host-paced us/step (CUDA events around the loop) and the memory the
+    # state holds and the loop peaks at, above what 8(d) found allocated
+    torch.cuda.synchronize()
+    base4k = torch.cuda.memory_allocated(dev)
+    runner4k = sh.BlockRunner(mesh22, "cuda", False, case4k)
     s4k = solver.init_state(N8, N8, torch.float32, dev)
     counted.clear()
     torch.cuda.synchronize()
     cs.reset_launch_counts()
-    s4k, _ = sh.run_chunk_sharded_cuda(s4k, p4k, ROOF_SPC, mesh22, case=case4k)
-    a.record()
-    for _ in range(ROOF_CHUNKS):
-        s4k, m4k = sh.run_chunk_sharded_cuda(s4k, p4k, ROOF_SPC, mesh22, case=case4k)
-    b.record()
-    b.synchronize()
+    s4k, _ = sh.run_chunk_sharded_cuda(s4k, p4k, ROOF_SPC, mesh22, case=case4k)  # warm-up
+
+    gc_ms, gc_start = [], [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_start[0] = time.perf_counter()
+        else:
+            gc_ms.append((time.perf_counter() - gc_start[0]) * 1e3)
+
+    def turn(chunk_fn):
+        """(us/step, the host's issue us/step, GB held at the start, GB
+        peak, ms the garbage collector paused the host) of SHARD_4K_CHUNKS
+        chunks."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev) - base4k
+        steps = SHARD_4K_CHUNKS * ROOF_SPC
+        gc_ms.clear()
+        gc.callbacks.append(on_gc)
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(SHARD_4K_CHUNKS):
+            chunk_fn()
+        issue = (time.perf_counter() - t0) * 1e6 / steps
+        b.record()
+        gc.callbacks.remove(on_gc)
+        b.synchronize()
+        return (a.elapsed_time(b) * 1e3 / steps, issue, held / 1e9,
+                (torch.cuda.max_memory_allocated(dev) - base4k) / 1e9, sum(gc_ms))
+
+    box = {"s": s4k}
+    del s4k
+
+    def gathered_chunk():
+        box["s"], box["m"] = sh.run_chunk_sharded_cuda(box["s"], p4k, ROOF_SPC, mesh22,
+                                                       case=case4k)
+
+    def resident_chunk():
+        box["m"] = runner4k.advance(box["bs"], p4k, ROOF_SPC)
+
+    turns = {"gathered": [], "resident": []}
+    for kind in ("gathered", "resident", "resident", "gathered"):
+        if kind == "resident" and "bs" not in box:
+            box["bs"] = runner4k.place(box.pop("s"), p4k)
+        elif kind == "gathered" and "s" not in box:
+            box["s"] = box.pop("bs").snapshot()
+        turns[kind].append(turn(gathered_chunk if kind == "gathered" else resident_chunk))
     launches8d = dict(cs.LAUNCHES)
-    us4k = a.elapsed_time(b) * 1e3 / (ROOF_CHUNKS * ROOF_SPC)
+    steps8d = (1 + 4 * SHARD_4K_CHUNKS) * ROOF_SPC
+    s4k, m4k = box["s"], box["m"]
     if not (torch.isfinite(s4k.f).all() and torch.isfinite(m4k["force"]).all()):
         raise AssertionError("phase 8(d): non-finite state at 4096^2")
-    src4 = sh.halo_blocks(s4k.f, mesh22, sh.NAN, case4k.pitch)
-    dst4 = [[t.clone() for t in r] for r in src4]
-    scal4 = cs.scalar_row(p4k, s4k.step + 1)
-    step4k_ms = graph_ms(lambda: sh.fast_step(src4, dst4, case4k, scal4, False),
+    bs4k = runner4k.place(s4k, p4k)
+    del s4k, box
+    scal4 = cs.scalar_row(p4k, bs4k.step + 1)
+    step4k_ms = graph_ms(lambda: sh.fast_step(bs4k.f, bs4k.f_alt, case4k, scal4, False),
                          per_graph=10)
-    exch4k_ms = graph_ms(lambda: sh.exchange_halos(dst4, mesh22, case4k.hl, case4k.wl),
+    exch4k_ms = graph_ms(lambda: sh.exchange_halos(bs4k.f_alt, mesh22, case4k.hl, case4k.wl),
                          per_graph=10)
+    fp4k_ms = median_ms(bs4k.collect_f_post, batches=5, per_batch=4)[0]
+    mon4k_ms = median_ms(lambda: sh.block_monitors(bs4k, p4k, None), batches=5,
+                         per_batch=4)[0]
+    del bs4k
 
-    def scatter_gather():
-        blk = sh.halo_blocks(s4k.f, mesh22, sh.NAN, case4k.pitch)
-        _ = [[t.clone() for t in r] for r in blk]
-        for _ in range(4):  # f, f_post, rho and u come back
-            sh.gather_halo_blocks(blk, case4k.hl, case4k.wl, dev)
+    def summary(kind):
+        ts = turns[kind]
+        us = statistics.mean(t[0] for t in ts)
+        runs = ", ".join(f"{t[0]:.1f}" for t in ts)
+        issue = ", ".join(f"{t[1]:.1f}" for t in ts)
+        paused = ", ".join(f"{t[4]:.1f}" for t in ts)
+        return us, (f"{us:.1f} us/step ({runs}; the host's issue {issue}; garbage "
+                    f"collection {paused} ms a turn), state {ts[0][2]:.2f} GB, loop peak "
+                    f"{max(t[3] for t in ts):.2f} GB")
 
-    sg4k_ms = median_ms(scatter_gather, batches=3, per_batch=2)[0]
-    print(f"    (d) 2x2 mesh at {N8}^2: {us4k:.1f} us/step = {N8 * N8 / us4k:.1f} MLUPS "
-          f"(chunks of {ROOF_SPC}, scatter and gather included); one step's device time "
+    us4k, res4k = summary("resident")
+    us4k_g, gat4k = summary("gathered")
+    print(f"    (d) 2x2 mesh at {N8}^2, chunks of {ROOF_SPC}, host-paced, in turns (gathered, "
+          f"resident, resident, gathered): resident {res4k} = {N8 * N8 / us4k:.1f} MLUPS; "
+          f"placed and gathered every chunk {gat4k}; one step's device time "
           f"{step4k_ms * 1e3:.1f} us (CUDA graph: K1 on 4 blocks and "
           f"{2 * 2 * 2} halo copies), halo exchange {exch4k_ms * 1e3:.1f} us = "
-          f"{100 * exch4k_ms / step4k_ms:.1f}% of it; scatter + gather {sg4k_ms:.2f} ms a "
-          f"chunk = {sg4k_ms * 1e3 / ROOF_SPC:.1f} us/step at {ROOF_SPC} steps; unsharded "
-          f"(phase 7) K1 {roof['k1_us']:.1f} us, "
+          f"{100 * exch4k_ms / step4k_ms:.1f}% of it; still gathered a chunk: f_post into "
+          f"the global f_post, {fp4k_ms:.3f} ms = {fp4k_ms * 1e3 / ROOF_SPC:.1f} us/step at "
+          f"{ROOF_SPC} steps; the chunk's monitors (force on the global f_post, max_v from "
+          f"the blocks) {mon4k_ms:.3f} ms = {mon4k_ms * 1e3 / ROOF_SPC:.1f} us/step; "
+          f"unsharded (phase 7) K1 {roof['k1_us']:.1f} us, "
           f"{roof['us_per_step']:.1f} us/step [{card}]", flush=True)
     print(f"    launches {({k: v for k, v in launches8d.items() if v})}, plain calls {counted}; "
-          f"{per_step(launches8d, (ROOF_CHUNKS + 1) * ROOF_SPC)} on 4 blocks", flush=True)
+          f"{per_step(launches8d, steps8d)} on 4 blocks", flush=True)
     if any(counted.values()):
         raise AssertionError(f"phase 8(d): plain calls {counted}")
     launches8 = {k: launches8a[k] + launches8b[k] + launches8c[k] + launches8d[k]

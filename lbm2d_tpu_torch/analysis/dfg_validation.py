@@ -184,7 +184,7 @@ def run_validation(
         engine.run_step(chunk)
         if force_mask is not None:
             f = obstacle_force(
-                engine.state.f_post, engine.params, mask=force_mask
+                engine.field("f_post"), engine.params, mask=force_mask
             ).cpu().numpy()
         else:
             f = engine.get_force()

@@ -24,17 +24,22 @@ mesh included, as in the JAX package: on the card through K1 in its
 sharded form, the blocks on the first ry * rx CUDA devices; on the
 CPU through the eager sharded step, or the kernels' plain sharded runner
 with ``store_dev``. The sharded runner never fuses (logged when temporal
-blocking is requested). The state stays one global ``LBMState``: the
-runner scatters it into blocks and gathers it every chunk.
+blocking is requested). The state is placed on the blocks once, at
+construction, ``init`` and ``load_checkpoint`` (the JAX ``_place_on_mesh``),
+and stays there across chunks (``topology.BlockState``): ``field`` gathers
+one field where the host reads it, and ``state`` gathers all four into a
+snapshot, cached until the next ``run_step``. On a mesh whose blocks share
+one device the chunk's closing f_post is also kept there whole, so the
+force and the moments read it as the single-device path does.
 
 Inside a ``torch.distributed`` group of several processes
 (``parallel/multihost.init_multihost``) the spatial mesh is laid over the
 global device list (``multihost.make_global_mesh``); when its blocks
 belong to several processes the engine is multi-host (``_multihost``):
-each process keeps the global-shaped state, advances its own blocks only,
-and the host reads (``get_moments``, ``get_physical_fields``,
-checkpoints) are collectives every process joins, of which rank 0 alone
-writes files.
+each process holds and advances its own blocks only, and the host reads
+(``field``, ``state``, ``get_moments``, ``get_physical_fields``,
+checkpoints, the monitors) are collectives every process joins, of which
+rank 0 alone writes files.
 """
 
 from __future__ import annotations
@@ -48,13 +53,13 @@ import numpy as np
 import torch
 
 from .convert import state_from_numpy, state_to_numpy
+from .lattice import moments_from_f
 from .solver import (
     CaseParams,
     LBMState,
     init_state,
     make_params,
     max_velocity,
-    moments_output,
     obstacle_force,
     run_chunk,
 )
@@ -193,24 +198,24 @@ def resolve_runner(p: CaseParams, device: torch.device, store_dev: bool):
 
 
 def resolve_sharded_runner(p: CaseParams, device: torch.device, store_dev: bool, mesh):
-    """The chunk runner of a case on a spatial ``mesh``: K1 in its
+    """The ``sharded.BlockRunner`` of a case on a spatial ``mesh``: K1 in its
     sharded form on a CUDA device (raising for a case it does not cover),
     the eager sharded step on the CPU, and the kernels' plain sharded
     runner on the CPU with ``store_dev``, so the flag is never ignored.
     Temporal blocking is not engaged on a mesh (logged)."""
     from ..ops.cuda_step import fuse_requested, unsupported
-    from ..parallel.sharded import make_runner
+    from ..parallel.sharded import BlockRunner
 
     if fuse_requested():
         log.warning("temporal blocking (cuda_step._FUSE_STEPS) not engaged: the sharded "
                     "runner never fuses (the JAX run_chunk_sharded_pallas rule)")
     if device.type != "cuda" and not store_dev:
-        return make_runner(mesh, "eager")
+        return BlockRunner(mesh, "eager")
     reason = unsupported(p)
     if reason is not None:
         what = "the CUDA kernels" if device.type == "cuda" else "16-bit deviation storage"
         raise NotImplementedError(f"{what} do not cover {reason}")
-    return make_runner(mesh, "cuda" if device.type == "cuda" else "plain", store_dev)
+    return BlockRunner(mesh, "cuda" if device.type == "cuda" else "plain", store_dev)
 
 
 class LBMEngine:
@@ -273,32 +278,68 @@ class LBMEngine:
                                                   self.mesh)
         else:
             self._runner = resolve_runner(self.params, self.device, self.store_dev)
-        self.state: LBMState = init_state(self.ny, self.nx, dtype, self.device)
+        self._state: Optional[LBMState] = None  # one device
+        self._blocks = None  # a mesh: the resident topology.BlockState
+        self._set_state(init_state(self.ny, self.nx, dtype, self.device))
+
+    def _set_state(self, state: LBMState) -> None:
+        """Hold ``state``: as it is on one device; on a mesh, placed on the
+        blocks once (the JAX ``_place_on_mesh``), the global tensors
+        dropped."""
+        if self.mesh is None:
+            self._state = state
+        else:
+            self._blocks = self._runner.place(state, self.params)
+        self._snapshot = None
         self._last_monitors = None
         self._monitors_np = None
+
+    @property
+    def state(self) -> LBMState:
+        """The global state. On a mesh the four fields gathered from the
+        blocks (a collective on a mesh spanning processes), cached until
+        the next ``run_step``; read it only where the host needs every
+        field."""
+        if self.mesh is None:
+            return self._state
+        if self._snapshot is None:
+            self._snapshot = self._blocks.snapshot()
+        return self._snapshot
+
+    def field(self, name: str) -> torch.Tensor:
+        """One global field of the state ("f", "f_post", "rho" or "u"). On
+        a mesh only this field is gathered from the blocks; the next
+        ``run_step`` may overwrite what it returns. On a mesh spanning
+        processes a collective every process must call at the same point
+        (the loop is deterministic and the monitors are the same on every
+        rank, so all processes branch identically)."""
+        if self.mesh is None:
+            return getattr(self._state, name)
+        return self._blocks.gather(name)
 
     # -- reference-compatible API --------------------------------------------
 
     def init(self) -> None:
-        self.state = init_state(self.ny, self.nx, self.dtype, self.device)
-        self._last_monitors = None
-        self._monitors_np = None
+        self._set_state(init_state(self.ny, self.nx, self.dtype, self.device))
 
     def run_step(self, steps: int = 1) -> None:
-        self.state, self._last_monitors = self._runner(self.state, self.params, steps)
+        if self.mesh is None:
+            self._state, self._last_monitors = self._runner(self._state, self.params, steps)
+        else:
+            self._snapshot = None
+            self._last_monitors = self._runner.advance(self._blocks, self.params, steps)
         self._monitors_np = None
 
     def _fetch_monitors(self) -> np.ndarray:
         """[Fx, Fy, max_v] in ONE device-to-host transfer."""
         if self._monitors_np is None:
-            if self._last_monitors is None:
-                force = obstacle_force(self.state.f_post, self.params)
-                max_v = max_velocity(self.state.u)
-            else:
-                force = self._last_monitors["force"]
-                max_v = self._last_monitors["max_v"]
+            mon = self._last_monitors
+            if mon is None:
+                mon = (self._runner.monitors(self._blocks, self.params) if self.mesh is not None
+                       else {"force": obstacle_force(self._state.f_post, self.params),
+                             "max_v": max_velocity(self._state.u)})
             self._monitors_np = (
-                torch.cat([force.reshape(-1), max_v.reshape(1)]).cpu().numpy()
+                torch.cat([mon["force"].reshape(-1), mon["max_v"].reshape(1)]).cpu().numpy()
             )
         return self._monitors_np
 
@@ -308,31 +349,20 @@ class LBMEngine:
     def get_max_velocity(self) -> float:
         return float(self._fetch_monitors()[2])
 
-    def _fetch(self, x: torch.Tensor) -> np.ndarray:
-        """A field of the state -> numpy for host IO. Multi-host: the
-        blocks of every process, a collective every process must call at
-        the same point (the loop is deterministic and the monitors are the
-        same on every rank, so all processes branch identically)."""
-        if self._multihost:
-            from ..parallel.multihost import gather_for_io
-
-            return gather_for_io(x, self.mesh)
-        return x.cpu().numpy()
-
     def get_physical_fields(self) -> Tuple[np.ndarray, np.ndarray]:
         """(u [2,H,W], mask [H,W]) as numpy."""
-        return self._fetch(self.state.u), self.params.mask.cpu().numpy()
+        return self.field("u").cpu().numpy(), self.params.mask.cpu().numpy()
 
     def get_moments(self) -> np.ndarray:
         """[9, H, W] MRT moments of the post-collision field."""
-        return self._fetch(moments_output(self.state))
+        return self.get_moments_device().cpu().numpy()
 
     def get_moments_device(self) -> torch.Tensor:
-        return moments_output(self.state)
+        return moments_from_f(self.field("f_post"))
 
     @property
     def step_count(self) -> int:
-        return int(self.state.step)
+        return int(self._state.step if self.mesh is None else self._blocks.step)
 
     # -- checkpoint / restore -------------------------------------------------
 
@@ -340,12 +370,11 @@ class LBMEngine:
         # write-temp-then-rename: a crash mid-write must not corrupt the only
         # checkpoint. Multi-host: the gathers are collectives every process
         # joins; rank 0 alone converts to host and writes
-        state = self.state
+        state = LBMState(**{k: self.field(k) for k in ("f", "f_post", "rho", "u")},
+                         step=self.step_count)
         if self._multihost:
             from ..parallel import multihost
 
-            state = LBMState(**{k: multihost.gather_replicated(getattr(state, k), self.mesh)
-                                for k in ("f", "f_post", "rho", "u")}, step=state.step)
             if multihost.process_index() != 0:
                 return
         data = state_to_numpy(state)
@@ -358,17 +387,14 @@ class LBMEngine:
     def load_checkpoint(self, path: str) -> None:
         """Resume from ``path``. Multi-host: rank 0 reads the file and
         broadcasts the state, so the other processes need not see it; a
-        read that fails on rank 0 raises the same error on every rank."""
+        read that fails on rank 0 raises the same error on every rank.
+        Each process then places its own blocks and drops the rest."""
         if self._multihost:
-            self.state = self._load_broadcast(path)
+            state = self._load_broadcast(path)
         else:
             with np.load(path) as data:
-                self.state = state_from_numpy(
-                    dict(data), dtype=self.dtype, device=self.device
-                )
-        self._last_monitors = None
-        self._monitors_np = None
-
+                state = state_from_numpy(dict(data), dtype=self.dtype, device=self.device)
+        self._set_state(state)
     def _load_broadcast(self, path: str) -> LBMState:
         from ..parallel import multihost
 

@@ -17,11 +17,13 @@ device-to-device copies, halos that cross ranks go through
 the chunk's monitors are reduced over the ranks in rank order, so every
 rank reads the same values and branches the same way.
 
-The engine keeps the global-shaped ``LBMState`` on every rank (built from
-identical host data), of which only the rank's own blocks are advanced;
-``gather_for_io`` assembles a field from every rank's blocks, a
-collective every rank must join at the same point, and only rank 0 writes
-artifacts.
+Each rank holds only its own blocks of the state (``topology.BlockState``,
+placed once from the identical host data every rank builds, the
+counterpart of the JAX ``shard_state_global``, which materializes only
+the addressable shards); the engine keeps no global-shaped copy.
+``gather_replicated`` assembles a field from every rank's blocks, a
+collective every rank must join at the same point, and only rank 0
+writes artifacts.
 
 Backends: ``nccl`` where each rank owns its own card; ``gloo`` for CPU
 tensors and for ranks that share one card (NCCL refuses two ranks on one
@@ -39,7 +41,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .topology import Mesh, best_grid
+from .topology import Mesh, best_grid, gather_blocks
 
 # this process's local devices and backend, set by init_multihost
 _LOCAL: dict = {}
@@ -214,48 +216,37 @@ def reduce_monitors(force: torch.Tensor, max_v: torch.Tensor):
     return f.to(max_v.dtype), parts[:, 2].max().to(max_v.dtype)
 
 
-def shard_state_global(state, p, mesh: Mesh):
-    """(state blocks, params blocks), [ry][rx], of this rank's blocks of a
-    (possibly multi-host) mesh, cut from the identical host data every
-    rank holds; the blocks of other ranks are None."""
-    from .topology import shard_state
-
-    return shard_state(state, p, mesh)
-
-
-def gather_replicated(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The global [..., H, W] field from every rank's own blocks of ``x``
-    (each rank's ``x`` is global-shaped and valid on the blocks it owns),
-    on ``x``'s device on every rank. A collective every rank must join."""
-    if not is_cross_rank(mesh):
-        return x
-    H, W = x.shape[-2:]
+def gather_replicated(blocks, mesh: Mesh) -> torch.Tensor:
+    """The global [..., H, W] field from every rank's own blocks:
+    ``blocks`` [ry][rx] holds this rank's [..., hl, wl] blocks (None where
+    another rank owns one). On every rank, on the device of its first
+    block. A collective every rank must join on a mesh that spans ranks."""
     ry, rx = mesh.grid
-    hl, wl = H // ry, W // rx
-    coords = [(iy, ix) for iy in range(ry) for ix in range(rx)]
     per_rank = {}
-    for iy, ix in coords:
-        per_rank.setdefault(mesh.owners[iy][ix], []).append((iy, ix))
+    for iy in range(ry):
+        for ix in range(rx):
+            per_rank.setdefault(mesh.owner(iy, ix), []).append((iy, ix))
+    mine = per_rank[mesh.rank]
+    first = blocks[mine[0][0]][mine[0][1]]
+    if not is_cross_rank(mesh):
+        return gather_blocks(blocks, first.device)
     k = max(len(v) for v in per_rank.values())
-    mine = per_rank.get(mesh.rank, [])
-    lead = tuple(x.shape[:-2])
-    pack = torch.zeros((k,) + lead + (hl, wl), dtype=x.dtype, device=x.device)
+    pack = torch.zeros((k,) + tuple(first.shape), dtype=first.dtype, device=first.device)
     for j, (iy, ix) in enumerate(mine):
-        pack[j] = x[..., iy * hl:(iy + 1) * hl, ix * wl:(ix + 1) * wl]
+        pack[j] = blocks[iy][ix]
     packs = all_gather(pack)
-    out = x.clone()
-    for r, blocks in per_rank.items():
-        for j, (iy, ix) in enumerate(blocks):
+    hl, wl = first.shape[-2:]
+    out = torch.empty(tuple(first.shape[:-2]) + (ry * hl, rx * wl), dtype=first.dtype,
+                      device=first.device)
+    for r, coords in per_rank.items():
+        for j, (iy, ix) in enumerate(coords):
             out[..., iy * hl:(iy + 1) * hl, ix * wl:(ix + 1) * wl] = packs[r][j]
     return out
 
 
-def gather_for_io(x: torch.Tensor, mesh: Optional[Mesh]) -> np.ndarray:
-    """``gather_replicated`` as numpy, for host-side IO (HDF5 writer,
-    renderer input). A plain copy when ``mesh`` does not span ranks."""
-    if not is_cross_rank(mesh):
-        return x.cpu().numpy()
-    return gather_replicated(x, mesh).cpu().numpy()
+def gather_for_io(blocks, mesh: Mesh) -> np.ndarray:
+    """``gather_replicated`` as numpy, for host-side IO."""
+    return gather_replicated(blocks, mesh).cpu().numpy()
 
 
 def broadcast_object(obj, src: int = 0):

@@ -14,43 +14,51 @@ on the blocks that hold the global ring, gated by each block's global
 origin, in the reference order. So a mesh of any shape runs the same
 arithmetic on every cell as the single-device step, bitwise.
 
-Three chunk runners, each with ``solver.run_chunk``'s contract
-``(state, p, n) -> (state, {"force", "max_v"})``:
+A case's state lives on its blocks (``topology.BlockState``), as the JAX
+package's sharded arrays outlive a chunk: ``BlockRunner.place`` cuts it
+once, ``BlockRunner.advance`` runs a chunk on the resident blocks in
+place, and ``BlockState.gather`` assembles a field only where the host
+reads one. Two runners advance the blocks:
 
-* ``run_chunk_sharded``: the eager per-shard step (the JAX package's
-  ``make_local_step``, ``exchange_halo_f`` and ``_sharded_apply_bc``);
-  the engine's runner on the CPU.
-* ``run_chunk_sharded_cuda``: the counterpart of
-  ``run_chunk_sharded_pallas``. Each step runs K1 in its sharded form
-  (``cuda_step.k1_step`` given each block's ``BlockGeom``; one launch a
-  block, the global ring written by the blocks that hold it) on every
-  block, then refreshes the halos; the last step is K1's full variant.
-  With ``store_dev`` the blocks and their halos stay bf16 deviations and
-  the closing full step dequantizes, as the single-device runner does.
-* ``run_chunk_sharded_plain``: the same through the kernels' plain
-  versions.
+* the eager per-shard step (the JAX package's ``make_local_step``,
+  ``exchange_halo_f`` and ``_sharded_apply_bc``) on bare [C, hl, wl]
+  blocks; the engine's runner on the CPU;
+* K1 in its sharded form (the counterpart of ``run_chunk_sharded_pallas``;
+  ``cuda_step.k1_step`` given each block's ``BlockGeom``, one launch a
+  block, the global ring written by the blocks that hold it) on halo'd
+  [C, hl + 2, pitch] blocks, ping-ponging two resident buffers, the last
+  step K1's full variant, which writes the resident rho, u and f_post;
+  or the same through the kernels' plain versions. With ``store_dev`` the
+  resident blocks stay f32: the fast steps run on bf16 deviations
+  quantized once a chunk, halos included, and the closing full step
+  dequantizes, as the single-device runner does.
 
-Each runner scatters the global state into blocks at the start of a chunk
-and gathers it at the end, so the engine, checkpoints and writers see one
-global ``LBMState``; the monitors are computed on the gathered f_post and
-u, as the JAX package's are global reductions. f_post keeps the global
-ring's initial values.
+The monitors come from the blocks. ``max_v`` is the largest of the
+blocks' maxima over their own cells, exact in any order. On a mesh whose
+blocks all share one device the closing f_post is copied into one
+resident global f_post there (``BlockState.f_post_global``), whose force
+is the single-device runner's, bitwise; f, rho and u stay in blocks.
+Elsewhere each block's force is its partial sums in float64 over its own
+cells' links, the f_post halos refreshed once at the chunk's end so a
+seam link reads its neighbour's values, added in block order and then
+over the processes in rank order.
 
 On a mesh whose blocks belong to several processes
-(``multihost.make_global_mesh``) each process cuts, advances and writes
-back only its own blocks, into its global-shaped state: the other
-processes' parts of it are stale, and ``multihost.gather_for_io`` reads
-the whole field. Halos between a process's own blocks are device copies,
+(``multihost.make_global_mesh``) each process places and advances only
+its own blocks. Halos between a process's own blocks are device copies,
 halos that cross processes go through ``multihost.exchange`` (P2P in one
-fixed order), and the monitors are each process's sums and maxima over
-its own cells, reduced over the processes in rank order. The f_post
-halos are refreshed once at the end of the chunk, so the force's
-neighbour reads across a seam see the neighbour's values.
+fixed order), and a gather is a collective every process joins.
+
+``run_chunk_sharded`` (eager), ``run_chunk_sharded_cuda`` and
+``run_chunk_sharded_plain`` keep ``solver.run_chunk``'s contract
+``(state, p, n) -> (state, {"force", "max_v"})`` as thin wrappers: place,
+advance, gather all four fields.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+import dataclasses
+from typing import Optional
 
 import torch
 
@@ -70,9 +78,14 @@ from ..core.solver import (
     warmup_ramp,
 )
 from ..ops import cuda_step as cs
-from .topology import Mesh, block_shape, gather_blocks, gather_state, shard_state
+from .topology import BlockState, Mesh, block_shape, gather_blocks, halo_blocks, shard_params
 
 NAN = float("nan")
+
+
+def gather_halo_blocks(blocks, hl: int, wl: int, device) -> torch.Tensor:
+    """The global [..., H, W] tensor from halo'd blocks (their own cells)."""
+    return gather_blocks([[b[..., 1:hl + 1, 1:wl + 1] for b in row] for row in blocks], device)
 
 
 def _coords(mesh: Mesh):
@@ -80,35 +93,6 @@ def _coords(mesh: Mesh):
     spans processes)."""
     ry, rx = mesh.grid
     return [(iy, ix) for iy in range(ry) for ix in range(rx) if mesh.owns(iy, ix)]
-
-
-def halo_blocks(x: torch.Tensor, mesh: Mesh, fill, pitch: Optional[int] = None):
-    """[ry][rx] blocks [..., hl + 2, pitch] of the global [..., H, W]
-    tensor ``x``, each on its mesh device, with the 1-cell halo ring cut
-    from the neighbours' cells; halo cells beyond the global edge and the
-    padding columns hold ``fill``. Blocks another process owns are None."""
-    hl, wl = block_shape(x.shape[-2:], mesh)
-    pitch = pitch or wl + 2
-    lead = tuple(x.shape[:-2])
-    xp = torch.full(lead + (x.shape[-2] + 2, x.shape[-1] + 2), fill, dtype=x.dtype,
-                    device=x.device)
-    xp[..., 1:-1, 1:-1] = x
-    out = []
-    for iy, row in enumerate(mesh.devices):
-        out.append([])
-        for ix, dev in enumerate(row):
-            if not mesh.owns(iy, ix):
-                out[-1].append(None)
-                continue
-            b = torch.full(lead + (hl + 2, pitch), fill, dtype=x.dtype, device=dev)
-            b[..., :, :wl + 2] = xp[..., iy * hl:iy * hl + hl + 2, ix * wl:ix * wl + wl + 2]
-            out[-1].append(b)
-    return out
-
-
-def gather_halo_blocks(blocks, hl: int, wl: int, device) -> torch.Tensor:
-    """The global [..., H, W] tensor from halo'd blocks (their own cells)."""
-    return gather_blocks([[b[..., 1:hl + 1, 1:wl + 1] for b in row] for row in blocks], device)
 
 
 # ---------------------------------------------------------------------------
@@ -212,68 +196,98 @@ def local_step(st: LBMState, p: CaseParams, f_halo: torch.Tensor, solid_halo: to
     return LBMState(f=f, f_post=f_post, rho=rho, u=u, step=new_step)
 
 
-def _monitors(state: LBMState, p: CaseParams):
-    return {"force": obstacle_force(state.f_post, p), "max_v": max_velocity(state.u)}
+class EagerCase:
+    """The inputs of a case on a mesh for the eager step, cut once: each
+    block's params (``topology.shard_params``) and solid flags with the
+    1-cell halo, and the force windows (``force_windows``) on a mesh that
+    is not on one device."""
+
+    def __init__(self, p: CaseParams, mesh: Mesh):
+        self.p, self.mesh = p, mesh
+        self.hl, self.wl = block_shape(p.shape, mesh)  # raises for a refused mesh
+        self.params = shard_params(p, mesh)
+        self.solid = halo_blocks(p.mask > 0.5, mesh, False)
+        self.windows = None if mesh.single_device is not None else force_windows(p, mesh)
 
 
-def _own_region(mesh: Mesh, shape, hl: int, wl: int, device) -> torch.Tensor:
-    """bool [H, W]: the cells of this process's blocks."""
-    own = torch.zeros(shape, dtype=torch.bool, device=device)
-    for iy, ix in _coords(mesh):
-        own[iy * hl:(iy + 1) * hl, ix * wl:(ix + 1) * wl] = True
-    return own
-
-
-def _own_state(state: LBMState, n_steps: int, mesh: Mesh, hl: int, wl: int, off: int,
-               f, f_post, rho, u, p: CaseParams):
-    """The chunk's new global-shaped state on a mesh spanning processes:
-    ``state`` with this process's blocks written back (``f``, ``rho``,
-    ``u`` [ry][rx] blocks whose own cells start at (off, off)), and f_post
-    from the halo'd blocks ``f_post`` (halos refreshed) on the blocks'
-    cells and their halo ring, inside the global ring; and the global
-    monitors."""
-    from . import multihost
-
-    H, W = p.shape
-    out = {k: getattr(state, k).clone() for k in ("f", "f_post", "rho", "u")}
-    for iy, ix in _coords(mesh):
-        ys, xs = slice(iy * hl, (iy + 1) * hl), slice(ix * wl, (ix + 1) * wl)
-        for k, blocks in (("f", f), ("rho", rho), ("u", u)):
-            out[k][..., ys, xs] = blocks[iy][ix][..., off:off + hl, off:off + wl]
-        y0, y1 = max(iy * hl - 1, 1), min((iy + 1) * hl + 1, H - 1)
-        x0, x1 = max(ix * wl - 1, 1), min((ix + 1) * wl + 1, W - 1)
-        by, bx = iy * hl - 1, ix * wl - 1  # the halo'd block's origin
-        out["f_post"][:, y0:y1, x0:x1] = f_post[iy][ix][:, y0 - by:y1 - by, x0 - bx:x1 - bx]
-    new_state = LBMState(step=state.step + n_steps, **out)
-    own = _own_region(mesh, (H, W), hl, wl, new_state.f.device)
-    force = obstacle_force(new_state.f_post, p, region=own)
-    speed = torch.sqrt(new_state.u[0] * new_state.u[0] + new_state.u[1] * new_state.u[1])
-    max_v = torch.where(own, speed, torch.zeros_like(speed)).max()
-    force, max_v = multihost.reduce_monitors(force, max_v)
-    return new_state, {"force": force, "max_v": max_v}
-
-
-def run_chunk_sharded(state: LBMState, p: CaseParams, n_steps: int, mesh: Mesh):
-    """Advance ``n_steps`` on ``mesh`` with the eager per-shard step;
-    monitors computed on the gathered state."""
+def advance_eager(bs: BlockState, case: EagerCase, n_steps: int):
+    """Advance the resident bare blocks ``bs`` ``n_steps`` in place with the
+    eager per-shard step; returns the chunk's monitors."""
+    mesh, p = case.mesh, case.p
     ny, nx = p.shape
-    hl, wl = block_shape(p.shape, mesh)
-    blocks, params = shard_state(state, p, mesh)
-    solid = halo_blocks(p.mask > 0.5, mesh, False)
+    hl, wl = case.hl, case.wl
+    blocks = [[LBMState(f=bs.f[iy][ix], f_post=bs.f_post[iy][ix], rho=bs.rho[iy][ix],
+                        u=bs.u[iy][ix], step=bs.step) if mesh.owns(iy, ix) else None
+               for ix in range(len(row))] for iy, row in enumerate(mesh.devices)]
     for _ in range(n_steps):
         halos = exchange_halo_f([[b and b.f for b in row] for row in blocks], mesh)
-        blocks = [[local_step(blocks[iy][ix], params[iy][ix], halos[iy][ix], solid[iy][ix],
-                              iy * hl, ix * wl, ny, nx) if mesh.owns(iy, ix) else None
+        blocks = [[local_step(blocks[iy][ix], case.params[iy][ix], halos[iy][ix],
+                              case.solid[iy][ix], iy * hl, ix * wl, ny, nx)
+                   if mesh.owns(iy, ix) else None
                    for ix in range(len(row))] for iy, row in enumerate(blocks)]
-    if mesh.owners is not None:
-        def part(k):
-            return [[b and getattr(b, k) for b in row] for row in blocks]
+    for k in ("f", "f_post", "rho", "u"):
+        setattr(bs, k, [[b and getattr(b, k) for b in row] for row in blocks])
+    bs.step += n_steps
+    return _close_chunk(bs, p, case.windows)
 
-        f_post = exchange_halo_f(part("f_post"), mesh)
-        return _own_state(state, n_steps, mesh, hl, wl, 0, part("f"), f_post, part("rho"),
-                          part("u"), p)
-    new_state = gather_state(blocks, state.f.device)
-    return new_state, _monitors(new_state, p)
+
+# ---------------------------------------------------------------------------
+# Monitors from the blocks
+# ---------------------------------------------------------------------------
+
+
+def force_windows(p: CaseParams, mesh: Mesh):
+    """[ry][rx] (params, region) of the force on each of this process's
+    blocks: ``p`` with the mask and Bouzidi q planes of the block and its
+    halo ring ([hl + 2, wl + 2]; fluid beyond the global edge, where the
+    f_post halo holds zeros, so a link there adds 0 as the global sum's
+    fill does), and the region of the block's own cells."""
+    mask = halo_blocks(p.mask, mesh, 0.0)
+    q = None if p.bouzidi_q is None else halo_blocks(p.bouzidi_q, mesh, 0.5)
+    out = [[None] * len(row) for row in mesh.devices]
+    for iy, ix in _coords(mesh):
+        m = mask[iy][ix]
+        region = torch.zeros(m.shape, dtype=torch.bool, device=m.device)
+        region[1:-1, 1:-1] = True
+        out[iy][ix] = (dataclasses.replace(p, mask=m, bouzidi_q=_at(q, iy, ix)), region)
+    return out
+
+
+def _close_chunk(bs: BlockState, p: CaseParams, windows):
+    """After a chunk: on a one-device mesh the blocks' f_post copied into
+    ``bs.f_post_global``; then the monitors (``block_monitors``)."""
+    if bs.f_post_global is not None:
+        bs.collect_f_post()
+    return block_monitors(bs, p, windows)
+
+
+def block_monitors(bs: BlockState, p: CaseParams, windows):
+    """{"force", "max_v"} of the resident state (module docstring): on a
+    one-device mesh the force of ``bs.f_post_global``; elsewhere the
+    blocks' float64 partial sums over ``windows`` (``force_windows``),
+    after refreshing the f_post halos, added in block order and over the
+    processes in rank order. On a mesh spanning processes a collective."""
+    from . import multihost
+
+    mesh, dev = bs.mesh, bs.device
+    coords = _coords(mesh)
+    u = bs.own("u")
+    max_v = torch.stack([max_velocity(u[iy][ix]).to(dev) for iy, ix in coords]).max()
+    if bs.f_post_global is not None:
+        return {"force": obstacle_force(bs.f_post_global, p), "max_v": max_v}
+    if bs.halo:
+        exchange_halos(bs.f_post, mesh, bs.hl, bs.wl)
+        fp = [[b if b is None else b[:, :, :bs.wl + 2] for b in row] for row in bs.f_post]
+    else:
+        fp = exchange_halo_f(bs.f_post, mesh)
+    force = None
+    for iy, ix in coords:
+        wp, region = windows[iy][ix]
+        part = obstacle_force(fp[iy][ix], wp, region=region).to(dev)
+        force = part if force is None else force + part
+    if multihost.is_cross_rank(mesh):
+        force, max_v = multihost.reduce_monitors(force, max_v)
+    return {"force": force.to(max_v.dtype), "max_v": max_v}
 
 
 # ---------------------------------------------------------------------------
@@ -286,7 +300,8 @@ class ShardedCase:
     cut once: each block's geometry, its aux plane with the 1-cell halo
     (the link predicate reads the pull source's solid flag across a seam;
     a zero halo would turn seam links into fluid links), its Bouzidi q
-    planes and its rows of the inlet profile."""
+    planes, its rows of the inlet profile, and the force windows
+    (``force_windows``) on a mesh that is not on one device."""
 
     def __init__(self, p: CaseParams, mesh: Mesh):
         why = cs.unsupported(p)
@@ -307,6 +322,7 @@ class ShardedCase:
             self.prof = [[p.inlet_profile[iy * hl:(iy + 1) * hl].to(dev).contiguous()
                           if mesh.owns(iy, ix) else None
                           for ix, dev in enumerate(row)] for iy, row in enumerate(mesh.devices)]
+        self.windows = None if mesh.single_device is not None else force_windows(p, mesh)
 
 
 def _at(blocks, iy: int, ix: int):
@@ -401,90 +417,111 @@ def fast_step(src, dst, case: ShardedCase, scal: torch.Tensor, dev_store: bool,
     exchange_halos(dst, case.mesh, case.hl, case.wl)
 
 
+def advance_blocks(bs: BlockState, case: ShardedCase, n_steps: int, store_dev: bool = False,
+                   plain: bool = False):
+    """Advance the resident halo'd blocks ``bs`` ``n_steps`` in place
+    through K1 in its sharded form (its plain versions with ``plain``);
+    returns the chunk's monitors. The rules of ``cuda_step.run_chunk_cuda``
+    hold: ``store_dev`` for chunks of more than one step, equilibrium and
+    full-way bounce-back only; never fused."""
+    if n_steps < 1:
+        raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+    p, mesh = case.p, case.mesh
+    k1, _ = _kernels(plain)
+    dev_store = (bool(store_dev) and n_steps > 1
+                 and cs.dev_storage_refusal(p, sharded=True) is None)
+    src, dst = bs.f, bs.f_alt
+    if dev_store:
+        # quantize once per chunk, halos included: the halo copies then move
+        # bf16 deviations, as the JAX package's ppermute rows do
+        src = [[b if b is None else cs.quantize(b) for b in row] for row in src]
+        dst = [[b if b is None else b.clone() for b in row] for row in src]
+    row, warmup = cs._host_scalars(p)
+    step = bs.step
+    for _ in range(n_steps - 1):
+        step += 1
+        fast_step(src, dst, case, cs._with_ramp(row, warmup, step), dev_store, plain)
+        src, dst = dst, src
+    if dev_store:
+        # the closing full step runs in exact f32, into the resident buffer
+        # the chunk quantized
+        src = [[b if b is None else cs.dequantize(b) for b in r] for r in src]
+        dst = bs.f
+    scal = cs._with_ramp(row, warmup, step + 1)
+    for iy, ix in _coords(mesh):
+        k1(src[iy][ix], dst[iy][ix], case.aux[iy][ix], scal, p.use_les, p.bc_type,
+           bs.rho[iy][ix], bs.u[iy][ix], bs.f_post[iy][ix], obstacle=case.obstacle,
+           q=_at(case.q, iy, ix), prof=_at(case.prof, iy, ix), geom=case.geoms[iy][ix])
+    exchange_halos(dst, mesh, case.hl, case.wl)  # the next chunk reads f's halos
+    if not dev_store:
+        bs.f_alt = src
+    bs.f = dst
+    bs.step += n_steps
+    return _close_chunk(bs, p, case.windows)
+
+
+class BlockRunner:
+    """The engine's chunk runner on ``mesh``: ``kind`` "cuda" (K1 in its
+    sharded form), "plain" (its plain versions) or "eager" (the eager
+    per-shard step). ``place`` puts a case's state on the blocks once,
+    ``advance`` runs a chunk on them in place and returns the monitors.
+    The inputs of a case (``ShardedCase`` / ``EagerCase``) are cut once per
+    params object."""
+
+    def __init__(self, mesh: Mesh, kind: str, store_dev: bool = False, case=None):
+        if kind not in ("cuda", "plain", "eager"):
+            raise ValueError(f"runner kind {kind!r}: expected 'cuda', 'plain' or 'eager'")
+        self.mesh, self.kind, self.store_dev = mesh, kind, store_dev
+        self._case = case
+
+    def case(self, p: CaseParams):
+        c = self._case
+        if c is None or c.p is not p or c.mesh != self.mesh:
+            self._case = c = (EagerCase if self.kind == "eager" else ShardedCase)(p, self.mesh)
+        return c
+
+    def place(self, state: LBMState, p: CaseParams) -> BlockState:
+        """This process's blocks of the global ``state``, in the runner's
+        layout."""
+        case = self.case(p)
+        if self.kind == "eager":
+            return BlockState.place(state, self.mesh)
+        return BlockState.place(state, self.mesh, halo=1, pitch=case.pitch)
+
+    def advance(self, bs: BlockState, p: CaseParams, n_steps: int):
+        case = self.case(p)
+        if self.kind == "eager":
+            return advance_eager(bs, case, n_steps)
+        return advance_blocks(bs, case, n_steps, self.store_dev, self.kind == "plain")
+
+    def monitors(self, bs: BlockState, p: CaseParams):
+        """The monitors of ``bs`` as placed (before its first chunk)."""
+        return block_monitors(bs, p, self.case(p).windows)
+
+
+def _run_wrapped(state, p, n_steps, mesh, kind, store_dev=False, case=None):
+    """Place ``state``, advance ``n_steps`` and gather every field."""
+    runner = BlockRunner(mesh, kind, store_dev, case)
+    bs = runner.place(state, p)
+    monitors = runner.advance(bs, p, n_steps)
+    return bs.snapshot(), monitors
+
+
+def run_chunk_sharded(state: LBMState, p: CaseParams, n_steps: int, mesh: Mesh):
+    """Advance ``n_steps`` on ``mesh`` with the eager per-shard step."""
+    return _run_wrapped(state, p, n_steps, mesh, "eager")
+
+
 def run_chunk_sharded_cuda(state: LBMState, p: CaseParams, n_steps: int, mesh: Mesh,
                            store_dev: bool = False, case: Optional[ShardedCase] = None):
-    """Advance ``n_steps`` on ``mesh`` through K1 in its sharded form; the
-    contract and the rules of ``cuda_step.run_chunk_cuda`` (``store_dev``
-    for chunks of more than one step, equilibrium and full-way bounce-back
-    only; never fused). ``case`` is the
-    ``ShardedCase`` of (p, mesh), cut here when not given."""
-    return _run_chunk_blocks(state, p, n_steps, mesh, store_dev, False, case)
+    """Advance ``n_steps`` on ``mesh`` through K1 in its sharded form
+    (``advance_blocks``). ``case`` is the ``ShardedCase`` of (p, mesh), cut
+    here when not given."""
+    return _run_wrapped(state, p, n_steps, mesh, "cuda", store_dev, case)
 
 
 def run_chunk_sharded_plain(state: LBMState, p: CaseParams, n_steps: int, mesh: Mesh,
                             store_dev: bool = False, case: Optional[ShardedCase] = None):
     """``run_chunk_sharded_cuda`` through the kernels' plain versions on
     any device."""
-    return _run_chunk_blocks(state, p, n_steps, mesh, store_dev, True, case)
-
-
-def _run_chunk_blocks(state, p, n_steps, mesh, store_dev, plain, case):
-    if n_steps < 1:
-        raise ValueError(f"n_steps must be >= 1, got {n_steps}")
-    if case is None or case.p is not p or case.mesh != mesh:
-        case = ShardedCase(p, mesh)
-    k1, _ = _kernels(plain)
-    dev_store = (bool(store_dev) and n_steps > 1
-                 and cs.dev_storage_refusal(p, sharded=True) is None)
-    hl, wl = case.hl, case.wl
-    src = halo_blocks(state.f, mesh, NAN, case.pitch)
-    if mesh.owners is not None:
-        # the halos cut from this process's state are other processes'
-        # stale cells: refresh them from their owners
-        exchange_halos(src, mesh, hl, wl)
-    if dev_store:
-        # quantize once per chunk, halos included: the halo copies then move
-        # bf16 deviations, as the JAX package's ppermute rows do
-        src = [[b if b is None else cs.quantize(b) for b in row] for row in src]
-    dst = [[b if b is None else b.clone() for b in row] for row in src]
-    row, warmup = cs._host_scalars(p)
-    step = state.step
-    for _ in range(n_steps - 1):
-        step += 1
-        fast_step(src, dst, case, cs._with_ramp(row, warmup, step), dev_store, plain)
-        src, dst = dst, src
-    if dev_store:
-        # the closing full step runs in exact f32
-        src = [[b if b is None else cs.dequantize(b) for b in r] for r in src]
-        dst = [[b if b is None else torch.empty_like(b) for b in r] for r in src]
-    scal = cs._with_ramp(row, warmup, step + 1)
-    rho, u, f_post = ([[None] * len(r) for r in src] for _ in range(3))
-    for iy, ix in _coords(mesh):
-        g, aux, b = case.geoms[iy][ix], case.aux[iy][ix], src[iy][ix]
-        rho[iy][ix] = torch.empty(g.plane, dtype=torch.float32, device=b.device)
-        u[iy][ix] = torch.empty((2,) + g.plane, dtype=torch.float32, device=b.device)
-        f_post[iy][ix] = torch.empty_like(b)
-        k1(b, dst[iy][ix], aux, scal, p.use_les, p.bc_type, rho[iy][ix], u[iy][ix],
-           f_post[iy][ix], obstacle=case.obstacle, q=_at(case.q, iy, ix),
-           prof=_at(case.prof, iy, ix), geom=g)
-    if mesh.owners is not None:
-        exchange_halos(f_post, mesh, hl, wl)
-        return _own_state(state, n_steps, mesh, hl, wl, 1, dst, f_post, rho, u, p)
-    out = state.f.device
-    fp = gather_halo_blocks(f_post, hl, wl, out)
-    new_f_post = state.f_post.clone()
-    new_f_post[:, 1:-1, 1:-1] = fp[:, 1:-1, 1:-1]
-    new_state = LBMState(
-        f=gather_halo_blocks(dst, hl, wl, out), f_post=new_f_post,
-        rho=gather_halo_blocks(rho, hl, wl, out), u=gather_halo_blocks(u, hl, wl, out),
-        step=state.step + n_steps,
-    )
-    return new_state, _monitors(new_state, p)
-
-
-def make_runner(mesh: Mesh, kind: str, store_dev: bool = False):
-    """The engine's chunk runner ``(state, p, n) -> (state, monitors)`` on
-    ``mesh``: ``kind`` "cuda" (the kernels), "plain" (their plain versions)
-    or "eager" (``run_chunk_sharded``). The kernel runners cut a case's
-    blocks once per params object."""
-    if kind == "eager":
-        return lambda state, p, n: run_chunk_sharded(state, p, n, mesh)
-    run = {"cuda": run_chunk_sharded_cuda, "plain": run_chunk_sharded_plain}[kind]
-    cache: List[ShardedCase] = []
-
-    def runner(state, p, n):
-        if not cache or cache[0].p is not p:
-            cache[:] = [ShardedCase(p, mesh)]
-        return run(state, p, n, mesh, store_dev, cache[0])
-
-    return runner
+    return _run_wrapped(state, p, n_steps, mesh, "plain", store_dev, case)

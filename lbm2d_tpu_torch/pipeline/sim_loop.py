@@ -154,7 +154,7 @@ def run_simulation_loop(
             if (is_vid_frame or is_gui_frame) and composer is not None:
                 t0 = time.perf_counter()
                 if dev_renderer is not None:
-                    img = dev_renderer(engine.state.u, engine.params.mask).cpu().numpy()
+                    img = dev_renderer(engine.field("u"), engine.params.mask).cpu().numpy()
                     if show_overlay:
                         img = draw_zone_overlay(img.copy(), zones)
                 else:

@@ -374,3 +374,36 @@ def test_shard_kernels_match_plain_on_card(obstacle, bc_type):
         assert_same(a, b)
         c, _ = cs.run_chunk_cuda(s0, p, 9, store_dev=True)
         assert_same(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("obstacle", ["equilibrium", "bounce_back_bouzidi"])
+@pytest.mark.parametrize("store_dev", [False, True], ids=["f32", "dev"])
+def test_resident_mesh_over_four_cards(store_dev, obstacle):
+    # a 2x2 mesh whose blocks live on four cards, through the engine: each
+    # block resident on its own card and no global-shaped state held, the
+    # state bitwise the one-card engine's, max_v bitwise, the force (the
+    # blocks' float64 partial sums) within the multi-host bar
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    from lbm2d_tpu_torch.core.engine import LBMEngine
+
+    cfg = make_config((4, 2, 1, 2), obstacle)
+    cfg["simulation"].update(name="four", characteristic_length=5.0)
+    one = LBMEngine(cfg, seam_mask(), device="cuda", store_dev=store_dev)
+    four = LBMEngine(cfg, seam_mask(), device="cuda", store_dev=store_dev, spatial_mesh="2x2")
+    bs = four._blocks
+    assert [[b.device.index for b in row] for row in bs.f] == [[0, 1], [2, 3]]
+    assert bs.f_post_global is None and four._state is None
+    cs.reset_launch_counts()
+    for n in (7, 8):
+        one.run_step(n)
+        four.run_step(n)
+        assert four.get_max_velocity() == one.get_max_velocity()
+        ref = one.get_force()
+        np.testing.assert_allclose(four.get_force(), ref, rtol=0,
+                                   atol=5e-6 * max(1.0, float(np.abs(ref).max())))
+    assert cs.LAUNCHES[cs.k1_variant(cs.obstacle_scheme(four.params), full=True,
+                                     shard=True)] == 8
+    for k in ("f", "f_post", "rho", "u"):
+        assert torch.equal(four.field(k).cpu(), one.field(k).cpu()), k

@@ -11,6 +11,10 @@ run one grid over a global mesh whose blocks belong to both.
 - The production entry ``run_one_case.main`` on a 2x1 mesh: rank 0's HDF5
   byte-equal to a one-process run (the JAX ``tests/test_multihost.py:61``
   criterion).
+- The engine on a global 2x1 (float32) and 2x2 (float64) mesh: between
+  chunks no rank holds a tensor of the global f or u shape (its own
+  blocks only); the moments gathered after each chunk equal the
+  one-process engine's bitwise, the force within the bar above.
 - Resume from a checkpoint only rank 0 can see: both ranks resume at rank
   0's step; a checkpoint rank 0 cannot read fails both ranks with the same
   error. Neither hangs.
@@ -78,10 +82,44 @@ assert multihost.is_cross_rank(mesh)
 run = sh.run_chunk_sharded_plain if args["runner"] == "plain" else sh.run_chunk_sharded
 st, mon = run(ts.init_state(cfg["simulation"]["ny"], cfg["simulation"]["nx"], dtype), p,
               args["steps"] // 2, mesh)
-st, mon = run(st, p, args["steps"] - args["steps"] // 2, mesh)  # a restart mid-warmup
-out = {k: multihost.gather_for_io(getattr(st, k), mesh) for k in ("f", "f_post", "rho", "u")}
+# a restart mid-warmup, on the resident blocks: this rank's only
+runner = sh.BlockRunner(mesh, args["runner"])
+bs = runner.place(st, p)
+del st
+mon = runner.advance(bs, p, args["steps"] - args["steps"] // 2)
+held = [b for k in ("f", "f_post", "rho", "u") for row in getattr(bs, k) for b in row
+        if b is not None]
+assert bs.f_post_global is None and all(b.shape[-2:] != p.shape for b in held)
+assert sum(b is not None for row in bs.f for b in row) == ry * rx // nprocs
+out = {k: multihost.gather_for_io(bs.own(k), mesh) for k in ("f", "f_post", "rho", "u")}
 np.savez(args["out"] + f".{rank}.npz", force=mon["force"].numpy(), max_v=mon["max_v"].numpy(),
-         step=st.step, **out)
+         step=bs.step, **out)
+multihost.sync()
+print("MH_OK", rank, flush=True)
+"""
+
+_ENGINE = _PRELUDE + """
+import gc
+import numpy as np, torch
+from lbm2d_tpu_torch.core.engine import LBMEngine
+ry, rx = args["mesh"]
+multihost.init_multihost(coord, nprocs, rank, local_device_ids=tuple(range(ry * rx // nprocs)),
+                         backend="gloo", device="cpu")
+cfg = json.load(open(args["cfg"]))
+H, W = cfg["simulation"]["ny"], cfg["simulation"]["nx"]
+eng = LBMEngine(cfg, np.load(args["mask"]), dtype=getattr(torch, args["dtype"]), device="cpu",
+                spatial_mesh=(ry, rx))
+assert eng._multihost
+moments = []
+for n in args["chunks"]:
+    eng.run_step(n)
+    gc.collect()
+    held = [tuple(o.shape) for o in gc.get_objects()
+            if isinstance(o, torch.Tensor) and tuple(o.shape) in ((9, H, W), (2, H, W))]
+    assert held == [], held
+    moments.append(eng.get_moments().copy())  # a collective; the copy holds no tensor
+np.savez(args["out"] + f".{rank}.npz", moments=np.stack(moments), force=eng.get_force(),
+         max_v=eng.get_max_velocity(), step=eng.step_count)
 multihost.sync()
 print("MH_OK", rank, flush=True)
 """
@@ -171,6 +209,33 @@ def test_two_process_chunk_matches_one_process(tmp_path, mesh, dtype):
                            STEPS)
     np.testing.assert_allclose(got[0]["f"], np.asarray(ref.f), rtol=0,
                                atol=1e-6 if dtype == "float32" else 1e-12)
+
+
+@pytest.mark.parametrize("mesh, dtype", [((2, 1), "float32"), ((2, 2), "float64")],
+                         ids=["2x1-f32", "2x2-f64"])
+def test_two_process_engine_holds_only_its_blocks(tmp_path, mesh, dtype):
+    from lbm2d_tpu_torch.core.engine import LBMEngine
+
+    cfg, mask, cfg_path, mask_path = _case(tmp_path, dtype)
+    cfg["simulation"].update(name="mh", characteristic_length=6.0)
+    json.dump(cfg, open(cfg_path, "w"))
+    chunks = [STEPS // 2, STEPS - STEPS // 2]
+    out = str(tmp_path / "engine")
+    _two_ranks(_ENGINE, {"mesh": mesh, "dtype": dtype, "cfg": cfg_path, "mask": mask_path,
+                         "chunks": chunks, "out": out})
+    got = [np.load(f"{out}.{r}.npz") for r in (0, 1)]
+    one = LBMEngine(cfg, mask, dtype=getattr(torch, dtype), device="cpu", spatial_mesh=mesh)
+    moments = []
+    for n in chunks:
+        one.run_step(n)
+        moments.append(one.get_moments())
+    for g in got:
+        np.testing.assert_array_equal(g["moments"], np.stack(moments))
+        assert int(g["step"]) == STEPS and float(g["max_v"]) == one.get_max_velocity()
+    np.testing.assert_array_equal(got[0]["force"], got[1]["force"])
+    ref = one.get_force()
+    bar = (5e-6 if dtype == "float32" else 1e-12) * max(1.0, float(np.abs(ref).max()))
+    np.testing.assert_allclose(got[0]["force"], ref, rtol=0, atol=bar)
 
 
 def _project(root):
