@@ -30,15 +30,26 @@ Phases (any failure raises and the process exits non-zero):
    against the eager ``run_chunk`` and, with ``store_dev``, against its
    plain version: max relative error (max |a - b| / max |b|) <= 1e-5 each;
    the ``store_dev`` chunk within the JAX package's 5e-4 budget of the
-   exact chunk (and > 0) under that budget test's conditions; time each
-   kernel with CUDA events beside its bound (``ms``: replayed from a CUDA
-   graph, the kernel alone; ``launch_path_ms``: launched from Python one
-   by one);
+   exact chunk (and > 0) under that budget test's conditions; then
+   ``run_chunk_cuda`` chunks (a chunk's fast steps in one call of the
+   libraries' step loops, ``k3_passes`` and ``k1_steps``) against the same
+   chunks issued one wrapper call a step (``run_chunk_stepwise``), bitwise
+   on f, f_post, rho, u and the monitors, with the same launches: f32 and
+   ``store_dev`` on the smoke case, fused at S = 4, and Bouzidi + NEBB on
+   the DFG grid, each chunk straddling its case's warmup; the host's issue
+   time a launch of each loop entry beside its device time, a 100-step
+   DFG chunk issued both ways, and what a chunk still builds (pack_aux,
+   the scalar rows); time each kernel with CUDA events beside its bound
+   (``ms``: replayed from a CUDA graph, the kernel alone;
+   ``launch_path_ms``: launched from Python one by one);
 3. drive the serial main path, ``LBMEngine`` + ``run_simulation_loop``, on
    the production-shaped case in ``lbm2d_tpu_torch/data`` (3000 steps in
    chunks of 100), and check status Success, finite moments, mean jx > 0,
    Fx > 0, and that each of its kernels was launched (one launch a step)
-   and no plain step ran;
+   and no plain step ran; the kernel path's host-paced us/step and the
+   host's issue us/step in two turns, f32 and ``store_dev``, beside a
+   step's device time and a whole chunk's (``run_chunk_cuda`` in a CUDA
+   graph: kernels, monitors and copies) and the monitors' share;
    then a 20-step ``store_dev`` chunk from the flow it ends with must lie
    within 1e-4 of the exact chunk (and differ from it);
 4. drive the lockstep production path, ``batch_run --lockstep
@@ -58,7 +69,9 @@ Phases (any failure raises and the process exits non-zero):
    test, tests/test_dfg_bc.py), and check its ranges (St 0.26-0.32, Cd
    2.7-3.5, Cl amplitude 0.5-1.4, Re 90-110, shedding), its launch counts
    (k1_step_bouzidi, k1_step_bouzidi_full: one a step) and no plain call,
-   and the device time of one step at 881x165 (a CUDA graph); print the
+   the device time of one step at 881x165 and of a whole 500-step chunk
+   (CUDA graphs), and the host's issue time of a chunk's monitors and
+   the cylinder's force; print the
    coefficients beside the recorded row of
    docs/benchmarks/dfg2d_results.json; then, from its developed state,
    the five other obstacle x inlet pairs for 200 steps through the kernels
@@ -70,7 +83,9 @@ Phases (any failure raises and the process exits non-zero):
    the launch counts (k3_fused 720, k1_step 90, k1_step_full 30) and no
    plain call, and its final f against phase 3's
    (bitwise expected; gated at the relative tolerance); print its
-   kernel-path and wall MLUPS beside phase 3's; then every other scheme K3
+   kernel-path and wall MLUPS beside phase 3's and the chunk's device
+   time (its kernels, and the whole chunk in a CUDA graph); then every
+   other scheme K3
    runs, fused through the kernels against the unfused plain chunk runner:
    the equilibrium, full-way and half-way DFG pairs with both inlets for 200
    steps from phase 5's developed flow, and full-way and half-way on the
@@ -164,6 +179,7 @@ this script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -224,6 +240,11 @@ ROOF_N, ROOF_CHUNKS, ROOF_SPC = 4096, 2, 50
 # each timed turn (scatter and gather every chunk, then resident, in turns)
 CHECK_4K_STEPS = 6
 SHARD_4K_CHUNKS = 8
+# phase 2: the chunk through the libraries' step loops against the per-step
+# wrappers (a chunk straddling its case's warmup), and the rows of each
+# loop entry's timed call
+LOOP_N = 20
+ISSUE_N = 100
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1328,6 +1349,112 @@ def main() -> int:
           f"(must be > 0 and <= {DEV_TOL:g})", flush=True)
     if not 0 < dev_abs <= DEV_TOL:
         raise AssertionError(f"store_dev chunk differs from the f32 chunk by {dev_abs:.3e}")
+    # a chunk is one program: run_chunk_cuda's library step loops (k3_passes,
+    # k1_steps, then the closing k1_step) against the same chunk issued one
+    # wrapper call a step (run_chunk_stepwise), bitwise, each chunk
+    # straddling its case's warmup
+    cfg_d, mask_d, _ = dfg_validation.dfg_case(ny=DFG_RUN["ny"], u_max=DFG_RUN["u_target"],
+                                               re=DFG_RUN["re"], obstacle=DFG_RUN["obstacle"],
+                                               inlet=DFG_RUN["inlet"])
+    p_d = solver.make_params(cfg_d, mask_d, dtype=torch.float32, device=dev)
+    Hd, Wd = p_d.shape
+    rho_d = torch.tensor(1.0 + 1e-3 * rng.standard_normal((Hd, Wd)), dtype=torch.float32,
+                         device=dev)
+    u_d = torch.tensor(0.02 * rng.standard_normal((2, Hd, Wd)), dtype=torch.float32, device=dev)
+    f_d = f_eq(rho_d, u_d[0], u_d[1])
+    w3, w5 = int(config["simulation"]["warmup_steps"]), int(cfg_d["simulation"]["warmup_steps"])
+    s_w3 = dataclasses.replace(state, step=w3 - LOOP_N // 2)
+    s_w5 = solver.LBMState(f=f_d, f_post=f_d.clone(), rho=rho_d, u=u_d, step=w5 - LOOP_N // 2)
+    for tag, pk, s0, store_dev, fuse in (
+            ("f32 [0,2,1,2]", p, s_w3, False, None), ("store_dev", p, s_w3, True, None),
+            (f"fused S = {FUSE_S}", p, s_w3, False, FUSE_S),
+            (f"Bouzidi + NEBB {Hd}x{Wd}", p_d, s_w5, False, None)):
+        cs._FUSE_STEPS = fuse
+        try:
+            cs.reset_launch_counts()
+            a_, ma_ = cs.run_chunk_cuda(s0, pk, LOOP_N, store_dev=store_dev)
+            la = {k: v for k, v in cs.LAUNCHES.items() if v}
+            cs.reset_launch_counts()
+            b_, mb_ = cs.run_chunk_stepwise(s0, pk, LOOP_N, store_dev=store_dev)
+            lb = {k: v for k, v in cs.LAUNCHES.items() if v}
+        finally:
+            cs._FUSE_STEPS = None
+        torch.cuda.synchronize()
+        for k in ("f", "f_post", "rho", "u"):
+            exact(f"chunk loop {tag} {k}", getattr(a_, k), getattr(b_, k))
+        for k in ("force", "max_v"):
+            exact(f"chunk loop {tag} {k}", ma_[k], mb_[k])
+        if la != lb:
+            raise AssertionError(f"chunk loop {tag}: launches {la}, per-step {lb}")
+        print(f"  chunk loop vs per-step wrappers, {tag}, steps {s0.step + 1}-{s0.step + LOOP_N} "
+              f"(warmup {pk.warmup_steps.item():g}): f, f_post, rho, u, force, max_v bitwise; "
+              f"launches {la}", flush=True)
+
+    def issue_us(call, n, repeats=5):
+        """(host us, device us) a launch of one call of ``n`` launches made
+        on an idle stream: the medians over ``repeats`` calls."""
+        call()
+        host, devt = [], []
+        for _ in range(repeats):
+            torch.cuda.synchronize()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            t0 = time.perf_counter()
+            call()
+            host.append((time.perf_counter() - t0) * 1e6 / n)
+            e1.record()
+            e1.synchronize()
+            devt.append(e0.elapsed_time(e1) * 1e3 / n)
+        return statistics.median(host), statistics.median(devt)
+
+    # the host's issue time a launch of each loop entry, beside the device
+    # time of its launches and the per-step wrapper's issue (phase 2's
+    # records); a CUDA graph of a chunk would pay only where the loop's
+    # issue exceeds a step's device time
+    rows_i = cs.scalar_rows(p, state.step, ISSUE_N)
+    fa_i, fb_i = torch.empty_like(state.f), torch.empty_like(state.f)
+    fqa_i, fqb_i = torch.empty_like(fq), torch.empty_like(fq)
+    aux_d = cs.pack_aux(p_d.damping, p_d.mask)
+    fa_d, fb_d = torch.empty_like(f_d), torch.empty_like(f_d)
+    rows_d = cs.scalar_rows(p_d, s_w5.step + LOOP_N, ISSUE_N)
+    loop_issue = {
+        "k1_step": (lambda: cs.k1_steps(state.f, fa_i, fb_i, aux, rows_i, p.use_les, p.bc_type),
+                    ISSUE_N, f"k1_steps, f32, {H}x{W}"),
+        "k1_step_dev": (lambda: cs.k1_steps(fq, fqa_i, fqb_i, aux, rows_i, p.use_les, p.bc_type,
+                                            dev=True), ISSUE_N, f"k1_steps, store_dev, {H}x{W}"),
+        "k3_fused": (lambda: cs.k3_passes(state.f, fa_i, fb_i, aux, rows_i, FUSE_S, p.bc_type,
+                                          p.use_les), ISSUE_N // FUSE_S,
+                     f"k3_passes, S = {FUSE_S}, {H}x{W}"),
+        "k1_step_bouzidi": (lambda: cs.k1_steps(f_d, fa_d, fb_d, aux_d, rows_d, p_d.use_les,
+                                                p_d.bc_type, cs.OBSTACLE_BOUZIDI, p_d.bouzidi_q,
+                                                p_d.inlet_profile),
+                            ISSUE_N, f"k1_steps, Bouzidi + NEBB, {Hd}x{Wd}"),
+    }
+    for name, (call, n, tag) in loop_issue.items():
+        host_us, dev_us = issue_us(call, n)
+        records[name]["loop_host_us"] = host_us
+        print(f"  {tag}: {n} launches in one call, host issue {host_us:.2f} us a launch "
+              f"(the per-step wrapper from Python: {records[name]['host_ms'] * 1e3:.1f} us), "
+              f"device {dev_us:.1f} us a launch [{card}]", flush=True)
+    # a whole chunk of the DFG grid issued both ways, from an idle stream,
+    # and what each chunk still builds on the host or the device
+    s_i = dataclasses.replace(s_w5, step=s_w5.step + LOOP_N)
+    for tag, fn in (("run_chunk_cuda", cs.run_chunk_cuda),
+                    ("run_chunk_stepwise", cs.run_chunk_stepwise)):
+        host_us, dev_us = issue_us(lambda: fn(s_i, p_d, ISSUE_N), ISSUE_N, repeats=3)
+        print(f"  {tag}({ISSUE_N}) at {Hd}x{Wd}: issued in {host_us:.2f} us/step, device "
+              f"{dev_us:.2f} us/step [{card}]", flush=True)
+    aux_ms = median_ms(lambda: cs.pack_aux(p.damping, p.mask), batches=5, per_batch=4)
+    t0 = time.perf_counter()
+    cs.scalar_rows(p, w3 + 1000, ISSUE_N)
+    rows_post_us = (time.perf_counter() - t0) * 1e6
+    t0 = time.perf_counter()
+    cs.scalar_rows(p, 0, ISSUE_N)
+    rows_warm_us = (time.perf_counter() - t0) * 1e6
+    print(f"  per chunk at {H}x{W}: pack_aux {aux_ms[0] * 1e3:.1f} us of device time, "
+          f"{aux_ms[1] * 1e3:.1f} us of host issue; scalar_rows({ISSUE_N}) {rows_post_us:.1f} us "
+          f"past the warmup, {rows_warm_us:.1f} us inside it (host) [{card}]", flush=True)
+
     for name, r in records.items():
         print(f"  {name:<24s} {r['ms'] * 1e3:7.1f} us in a CUDA graph, {r['launch_ms'] * 1e3:.1f} us "
               f"launched from Python (host issue {r['host_ms'] * 1e3:.1f} us)  "
@@ -1418,32 +1545,62 @@ def main() -> int:
     if not 0 < max(loss.values()) <= DEV_FLOW_TOL:
         raise AssertionError(f"store_dev loss on the developed flow: {loss}")
 
-    # steady chunk rate of the kernel path alone
+    # steady chunk rate of the kernel path alone: host-paced us/step (CUDA
+    # events around 5 chunks) and the host's time to issue them
     chunk = int(config["simulation"]["compute_step_size"])
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(5):
-        engine.run_step(chunk)
-    b.record()
-    b.synchronize()
-    step_ms = a.elapsed_time(b) / (5 * chunk)
-    us_step3 = step_ms * 1e3
-    mlups3 = H * W / step_ms / 1e3
+
+    def paced(run_chunk, n_chunks=5):
+        """(us/step between events around ``n_chunks`` chunks, the host's
+        issue us/step) of ``run_chunk()``, from an idle stream."""
+        torch.cuda.synchronize()
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(n_chunks):
+            run_chunk()
+        issue = (time.perf_counter() - t0) * 1e6 / (n_chunks * chunk)
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) * 1e3 / (n_chunks * chunk), issue
+
+    def two_turns(run_chunk):
+        """(mean us/step, text) of two ``paced`` turns."""
+        ts = [paced(run_chunk) for _ in range(2)]
+        us = statistics.mean(t[0] for t in ts)
+        return us, (f"{', '.join(f'{t[0]:.1f}' for t in ts)} us/step (the host issued it in "
+                    f"{', '.join(f'{t[1]:.1f}' for t in ts)} us/step)")
+
+    us_step3, text3 = two_turns(lambda: engine.run_step(chunk))
+    mlups3 = H * W / us_step3
     s3 = engine.state  # phase 8 runs the sharded path from here
-    print(f"    kernel path: {step_ms * 1e3:.1f} us/step = {mlups3:.1f} MLUPS; one step's "
-          f"device time {records['k1_step']['ms'] * 1e3:.1f} us (k1_step in a CUDA graph, phase "
-          f"2) [{card}]", flush=True)
+    print(f"    kernel path, two turns: {text3} = {mlups3:.1f} MLUPS; one step's device time "
+          f"{records['k1_step']['ms'] * 1e3:.1f} us (k1_step in a CUDA graph, phase 2) [{card}]",
+          flush=True)
     # the same in 16-bit deviation storage (the lockstep path's chunk runner)
-    st = engine.state
-    a.record()
-    for _ in range(5):
-        st, _ = cs.run_chunk_cuda(st, p, chunk, store_dev=True)
-    b.record()
-    b.synchronize()
-    step_ms = a.elapsed_time(b) / (5 * chunk)
-    print(f"    kernel path, store_dev: {step_ms * 1e3:.1f} us/step = "
-          f"{H * W / step_ms / 1e3:.1f} MLUPS [{card}]", flush=True)
+    box3 = {"s": engine.state}
+
+    def dev_chunk():
+        box3["s"], _ = cs.run_chunk_cuda(box3["s"], p, chunk, store_dev=True)
+
+    us_dev3, text_dev3 = two_turns(dev_chunk)
+    print(f"    kernel path, store_dev, two turns: {text_dev3} = {H * W / us_dev3:.1f} MLUPS; one "
+          f"step's device time {records['k1_step_dev']['ms'] * 1e3:.1f} us (k1_step_dev in a "
+          f"CUDA graph) [{card}]", flush=True)
+    # a whole chunk's device time, kernels, monitors and the chunk's own
+    # copies included (run_chunk_cuda replayed from a CUDA graph), and what
+    # the monitors (force, max |u|) take of it and of the host
+    def monitors3():
+        return solver.obstacle_force(s3.f_post, p), solver.max_velocity(s3.u)
+
+    chunk3_us = {sd: graph_ms(lambda sd=sd: cs.run_chunk_cuda(s3, p, chunk, store_dev=sd),
+                              per_graph=2, replays=3) * 1e3 / chunk for sd in (False, True)}
+    mon3_us = graph_ms(monitors3, per_graph=4) * 1e3
+    mon3_host = median_ms(monitors3, batches=5, per_batch=4)[1] * 1e3
+    print(f"    a whole chunk's device time (run_chunk_cuda in a CUDA graph): f32 "
+          f"{chunk3_us[False]:.1f} us/step, store_dev {chunk3_us[True]:.1f} us/step; of it the "
+          f"monitors {mon3_us:.1f} us a chunk = {mon3_us / chunk:.1f} us/step (their host issue "
+          f"{mon3_host:.1f} us a chunk) [{card}]", flush=True)
 
     # -- phase 4: the lockstep production path ------------------------------
     from lbm2d_tpu_torch.pipeline.batch_run import run_batch
@@ -1497,7 +1654,9 @@ def main() -> int:
         loop_s = transfer.get("group_wall_s")
         if loop_s:
             print(f"    group loop {loop_s:.2f} s = {n_cases * max_steps * H * W / loop_s / 1e6:.1f} "
-                  f"MLUPS; set-up and wind-down {wall4 - loop_s:.2f} s [{card}]", flush=True)
+                  f"MLUPS = {loop_s * 1e6 / (n_cases * max_steps):.1f} us a case-step (device "
+                  f"time of a k1_step_dev step {records['k1_step_dev']['ms'] * 1e3:.1f} us); "
+                  f"set-up and wind-down {wall4 - loop_s:.2f} s [{card}]", flush=True)
         bad = {n: results[n]["status"] for n, _ in names if results[n]["status"] != "Success"}
         if bad or stats.get("success") != n_cases:
             raise AssertionError(f"lockstep cases did not all succeed: {stats}, {bad}")
@@ -1557,6 +1716,22 @@ def main() -> int:
     print(f"    one step's device time {dfg_step_ms * 1e3:.1f} us ({cs.k1_variant(obst5)} in a CUDA "
           f"graph) against {wall5 / res['steps'] * 1e6:.1f} us/step on the path [{card}]",
           flush=True)
+    # the monitors of a DFG chunk: the chunk's own (Bouzidi force, max |u|)
+    # and run_validation's force on the cylinder alone, then its reads
+    cyl5 = torch.as_tensor(eng.params.mask.cpu().numpy().copy(), device=dev)
+    cyl5[0, :] = 0.0
+    cyl5[-1, :] = 0.0
+    def monitors5():
+        return (solver.obstacle_force(eng.state.f_post, p5), solver.max_velocity(eng.state.u),
+                solver.obstacle_force(eng.state.f_post, p5, mask=cyl5))
+
+    chunk5_us = graph_ms(lambda: cs.run_chunk_cuda(eng.state, p5, DFG_RUN["chunk"]),
+                         per_graph=1, replays=3) * 1e3 / DFG_RUN["chunk"]
+    mon5_host = median_ms(monitors5, batches=5, per_batch=4)[1] * 1e3
+    print(f"    a whole chunk's device time {chunk5_us:.1f} us/step (run_chunk_cuda in a CUDA "
+          f"graph); the host issues a chunk's monitors and the cylinder's force in "
+          f"{mon5_host:.1f} us = {mon5_host / DFG_RUN['chunk']:.1f} us/step at chunks of "
+          f"{DFG_RUN['chunk']} [{card}]", flush=True)
     with open(os.path.join(HERE, "docs", "benchmarks", "dfg2d_results.json")) as fh:
         recorded = next(r for r in json.load(fh) if r.get("ny") == DFG_RUN["ny"]
                         and r.get("obstacle") == DFG_RUN["obstacle"]
@@ -1643,16 +1818,16 @@ def main() -> int:
         print(f"    mean jx {jx6:.4e}, Fx {fx6:.4e}; final f vs phase 3: max abs diff {diff6:.3e}"
               + (" (bitwise equal)" if diff6 == 0 else ""), flush=True)
         check("fused path final f vs phase 3", rel_err(engine6.state.f, f_serial))
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(5):
-            engine6.run_step(chunk)
-        e1.record()
-        e1.synchronize()
-        step_ms6 = e0.elapsed_time(e1) / (5 * chunk)
-        print(f"    kernel path: {step_ms6 * 1e3:.1f} us/step = {H * W / step_ms6 / 1e3:.1f} MLUPS "
-              f"(phase 3: {mlups3:.1f}) [{card}]", flush=True)
+        us_step6, text6 = two_turns(lambda: engine6.run_step(chunk))
+        dev6 = (passes6 * records["k3_fused"]["ms"] + split6 * records["k1_step"]["ms"]
+                + records["k1_step_full"]["ms"]) * 1e3 / chunk
+        chunk6_us = graph_ms(lambda: cs.run_chunk_cuda(engine6.state, engine6.params, chunk),
+                             per_graph=2, replays=3) * 1e3 / chunk
+        print(f"    kernel path, two turns: {text6} = {H * W / us_step6:.1f} MLUPS (phase 3: "
+              f"{mlups3:.1f}); the chunk's kernels {dev6:.1f} us/step ({passes6} K3 passes, "
+              f"{split6} K1 steps and the full step, each in a CUDA graph, phase 2), the whole "
+              f"chunk {chunk6_us:.1f} us/step (run_chunk_cuda in a CUDA graph) [{card}]",
+              flush=True)
 
         # the other schemes K3 runs, fused through the kernels against the
         # unfused plain chunk runner: each with both DFG inlets (left types
@@ -1860,8 +2035,6 @@ def main() -> int:
     # the force of 8(c)'s final state evaluated in float64: the multi-host
     # force sums each process's part in float64, so it is held to this; the
     # float32 one-process sum carries its own order's rounding
-    import dataclasses
-
     p8 = engines8[-1].params
     p64 = dataclasses.replace(p8, **{k: v.double() for k, v in vars(p8).items()
                                      if torch.is_tensor(v) and v.is_floating_point()})
@@ -2057,6 +2230,8 @@ def main() -> int:
         }
         if r.get("spill_bytes") is not None:
             entry["spill_bytes"] = r["spill_bytes"]
+        if "loop_host_us" in r:
+            entry["loop_host_us"] = r["loop_host_us"]
         if "copy_ms" in r:
             entry["copy_ms"] = r["copy_ms"]
         if name.startswith("k3"):

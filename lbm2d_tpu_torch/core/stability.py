@@ -55,12 +55,17 @@ def is_stable_device(
     v_threshold: float = V_THRESHOLD,
     f_threshold: float = F_THRESHOLD,
 ) -> torch.Tensor:
-    """Boolean stability flag as a 0-d tensor on the monitors' device."""
+    """Boolean stability flag as a 0-d tensor on the monitors' device.
+
+    Nothing is copied from the host: a host step count is compared with
+    the warmup as a scalar operand (a host tensor copied to the device
+    would wait for the stream, once a case a chunk in the lockstep group).
+    """
     f_ok = torch.isfinite(force).all() & (force.abs() <= f_threshold).all()
     v_finite = torch.isfinite(max_v)
-    step_count = torch.as_tensor(step_count, device=max_v.device)
-    v_ok = torch.where(
-        step_count > warmup_step, max_v <= v_threshold,
-        torch.ones_like(v_finite),
-    )
+    later = step_count > warmup_step
+    if torch.is_tensor(later):
+        v_ok = torch.where(later, max_v <= v_threshold, torch.ones_like(v_finite))
+    else:
+        v_ok = max_v <= v_threshold if later else torch.ones_like(v_finite)
     return f_ok & v_finite & v_ok

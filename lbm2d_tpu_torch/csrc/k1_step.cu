@@ -65,10 +65,12 @@
 //
 // Bound on an H100: memory. A fast step moves 76 B/cell (f 36 in + 36 out,
 // aux 4) for 120 f32 operations (mrt_collide counted term by term, a sqrt
-// or a division one each; chip_smoke.K1_OPS_PER_CELL), plus 32 B/cell of
-// dense q planes under BOUZIDI, and 40 B/cell in deviation storage (f 18 +
-// 18, aux 4); the ring adds 2 (H + W) threads that each repeat one
-// neighbour's update and one BC.
+// or a division one each; chip_smoke.K1_OPS_PER_CELL), and 40 B/cell in
+// deviation storage (f 18 + 18, aux 4). Under BOUZIDI a thread reads
+// q[opp k - 1](c) only on a link whose pull source is solid
+// (lbm_cell_update), never the dense [8, H, W] planes whole: 4 B a
+// boundary link, at most one 32-byte sector each. The ring adds 2 (H + W)
+// threads that each repeat one neighbour's update and one BC.
 // All far below the card's ~20 flop/B balance point, so the design aims
 // only at full-width coalesced traffic: one thread per interior cell,
 // neighbouring threads on neighbouring x, each warp's stores on whole
@@ -76,8 +78,10 @@
 // from global memory (the 3-row reuse of the pull stencil is left to
 // L1/L2). The TPU kernel's row padding, lane rolls, band heights and
 // two-slot DMA pipeline are TPU schedules and have no counterpart here;
-// the state is an unpadded [9, H, W] tensor and the caller ping-pongs two
-// buffers, since pull streaming cannot run in place.
+// the state is an unpadded [9, H, W] tensor and two buffers ping-pong,
+// since pull streaming cannot run in place: a chunk's fast steps do so
+// inside one call (k1_steps_launch, below), as the JAX package's chunk is
+// one program, so the host issues a step without Python.
 //
 // The sharded form (k1_step_shard*, the JAX kernel on a shard of
 // run_chunk_sharded_pallas, its interior and BCs gated by the shard's global
@@ -385,4 +389,79 @@ extern "C" int k1_step_dev_launch(const void* f_in, void* f_out,
                                      use_les, obst, stream)
                 : dispatch_dev<false>(f_in, f_out, aux, prof, scal, g, bc,
                                       use_les, obst, stream);
+}
+
+// n fast steps of the whole grid, one launch each, as the single-step
+// entries launch them: step i takes row i of ``rows`` by value, reads f_in
+// (step 0) or the previous step's output, and writes f_a (even i) or f_b
+// (odd i). f_b may be f_in, which only step 0 reads. After each launch
+// cudaGetLastError(); on a failure ``*failed`` is the step's index and
+// the rest are not launched.
+template <typename S, int OBST>
+static int steps_loop(const void* f_in, void* f_a, void* f_b, const void* aux, const void* q,
+                      const void* prof, const float* rows, int n, const BlockGeom& g,
+                      const BcTypes& bc, int use_les, cudaStream_t st, int* failed) {
+  const void* src = f_in;
+  for (int i = 0; i < n; ++i) {
+    void* dst = (i & 1) ? f_b : f_a;
+    launch<S, OBST, false, false>(src, dst, aux, q, prof, nullptr, nullptr, nullptr,
+                                  load_scalars(rows + 14 * i), g, bc, use_les, st);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) {
+      *failed = i;
+      return static_cast<int>(err);
+    }
+    src = dst;
+  }
+  return 0;
+}
+
+// The fast steps of a chunk in one call, the counterpart of the step loop
+// that run_chunk_pallas runs inside one program (jax.jit over lax.scan,
+// lbm2d_tpu/ops/pallas_step.py:1936-1945): the arguments of
+// k1_step_launch for the whole grid (``geom`` without a halo), with the
+// host table ``rows`` [n, 14] in place of the scalar row, the two
+// ping-pong buffers f_a and f_b (steps_loop) in place of f_out, and
+// ``dev`` choosing 16-bit deviation storage (bf16 f_in, f_a, f_b; EQ and
+// BOUNCE only, no q) over f32. Returns the CUDA error code (``*failed`` the
+// failing step, -1 for refused arguments) or 0.
+extern "C" int k1_steps_launch(const void* f_in, void* f_a, void* f_b, const void* aux,
+                               const void* q, const void* prof, const void* rows, int n,
+                               const int* geom, int bc_left, int bc_top, int bc_right,
+                               int bc_bottom, int use_les, int dev, int obst, void* stream,
+                               int* failed) {
+  *failed = -1;
+  const BlockGeom g = load_geom(geom);
+  if (g.halo != 0 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const BcTypes bc{bc_left, bc_top, bc_right, bc_bottom};
+  const float* r = static_cast<const float*>(rows);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dev) {
+    switch (obst) {
+      case LBM_OBST_EQ:
+        return steps_loop<DevStore, LBM_OBST_EQ>(f_in, f_a, f_b, aux, nullptr, prof, r, n, g,
+                                                 bc, use_les, st, failed);
+      case LBM_OBST_BOUNCE:
+        return steps_loop<DevStore, LBM_OBST_BOUNCE>(f_in, f_a, f_b, aux, nullptr, prof, r, n,
+                                                     g, bc, use_les, st, failed);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  switch (obst) {
+    case LBM_OBST_EQ:
+      return steps_loop<F32Store, LBM_OBST_EQ>(f_in, f_a, f_b, aux, q, prof, r, n, g, bc,
+                                               use_les, st, failed);
+    case LBM_OBST_BOUNCE:
+      return steps_loop<F32Store, LBM_OBST_BOUNCE>(f_in, f_a, f_b, aux, q, prof, r, n, g, bc,
+                                                   use_les, st, failed);
+    case LBM_OBST_HALFWAY:
+      return steps_loop<F32Store, LBM_OBST_HALFWAY>(f_in, f_a, f_b, aux, q, prof, r, n, g, bc,
+                                                    use_les, st, failed);
+    case LBM_OBST_BOUZIDI:
+      return steps_loop<F32Store, LBM_OBST_BOUZIDI>(f_in, f_a, f_b, aux, q, prof, r, n, g, bc,
+                                                    use_les, st, failed);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -364,26 +364,17 @@ static int launch_ww(const void* f_in, void* f_out, const void* aux, const void*
                                  stream);
 }
 
-// Launches K3 on ``stream``: S sub-steps of f_in -> f_out (distinct f32
-// [9, H, W] buffers; every cell of f_out is written). ``scal`` is a host
-// pointer to S scalar rows of 14 floats, copied into the launch
-// parameters. The tile is TH x TW centre cells, TW + 2 S <= 128 (a window
-// of 64 columns where TW + 2 S fits them, else 128).
-// ``obst`` is LBM_OBST_EQ, _BOUNCE or _HALFWAY; ``prof`` ([H] f32) is read
-// only for left types 3/4. Returns the CUDA error code, or
-// cudaErrorInvalidValue for arguments the kernel does not take.
-extern "C" int k3_fused_launch(const void* f_in, void* f_out, const void* aux,
-                               const void* prof, const void* scal, int S, int H, int W,
-                               int TH, int TW, int bc_left_t, int bc_top_t,
-                               int bc_right_t, int bc_bottom_t, int use_les, int obst,
-                               void* stream) {
+// One K3 pass of S sub-steps, f_in -> f_out, with the S scalar rows at
+// ``scal``; the CUDA error code, or cudaErrorInvalidValue for arguments
+// the kernel does not take.
+static int k3_pass(const void* f_in, void* f_out, const void* aux, const void* prof,
+                   const float* scal, int S, int H, int W, int TH, int TW, const BcTypes& bc,
+                   int use_les, int obst, cudaStream_t st) {
   if (S < 1 || S > K3_MAX_STEPS || TH < 2 || TW < 2 || TW + 2 * S > 128 || H < 3 || W < 3)
     return static_cast<int>(cudaErrorInvalidValue);
   ScalarRows rows;
-  for (int s = 0; s < S; ++s) rows.s[s] = load_scalars(static_cast<const float*>(scal) + 14 * s);
+  for (int s = 0; s < S; ++s) rows.s[s] = load_scalars(scal + 14 * s);
   for (int s = S; s < K3_MAX_STEPS; ++s) rows.s[s] = rows.s[0];
-  const BcTypes bc{bc_left_t, bc_top_t, bc_right_t, bc_bottom_t};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (obst) {
     case LBM_OBST_EQ:
       return launch_ww<LBM_OBST_EQ>(f_in, f_out, aux, prof, rows, S, H, W, TH, TW, bc, use_les,
@@ -397,4 +388,55 @@ extern "C" int k3_fused_launch(const void* f_in, void* f_out, const void* aux,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Launches K3 on ``stream``: S sub-steps of f_in -> f_out (distinct f32
+// [9, H, W] buffers; every cell of f_out is written). ``scal`` is a host
+// pointer to S scalar rows of 14 floats, copied into the launch
+// parameters. The tile is TH x TW centre cells, TW + 2 S <= 128 (a window
+// of 64 columns where TW + 2 S fits them, else 128).
+// ``obst`` is LBM_OBST_EQ, _BOUNCE or _HALFWAY; ``prof`` ([H] f32) is read
+// only for left types 3/4. Returns the CUDA error code, or
+// cudaErrorInvalidValue for arguments the kernel does not take.
+extern "C" int k3_fused_launch(const void* f_in, void* f_out, const void* aux,
+                               const void* prof, const void* scal, int S, int H, int W,
+                               int TH, int TW, int bc_left_t, int bc_top_t,
+                               int bc_right_t, int bc_bottom_t, int use_les, int obst,
+                               void* stream) {
+  return k3_pass(f_in, f_out, aux, prof, static_cast<const float*>(scal), S, H, W, TH, TW,
+                 BcTypes{bc_left_t, bc_top_t, bc_right_t, bc_bottom_t}, use_les, obst,
+                 static_cast<cudaStream_t>(stream));
+}
+
+// ``passes`` K3 passes in one call (the fused form of run_chunk_pallas's
+// step loop, lax.scan over _pallas_fused_steps inside one jit,
+// pallas_step.py:1936-1940): the arguments of k3_fused_launch with the
+// host table ``rows`` [passes S, 14] (pass i takes rows i S .. i S + S - 1)
+// and two ping-pong buffers in place of f_out: pass i reads f_in (i = 0)
+// or the previous pass's output and writes f_a (even i) or f_b (odd i);
+// f_b may be f_in. After each launch cudaGetLastError(); on a failure
+// ``*failed`` is the pass's index (-1 before any) and the rest are not
+// launched.
+extern "C" int k3_passes_launch(const void* f_in, void* f_a, void* f_b, const void* aux,
+                                const void* prof, const void* rows, int passes, int S, int H,
+                                int W, int TH, int TW, int bc_left_t, int bc_top_t,
+                                int bc_right_t, int bc_bottom_t, int use_les, int obst,
+                                void* stream, int* failed) {
+  *failed = -1;
+  if (passes < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const BcTypes bc{bc_left_t, bc_top_t, bc_right_t, bc_bottom_t};
+  const float* r = static_cast<const float*>(rows);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const void* src = f_in;
+  for (int i = 0; i < passes; ++i) {
+    void* dst = (i & 1) ? f_b : f_a;
+    const int err = k3_pass(src, dst, aux, prof, r + 14 * S * i, S, H, W, TH, TW, bc, use_les,
+                            obst, st);
+    if (err != 0) {
+      *failed = i;
+      return err;
+    }
+    src = dst;
+  }
+  return 0;
 }

@@ -46,7 +46,11 @@ KERNELS = {
     # and to the scalar row, then the four sides' BC types
     "k1_step": ("k1_step", "k1_step_launch", [_P] * 10 + [_I] * 7 + [_P]),
     "k1_step_dev": ("k1_step", "k1_step_dev_launch", [_P] * 6 + [_I] * 6 + [_P]),
+    # a chunk's fast steps in one call: the host table of n scalar rows,
+    # the ping-pong buffers, and a host int that names a failing step
+    "k1_steps": ("k1_step", "k1_steps_launch", [_P] * 7 + [_I, _P] + [_I] * 7 + [_P, _P]),
     "k3_fused": ("k3_fused", "k3_fused_launch", [_P] * 5 + [_I] * 11 + [_P]),
+    "k3_passes": ("k3_fused", "k3_passes_launch", [_P] * 6 + [_I] * 12 + [_P, _P]),
     "copy_probe": ("copy_probe", "copy_probe_launch", [_P] * 3 + [_I] * 2 + [_P]),
 }
 _HEADERS = ("lbm_common.cuh", "lbm_cell.cuh")

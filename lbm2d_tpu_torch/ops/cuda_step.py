@@ -35,9 +35,20 @@ block's ``BlockGeom`` (``geom=``), a [hl, wl] block inside a 1-cell halo
 ring of its neighbours' cells, whose ring cells are written only where the
 block lies on the global edge; they count as the ``_shard`` variants.
 
+A chunk is issued as one program, as the JAX package's jit over lax.scan
+issues it: its scalar rows are one host table built once (``scalar_rows``;
+the ramp-free row is read from the device once per params object), and
+its fast steps run in the shared libraries' step loops (``k1_steps``, C
+entry ``k1_steps_launch``; ``k3_passes``, ``k3_passes_launch``), the
+arguments checked once a call; the closing full step is one ``k1_step``.
+The per-step wrappers (``k1_step``, ``k1_step_dev``, ``k3_fused``) serve
+the sharded runner and the tools, and ``run_chunk_stepwise`` issues a chunk
+through them, one call a step.
+
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes its
-plain PyTorch version (``k1_step_plain``, ``k1_step_dev_plain`` and
-``k3_fused_plain``, each with the same arguments) only for CPU tensors.
+plain PyTorch version (``k1_step_plain``, ``k1_step_dev_plain``,
+``k1_steps_plain``, ``k3_fused_plain`` and ``k3_passes_plain``, each with
+the same arguments) only for CPU tensors.
 ``LAUNCHES`` counts kernel launches by variant (``k1_variant`` /
 ``k3_variant`` names), so a run can show that it went through the kernels.
 The monitors are plain torch reductions, as the JAX package computes them
@@ -49,8 +60,9 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import weakref
 from dataclasses import astuple, dataclass
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -350,9 +362,14 @@ def k3_tile(S: int):
     return K3_TILE_SHORT if S <= 4 else K3_TILE_DEEP
 
 
-def _host_scalars(p: CaseParams):
-    """(scalar row without the ramp, warmup) on the host: one device read
-    per chunk, none per step."""
+# the ramp-free scalar row and warmup of each live params object, read
+# from the device once (``_host_scalars``); an entry leaves with its object
+_HOST_ROWS: Dict[int, Tuple[torch.Tensor, float]] = {}
+
+
+def _read_host_row(p: CaseParams) -> Tuple[torch.Tensor, float]:
+    """(scalar row without the ramp, warmup) read from ``p``'s device: the
+    read waits for the stream."""
     row = torch.cat(
         [
             torch.stack([p.tau0, p.cs_factor, p.s_ghost, p.tau0, p.rho_in, p.rho_out]),
@@ -362,17 +379,92 @@ def _host_scalars(p: CaseParams):
     return row, float(p.warmup_steps)
 
 
-def _with_ramp(row: torch.Tensor, warmup: float, step: int) -> torch.Tensor:
-    row = row.clone()
-    row[_S_RAMP] = warmup_ramp(step, warmup, row.dtype)
-    return row
+def _host_scalars(p: CaseParams) -> Tuple[torch.Tensor, float]:
+    """(scalar row without the ramp, warmup) on the host, read once per
+    params object (a new ``CaseParams`` reads again), so no chunk waits on
+    the stream for them. The row is shared: callers copy it."""
+    key = id(p)
+    hit = _HOST_ROWS.get(key)
+    if hit is None:
+        hit = _HOST_ROWS[key] = _read_host_row(p)
+        weakref.finalize(p, _HOST_ROWS.pop, key, None)
+    return hit
 
 
 def scalar_row(p: CaseParams, step: int) -> torch.Tensor:
     """The scalar row of lattice step ``step`` as a CPU tensor [14] of the
     case dtype (counterpart of ``pallas_step._scalars``)."""
     row, warmup = _host_scalars(p)
-    return _with_ramp(row, warmup, step)
+    row = row.clone()
+    row[_S_RAMP] = warmup_ramp(step, warmup, row.dtype)
+    return row
+
+
+@functools.lru_cache(maxsize=None)
+def _full_ramp(dtype: torch.dtype) -> float:
+    """``warmup_ramp`` of any step at or past the warmup, where min(1, s /
+    warmup) is exactly 1."""
+    return warmup_ramp(1, 1.0, dtype)
+
+
+@functools.lru_cache(maxsize=1 << 17)
+def _warm_ramp(step: int, warmup: float, dtype: torch.dtype) -> float:
+    """``warmup_ramp`` of a step below the warmup, computed once for every
+    case that shares the warmup (a lockstep group's cases do)."""
+    return warmup_ramp(step, warmup, dtype)
+
+
+def scalar_rows(p: CaseParams, step0: int, n: int) -> torch.Tensor:
+    """The scalar rows of lattice steps step0 + 1 .. step0 + n as one
+    contiguous CPU tensor [n, 14] of the case dtype: row i is bitwise
+    ``scalar_row(p, step0 + 1 + i)``. Below the warmup each ramp comes from
+    ``warmup_ramp`` one step at a time (a cos over a tensor of steps may
+    round otherwise); from the warmup on it is one constant."""
+    row, warmup = _host_scalars(p)
+    rows = row.repeat(n, 1)
+    rows[:, _S_RAMP] = _full_ramp(row.dtype)
+    for i in range(n):
+        step = step0 + 1 + i
+        if step >= warmup:
+            break
+        rows[i, _S_RAMP] = _warm_ramp(step, warmup, row.dtype)
+    return rows
+
+
+@dataclass(frozen=True)
+class ChunkPlan:
+    """How a chunk of ``n`` steps is issued, rows of its ``scalar_rows``
+    table by step: ``passes`` K3 passes of ``fuse`` steps (rows
+    ``k3_rows``), then ``singles`` K1 fast steps (rows ``k1_rows``), then
+    the full step (the last row). The fast launches write the two
+    ping-pong buffers in turn, the first buffer 0, so the full step reads
+    the state's f (no fast launch) or buffer ``1 - parity``, and in f32
+    writes buffer ``parity``."""
+
+    n: int
+    fuse: int
+    passes: int
+    singles: int
+
+    @property
+    def k3_rows(self) -> slice:
+        return slice(0, self.passes * self.fuse)
+
+    @property
+    def k1_rows(self) -> slice:
+        return slice(self.passes * self.fuse, self.n - 1)
+
+    @property
+    def parity(self) -> int:
+        return (self.passes + self.singles) % 2
+
+
+def chunk_plan(n_steps: int, fuse: int) -> ChunkPlan:
+    """The plan of a chunk of ``n_steps`` at ``fuse`` K3 steps a pass (0:
+    unfused): steps 1 .. n - 1 as ``divmod(n - 1, fuse)`` = (passes,
+    singles), as the JAX package's run_chunk_pallas splits them."""
+    passes, singles = divmod(n_steps - 1, fuse) if fuse else (0, n_steps - 1)
+    return ChunkPlan(n_steps, fuse, passes, singles)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -397,8 +489,15 @@ def _scal_c(scal: torch.Tensor):
 
 def _w_col(f: torch.Tensor) -> torch.Tensor:
     """The lattice weights as f32, shaped to broadcast over f's first axis."""
-    w = torch.as_tensor(W_LAT, dtype=torch.float32, device=f.device)
-    return w.reshape((9,) + (1,) * (f.dim() - 1))
+    return _w_on(f.device).reshape((9,) + (1,) * (f.dim() - 1))
+
+
+@functools.lru_cache(maxsize=None)
+def _w_on(device: torch.device) -> torch.Tensor:
+    """The lattice weights as f32 on ``device``, copied there once: a copy
+    from host memory waits for the stream, and (de)quantize runs every
+    chunk."""
+    return torch.as_tensor(W_LAT, dtype=torch.float32, device=device)
 
 
 def quantize(f: torch.Tensor) -> torch.Tensor:
@@ -660,6 +759,82 @@ def k1_step_dev(f_in, f_out, aux, scal, use_les, bc_type, obstacle=OBSTACLE_EQ, 
     LAUNCHES[k1_variant(obstacle, dev=True, shard=g.halo > 0)] += 1
 
 
+def _ping_pong(f_in, f_a, f_b, n: int):
+    """The buffer that holds f after ``n`` launches of a loop entry."""
+    return f_in if n == 0 else (f_a if n % 2 else f_b)
+
+
+def _check_rows(name: str, rows: torch.Tensor, n: int) -> None:
+    """A loop entry's host table: ``n`` contiguous f32 CPU rows of 14."""
+    if rows.is_cuda or rows.dtype != torch.float32 or not rows.is_contiguous() or tuple(
+            rows.shape) != (n, len(SCALAR_FIELDS)):
+        raise ValueError(f"{name}: need a contiguous f32 CPU table [{n}, 14], got "
+                         f"{tuple(rows.shape)} {rows.dtype} on {rows.device}")
+
+
+def _loop_failed(name: str, rc: int, failed: int, n: int) -> RuntimeError:
+    at = "refused its arguments" if failed < 0 else f"failed at launch {failed} of {n}"
+    return RuntimeError(f"{name} {at}: CUDA error {rc}")
+
+
+def k1_steps_plain(f_in, f_a, f_b, aux, rows, use_les, bc_type, obstacle=OBSTACLE_EQ, q=None,
+                   prof=None, dev=False):
+    """Plain version of ``k1_steps``: step i of the whole grid by
+    ``k1_step_plain`` (``k1_step_dev_plain`` with ``dev``) with row i of
+    ``rows``, reading f_in (step 0) or the previous step's output and
+    writing f_a (even i) or f_b (odd i). Returns the buffer holding f."""
+    src = f_in
+    for i in range(rows.shape[0]):
+        dst = f_b if i % 2 else f_a
+        if dev:
+            k1_step_dev_plain(src, dst, aux, rows[i], use_les, bc_type, obstacle, prof)
+        else:
+            k1_step_plain(src, dst, aux, rows[i], use_les, bc_type, obstacle=obstacle, q=q,
+                          prof=prof)
+        src = dst
+    return src
+
+
+def k1_steps(f_in, f_a, f_b, aux, rows, use_les, bc_type, obstacle=OBSTACLE_EQ, q=None,
+             prof=None, dev=False):
+    """n = len(rows) fast K1 steps of the whole grid in one call of the
+    shared library: step i takes row i of the CPU table ``rows`` [n, 14],
+    reads f_in (step 0) or the previous step's output, writes f_a (even i)
+    or f_b (odd i); f_b may be f_in. f32 buffers, or with ``dev`` bf16
+    deviations (equilibrium and full-way bounce-back). The arguments are
+    checked once for the n launches. Returns the buffer holding f; counted
+    as n launches of ``k1_variant(obstacle, dev=dev)``."""
+    if not f_in.is_cuda:
+        return k1_steps_plain(f_in, f_a, f_b, aux, rows, use_les, bc_type, obstacle, q, prof,
+                              dev)
+    n = int(rows.shape[0])
+    g = BlockGeom.whole(*f_in.shape[1:])
+    d = f_in.device
+    if dev:
+        _check_k1(f_in, f_a, aux, g, DEV_DTYPE, obstacle, None, None, None, None,
+                  DEV_OBSTACLES)
+    else:
+        _check_k1(f_in, f_a, aux, g, torch.float32, obstacle, q, None, None, None)
+    _check("f_b", f_b, (9,) + g.plane, d, f_in.dtype)
+    if f_a.data_ptr() == f_b.data_ptr():
+        raise ValueError("k1_steps: f_a and f_b must be distinct buffers")
+    _check_rows("k1_steps", rows, n)
+    prof_ptr = _prof_ptr(bc_type, prof, g.hl, d)
+    q_ptr = _ptr(q) if obstacle == OBSTACLE_BOUZIDI else None
+    lt, tt, rt, bt = (int(t) for t in bc_type)
+    failed = ctypes.c_int(-1)
+    with _launch_device(d):
+        rc = cuda_build.load("k1_steps")(
+            _ptr(f_in), _ptr(f_a), _ptr(f_b), _ptr(aux), q_ptr, prof_ptr, _ptr(rows), n,
+            ctypes.addressof(g.c_row), lt, tt, rt, bt, int(bool(use_les)), int(bool(dev)),
+            obstacle, torch.cuda.current_stream(d).cuda_stream, ctypes.addressof(failed),
+        )
+    LAUNCHES[k1_variant(obstacle, dev=bool(dev))] += n if rc == 0 else max(failed.value, 0)
+    if rc != 0:
+        raise _loop_failed("k1_steps", rc, failed.value, n)
+    return _ping_pong(f_in, f_a, f_b, n)
+
+
 # ---------------------------------------------------------------------------
 # K3: temporal blocking
 # ---------------------------------------------------------------------------
@@ -790,13 +965,68 @@ def k3_fused(f_in, f_out, aux, scal_rows, bc_type, use_les, obstacle=OBSTACLE_EQ
     LAUNCHES[k3_variant(obstacle, lt)] += 1
 
 
+def k3_passes_plain(f_in, f_a, f_b, aux, rows, S, bc_type, use_les, obstacle=OBSTACLE_EQ,
+                    prof=None, tile=None):
+    """Plain version of ``k3_passes``: pass i by ``k3_fused_plain`` with
+    rows i S .. i S + S - 1 of ``rows``, reading f_in (pass 0) or the
+    previous pass's output and writing f_a (even i) or f_b (odd i).
+    Returns the buffer holding f."""
+    src = f_in
+    for i in range(rows.shape[0] // S):
+        dst = f_b if i % 2 else f_a
+        k3_fused_plain(src, dst, aux, rows[i * S:(i + 1) * S], bc_type, use_les, obstacle, prof,
+                       tile)
+        src = dst
+    return src
+
+
+def k3_passes(f_in, f_a, f_b, aux, rows, S, bc_type, use_les, obstacle=OBSTACLE_EQ, prof=None,
+              tile=None):
+    """len(rows) / S passes of K3 (S steps each) in one call of the shared
+    library: pass i takes rows i S .. i S + S - 1 of the CPU table
+    ``rows``, reads f_in (pass 0) or the previous pass's output and writes
+    f_a (even i) or f_b (odd i); f_b may be f_in. f32 [9, H, W] buffers;
+    ``tile`` as for ``k3_fused``. Returns the buffer holding f; counted as
+    one launch of ``k3_variant`` a pass."""
+    tile = tuple(tile or k3_tile(S))
+    if not f_in.is_cuda:
+        return k3_passes_plain(f_in, f_a, f_b, aux, rows, S, bc_type, use_les, obstacle, prof,
+                               tile)
+    _, H, W = f_in.shape
+    d = f_in.device
+    if not 1 <= S <= FUSE_MAX_STEPS or rows.shape[0] % S:
+        raise ValueError(f"k3_passes: {rows.shape[0]} rows are not passes of S = {S} "
+                         f"(1 <= S <= {FUSE_MAX_STEPS})")
+    passes = int(rows.shape[0]) // S
+    for name, t in (("f_in", f_in), ("f_a", f_a), ("f_b", f_b)):
+        _check(name, t, (9, H, W), d)
+    _check("aux", aux, (H, W), d)
+    _check_obstacle(obstacle, None, (H, W), d, FUSE_OBSTACLES)
+    if f_a.data_ptr() in (f_in.data_ptr(), f_b.data_ptr()):
+        raise ValueError("k3_passes: f_a must differ from f_in and f_b")
+    _check_rows("k3_passes", rows, passes * S)
+    th, tw = tile
+    prof_ptr = _prof_ptr(bc_type, prof, H, d)
+    lt, tt, rt, bt = (int(t) for t in bc_type)
+    failed = ctypes.c_int(-1)
+    rc = cuda_build.load("k3_passes")(
+        _ptr(f_in), _ptr(f_a), _ptr(f_b), _ptr(aux), prof_ptr, _ptr(rows), passes, S, H, W, th,
+        tw, lt, tt, rt, bt, int(bool(use_les)), obstacle,
+        torch.cuda.current_stream(d).cuda_stream, ctypes.addressof(failed),
+    )
+    LAUNCHES[k3_variant(obstacle, lt)] += passes if rc == 0 else max(failed.value, 0)
+    if rc != 0:
+        raise _loop_failed("k3_passes", rc, failed.value, passes)
+    return _ping_pong(f_in, f_a, f_b, passes)
+
+
 # ---------------------------------------------------------------------------
 # Chunk runner
 # ---------------------------------------------------------------------------
 
 
 def run_chunk_cuda(state: LBMState, p: CaseParams, n_steps: int, store_dev: bool = False):
-    """Advance ``n_steps`` through K1, one launch a step; same contract as
+    """Advance ``n_steps`` through the kernels; same contract as
     ``solver.run_chunk``: ``(state, {"force": [2], "max_v": 0-d})``.
 
     Steps 1..n-1 run K1's fast variant, the last step its full variant.
@@ -808,6 +1038,13 @@ def run_chunk_cuda(state: LBMState, p: CaseParams, n_steps: int, store_dev: bool
     case allows it, steps 1..n-1 run as ``divmod(n - 1, S)`` = (k, r): k
     passes of K3, then r single K1 steps, as the JAX package's
     run_chunk_pallas does.
+
+    A chunk is one program, as run_chunk_pallas's jit over lax.scan is:
+    its scalar rows are built once (``scalar_rows``, no device read), and
+    it makes at most three calls of the shared libraries, each launching
+    on the current stream with no sync: the K3 passes (``k3_passes``), the
+    single K1 steps (``k1_steps``) and the closing full step
+    (``k1_step``).
     """
     return _run_chunk(state, p, n_steps, store_dev, plain=False)
 
@@ -825,60 +1062,83 @@ def _run_chunk(state: LBMState, p: CaseParams, n_steps: int, store_dev: bool, pl
     if n_steps < 1:
         raise ValueError(f"n_steps must be >= 1, got {n_steps}")
     if plain:
-        k1, k1d, k3 = k1_step_plain, k1_step_dev_plain, k3_fused_plain
+        k1, k1s, k3s = k1_step_plain, k1_steps_plain, k3_passes_plain
     else:
-        k1, k1d, k3 = k1_step, k1_step_dev, k3_fused
+        k1, k1s, k3s = k1_step, k1_steps, k3_passes
     dev_store = bool(store_dev) and n_steps > 1 and dev_storage_refusal(p) is None
-    fuse = fuse_steps(p, n_steps)
+    plan = chunk_plan(n_steps, fuse_steps(p, n_steps))
     obst = obstacle_scheme(p)
     q = p.bouzidi_q if obst == OBSTACLE_BOUZIDI else None
     prof = p.inlet_profile if p.bc_type[0] in (BC_VEL_INLET, BC_VEL_INLET_NEBB) else None
     H, W = p.shape
     dev = state.f.device
     aux = pack_aux(p.damping, p.mask)
-    row, warmup = _host_scalars(p)
+    rows = scalar_rows(p, state.step, n_steps)
     # quantize once per chunk; the fast steps ping-pong two buffers
     src = quantize(state.f) if dev_store else state.f
     bufs = (torch.empty_like(src), torch.empty_like(src))
-
-    def other(t):
-        return bufs[1] if t is bufs[0] else bufs[0]
-
-    step = state.step
-    n_single = n_steps - 1
-    if fuse:
-        passes, n_single = divmod(n_steps - 1, fuse)
-        tile = k3_tile(fuse)
-        for _ in range(passes):
-            rows = torch.stack([_with_ramp(row, warmup, step + 1 + i) for i in range(fuse)])
-            dst = other(src)
-            k3(src, dst, aux, rows, p.bc_type, p.use_les, obst, prof, tile)
-            src = dst
-            step += fuse
-    for _ in range(n_single):
-        step += 1
-        scal = _with_ramp(row, warmup, step)
-        dst = other(src)
-        if dev_store:
-            k1d(src, dst, aux, scal, p.use_les, p.bc_type, obst, prof)
-        else:
-            k1(src, dst, aux, scal, p.use_les, p.bc_type, obstacle=obst, q=q, prof=prof)
-        src = dst
+    if plan.passes:
+        src = k3s(src, bufs[0], bufs[1], aux, rows[plan.k3_rows], plan.fuse, p.bc_type,
+                  p.use_les, obst, prof, k3_tile(plan.fuse))
+    if plan.singles:
+        first = plan.passes % 2
+        src = k1s(src, bufs[first], bufs[1 - first], aux, rows[plan.k1_rows], p.use_les,
+                  p.bc_type, obst, q, prof, dev_store)
     if dev_store:
         # the closing full step runs in exact f32
         src = dequantize(src)
         dst = torch.empty_like(src)
     else:
-        dst = other(src)
-    scal = _with_ramp(row, warmup, step + 1)
+        dst = bufs[plan.parity]
     rho = torch.empty((H, W), dtype=state.f.dtype, device=dev)
     u = torch.empty((2, H, W), dtype=state.f.dtype, device=dev)
     f_post = state.f_post.clone()
-    k1(src, dst, aux, scal, p.use_les, p.bc_type, rho, u, f_post, obstacle=obst, q=q,
-       prof=prof)
+    k1(src, dst, aux, rows[n_steps - 1], p.use_les, p.bc_type, rho, u, f_post, obstacle=obst,
+       q=q, prof=prof)
     new_state = LBMState(f=dst, f_post=f_post, rho=rho, u=u, step=state.step + n_steps)
     monitors = {
         "force": obstacle_force(new_state.f_post, p),
         "max_v": max_velocity(new_state.u),
     }
     return new_state, monitors
+
+
+def run_chunk_stepwise(state: LBMState, p: CaseParams, n_steps: int, store_dev: bool = False):
+    """``run_chunk_cuda`` issued one wrapper call a step (``k1_step``,
+    ``k1_step_dev``, ``k3_fused``), each step's row from ``scalar_row``:
+    the reference the chunk's library loops are held to, bitwise."""
+    if n_steps < 1:
+        raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+    dev_store = bool(store_dev) and n_steps > 1 and dev_storage_refusal(p) is None
+    plan = chunk_plan(n_steps, fuse_steps(p, n_steps))
+    obst = obstacle_scheme(p)
+    q = p.bouzidi_q if obst == OBSTACLE_BOUZIDI else None
+    prof = p.inlet_profile if p.bc_type[0] in (BC_VEL_INLET, BC_VEL_INLET_NEBB) else None
+    aux = pack_aux(p.damping, p.mask)
+    src = quantize(state.f) if dev_store else state.f
+    step = state.step
+    for _ in range(plan.passes):
+        dst = torch.empty_like(src)
+        rows = torch.stack([scalar_row(p, step + 1 + i) for i in range(plan.fuse)])
+        k3_fused(src, dst, aux, rows, p.bc_type, p.use_les, obst, prof, k3_tile(plan.fuse))
+        src, step = dst, step + plan.fuse
+    for _ in range(plan.singles):
+        dst = torch.empty_like(src)
+        step += 1
+        if dev_store:
+            k1_step_dev(src, dst, aux, scalar_row(p, step), p.use_les, p.bc_type, obst, prof)
+        else:
+            k1_step(src, dst, aux, scalar_row(p, step), p.use_les, p.bc_type, obstacle=obst,
+                    q=q, prof=prof)
+        src = dst
+    if dev_store:
+        src = dequantize(src)
+    dst = torch.empty_like(src)
+    H, W = p.shape
+    rho = torch.empty((H, W), dtype=src.dtype, device=src.device)
+    u = torch.empty((2, H, W), dtype=src.dtype, device=src.device)
+    f_post = state.f_post.clone()
+    k1_step(src, dst, aux, scalar_row(p, step + 1), p.use_les, p.bc_type, rho, u, f_post,
+            obstacle=obst, q=q, prof=prof)
+    new_state = LBMState(f=dst, f_post=f_post, rho=rho, u=u, step=state.step + n_steps)
+    return new_state, {"force": obstacle_force(f_post, p), "max_v": max_velocity(u)}

@@ -436,20 +436,17 @@ def advance_blocks(bs: BlockState, case: ShardedCase, n_steps: int, store_dev: b
         # bf16 deviations, as the JAX package's ppermute rows do
         src = [[b if b is None else cs.quantize(b) for b in row] for row in src]
         dst = [[b if b is None else b.clone() for b in row] for row in src]
-    row, warmup = cs._host_scalars(p)
-    step = bs.step
-    for _ in range(n_steps - 1):
-        step += 1
-        fast_step(src, dst, case, cs._with_ramp(row, warmup, step), dev_store, plain)
+    rows = cs.scalar_rows(p, bs.step, n_steps)
+    for i in range(n_steps - 1):
+        fast_step(src, dst, case, rows[i], dev_store, plain)
         src, dst = dst, src
     if dev_store:
         # the closing full step runs in exact f32, into the resident buffer
         # the chunk quantized
         src = [[b if b is None else cs.dequantize(b) for b in r] for r in src]
         dst = bs.f
-    scal = cs._with_ramp(row, warmup, step + 1)
     for iy, ix in _coords(mesh):
-        k1(src[iy][ix], dst[iy][ix], case.aux[iy][ix], scal, p.use_les, p.bc_type,
+        k1(src[iy][ix], dst[iy][ix], case.aux[iy][ix], rows[-1], p.use_les, p.bc_type,
            bs.rho[iy][ix], bs.u[iy][ix], bs.f_post[iy][ix], obstacle=case.obstacle,
            q=_at(case.q, iy, ix), prof=_at(case.prof, iy, ix), geom=case.geoms[iy][ix])
     exchange_halos(dst, mesh, case.hl, case.wl)  # the next chunk reads f's halos

@@ -407,3 +407,31 @@ def test_resident_mesh_over_four_cards(store_dev, obstacle):
                                      shard=True)] == 8
     for k in ("f", "f_post", "rho", "u"):
         assert torch.equal(four.field(k).cpu(), one.field(k).cpu()), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bc_type, obstacle, store_dev, fuse",
+                         [((0, 2, 1, 2), "equilibrium", False, None),
+                          ((0, 2, 1, 2), "equilibrium", True, None),
+                          ((0, 2, 1, 2), "equilibrium", False, 4),
+                          ((4, 2, 1, 2), "bounce_back_bouzidi", False, None)],
+                         ids=["f32", "store_dev", "fused-S4", "bouzidi-nebb"])
+def test_chunk_loop_matches_per_step_wrappers_on_card(bc_type, obstacle, store_dev, fuse,
+                                                      monkeypatch):
+    """A chunk through the libraries' step loops (at most three calls)
+    against the same chunk issued one wrapper call a step, bitwise, from a
+    state that straddles the warmup (steps 9-17, warmup 12)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU build)")
+    dev = torch.device("cuda")
+    monkeypatch.setattr(cs, "_FUSE_STEPS", fuse)
+    p = ts.make_params(make_config(bc_type, obstacle), make_mask(), device=dev)
+    s0 = dataclasses.replace(seeded_state(device=dev), step=8)
+    cs.reset_launch_counts()
+    a, ma = cs.run_chunk_cuda(s0, p, 9, store_dev=store_dev)
+    loop = dict(cs.LAUNCHES)
+    cs.reset_launch_counts()
+    b, mb = cs.run_chunk_stepwise(s0, p, 9, store_dev=store_dev)
+    assert loop == cs.LAUNCHES
+    assert_same(a, b)
+    assert torch.equal(ma["force"], mb["force"]) and torch.equal(ma["max_v"], mb["max_v"])
