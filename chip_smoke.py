@@ -167,12 +167,31 @@ Phases (any failure raises and the process exits non-zero):
    weight maps lie in [0, 1]; then ``video_stats.process_video`` on each
    mp4 (where cv2 imports), one ``io_bench._timed_zarr`` crop, and one
    100-step chunk of the smoke case under ``utils.profiling.device_trace``,
-   whose trace must name a ``k1_step`` kernel; each step's wall seconds.
+   whose trace must name a ``k1_step`` kernel; each step's wall seconds;
+11. run the port's headline bench (``tools/bench.run()``) at its defaults
+   in this process: the 1024^2 demo cylinder, 8 warm-up chunks and three
+   windows of 20 chunks of 500 steps, then the 40-step guard against the
+   eager step (1e-5); print its one JSON line, and check the line's keys
+   and metric, k1_step 68 x 499 + 39 and k1_step_full 68 + 1 launches (the
+   timed chunks and the guard's chunk) and no plain call but the guard's
+   40 eager steps; then a whole chunk's and one K1 step's device time
+   (CUDA graphs) beside the bytes bound;
+12. time the Bouzidi q planes of the smoke mask (its own signed distance)
+   on this host, then run the DFG-2D matrix (``tools/dfg_suite.run_suite``:
+   the 12 rows of ``tools_dfg_suite.sh``, full-way, half-way and Bouzidi
+   with the equilibrium and NEBB inlets at 881x165 and 1761x329) cut to
+   4000 steps a row: every row's keys those of
+   docs/benchmarks/dfg2d_results.json's rows plus ``card`` and
+   ``wall_s``, every value finite, each scheme's K1 launches (one a step)
+   and no plain call; then the last row's engine (ny 329, Bouzidi + NEBB)
+   200 steps on through the kernels and through ``run_chunk_plain``,
+   bitwise.
 
 The last two lines are the kernels' JSON record (``launches``: the sum over
 the driven paths, split in ``launches_by_path``, phase 9's under
 ``coord``, ``coord_lock``, ``case_sharded`` and ``multihost``, phase 10's under
-``quickstart`` and ``quickstart_trace``) and ``{"ok": true,
+``quickstart`` and ``quickstart_trace``, phase 11's under ``bench``, phase
+12's under ``suite``) and ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or without the package beside
 this script, it exits non-zero and prints no result.
 """
@@ -209,6 +228,9 @@ DFG_RUN = dict(mode="dfg", obstacle="bounce_back_bouzidi", inlet="nebb", re=100.
 DFG_RANGES = {"strouhal": (0.26, 0.32), "cd_mean": (2.7, 3.5),
               "cl_amplitude": (0.5, 1.4), "re_measured": (90.0, 110.0)}
 DFG_PAIR_STEPS, DFG_PAIR_CHUNK = 200, 100
+# phase 12: the DFG matrix cut to 20 monitor samples a row (the FFT
+# Strouhal of run_validation needs 16)
+SUITE_STEPS = 4000
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s and
 # f32 non-tensor-core FLOP/s. bound = max(bytes / BW, ops / FLOPS).
@@ -898,6 +920,147 @@ def phase10(config, mask, counted, card):
         print("[10] wall seconds a step: " + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
               + f" [{card}]", flush=True)
     return by_path
+
+
+def phase11(counted, card):
+    """The port's headline bench at its defaults (``tools/bench.run()``),
+    in this process; returns its launches."""
+    from contextlib import redirect_stdout
+    from io import StringIO
+
+    from lbm2d_tpu_torch.ops import cuda_step as cs
+    from lbm2d_tpu_torch.tools import bench
+    from lbm2d_tpu_torch.tools.cuda_timing import graph_ms
+
+    print("[11] the bench: tools.bench.run() at its defaults (1024^2 demo cylinder, nu 0.01, "
+          "8 + 3 x 20 chunks of 500 steps, the 40-step guard)", flush=True)
+    out = StringIO()
+    counted.clear()
+    torch.cuda.synchronize()
+    cs.reset_launch_counts()
+    t0 = time.perf_counter()
+    with redirect_stdout(out):
+        res = bench.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cs.LAUNCHES)
+    lines = out.getvalue().splitlines()
+    print(f"[11] {lines[0] if lines else '(no line)'} [{card}]", flush=True)
+    line = json.loads(lines[0]) if len(lines) == 1 else {}
+    if list(line) != ["metric", "value", "unit", "vs_baseline"] or line["metric"] != bench.METRIC:
+        raise AssertionError(f"bench stdout is not its one JSON line: {lines}")
+    n, chunk = 1024, 500
+    chunks = 8 + 3 * 20
+    # the timed chunks, then the guard's chunk; the guard's eager reference
+    # is the one plain call
+    want = {"k1_step": chunks * (chunk - 1) + bench.GUARD_STEPS - 1, "k1_step_full": chunks + 1}
+    print(f"    {chunks * chunk} steps and the guard in {wall:.2f} s; guard max |f_k - f_e| / "
+          f"max |f_e| = {res.guard_rel:.3e} (tolerance {bench.GUARD_TOL:g}); launches "
+          f"{({k: v for k, v in launches.items() if v})}, plain calls {counted}", flush=True)
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"bench: launches {launches} (want {want})")
+    if {k: v for k, v in counted.items() if v} != {"step": bench.GUARD_STEPS}:
+        raise AssertionError(f"bench: plain calls {counted} (want only the guard's "
+                             f"{bench.GUARD_STEPS} eager steps)")
+    if res.state.step != chunks * chunk or not res.guard_rel < bench.GUARD_TOL:
+        raise AssertionError(f"bench: step {res.state.step}, guard {res.guard_rel}")
+    # where the bench's time goes: a whole chunk's device time (a CUDA graph
+    # of run_chunk_cuda) and one K1 step's, against its bytes bound
+    p = res.params
+    chunk_us = graph_ms(lambda: cs.run_chunk_cuda(res.state, p, chunk), per_graph=1,
+                        replays=3) * 1e3 / chunk
+    f_out = torch.empty_like(res.state.f)
+    aux = cs.pack_aux(p.damping, p.mask)
+    scal = cs.scalar_row(p, res.state.step + 1)
+    k1_us = graph_ms(lambda: cs.k1_step(res.state.f, f_out, aux, scal, p.use_les,
+                                        p.bc_type)) * 1e3
+    bound, by = bound_ms(76 * n * n, K1_OPS_PER_CELL * n * n)
+    print(f"    {line['value']} MLUPS = {n * n / line['value']:.2f} us/step host-paced; device "
+          f"time a step: whole chunk {chunk_us:.2f} us ({n * n / chunk_us:.1f} MLUPS), k1_step "
+          f"{k1_us:.2f} us; K1's bound {bound * 1e3:.2f} us ({by}: 76 B/cell at 3.35 TB/s, "
+          f"{n * n / (bound * 1e3):.1f} MLUPS) [{card}]", flush=True)
+    return launches
+
+
+def phase12(mask, counted, card, engines, exact_state):
+    """The DFG-2D matrix at full width and cut depth through
+    ``tools/dfg_suite.run_suite``; the Bouzidi q planes of the smoke mask
+    timed on this host. Returns the suite's launches."""
+    import platform
+
+    from lbm2d_tpu_torch.core import solver
+    from lbm2d_tpu_torch.ops import cuda_step as cs
+    from lbm2d_tpu_torch.tools import dfg_suite
+
+    cpu = platform.processor() or platform.machine()
+    if os.path.exists("/proc/cpuinfo"):
+        with open("/proc/cpuinfo") as fh:
+            cpu = next((ln.split(":", 1)[1].strip() for ln in fh if ln.startswith("model name")),
+                       cpu)
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        q = solver.bouzidi_q_planes(mask)
+        times.append(time.perf_counter() - t0)
+    print(f"[12] Bouzidi q planes of the smoke mask ({mask.shape[0]}x{mask.shape[1]}, the "
+          f"mask's own signed distance): {', '.join(format(t, '.3f') for t in times)} s, "
+          f"{int((q != 0.5).sum())} fractions off 1/2, on this host: {cpu}, "
+          f"{os.cpu_count()} CPUs [{card}]", flush=True)
+
+    print(f"[12] the DFG-2D matrix: dfg_suite.run_suite(steps={SUITE_STEPS}), "
+          f"{len(dfg_suite.MATRIX)} rows at full width", flush=True)
+    with open(os.path.join(HERE, "docs", "benchmarks", "dfg2d_results.json")) as fh:
+        keys = set(json.load(fh)[0]) | {"card", "wall_s"}
+    chunk = 200  # run_validation's default, which the suite keeps
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_suite_") as root:
+        out = os.path.join(root, "dfg2d_results_h100.json")
+        counted.clear()
+        torch.cuda.synchronize()
+        cs.reset_launch_counts()
+        t0 = time.perf_counter()
+        rows = dfg_suite.run_suite(out, steps=SUITE_STEPS, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(cs.LAUNCHES)
+        with open(out) as fh:
+            written = json.load(fh)
+    print(f"    {len(rows)} rows in {wall:.2f} s; launches "
+          f"{({k: v for k, v in launches.items() if v})}, plain calls {counted} [{card}]",
+          flush=True)
+    if written != rows or len(rows) != len(dfg_suite.MATRIX):
+        raise AssertionError(f"suite: {len(written)} rows written, {len(rows)} returned")
+    want = {}
+    scheme = {"bounce_back": "k1_step_bounce", "bounce_back_halfway": "k1_step_halfway",
+              "bounce_back_bouzidi": "k1_step_bouzidi"}
+    for row, m in zip(rows, dfg_suite.MATRIX):
+        tag = f"{m['obstacle']}/{m['inlet']}/{m['ny']}"
+        floats = {k: v for k, v in row.items() if isinstance(v, float)}
+        if set(row) != keys or not all(np.isfinite(v) for v in floats.values()):
+            raise AssertionError(f"suite row {tag}: keys {sorted(set(row) ^ keys)} differ from "
+                                 f"the TPU file's, or a value is not finite: {row}")
+        if (row["obstacle"], row["inlet"], row["ny"], row["steps"]) != (
+                m["obstacle"], m["inlet"], m["ny"], SUITE_STEPS) or row["card"] != card:
+            raise AssertionError(f"suite row {tag}: {row}")
+        fast = scheme[m["obstacle"]]
+        want[fast] = want.get(fast, 0) + SUITE_STEPS // chunk * (chunk - 1)
+        want[fast + "_full"] = want.get(fast + "_full", 0) + SUITE_STEPS // chunk
+    if {k: v for k, v in launches.items() if v} != want or any(counted.values()):
+        raise AssertionError(f"suite: launches {launches} (want {want}), plain calls {counted}")
+    walls = ", ".join(format(r["wall_s"], ".2f") for r in rows)
+    print(f"    every row's keys are the TPU file's plus card and wall_s, every value finite; "
+          f"wall s a row: {walls}", flush=True)
+    # the last row (ny 329, Bouzidi + NEBB) on: 200 steps through the
+    # kernels and through the plain chunk runner from its state
+    eng = engines[-1]
+    p = eng.params
+    if p.shape != (329, 1761) or cs.k1_variant(cs.obstacle_scheme(p)) != "k1_step_bouzidi":
+        raise AssertionError(f"suite: last engine {p.shape}, {cs.obstacle_scheme(p)}")
+    sk, mk = cs.run_chunk_cuda(eng.state, p, 200)
+    sp, mp = cs.run_chunk_plain(eng.state, p, 200)
+    torch.cuda.synchronize()
+    exact_state("ny-329 Bouzidi + NEBB, 200 steps from the suite's state, kernels vs plain",
+                sk, sp, mk, mp)
+    return launches
 
 
 def main() -> int:
@@ -2202,12 +2365,18 @@ def main() -> int:
     # -- phase 10: the README quickstart --------------------------------------
     launches10 = phase10(config, mask, counted, card)
 
+    # -- phase 11: the headline bench -------------------------------------------
+    launches11 = phase11(counted, card)
+
+    # -- phase 12: the DFG-2D matrix at cut depth ------------------------------
+    launches12 = phase12(mask, counted, card, engines, exact_state)
+
     kernels = []
     by_path = {"serial": launches, "lockstep": launches4, "dfg": launches5,
                "dfg_pairs": launches5b, "fused": launches6, "fused_pairs": launches6b,
                "roofline": launches7, "sharded": launches8c, "sharded_pairs": launches8a,
                "sharded_dfg": launches8b, "sharded_4096": launches8d, **launches9,
-               **launches10}
+               **launches10, "bench": launches11, "suite": launches12}
     sources = {"k1": ("k1_step.cu", "lbm2d_tpu/ops/pallas_step.py:824"),
                "k3": ("k3_fused.cu", "lbm2d_tpu/ops/pallas_step.py:610"),
                "co": ("copy_probe.cu", "tools_roofline_4096.py:95")}

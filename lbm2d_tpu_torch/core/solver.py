@@ -238,13 +238,14 @@ def _link_t_sdf(phi: np.ndarray, xx, yy, ex: int, ey: int,
     """First zero crossing of a bilinearly-interpolated signed-distance
     field along each link (mask-derived geometry: composite shapes with no
     analytic description).  phi > 0 in fluid, < 0 in solid; flat walls
-    reduce to q = 1/2 (half-way)."""
+    reduce to q = 1/2 (half-way). xx/yy are the links' cell centres
+    (integer-valued), in any shape."""
     from scipy.ndimage import map_coordinates
 
     h, w = phi.shape
     ts = np.linspace(0.0, 1.0, samples + 1)
-    prev_phi = phi.copy()
-    t_hit = np.full(phi.shape, np.inf)
+    prev_phi = phi[yy.astype(np.intp), xx.astype(np.intp)]
+    t_hit = np.full(xx.shape, np.inf)
     for i in range(1, samples + 1):
         t = ts[i]
         cy = np.clip(yy + t * ey, 0, h - 1)
@@ -338,9 +339,6 @@ def bouzidi_q_planes(
         geom = {"shape": "sdf"}
     solid = np.asarray(mask) > 0.5
     h, w = solid.shape
-    yy, xx = np.mgrid[0:h, 0:w]
-    xx = xx.astype(np.float64)
-    yy = yy.astype(np.float64)
 
     def shifted_solid(ddy, ddx):
         """solid[y + ddy, x + ddx], out-of-bounds -> True (treat the domain
@@ -359,13 +357,19 @@ def bouzidi_q_planes(
     for j in range(1, 9):
         ex, ey = int(E[j, 0]), int(E[j, 1])
         link = (~solid) & shifted_solid(ey, ex)  # fluid c, solid c + e_j
-        t = _geom_link_t(geom, mask, xx, yy, ex, ey, phi_cache)
+        # the wall is searched on the link cells only: every other cell
+        # keeps 1/2, and each link's t is an elementwise function of its
+        # own cell centre, so the planes equal an all-cell evaluation bitwise
+        ys, xs = np.nonzero(link)
+        if not len(ys):
+            continue
+        t = _geom_link_t(geom, mask, xs.astype(np.float64), ys.astype(np.float64), ex, ey,
+                         phi_cache)
         t = np.where(np.isfinite(t), t, 0.5)  # no root -> half-way fallback
         # the q < 1/2 two-point formula interpolates with cell c - e_j;
         # if that cell is solid the link degrades to half-way
-        behind_solid = shifted_solid(-ey, -ex)
-        t = np.where((t < 0.5) & behind_solid, 0.5, t)
-        q[j - 1] = np.where(link, t, 0.5)
+        behind_solid = shifted_solid(-ey, -ex)[ys, xs]
+        q[j - 1, ys, xs] = np.where((t < 0.5) & behind_solid, 0.5, t)
     return q.astype(dtype)
 
 
