@@ -97,36 +97,51 @@ Phases (any failure raises and the process exits non-zero):
    (``k1_step[_bounce|_halfway|_bouzidi]_shard[_full|_dev]``) on the four
    blocks of a 2x2 mesh of the card (local 1216x576, halos cut from the
    developed state) over the same BC combinations, bitwise against its
-   plain version, timed on block (0, 0);
+   plain version, timed on block (0, 0), and the halo kernel
+   (``halo_exchange``, ``halo_exchange_dev``: one refresh of the four
+   blocks, the counterpart of XLA's collective-permute) bitwise against
+   ``exchange_halos``' copies, every halo cell NaN before it;
 7. run the roofline tool's measurement (``tools/roofline.measure``) at
    4096^2 with two chunks of 50 steps, and hold the copy probe, with and
    without the aux read, against its plain version at that size, both
    forms timed beside ``torch.Tensor.copy_`` in the same run;
 8. drive the sharded path (``parallel/sharded.py``) through its resident
    blocks (``sharded.BlockRunner``: the state placed once, chunks run on
-   the blocks, a field gathered only where it is read): (a) on a 2x2 mesh
-   of the card, phase 3's final state placed and run for 2 chunks of 100
-   steps, f32 and ``store_dev``, bitwise against ``run_chunk_cuda`` (f,
-   f_post, rho, u, force, max_v); (b) on a (5, 1) mesh at the DFG grid,
-   whose seams cut the cylinder, the Bouzidi, half-way and full-way pairs
-   with the NEBB inlet (full-way in ``store_dev`` too) from phase 5's
-   flow, 200 steps, bitwise against the single-device kernels; (c) the
+   the blocks, a field gathered only where it is read). A chunk is two
+   library calls (``cuda_step.k1_shard_steps``: each step every block's K1
+   and the halo kernel; ``k1_shard_full``), on the engine's layout over a
+   host's cards (a block a card; ``tools/mesh_cards.py`` measures it on
+   four) as on these meshes, whose blocks all share this one card: a test
+   layout, which no entry point builds, that drives the same code with
+   one stream and one halo launch a step. (a), (b) and (d) hold it
+   bitwise against the same chunks issued a step at a time from Python
+   (runner kind "stepwise": a K1 call a block, then ``exchange_halos``'s
+   copies) on f, f_post, rho, u, force and max_v, and time both loops in
+   turns (us/step, the host's issue, a chunk issued from an idle stream,
+   library calls a chunk, one step's device time in a CUDA graph): (a) on
+   a 2x2 mesh of the card, phase 3's final state placed and run for 2
+   chunks of 100 steps, f32 and ``store_dev``, bitwise against
+   ``run_chunk_cuda`` too; (b) on a (5, 1) mesh at the DFG grid, whose
+   seams cut the cylinder, the Bouzidi, half-way and full-way pairs with
+   the NEBB inlet (full-way in ``store_dev`` too) from phase 5's flow, 200
+   steps, bitwise against the single-device kernels too; (c) the
    production entry ``run_batch(..., spatial_mesh="1x1")`` on the smoke
    case (the engine keeps its blocks across chunks): Success, final f
    bitwise equal to phase 3's, only ``_shard`` launches and no plain call;
    (d) on a 2x2 mesh at 4096^2 (the demo case), a 6-step chunk from a
-   seeded random state bitwise against the plain runner (the kernels at
-   this block size), then the chunk loop in turns, the state placed and
-   gathered every chunk (``run_chunk_sharded_cuda``) and resident:
-   host-paced us/step beside the host's time to issue the loop and the
-   garbage collector's pauses in it, the memory the state holds and the
-   loop's peak
-   (``torch.cuda.max_memory_allocated``); the device time of one step (a
-   CUDA graph of K1 on every block and the halo copies), the halo
-   exchange's share, the per-chunk cost of what is still gathered (the
+   seeded random state bitwise against the per-step loop and the plain
+   runner (the kernels at this block size), then the chunk loop in turns,
+   the state placed and gathered every chunk (``run_chunk_sharded_cuda``),
+   resident a step at a time, and resident through the library loop:
+   us/step beside the host's time to issue the loop and the garbage
+   collector's pauses in it, the memory the state holds and the loop's
+   peak (``torch.cuda.max_memory_allocated``); the device time of one step
+   in each loop (CUDA graphs), the halo kernel against ``exchange_halos``
+   (bitwise, and timed), the per-chunk cost of what is still gathered (the
    closing f_post into the global f_post) and of the chunk's monitors.
-   Every ``_shard`` variant is launched in phase 8, one launch a block a
-   step;
+   Every ``_shard`` variant and both halo kernels (``halo_exchange``,
+   ``halo_exchange_dev``) are launched in phase 8, one K1 launch a block
+   and one refresh a step;
 9. drive the multi-worker and multi-process paths, each worker an OS
    process (``lbm2d_tpu_torch/tools/smoke_workers.py``, hard time limit)
    on sibling cases of the smoke case (nu 0.02, 0.03, 0.04, 0.05): (a) two
@@ -357,6 +372,29 @@ def bound_ms(nbytes: float, ops: float):
     t_bytes = nbytes / PEAK_BW * 1e3
     t_ops = ops / PEAK_F32 * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's raw bits, so NaN halos compare equal where identical."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def halo_cells(hl: int, wl: int, ry: int, rx: int) -> int:
+    """Halo cells a refresh of an ry x rx mesh of [hl, wl] blocks writes a
+    plane: the x halos of every seam's two sides, the y halos (wl + 2
+    wide) likewise."""
+    return 2 * hl * ry * (rx - 1) + 2 * (wl + 2) * rx * (ry - 1)
+
+
+def halo_blocks_nan(blocks, dtype, hl: int, wl: int):
+    """[2][2] copies of the {(iy, ix): block} halo'd blocks in ``dtype``,
+    their halo rings NaN."""
+    out = [[blocks[iy, ix].to(dtype, copy=True) for ix in range(2)] for iy in range(2)]
+    for row in out:
+        for b in row:
+            b[:, 0] = b[:, hl + 1] = float("nan")
+            b[:, :, 0] = b[:, :, wl + 1] = float("nan")
+    return out
 
 
 def k3_work(cs, H: int, W: int, S: int, tile):
@@ -1476,6 +1514,32 @@ def main() -> int:
             22 * cells2 + 18 * g2.hl * g2.wl,
             (K1_OPS_PER_CELL + 18) * n_in2 + (RING_OPS_PER_CELL + 9) * ring2,
             regs.get(("DevStore", obst, True, False)))
+    # the halo kernel (csrc/halo.cuh, the counterpart of XLA's
+    # collective-permute in the JAX package's sharded chunk): one refresh
+    # of the four blocks, f32 and bf16, every halo cell NaN before it (a
+    # cell it should write and does not shows), against exchange_halos'
+    # strided copies, its plain version; raw bits compared, halos included
+    halo_regs = {("halo_exchange" if "IjE" in fn else "halo_exchange_dev"): use
+                 for fn, use in ptxas_usage(cuda_build.BUILD_LOG.get("k1_step", "")).items()
+                 if "halo_kernel" in fn and use[0] is not None}
+    halo_cells2 = halo_cells(hl2, wl2, 2, 2)
+    for name, dtype in (("halo_exchange", torch.float32), ("halo_exchange_dev", cs.DEV_DTYPE)):
+        hk, hp = (halo_blocks_nan(fS, dtype, hl2, wl2) for _ in range(2))
+        cs.halo_exchange(hk, hl2, wl2)
+        cs.halo_exchange_plain(hp, hl2, wl2)
+        torch.cuda.synchronize()
+        errs = {}
+        for b in blocks2:
+            if not torch.equal(bits(hk[b[0]][b[1]]), bits(hp[b[0]][b[1]])):
+                raise AssertionError(f"{name} block {b}: not bitwise equal to exchange_halos")
+            errs[f"{name} block {b}"] = 0.0
+        print(f"  {name:<30s} {len(errs)} blocks' halos bitwise equal to exchange_halos "
+              f"({halo_cells2} halo cells x 9 planes a refresh)", flush=True)
+        # each written halo element read once and written once
+        records[name] = record(0.0, errs, lambda: cs.halo_exchange(hk, hl2, wl2),
+                               lambda: cs.halo_exchange_plain(hp, hl2, wl2),
+                               2 * 9 * halo_cells2 * hk[0][0].element_size(), 0,
+                               halo_regs.get(name))
 
     missing = set(cs.KERNEL_VARIANTS) - set(records)
     if missing:
@@ -2102,33 +2166,126 @@ def main() -> int:
             mon = runner.advance(bs, p_, n)
         return bs, mon
 
-    def shard_launches(counts):
-        return {k: v for k, v in counts.items() if "_shard" in k and v}
+    def mesh_launches(counts):
+        return {k: v for k, v in counts.items() if ("_shard" in k or "halo" in k) and v}
 
+    def loop_vs_stepwise(tag, mesh, p_, state, n_chunks, n, store_dev, case, total):
+        """The chunk's library loop (``advance_blocks`` on a one-device mesh:
+        ``k1_shard_steps``, ``k1_shard_full``) against the same chunks issued
+        a step at a time from Python (kind "stepwise"), both resident from
+        ``state``: f, f_post, rho, u, force and max_v bitwise. The library
+        loop's launches are added to ``total``; returns its blocks and
+        monitors."""
+        torch.cuda.synchronize()
+        cs.reset_launch_counts()
+        bs, ma = resident(mesh, p_, state, n_chunks, n, store_dev, case)
+        torch.cuda.synchronize()
+        for k, v in cs.LAUNCHES.items():
+            total[k] = total.get(k, 0) + v
+        bw, mw = resident(mesh, p_, state, n_chunks, n, store_dev, case, kind="stepwise")
+        torch.cuda.synchronize()
+        exact_state(f"{tag}: library loop vs per-step loop", bs.snapshot(), bw.snapshot(), ma, mw)
+        return bs, ma
+
+    def library_calls(fn):
+        """C entries of the kernel libraries one call of ``fn`` makes."""
+        n, real = [0], cuda_build.load
+
+        def load(name):
+            entry = real(name)
+
+            def call(*a):
+                n[0] += 1
+                return entry(*a)
+            return call
+
+        cuda_build.load = load
+        try:
+            fn()
+        finally:
+            cuda_build.load = real
+        return n[0]
+
+    def loop_turns(tag, mesh, p_, bs, case, n, n_chunks):
+        """The library loop and the per-step loop on the resident blocks
+        ``bs``, in turns (per-step, library, library, per-step): us/step
+        (CUDA events around ``n_chunks`` chunks of ``n``), the host's issue
+        us/step (once the launch queue fills, the host waits on the device,
+        so this is an upper bound), the library calls and strided halo
+        copies a chunk; the host's issue of one chunk from an idle stream;
+        then one step's device time of each (a CUDA graph of one fast step:
+        K1 on every block and the refresh). Returns {kind: [(us, issue)]},
+        {kind: step ms}, {kind: idle-stream issue us/step}."""
+        runners = {k: sh.BlockRunner(mesh, k, False, case) for k in ("cuda", "stepwise")}
+        ry, rx = mesh.grid
+        copies = 2 * (ry * (rx - 1) + rx * (ry - 1))
+        calls = {k: library_calls(lambda r=r: r.advance(bs, p_, n)) for k, r in runners.items()}
+        out = {"cuda": [], "stepwise": []}
+        for kind in ("stepwise", "cuda", "cuda", "stepwise"):
+            runner = runners[kind]
+            runner.advance(bs, p_, n)
+            torch.cuda.synchronize()
+            a.record()
+            t0 = time.perf_counter()
+            for _ in range(n_chunks):
+                runner.advance(bs, p_, n)
+            issue = (time.perf_counter() - t0) * 1e6 / (n_chunks * n)
+            b.record()
+            b.synchronize()
+            out[kind].append((a.elapsed_time(b) * 1e3 / (n_chunks * n), issue))
+        idle = {k: issue_us(lambda r=r: r.advance(bs, p_, n), n, repeats=3)[0]
+                for k, r in runners.items()}
+        row = cs.scalar_rows(p_, bs.step, 1)
+        step_ms = {
+            "cuda": graph_ms(lambda: cs.k1_shard_steps(bs.f, bs.f_alt, bs.f, case.tables, row,
+                                                       p_.use_les, p_.bc_type, case.obstacle),
+                             per_graph=10),
+            "stepwise": graph_ms(lambda: sh.fast_step(bs.f, bs.f_alt, case, row[0], False),
+                                 per_graph=10)}
+
+        def fmt(kind):
+            return (", ".join(f"{t[0]:.1f}" for t in out[kind]) + " us/step (the host's issue "
+                    + ", ".join(f"{t[1]:.1f}" for t in out[kind]) + ")")
+
+        print(f"    {tag}, chunks of {n}, in turns (per-step, library, library, per-step): "
+              f"library loop {fmt('cuda')}, {calls['cuda']} library calls a chunk, a chunk "
+              f"issued from an idle stream in {idle['cuda']:.1f} us/step; per-step loop "
+              f"{fmt('stepwise')}, {calls['stepwise']} library calls and {copies * n} strided "
+              f"halo copies a chunk, issued from an idle stream in {idle['stepwise']:.1f} "
+              f"us/step; one step's device time (CUDA graph) "
+              f"{step_ms['cuda'] * 1e3:.1f} us in the library loop, "
+              f"{step_ms['stepwise'] * 1e3:.1f} us per step [{card}]", flush=True)
+        return out, step_ms, idle
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
     # (a) a 2x2 mesh of the card against the single-device kernels, from
-    # phase 3's final state, f32 and deviation storage
+    # phase 3's final state, f32 and deviation storage; the library loop
+    # against the per-step loop
     print(f"[8] sharded path: (a) 2x2 mesh of {dev} on the smoke case, 2 x {chunk} steps",
           flush=True)
     case22 = sh.ShardedCase(p, mesh22)
     counted.clear()
-    torch.cuda.synchronize()
-    cs.reset_launch_counts()
+    launches8a = {}
     for store_dev in (False, True):
-        bs, ma = resident(mesh22, p, s3, 2, chunk, store_dev, case22)
+        tag = f"2x2{' store_dev' if store_dev else ''}"
+        bs, ma = loop_vs_stepwise(tag, mesh22, p, s3, 2, chunk, store_dev, case22, launches8a)
         sb = s3
         for _ in range(2):
             sb, mb = cs.run_chunk_cuda(sb, p, chunk, store_dev=store_dev)
         torch.cuda.synchronize()
-        exact_state(f"2x2 resident vs run_chunk_cuda{' store_dev' if store_dev else ''}",
-                    bs.snapshot(), sb, ma, mb)
+        exact_state(f"{tag} resident vs run_chunk_cuda", bs.snapshot(), sb, ma, mb)
+        if not store_dev:
+            loop_turns("(a) 2x2 at the smoke case, f32", mesh22, p, bs, case22,
+                                         chunk, 5)
         del bs
-    launches8a = dict(cs.LAUNCHES)
     fast8 = 4 * 2 * (chunk - 1)
-    want8a = {"k1_step_shard": fast8, "k1_step_shard_full": 16, "k1_step_shard_dev": fast8}
-    print(f"    launches {({k: v for k, v in launches8a.items() if v})}, plain calls {counted}; "
-          f"{per_step(shard_launches(launches8a), 4 * chunk)} on 4 blocks = one a block a "
-          f"step", flush=True)
-    if shard_launches(launches8a) != want8a or any(counted.values()):
+    want8a = {"k1_step_shard": fast8, "k1_step_shard_full": 16, "k1_step_shard_dev": fast8,
+              "halo_exchange": 2 * chunk + 2, "halo_exchange_dev": 2 * (chunk - 1)}
+    print(f"    launches {mesh_launches(launches8a)}, plain calls {counted}; "
+          f"{per_step(mesh_launches(launches8a), 4 * chunk)} on 4 blocks = one K1 a block a "
+          f"step and one halo refresh a step", flush=True)
+    if mesh_launches(launches8a) != want8a or any(counted.values()):
         raise AssertionError(f"phase 8(a): launches {launches8a} (want {want8a}), {counted}")
 
     # (b) a (5, 1) mesh at the DFG grid: the seams at rows 66 and 99 cut the
@@ -2136,8 +2293,7 @@ def main() -> int:
     mesh51 = make_mesh((5, 1), [dev] * 5)
     print(f"    (b) (5, 1) mesh at {H5}x{W5}, 2 x {DFG_PAIR_CHUNK} steps a pair", flush=True)
     counted.clear()
-    torch.cuda.synchronize()
-    cs.reset_launch_counts()
+    launches8b = {}
     for obstacle, modes in (("bounce_back_bouzidi", (False,)), ("bounce_back_halfway", (False,)),
                             ("bounce_back", (False, True))):
         cfg8, mask8, _ = dfg_validation.dfg_case(ny=DFG_RUN["ny"], u_max=DFG_RUN["u_target"],
@@ -2147,16 +2303,21 @@ def main() -> int:
         case8 = sh.ShardedCase(p8, mesh51)
         for store_dev in modes:
             n8 = DFG_PAIR_STEPS // DFG_PAIR_CHUNK
-            bs, ma = resident(mesh51, p8, developed, n8, DFG_PAIR_CHUNK, store_dev, case8)
+            tag = f"(5, 1) {obstacle}/nebb{' store_dev' if store_dev else ''}"
+            bs, ma = loop_vs_stepwise(tag, mesh51, p8, developed, n8, DFG_PAIR_CHUNK, store_dev,
+                                      case8, launches8b)
             sb = developed
             for _ in range(n8):
                 sb, mb = cs.run_chunk_cuda(sb, p8, DFG_PAIR_CHUNK, store_dev=store_dev)
             torch.cuda.synchronize()
-            exact_state(f"(5, 1) {obstacle}/nebb{' store_dev' if store_dev else ''}",
-                        bs.snapshot(), sb, ma, mb)
+            exact_state(f"{tag} vs the single-device kernels", bs.snapshot(), sb, ma, mb)
+            if obstacle == "bounce_back_bouzidi":
+                loop_turns("(b) (5, 1) DFG Bouzidi + NEBB", mesh51, p8, bs,
+                                             case8, DFG_PAIR_CHUNK, 10)
             del bs
-    launches8b = dict(cs.LAUNCHES)
-    print(f"    launches {shard_launches(launches8b)}, plain calls {counted}", flush=True)
+    launches8b = {k: launches8b.get(k, 0) for k in cs.KERNEL_VARIANTS}
+    launches8a = {k: launches8a.get(k, 0) for k in cs.KERNEL_VARIANTS}
+    print(f"    launches {mesh_launches(launches8b)}, plain calls {counted}", flush=True)
     if any(counted.values()):
         raise AssertionError(f"phase 8(b): plain calls {counted}")
 
@@ -2230,7 +2391,7 @@ def main() -> int:
 
     # (d) a 2x2 mesh of the card at 4096^2, the demo case (README 3c's grid
     # class): us/step of the chunk runner, and one step's device time from
-    # a CUDA graph of K1 on every block and the halo copies
+    # a CUDA graph of K1 on every block and the halo refresh, in each loop
     N8 = ROOF_N
     p4k = solver.make_params(demo_config(N8, N8, nu=0.01, warmup=2000), cylinder_mask(N8, N8),
                              device=dev)
@@ -2244,7 +2405,10 @@ def main() -> int:
     u_r = 0.02 * torch.randn((2, N8, N8), generator=gen, device=dev)
     f_r = f_eq(rho_r, u_r[0], u_r[1])
     s_r = solver.LBMState(f=f_r, f_post=f_r.clone(), rho=rho_r, u=u_r, step=0)
-    bs_a, ma = resident(mesh22, p4k, s_r, 1, CHECK_4K_STEPS, case=case4k)
+    launches8d_check = {}
+    bs_a, ma = loop_vs_stepwise(f"(d) 2x2 at {N8}^2 from a random state, {CHECK_4K_STEPS} steps",
+                                mesh22, p4k, s_r, 1, CHECK_4K_STEPS, False, case4k,
+                                launches8d_check)
     bs_b, mb = resident(mesh22, p4k, s_r, 1, CHECK_4K_STEPS, case=case4k, kind="plain")
     torch.cuda.synchronize()
     exact_state(f"(d) 2x2 at {N8}^2 from a random state, {CHECK_4K_STEPS} steps, kernels vs "
@@ -2252,17 +2416,21 @@ def main() -> int:
     del s_r, bs_a, bs_b, f_r, rho_r, u_r
     # then the chunk loop in turns: the state placed and gathered every
     # chunk (run_chunk_sharded_cuda: scatter, chunk, gather, as the runner
-    # ran before the blocks stayed resident), and the resident blocks;
-    # host-paced us/step (CUDA events around the loop) and the memory the
-    # state holds and the loop peaks at, above what 8(d) found allocated
+    # ran before the blocks stayed resident), the resident blocks through
+    # the library loop, and the same blocks a step at a time from Python
+    # (the per-step loop); us/step (CUDA events around the loop), the
+    # host's issue, and the memory the state holds and the loop peaks at,
+    # above what 8(d) found allocated
     torch.cuda.synchronize()
     base4k = torch.cuda.memory_allocated(dev)
     runner4k = sh.BlockRunner(mesh22, "cuda", False, case4k)
+    stepwise4k = sh.BlockRunner(mesh22, "stepwise", False, case4k)
     s4k = solver.init_state(N8, N8, torch.float32, dev)
     counted.clear()
     torch.cuda.synchronize()
     cs.reset_launch_counts()
     s4k, _ = sh.run_chunk_sharded_cuda(s4k, p4k, ROOF_SPC, mesh22, case=case4k)  # warm-up
+    first8d = dict(cs.LAUNCHES)
 
     gc_ms, gc_start = [], [0.0]
 
@@ -2303,25 +2471,61 @@ def main() -> int:
     def resident_chunk():
         box["m"] = runner4k.advance(box["bs"], p4k, ROOF_SPC)
 
-    turns = {"gathered": [], "resident": []}
-    for kind in ("gathered", "resident", "resident", "gathered"):
-        if kind == "resident" and "bs" not in box:
+    def stepwise_chunk():
+        box["m"] = stepwise4k.advance(box["bs"], p4k, ROOF_SPC)
+
+    chunk_fns = {"gathered": gathered_chunk, "resident": resident_chunk,
+                 "stepwise": stepwise_chunk}
+    turns = {k: [] for k in chunk_fns}
+    launches8d = {}
+    for kind in ("gathered", "stepwise", "resident", "resident", "stepwise", "gathered"):
+        if kind != "gathered" and "bs" not in box:
             box["bs"] = runner4k.place(box.pop("s"), p4k)
         elif kind == "gathered" and "s" not in box:
             box["s"] = box.pop("bs").snapshot()
-        turns[kind].append(turn(gathered_chunk if kind == "gathered" else resident_chunk))
-    launches8d = dict(cs.LAUNCHES)
-    steps8d = (1 + 4 * SHARD_4K_CHUNKS) * ROOF_SPC
+        torch.cuda.synchronize()
+        cs.reset_launch_counts()
+        turns[kind].append(turn(chunk_fns[kind]))
+        if kind != "stepwise":  # the library loop's launches (placed or resident)
+            for k, v in cs.LAUNCHES.items():
+                launches8d[k] = launches8d.get(k, 0) + v
+    # the path's launches: the library loop's counted runs (the check chunk,
+    # the warm-up, the placed and resident turns), each read from counts
+    # set to 0 just before it, added up
+    launches8d = {k: launches8d.get(k, 0) + launches8d_check.get(k, 0) + first8d.get(k, 0)
+                  for k in cs.KERNEL_VARIANTS}
+    steps8d = (1 + 4 * SHARD_4K_CHUNKS) * ROOF_SPC + CHECK_4K_STEPS
     s4k, m4k = box["s"], box["m"]
     if not (torch.isfinite(s4k.f).all() and torch.isfinite(m4k["force"]).all()):
         raise AssertionError("phase 8(d): non-finite state at 4096^2")
     bs4k = runner4k.place(s4k, p4k)
     del s4k, box
     scal4 = cs.scalar_row(p4k, bs4k.step + 1)
+    row4 = scal4.reshape(1, -1).contiguous()
     step4k_ms = graph_ms(lambda: sh.fast_step(bs4k.f, bs4k.f_alt, case4k, scal4, False),
+                         per_graph=10)
+    loop4k_ms = graph_ms(lambda: cs.k1_shard_steps(bs4k.f, bs4k.f_alt, bs4k.f, case4k.tables, row4,
+                                                   p4k.use_les, p4k.bc_type, case4k.obstacle),
                          per_graph=10)
     exch4k_ms = graph_ms(lambda: sh.exchange_halos(bs4k.f_alt, mesh22, case4k.hl, case4k.wl),
                          per_graph=10)
+    halo4k_ms = graph_ms(lambda: cs.halo_exchange(bs4k.f_alt, case4k.hl, case4k.wl),
+                         per_graph=10)
+    # the halo kernel against exchange_halos at this block size, every halo
+    # cell NaN before the refresh, raw bits
+    blocks4k = {(iy, ix): bs4k.f[iy][ix] for iy in range(2) for ix in range(2)}
+    hk4, hp4 = (halo_blocks_nan(blocks4k, torch.float32, case4k.hl, case4k.wl) for _ in range(2))
+    cs.halo_exchange(hk4, case4k.hl, case4k.wl)
+    cs.halo_exchange_plain(hp4, case4k.hl, case4k.wl)
+    torch.cuda.synchronize()
+    if not all(torch.equal(bits(x), bits(y)) for rk, rp in zip(hk4, hp4) for x, y in zip(rk, rp)):
+        raise AssertionError(f"phase 8(d): the halo kernel differs from exchange_halos at {N8}^2")
+    halo4k_bound = bound_ms(2 * 9 * 4 * halo_cells(case4k.hl, case4k.wl, 2, 2), 0)[0]
+    del hk4, hp4, blocks4k
+    # the host's issue of one chunk from an idle stream (the turns' issue
+    # waits on the device once the launch queue fills)
+    idle4k = {k: issue_us(lambda r=r: r.advance(bs4k, p4k, ROOF_SPC), ROOF_SPC, repeats=3)[0]
+              for k, r in (("library", runner4k), ("per-step", stepwise4k))}
     fp4k_ms = median_ms(bs4k.collect_f_post, batches=5, per_batch=4)[0]
     mon4k_ms = median_ms(lambda: sh.block_monitors(bs4k, p4k, None), batches=5,
                          per_batch=4)[0]
@@ -2339,12 +2543,20 @@ def main() -> int:
 
     us4k, res4k = summary("resident")
     us4k_g, gat4k = summary("gathered")
-    print(f"    (d) 2x2 mesh at {N8}^2, chunks of {ROOF_SPC}, host-paced, in turns (gathered, "
-          f"resident, resident, gathered): resident {res4k} = {N8 * N8 / us4k:.1f} MLUPS; "
-          f"placed and gathered every chunk {gat4k}; one step's device time "
-          f"{step4k_ms * 1e3:.1f} us (CUDA graph: K1 on 4 blocks and "
-          f"{2 * 2 * 2} halo copies), halo exchange {exch4k_ms * 1e3:.1f} us = "
-          f"{100 * exch4k_ms / step4k_ms:.1f}% of it; still gathered a chunk: f_post into "
+    us4k_s, stp4k = summary("stepwise")
+    print(f"    (d) 2x2 mesh at {N8}^2, chunks of {ROOF_SPC}, in turns (gathered, per-step, "
+          f"library, library, per-step, gathered): resident through the library loop {res4k} = "
+          f"{N8 * N8 / us4k:.1f} MLUPS; resident a step at a time from Python {stp4k} = "
+          f"{N8 * N8 / us4k_s:.1f} MLUPS; placed and gathered every chunk (library loop) "
+          f"{gat4k}; a chunk issued from an idle stream in {idle4k['library']:.1f} us/step "
+          f"(library loop), {idle4k['per-step']:.1f} (per-step loop); one step's device time "
+          f"(CUDA graph) {loop4k_ms * 1e3:.1f} us in the library "
+          f"loop (K1 on 4 blocks and one halo kernel), {step4k_ms * 1e3:.1f} us per step (K1 "
+          f"on 4 blocks and {2 * 2 * 2} halo copies); halo kernel {halo4k_ms * 1e3:.1f} us "
+          f"(bound {halo4k_bound * 1e3:.2f} us, bytes; bitwise equal to exchange_halos), "
+          f"exchange_halos {exch4k_ms * 1e3:.1f} us = "
+          f"{100 * exch4k_ms / step4k_ms:.1f}% of the per-step loop's step; still gathered a "
+          f"chunk: f_post into "
           f"the global f_post, {fp4k_ms:.3f} ms = {fp4k_ms * 1e3 / ROOF_SPC:.1f} us/step at "
           f"{ROOF_SPC} steps; the chunk's monitors (force on the global f_post, max_v from "
           f"the blocks) {mon4k_ms:.3f} ms = {mon4k_ms * 1e3 / ROOF_SPC:.1f} us/step; "
@@ -2356,7 +2568,8 @@ def main() -> int:
         raise AssertionError(f"phase 8(d): plain calls {counted}")
     launches8 = {k: launches8a[k] + launches8b[k] + launches8c[k] + launches8d[k]
                  for k in cs.KERNEL_VARIANTS}
-    idle8 = [k for k in cs.KERNEL_VARIANTS if "_shard" in k and not launches8[k]]
+    idle8 = [k for k in cs.KERNEL_VARIANTS
+             if ("_shard" in k or "halo" in k) and not launches8[k]]
     if idle8:
         raise AssertionError(f"phase 8 did not launch {idle8}")
 
@@ -2379,7 +2592,9 @@ def main() -> int:
                **launches10, "bench": launches11, "suite": launches12}
     sources = {"k1": ("k1_step.cu", "lbm2d_tpu/ops/pallas_step.py:824"),
                "k3": ("k3_fused.cu", "lbm2d_tpu/ops/pallas_step.py:610"),
-               "co": ("copy_probe.cu", "tools_roofline_4096.py:95")}
+               "co": ("copy_probe.cu", "tools_roofline_4096.py:95"),
+               # XLA's collective-permute of _halo_update_padded (no pallas_call)
+               "ha": ("halo.cuh", "lbm2d_tpu/parallel/sharded.py:229")}
     for name in list(cs.KERNEL_VARIANTS) + list(cp.VARIANTS):
         r = records[name]
         if name in cp.VARIANTS:

@@ -94,9 +94,16 @@
 // updated, and only a block on the global edge writes ring cells; the halo
 // of a block side on the global edge is never read. The row pitch is
 // rounded up to 32 floats, so a block's rows start aligned as the whole
-// grid's do. Bound and design as above, plus the halo ring.
+// grid's do. Bound and design as above, plus the halo ring. A sharded
+// chunk's steps run in one call here too (k1_shard_steps_launch), on a mesh
+// whose blocks live on the cards of one process (one card each, or several
+// on one): every block's K1 on its card's stream, then the halo refresh of
+// the step's output (halo.cuh; across cards after one event a card), step
+// after step, as run_chunk_sharded_pallas's jit over shard_map and lax.scan
+// issues them.
 #include <algorithm>
 
+#include "halo.cuh"
 #include "lbm_cell.cuh"
 
 // The update of local cell ``c`` through global memory: its collide
@@ -465,3 +472,208 @@ extern "C" int k1_steps_launch(const void* f_in, void* f_a, void* f_b, const voi
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+// ---------------------------------------------------------------------------
+// A sharded chunk on a mesh whose blocks live on the devices of one process
+// ---------------------------------------------------------------------------
+
+// The blocks' geometries from the host table ``geoms`` [ry * rx][8] (row
+// major): false unless every block is a 1-cell-halo shard of one [hl, wl]
+// shape and pitch, at origin (iy hl, ix wl) of the (ry hl) x (rx wl) grid.
+static bool mesh_geoms(const int* geoms, int ry, int rx, BlockGeom* g) {
+  if (ry < 1 || rx < 1 || ry * rx > LBM_HALO_MAX_BLOCKS) return false;
+  for (int b = 0; b < ry * rx; ++b) {
+    g[b] = load_geom(geoms + 8 * b);
+    const BlockGeom& h = g[b];
+    if (h.halo != 1 || h.hl != g[0].hl || h.wl != g[0].wl || h.pitch != g[0].pitch ||
+        h.pitch < h.wl + 2 || h.y_off != (b / rx) * h.hl || h.x_off != (b % rx) * h.wl ||
+        h.Hg != ry * h.hl || h.Wg != rx * h.wl)
+      return false;
+  }
+  return true;
+}
+
+static const void* table_at(const void* const* table, int b) {
+  return table == nullptr ? nullptr : table[b];
+}
+
+// n fast steps of every block: step i launches K1's _shard instance on each
+// block (device by device, on its stream) with row i of ``rows``, reading
+// f_in (step 0) or the previous step's output and writing f_a (even i) or
+// f_b (odd i), then refreshes the halos of what it wrote (ha for f_a, hb
+// for f_b) -- parallel/sharded.py fast_step's order; across devices each
+// device's refresh waits for its neighbours' K1 (MeshDevs). After each step
+// cudaGetLastError(); on a failure ``*failed`` is the step's index and the
+// rest are not launched.
+template <typename S, int OBST>
+static int shard_steps_loop(const void* const* f_in, void* const* f_a, void* const* f_b,
+                            const void* const* aux, const void* const* q,
+                            const void* const* prof, const BlockGeom* g, const HaloMesh& ha,
+                            const HaloMesh& hb, const float* rows, int n, const BcTypes& bc,
+                            int use_les, const MeshDevs& md, int* failed) {
+  for (int i = 0; i < n; ++i) {
+    const Scalars s = load_scalars(rows + 14 * i);
+    void* const* dst = (i & 1) ? f_b : f_a;
+    const void* const* src =
+        i == 0 ? f_in : reinterpret_cast<const void* const*>((i & 1) ? f_a : f_b);
+    for (int d = 0; d < md.nd; ++d) {
+      const cudaStream_t st = md.use(d);
+      for (int k = 0; k < md.nblk[d]; ++k) {
+        const int b = md.blk[d][k];
+        launch<S, OBST, true, false>(src[b], dst[b], aux[b], table_at(q, b),
+                                     table_at(prof, b), nullptr, nullptr, nullptr, s, g[b], bc,
+                                     use_les, st);
+      }
+      md.record(d);
+    }
+    const HaloMesh& h = (i & 1) ? hb : ha;
+    for (int d = 0; d < md.nd; ++d) {
+      const cudaStream_t st = md.use(d);
+      md.wait(d);
+      halo_launch(md.part(h, d), sizeof(typename S::T), st);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) {
+      *failed = i;
+      return static_cast<int>(err);
+    }
+  }
+  return 0;
+}
+
+// The fast steps of a sharded chunk in one call, the counterpart of the
+// step loop run_chunk_sharded_pallas runs inside one program
+// (lbm2d_tpu/parallel/sharded.py:496-537: lax.scan over the shard_map'd
+// step and its collective-permute halo update), for a mesh whose ry x rx
+// blocks live on the CUDA devices of this process. Host tables of ry * rx
+// entries, row major: f_in, f_a, f_b, aux, q (Bouzidi only, else null),
+// prof (left types 3/4 only, else null) hold each block's device pointers
+// ([9, hl + 2, pitch] planes, aux [hl + 2, pitch], q [8, hl + 2, pitch],
+// prof [hl]), ``geoms`` each block's 8 ints (cuda_step.BlockGeom.shard),
+// ``devs`` its device's ordinal and ``streams`` that device's stream (one
+// a device; peer access between the devices, mesh_peers_launch). ``rows``
+// [n, 14] is the chunk's host table of scalar rows, ``dev`` picks 16-bit
+// deviation storage (bf16 f; EQ and BOUNCE only) over f32. f_b may be f_in,
+// which only step 0 reads. Returns the CUDA error code (``*failed`` the
+// failing step, -1 for refused arguments) or 0; the caller's device stays
+// current.
+extern "C" int k1_shard_steps_launch(const void* f_in, const void* f_a, const void* f_b,
+                                     const void* aux, const void* q, const void* prof,
+                                     const int* geoms, int ry, int rx, const void* rows, int n,
+                                     int bc_left, int bc_top, int bc_right, int bc_bottom,
+                                     int use_les, int dev, int obst, const int* devs,
+                                     const void* streams, int* failed) {
+  *failed = -1;
+  BlockGeom g[LBM_HALO_MAX_BLOCKS];
+  if (n < 0 || !mesh_geoms(geoms, ry, rx, g)) return static_cast<int>(cudaErrorInvalidValue);
+  auto fi = static_cast<const void* const*>(f_in);
+  auto fa = static_cast<void* const*>(const_cast<void*>(f_a));
+  auto fb = static_cast<void* const*>(const_cast<void*>(f_b));
+  auto ax = static_cast<const void* const*>(aux);
+  auto qt = static_cast<const void* const*>(q);
+  auto pt = static_cast<const void* const*>(prof);
+  HaloMesh ha, hb;
+  if (!halo_mesh(fa, ry, rx, g[0].hl, g[0].wl, g[0].pitch, 9, &ha) ||
+      !halo_mesh(fb, ry, rx, g[0].hl, g[0].wl, g[0].pitch, 9, &hb))
+    return static_cast<int>(cudaErrorInvalidValue);
+  MeshDevs md;
+  if (!md.init(devs, static_cast<void* const*>(const_cast<void*>(streams)), ry, rx))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BcTypes bc{bc_left, bc_top, bc_right, bc_bottom};
+  const float* r = static_cast<const float*>(rows);
+  if (dev) {
+    switch (obst) {
+      case LBM_OBST_EQ:
+        return shard_steps_loop<DevStore, LBM_OBST_EQ>(fi, fa, fb, ax, nullptr, pt, g, ha, hb,
+                                                       r, n, bc, use_les, md, failed);
+      case LBM_OBST_BOUNCE:
+        return shard_steps_loop<DevStore, LBM_OBST_BOUNCE>(fi, fa, fb, ax, nullptr, pt, g, ha,
+                                                           hb, r, n, bc, use_les, md, failed);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  switch (obst) {
+    case LBM_OBST_EQ:
+      return shard_steps_loop<F32Store, LBM_OBST_EQ>(fi, fa, fb, ax, qt, pt, g, ha, hb, r, n,
+                                                     bc, use_les, md, failed);
+    case LBM_OBST_BOUNCE:
+      return shard_steps_loop<F32Store, LBM_OBST_BOUNCE>(fi, fa, fb, ax, qt, pt, g, ha, hb, r,
+                                                         n, bc, use_les, md, failed);
+    case LBM_OBST_HALFWAY:
+      return shard_steps_loop<F32Store, LBM_OBST_HALFWAY>(fi, fa, fb, ax, qt, pt, g, ha, hb, r,
+                                                          n, bc, use_les, md, failed);
+    case LBM_OBST_BOUZIDI:
+      return shard_steps_loop<F32Store, LBM_OBST_BOUZIDI>(fi, fa, fb, ax, qt, pt, g, ha, hb, r,
+                                                          n, bc, use_les, md, failed);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The closing full step of a sharded chunk in one call: K1's full _shard
+// instance on every block (f32 f_in -> f_out, writing rho, u and f_post),
+// then the halo refresh of f_out, which the next chunk reads. Tables as for
+// k1_shard_steps_launch, plus rho [hl + 2, pitch], u [2, ...] and f_post
+// [9, ...] of each block and the host scalar row ``scal``. Returns the CUDA
+// error code (cudaErrorInvalidValue for refused arguments) or 0.
+extern "C" int k1_shard_full_launch(const void* f_in, const void* f_out, const void* aux,
+                                    const void* q, const void* prof, const void* rho,
+                                    const void* u, const void* f_post, const void* scal,
+                                    const int* geoms, int ry, int rx, int bc_left, int bc_top,
+                                    int bc_right, int bc_bottom, int use_les, int obst,
+                                    const int* devs, const void* streams) {
+  BlockGeom g[LBM_HALO_MAX_BLOCKS];
+  if (!mesh_geoms(geoms, ry, rx, g) || obst < LBM_OBST_EQ || obst > LBM_OBST_BOUZIDI)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto fo = static_cast<void* const*>(const_cast<void*>(f_out));
+  HaloMesh h;
+  if (!halo_mesh(fo, ry, rx, g[0].hl, g[0].wl, g[0].pitch, 9, &h))
+    return static_cast<int>(cudaErrorInvalidValue);
+  MeshDevs md;
+  if (!md.init(devs, static_cast<void* const*>(const_cast<void*>(streams)), ry, rx))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto fi = static_cast<const void* const*>(f_in);
+  auto ax = static_cast<const void* const*>(aux);
+  auto qt = static_cast<const void* const*>(q);
+  auto pt = static_cast<const void* const*>(prof);
+  auto rt = static_cast<void* const*>(const_cast<void*>(rho));
+  auto ut = static_cast<void* const*>(const_cast<void*>(u));
+  auto ft = static_cast<void* const*>(const_cast<void*>(f_post));
+  const BcTypes bc{bc_left, bc_top, bc_right, bc_bottom};
+  for (int d = 0; d < md.nd; ++d) {
+    const cudaStream_t st = md.use(d);
+    for (int k = 0; k < md.nblk[d]; ++k) {
+      const int b = md.blk[d][k];
+      const int rc = dispatch<true>(fi[b], fo[b], ax[b], table_at(qt, b), table_at(pt, b),
+                                    rt[b], ut[b], ft[b], scal, g[b], bc, use_les, 1, obst, st);
+      if (rc != 0) return rc;
+    }
+  }
+  md.refresh(h, 4);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One halo refresh (halo.cuh) of the ry x rx blocks in the host table
+// ``blocks`` (row major; [planes, hl + 2, pitch] each, elements of
+// ``elem_bytes`` 4 or 2), each block on device ``devs[b]`` and its stream
+// ``streams[b]``: a launch a device. Returns the CUDA error code
+// (cudaErrorInvalidValue for refused arguments) or 0.
+extern "C" int halo_exchange_launch(const void* blocks, int ry, int rx, int hl, int wl,
+                                    int pitch, int planes, int elem_bytes, const int* devs,
+                                    const void* streams) {
+  HaloMesh m;
+  if ((elem_bytes != 4 && elem_bytes != 2) ||
+      !halo_mesh(static_cast<void* const*>(const_cast<void*>(blocks)), ry, rx, hl, wl, pitch,
+                 planes, &m))
+    return static_cast<int>(cudaErrorInvalidValue);
+  MeshDevs md;
+  if (!md.init(devs, static_cast<void* const*>(const_cast<void*>(streams)), ry, rx))
+    return static_cast<int>(cudaErrorInvalidValue);
+  md.refresh(m, elem_bytes);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Peer access between the n devices ``devs`` (mesh_peers, halo.cuh): 0, or
+// the CUDA error of a pair without it.
+extern "C" int mesh_peers_launch(const int* devs, int n) { return mesh_peers(devs, n); }

@@ -49,11 +49,21 @@ KERNELS = {
     # a chunk's fast steps in one call: the host table of n scalar rows,
     # the ping-pong buffers, and a host int that names a failing step
     "k1_steps": ("k1_step", "k1_steps_launch", [_P] * 7 + [_I, _P] + [_I] * 7 + [_P, _P]),
+    # a sharded chunk on a mesh whose blocks live on the cards of one
+    # process: host tables of the blocks' pointers and geometries, the mesh
+    # grid, then as k1_steps, with host tables of each block's device and
+    # stream; the closing full step on every block; one halo refresh; peer
+    # access between the mesh's cards
+    "k1_shard_steps": ("k1_step", "k1_shard_steps_launch",
+                       [_P] * 7 + [_I, _I, _P] + [_I] * 8 + [_P] * 3),
+    "k1_shard_full": ("k1_step", "k1_shard_full_launch", [_P] * 10 + [_I] * 8 + [_P] * 2),
+    "halo_exchange": ("k1_step", "halo_exchange_launch", [_P] + [_I] * 7 + [_P] * 2),
+    "mesh_peers": ("k1_step", "mesh_peers_launch", [_P, _I]),
     "k3_fused": ("k3_fused", "k3_fused_launch", [_P] * 5 + [_I] * 11 + [_P]),
     "k3_passes": ("k3_fused", "k3_passes_launch", [_P] * 6 + [_I] * 12 + [_P, _P]),
     "copy_probe": ("copy_probe", "copy_probe_launch", [_P] * 3 + [_I] * 2 + [_P]),
 }
-_HEADERS = ("lbm_common.cuh", "lbm_cell.cuh")
+_HEADERS = ("lbm_common.cuh", "lbm_cell.cuh", "halo.cuh")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -33,7 +33,15 @@ On a spatial mesh (``parallel/sharded.py``) K1 runs in its sharded form on
 one block of the grid each: the same wrappers and kernels given the
 block's ``BlockGeom`` (``geom=``), a [hl, wl] block inside a 1-cell halo
 ring of its neighbours' cells, whose ring cells are written only where the
-block lies on the global edge; they count as the ``_shard`` variants.
+block lies on the global edge; they count as the ``_shard`` variants. On
+a mesh whose blocks live on the cards of one process (a card each over
+peer access, or several on one) a sharded chunk is one program too:
+``k1_shard_steps`` (C entry ``k1_shard_steps_launch``) runs every block's
+fast K1 on its card's stream and then the halo refresh (``halo_exchange``,
+the kernel of ``csrc/halo.cuh``, one launch a card, after one event a
+card) step after step inside the library, from host tables cut once a
+case (``ShardTables``), and ``k1_shard_full`` closes the chunk: every
+block's full step and one refresh.
 
 A chunk is issued as one program, as the JAX package's jit over lax.scan
 issues it: its scalar rows are one host table built once (``scalar_rows``;
@@ -127,6 +135,12 @@ def k1_variant(obstacle: int, full: bool = False, dev: bool = False,
             + ("_full" if full else "_dev" if dev else ""))
 
 
+def halo_variant(dtype: torch.dtype) -> str:
+    """Launch-count name of the halo refresh kernel: halo_exchange (f32),
+    halo_exchange_dev (bf16 deviations)."""
+    return "halo_exchange" + ("_dev" if dtype == DEV_DTYPE else "")
+
+
 def k3_variant(obstacle: int, left_type: int) -> str:
     """Launch-count name of a K3 variant: k3_fused[_bounce|_halfway][_vel],
     ``_vel`` for the profiled velocity inlets (left types 3/4)."""
@@ -143,6 +157,7 @@ KERNEL_VARIANTS = (
     + [k3_variant(o, t) for o in FUSE_OBSTACLES for t in (BC_INLET, BC_VEL_INLET)]
     + [k1_variant(o, full, shard=True) for o in range(4) for full in (False, True)]
     + [k1_variant(o, dev=True, shard=True) for o in DEV_OBSTACLES]
+    + ["halo_exchange", "halo_exchange_dev"]
 )
 
 # launches of each kernel variant, added to where the launch is made
@@ -833,6 +848,338 @@ def k1_steps(f_in, f_a, f_b, aux, rows, use_les, bc_type, obstacle=OBSTACLE_EQ, 
     if rc != 0:
         raise _loop_failed("k1_steps", rc, failed.value, n)
     return _ping_pong(f_in, f_a, f_b, n)
+
+
+# ---------------------------------------------------------------------------
+# A sharded chunk on a mesh whose blocks live on the cards of one process
+# ---------------------------------------------------------------------------
+
+# the blocks a mesh may have for the kernels' tables (csrc/halo.cuh
+# LBM_HALO_MAX_BLOCKS); a larger mesh takes the per-step loop
+MAX_MESH_BLOCKS = 64
+
+
+def _flat(blocks):
+    return [b for row in blocks for b in row]
+
+
+def _table(blocks):
+    """A host array of the blocks' device pointers, row major, or None."""
+    if blocks is None:
+        return None
+    flat = _flat(blocks)
+    return (ctypes.c_void_p * len(flat))(*[b.data_ptr() for b in flat])
+
+
+def _c_addr(table):
+    return None if table is None else ctypes.addressof(table)
+
+
+def _at(blocks, iy: int, ix: int):
+    """Block (iy, ix) of optional per-block inputs."""
+    return None if blocks is None else blocks[iy][ix]
+
+
+def k1_blocks(src, dst, inputs, scal, use_les, bc_type, obstacle=OBSTACLE_EQ, dev=False,
+              rho=None, u=None, f_post=None, plain=False) -> None:
+    """One K1 step on every block held, ``src`` -> ``dst`` ([ry][rx] halo'd
+    blocks; a None block is another process's): ``k1_step`` on each, or
+    ``k1_step_dev`` with ``dev`` (bf16 deviations), the full step when
+    rho, u and f_post are given; their plain versions with ``plain``.
+    ``inputs`` holds the case's [ry][rx] ``geoms``, ``aux``, ``q`` and
+    ``prof`` (``ShardTables``, ``sharded.ShardedCase``). The per-block body
+    of every sharded loop: the per-step loop and the library loop's plain
+    versions. No halo is refreshed."""
+    k1, k1d = (k1_step_plain, k1_step_dev_plain) if plain else (k1_step, k1_step_dev)
+    for iy, row in enumerate(src):
+        for ix, b in enumerate(row):
+            if b is None:
+                continue
+            g, aux, prof = inputs.geoms[iy][ix], inputs.aux[iy][ix], _at(inputs.prof, iy, ix)
+            if dev:
+                k1d(b, dst[iy][ix], aux, scal, use_les, bc_type, obstacle, prof, geom=g)
+            else:
+                k1(b, dst[iy][ix], aux, scal, use_les, bc_type, _at(rho, iy, ix), _at(u, iy, ix),
+                   _at(f_post, iy, ix), obstacle=obstacle, q=_at(inputs.q, iy, ix), prof=prof,
+                   geom=g)
+
+
+def halo_exchange_plain(blocks, hl: int, wl: int) -> None:
+    """Plain version of ``halo_exchange``, on blocks anywhere (one device or
+    several): the x edges first, then the y edges with the x halos just
+    written (corners in two hops); block sides on the global edge are left
+    alone, and a 1x1 mesh copies nothing. The single-process body of
+    ``parallel/sharded.exchange_halos``."""
+    ry, rx = len(blocks), len(blocks[0])
+    rows = slice(1, hl + 1)
+    for iy in range(ry):
+        for ix in range(rx):
+            b = blocks[iy][ix]
+            if ix > 0:
+                b[:, rows, 0].copy_(blocks[iy][ix - 1][:, rows, wl])
+            if ix + 1 < rx:
+                b[:, rows, wl + 1].copy_(blocks[iy][ix + 1][:, rows, 1])
+    cols = slice(0, wl + 2)
+    for iy in range(ry):
+        for ix in range(rx):
+            b = blocks[iy][ix]
+            if iy > 0:
+                b[:, 0, cols].copy_(blocks[iy - 1][ix][:, hl, cols])
+            if iy + 1 < ry:
+                b[:, hl + 1, cols].copy_(blocks[iy + 1][ix][:, 1, cols])
+
+
+def _check_blocks(name: str, blocks, grid, shape, devices, dtypes) -> None:
+    """[ry][rx] contiguous blocks of one ``shape`` and a dtype of
+    ``dtypes``, block i on ``devices[i]`` (row major)."""
+    if len(blocks) != grid[0] or any(len(row) != grid[1] for row in blocks):
+        raise ValueError(f"{name}: need {grid[0]}x{grid[1]} blocks, got "
+                         f"{[len(row) for row in blocks]} a row")
+    dtype = blocks[0][0].dtype
+    if dtype not in dtypes:
+        raise ValueError(f"{name}: dtype {dtype} not in {dtypes}")
+    for i, (b, d) in enumerate(zip(_flat(blocks), devices)):
+        _check(f"{name}[{i}]", b, shape, d, dtype)
+
+
+_PEERS = set()  # device tuples whose peer access is enabled
+
+
+def _mesh_devices(devices):
+    """(host table of each block's CUDA ordinal, the distinct devices),
+    peer access enabled between them once a process (C ``mesh_peers``)."""
+    ords = tuple(d.index if d.index is not None else torch.cuda.current_device()
+                 for d in devices)
+    distinct = tuple(sorted(set(ords)))
+    if len(distinct) > 1 and distinct not in _PEERS:
+        rc = cuda_build.load("mesh_peers")((ctypes.c_int * len(distinct))(*distinct),
+                                           len(distinct))
+        if rc != 0:
+            raise RuntimeError(f"peer access between cards {distinct} failed: CUDA error {rc}")
+        _PEERS.add(distinct)
+    return (ctypes.c_int * len(ords))(*ords), distinct
+
+
+def _streams(devices):
+    """A host table of each block's device's current stream."""
+    return (ctypes.c_void_p * len(devices))(
+        *[torch.cuda.current_stream(d).cuda_stream for d in devices])
+
+
+def halo_exchange(blocks, hl: int, wl: int) -> None:
+    """Refresh the 1-cell halo ring of the [ry][rx] halo'd blocks [C, hl +
+    2, pitch] of a mesh in place, one launch of the halo kernel
+    (csrc/halo.cuh) a card over its blocks, each pulling its neighbours'
+    edges (across cards over peer access, after their streams' queued
+    work): what ``halo_exchange_plain`` writes, bitwise. f32 or bf16 blocks
+    on the CUDA devices of this process; none launched on a 1x1 mesh.
+    Counted as one ``halo_variant(dtype)`` a card."""
+    b0 = blocks[0][0]
+    if not b0.is_cuda:
+        return halo_exchange_plain(blocks, hl, wl)
+    grid = (len(blocks), len(blocks[0]))
+    nb = grid[0] * grid[1]
+    if nb > MAX_MESH_BLOCKS:
+        raise ValueError(f"halo_exchange: {nb} blocks, the kernel takes {MAX_MESH_BLOCKS}")
+    C, pitch = b0.shape[0], b0.shape[-1]
+    if b0.dim() != 3 or pitch < wl + 2:
+        raise ValueError(f"halo_exchange: blocks {tuple(b0.shape)}, need [C, {hl + 2}, "
+                         f">= {wl + 2}]")
+    devices = [b.device for b in _flat(blocks)]
+    _check_blocks("halo_exchange", blocks, grid, (C, hl + 2, pitch), devices,
+                  (torch.float32, DEV_DTYPE))
+    if nb == 1:
+        return
+    table = _table(blocks)
+    ords, distinct = _mesh_devices(devices)
+    streams = _streams(devices)  # held: the call reads it through its address
+    with _launch_device(b0.device):
+        rc = cuda_build.load("halo_exchange")(
+            ctypes.addressof(table), grid[0], grid[1], hl, wl, pitch, C, b0.element_size(),
+            ctypes.addressof(ords), ctypes.addressof(streams))
+    if rc != 0:
+        raise RuntimeError(f"halo_exchange launch failed: CUDA error {rc}")
+    LAUNCHES[halo_variant(b0.dtype)] += len(distinct)
+
+
+class ShardTables:
+    """What a sharded chunk's library calls take of a case on a mesh whose
+    blocks all live in this process (one device, or CUDA devices with peer
+    access between them: ``sharded.shard_loop_refusal``), cut once a case
+    (``sharded.ShardedCase``): each block's aux plane, Bouzidi q planes and
+    inlet profile rows (the tensors, [ry][rx] lists, and host tables of
+    their pointers), its ``BlockGeom`` (a host table of 8 ints a block) and
+    its device. Checked here, once: at most ``MAX_MESH_BLOCKS`` blocks of
+    one shape, each the 1-cell-halo shard at its origin of the mesh's grid,
+    each input on its block's device."""
+
+    def __init__(self, aux, geoms, q=None, prof=None):
+        self.grid = (len(geoms), len(geoms[0]))
+        ry, rx = self.grid
+        if ry * rx > MAX_MESH_BLOCKS:
+            raise ValueError(f"{ry}x{rx} mesh: the shard loop takes {MAX_MESH_BLOCKS} blocks")
+        g0 = geoms[0][0]
+        for iy in range(ry):
+            for ix in range(rx):
+                want = BlockGeom.shard(g0.hl, g0.wl, iy * g0.hl, ix * g0.wl, ry * g0.hl,
+                                       rx * g0.wl)
+                if geoms[iy][ix] != want:
+                    raise ValueError(f"block ({iy}, {ix}): geometry {geoms[iy][ix]}, want {want}")
+        self.geom = g0
+        if len(aux) != ry or any(len(row) != rx for row in aux):
+            raise ValueError(f"aux: need {ry}x{rx} blocks, got {[len(r) for r in aux]} a row")
+        self.devices = [b.device for b in _flat(aux)]
+        if len({d.type for d in self.devices}) > 1:
+            raise ValueError(f"blocks on {sorted(set(map(str, self.devices)))}: one device "
+                             "type")
+        _check_blocks("aux", aux, self.grid, g0.plane, self.devices, (torch.float32,))
+        if q is not None:
+            _check_blocks("q", q, self.grid, (8,) + g0.plane, self.devices, (torch.float32,))
+        if prof is not None:
+            _check_blocks("prof", prof, self.grid, (g0.hl,), self.devices, (torch.float32,))
+        self.aux, self.geoms, self.q, self.prof = aux, geoms, q, prof
+        self.c_aux, self.c_q, self.c_prof = _table(aux), _table(q), _table(prof)
+        self.c_geoms = (ctypes.c_int * (8 * ry * rx))(*[v for g in _flat(geoms)
+                                                         for v in astuple(g)])
+        self.n_devices = len(set(self.devices))
+
+    @property
+    def n_blocks(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+    def check_f(self, name: str, blocks, dtype) -> None:
+        _check_blocks(name, blocks, self.grid, (9,) + self.geom.plane, self.devices, (dtype,))
+
+    def needs(self, obstacle: int, bc_type, allowed=tuple(range(4))) -> None:
+        """Raise unless the tables hold what ``obstacle`` and ``bc_type``
+        read: q for Bouzidi, the inlet profile for left types 3/4."""
+        if obstacle not in allowed:
+            raise ValueError(f"obstacle scheme {obstacle!r} not in {allowed}")
+        if obstacle == OBSTACLE_BOUZIDI and self.q is None:
+            raise ValueError("Bouzidi bounce-back needs the q planes")
+        if int(bc_type[0]) in (BC_VEL_INLET, BC_VEL_INLET_NEBB) and self.prof is None:
+            raise ValueError(f"left bc_type {bc_type[0]} needs the inlet profile")
+
+    def launch_args(self):
+        """(the device to make current, host tables of each block's CUDA
+        ordinal and stream) for a call, peer access enabled between the
+        cards."""
+        ords, _ = _mesh_devices(self.devices)
+        return self.devices[0], ords, _streams(self.devices)
+
+    def halo_launches(self) -> int:
+        """Launches of the halo kernel a refresh: one a card, none on 1x1."""
+        return self.n_devices if self.n_blocks > 1 else 0
+
+
+def k1_shard_steps_plain(f_in, f_a, f_b, tables: ShardTables, rows, use_les, bc_type,
+                         obstacle=OBSTACLE_EQ, dev=False):
+    """Plain version of ``k1_shard_steps``: step i by ``k1_blocks(plain=
+    True)`` with row i of ``rows``, then ``halo_exchange_plain`` of what
+    it wrote; reading f_in (step 0) or the previous step's output and
+    writing f_a (even i) or f_b (odd i). Returns the blocks holding f."""
+    src = f_in
+    for i in range(rows.shape[0]):
+        dst = f_b if i % 2 else f_a
+        k1_blocks(src, dst, tables, rows[i], use_les, bc_type, obstacle, dev, plain=True)
+        halo_exchange_plain(dst, tables.geom.hl, tables.geom.wl)
+        src = dst
+    return src
+
+
+def k1_shard_steps(f_in, f_a, f_b, tables: ShardTables, rows, use_les, bc_type,
+                   obstacle=OBSTACLE_EQ, dev=False):
+    """n = len(rows) fast steps of a sharded chunk in one call of the shared
+    library, on a mesh whose blocks live on the CUDA devices of this process
+    (``ShardTables``): step i launches K1's ``_shard`` form on every block,
+    on its device's current stream, with row i of the CPU table ``rows``
+    [n, 14], reading f_in (step 0) or the previous step's output and writing
+    f_a (even i) or f_b (odd i), then refreshes the halos of what it wrote
+    (the halo kernel, a launch a card, across cards after one event a card).
+    f_in, f_a, f_b are the [ry][rx] halo'd blocks of f (f_b may be f_in):
+    f32, or with ``dev`` bf16 deviations (equilibrium and full-way
+    bounce-back). Every table is checked before the call. Returns the
+    blocks holding f; counted as n launches of ``k1_variant(obstacle,
+    dev=dev, shard=True)`` a block and n of ``halo_variant`` a card (none
+    on a 1x1 mesh)."""
+    if not f_in[0][0].is_cuda:
+        return k1_shard_steps_plain(f_in, f_a, f_b, tables, rows, use_les, bc_type, obstacle,
+                                    dev)
+    n, nb = int(rows.shape[0]), tables.n_blocks
+    dtype = DEV_DTYPE if dev else torch.float32
+    tables.needs(obstacle, bc_type, DEV_OBSTACLES if dev else tuple(range(4)))
+    for name, blocks in (("f_in", f_in), ("f_a", f_a), ("f_b", f_b)):
+        tables.check_f(name, blocks, dtype)
+    for a, b, i in zip(_flat(f_a), _flat(f_b), _flat(f_in)):
+        if a.data_ptr() in (b.data_ptr(), i.data_ptr()):
+            raise ValueError("k1_shard_steps: f_a must differ from f_in and f_b on every block")
+    _check_rows("k1_shard_steps", rows, n)
+    ta, tb, ti = _table(f_a), _table(f_b), _table(f_in)
+    lt, tt, rt, bt = (int(t) for t in bc_type)
+    failed = ctypes.c_int(-1)
+    d, ords, streams = tables.launch_args()
+    with _launch_device(d):
+        rc = cuda_build.load("k1_shard_steps")(
+            ctypes.addressof(ti), ctypes.addressof(ta), ctypes.addressof(tb),
+            ctypes.addressof(tables.c_aux), _c_addr(tables.c_q), _c_addr(tables.c_prof),
+            ctypes.addressof(tables.c_geoms), tables.grid[0], tables.grid[1], _ptr(rows), n,
+            lt, tt, rt, bt, int(bool(use_les)), int(bool(dev)), obstacle,
+            ctypes.addressof(ords), ctypes.addressof(streams), ctypes.addressof(failed),
+        )
+    done = n if rc == 0 else max(failed.value, 0)
+    LAUNCHES[k1_variant(obstacle, dev=bool(dev), shard=True)] += nb * done
+    LAUNCHES[halo_variant(dtype)] += tables.halo_launches() * done
+    if rc != 0:
+        raise _loop_failed("k1_shard_steps", rc, failed.value, n)
+    return _ping_pong(f_in, f_a, f_b, n)
+
+
+def k1_shard_full_plain(f_in, f_out, tables: ShardTables, scal, use_les, bc_type, rho, u,
+                        f_post, obstacle=OBSTACLE_EQ):
+    """Plain version of ``k1_shard_full``: ``k1_blocks(plain=True)``'s full
+    step, then ``halo_exchange_plain`` of f_out."""
+    k1_blocks(f_in, f_out, tables, scal, use_les, bc_type, obstacle, rho=rho, u=u,
+              f_post=f_post, plain=True)
+    halo_exchange_plain(f_out, tables.geom.hl, tables.geom.wl)
+
+
+def k1_shard_full(f_in, f_out, tables: ShardTables, scal, use_les, bc_type, rho, u, f_post,
+                  obstacle=OBSTACLE_EQ):
+    """The closing full step of a sharded chunk in one call of the shared
+    library: K1's full ``_shard`` form on every block (f32 f_in -> f_out,
+    writing the blocks' rho, u and f_post), then the halo refresh of f_out;
+    ``scal`` the step's CPU scalar row. Counted as one launch of
+    ``k1_variant(obstacle, full=True, shard=True)`` a block and one of
+    ``halo_exchange`` a card (none on a 1x1 mesh)."""
+    if not f_in[0][0].is_cuda:
+        return k1_shard_full_plain(f_in, f_out, tables, scal, use_les, bc_type, rho, u, f_post,
+                                   obstacle)
+    tables.needs(obstacle, bc_type)
+    g = tables.geom
+    for name, blocks in (("f_in", f_in), ("f_out", f_out), ("f_post", f_post)):
+        tables.check_f(name, blocks, torch.float32)
+    _check_blocks("rho", rho, tables.grid, g.plane, tables.devices, (torch.float32,))
+    _check_blocks("u", u, tables.grid, (2,) + g.plane, tables.devices, (torch.float32,))
+    for a, b in zip(_flat(f_in), _flat(f_out)):
+        if a.data_ptr() == b.data_ptr():
+            raise ValueError("k1_shard_full: pull streaming needs distinct in/out buffers")
+    sc = _scal_c(scal)
+    lt, tt, rt, bt = (int(t) for t in bc_type)
+    tabs = [_table(x) for x in (f_in, f_out, rho, u, f_post)]
+    d, ords, streams = tables.launch_args()
+    with _launch_device(d):
+        rc = cuda_build.load("k1_shard_full")(
+            ctypes.addressof(tabs[0]), ctypes.addressof(tabs[1]),
+            ctypes.addressof(tables.c_aux), _c_addr(tables.c_q), _c_addr(tables.c_prof),
+            ctypes.addressof(tabs[2]), ctypes.addressof(tabs[3]), ctypes.addressof(tabs[4]),
+            ctypes.addressof(sc), ctypes.addressof(tables.c_geoms), tables.grid[0],
+            tables.grid[1], lt, tt, rt, bt, int(bool(use_les)), obstacle,
+            ctypes.addressof(ords), ctypes.addressof(streams),
+        )
+    if rc != 0:
+        raise RuntimeError(f"k1_shard_full launch failed: CUDA error {rc}")
+    LAUNCHES[k1_variant(obstacle, full=True, shard=True)] += tables.n_blocks
+    LAUNCHES[halo_variant(torch.float32)] += tables.halo_launches()
 
 
 # ---------------------------------------------------------------------------

@@ -24,14 +24,27 @@ reads one. Two runners advance the blocks:
   ``exchange_halo_f`` and ``_sharded_apply_bc``) on bare [C, hl, wl]
   blocks; the engine's runner on the CPU;
 * K1 in its sharded form (the counterpart of ``run_chunk_sharded_pallas``;
-  ``cuda_step.k1_step`` given each block's ``BlockGeom``, one launch a
-  block, the global ring written by the blocks that hold it) on halo'd
-  [C, hl + 2, pitch] blocks, ping-ponging two resident buffers, the last
-  step K1's full variant, which writes the resident rho, u and f_post;
-  or the same through the kernels' plain versions. With ``store_dev`` the
-  resident blocks stay f32: the fast steps run on bf16 deviations
-  quantized once a chunk, halos included, and the closing full step
-  dequantizes, as the single-device runner does.
+  K1 given each block's ``BlockGeom``, one launch a block, the global
+  ring written by the blocks that hold it) on halo'd [C, hl + 2, pitch]
+  blocks, ping-ponging two resident buffers, the last step K1's full
+  variant, which writes the resident rho, u and f_post. On a mesh whose
+  blocks all live in this process -- a card each, as the engine lays out
+  ``--spatial_mesh`` over a host's cards (peer access between them), or
+  one device for all -- a chunk is one program, as the JAX package's jit
+  over shard_map and lax.scan is: ``cuda_step.k1_shard_steps`` runs its
+  fast steps in the library (each step every block's K1 on its card's
+  stream, then the halo kernel of ``csrc/halo.cuh``, one launch a card,
+  each block pulling its neighbours' edges over peer access after one
+  event a card) and ``cuda_step.k1_shard_full`` closes it, from host
+  tables cut once a case (``ShardedCase.tables``). A mesh spanning
+  processes, or cards without peer access, issues each step from Python
+  (``fast_step``: a K1 call a block, then ``exchange_halos``); the mesh
+  decides (``shard_loop_refusal``), never a failure. That per-step loop,
+  through the kernels' plain versions, is also the "plain" runner, and
+  through the kernels the "stepwise" runner the library loop is held to on
+  the card. With ``store_dev`` the resident blocks stay f32: the fast
+  steps run on bf16 deviations quantized once a chunk, halos included,
+  and the closing full step dequantizes, as the single-device runner does.
 
 The monitors come from the blocks. ``max_v`` is the largest of the
 blocks' maxima over their own cells, exact in any order. On a mesh whose
@@ -323,6 +336,35 @@ class ShardedCase:
                           if mesh.owns(iy, ix) else None
                           for ix, dev in enumerate(row)] for iy, row in enumerate(mesh.devices)]
         self.windows = None if mesh.single_device is not None else force_windows(p, mesh)
+        # the library loop's host tables; the mesh decides (others keep the
+        # per-step loop)
+        self.tables = None
+        if shard_loop_refusal(mesh) is None:
+            self.tables = cs.ShardTables(self.aux, self.geoms, self.q, self.prof)
+
+
+def shard_loop_refusal(mesh: Mesh) -> Optional[str]:
+    """Why a sharded chunk on ``mesh`` cannot run in the library loop
+    (``cuda_step.k1_shard_steps``), or None: every block must be this
+    process's, at most ``cuda_step.MAX_MESH_BLOCKS`` of them, on one device
+    or on CUDA devices with peer access between every pair (the halo
+    kernel on a card reads its neighbours' edges where they live)."""
+    ry, rx = mesh.grid
+    if any(not mesh.owns(iy, ix) for iy in range(ry) for ix in range(rx)):
+        return "the mesh spans processes (halos through multihost.exchange)"
+    if ry * rx > cs.MAX_MESH_BLOCKS:
+        return f"{ry}x{rx} blocks, the library loop takes {cs.MAX_MESH_BLOCKS}"
+    devices = sorted({d for row in mesh.devices for d in row}, key=str)
+    if len(devices) == 1:
+        return None
+    if any(d.type != "cuda" for d in devices):
+        return f"blocks on several devices that are not CUDA devices: {list(map(str, devices))}"
+    idx = [d.index for d in devices]
+    for a in idx:
+        for b in idx:
+            if a != b and not torch.cuda.can_device_access_peer(a, b):
+                return f"cards {a} and {b} have no peer access"
+    return None
 
 
 def _at(blocks, iy: int, ix: int):
@@ -341,21 +383,7 @@ def exchange_halos(blocks, mesh: Mesh, hl: int, wl: int) -> None:
     if mesh.owners is not None:
         _exchange_cross(blocks, mesh, hl, wl)
         return
-    ry, rx = mesh.grid
-    rows = slice(1, hl + 1)
-    for iy, ix in _coords(mesh):
-        b = blocks[iy][ix]
-        if ix > 0:
-            b[:, rows, 0].copy_(blocks[iy][ix - 1][:, rows, wl])
-        if ix + 1 < rx:
-            b[:, rows, wl + 1].copy_(blocks[iy][ix + 1][:, rows, 1])
-    cols = slice(0, wl + 2)
-    for iy, ix in _coords(mesh):
-        b = blocks[iy][ix]
-        if iy > 0:
-            b[:, 0, cols].copy_(blocks[iy - 1][ix][:, hl, cols])
-        if iy + 1 < ry:
-            b[:, hl + 1, cols].copy_(blocks[iy + 1][ix][:, 1, cols])
+    cs.halo_exchange_plain(blocks, hl, wl)
 
 
 def _exchange_cross(blocks, mesh: Mesh, hl: int, wl: int) -> None:
@@ -394,62 +422,68 @@ def _exchange_cross(blocks, mesh: Mesh, hl: int, wl: int) -> None:
         multihost.exchange(sends, recvs)
 
 
-def _kernels(plain: bool):
-    """(K1, K1 dev) wrappers or plain versions, looked up at call time."""
-    names = ("k1_step", "k1_step_dev")
-    return tuple(getattr(cs, n + ("_plain" if plain else "")) for n in names)
-
-
 def fast_step(src, dst, case: ShardedCase, scal: torch.Tensor, dev_store: bool,
               plain: bool = False) -> None:
     """One fast step on every block, ``src`` -> ``dst`` ([ry][rx] halo'd
-    blocks, bf16 deviations when ``dev_store``): one K1 launch a block, then
-    the halo refresh of ``dst``."""
-    k1, k1d = _kernels(plain)
-    p, obst = case.p, case.obstacle
-    for iy, ix in _coords(case.mesh):
-        g, aux, prof = case.geoms[iy][ix], case.aux[iy][ix], _at(case.prof, iy, ix)
-        if dev_store:
-            k1d(src[iy][ix], dst[iy][ix], aux, scal, p.use_les, p.bc_type, obst, prof, geom=g)
-        else:
-            k1(src[iy][ix], dst[iy][ix], aux, scal, p.use_les, p.bc_type, obstacle=obst,
-               q=_at(case.q, iy, ix), prof=prof, geom=g)
+    blocks, bf16 deviations when ``dev_store``): one K1 call a block
+    (``cuda_step.k1_blocks``), then the halo refresh of ``dst``."""
+    p = case.p
+    cs.k1_blocks(src, dst, case, scal, p.use_les, p.bc_type, case.obstacle, dev_store,
+                 plain=plain)
     exchange_halos(dst, case.mesh, case.hl, case.wl)
 
 
 def advance_blocks(bs: BlockState, case: ShardedCase, n_steps: int, store_dev: bool = False,
-                   plain: bool = False):
+                   plain: bool = False, stepwise: bool = False):
     """Advance the resident halo'd blocks ``bs`` ``n_steps`` in place
     through K1 in its sharded form (its plain versions with ``plain``);
     returns the chunk's monitors. The rules of ``cuda_step.run_chunk_cuda``
     hold: ``store_dev`` for chunks of more than one step, equilibrium and
-    full-way bounce-back only; never fused."""
+    full-way bounce-back only; never fused.
+
+    Where the mesh takes the library loop (``case.tables``) the chunk is
+    one program, as run_chunk_sharded_pallas's jit over shard_map and
+    lax.scan is: two library calls, ``cuda_step.k1_shard_steps`` (every
+    fast step, each block's K1 and the halo refresh inside the library) and
+    ``cuda_step.k1_shard_full`` (the closing step). Other meshes, ``plain``
+    and ``stepwise`` issue each step from Python (``fast_step``: a K1 call a
+    block, then ``exchange_halos``), the reference the library loop is held
+    to, bitwise."""
     if n_steps < 1:
         raise ValueError(f"n_steps must be >= 1, got {n_steps}")
     p, mesh = case.p, case.mesh
-    k1, _ = _kernels(plain)
     dev_store = (bool(store_dev) and n_steps > 1
                  and cs.dev_storage_refusal(p, sharded=True) is None)
-    src, dst = bs.f, bs.f_alt
+    f_in, f_a = bs.f, bs.f_alt
     if dev_store:
-        # quantize once per chunk, halos included: the halo copies then move
-        # bf16 deviations, as the JAX package's ppermute rows do
-        src = [[b if b is None else cs.quantize(b) for b in row] for row in src]
-        dst = [[b if b is None else b.clone() for b in row] for row in src]
+        # quantize once per chunk, halos included: the halo refresh then
+        # moves bf16 deviations, as the JAX package's ppermute rows do
+        f_in = [[b if b is None else cs.quantize(b) for b in row] for row in f_in]
+        f_a = [[b if b is None else b.clone() for b in row] for row in f_in]
     rows = cs.scalar_rows(p, bs.step, n_steps)
-    for i in range(n_steps - 1):
-        fast_step(src, dst, case, rows[i], dev_store, plain)
-        src, dst = dst, src
+    loop = case.tables is not None and not (plain or stepwise)
+    if loop:
+        src = cs.k1_shard_steps(f_in, f_a, f_in, case.tables, rows[:n_steps - 1], p.use_les,
+                                p.bc_type, case.obstacle, dev_store) if n_steps > 1 else f_in
+    else:
+        src, dst = f_in, f_a
+        for i in range(n_steps - 1):
+            fast_step(src, dst, case, rows[i], dev_store, plain)
+            src, dst = dst, src
     if dev_store:
         # the closing full step runs in exact f32, into the resident buffer
         # the chunk quantized
         src = [[b if b is None else cs.dequantize(b) for b in r] for r in src]
         dst = bs.f
-    for iy, ix in _coords(mesh):
-        k1(src[iy][ix], dst[iy][ix], case.aux[iy][ix], rows[-1], p.use_les, p.bc_type,
-           bs.rho[iy][ix], bs.u[iy][ix], bs.f_post[iy][ix], obstacle=case.obstacle,
-           q=_at(case.q, iy, ix), prof=_at(case.prof, iy, ix), geom=case.geoms[iy][ix])
-    exchange_halos(dst, mesh, case.hl, case.wl)  # the next chunk reads f's halos
+    else:
+        dst = bs.f_alt if src is bs.f else bs.f
+    if loop:
+        cs.k1_shard_full(src, dst, case.tables, rows[-1], p.use_les, p.bc_type, bs.rho, bs.u,
+                         bs.f_post, case.obstacle)
+    else:
+        cs.k1_blocks(src, dst, case, rows[-1], p.use_les, p.bc_type, case.obstacle,
+                     rho=bs.rho, u=bs.u, f_post=bs.f_post, plain=plain)
+        exchange_halos(dst, mesh, case.hl, case.wl)  # the next chunk reads f's halos
     if not dev_store:
         bs.f_alt = src
     bs.f = dst
@@ -459,15 +493,18 @@ def advance_blocks(bs: BlockState, case: ShardedCase, n_steps: int, store_dev: b
 
 class BlockRunner:
     """The engine's chunk runner on ``mesh``: ``kind`` "cuda" (K1 in its
-    sharded form), "plain" (its plain versions) or "eager" (the eager
-    per-shard step). ``place`` puts a case's state on the blocks once,
-    ``advance`` runs a chunk on them in place and returns the monitors.
+    sharded form), "stepwise" (the same kernels issued a step at a time
+    from Python, ``advance_blocks(stepwise=True)``), "plain" (their plain
+    versions) or "eager" (the eager per-shard step). ``place`` puts a
+    case's state on the blocks once, ``advance`` runs a chunk on them in
+    place and returns the monitors.
     The inputs of a case (``ShardedCase`` / ``EagerCase``) are cut once per
     params object."""
 
     def __init__(self, mesh: Mesh, kind: str, store_dev: bool = False, case=None):
-        if kind not in ("cuda", "plain", "eager"):
-            raise ValueError(f"runner kind {kind!r}: expected 'cuda', 'plain' or 'eager'")
+        if kind not in ("cuda", "stepwise", "plain", "eager"):
+            raise ValueError(f"runner kind {kind!r}: expected 'cuda', 'stepwise', 'plain' "
+                             "or 'eager'")
         self.mesh, self.kind, self.store_dev = mesh, kind, store_dev
         self._case = case
 
@@ -489,7 +526,8 @@ class BlockRunner:
         case = self.case(p)
         if self.kind == "eager":
             return advance_eager(bs, case, n_steps)
-        return advance_blocks(bs, case, n_steps, self.store_dev, self.kind == "plain")
+        return advance_blocks(bs, case, n_steps, self.store_dev, self.kind == "plain",
+                              self.kind == "stepwise")
 
     def monitors(self, bs: BlockState, p: CaseParams):
         """The monitors of ``bs`` as placed (before its first chunk)."""

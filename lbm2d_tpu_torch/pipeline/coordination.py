@@ -1,7 +1,7 @@
 """Multi-worker batch coordination: per-case claims over a shared filesystem.
 
-Counterpart of ``lbm2d_tpu/pipeline/coordination.py``, with one fault of
-that copy fixed (the steal's check-then-rename race, below).
+Counterpart of ``lbm2d_tpu/pipeline/coordination.py``, with the steal's
+races of that copy fixed (below): every steal runs under one lock.
 
 SURVEY.md §2.2 names "independent processes over DCN" as the case-level
 distributed axis: N workers (processes on one host, or one process per TPU
@@ -31,11 +31,36 @@ coordination plane, which is exactly the reference's L6→L5 contract style):
     O_EXCL re-create is the single new owner (unlink-then-recreate had a
     window where a second stealer could unlink the winner's FRESH claim
     and double-own the case).
-  - The rename does not check what it renames: a stealer whose staleness
-    check ran just before a rival's steal and re-create would rename the
-    rival's FRESH claim. So the stealer checks the tombstone again after
-    its rename; a tombstone that is not stale goes back to the claim path
-    and the steal is refused.
+  - Steals run one at a time, under ``io/json_utils.file_lock`` on
+    ``<plots>/.claims.lock`` (beside ``.claims/``, which a finished
+    project leaves empty): the staleness check, the rename, the second
+    check, the give-back, the unlink and the re-create. A lock-free
+    pre-check keeps live claims from taking the lock. Under the lock no
+    rival steal can re-create a fresh claim between this stealer's check
+    and its rename; only the owner can change the claim there (a
+    heartbeat, or a release that a first-time claim may follow), so the
+    give-back is rarely needed. The give-back never overwrites: ``os.link`` fails on a
+    claim a first-time ``_try_create`` made while the path was empty
+    (renaming the tombstone back, as the JAX copy does, would replace that
+    winner's claim, and both would own the case).
+  - Where flock errors (some NFS/SMB mounts), ``file_lock`` runs lock-free
+    and the steal is the lock-free protocol alone: of stealers that all
+    checked one stale claim, exactly one rename succeeds; a stealer that
+    renamed a rival's fresh claim finds it fresh on the second check and
+    links it back, never over another claim; but a third worker that
+    creates the claim in that window leaves the rival's case with two
+    owners until one finishes. Single-owner under every interleaving needs
+    the lock.
+  - Under the ``stale_s`` timeout a live owner whose heartbeat stalls
+    longer than ``stale_s`` is stolen from while it still runs the case:
+    that is the policy (choose stale_s well above the heartbeat period),
+    not a race. One form of it passes through the give-back: the owner's
+    heartbeat lands after the stealer's check, and a first-time claim takes
+    the empty path before the link, so the stale claim cannot go back and
+    its tombstone is removed. Either way the owner is told: ``heartbeat``
+    drops (and logs, and returns) every owned case whose claim file is gone
+    or names another worker, and ``release`` never removes a claim file
+    that is not this worker's.
 * **Terminal cases release their claims**; a completed project leaves an
   empty ``.claims/``. Finalization (NPZ/summary) is idempotent and runs in
   every worker under the lock — the last worker out writes the complete
@@ -45,13 +70,18 @@ coordination plane, which is exactly the reference's L6→L5 contract style):
 from __future__ import annotations
 
 import json
+import logging
 import os
 import socket
 import time
 import uuid
 from typing import Dict, List, Optional
 
+from ..io.json_utils import file_lock
+
 CLAIMS_DIRNAME = ".claims"
+
+log = logging.getLogger(__name__)
 
 
 class ClaimStore:
@@ -125,47 +155,72 @@ class ClaimStore:
         if self._try_create(path):
             self._owned[config_filename] = path
             return True
-        if self._is_stale(path):
-            # Single-winner steal: atomically rename the stale claim to a
-            # per-steal unique tombstone. Exactly one concurrent stealer's
-            # rename succeeds; losers see ENOENT and back off, so nobody can
-            # unlink a FRESH claim another stealer just re-created.
-            tomb = f"{path}.stale.{uuid.uuid4().hex[:8]}"
+        if not self._is_stale(path):
+            return False
+        with file_lock(self.dir):
+            return self._steal(config_filename, path)
+
+    def _steal(self, config_filename: str, path: str) -> bool:
+        """The steal of a claim found stale, under the steal lock: check
+        again (a rival's steal may have re-created it fresh), rename it to
+        a unique tombstone, check what was renamed, then re-create."""
+        if not self._is_stale(path):
+            return False
+        tomb = f"{path}.stale.{uuid.uuid4().hex[:8]}"
+        try:
+            os.rename(path, tomb)
+        except OSError:
+            return False  # released meanwhile
+        if not self._is_stale(tomb):
+            # a heartbeat refreshed it after the check: give it back to its
+            # owner, never over a claim made while the path was empty
             try:
-                os.rename(path, tomb)
+                os.link(tomb, path)
             except OSError:
-                return False  # a racing stealer took it first
-            if not self._is_stale(tomb):
-                # what we renamed is a claim made fresh after our check:
-                # give it back to its owner
-                try:
-                    os.rename(tomb, path)
-                except OSError:
-                    pass
-                return False
-            try:
-                os.unlink(tomb)
-            except FileNotFoundError:
-                pass
-            if self._try_create(path):
-                self._owned[config_filename] = path
-                return True
+                log.warning("claim %s: a first-time claim took the path before the stale "
+                            "claim could go back; its owner loses it at its next heartbeat",
+                            path)
+            os.unlink(tomb)
+            return False
+        os.unlink(tomb)
+        if self._try_create(path):
+            self._owned[config_filename] = path
+            return True
         return False
 
-    def heartbeat(self) -> None:
-        """Refresh owned claims' mtimes (cross-host liveness signal).
-        Safe to call from a background timer thread: the snapshot below
-        tolerates concurrent claim/release from the worker's main thread."""
+    def _mine(self, path: str) -> bool:
+        """Whether the claim file at ``path`` exists and names this worker."""
+        try:
+            with open(path, encoding="utf-8") as fh:
+                return json.load(fh).get("worker") == self.worker_id
+        except (OSError, ValueError, AttributeError):
+            return False
+
+    def heartbeat(self) -> List[str]:
+        """Refresh owned claims' mtimes (cross-host liveness signal); an
+        owned case whose claim file is gone or names another worker (stolen
+        under the ``stale_s`` policy) is dropped from ``owned()``, logged and
+        returned. Safe to call from a background timer thread: the snapshot
+        below tolerates concurrent claim/release from the worker's main
+        thread."""
         now = time.time()
-        for path in list(self._owned.values()):
+        lost = []
+        for fname, path in list(self._owned.items()):
+            if not self._mine(path):
+                self._owned.pop(fname, None)
+                lost.append(fname)
+                log.warning("claim of %s lost to another worker (stale under stale_s=%s)",
+                            fname, self.stale_s)
+                continue
             try:
                 os.utime(path, (now, now))
             except OSError:
                 pass
+        return lost
 
     def release(self, config_filename: str) -> None:
         path = self._owned.pop(config_filename, None)
-        if path:
+        if path and self._mine(path):
             try:
                 os.unlink(path)
             except FileNotFoundError:

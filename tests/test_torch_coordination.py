@@ -1,8 +1,11 @@
 """The port's claim store (``pipeline/coordination.py``) against the JAX
 package's: the claim cases of ``tests/test_multiworker.py`` as one
-parametrised test, run on both stores with the same outcomes, and the
+parametrised test, run on both stores with the same outcomes; the
 steal's check-then-rename race, which the JAX copy loses (two owners)
-and the port's refuses."""
+and the port's refuses; the give-back window that the JAX copy's repair
+of that race opens (a third worker claims while the renamed claim is
+away), which the port's steal lock closes; and six concurrent stealer
+processes, of which exactly one wins."""
 
 import json
 import os
@@ -138,26 +141,107 @@ def test_steal_race_is_refused_in_the_port(tmp_path):
     assert leftovers == []
 
 
+def _give_back_race(Store, plots):
+    """As ``_race``, and then a third worker C claims between B's rename
+    and B's second check, while the claim path is empty. A store that
+    gives the renamed claim back by renaming it over the path replaces C's
+    claim, and both A and C own the case. Returns (the workers that own
+    the case, the claim file's worker, the files in ``.claims/``)."""
+    _write_claim(plots, "x.yaml", "elsewhere", 1, age_s=100.0)
+    stores = {w: Store(plots, worker_id=w, stale_s=50.0) for w in "ABC"}
+    real = stores["B"]._is_stale
+    calls = []
+
+    def raced(path):
+        calls.append(path)
+        if len(calls) == 2:  # after B's rename in a store that renames first
+            stores["C"].claim("x.yaml")
+        stale = real(path)
+        if len(calls) == 1:  # the rival acts between B's check and B's rename
+            assert stores["A"].claim("x.yaml")
+        return stale
+
+    stores["B"]._is_stale = raced
+    stores["B"].claim("x.yaml")
+    with open(_claim_path(plots, "x.yaml")) as fh:
+        holder = json.load(fh)["worker"]
+    owners = sorted(w for w, s in stores.items() if "x.yaml" in s.owned())
+    return owners, holder, sorted(os.listdir(os.path.join(plots, ".claims")))
+
+
+def test_give_back_window_leaves_one_owner_in_the_port(tmp_path):
+    owners, holder, files = _give_back_race(PortClaimStore, str(tmp_path))
+    assert owners == [holder]  # one owner, and the claim file names it
+    assert files == ["x.yaml.claim"]
+
+
+def test_stalled_owner_is_told_when_the_give_back_fails_in_the_port(tmp_path):
+    # A owns a claim whose heartbeat stalled past stale_s. Stealer B checks
+    # it (stale); A's heartbeat lands; B renames it, and while the path is
+    # empty a third worker C's first-time claim lands; B finds the renamed
+    # claim fresh, cannot link it back over C's and removes the tombstone.
+    # Under the stale_s policy C now owns the case: A's next heartbeat
+    # drops it, and A's release leaves C's claim file alone.
+    plots = str(tmp_path)
+    stores = {w: PortClaimStore(plots, worker_id=w, stale_s=50.0) for w in "ABC"}
+    assert stores["A"].claim("x.yaml")
+    path = _claim_path(plots, "x.yaml")
+    old = time.time() - 100.0
+    os.utime(path, (old, old))
+    real = stores["B"]._is_stale
+    calls = []
+
+    def raced(p):
+        calls.append(p)
+        if len(calls) == 3:  # B renamed: the path is empty
+            assert stores["C"].claim("x.yaml")
+        stale = real(p)
+        if len(calls) == 2:  # B's check under the lock said stale
+            assert stores["A"].heartbeat() == []
+        return stale
+
+    stores["B"]._is_stale = raced
+    assert not stores["B"].claim("x.yaml")
+    assert len(calls) == 3
+    with open(path) as fh:
+        assert json.load(fh)["worker"] == "C"
+    assert stores["A"].heartbeat() == ["x.yaml"]
+    owners = sorted(w for w, s in stores.items() if "x.yaml" in s.owned())
+    assert owners == ["C"]
+    stores["A"].release("x.yaml")
+    with open(path) as fh:
+        assert json.load(fh)["worker"] == "C"
+    assert sorted(os.listdir(os.path.join(plots, ".claims"))) == ["x.yaml.claim"]
+
+
 _STEALER = """
-import sys, time
+import os, sys, time
 sys.path.insert(0, sys.argv[3])
 from lbm2d_tpu_torch.pipeline.coordination import ClaimStore
-s = ClaimStore(sys.argv[1], worker_id=sys.argv[2], stale_s=50.0)
+plots, me, answered = sys.argv[1], sys.argv[2], sys.argv[5]
+s = ClaimStore(plots, worker_id=me, stale_s=50.0)
 while time.time() < float(sys.argv[4]):
     pass
 print("WON" if s.claim("x.yaml") else "LOST", flush=True)
-time.sleep(1.0)  # stay alive: a winner's claim must not look dead
+open(os.path.join(answered, me), "w").close()
+# stay alive until all six have answered (30 s at most): a winner's claim
+# must not look dead to a stealer that has not looked yet
+end = time.time() + 30.0
+while len(os.listdir(answered)) < 6 and time.time() < end:
+    time.sleep(0.01)
 """
 
 
 def test_concurrent_stealers_leave_one_owner(tmp_path):
     plots = str(tmp_path)
+    answered = tmp_path / "answered"
+    answered.mkdir()
     _write_claim(plots, "x.yaml", "elsewhere", 1, age_s=100.0)
     repo = os.path.dirname(os.path.dirname(os.path.abspath(coordination.__file__)))
     repo = os.path.dirname(repo)
     start = time.time() + 2.0
     procs = [subprocess.Popen([sys.executable, "-c", _STEALER, plots, f"w{i}", repo,
-                               str(start)], stdout=subprocess.PIPE, text=True)
+                               str(start), str(answered)], stdout=subprocess.PIPE, text=True)
              for i in range(6)]
     outs = [p.communicate(timeout=60)[0].strip() for p in procs]
     assert sorted(outs).count("WON") == 1, outs
