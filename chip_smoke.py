@@ -94,13 +94,16 @@ Phases (any failure raises and the process exits non-zero):
    at S = 4 and S = 8, default tiles) against its plain version, one K3
    pass against four K1 steps through the kernels, and times K3 at S = 4
    and, ``k3_fused``, at S = 8, and each sharded form of K1
-   (``k1_step[_bounce|_halfway|_bouzidi]_shard[_full|_dev]``) on the four
-   blocks of a 2x2 mesh of the card (local 1216x576, halos cut from the
-   developed state) over the same BC combinations, bitwise against its
-   plain version, timed on block (0, 0), and the halo kernel
-   (``halo_exchange``, ``halo_exchange_dev``: one refresh of the four
-   blocks, the counterpart of XLA's collective-permute) bitwise against
-   ``exchange_halos``' copies, every halo cell NaN before it;
+   (``k1_step[_bounce|_halfway|_bouzidi]_shard[_full|_dev]``) with its
+   neighbour table: one step of a 2x2 mesh of the card (local 1216x576,
+   halos cut from the developed state) in one library call
+   (``k1_shard_steps`` with one row, ``k1_shard_full``), each block's
+   edge cells pushed into its neighbours' halos (the counterpart of XLA's
+   collective-permute, which has no launch of its own), over the same BC
+   combinations, raw bits of every block's whole buffers, halos included,
+   against its plain version (K1's plain step on each block, then
+   ``halo_exchange_plain``), the outputs NaN before it; timed as that
+   mesh step, per block;
 7. run the roofline tool's measurement (``tools/roofline.measure``) at
    4096^2 with two chunks of 50 steps, and hold the copy probe, with and
    without the aux read, against its plain version at that size, both
@@ -108,12 +111,13 @@ Phases (any failure raises and the process exits non-zero):
 8. drive the sharded path (``parallel/sharded.py``) through its resident
    blocks (``sharded.BlockRunner``: the state placed once, chunks run on
    the blocks, a field gathered only where it is read). A chunk is two
-   library calls (``cuda_step.k1_shard_steps``: each step every block's K1
-   and the halo kernel; ``k1_shard_full``), on the engine's layout over a
-   host's cards (a block a card; ``tools/mesh_cards.py`` measures it on
-   four) as on these meshes, whose blocks all share this one card: a test
-   layout, which no entry point builds, that drives the same code with
-   one stream and one halo launch a step. (a), (b) and (d) hold it
+   library calls (``cuda_step.k1_shard_steps``: each step every block's K1,
+   which pushes its edges into its neighbours' halos; ``k1_shard_full``),
+   on the engine's layout over a host's cards (a block a card;
+   ``tools/mesh_cards.py`` measures it on four) as on these meshes, whose
+   blocks all share this one card: a test layout, which no entry point
+   builds, that drives the same code with one stream and one K1 launch a
+   block a step. (a), (b) and (d) hold it
    bitwise against the same chunks issued a step at a time from Python
    (runner kind "stepwise": a K1 call a block, then ``exchange_halos``'s
    copies) on f, f_post, rho, u, force and max_v, and time both loops in
@@ -136,12 +140,11 @@ Phases (any failure raises and the process exits non-zero):
    us/step beside the host's time to issue the loop and the garbage
    collector's pauses in it, the memory the state holds and the loop's
    peak (``torch.cuda.max_memory_allocated``); the device time of one step
-   in each loop (CUDA graphs), the halo kernel against ``exchange_halos``
-   (bitwise, and timed), the per-chunk cost of what is still gathered (the
-   closing f_post into the global f_post) and of the chunk's monitors.
-   Every ``_shard`` variant and both halo kernels (``halo_exchange``,
-   ``halo_exchange_dev``) are launched in phase 8, one K1 launch a block
-   and one refresh a step;
+   in each loop (CUDA graphs), one block's K1 alone and ``exchange_halos``
+   timed, the per-chunk cost of what is still gathered (the closing f_post
+   into the global f_post) and of the chunk's monitors. Every ``_shard``
+   variant is launched in phase 8, one K1 launch a block a step and no
+   other launch;
 9. drive the multi-worker and multi-process paths, each worker an OS
    process (``lbm2d_tpu_torch/tools/smoke_workers.py``, hard time limit)
    on sibling cases of the smoke case (nu 0.02, 0.03, 0.04, 0.05): (a) two
@@ -217,7 +220,6 @@ import dataclasses
 import gc
 import json
 import os
-import re
 import statistics
 import subprocess
 import sys
@@ -319,55 +321,6 @@ def median_ms(fn, batches: int = 7, per_batch: int = 10):
     return statistics.median(times), statistics.median(host)
 
 
-def ptxas_usage(log: str):
-    """{function: (registers a thread or None, spill store bytes, spill
-    load bytes)} of every kernel instance (with its registers) and every
-    out-of-line device function in ptxas's -v output."""
-    out, entry, fn = {}, None, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            entry = m.group(1)
-            continue
-        m = re.search(r"Function properties for (\w+)", line)
-        if m:
-            fn = m.group(1)
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m and fn:
-            out[fn] = (out.get(fn, (None,))[0], int(m.group(1)), int(m.group(2)))
-            fn = None
-            continue
-        m = re.search(r"Used (\d+) registers", line)
-        if m and entry:
-            out[entry] = (int(m.group(1)),) + out.get(entry, (None, 0, 0))[1:]
-            entry = None
-    return out
-
-
-def k1_registers(log: str):
-    """{(storage, scheme, shard, full): (registers a thread, spill stores,
-    spill loads)} of the K1 instances (k1_step_kernel<S, OBST, SHARD,
-    FULL>) in ptxas's -v output."""
-    out = {}
-    for entry, use in ptxas_usage(log).items():
-        k = re.search(r"k1_step_kernelI\d+(F32Store|DevStore)Li(\d)ELb([01])ELb([01])E", entry)
-        if k:
-            out[k.group(1), int(k.group(2)), k.group(3) == "1", k.group(4) == "1"] = use
-    return out
-
-
-def k3_registers(log: str):
-    """{(scheme, window columns): (registers a thread, spill stores, spill
-    loads)} of the K3 kernel instances (k3_fused_kernel<OBST, WW>)."""
-    out = {}
-    for entry, use in ptxas_usage(log).items():
-        k = re.search(r"k3_fused_kernelILi(\d)ELi(\d+)E", entry)
-        if k:
-            out[int(k.group(1)), int(k.group(2))] = use
-    return out
-
-
 def bound_ms(nbytes: float, ops: float):
     t_bytes = nbytes / PEAK_BW * 1e3
     t_ops = ops / PEAK_F32 * 1e3
@@ -379,22 +332,12 @@ def bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
 
 
-def halo_cells(hl: int, wl: int, ry: int, rx: int) -> int:
-    """Halo cells a refresh of an ry x rx mesh of [hl, wl] blocks writes a
-    plane: the x halos of every seam's two sides, the y halos (wl + 2
-    wide) likewise."""
-    return 2 * hl * ry * (rx - 1) + 2 * (wl + 2) * rx * (ry - 1)
-
-
-def halo_blocks_nan(blocks, dtype, hl: int, wl: int):
-    """[2][2] copies of the {(iy, ix): block} halo'd blocks in ``dtype``,
-    their halo rings NaN."""
-    out = [[blocks[iy, ix].to(dtype, copy=True) for ix in range(2)] for iy in range(2)]
-    for row in out:
-        for b in row:
-            b[:, 0] = b[:, hl + 1] = float("nan")
-            b[:, :, 0] = b[:, :, wl + 1] = float("nan")
-    return out
+def pushed_cells(hl: int, wl: int, ry: int, rx: int) -> int:
+    """Halo slots a step of an ry x rx mesh of [hl, wl] blocks pushes a
+    plane (csrc/halo.cuh): both sides of every x seam (hl a side) and y
+    seam (wl a side), and one corner slot a side of every inner crossing of
+    seams (the diagonal blocks')."""
+    return 2 * hl * ry * (rx - 1) + 2 * wl * rx * (ry - 1) + 4 * (ry - 1) * (rx - 1)
 
 
 def k3_work(cs, H: int, W: int, S: int, tile):
@@ -1156,11 +1099,13 @@ def main() -> int:
     # ptxas's registers a thread and spill bytes (stores / loads) of every
     # K1 instance, the fast and full steps apart, and of K3, beside K3's
     # resident blocks a SM, its shared-memory rows and its tile
-    regs = k1_registers(cuda_build.BUILD_LOG.get("k1_step", ""))
+    regs = cuda_build.k1_registers(cuda_build.BUILD_LOG.get("k1_step", ""))
+    stack = cuda_build.k1_stack_frames(cuda_build.BUILD_LOG.get("k1_step", ""))
     for (store, obst, shard, full), (nreg, st, ld) in sorted(regs.items()):
         print(f"    K1 {store:<8s} {cs.k1_variant(obst, full, store == 'DevStore', shard):<28s} "
-              f"{nreg} registers, spills {st} / {ld} B", flush=True)
-    regs3 = k3_registers(cuda_build.BUILD_LOG.get("k3_fused", ""))
+              f"{nreg} registers, spills {st} / {ld} B, stack frame "
+              f"{stack.get((store, obst, shard, full))} B", flush=True)
+    regs3 = cuda_build.k3_registers(cuda_build.BUILD_LOG.get("k3_fused", ""))
     if not regs or not regs3:
         raise AssertionError("no ptxas register lines for K1 or K3 in the build log")
     for (obst, ww), (nreg, st, ld) in sorted(regs3.items()):
@@ -1180,7 +1125,7 @@ def main() -> int:
               f"iterations ahead, 4 rows of each level 1 .. {S - 1}), {n} resident blocks a SM "
               f"(its shared memory and <= {cs.K3_MAX_REGISTERS} registers a thread)", flush=True)
     for name, log in cuda_build.BUILD_LOG.items():
-        for fn, (nreg, st, ld) in ptxas_usage(log).items():
+        for fn, (nreg, st, ld) in cuda_build.ptxas_usage(log).items():
             if nreg is None and (st or ld):  # an out-of-line function's own spills
                 print(f"    {name}: {fn}: spills {st} / {ld} B", flush=True)
 
@@ -1403,143 +1348,149 @@ def main() -> int:
                      k3_work(cs, H, W, FUSE_S_MAX, tile8)))
     k3_s8.update(tile=tile8, ms=graph_ms(lambda: run_k3(cs.k3_fused, b8, cs.OBSTACLE_EQ, p,
                                                         rows8, tile8)))
-    # the sharded forms, on the four blocks of a 2x2 mesh of this card with
-    # real halos cut from the developed state (NaN beyond the global edge,
-    # so a read of one would show): each variant on every block against
-    # its plain version, bitwise; timed on block (0, 0), which holds the
-    # global left column and bottom row
+    # the sharded forms with their pushes, on the four blocks of a 2x2 mesh
+    # of this card with real halos cut from the developed state (NaN beyond
+    # the global edge, so a read of one would show): each variant's step of
+    # the whole mesh in one library call (k1_shard_steps with one row, or
+    # k1_shard_full), every block's K1 pushing its edge cells into its
+    # neighbours' halos, against its plain version (K1's plain step on each
+    # block, then halo_exchange_plain), raw bits of the whole buffers,
+    # halos and padding included; the outputs start NaN, so a cell or a
+    # halo slot left unwritten shows. Timed as that mesh step (one launch a
+    # block), per block.
     mesh22 = make_mesh((2, 2), [dev] * 4)
     hl2, wl2 = H // 2, W // 2
-    blocks2 = [(iy, ix) for iy in range(2) for ix in range(2)]
-    geoms2 = {b: cs.BlockGeom.shard(hl2, wl2, b[0] * hl2, b[1] * wl2, H, W) for b in blocks2}
-    pitch2 = geoms2[0, 0].pitch
-    T2 = (0, 0)
+    geoms2 = [[cs.BlockGeom.shard(hl2, wl2, iy * hl2, ix * wl2, H, W) for ix in range(2)]
+              for iy in range(2)]
+    pitch2 = geoms2[0][0].pitch
 
     def cut(x, fill=sh.NAN):
-        bl = sh.halo_blocks(x, mesh22, fill, pitch2)
-        return {b: bl[b[0]][b[1]] for b in blocks2}
+        return sh.halo_blocks(x, mesh22, fill, pitch2)
 
-    # f_post is an output buffer (compared whole): a finite halo
+    # f_post is an output buffer of the full step (compared whole): a finite halo
     fS, auxS, qS, fpS = cut(state.f), cut(aux), cut(qplanes), cut(state.f_post, 0.0)
-    fqS = {b: cs.quantize(v) for b, v in fS.items()}
+    fqS = [[cs.quantize(b) for b in row] for row in fS]
+
+    def tables_of(pk):
+        prof = prof_of(pk)
+        rows = None if prof is None else [[prof[iy * hl2:(iy + 1) * hl2].contiguous()] * 2
+                                          for iy in range(2)]
+        return cs.ShardTables(auxS, geoms2, qS, rows)
+
+    tabs2 = {bc_tag(pk): tables_of(pk) for pk, _ in combos}
     print(f"  sharded forms: 2x2 mesh of {dev}, blocks {hl2}x{wl2} in [{hl2 + 2}, {pitch2}] "
-          f"planes; each variant on all four blocks, bitwise", flush=True)
+          f"planes; each variant's mesh step (its pushes included) bitwise", flush=True)
 
-    def interior_box(g):
-        i0, i1, j0, j1 = g.interior()
-        return (slice(g.y_off + i0, g.y_off + i1 + 1), slice(g.x_off + j0, g.x_off + j1 + 1))
-
-    def ring_cells(g):
-        inner = min(g.hl - 1, g.Hg - 2 - g.y_off) - max(0, 1 - g.y_off) + 1
-        return (inner * ((g.x_off == 0) + (g.x_off + g.wl == g.Wg))
-                + g.wl * ((g.y_off == 0) + (g.y_off + g.hl == g.Hg)))
-
-    def ks_buffers(b, full, dtype=torch.float32):
-        # zeros: the halo, which no variant writes, compares equal
-        g = geoms2[b]
-        out = {"f_out": torch.zeros((9,) + g.plane, dtype=dtype, device=dev)}
+    def mesh_buffers(full, dtype=torch.float32):
+        nan = float("nan")
+        out = {"f_out": [[torch.full((9,) + g.plane, nan, dtype=dtype, device=dev) for g in row]
+                         for row in geoms2]}
         if full:
-            out.update(rho=torch.zeros(g.plane, device=dev),
-                       u=torch.zeros((2,) + g.plane, device=dev), f_post=fpS[b].clone())
+            out.update(rho=[[torch.full(g.plane, nan, device=dev) for g in row]
+                            for row in geoms2],
+                       u=[[torch.full((2,) + g.plane, nan, device=dev) for g in row]
+                          for row in geoms2],
+                       f_post=[[b.clone() for b in row] for row in fpS])
         return out
 
-    def prof_rows(pk, b):
-        prof = prof_of(pk)
-        return None if prof is None else prof[b[0] * hl2:(b[0] + 1) * hl2].contiguous()
+    def run_mesh(kernel, bufs, obst, pk, sc, dev_store=False):
+        """One step of the 2x2 mesh: the library call, or its plain version."""
+        t = tabs2[bc_tag(pk)]
+        if "rho" in bufs:
+            (cs.k1_shard_full if kernel else cs.k1_shard_full_plain)(
+                fS, bufs["f_out"], t, sc, p.use_les, pk.bc_type, bufs["rho"], bufs["u"],
+                bufs["f_post"], obst)
+        else:
+            fin = fqS if dev_store else fS
+            (cs.k1_shard_steps if kernel else cs.k1_shard_steps_plain)(
+                fin, bufs["f_out"], fin, t, sc.reshape(1, -1).contiguous(), p.use_les,
+                pk.bc_type, obst, dev_store)
 
-    def run_ks(fn, b, bufs, obst, pk, sc):
-        fn(fS[b], bufs["f_out"], auxS[b], sc, p.use_les, pk.bc_type, bufs.get("rho"),
-           bufs.get("u"), bufs.get("f_post"), obstacle=obst,
-           q=qS[b] if obst == cs.OBSTACLE_BOUZIDI else None, prof=prof_rows(pk, b),
-           geom=geoms2[b])
-
-    def run_kds(fn, b, bufs, obst, pk, sc):
-        fn(fqS[b], bufs["f_out"], auxS[b], sc, p.use_les, pk.bc_type, obst, prof_rows(pk, b),
-           geom=geoms2[b])
-
-    def shard_checked(name, new_buffers, run, kern, plain):
-        """Every block and BC combination through the kernel and its plain
-        version, bitwise; returns (max abs err, {tag: rel err})."""
-        errs, abs_errs = {}, []
+    def mesh_checked(name, new_buffers, run):
+        """Every BC combination through the mesh step and its plain version,
+        raw bits of every block's buffers; returns {tag: 0.0}."""
+        errs = {}
         for pk, sc in combos:
-            for b in blocks2:
-                bk, bp = new_buffers(b), new_buffers(b)
-                run(kern, b, bk, pk, sc)
-                run(plain, b, bp, pk, sc)
-                torch.cuda.synchronize()
-                abs_errs.append(abs_err(bk, bp, bk))
-                for k in bk:
-                    tag = f"{name} bc {bc_tag(pk)} block {b} {k}"
-                    errs[tag] = exact(tag, bk[k], bp[k])
-        print(f"  {name:<30s} {len(errs)} outputs on 4 blocks x {len(combos)} BC combinations "
-              f"bitwise (max rel err {max(errs.values()):.1e})", flush=True)
-        return max(abs_errs), errs
+            bk, bp = new_buffers(), new_buffers()
+            run(True, bk, pk, sc)
+            run(False, bp, pk, sc)
+            torch.cuda.synchronize()
+            for k in bk:
+                for iy in range(2):
+                    for ix in range(2):
+                        tag = f"{name} bc {bc_tag(pk)} block ({iy}, {ix}) {k}"
+                        if not torch.equal(bits(bk[k][iy][ix]), bits(bp[k][iy][ix])):
+                            raise AssertionError(f"{tag}: not bitwise equal to its plain version")
+                        errs[tag] = 0.0
+        print(f"  {name:<30s} {len(errs)} buffers (4 blocks, halos included) x "
+              f"{len(combos)} BC combinations bitwise", flush=True)
+        return errs
 
-    g2 = geoms2[T2]
-    cells2 = (g2.hl + 2) * (g2.wl + 2)  # the block read with its halo
-    n_in2 = (g2.interior()[1] - g2.interior()[0] + 1) * (g2.interior()[3] - g2.interior()[2] + 1)
-    links2 = int(links[(slice(None),) + interior_box(g2)].sum())
-    ring2 = ring_cells(g2)
+    def mesh_work(full, obst, dev_store=False):
+        """(bytes, operations) of one mesh step: each block read with its
+        halo ring, written on its own cells and pushed into its neighbours'
+        halo slots (pushed_cells)."""
+        nbytes = ops = 0
+        for row in geoms2:
+            for g in row:
+                i0, i1, j0, j1 = g.interior()
+                n_in = (i1 - i0 + 1) * (j1 - j0 + 1)
+                ring = g.hl * g.wl - n_in
+                cells = (g.hl + 2) * (g.wl + 2)
+                if dev_store:
+                    nbytes += 22 * cells + 18 * g.hl * g.wl
+                    ops += (K1_OPS_PER_CELL + 18) * n_in + (RING_OPS_PER_CELL + 9) * ring
+                else:
+                    nbytes += 40 * cells + 36 * g.hl * g.wl
+                    ops += K1_OPS_PER_CELL * n_in + RING_OPS_PER_CELL * ring
+                if full:
+                    nbytes += 12 * g.hl * g.wl + 36 * n_in
+                if obst == cs.OBSTACLE_BOUZIDI:
+                    nl = int(links[:, g.y_off + i0:g.y_off + i1 + 1,
+                                   g.x_off + j0:g.x_off + j1 + 1].sum())
+                    nbytes += 4 * nl
+                    ops += K1_OPS_PER_LINK * nl
+        nbytes += (18 if dev_store else 36) * pushed_cells(hl2, wl2, 2, 2)
+        return nbytes, ops
+
+    def per_block(r, n=4):
+        """A mesh step's readings as the mean of its ``n`` launches."""
+        for k in ("ms", "launch_ms", "host_ms", "plain_ms"):
+            r[k] /= n
+        r["bound"] = (r["bound"][0] / n, r["bound"][1])
+        r["timed_as"] = f"one step of the 2x2 mesh ({n} launches, pushes included) / {n}"
+        return r
+
+    def without_pushes(bufs, obst, dev_store):
+        """The same four launches through the per-step wrapper, which
+        pushes nothing (``cuda_step.k1_blocks``): the mesh step less its
+        pushes, on the same data, so the same L2 reuse."""
+        cs.k1_blocks(fqS if dev_store else fS, bufs["f_out"], tabs2[bc_tag(p)], scal, p.use_les,
+                     p.bc_type, obst, dev_store, bufs.get("rho"), bufs.get("u"),
+                     bufs.get("f_post"))
+
+    def mesh_record(name, full, obst, dev_store, usage):
+        bufs = {"kernel": mesh_buffers(full, cs.DEV_DTYPE if dev_store else torch.float32),
+                "plain": mesh_buffers(full, cs.DEV_DTYPE if dev_store else torch.float32)}
+        errs = mesh_checked(name, lambda: mesh_buffers(full, cs.DEV_DTYPE if dev_store
+                                                       else torch.float32),
+                            lambda kernel, b, pk, sc: run_mesh(kernel, b, obst, pk, sc,
+                                                               dev_store))
+        nbytes, ops = mesh_work(full, obst, dev_store)
+        records[name] = per_block(record(
+            0.0, errs, lambda: run_mesh(True, bufs["kernel"], obst, p, scal, dev_store),
+            lambda: run_mesh(False, bufs["plain"], obst, p, scal, dev_store), nbytes, ops,
+            usage))
+        records[name]["no_push_ms"] = graph_ms(
+            lambda: without_pushes(bufs["kernel"], obst, dev_store)) / 4
+
     for obst in range(4):
         for full in (False, True):
-            name = cs.k1_variant(obst, full, shard=True)
-            max_abs, errs = shard_checked(
-                name, lambda b: ks_buffers(b, full),
-                lambda fn, b, bufs, pk, sc: run_ks(fn, b, bufs, obst, pk, sc),
-                cs.k1_step, cs.k1_step_plain)
-            # as K1 above, on block (0, 0) read with its halo ring and
-            # written on its own cells (its interior and its global ring)
-            nbytes = 40 * cells2 + 36 * g2.hl * g2.wl
-            ops = K1_OPS_PER_CELL * n_in2 + RING_OPS_PER_CELL * ring2
-            if full:
-                nbytes += 12 * g2.hl * g2.wl + 36 * n_in2
-            if obst == cs.OBSTACLE_BOUZIDI:
-                nbytes += 4 * links2
-                ops += K1_OPS_PER_LINK * links2
-            bk, bp = ks_buffers(T2, full), ks_buffers(T2, full)
-            records[name] = record(max_abs, errs,
-                                   lambda: run_ks(cs.k1_step, T2, bk, obst, p, scal),
-                                   lambda: run_ks(cs.k1_step_plain, T2, bp, obst, p, scal),
-                                   nbytes, ops, regs.get(("F32Store", obst, True, full)))
+            mesh_record(cs.k1_variant(obst, full, shard=True), full, obst, False,
+                        regs.get(("F32Store", obst, True, full)))
     for obst in cs.DEV_OBSTACLES:
-        name = cs.k1_variant(obst, dev=True, shard=True)
-        max_abs, errs = shard_checked(
-            name, lambda b: ks_buffers(b, False, cs.DEV_DTYPE),
-            lambda fn, b, bufs, pk, sc: run_kds(fn, b, bufs, obst, pk, sc), cs.k1_step_dev,
-            cs.k1_step_dev_plain)
-        bk, bp = ks_buffers(T2, False, cs.DEV_DTYPE), ks_buffers(T2, False, cs.DEV_DTYPE)
-        records[name] = record(
-            max_abs, errs, lambda: run_kds(cs.k1_step_dev, T2, bk, obst, p, scal),
-            lambda: run_kds(cs.k1_step_dev_plain, T2, bp, obst, p, scal),
-            22 * cells2 + 18 * g2.hl * g2.wl,
-            (K1_OPS_PER_CELL + 18) * n_in2 + (RING_OPS_PER_CELL + 9) * ring2,
-            regs.get(("DevStore", obst, True, False)))
-    # the halo kernel (csrc/halo.cuh, the counterpart of XLA's
-    # collective-permute in the JAX package's sharded chunk): one refresh
-    # of the four blocks, f32 and bf16, every halo cell NaN before it (a
-    # cell it should write and does not shows), against exchange_halos'
-    # strided copies, its plain version; raw bits compared, halos included
-    halo_regs = {("halo_exchange" if "IjE" in fn else "halo_exchange_dev"): use
-                 for fn, use in ptxas_usage(cuda_build.BUILD_LOG.get("k1_step", "")).items()
-                 if "halo_kernel" in fn and use[0] is not None}
-    halo_cells2 = halo_cells(hl2, wl2, 2, 2)
-    for name, dtype in (("halo_exchange", torch.float32), ("halo_exchange_dev", cs.DEV_DTYPE)):
-        hk, hp = (halo_blocks_nan(fS, dtype, hl2, wl2) for _ in range(2))
-        cs.halo_exchange(hk, hl2, wl2)
-        cs.halo_exchange_plain(hp, hl2, wl2)
-        torch.cuda.synchronize()
-        errs = {}
-        for b in blocks2:
-            if not torch.equal(bits(hk[b[0]][b[1]]), bits(hp[b[0]][b[1]])):
-                raise AssertionError(f"{name} block {b}: not bitwise equal to exchange_halos")
-            errs[f"{name} block {b}"] = 0.0
-        print(f"  {name:<30s} {len(errs)} blocks' halos bitwise equal to exchange_halos "
-              f"({halo_cells2} halo cells x 9 planes a refresh)", flush=True)
-        # each written halo element read once and written once
-        records[name] = record(0.0, errs, lambda: cs.halo_exchange(hk, hl2, wl2),
-                               lambda: cs.halo_exchange_plain(hp, hl2, wl2),
-                               2 * 9 * halo_cells2 * hk[0][0].element_size(), 0,
-                               halo_regs.get(name))
+        mesh_record(cs.k1_variant(obst, dev=True, shard=True), False, obst, True,
+                    regs.get(("DevStore", obst, True, False)))
 
     missing = set(cs.KERNEL_VARIANTS) - set(records)
     if missing:
@@ -1689,6 +1640,10 @@ def main() -> int:
               f"bound {r['bound'][0] * 1e3:7.1f} us ({r['bound'][1]})  "
               f"registers/thread {r['registers']}, spills {r['spill_bytes']} B  [{card}]",
               flush=True)
+        if "no_push_ms" in r:
+            print(f"  {'':<24s} a block of the mesh step; the same launches without their "
+                  f"pushes {r['no_push_ms'] * 1e3:.1f} us a block (the pushes "
+                  f"{(r['ms'] - r['no_push_ms']) * 1e3:.1f} us)", flush=True)
         if name.startswith("k3_"):
             print(f"  {'':<24s} = {r['ms'] * 1e3 / FUSE_S:.1f} us/step; the tiles' device-memory "
                   f"traffic {k3_tile_bytes / PEAK_BW * 1e6:.1f} us, their shared-memory traffic "
@@ -2167,7 +2122,7 @@ def main() -> int:
         return bs, mon
 
     def mesh_launches(counts):
-        return {k: v for k, v in counts.items() if ("_shard" in k or "halo" in k) and v}
+        return {k: v for k, v in counts.items() if "_shard" in k and v}
 
     def loop_vs_stepwise(tag, mesh, p_, state, n_chunks, n, store_dev, case, total):
         """The chunk's library loop (``advance_blocks`` on a one-device mesh:
@@ -2214,7 +2169,9 @@ def main() -> int:
         so this is an upper bound), the library calls and strided halo
         copies a chunk; the host's issue of one chunk from an idle stream;
         then one step's device time of each (a CUDA graph of one fast step:
-        K1 on every block and the refresh). Returns {kind: [(us, issue)]},
+        K1 on every block, with its pushes in the library loop, and with
+        the copies of the halo refresh in the per-step loop). Returns
+        {kind: [(us, issue)]},
         {kind: step ms}, {kind: idle-stream issue us/step}."""
         runners = {k: sh.BlockRunner(mesh, k, False, case) for k in ("cuda", "stepwise")}
         ry, rx = mesh.grid
@@ -2280,11 +2237,10 @@ def main() -> int:
                                          chunk, 5)
         del bs
     fast8 = 4 * 2 * (chunk - 1)
-    want8a = {"k1_step_shard": fast8, "k1_step_shard_full": 16, "k1_step_shard_dev": fast8,
-              "halo_exchange": 2 * chunk + 2, "halo_exchange_dev": 2 * (chunk - 1)}
+    want8a = {"k1_step_shard": fast8, "k1_step_shard_full": 16, "k1_step_shard_dev": fast8}
     print(f"    launches {mesh_launches(launches8a)}, plain calls {counted}; "
           f"{per_step(mesh_launches(launches8a), 4 * chunk)} on 4 blocks = one K1 a block a "
-          f"step and one halo refresh a step", flush=True)
+          f"step and no halo launch (the pushes)", flush=True)
     if mesh_launches(launches8a) != want8a or any(counted.values()):
         raise AssertionError(f"phase 8(a): launches {launches8a} (want {want8a}), {counted}")
 
@@ -2317,9 +2273,13 @@ def main() -> int:
             del bs
     launches8b = {k: launches8b.get(k, 0) for k in cs.KERNEL_VARIANTS}
     launches8a = {k: launches8a.get(k, 0) for k in cs.KERNEL_VARIANTS}
-    print(f"    launches {mesh_launches(launches8b)}, plain calls {counted}", flush=True)
-    if any(counted.values()):
-        raise AssertionError(f"phase 8(b): plain calls {counted}")
+    steps8b = 4 * DFG_PAIR_STEPS  # the library loop's 4 runs (3 f32, 1 store_dev)
+    print(f"    launches {mesh_launches(launches8b)}, plain calls {counted}; "
+          f"{per_step(mesh_launches(launches8b), steps8b)} on 5 blocks = one K1 a block "
+          f"a step and no halo launch (the pushes)", flush=True)
+    if any(counted.values()) or sum(launches8b.values()) != 5 * steps8b:
+        raise AssertionError(f"phase 8(b): launches {mesh_launches(launches8b)}, "
+                             f"plain calls {counted}")
 
     # (c) the production entry on a 1x1 mesh: the smoke case through
     # run_batch -> execute_case -> run_one_case -> LBMEngine(spatial_mesh)
@@ -2391,7 +2351,8 @@ def main() -> int:
 
     # (d) a 2x2 mesh of the card at 4096^2, the demo case (README 3c's grid
     # class): us/step of the chunk runner, and one step's device time from
-    # a CUDA graph of K1 on every block and the halo refresh, in each loop
+    # a CUDA graph of K1 on every block (with its pushes, or with the halo
+    # copies after it), in each loop
     N8 = ROOF_N
     p4k = solver.make_params(demo_config(N8, N8, nu=0.01, warmup=2000), cylinder_mask(N8, N8),
                              device=dev)
@@ -2509,19 +2470,11 @@ def main() -> int:
                          per_graph=10)
     exch4k_ms = graph_ms(lambda: sh.exchange_halos(bs4k.f_alt, mesh22, case4k.hl, case4k.wl),
                          per_graph=10)
-    halo4k_ms = graph_ms(lambda: cs.halo_exchange(bs4k.f_alt, case4k.hl, case4k.wl),
-                         per_graph=10)
-    # the halo kernel against exchange_halos at this block size, every halo
-    # cell NaN before the refresh, raw bits
-    blocks4k = {(iy, ix): bs4k.f[iy][ix] for iy in range(2) for ix in range(2)}
-    hk4, hp4 = (halo_blocks_nan(blocks4k, torch.float32, case4k.hl, case4k.wl) for _ in range(2))
-    cs.halo_exchange(hk4, case4k.hl, case4k.wl)
-    cs.halo_exchange_plain(hp4, case4k.hl, case4k.wl)
-    torch.cuda.synchronize()
-    if not all(torch.equal(bits(x), bits(y)) for rk, rp in zip(hk4, hp4) for x, y in zip(rk, rp)):
-        raise AssertionError(f"phase 8(d): the halo kernel differs from exchange_halos at {N8}^2")
-    halo4k_bound = bound_ms(2 * 9 * 4 * halo_cells(case4k.hl, case4k.wl, 2, 2), 0)[0]
-    del hk4, hp4, blocks4k
+    # the four K1 launches without their pushes (the per-step wrapper):
+    # the library step less its pushes
+    k1blk4k_ms = graph_ms(lambda: cs.k1_blocks(bs4k.f, bs4k.f_alt, case4k, scal4, p4k.use_les,
+                                               p4k.bc_type, case4k.obstacle), per_graph=10)
+    push4k_bytes = 36 * pushed_cells(case4k.hl, case4k.wl, 2, 2)
     # the host's issue of one chunk from an idle stream (the turns' issue
     # waits on the device once the launch queue fills)
     idle4k = {k: issue_us(lambda r=r: r.advance(bs4k, p4k, ROOF_SPC), ROOF_SPC, repeats=3)[0]
@@ -2551,9 +2504,9 @@ def main() -> int:
           f"{gat4k}; a chunk issued from an idle stream in {idle4k['library']:.1f} us/step "
           f"(library loop), {idle4k['per-step']:.1f} (per-step loop); one step's device time "
           f"(CUDA graph) {loop4k_ms * 1e3:.1f} us in the library "
-          f"loop (K1 on 4 blocks and one halo kernel), {step4k_ms * 1e3:.1f} us per step (K1 "
-          f"on 4 blocks and {2 * 2 * 2} halo copies); halo kernel {halo4k_ms * 1e3:.1f} us "
-          f"(bound {halo4k_bound * 1e3:.2f} us, bytes; bitwise equal to exchange_halos), "
+          f"loop (K1 on 4 blocks with their pushes, {push4k_bytes / 1e6:.2f} MB a step), "
+          f"{step4k_ms * 1e3:.1f} us per step (K1 on 4 blocks and {2 * 2 * 2} halo copies); "
+          f"the same 4 K1 launches without their pushes {k1blk4k_ms * 1e3:.1f} us; "
           f"exchange_halos {exch4k_ms * 1e3:.1f} us = "
           f"{100 * exch4k_ms / step4k_ms:.1f}% of the per-step loop's step; still gathered a "
           f"chunk: f_post into "
@@ -2568,8 +2521,7 @@ def main() -> int:
         raise AssertionError(f"phase 8(d): plain calls {counted}")
     launches8 = {k: launches8a[k] + launches8b[k] + launches8c[k] + launches8d[k]
                  for k in cs.KERNEL_VARIANTS}
-    idle8 = [k for k in cs.KERNEL_VARIANTS
-             if ("_shard" in k or "halo" in k) and not launches8[k]]
+    idle8 = [k for k in cs.KERNEL_VARIANTS if "_shard" in k and not launches8[k]]
     if idle8:
         raise AssertionError(f"phase 8 did not launch {idle8}")
 
@@ -2592,9 +2544,7 @@ def main() -> int:
                **launches10, "bench": launches11, "suite": launches12}
     sources = {"k1": ("k1_step.cu", "lbm2d_tpu/ops/pallas_step.py:824"),
                "k3": ("k3_fused.cu", "lbm2d_tpu/ops/pallas_step.py:610"),
-               "co": ("copy_probe.cu", "tools_roofline_4096.py:95"),
-               # XLA's collective-permute of _halo_update_padded (no pallas_call)
-               "ha": ("halo.cuh", "lbm2d_tpu/parallel/sharded.py:229")}
+               "co": ("copy_probe.cu", "tools_roofline_4096.py:95")}
     for name in list(cs.KERNEL_VARIANTS) + list(cp.VARIANTS):
         r = records[name]
         if name in cp.VARIANTS:
@@ -2618,6 +2568,8 @@ def main() -> int:
             entry["loop_host_us"] = r["loop_host_us"]
         if "copy_ms" in r:
             entry["copy_ms"] = r["copy_ms"]
+        if "timed_as" in r:
+            entry.update(timed_as=r["timed_as"], no_push_ms=r["no_push_ms"])
         if name.startswith("k3"):
             entry["tile"] = list(tile3)
         if name == "k3_fused":

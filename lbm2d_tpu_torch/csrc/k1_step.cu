@@ -87,20 +87,29 @@
 // run_chunk_sharded_pallas, its interior and BCs gated by the shard's global
 // origin ``offs``, :320-379) is the same body on another BlockGeom
 // (lbm_common.cuh): the shard's [hl, wl] cells sit inside a 1-cell halo
-// ring that the runner (parallel/sharded.py) refreshes from the neighbours
-// after every step, so the pull, the link predicate (aux has the same
-// halo) and Bouzidi's f(c + e_k) read across a seam exactly as the whole
-// grid reads its own cells. Only cells interior in the global grid are
-// updated, and only a block on the global edge writes ring cells; the halo
-// of a block side on the global edge is never read. The row pitch is
+// ring of its neighbours' cells, so the pull, the link predicate (aux has
+// the same halo) and Bouzidi's f(c + e_k) read across a seam exactly as the
+// whole grid reads its own cells. Only cells interior in the global grid
+// are updated, and only a block on the global edge writes ring cells; the
+// halo of a block side on the global edge is never read. The row pitch is
 // rounded up to 32 floats, so a block's rows start aligned as the whole
-// grid's do. Bound and design as above, plus the halo ring. A sharded
-// chunk's steps run in one call here too (k1_shard_steps_launch), on a mesh
-// whose blocks live on the cards of one process (one card each, or several
-// on one): every block's K1 on its card's stream, then the halo refresh of
-// the step's output (halo.cuh; across cards after one event a card), step
-// after step, as run_chunk_sharded_pallas's jit over shard_map and lax.scan
-// issues them.
+// grid's do. Bound and design as above, plus the halo ring.
+// The halo is not refreshed by a launch of its own: each thread that stores
+// an own cell on the block's edge (local row 0 or hl - 1, column 0 or
+// wl - 1; interior and ring threads alike) also stores the same bits into
+// the halo slot of each neighbour that reads it (k1_push; the map and why
+// the writes never meet are in halo.cuh), into the neighbours' f_out given
+// as a ShardNbrs argument. So a sharded step is one launch a block, and a
+// launch given no neighbours (every pointer null: the per-step loop of
+// parallel/sharded.py, which refreshes the halos by copies, and the
+// multi-process path) writes what it always wrote. A sharded chunk's steps
+// run in one call (k1_shard_steps_launch), on a mesh whose blocks live on
+// the cards of one process (one card each, or several on one): each step
+// every block's K1 with its neighbours' next buffers, on its card's stream,
+// each card's step after its neighbours' previous one (MeshDevs, halo.cuh),
+// as run_chunk_sharded_pallas's jit over shard_map and lax.scan issues
+// them. The pushes across cards are peer stores over NVLink; they retire
+// before the kernel completes, so ahead of the card's event.
 #include <algorithm>
 
 #include "halo.cuh"
@@ -143,14 +152,46 @@ __device__ __noinline__ void k1_ring_store(const Cell* n, bool column, bool far,
                                 lbm_ring_values(*n, column, far, gx, Wg, s, bc, u_prof));
 }
 
+// The halo slots that hold a copy of own cell (y, x) of a shard (halo.cuh):
+// ``put(base, i, k)`` stores population k of the cell at element i of the
+// neighbour's f buffer ``base``, with the bits it stored in its own f_out.
+// Nothing for a cell off the block's edge or a neighbour slot that is null.
+// Every index is a constant (the loops unrolled, the neighbour picked by
+// branches): a runtime index into the caller's values (the update's Cell)
+// or into ``nb`` would move them to local memory for every thread of the
+// instance.
+template <typename S, class Put>
+__device__ __forceinline__ void k1_push(const ShardNbrs& nb, const BlockGeom& g, int y, int x,
+                                        const Put& put) {
+  const int dy = y == g.hl - 1 ? 1 : (y == 0 ? -1 : 0);
+  const int dx = x == g.wl - 1 ? 1 : (x == 0 ? -1 : 0);
+  if (dy == 0 && dx == 0) return;
+  const size_t plane = geom_plane(g);
+  // the halo row a push along y lands on, the halo column one along x does
+  const size_t hy = dy > 0 ? 0 : g.hl + 1, hx = dx > 0 ? 0 : g.wl + 1;
+  auto to = [&](void* base, size_t at) {
+    if (base == nullptr) return;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) put(static_cast<typename S::T*>(base), k * plane + at, k);
+  };
+  auto at = [&](int sy, int sx) { return nb.p[shard_nbr_slot(sy, sx)]; };
+  if (dy) to(dy > 0 ? at(1, 0) : at(-1, 0), hy * g.pitch + x + 1);
+  if (dx) to(dx > 0 ? at(0, 1) : at(0, -1), (size_t)(y + 1) * g.pitch + hx);
+  if (dy && dx)
+    to(dy > 0 ? (dx > 0 ? at(1, 1) : at(1, -1)) : (dx > 0 ? at(-1, 1) : at(-1, -1)),
+       hy * g.pitch + hx);
+}
+
 // Ring thread ``t`` of block ``g``: threads 0 .. 2 hl - 1 take the block's
 // left and right columns, the next 2 wl its bottom and top rows; a thread
 // whose cell is not on the global ring (or whose side column is not on a
 // global inner row) returns. It computes the collide output of the cell's
 // inward neighbour (k1_collide: the update's own arithmetic on the same
 // read-only inputs, so the same bits as the neighbour's thread), then the
-// cell's BC values (lbm_ring_values) and stores them.
-template <typename S, int OBST, bool FULL>
+// cell's BC values (lbm_ring_values) and stores them; a shard's thread then
+// pushes what it stored into the neighbours' halos (k1_push), read back from
+// its own f_out.
+template <typename S, int OBST, bool SHARD, bool FULL>
 __device__ __forceinline__ void k1_ring(const typename S::T* __restrict__ f_in,
                                         typename S::T* __restrict__ f_out,
                                         const float* __restrict__ aux,
@@ -158,7 +199,7 @@ __device__ __forceinline__ void k1_ring(const typename S::T* __restrict__ f_in,
                                         const float* __restrict__ prof,
                                         float* __restrict__ rho_out, float* __restrict__ u_out,
                                         const Scalars& s, const BlockGeom& g, const BcTypes& bc,
-                                        int use_les, int t) {
+                                        const ShardNbrs& nb, int use_les, int t) {
   const int hl = g.hl, wl = g.wl;
   bool column, far;
   int y, x, yn, xn;
@@ -191,6 +232,12 @@ __device__ __forceinline__ void k1_ring(const typename S::T* __restrict__ f_in,
   k1_ring_store<S, OBST, FULL>(&n, column, far, g.x_off + x, g.Wg, s, bc,
                                vel ? prof[yn] : 0.0f, f_out, aux, rho_out, u_out, plane,
                                geom_at(g, y, x));
+  if constexpr (SHARD) {
+    const size_t c = geom_at(g, y, x);
+    k1_push<S>(nb, g, y, x, [&](typename S::T* p, size_t i, int k) {
+      p[i] = f_out[k * plane + c];
+    });
+  }
 }
 
 // Blocks a SM the launch bounds keep. The fast step: what the update alone
@@ -219,7 +266,15 @@ constexpr int k1_min_blocks() {
 // interior column on lane 0), every warp store split two sectors with its
 // neighbour, and the card took partial-sector writes at about half the
 // rate of whole ones: the full step, 21 store planes a cell, ran at half
-// its bound (PERF.md). FULL also writes rho, u and f_post.
+// its bound (PERF.md). FULL also writes rho, u and f_post. A shard's
+// threads on the block's edge push what they stored (k1_push), from the
+// values they hold; the ring threads read theirs back, since their values
+// stay in the out-of-line k1_ring_store. With the push inline no _shard
+// instance spills or keeps more in local memory than its whole-grid twin,
+// and none needs a register more than fits the blocks a SM its launch
+// bounds ask for (phase 1 of chip_smoke.py prints them). ``nb`` is the
+// last parameter: placed before ``use_les`` it moved ptxas's allocation of
+// the whole-grid deviation-storage instance into 8 bytes of spills.
 template <typename S, int OBST, bool SHARD, bool FULL>
 __global__ void __launch_bounds__(256, k1_min_blocks<OBST, FULL>())
 k1_step_kernel(const typename S::T* __restrict__ f_in,
@@ -228,11 +283,13 @@ k1_step_kernel(const typename S::T* __restrict__ f_in,
                const float* __restrict__ prof, float* __restrict__ rho_out,
                float* __restrict__ u_out, float* __restrict__ fpost_out,
                const Scalars s, const BlockGeom geom, const BcTypes bc,
-               const int use_les, const int nr) {
+               const int use_les, const int nr, const ShardNbrs nb) {
   const BlockGeom g = fold_geom<SHARD>(geom);
   if ((int)blockIdx.y < nr) {
-    k1_ring<S, OBST, FULL>(f_in, f_out, aux, q, prof, rho_out, u_out, s, g, bc, use_les,
-                           (blockIdx.y * gridDim.x + blockIdx.x) * blockDim.x + threadIdx.x);
+    k1_ring<S, OBST, SHARD, FULL>(f_in, f_out, aux, q, prof, rho_out, u_out, s, g, bc, nb,
+                                  use_les,
+                                  (blockIdx.y * gridDim.x + blockIdx.x) * blockDim.x +
+                                      threadIdx.x);
     return;
   }
   const int i0 = max(0, 1 - g.y_off);
@@ -247,6 +304,10 @@ k1_step_kernel(const typename S::T* __restrict__ f_in,
   const bool solid = k1_collide<S, OBST>(f_in, aux, q, plane, c, g.pitch, s, use_les, &n);
   for (int k = 0; k < 9; ++k)
     S::store(f_out, k * plane + c, k, lbm_stored<OBST>(k, n.f, n.rho, solid));
+  if constexpr (SHARD)
+    k1_push<S>(nb, g, y, x, [&](typename S::T* p, size_t i, int k) {
+      S::store(p, i, k, lbm_stored<OBST>(k, n.f, n.rho, solid));
+    });
 
   if (FULL) {
     rho_out[c] = n.rho;
@@ -260,7 +321,8 @@ template <typename S, int OBST, bool SHARD, bool FULL>
 static void launch(const void* f_in, void* f_out, const void* aux,
                    const void* q, const void* prof, void* rho, void* u,
                    void* f_post, const Scalars& s, const BlockGeom& g,
-                   const BcTypes& bc, int use_les, cudaStream_t stream) {
+                   const BcTypes& bc, int use_les, cudaStream_t stream,
+                   const ShardNbrs& nb = ShardNbrs{}) {
   // the block's cells that are interior in the global grid
   const int i0 = std::max(0, 1 - g.y_off);
   const int i1 = std::min(g.hl - 1, g.Hg - 2 - g.y_off);
@@ -279,7 +341,7 @@ static void launch(const void* f_in, void* f_out, const void* aux,
       static_cast<typename S::T*>(f_out), static_cast<const float*>(aux),
       static_cast<const float*>(q), static_cast<const float*>(prof),
       static_cast<float*>(rho), static_cast<float*>(u),
-      static_cast<float*>(f_post), s, g, bc, use_les, nr);
+      static_cast<float*>(f_post), s, g, bc, use_les, nr, nb);
 }
 
 // The f32 step of one scheme: the full instance closes a chunk, the fast
@@ -288,13 +350,13 @@ template <int OBST, bool SHARD>
 static void launch_f32(const void* f_in, void* f_out, const void* aux, const void* q,
                        const void* prof, void* rho, void* u, void* f_post, const Scalars& s,
                        const BlockGeom& g, const BcTypes& bc, int use_les, int full,
-                       cudaStream_t st) {
+                       cudaStream_t st, const ShardNbrs& nb) {
   if (full)
     launch<F32Store, OBST, SHARD, true>(f_in, f_out, aux, q, prof, rho, u, f_post, s, g, bc,
-                                        use_les, st);
+                                        use_les, st, nb);
   else
     launch<F32Store, OBST, SHARD, false>(f_in, f_out, aux, q, prof, rho, u, f_post, s, g, bc,
-                                         use_les, st);
+                                         use_les, st, nb);
 }
 
 template <bool SHARD>
@@ -302,25 +364,25 @@ static int dispatch(const void* f_in, void* f_out, const void* aux,
                     const void* q, const void* prof, void* rho, void* u,
                     void* f_post, const void* scal, const BlockGeom& g,
                     const BcTypes& bc, int use_les, int full, int obst,
-                    void* stream) {
+                    void* stream, const ShardNbrs& nb = ShardNbrs{}) {
   const Scalars s = load_scalars(static_cast<const float*>(scal));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (obst) {
     case LBM_OBST_EQ:
       launch_f32<LBM_OBST_EQ, SHARD>(f_in, f_out, aux, q, prof, rho, u, f_post, s, g, bc,
-                                     use_les, full, st);
+                                     use_les, full, st, nb);
       break;
     case LBM_OBST_BOUNCE:
       launch_f32<LBM_OBST_BOUNCE, SHARD>(f_in, f_out, aux, q, prof, rho, u, f_post, s, g, bc,
-                                         use_les, full, st);
+                                         use_les, full, st, nb);
       break;
     case LBM_OBST_HALFWAY:
       launch_f32<LBM_OBST_HALFWAY, SHARD>(f_in, f_out, aux, q, prof, rho, u, f_post, s, g,
-                                          bc, use_les, full, st);
+                                          bc, use_les, full, st, nb);
       break;
     case LBM_OBST_BOUZIDI:
       launch_f32<LBM_OBST_BOUZIDI, SHARD>(f_in, f_out, aux, q, prof, rho, u, f_post, s, g,
-                                          bc, use_les, full, st);
+                                          bc, use_les, full, st, nb);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -500,37 +562,34 @@ static const void* table_at(const void* const* table, int b) {
 // n fast steps of every block: step i launches K1's _shard instance on each
 // block (device by device, on its stream) with row i of ``rows``, reading
 // f_in (step 0) or the previous step's output and writing f_a (even i) or
-// f_b (odd i), then refreshes the halos of what it wrote (ha for f_a, hb
-// for f_b) -- parallel/sharded.py fast_step's order; across devices each
-// device's refresh waits for its neighbours' K1 (MeshDevs). After each step
-// cudaGetLastError(); on a failure ``*failed`` is the step's index and the
-// rest are not launched.
+// f_b (odd i), its edge cells pushed into its neighbours' halos of the
+// same buffer (``na`` / ``nb``: each block's neighbours in f_a / f_b) --
+// parallel/sharded.py fast_step's result, with no second launch. Across
+// devices each device's step waits for its neighbours' previous step
+// (MeshDevs). After each step cudaGetLastError(); on a failure ``*failed``
+// is the step's index and the rest are not launched.
 template <typename S, int OBST>
 static int shard_steps_loop(const void* const* f_in, void* const* f_a, void* const* f_b,
                             const void* const* aux, const void* const* q,
-                            const void* const* prof, const BlockGeom* g, const HaloMesh& ha,
-                            const HaloMesh& hb, const float* rows, int n, const BcTypes& bc,
-                            int use_les, const MeshDevs& md, int* failed) {
+                            const void* const* prof, const BlockGeom* g, const ShardNbrs* na,
+                            const ShardNbrs* nb, const float* rows, int n, const BcTypes& bc,
+                            int use_les, MeshDevs& md, int* failed) {
+  md.open();
   for (int i = 0; i < n; ++i) {
     const Scalars s = load_scalars(rows + 14 * i);
     void* const* dst = (i & 1) ? f_b : f_a;
+    const ShardNbrs* nbrs = (i & 1) ? nb : na;
     const void* const* src =
         i == 0 ? f_in : reinterpret_cast<const void* const*>((i & 1) ? f_a : f_b);
     for (int d = 0; d < md.nd; ++d) {
-      const cudaStream_t st = md.use(d);
+      const cudaStream_t st = md.enter(d, i);
       for (int k = 0; k < md.nblk[d]; ++k) {
         const int b = md.blk[d][k];
         launch<S, OBST, true, false>(src[b], dst[b], aux[b], table_at(q, b),
                                      table_at(prof, b), nullptr, nullptr, nullptr, s, g[b], bc,
-                                     use_les, st);
+                                     use_les, st, nbrs[b]);
       }
-      md.record(d);
-    }
-    const HaloMesh& h = (i & 1) ? hb : ha;
-    for (int d = 0; d < md.nd; ++d) {
-      const cudaStream_t st = md.use(d);
-      md.wait(d);
-      halo_launch(md.part(h, d), sizeof(typename S::T), st);
+      md.leave(d, i);
     }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) {
@@ -539,6 +598,15 @@ static int shard_steps_loop(const void* const* f_in, void* const* f_a, void* con
     }
   }
   return 0;
+}
+
+// The neighbour tables of the ry x rx blocks ``blocks`` (shard_nbrs);
+// false if a block is null.
+static bool mesh_nbrs(void* const* blocks, int ry, int rx, ShardNbrs* out) {
+  for (int b = 0; b < ry * rx; ++b)
+    if (blocks[b] == nullptr) return false;
+  for (int b = 0; b < ry * rx; ++b) out[b] = shard_nbrs(blocks, ry, rx, b);
+  return true;
 }
 
 // The fast steps of a sharded chunk in one call, the counterpart of the
@@ -554,9 +622,10 @@ static int shard_steps_loop(const void* const* f_in, void* const* f_a, void* con
 // a device; peer access between the devices, mesh_peers_launch). ``rows``
 // [n, 14] is the chunk's host table of scalar rows, ``dev`` picks 16-bit
 // deviation storage (bf16 f; EQ and BOUNCE only) over f32. f_b may be f_in,
-// which only step 0 reads. Returns the CUDA error code (``*failed`` the
-// failing step, -1 for refused arguments) or 0; the caller's device stays
-// current.
+// which only step 0 reads. Each step's output carries its halos (the
+// pushes), as the halo refresh left them. Returns the CUDA error code
+// (``*failed`` the failing step, -1 for refused arguments) or 0; the
+// caller's device stays current.
 extern "C" int k1_shard_steps_launch(const void* f_in, const void* f_a, const void* f_b,
                                      const void* aux, const void* q, const void* prof,
                                      const int* geoms, int ry, int rx, const void* rows, int n,
@@ -572,9 +641,8 @@ extern "C" int k1_shard_steps_launch(const void* f_in, const void* f_a, const vo
   auto ax = static_cast<const void* const*>(aux);
   auto qt = static_cast<const void* const*>(q);
   auto pt = static_cast<const void* const*>(prof);
-  HaloMesh ha, hb;
-  if (!halo_mesh(fa, ry, rx, g[0].hl, g[0].wl, g[0].pitch, 9, &ha) ||
-      !halo_mesh(fb, ry, rx, g[0].hl, g[0].wl, g[0].pitch, 9, &hb))
+  ShardNbrs na[LBM_HALO_MAX_BLOCKS], nb[LBM_HALO_MAX_BLOCKS];
+  if (!mesh_nbrs(fa, ry, rx, na) || !mesh_nbrs(fb, ry, rx, nb))
     return static_cast<int>(cudaErrorInvalidValue);
   MeshDevs md;
   if (!md.init(devs, static_cast<void* const*>(const_cast<void*>(streams)), ry, rx))
@@ -584,27 +652,27 @@ extern "C" int k1_shard_steps_launch(const void* f_in, const void* f_a, const vo
   if (dev) {
     switch (obst) {
       case LBM_OBST_EQ:
-        return shard_steps_loop<DevStore, LBM_OBST_EQ>(fi, fa, fb, ax, nullptr, pt, g, ha, hb,
+        return shard_steps_loop<DevStore, LBM_OBST_EQ>(fi, fa, fb, ax, nullptr, pt, g, na, nb,
                                                        r, n, bc, use_les, md, failed);
       case LBM_OBST_BOUNCE:
-        return shard_steps_loop<DevStore, LBM_OBST_BOUNCE>(fi, fa, fb, ax, nullptr, pt, g, ha,
-                                                           hb, r, n, bc, use_les, md, failed);
+        return shard_steps_loop<DevStore, LBM_OBST_BOUNCE>(fi, fa, fb, ax, nullptr, pt, g, na,
+                                                           nb, r, n, bc, use_les, md, failed);
       default:
         return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   switch (obst) {
     case LBM_OBST_EQ:
-      return shard_steps_loop<F32Store, LBM_OBST_EQ>(fi, fa, fb, ax, qt, pt, g, ha, hb, r, n,
+      return shard_steps_loop<F32Store, LBM_OBST_EQ>(fi, fa, fb, ax, qt, pt, g, na, nb, r, n,
                                                      bc, use_les, md, failed);
     case LBM_OBST_BOUNCE:
-      return shard_steps_loop<F32Store, LBM_OBST_BOUNCE>(fi, fa, fb, ax, qt, pt, g, ha, hb, r,
+      return shard_steps_loop<F32Store, LBM_OBST_BOUNCE>(fi, fa, fb, ax, qt, pt, g, na, nb, r,
                                                          n, bc, use_les, md, failed);
     case LBM_OBST_HALFWAY:
-      return shard_steps_loop<F32Store, LBM_OBST_HALFWAY>(fi, fa, fb, ax, qt, pt, g, ha, hb, r,
+      return shard_steps_loop<F32Store, LBM_OBST_HALFWAY>(fi, fa, fb, ax, qt, pt, g, na, nb, r,
                                                           n, bc, use_les, md, failed);
     case LBM_OBST_BOUZIDI:
-      return shard_steps_loop<F32Store, LBM_OBST_BOUZIDI>(fi, fa, fb, ax, qt, pt, g, ha, hb, r,
+      return shard_steps_loop<F32Store, LBM_OBST_BOUZIDI>(fi, fa, fb, ax, qt, pt, g, na, nb, r,
                                                           n, bc, use_les, md, failed);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -613,10 +681,11 @@ extern "C" int k1_shard_steps_launch(const void* f_in, const void* f_a, const vo
 
 // The closing full step of a sharded chunk in one call: K1's full _shard
 // instance on every block (f32 f_in -> f_out, writing rho, u and f_post),
-// then the halo refresh of f_out, which the next chunk reads. Tables as for
-// k1_shard_steps_launch, plus rho [hl + 2, pitch], u [2, ...] and f_post
-// [9, ...] of each block and the host scalar row ``scal``. Returns the CUDA
-// error code (cudaErrorInvalidValue for refused arguments) or 0.
+// its edge cells pushed into the neighbours' halos of f_out, which the next
+// chunk reads. Tables as for k1_shard_steps_launch, plus rho [hl + 2,
+// pitch], u [2, ...] and f_post [9, ...] of each block and the host scalar
+// row ``scal``. Returns the CUDA error code (cudaErrorInvalidValue for
+// refused arguments) or 0.
 extern "C" int k1_shard_full_launch(const void* f_in, const void* f_out, const void* aux,
                                     const void* q, const void* prof, const void* rho,
                                     const void* u, const void* f_post, const void* scal,
@@ -627,9 +696,8 @@ extern "C" int k1_shard_full_launch(const void* f_in, const void* f_out, const v
   if (!mesh_geoms(geoms, ry, rx, g) || obst < LBM_OBST_EQ || obst > LBM_OBST_BOUZIDI)
     return static_cast<int>(cudaErrorInvalidValue);
   auto fo = static_cast<void* const*>(const_cast<void*>(f_out));
-  HaloMesh h;
-  if (!halo_mesh(fo, ry, rx, g[0].hl, g[0].wl, g[0].pitch, 9, &h))
-    return static_cast<int>(cudaErrorInvalidValue);
+  ShardNbrs no[LBM_HALO_MAX_BLOCKS];
+  if (!mesh_nbrs(fo, ry, rx, no)) return static_cast<int>(cudaErrorInvalidValue);
   MeshDevs md;
   if (!md.init(devs, static_cast<void* const*>(const_cast<void*>(streams)), ry, rx))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -641,36 +709,18 @@ extern "C" int k1_shard_full_launch(const void* f_in, const void* f_out, const v
   auto ut = static_cast<void* const*>(const_cast<void*>(u));
   auto ft = static_cast<void* const*>(const_cast<void*>(f_post));
   const BcTypes bc{bc_left, bc_top, bc_right, bc_bottom};
+  md.open();
   for (int d = 0; d < md.nd; ++d) {
-    const cudaStream_t st = md.use(d);
+    const cudaStream_t st = md.enter(d, 0);
     for (int k = 0; k < md.nblk[d]; ++k) {
       const int b = md.blk[d][k];
       const int rc = dispatch<true>(fi[b], fo[b], ax[b], table_at(qt, b), table_at(pt, b),
-                                    rt[b], ut[b], ft[b], scal, g[b], bc, use_les, 1, obst, st);
+                                    rt[b], ut[b], ft[b], scal, g[b], bc, use_les, 1, obst, st,
+                                    no[b]);
       if (rc != 0) return rc;
     }
+    md.leave(d, 0);
   }
-  md.refresh(h, 4);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// One halo refresh (halo.cuh) of the ry x rx blocks in the host table
-// ``blocks`` (row major; [planes, hl + 2, pitch] each, elements of
-// ``elem_bytes`` 4 or 2), each block on device ``devs[b]`` and its stream
-// ``streams[b]``: a launch a device. Returns the CUDA error code
-// (cudaErrorInvalidValue for refused arguments) or 0.
-extern "C" int halo_exchange_launch(const void* blocks, int ry, int rx, int hl, int wl,
-                                    int pitch, int planes, int elem_bytes, const int* devs,
-                                    const void* streams) {
-  HaloMesh m;
-  if ((elem_bytes != 4 && elem_bytes != 2) ||
-      !halo_mesh(static_cast<void* const*>(const_cast<void*>(blocks)), ry, rx, hl, wl, pitch,
-                 planes, &m))
-    return static_cast<int>(cudaErrorInvalidValue);
-  MeshDevs md;
-  if (!md.init(devs, static_cast<void* const*>(const_cast<void*>(streams)), ry, rx))
-    return static_cast<int>(cudaErrorInvalidValue);
-  md.refresh(m, elem_bytes);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -52,12 +53,11 @@ KERNELS = {
     # a sharded chunk on a mesh whose blocks live on the cards of one
     # process: host tables of the blocks' pointers and geometries, the mesh
     # grid, then as k1_steps, with host tables of each block's device and
-    # stream; the closing full step on every block; one halo refresh; peer
-    # access between the mesh's cards
+    # stream; the closing full step on every block; peer access between the
+    # mesh's cards
     "k1_shard_steps": ("k1_step", "k1_shard_steps_launch",
                        [_P] * 7 + [_I, _I, _P] + [_I] * 8 + [_P] * 3),
     "k1_shard_full": ("k1_step", "k1_shard_full_launch", [_P] * 10 + [_I] * 8 + [_P] * 2),
-    "halo_exchange": ("k1_step", "halo_exchange_launch", [_P] + [_I] * 7 + [_P] * 2),
     "mesh_peers": ("k1_step", "mesh_peers_launch", [_P, _I]),
     "k3_fused": ("k3_fused", "k3_fused_launch", [_P] * 5 + [_I] * 11 + [_P]),
     "k3_passes": ("k3_fused", "k3_passes_launch", [_P] * 6 + [_I] * 12 + [_P, _P]),
@@ -141,3 +141,76 @@ def load(name: str):
             fn.restype = ctypes.c_int
             _ENTRIES[name] = fn
         return fn
+
+
+def ptxas_usage(log: str):
+    """{function: (registers a thread or None, spill store bytes, spill
+    load bytes)} of every kernel instance (with its registers) and every
+    out-of-line device function in ptxas's -v output (``BUILD_LOG``)."""
+    out, entry, fn = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn:
+            out[fn] = (out.get(fn, (None,))[0], int(m.group(1)), int(m.group(2)))
+            fn = None
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out[entry] = (int(m.group(1)),) + out.get(entry, (None, 0, 0))[1:]
+            entry = None
+    return out
+
+
+def ptxas_stack(log: str):
+    """{function: stack frame bytes} from ptxas's -v output. A K1 instance
+    whose stack frame grows holds some of its values in local memory on
+    every thread (an array indexed at run time), with no spill reported."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and fn:
+            out[fn] = int(m.group(1))
+            fn = None
+    return out
+
+
+def _k1_key(entry: str):
+    """(storage, scheme, shard, full) of a K1 instance's mangled name
+    (k1_step_kernel<S, OBST, SHARD, FULL>), or None."""
+    k = re.search(r"k1_step_kernelI\d+(F32Store|DevStore)Li(\d)ELb([01])ELb([01])E", entry)
+    return k and (k.group(1), int(k.group(2)), k.group(3) == "1", k.group(4) == "1")
+
+
+def k1_registers(log: str):
+    """{(storage, scheme, shard, full): (registers a thread, spill stores,
+    spill loads)} of the K1 instances in ptxas's -v output."""
+    return {_k1_key(e): use for e, use in ptxas_usage(log).items() if _k1_key(e)}
+
+
+def k1_stack_frames(log: str):
+    """{(storage, scheme, shard, full): stack frame bytes} of the K1
+    instances in ptxas's -v output."""
+    return {_k1_key(e): n for e, n in ptxas_stack(log).items() if _k1_key(e)}
+
+
+def k3_registers(log: str):
+    """{(scheme, window columns): (registers a thread, spill stores, spill
+    loads)} of the K3 kernel instances (k3_fused_kernel<OBST, WW>)."""
+    out = {}
+    for entry, use in ptxas_usage(log).items():
+        k = re.search(r"k3_fused_kernelILi(\d)ELi(\d+)E", entry)
+        if k:
+            out[int(k.group(1)), int(k.group(2))] = use
+    return out

@@ -37,11 +37,17 @@ block lies on the global edge; they count as the ``_shard`` variants. On
 a mesh whose blocks live on the cards of one process (a card each over
 peer access, or several on one) a sharded chunk is one program too:
 ``k1_shard_steps`` (C entry ``k1_shard_steps_launch``) runs every block's
-fast K1 on its card's stream and then the halo refresh (``halo_exchange``,
-the kernel of ``csrc/halo.cuh``, one launch a card, after one event a
-card) step after step inside the library, from host tables cut once a
-case (``ShardTables``), and ``k1_shard_full`` closes the chunk: every
-block's full step and one refresh.
+fast K1 on its card's stream step after step inside the library, from
+host tables cut once a case (``ShardTables``), and ``k1_shard_full``
+closes the chunk with every block's full step. There the halo has no
+launch of its own: each K1 thread that stores a cell on its block's edge
+also stores it into the halo slot of each neighbour that reads it (the
+push, ``csrc/halo.cuh``), so a step is one K1 launch a block, and each
+card's step waits for its neighbouring cards' previous one (two events a
+card, by the step's parity). A ``_shard`` launch through ``k1_step`` /
+``k1_step_dev`` pushes nothing: the per-step loop refreshes the halos by
+copies (``halo_exchange_plain``). The library loop's plain version is the
+same per-block plain step followed by ``halo_exchange_plain``.
 
 A chunk is issued as one program, as the JAX package's jit over lax.scan
 issues it: its scalar rows are one host table built once (``scalar_rows``;
@@ -135,12 +141,6 @@ def k1_variant(obstacle: int, full: bool = False, dev: bool = False,
             + ("_full" if full else "_dev" if dev else ""))
 
 
-def halo_variant(dtype: torch.dtype) -> str:
-    """Launch-count name of the halo refresh kernel: halo_exchange (f32),
-    halo_exchange_dev (bf16 deviations)."""
-    return "halo_exchange" + ("_dev" if dtype == DEV_DTYPE else "")
-
-
 def k3_variant(obstacle: int, left_type: int) -> str:
     """Launch-count name of a K3 variant: k3_fused[_bounce|_halfway][_vel],
     ``_vel`` for the profiled velocity inlets (left types 3/4)."""
@@ -157,7 +157,6 @@ KERNEL_VARIANTS = (
     + [k3_variant(o, t) for o in FUSE_OBSTACLES for t in (BC_INLET, BC_VEL_INLET)]
     + [k1_variant(o, full, shard=True) for o in range(4) for full in (False, True)]
     + [k1_variant(o, dev=True, shard=True) for o in DEV_OBSTACLES]
-    + ["halo_exchange", "halo_exchange_dev"]
 )
 
 # launches of each kernel variant, added to where the launch is made
@@ -854,7 +853,7 @@ def k1_steps(f_in, f_a, f_b, aux, rows, use_les, bc_type, obstacle=OBSTACLE_EQ, 
 # A sharded chunk on a mesh whose blocks live on the cards of one process
 # ---------------------------------------------------------------------------
 
-# the blocks a mesh may have for the kernels' tables (csrc/halo.cuh
+# the blocks a mesh may have for the kernels' host tables (csrc/halo.cuh
 # LBM_HALO_MAX_BLOCKS); a larger mesh takes the per-step loop
 MAX_MESH_BLOCKS = 64
 
@@ -905,11 +904,13 @@ def k1_blocks(src, dst, inputs, scal, use_les, bc_type, obstacle=OBSTACLE_EQ, de
 
 
 def halo_exchange_plain(blocks, hl: int, wl: int) -> None:
-    """Plain version of ``halo_exchange``, on blocks anywhere (one device or
-    several): the x edges first, then the y edges with the x halos just
-    written (corners in two hops); block sides on the global edge are left
-    alone, and a 1x1 mesh copies nothing. The single-process body of
-    ``parallel/sharded.exchange_halos``."""
+    """Refresh the 1-cell halo ring of the [ry][rx] halo'd blocks [C, hl +
+    2, pitch] in place, on blocks anywhere (one device or several): the x
+    edges first, then the y edges with the x halos just written (corners in
+    two hops); block sides on the global edge are left alone, and a 1x1
+    mesh copies nothing. The single-process body of
+    ``parallel/sharded.exchange_halos``, and the halo half of the plain
+    version of the library loop, whose K1 pushes the same cells."""
     ry, rx = len(blocks), len(blocks[0])
     rows = slice(1, hl + 1)
     for iy in range(ry):
@@ -964,42 +965,6 @@ def _streams(devices):
     """A host table of each block's device's current stream."""
     return (ctypes.c_void_p * len(devices))(
         *[torch.cuda.current_stream(d).cuda_stream for d in devices])
-
-
-def halo_exchange(blocks, hl: int, wl: int) -> None:
-    """Refresh the 1-cell halo ring of the [ry][rx] halo'd blocks [C, hl +
-    2, pitch] of a mesh in place, one launch of the halo kernel
-    (csrc/halo.cuh) a card over its blocks, each pulling its neighbours'
-    edges (across cards over peer access, after their streams' queued
-    work): what ``halo_exchange_plain`` writes, bitwise. f32 or bf16 blocks
-    on the CUDA devices of this process; none launched on a 1x1 mesh.
-    Counted as one ``halo_variant(dtype)`` a card."""
-    b0 = blocks[0][0]
-    if not b0.is_cuda:
-        return halo_exchange_plain(blocks, hl, wl)
-    grid = (len(blocks), len(blocks[0]))
-    nb = grid[0] * grid[1]
-    if nb > MAX_MESH_BLOCKS:
-        raise ValueError(f"halo_exchange: {nb} blocks, the kernel takes {MAX_MESH_BLOCKS}")
-    C, pitch = b0.shape[0], b0.shape[-1]
-    if b0.dim() != 3 or pitch < wl + 2:
-        raise ValueError(f"halo_exchange: blocks {tuple(b0.shape)}, need [C, {hl + 2}, "
-                         f">= {wl + 2}]")
-    devices = [b.device for b in _flat(blocks)]
-    _check_blocks("halo_exchange", blocks, grid, (C, hl + 2, pitch), devices,
-                  (torch.float32, DEV_DTYPE))
-    if nb == 1:
-        return
-    table = _table(blocks)
-    ords, distinct = _mesh_devices(devices)
-    streams = _streams(devices)  # held: the call reads it through its address
-    with _launch_device(b0.device):
-        rc = cuda_build.load("halo_exchange")(
-            ctypes.addressof(table), grid[0], grid[1], hl, wl, pitch, C, b0.element_size(),
-            ctypes.addressof(ords), ctypes.addressof(streams))
-    if rc != 0:
-        raise RuntimeError(f"halo_exchange launch failed: CUDA error {rc}")
-    LAUNCHES[halo_variant(b0.dtype)] += len(distinct)
 
 
 class ShardTables:
@@ -1067,10 +1032,6 @@ class ShardTables:
         ords, _ = _mesh_devices(self.devices)
         return self.devices[0], ords, _streams(self.devices)
 
-    def halo_launches(self) -> int:
-        """Launches of the halo kernel a refresh: one a card, none on 1x1."""
-        return self.n_devices if self.n_blocks > 1 else 0
-
 
 def k1_shard_steps_plain(f_in, f_a, f_b, tables: ShardTables, rows, use_les, bc_type,
                          obstacle=OBSTACLE_EQ, dev=False):
@@ -1094,14 +1055,14 @@ def k1_shard_steps(f_in, f_a, f_b, tables: ShardTables, rows, use_les, bc_type,
     (``ShardTables``): step i launches K1's ``_shard`` form on every block,
     on its device's current stream, with row i of the CPU table ``rows``
     [n, 14], reading f_in (step 0) or the previous step's output and writing
-    f_a (even i) or f_b (odd i), then refreshes the halos of what it wrote
-    (the halo kernel, a launch a card, across cards after one event a card).
-    f_in, f_a, f_b are the [ry][rx] halo'd blocks of f (f_b may be f_in):
-    f32, or with ``dev`` bf16 deviations (equilibrium and full-way
-    bounce-back). Every table is checked before the call. Returns the
-    blocks holding f; counted as n launches of ``k1_variant(obstacle,
-    dev=dev, shard=True)`` a block and n of ``halo_variant`` a card (none
-    on a 1x1 mesh)."""
+    f_a (even i) or f_b (odd i), the edge cells pushed into the
+    neighbours' halos of the same buffer (no other launch; across cards
+    each card's step after its neighbours' previous one). f_in, f_a, f_b
+    are the [ry][rx] halo'd blocks of f (f_b may be f_in): f32, or with
+    ``dev`` bf16 deviations (equilibrium and full-way bounce-back). Every
+    table is checked before the call. Returns the blocks holding f, halos
+    refreshed; counted as n launches of ``k1_variant(obstacle, dev=dev,
+    shard=True)`` a block."""
     if not f_in[0][0].is_cuda:
         return k1_shard_steps_plain(f_in, f_a, f_b, tables, rows, use_les, bc_type, obstacle,
                                     dev)
@@ -1128,7 +1089,6 @@ def k1_shard_steps(f_in, f_a, f_b, tables: ShardTables, rows, use_les, bc_type,
         )
     done = n if rc == 0 else max(failed.value, 0)
     LAUNCHES[k1_variant(obstacle, dev=bool(dev), shard=True)] += nb * done
-    LAUNCHES[halo_variant(dtype)] += tables.halo_launches() * done
     if rc != 0:
         raise _loop_failed("k1_shard_steps", rc, failed.value, n)
     return _ping_pong(f_in, f_a, f_b, n)
@@ -1147,10 +1107,10 @@ def k1_shard_full(f_in, f_out, tables: ShardTables, scal, use_les, bc_type, rho,
                   obstacle=OBSTACLE_EQ):
     """The closing full step of a sharded chunk in one call of the shared
     library: K1's full ``_shard`` form on every block (f32 f_in -> f_out,
-    writing the blocks' rho, u and f_post), then the halo refresh of f_out;
-    ``scal`` the step's CPU scalar row. Counted as one launch of
-    ``k1_variant(obstacle, full=True, shard=True)`` a block and one of
-    ``halo_exchange`` a card (none on a 1x1 mesh)."""
+    writing the blocks' rho, u and f_post), the edge cells of f_out pushed
+    into the neighbours' halos, which the next chunk reads; ``scal`` the
+    step's CPU scalar row. Counted as one launch of ``k1_variant(obstacle,
+    full=True, shard=True)`` a block."""
     if not f_in[0][0].is_cuda:
         return k1_shard_full_plain(f_in, f_out, tables, scal, use_les, bc_type, rho, u, f_post,
                                    obstacle)
@@ -1179,7 +1139,6 @@ def k1_shard_full(f_in, f_out, tables: ShardTables, scal, use_les, bc_type, rho,
     if rc != 0:
         raise RuntimeError(f"k1_shard_full launch failed: CUDA error {rc}")
     LAUNCHES[k1_variant(obstacle, full=True, shard=True)] += tables.n_blocks
-    LAUNCHES[halo_variant(torch.float32)] += tables.halo_launches()
 
 
 # ---------------------------------------------------------------------------

@@ -6,12 +6,13 @@ device mesh (``parallel/topology.py``). Each lattice step a block needs a
 1-cell halo of its neighbours' cells, refreshed in two phases as in the
 JAX package: x edges first, then y edges carrying the x halos just
 written, so the corner cells the diagonal velocities read arrive in two
-hops. One process drives every block, as ``shard_map`` does; the halos
-move by device-to-device copies where the JAX package uses
-``lax.ppermute``. Halos beyond the global edge are never read: only cells
-interior in the global grid are collided, and the boundary conditions act
-on the blocks that hold the global ring, gated by each block's global
-origin, in the reference order. So a mesh of any shape runs the same
+hops. One process drives every block, as ``shard_map`` does; where the
+JAX package uses ``lax.ppermute`` the halos move by K1's own stores into
+its neighbours' halos (the library loop below) or by device-to-device
+copies (the per-step loop), the same cells either way. Halos beyond the
+global edge are never read: only cells interior in the global grid are
+collided, and the boundary conditions act on the blocks that hold the
+global ring, gated by each block's global origin, in the reference order. So a mesh of any shape runs the same
 arithmetic on every cell as the single-device step, bitwise.
 
 A case's state lives on its blocks (``topology.BlockState``), as the JAX
@@ -32,14 +33,18 @@ reads one. Two runners advance the blocks:
   ``--spatial_mesh`` over a host's cards (peer access between them), or
   one device for all -- a chunk is one program, as the JAX package's jit
   over shard_map and lax.scan is: ``cuda_step.k1_shard_steps`` runs its
-  fast steps in the library (each step every block's K1 on its card's
-  stream, then the halo kernel of ``csrc/halo.cuh``, one launch a card,
-  each block pulling its neighbours' edges over peer access after one
-  event a card) and ``cuda_step.k1_shard_full`` closes it, from host
-  tables cut once a case (``ShardedCase.tables``). A mesh spanning
-  processes, or cards without peer access, issues each step from Python
-  (``fast_step``: a K1 call a block, then ``exchange_halos``); the mesh
-  decides (``shard_loop_refusal``), never a failure. That per-step loop,
+  fast steps in the library and ``cuda_step.k1_shard_full`` closes it,
+  from host tables cut once a case (``ShardedCase.tables``). There a step
+  is one K1 launch a block and nothing else: each thread that stores a
+  cell on its block's edge also stores it into the halo slot of each
+  neighbour that reads it (the push, ``csrc/halo.cuh``; over peer access
+  when the neighbour is on another card), and each card's step i waits
+  for its neighbouring cards' step i - 1 (two events a card, by the
+  step's parity), which covers both the halos it reads and the buffers
+  it pushes into. A mesh spanning processes, or cards without peer
+  access, issues each step from Python (``fast_step``: a K1 call a block,
+  pushing nothing, then ``exchange_halos``); the mesh decides
+  (``shard_loop_refusal``), never a failure. That per-step loop,
   through the kernels' plain versions, is also the "plain" runner, and
   through the kernels the "stepwise" runner the library loop is held to on
   the card. With ``store_dev`` the resident blocks stay f32: the fast
@@ -347,8 +352,8 @@ def shard_loop_refusal(mesh: Mesh) -> Optional[str]:
     """Why a sharded chunk on ``mesh`` cannot run in the library loop
     (``cuda_step.k1_shard_steps``), or None: every block must be this
     process's, at most ``cuda_step.MAX_MESH_BLOCKS`` of them, on one device
-    or on CUDA devices with peer access between every pair (the halo
-    kernel on a card reads its neighbours' edges where they live)."""
+    or on CUDA devices with peer access between every pair (K1 on a card
+    pushes its edges into its neighbours' halos where they live)."""
     ry, rx = mesh.grid
     if any(not mesh.owns(iy, ix) for iy in range(ry) for ix in range(rx)):
         return "the mesh spans processes (halos through multihost.exchange)"
@@ -444,8 +449,9 @@ def advance_blocks(bs: BlockState, case: ShardedCase, n_steps: int, store_dev: b
     Where the mesh takes the library loop (``case.tables``) the chunk is
     one program, as run_chunk_sharded_pallas's jit over shard_map and
     lax.scan is: two library calls, ``cuda_step.k1_shard_steps`` (every
-    fast step, each block's K1 and the halo refresh inside the library) and
-    ``cuda_step.k1_shard_full`` (the closing step). Other meshes, ``plain``
+    fast step, each block's K1 pushing its edges into its neighbours'
+    halos) and ``cuda_step.k1_shard_full`` (the closing step). Other
+    meshes, ``plain``
     and ``stepwise`` issue each step from Python (``fast_step``: a K1 call a
     block, then ``exchange_halos``), the reference the library loop is held
     to, bitwise."""
@@ -456,8 +462,9 @@ def advance_blocks(bs: BlockState, case: ShardedCase, n_steps: int, store_dev: b
                  and cs.dev_storage_refusal(p, sharded=True) is None)
     f_in, f_a = bs.f, bs.f_alt
     if dev_store:
-        # quantize once per chunk, halos included: the halo refresh then
-        # moves bf16 deviations, as the JAX package's ppermute rows do
+        # quantize once per chunk, halos included (the halos the last
+        # chunk's full step pushed in f32): the halo refresh then moves
+        # bf16 deviations, as the JAX package's ppermute rows do
         f_in = [[b if b is None else cs.quantize(b) for b in row] for row in f_in]
         f_a = [[b if b is None else b.clone() for b in row] for row in f_in]
     rows = cs.scalar_rows(p, bs.step, n_steps)

@@ -2,9 +2,9 @@
 ``--spatial_mesh 2x2`` gets from the engine on such a host (block i on
 cuda:i, ``engine.make_spatial_mesh``), through the library loop
 (``cuda_step.k1_shard_steps`` / ``k1_shard_full``: each block's K1 on its
-card's stream, the halo kernel of ``csrc/halo.cuh`` pulling the
-neighbours' edges over peer access after one event a card) and through the
-per-step loop (the "stepwise" runner: a K1 call a block and the strided
+card's stream, pushing its edge cells into the neighbours' halos over peer
+access, each card's step after its neighbours' previous one, two events a
+card; ``csrc/halo.cuh``) and through the per-step loop (the "stepwise" runner: a K1 call a block and the strided
 halo copies of ``exchange_halos``, issued from Python each step), in turns.
 
 Run from the repository root on a host with four NVIDIA GPUs joined by
@@ -17,16 +17,17 @@ production-shaped smoke case at 2432x1152 (100-step chunks):
 
 - a check: one chunk from a seeded random state through both loops, f,
   f_post, rho, u, force and max_v bitwise, the library loop's launches one
-  K1 a block a step and one halo launch a card a step; any difference
-  raises and the process exits non-zero;
+  K1 a block a step and nothing else; any difference raises and the
+  process exits non-zero;
 - four turns (per-step, library, library, per-step) of ``--chunks`` chunks
   on the resident blocks: us/step from the wall clock between syncs of
   every card, and the host's issue us/step (the time to return from the
   chunks' calls: once a card's launch queue fills, the host waits on it);
 - one chunk of each loop issued from idle cards, the host's issue us/step;
 - one block's K1 step on card 0 in a CUDA graph (the floor of a step),
-  and the halo kernel's refresh of the four cards against the per-step
-  loop's copies, wall time between syncs.
+  and one fast step of the four cards through the library loop (K1 and its
+  pushes) and through the per-step loop (K1 and the copies of the halo
+  refresh), and the copies alone, wall time between syncs.
 
 Prints one line a case, then the cards' name and power limit.
 """
@@ -107,8 +108,7 @@ def run_case(tag: str, p: solver.CaseParams, chunk: int, n_chunks: int,
     _same(f"{tag} check", a, b, ma, mb)
     obst = case.obstacle
     want = {cs.k1_variant(obst, shard=True): 4 * (CHECK_STEPS - 1),
-            cs.k1_variant(obst, full=True, shard=True): 4,
-            "halo_exchange": case.tables.halo_launches() * CHECK_STEPS}
+            cs.k1_variant(obst, full=True, shard=True): 4}
     got = {k: v for k, v in la.items() if v}
     if got != want:
         raise AssertionError(f"{tag}: library loop launches {got}, want {want}")
@@ -131,7 +131,8 @@ def run_case(tag: str, p: solver.CaseParams, chunk: int, n_chunks: int,
             for k, r in runners.items()}
     if not torch.isfinite(bs.gather("f")).all():
         raise AssertionError(f"{tag}: non-finite state")
-    # one block's K1 on card 0, and one halo refresh of the four cards
+    # one block's K1 on card 0; one step of the four cards in each loop,
+    # and the per-step loop's halo copies alone
     row = cs.scalar_row(p, bs.step + 1)
     g00 = case.geoms[0][0]
     k1_ms = graph_ms(lambda: cs.k1_step(bs.f[0][0], bs.f_alt[0][0], case.aux[0][0], row,
@@ -141,15 +142,23 @@ def run_case(tag: str, p: solver.CaseParams, chunk: int, n_chunks: int,
                                         geom=g00), per_graph=10)
     reps = 50
 
-    def halos():
+    rows = row.reshape(1, -1).contiguous()
+
+    def library_steps():
         for _ in range(reps):
-            cs.halo_exchange(bs.f, case.hl, case.wl)
+            cs.k1_shard_steps(bs.f, bs.f_alt, bs.f, case.tables, rows, p.use_les, p.bc_type,
+                              obst)
+
+    def per_steps():
+        for _ in range(reps):
+            sh.fast_step(bs.f, bs.f_alt, case, row, False)
 
     def copies():
         for _ in range(reps):
             sh.exchange_halos(bs.f, mesh, case.hl, case.wl)
 
-    halo_us = min(_wall_us(halos, reps)[0] for _ in range(3))
+    lib_us = min(_wall_us(library_steps, reps)[0] for _ in range(3))
+    per_us = min(_wall_us(per_steps, reps)[0] for _ in range(3))
     copy_us = min(_wall_us(copies, reps)[0] for _ in range(3))
     line = {
         "case": tag, "grid": [H, W],
@@ -159,7 +168,7 @@ def run_case(tag: str, p: solver.CaseParams, chunk: int, n_chunks: int,
         "per_step_us_step": [t[0] for t in turns["stepwise"]],
         "per_step_issue_us_step": [t[1] for t in turns["stepwise"]],
         "idle_issue_us_step": {"library": idle["cuda"], "per_step": idle["stepwise"]},
-        "block_k1_us": k1_ms * 1e3, "halo_refresh_us": halo_us,
+        "block_k1_us": k1_ms * 1e3, "library_step_us": lib_us, "per_step_step_us": per_us,
         "exchange_halos_us": copy_us,
         "check": f"{CHECK_STEPS} steps bitwise, launches {want}",
     }

@@ -1,5 +1,6 @@
 """A sharded chunk as one host call (``cuda_step.k1_shard_steps`` /
-``k1_shard_full`` and the halo kernel of ``csrc/halo.cuh``) on the CPU.
+``k1_shard_full``: each step one K1 launch a block, whose edge cells are
+pushed into the neighbours' halos, ``csrc/halo.cuh``) on the CPU.
 
 On a mesh whose blocks all live in this process -- a card each with peer
 access between the cards (the engine's ``--spatial_mesh`` layout), or one
@@ -22,18 +23,29 @@ body as the per-step loop (``cuda_step.k1_blocks``). Held here:
   their deviations at other places, and a state far from rest grows that
   apart); the f64 limit there is the eager runner's: the kernels and their
   plain versions are f32 only;
-- the halo kernel's thread map (a model that mirrors ``halo_kernel``
-  line by line, every thread reading the blocks as they were before the
-  launch) against ``halo_exchange_plain``, bitwise;
+- the push map (a model that mirrors ``k1_push`` line by line: for each
+  block's own edge cell, the halo slots it writes) against
+  ``halo_exchange_plain``, bitwise, with exactly one writer for every halo
+  slot off the global edge and none on a global-edge side; and that every
+  buffer the library loop writes holds, in the corner halo slots no cell
+  pushes into, the bits the pull would copy there (the placed NaN);
+- the cards' issue order (a model of ``MeshDevs``: each device's waits and
+  records, step by step): no push of step i before a neighbour has
+  finished its step i - 1, no two devices waiting on each other within a
+  step, and the caller's work ordered before the first step and after the
+  last;
 - which meshes take the library loop (``sharded.shard_loop_refusal``: one
   device, or cards with peer access; never a mesh spanning processes), and
   that the others keep the per-step loop; wrong host tables raise before
   any launch.
 
 The ``cuda`` tests run the kernels on the card and skip here: the library
-loop against the per-step loop through the same kernels, on meshes of one
-card and, with four cards, on the engine's 2x2 layout over them and on two
-blocks a card. They need torch alone, so the JAX package is imported inside
+loop (one K1 launch a block a step, no other) against the per-step loop
+through the same kernels, whole buffers with their halos bitwise, on
+meshes of one card and, with four cards, on the engine's 2x2 layout over
+them and on two blocks a card; one mesh step's pushes against
+``halo_exchange_plain``; and the whole-grid K1 instances' ptxas registers
+and spills, which the push must not change. They need torch alone, so the JAX package is imported inside
 the one test that compares with it (the root conftest has put JAX on the
 CPU by then), and the card runs this file with ``--noconftest -m cuda``.
 """
@@ -264,72 +276,256 @@ def test_wrong_host_tables_raise():
 
 
 # ---------------------------------------------------------------------------
-# The halo kernel's thread map
+# The push map and the cards' issue order
 # ---------------------------------------------------------------------------
 
 
-def halo_kernel_model(blocks, hl, wl):
-    """``csrc/halo.cuh`` halo_kernel, thread by thread: each thread's
-    destination and source as the kernel computes them, every read taken
-    from the blocks as they were before the launch (one launch: no thread
-    sees another's write)."""
+def shard_nbr_slot(dy, dx):
+    """``csrc/halo.cuh`` shard_nbr_slot."""
+    i = (dy + 1) * 3 + (dx + 1)
+    return i - (i > 4)
+
+
+def push_targets(ry, rx, iy, ix, hl, wl, y, x):
+    """``csrc/k1_step.cu`` k1_push for own cell (y, x) of block (iy, ix):
+    the (block, stored row, stored column) slots it writes, in its order."""
+    dy = 1 if y == hl - 1 else (-1 if y == 0 else 0)
+    dx = 1 if x == wl - 1 else (-1 if x == 0 else 0)
+    if dy == 0 and dx == 0:
+        return []
+    nbrs = [None] * 8  # halo.cuh shard_nbrs
+    for ny in (-1, 0, 1):
+        for nx in (-1, 0, 1):
+            if (ny, nx) != (0, 0) and 0 <= iy + ny < ry and 0 <= ix + nx < rx:
+                nbrs[shard_nbr_slot(ny, nx)] = (iy + ny, ix + nx)
+    hy, hx = (0 if dy > 0 else hl + 1), (0 if dx > 0 else wl + 1)
+    dst = [nbrs[shard_nbr_slot(dy, 0)] if dy else None,
+           nbrs[shard_nbr_slot(0, dx)] if dx else None,
+           nbrs[shard_nbr_slot(dy, dx)] if dy and dx else None]
+    at = [(hy, x + 1), (y + 1, hx), (hy, hx)]
+    return [(b,) + a for b, a in zip(dst, at) if b is not None]
+
+
+def push_model(blocks, hl, wl):
+    """Every block's own edge cells pushed into its neighbours' halos, as
+    K1's threads push them; returns {(block, row, column): writers}."""
     ry, rx = len(blocks), len(blocks[0])
-    flat = [b for row in blocks for b in row]
-    before = [b.clone() for b in flat]
-    for blk in range(ry * rx):
-        iy, ix = divmod(blk, rx)
-        for t in range(2 * hl + 2 * (wl + 2)):
-            if t < 2 * hl:
-                far = t >= hl
-                r = sr = (t - hl if far else t) + 1
-                if far:
-                    if ix + 1 >= rx:
-                        continue
-                    c, sb, sc = wl + 1, blk + 1, 1
-                else:
-                    if ix == 0:
-                        continue
-                    c, sb, sc = 0, blk - 1, wl
-            else:
-                u = t - 2 * hl
-                far = u >= wl + 2
-                c = sc = u - (wl + 2) if far else u
-                if far:
-                    if iy + 1 >= ry:
-                        continue
-                    r, ny, sr = hl + 1, iy + 1, 1
-                else:
-                    if iy == 0:
-                        continue
-                    r, ny, sr = 0, iy - 1, hl
-                nx = ix
-                if c == 0 and ix > 0:
-                    nx, sc = ix - 1, wl
-                elif c == wl + 1 and ix + 1 < rx:
-                    nx, sc = ix + 1, 1
-                sb = ny * rx + nx
-            flat[blk][:, r, c] = before[sb][:, sr, sc]
+    writers = {}
+    for iy in range(ry):
+        for ix in range(rx):
+            for y in range(hl):
+                for x in range(wl):
+                    for b, r, c in push_targets(ry, rx, iy, ix, hl, wl, y, x):
+                        blocks[b[0]][b[1]][:, r, c] = blocks[iy][ix][:, y + 1, x + 1]
+                        writers.setdefault((b, r, c), []).append((iy, ix, y, x))
+    return writers
+
+
+PUSH_MESHES = [(2, 2), (1, 3), (3, 1), (2, 3), (5, 1), (3, 3)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, cs.DEV_DTYPE], ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", [(2, 2), (1, 3), (3, 1), (2, 3)], ids=lambda s: f"{s[0]}x{s[1]}")
-def test_halo_kernel_map_equals_exchange_halos(shape, dtype):
+@pytest.mark.parametrize("shape", PUSH_MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_push_map_equals_exchange_halos(shape, dtype):
     hl, wl, pitch = 5, 4, 32
+    ry, rx = shape
     gen = torch.Generator().manual_seed(7)
-    # every cell distinct, and the halos NaN: a wrong source or a missed
-    # write shows
-    a = [[torch.full((3, hl + 2, pitch), float("nan")) for _ in range(shape[1])]
-         for _ in range(shape[0])]
+    # every cell distinct, and the halos NaN: a wrong slot or a missed push
+    # shows
+    a = [[torch.full((3, hl + 2, pitch), float("nan")) for _ in range(rx)] for _ in range(ry)]
     for row in a:
         for b in row:
             b[:, 1:hl + 1, 1:wl + 1] = torch.randn((3, hl, wl), generator=gen)
     a = [[b.to(dtype) for b in row] for row in a]
     b = [[x.clone() for x in row] for row in a]
-    halo_kernel_model(a, hl, wl)
-    cs.halo_exchange(b, hl, wl)  # CPU tensors: the plain version
+    writers = push_model(a, hl, wl)
+    cs.halo_exchange_plain(b, hl, wl)
     for ra, rb in zip(a, b):
         for x, y in zip(ra, rb):
             assert torch.equal(bits(x), bits(y))
+    # one writer for every halo slot off the global edge, none on a
+    # global-edge side (row 0 of the bottom blocks, column 0 of the left
+    # ones, and so on)
+    for iy in range(ry):
+        for ix in range(rx):
+            for r in range(hl + 2):
+                for c in range(wl + 2):
+                    if 1 <= r <= hl and 1 <= c <= wl:
+                        continue
+                    off_edge = ((r != 0 or iy > 0) and (r != hl + 1 or iy + 1 < ry)
+                                and (c != 0 or ix > 0) and (c != wl + 1 or ix + 1 < rx))
+                    n = len(writers.get(((iy, ix), r, c), []))
+                    assert n == (1 if off_edge else 0), ((iy, ix), r, c, n)
+
+
+class MeshDevsModel:
+    """``csrc/halo.cuh`` MeshDevs as a log of stream operations: each
+    device's stream a list of ("work" | "launch", step) and ("record",
+    event, step) entries, and ("wait", event, the record it caught) as a
+    cudaStreamWaitEvent catches the event's last record at issue time."""
+
+    def __init__(self, layout, events=2):
+        ry, rx = len(layout), len(layout[0])
+        self.ords = sorted({d for row in layout for d in row})
+        self.nd = len(self.ords)
+        of = {(iy, ix): self.ords.index(layout[iy][ix]) for iy in range(ry) for ix in range(rx)}
+        self.nbr = {d: set() for d in range(self.nd)}
+        for (iy, ix), d in of.items():
+            for dy in (-1, 0, 1):
+                for dx in (-1, 0, 1):
+                    e = of.get((iy + dy, ix + dx))
+                    if e is not None and e != d:
+                        self.nbr[d].add(e)
+        self.events = events
+        self.last = {}  # event -> (device, position) of its last record
+        self.ops = {d: [("work", "before")] for d in range(self.nd)}
+
+    def _ev(self, d, i):
+        return (d, i % self.events)
+
+    def _record(self, d, i):
+        self.ops[d].append(("record", self._ev(d, i), i))
+        self.last[self._ev(d, i)] = (d, len(self.ops[d]) - 1)
+
+    def _wait(self, d, i):
+        for e in sorted(self.nbr[d]):
+            caught = self.last.get(self._ev(e, i))
+            if caught is not None:
+                self.ops[d].append(("wait", caught))
+
+    def run(self, n):
+        """open(), n steps of enter / launch / leave, close()."""
+        if self.nd > 1:
+            for d in range(self.nd):
+                self._record(d, -1)
+        for i in range(n):
+            for d in range(self.nd):
+                if self.nd > 1:
+                    self._wait(d, i - 1)
+                self.ops[d].append(("launch", i))
+                if self.nd > 1:
+                    self._record(d, i)
+        if self.nd > 1:
+            for d in range(self.nd):
+                self._wait(d, n - 1)
+        for d in range(self.nd):
+            self.ops[d].append(("work", "after"))
+        return self
+
+    def before(self, a, b):
+        """Whether op a = (device, position) completes before op b starts:
+        stream order, and a wait on a record."""
+        seen, todo = set(), [b]
+        while todo:
+            d, i = todo.pop()
+            if (d, i) in seen:
+                continue
+            seen.add((d, i))
+            if i > 0:
+                todo.append((d, i - 1))
+            op = self.ops[d][i]
+            if op[0] == "wait":
+                todo.append(op[1])
+        return a in seen and a != b
+
+    def at(self, d, kind, step):
+        return next((d, k) for k, op in enumerate(self.ops[d])
+                    if op[0] == kind and op[-1] == step)
+
+
+CARD_LAYOUTS = {"2x2-four-cards": ((0, 1), (2, 3)), "2x2-two-blocks-a-card": ((0, 0), (1, 1)),
+                 "1x4-cards": ((0, 1, 2, 3),), "3x3-nine-cards": ((0, 1, 2), (3, 4, 5), (6, 7, 8)),
+                 "2x2-one-card": ((0, 0), (0, 0))}
+
+
+@pytest.mark.parametrize("layout", list(CARD_LAYOUTS.values()), ids=list(CARD_LAYOUTS))
+def test_two_events_a_card_order_the_pushes(layout):
+    n = 5
+    m = MeshDevsModel(layout).run(n)
+    for d in range(m.nd):
+        if m.nd > 1:
+            # a step's runtime calls: a wait a neighbouring card, its
+            # launch (one a block in the library), one record
+            waits = sum(op[0] == "wait" for op in m.ops[d])
+            assert waits == len(m.nbr[d]) * (n + 1)
+        for i in range(n):
+            launch = m.at(d, "launch", i)
+            for e in m.nbr[d]:
+                # the push of step i writes what e read at step i - 1, and
+                # reads what e pushed then: after e's step i - 1
+                if i > 0:
+                    assert m.before(m.at(e, "launch", i - 1), launch), (d, e, i)
+                else:
+                    assert m.before(m.at(e, "work", "before"), launch), (d, e)
+                # no two devices of one step wait on each other
+                assert not m.before(m.at(e, "launch", i), launch), (d, e, i)
+            # torch's next work on the card after every neighbour's last push
+        for e in m.nbr[d]:
+            assert m.before(m.at(e, "launch", n - 1), m.at(d, "work", "after"))
+    if m.nd == 1:  # one card: stream order only, no runtime call
+        assert all(op[0] in ("work", "launch") for op in m.ops[0])
+
+
+def test_one_event_a_card_would_serialise_the_cards():
+    # with one event a card, card 1's wait for step i - 1 catches card 0's
+    # record of step i, issued just before: the cards run one after another
+    m = MeshDevsModel(((0, 1), (2, 3)), events=1).run(4)
+    assert m.before(m.at(0, "launch", 2), m.at(1, "launch", 2))
+
+
+@pytest.mark.parametrize("store_dev", [False, True], ids=["f32", "store_dev"])
+@pytest.mark.parametrize("shape", [(2, 2), (3, 2), (4, 1)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_unpushed_corner_halos_hold_the_placed_bits(monkeypatch, shape, store_dev):
+    # a corner halo slot of a block side on the global edge has no pusher;
+    # the pull (halo_exchange_plain) copies the neighbour's halo cell on the
+    # global edge there. Every buffer the library loop writes must already
+    # hold those bits, so the fold leaves what the pull would write.
+    p = ts.make_params(make_config(), seam_mask())
+    mesh = cpu_mesh(shape)
+    case = sh.ShardedCase(p, mesh)
+    hl, wl = case.hl, case.wl
+    ry, rx = shape
+    pushed = set()
+    for iy in range(ry):
+        for ix in range(rx):
+            for y in range(hl):
+                for x in range(wl):
+                    pushed.update(push_targets(ry, rx, iy, ix, hl, wl, y, x))
+    corners = [((iy, ix), r, c) for iy in range(ry) for ix in range(rx)
+               for r in (0, hl + 1) for c in (0, wl + 1) if ((iy, ix), r, c) not in pushed]
+    assert corners  # every mesh here has a block side on the global edge
+    checked = []
+
+    def holds_placed_bits(blocks):
+        pulled = [[b.clone() for b in row] for row in blocks]
+        cs.halo_exchange_plain(pulled, hl, wl)
+        for (iy, ix), r, c in corners:
+            got, want = blocks[iy][ix][:, r, c], pulled[iy][ix][:, r, c]
+            assert torch.equal(bits(got), bits(want)), ((iy, ix), r, c)
+            assert torch.isnan(got.float()).all()
+        checked.append(blocks[0][0].dtype)
+
+    steps, full = cs.k1_shard_steps, cs.k1_shard_full
+
+    def steps_checked(f_in, f_a, f_b, *a, **kw):
+        holds_placed_bits(f_a)
+        holds_placed_bits(f_b)
+        return steps(f_in, f_a, f_b, *a, **kw)
+
+    def full_checked(f_in, f_out, *a, **kw):
+        holds_placed_bits(f_out)
+        return full(f_in, f_out, *a, **kw)
+
+    monkeypatch.setattr(cs, "k1_shard_steps", steps_checked)
+    monkeypatch.setattr(cs, "k1_shard_full", full_checked)
+    runner = sh.BlockRunner(mesh, "cuda", store_dev, case)
+    bs = runner.place(state_from_numpy(seeded_leaves(8)), p)
+    for n in (4, 3, 1):
+        runner.advance(bs, p, n)
+    assert len(checked) == 2 * 2 + 3  # two loop calls' f_a and f_b, three full steps
+    assert (cs.DEV_DTYPE in checked) == store_dev
+    for k in ("f", "f_alt"):
+        holds_placed_bits(getattr(bs, k))
 
 
 # ---------------------------------------------------------------------------
@@ -421,10 +617,9 @@ def test_shard_loop_on_the_card_equals_stepwise(cuda_dev, shape, bc_type, obstac
     assert_blocks_equal(a, b)
     for k in ("force", "max_v"):
         assert torch.equal(ma[k], mb[k]), k
-    k1 = {k: v for k, v in la.items() if k.startswith("k1")}
-    assert k1 == {k: v for k, v in lb.items() if k.startswith("k1")}
-    halos = la["halo_exchange"] + la["halo_exchange_dev"]
-    assert halos == 13 and lb["halo_exchange"] == 0  # 10 fast steps, 3 closing ones
+    # one K1 a block a step, the same as the per-step loop's, and no other
+    # launch: 10 fast steps and 3 closing ones
+    assert la == lb and sum(la.values()) == 13 * shape[0] * shape[1]
     c, mc = run_blocks(p, leaves, mesh, [7, 5, 1], store_dev, stepwise=False)  # plain
     torch.cuda.synchronize()
     assert_blocks_equal(a, c)
@@ -432,23 +627,97 @@ def test_shard_loop_on_the_card_equals_stepwise(cuda_dev, shape, bc_type, obstac
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, cs.DEV_DTYPE], ids=["f32", "bf16"])
-def test_halo_kernel_on_the_card(cuda_dev, dtype):
-    hl, wl, pitch = 37, 45, 64
-    gen = torch.Generator(device=cuda_dev).manual_seed(3)
-    a = [[torch.randn((9, hl + 2, pitch), generator=gen, device=cuda_dev).to(dtype)
-          for _ in range(3)] for _ in range(2)]
-    b = [[x.clone() for x in row] for row in a]
+def test_pushes_on_the_card(cuda_dev, dtype):
+    # one step of a 3x2 mesh of the card through the library loop (every
+    # block's K1 pushing its edges) against K1's plain step on each block
+    # and halo_exchange_plain, raw bits of the whole buffers; the outputs
+    # start NaN, so a halo slot left unwritten shows
+    dev_store = dtype == cs.DEV_DTYPE
+    p = ts.make_params(make_config((3, 0, 1, 0), "bounce_back"), seam_mask(), device=cuda_dev)
+    mesh = make_mesh((3, 2), [cuda_dev] * 6)
+    case = sh.ShardedCase(p, mesh)
+    f = sh.BlockRunner(mesh, "cuda", False, case).place(
+        state_from_numpy(seeded_leaves(9)), p).f
+    if dev_store:
+        f = [[cs.quantize(b) for b in row] for row in f]
+    out = [[[torch.full_like(b, float("nan")) for b in row] for row in f] for _ in range(2)]
+    rows = cs.scalar_rows(p, 0, 1)
     cs.reset_launch_counts()
-    cs.halo_exchange(a, hl, wl)
-    cs.halo_exchange_plain(b, hl, wl)
+    cs.k1_shard_steps(f, out[0], f, case.tables, rows, p.use_les, p.bc_type, case.obstacle,
+                      dev_store)
+    cs.k1_shard_steps_plain(f, out[1], f, case.tables, rows, p.use_les, p.bc_type,
+                            case.obstacle, dev_store)
     torch.cuda.synchronize()
-    assert cs.LAUNCHES[cs.halo_variant(dtype)] == 1
-    for ra, rb in zip(a, b):
+    assert {k: v for k, v in cs.LAUNCHES.items() if v} == {
+        cs.k1_variant(case.obstacle, dev=dev_store, shard=True): 6}
+    for ra, rb in zip(*out):
         for x, y in zip(ra, rb):
             assert torch.equal(bits(x), bits(y))
-    with pytest.raises(ValueError):
-        cs.halo_exchange([[x.double() for x in row] for row in a], hl, wl)
-    assert cs.LAUNCHES[cs.halo_variant(dtype)] == 1
+
+
+# ptxas's registers a thread and spill bytes (stores, loads) of K1's
+# whole-grid instances as the sharded forms' halo push found them (NVIDIA
+# H100 80GB HBM3, CUDA 12 toolkit): the push is compiled into the _shard
+# instances only, so these must not move
+WHOLE_GRID_PTXAS = {
+    ("F32Store", cs.OBSTACLE_EQ, False): (40, 0, 0),
+    ("F32Store", cs.OBSTACLE_EQ, True): (48, 0, 0),
+    ("F32Store", cs.OBSTACLE_BOUNCE, False): (40, 0, 0),
+    ("F32Store", cs.OBSTACLE_BOUNCE, True): (46, 0, 0),
+    ("F32Store", cs.OBSTACLE_HALFWAY, False): (40, 0, 0),
+    ("F32Store", cs.OBSTACLE_HALFWAY, True): (52, 0, 0),
+    ("F32Store", cs.OBSTACLE_BOUZIDI, False): (62, 0, 0),
+    ("F32Store", cs.OBSTACLE_BOUZIDI, True): (62, 0, 0),
+    ("DevStore", cs.OBSTACLE_EQ, False): (40, 0, 0),
+    ("DevStore", cs.OBSTACLE_BOUNCE, False): (40, 4, 4),
+}
+
+
+@pytest.mark.cuda
+def test_whole_grid_k1_keeps_its_registers(cuda_dev):
+    from lbm2d_tpu_torch.ops import cuda_build
+
+    cuda_build.build_all()
+    regs = cuda_build.k1_registers(cuda_build.BUILD_LOG["k1_step"])
+    whole = {(st, o, full): use for (st, o, shard, full), use in regs.items() if not shard}
+    assert whole == WHOLE_GRID_PTXAS
+    # no sharded instance spills more, or keeps more in local memory (its
+    # stack frame: the Cell it hands the out-of-line ring store), than its
+    # whole-grid twin
+    stack = cuda_build.k1_stack_frames(cuda_build.BUILD_LOG["k1_step"])
+    for (st, o, shard, full), use in regs.items():
+        if shard:
+            assert use[1:] <= WHOLE_GRID_PTXAS[st, o, full][1:], (st, o, full, use)
+            assert stack[st, o, True, full] <= stack[st, o, False, full], (st, o, full)
+
+
+def test_ptxas_log_parser():
+    # the parser phase 1 and the test above read ptxas -v with: entries by
+    # their mangled template arguments, an out-of-line function's spills
+    log = """ptxas info    : Compiling entry function '_Z14k1_step_kernelI8F32StoreLi3ELb1ELb0EEvPKT_PS1_' for 'sm_90a'
+ptxas info    : Function properties for _Z14k1_step_kernelI8F32StoreLi3ELb1ELb0EEvPKT_PS1_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 62 registers, used 0 barriers, 424 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z14k1_step_kernelI8DevStoreLi1ELb0ELb0EEvPKT_PS1_' for 'sm_90a'
+ptxas info    : Function properties for _Z14k1_step_kernelI8DevStoreLi1ELb0ELb0EEvPKT_PS1_
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 40 registers, used 0 barriers, 424 bytes cmem[0]
+ptxas info    : Function properties for _Z13k1_ring_storeI8F32StoreLi0ELb1EEvPK4Cell
+    16 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Compiling entry function '_Z15k3_fused_kernelILi1ELi128EEvPKfPf' for 'sm_90a'
+ptxas info    : Function properties for _Z15k3_fused_kernelILi1ELi128EEvPKfPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 108544 bytes smem
+"""
+    from lbm2d_tpu_torch.ops import cuda_build
+
+    assert cuda_build.k1_registers(log) == {("F32Store", 3, True, False): (62, 0, 0),
+                                            ("DevStore", 1, False, False): (40, 4, 4)}
+    assert cuda_build.k3_registers(log) == {(1, 128): (64, 0, 0)}
+    assert cuda_build.ptxas_usage(log)["_Z13k1_ring_storeI8F32StoreLi0ELb1EEvPK4Cell"] == (
+        None, 8, 8)
+    assert cuda_build.k1_stack_frames(log) == {("F32Store", 3, True, False): 0,
+                                               ("DevStore", 1, False, False): 8}
 
 
 @pytest.mark.cuda
@@ -458,9 +727,10 @@ def test_halo_kernel_on_the_card(cuda_dev, dtype):
 @pytest.mark.parametrize("bc_type, obstacle", SCHEMES, ids=SCHEME_IDS)
 def test_shard_loop_over_cards_equals_stepwise(layout, bc_type, obstacle, store_dev):
     # a 2x2 mesh over the cards of one host: the library loop (each block's
-    # K1 on its card's stream, the halo kernel pulling across cards over
-    # peer access after one event a card) against the per-step loop through
-    # the same kernels, bitwise, and against the same mesh on one card
+    # K1 on its card's stream, pushing its edges across cards over peer
+    # access, each card's step after its neighbours' previous one) against
+    # the per-step loop through the same kernels, whole buffers bitwise,
+    # and against the same mesh on one card
     n_cards = 1 + max(max(row) for row in layout)
     if torch.cuda.device_count() < n_cards:
         pytest.skip(f"needs {n_cards} CUDA devices")
@@ -482,10 +752,9 @@ def test_shard_loop_over_cards_equals_stepwise(layout, bc_type, obstacle, store_
     assert_blocks_equal(a, b)
     for k in ("force", "max_v"):
         assert torch.equal(ma[k], mb[k]), k
-    k1 = {k: v for k, v in la.items() if k.startswith("k1")}
-    assert k1 == {k: v for k, v in lb.items() if k.startswith("k1")}
-    # one halo launch a card a refresh: 10 fast steps and 3 closing ones
-    assert la["halo_exchange"] + la["halo_exchange_dev"] == 13 * n_cards
+    # one K1 a block a step and no other launch: 10 fast steps and 3
+    # closing ones
+    assert la == lb and sum(la.values()) == 13 * 4
     one = make_mesh((2, 2), ["cuda:0"] * 4)
     c, mc = run_blocks(p, leaves, one, [7, 5, 1], store_dev, stepwise=False, plain=False)
     torch.cuda.synchronize(0)
