@@ -22,7 +22,9 @@ Phases (any failure raises and the process exits non-zero):
    on the mask's boundary links -- and K1 in 16-bit deviation storage for
    the equilibrium and full-way schemes, each with the boundary ring its
    ring threads write, over BC combinations that take every side's types:
-   left 0/2/3/4, right 0/1/2, top/bottom 0/2; full-way bounce-back keeps
+   left 0/2/3/4, right 0/1/2, top/bottom 0/2, and three layouts with no-op
+   sides, whose cells the ring threads keep (``NOOP_COMBOS``, from a
+   RingPrev drawn apart from f, fresh and not); full-way bounce-back keeps
    the BC values on solid ring cells, the other schemes overwrite them)
    against its plain PyTorch version at the production grid 2432x1152 on a
    developed state, with each variant's time, bound, registers per thread
@@ -39,7 +41,10 @@ Phases (any failure raises and the process exits non-zero):
    the DFG grid, each chunk straddling its case's warmup; the host's issue
    time a launch of each loop entry beside its device time, a 100-step
    DFG chunk issued both ways, and what a chunk still builds (pack_aux,
-   the scalar rows); time each kernel with CUDA events beside its bound
+   the scalar rows); the no-op layouts' chunks through the library loops
+   against the per-step wrappers and ``run_chunk_plain``, whole grid and
+   on the 2x2 mesh, bitwise; time each kernel with CUDA events beside its
+   bound
    (``ms``: replayed from a CUDA graph, the kernel alone;
    ``launch_path_ms``: launched from Python one by one);
 3. drive the serial main path, ``LBMEngine`` + ``run_simulation_loop``, on
@@ -203,13 +208,23 @@ Phases (any failure raises and the process exits non-zero):
    ``wall_s``, every value finite, each scheme's K1 launches (one a step)
    and no plain call; then the last row's engine (ny 329, Bouzidi + NEBB)
    200 steps on through the kernels and through ``run_chunk_plain``,
-   bitwise.
+   bitwise;
+13. drive the smoke case with a no-op side through the engine
+   (``NOOP_LAYOUT`` [1, 0, 1, 0]: left type 1, which apply_bc leaves as
+   it is, top and bottom velocity walls, right outlet; make_params takes
+   no other no-op layout), ``run_simulation_loop`` over 5 chunks: status
+   Success, finite moments with mean jx > 0, the no-op column's f bitwise
+   the initial state's after every chunk, k1_step and k1_step_full one a
+   step and no plain call; one chunk against ``run_chunk_plain``,
+   bitwise; ``f16_state`` refused with one logged reason and 2 chunks
+   bitwise the f32 engine's; us/step and a whole chunk's device time in
+   turns with the production layout.
 
 The last two lines are the kernels' JSON record (``launches``: the sum over
 the driven paths, split in ``launches_by_path``, phase 9's under
 ``coord``, ``coord_lock``, ``case_sharded`` and ``multihost``, phase 10's under
 ``quickstart`` and ``quickstart_trace``, phase 11's under ``bench``, phase
-12's under ``suite``) and ``{"ok": true,
+12's under ``suite``, phase 13's under ``noop``) and ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or without the package beside
 this script, it exits non-zero and prints no result.
 """
@@ -268,6 +283,21 @@ RING_OPS_PER_CELL = 80
 # the one timed
 BC_COMBOS = ((0, 2, 1, 2), (2, 0, 0, 0), (3, 2, 2, 0), (4, 0, 1, 2), (4, 2, 0, 0),
              (0, 0, 2, 2))
+# the layouts with a no-op side phase 2 adds (apply_bc keeps such a side's
+# cells, K1's ring threads read them from cuda_step.RingPrev): left no-op;
+# top and bottom no-op with the corners on active sides; right and bottom
+# no-op, a velocity inlet's corner next to an active top. make_params
+# refuses all but a left no-op, so these are the smoke case's CaseParams
+# with the layout put in. Each runs with RingPrev fresh (a chunk's first
+# step) and not (a later one)
+NOOP_COMBOS = ((1, 2, 1, 2), (0, 1, 1, 1), (3, 0, 4, 1))
+# phase 13: a no-op layout a YAML can give through the engine (left type 1,
+# the only no-op side make_params accepts), top and bottom velocity walls
+# at (NOOP_WALL, 0), right outlet; its chunks, the chunks a timed turn
+NOOP_LAYOUT = (1, 0, 1, 0)
+NOOP_WALL = 0.05
+NOOP_CHUNKS = 5
+NOOP_TURN_CHUNKS = 5
 # shared memory of an H100 SXM: 128 B per clock per SM, 132 SMs, 1.98 GHz
 PEAK_SMEM = 33e12
 # phase 6: temporal blocking at S = 4 (K3's default tile), and S = 8 timed
@@ -1044,6 +1074,147 @@ def phase12(mask, counted, card, engines, exact_state):
     return launches
 
 
+def phase13(config, mask, counted, card):
+    """The smoke case with a no-op side through the engine on the card
+    (``NOOP_LAYOUT``: left type 1, which apply_bc leaves as it is, top and
+    bottom velocity walls, right outlet) for ``NOOP_CHUNKS`` chunks; its
+    timing in turns with the production layout. Returns its launches."""
+    import logging
+
+    from lbm2d_tpu_torch.core import solver
+    from lbm2d_tpu_torch.core.engine import LBMEngine
+    from lbm2d_tpu_torch.ops import cuda_step as cs
+    from lbm2d_tpu_torch.pipeline.sim_loop import run_simulation_loop
+    from lbm2d_tpu_torch.tools.cuda_timing import graph_ms
+
+    chunk = int(config["simulation"]["compute_step_size"])
+    cfg = json.loads(json.dumps(config))
+    cfg["boundary_condition"]["type"] = list(NOOP_LAYOUT)
+    for side in (1, 3):
+        cfg["boundary_condition"]["value"][side] = [NOOP_WALL, 0.0]
+    cfg["simulation"]["max_steps"] = steps = NOOP_CHUNKS * chunk
+    print(f"[13] a no-op side through the engine: the smoke case with bc_type "
+          f"{list(NOOP_LAYOUT)} (left no-op, top and bottom walls at ({NOOP_WALL}, 0), right "
+          f"outlet), {NOOP_CHUNKS} chunks of {chunk}", flush=True)
+    engine = LBMEngine(cfg, mask_yx=mask, device="cuda")
+    engine.init()
+    f0 = engine.state.f.clone()
+    H, W = engine.params.shape
+    checked = []
+    run_step = engine.run_step
+
+    def checking_run_step(n):
+        # the no-op column (global rows 1 .. H-2 of column 0) keeps the
+        # initial state's f, bitwise, after every chunk
+        out = run_step(n)
+        held = torch.equal(engine.state.f[:, 1:-1, 0], f0[:, 1:-1, 0])
+        checked.append(held)
+        if not held:
+            raise AssertionError(f"[13] chunk {len(checked)}: the no-op column changed")
+        return out
+
+    engine.run_step = checking_run_step
+    counted.clear()
+    sink = MomentSink()
+    torch.cuda.synchronize()
+    cs.reset_launch_counts()
+    t0 = time.perf_counter()
+    md = run_simulation_loop(cfg, engine, None, None, sink, steps, progress=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cs.LAUNCHES)
+    engine.run_step = run_step
+    mom = engine.get_moments()
+    jx = float(mom[3].mean())
+    print(f"[13] {md['status']} ({md['reason']}) after {md['final_steps']} steps in {wall:.2f} s; "
+          f"the no-op column held its initial f bitwise after each of {len(checked)} chunks; "
+          f"mean jx {jx:.4e}, max |u| {engine.get_max_velocity():.4f}; launches "
+          f"{({k: v for k, v in launches.items() if v})}, plain calls {counted} [{card}]",
+          flush=True)
+    want = {"k1_step": steps - NOOP_CHUNKS, "k1_step_full": NOOP_CHUNKS}
+    if md["status"] != "Success" or len(checked) != NOOP_CHUNKS:
+        raise AssertionError(f"[13] {md['status']}: {md['reason']}, {len(checked)} chunks")
+    if mom.shape != (9, H, W) or not np.isfinite(mom).all() or not jx > 0:
+        raise AssertionError(f"[13] moments {mom.shape}, finite {np.isfinite(mom).all()}, "
+                             f"mean jx {jx}")
+    if {k: v for k, v in launches.items() if v} != want or any(counted.values()):
+        raise AssertionError(f"[13] launches {launches} (want {want}), plain calls {counted}")
+    # one chunk from the developed state against the plain chunk runner
+    p = engine.params
+    s = engine.state
+    a, ma = cs.run_chunk_cuda(s, p, chunk)
+    b, mb = cs.run_chunk_plain(s, p, chunk)
+    torch.cuda.synchronize()
+    for k in ("f", "f_post", "rho", "u"):
+        if not torch.equal(getattr(a, k), getattr(b, k)):
+            raise AssertionError(f"[13] run_chunk_cuda({chunk}) {k} differs from run_chunk_plain")
+    for k in ("force", "max_v"):
+        if not torch.equal(ma[k], mb[k]):
+            raise AssertionError(f"[13] run_chunk_cuda({chunk}) {k} differs from run_chunk_plain")
+    print(f"    run_chunk_cuda({chunk}) from step {s.step} = run_chunk_plain: f, f_post, rho, u, "
+          f"force, max_v bitwise", flush=True)
+    # f16_state requested: refused (the JAX engine runs this layout on its
+    # jnp step, exact f32), logged, and the state bitwise the f32 run's
+    records = []
+
+    class Grab(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    grab = Grab(logging.WARNING)
+    log = logging.getLogger("lbm2d_tpu_torch.core.engine")
+    log.addHandler(grab)
+    try:
+        e16 = LBMEngine(cfg, mask_yx=mask, device="cuda", store_dev=True)
+    finally:
+        log.removeHandler(grab)
+    e32 = LBMEngine(cfg, mask_yx=mask, device="cuda")
+    for e in (e16, e32):
+        e.init()
+        for _ in range(2):
+            e.run_step(chunk)
+    torch.cuda.synchronize()
+    said = [m for m in records if "not engaged" in m and "no-op sides (left)" in m]
+    if e16.store_dev or len(said) != 1 or not torch.equal(e16.state.f, e32.state.f):
+        raise AssertionError(f"[13] f16_state on a no-op layout: store_dev {e16.store_dev}, "
+                             f"log {records}")
+    print(f"    f16_state requested: not engaged, logged once ({said[0][:90]}...); 2 chunks "
+          f"bitwise the f32 engine's", flush=True)
+    # us/step and a whole chunk's device time, in turns with the
+    # production layout (production, no-op, no-op, production)
+    prod = LBMEngine(config, mask_yx=mask, device="cuda")
+    prod.init()
+    engines = {"production": prod, "no-op": engine}
+    for e in engines.values():
+        e.run_step(chunk)
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    turns = {k: [] for k in engines}
+    for name in ("production", "no-op", "no-op", "production"):
+        e = engines[name]
+        torch.cuda.synchronize()
+        ev0.record()
+        for _ in range(NOOP_TURN_CHUNKS):
+            e.run_step(chunk)
+        ev1.record()
+        ev1.synchronize()
+        turns[name].append(ev0.elapsed_time(ev1) * 1e3 / (NOOP_TURN_CHUNKS * chunk))
+    chunk_us = {}
+    for name in ("production", "no-op", "no-op", "production"):
+        e = engines[name]
+        st = e.state
+        chunk_us.setdefault(name, []).append(graph_ms(
+            lambda: cs.run_chunk_cuda(st, e.params, chunk), per_graph=1, replays=3) * 1e3 / chunk)
+    for name in engines:
+        print(f"    {name} layout {engines[name].params.bc_type}: "
+              f"{', '.join(f'{t:.2f}' for t in turns[name])} us/step host-paced "
+              f"({NOOP_TURN_CHUNKS} chunks of {chunk} a turn); a whole chunk's device time "
+              f"{', '.join(f'{t:.2f}' for t in chunk_us[name])} us/step (run_chunk_cuda in a "
+              f"CUDA graph) [{card}]", flush=True)
+    ratio = statistics.mean(chunk_us["no-op"]) / statistics.mean(chunk_us["production"])
+    print(f"    no-op / production device time a step: {ratio:.4f} [{card}]", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1163,12 +1334,14 @@ def main() -> int:
 
     def combo_params(bc):
         """The smoke case with BC types ``bc``; left types 3/4 get a
-        parabolic inlet of u_max 0.1."""
+        parabolic inlet of u_max 0.1. A layout with a no-op side is put
+        into the params of (left, 2, 1, 2), which make_params accepts."""
         cfg = json.loads(json.dumps(config))
-        cfg["boundary_condition"]["type"] = list(bc)
+        cfg["boundary_condition"]["type"] = [bc[0], 2, 1, 2] if cs.noop_sides(bc) else list(bc)
         if bc[0] in (solver.BC_VEL_INLET, solver.BC_VEL_INLET_NEBB):
             cfg["boundary_condition"]["value"][0] = [0.1, 0.0]
-        return solver.make_params(cfg, mask, dtype=torch.float32, device=dev)
+        pk = solver.make_params(cfg, mask, dtype=torch.float32, device=dev)
+        return dataclasses.replace(pk, bc_type=tuple(bc))
 
     def prof_of(pk):
         vel = pk.bc_type[0] in (solver.BC_VEL_INLET, solver.BC_VEL_INLET_NEBB)
@@ -1177,7 +1350,18 @@ def main() -> int:
     def bc_tag(pk):
         return "".join(str(int(t)) for t in pk.bc_type)
 
-    combos = [(pk, cs.scalar_row(pk, state.step + 1)) for pk in map(combo_params, BC_COMBOS)]
+    # a no-op side's previous rho and u, drawn apart from the state's f (u
+    # nonzero on solid cells too), read fresh and on a later step
+    rho_prev = torch.tensor(1.0 + 1e-3 * rng.standard_normal((H, W)), dtype=torch.float32,
+                            device=dev)
+    u_prev = torch.tensor(0.02 * rng.standard_normal((2, H, W)), dtype=torch.float32, device=dev)
+    combos = [(pk, cs.scalar_row(pk, state.step + 1), None)
+              for pk in map(combo_params, BC_COMBOS)]
+    combos += [(pk, cs.scalar_row(pk, state.step + 1), cs.RingPrev(rho_prev, u_prev, fresh))
+               for pk in map(combo_params, NOOP_COMBOS) for fresh in (True, False)]
+
+    def combo_tag(pk, prev):
+        return bc_tag(pk) + ("" if prev is None else " fresh" if prev.fresh else " later")
 
     def exact(tag, a, b):
         """Max relative error of a variant's output, which must be 0
@@ -1197,10 +1381,10 @@ def main() -> int:
                        u=torch.full((2, H, W), nan, device=dev), f_post=state.f_post.clone())
         return out
 
-    def run_k1(fn, b, obst, pk, sc):
+    def run_k1(fn, b, obst, pk, sc, prev=None):
         fn(state.f, b["f_out"], aux, sc, p.use_les, pk.bc_type, b.get("rho"), b.get("u"),
            b.get("f_post"), obstacle=obst, q=qplanes if obst == cs.OBSTACLE_BOUZIDI else None,
-           prof=prof_of(pk))
+           prof=prof_of(pk), prev=prev)
 
     def abs_err(bk, bp, fields):
         return max(float((bk[k].float() - bp[k].float()).abs().max()) for k in fields)
@@ -1220,14 +1404,14 @@ def main() -> int:
         """Kernel and plain version over every BC combination, bitwise;
         returns (max abs err, {tag: rel err})."""
         errs, abs_errs = {}, []
-        for pk, sc in combos:
+        for pk, sc, prev in combos:
             bk, bp = new_buffers(), new_buffers()
-            run(kern, bk, pk, sc)
-            run(plain, bp, pk, sc)
+            run(kern, bk, pk, sc, prev)
+            run(plain, bp, pk, sc, prev)
             torch.cuda.synchronize()
             abs_errs.append(abs_err(bk, bp, bk))
             for k in bk:
-                tag = f"{name} bc {bc_tag(pk)} {k}"
+                tag = f"{name} bc {combo_tag(pk, prev)} {k}"
                 errs[tag] = exact(tag, bk[k], bp[k])
         print(f"  {name:<30s} {len(errs)} outputs over {len(combos)} BC combinations bitwise "
               f"(max rel err {max(errs.values()):.1e})", flush=True)
@@ -1241,7 +1425,8 @@ def main() -> int:
             name = cs.k1_variant(obst, full)
             max_abs, errs = over_combos(
                 name, lambda: k1_buffers(full),
-                lambda fn, b, pk, sc: run_k1(fn, b, obst, pk, sc), cs.k1_step, cs.k1_step_plain)
+                lambda fn, b, pk, sc, pv: run_k1(fn, b, obst, pk, sc, pv), cs.k1_step,
+                cs.k1_step_plain)
             # f in (36 B) and aux (4 B) read, f out (36 B) written on every
             # cell, the ring included; the full variant adds rho and u on
             # every cell and f_post on the interior. Bouzidi reads q where
@@ -1266,13 +1451,13 @@ def main() -> int:
     def kd_buffers():
         return {"f_out": torch.full_like(fq, float("nan"))}
 
-    def run_k1d(fn, b, obst, pk, sc):
-        fn(fq, b["f_out"], aux, sc, p.use_les, pk.bc_type, obst, prof_of(pk))
+    def run_k1d(fn, b, obst, pk, sc, prev=None):
+        fn(fq, b["f_out"], aux, sc, p.use_les, pk.bc_type, obst, prof_of(pk), prev=prev)
 
     for obst in cs.DEV_OBSTACLES:
         name = cs.k1_variant(obst, dev=True)
         max_abs, errs = over_combos(name, kd_buffers,
-                                    lambda fn, b, pk, sc: run_k1d(fn, b, obst, pk, sc),
+                                    lambda fn, b, pk, sc, pv: run_k1d(fn, b, obst, pk, sc, pv),
                                     cs.k1_step_dev, cs.k1_step_dev_plain)
         # f 18 B in (bf16), aux 4, f 18 B out; the dequantize and quantize
         # add 18 operations per cell, 9 per ring cell
@@ -1377,7 +1562,8 @@ def main() -> int:
                                           for iy in range(2)]
         return cs.ShardTables(auxS, geoms2, qS, rows)
 
-    tabs2 = {bc_tag(pk): tables_of(pk) for pk, _ in combos}
+    tabs2 = {bc_tag(pk): tables_of(pk) for pk, _, _ in combos}
+    prevS = {fresh: cs.RingPrev(cut(rho_prev), cut(u_prev), fresh) for fresh in (True, False)}
     print(f"  sharded forms: 2x2 mesh of {dev}, blocks {hl2}x{wl2} in [{hl2 + 2}, {pitch2}] "
           f"planes; each variant's mesh step (its pushes included) bitwise", flush=True)
 
@@ -1393,32 +1579,34 @@ def main() -> int:
                        f_post=[[b.clone() for b in row] for row in fpS])
         return out
 
-    def run_mesh(kernel, bufs, obst, pk, sc, dev_store=False):
-        """One step of the 2x2 mesh: the library call, or its plain version."""
+    def run_mesh(kernel, bufs, obst, pk, sc, dev_store=False, prev=None):
+        """One step of the 2x2 mesh: the library call, or its plain version;
+        ``prev`` a no-op layout's RingPrev (the whole grid's, cut here)."""
         t = tabs2[bc_tag(pk)]
+        pv = None if prev is None else prevS[prev.fresh]
         if "rho" in bufs:
             (cs.k1_shard_full if kernel else cs.k1_shard_full_plain)(
                 fS, bufs["f_out"], t, sc, p.use_les, pk.bc_type, bufs["rho"], bufs["u"],
-                bufs["f_post"], obst)
+                bufs["f_post"], obst, pv)
         else:
             fin = fqS if dev_store else fS
             (cs.k1_shard_steps if kernel else cs.k1_shard_steps_plain)(
                 fin, bufs["f_out"], fin, t, sc.reshape(1, -1).contiguous(), p.use_les,
-                pk.bc_type, obst, dev_store)
+                pk.bc_type, obst, dev_store, pv)
 
     def mesh_checked(name, new_buffers, run):
         """Every BC combination through the mesh step and its plain version,
         raw bits of every block's buffers; returns {tag: 0.0}."""
         errs = {}
-        for pk, sc in combos:
+        for pk, sc, prev in combos:
             bk, bp = new_buffers(), new_buffers()
-            run(True, bk, pk, sc)
-            run(False, bp, pk, sc)
+            run(True, bk, pk, sc, prev)
+            run(False, bp, pk, sc, prev)
             torch.cuda.synchronize()
             for k in bk:
                 for iy in range(2):
                     for ix in range(2):
-                        tag = f"{name} bc {bc_tag(pk)} block ({iy}, {ix}) {k}"
+                        tag = f"{name} bc {combo_tag(pk, prev)} block ({iy}, {ix}) {k}"
                         if not torch.equal(bits(bk[k][iy][ix]), bits(bp[k][iy][ix])):
                             raise AssertionError(f"{tag}: not bitwise equal to its plain version")
                         errs[tag] = 0.0
@@ -1474,8 +1662,8 @@ def main() -> int:
                 "plain": mesh_buffers(full, cs.DEV_DTYPE if dev_store else torch.float32)}
         errs = mesh_checked(name, lambda: mesh_buffers(full, cs.DEV_DTYPE if dev_store
                                                        else torch.float32),
-                            lambda kernel, b, pk, sc: run_mesh(kernel, b, obst, pk, sc,
-                                                               dev_store))
+                            lambda kernel, b, pk, sc, pv: run_mesh(kernel, b, obst, pk, sc,
+                                                                   dev_store, pv))
         nbytes, ops = mesh_work(full, obst, dev_store)
         records[name] = per_block(record(
             0.0, errs, lambda: run_mesh(True, bufs["kernel"], obst, p, scal, dev_store),
@@ -1567,6 +1755,44 @@ def main() -> int:
         print(f"  chunk loop vs per-step wrappers, {tag}, steps {s0.step + 1}-{s0.step + LOOP_N} "
               f"(warmup {pk.warmup_steps.item():g}): f, f_post, rho, u, force, max_v bitwise; "
               f"launches {la}", flush=True)
+    # the no-op layouts through the libraries' step loops: run_chunk_cuda
+    # (k1_steps, then the closing k1_step) against the per-step wrappers
+    # and the plain chunk runner, and the 2x2 mesh's library loop
+    # (k1_shard_steps, k1_shard_full) against the whole grid's plain chunk,
+    # bitwise, from the state's f with the no-op draw's rho and u, the chunk
+    # straddling the warmup
+    s_noop = solver.LBMState(f=state.f, f_post=state.f_post, rho=rho_prev, u=u_prev,
+                             step=w3 - LOOP_N // 2)
+    for pk in map(combo_params, NOOP_COMBOS):
+        cs.reset_launch_counts()
+        a_, ma_ = cs.run_chunk_cuda(s_noop, pk, LOOP_N)
+        la = {k: v for k, v in cs.LAUNCHES.items() if v}
+        cs.reset_launch_counts()
+        b_, mb_ = cs.run_chunk_stepwise(s_noop, pk, LOOP_N)
+        lb = {k: v for k, v in cs.LAUNCHES.items() if v}
+        c_, mc_ = cs.run_chunk_plain(s_noop, pk, LOOP_N)
+        cs.reset_launch_counts()
+        runner = sh.BlockRunner(mesh22, "cuda")
+        bs_ = runner.place(s_noop, pk)
+        md_ = runner.advance(bs_, pk, LOOP_N)
+        lm = {k: v for k, v in cs.LAUNCHES.items() if v}
+        d_ = bs_.snapshot()
+        torch.cuda.synchronize()
+        tag = f"no-op {bc_tag(pk)}"
+        for k in ("f", "f_post", "rho", "u"):
+            exact(f"chunk loop {tag} {k}", getattr(a_, k), getattr(b_, k))
+            exact(f"chunk loop {tag} vs plain {k}", getattr(a_, k), getattr(c_, k))
+            exact(f"mesh loop {tag} vs plain {k}", getattr(d_, k), getattr(c_, k))
+        for k in ("force", "max_v"):
+            exact(f"chunk loop {tag} {k}", ma_[k], mb_[k])
+            exact(f"chunk loop {tag} vs plain {k}", ma_[k], mc_[k])
+            exact(f"mesh loop {tag} vs plain {k}", md_[k], mc_[k])
+        want_m = {"k1_step_shard": 4 * (LOOP_N - 1), "k1_step_shard_full": 4}
+        if la != lb or la != {"k1_step": LOOP_N - 1, "k1_step_full": 1} or lm != want_m:
+            raise AssertionError(f"{tag}: launches {la}, per-step {lb}, mesh {lm}")
+        print(f"  {tag}: run_chunk_cuda({LOOP_N}) = per-step wrappers = run_chunk_plain, and "
+              f"the 2x2 mesh's library loop = run_chunk_plain: f, f_post, rho, u, force, max_v "
+              f"bitwise; launches {la}, mesh {lm}", flush=True)
 
     def issue_us(call, n, repeats=5):
         """(host us, device us) a launch of one call of ``n`` launches made
@@ -2536,12 +2762,15 @@ def main() -> int:
     # -- phase 12: the DFG-2D matrix at cut depth ------------------------------
     launches12 = phase12(mask, counted, card, engines, exact_state)
 
+    # -- phase 13: a layout with a no-op side through the engine ---------------
+    launches13 = phase13(config, mask, counted, card)
+
     kernels = []
     by_path = {"serial": launches, "lockstep": launches4, "dfg": launches5,
                "dfg_pairs": launches5b, "fused": launches6, "fused_pairs": launches6b,
                "roofline": launches7, "sharded": launches8c, "sharded_pairs": launches8a,
                "sharded_dfg": launches8b, "sharded_4096": launches8d, **launches9,
-               **launches10, "bench": launches11, "suite": launches12}
+               **launches10, "bench": launches11, "suite": launches12, "noop": launches13}
     sources = {"k1": ("k1_step.cu", "lbm2d_tpu/ops/pallas_step.py:824"),
                "k3": ("k3_fused.cu", "lbm2d_tpu/ops/pallas_step.py:610"),
                "co": ("copy_probe.cu", "tools_roofline_4096.py:95")}

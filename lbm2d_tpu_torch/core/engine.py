@@ -139,16 +139,19 @@ def make_spatial_mesh(mesh_shape: Tuple[int, int], device: torch.device, grid_sh
     return make_mesh(mesh_shape, devices)
 
 
-def resolve_store_dev(p: CaseParams, store_dev: bool, sharded: bool = False) -> bool:
-    """``store_dev`` under the JAX package's rule: half-way and Bouzidi
-    bounce-back run exact f32 (``cuda_step.dev_storage_refusal``). A
-    request that the rule turns down is logged with the reason; the kernels
-    still run, in f32."""
+def resolve_store_dev(p: CaseParams, store_dev: bool, mesh_grid=None,
+                      lockstep: bool = False) -> bool:
+    """``store_dev`` where the JAX package's runners would engage it
+    (``cuda_step.engine_dev_storage_refusal``: the layout its kernels run,
+    neither half-way nor Bouzidi bounce-back, no temporal blocking, and the
+    split-BC geometry of the grid, or of a spatial mesh ``mesh_grid``'s
+    blocks, or the lockstep engine's smallest grid). A request that a rule
+    turns down is logged with the reason; the kernels still run, in f32."""
     if not store_dev:
         return False
-    from ..ops.cuda_step import dev_storage_refusal
+    from ..ops.cuda_step import engine_dev_storage_refusal
 
-    why = dev_storage_refusal(p, sharded)
+    why = engine_dev_storage_refusal(p, mesh_grid, lockstep)
     if why is not None:
         log.warning("16-bit deviation storage (f16_state) not engaged: %s", why)
         return False
@@ -272,7 +275,7 @@ class LBMEngine:
         )
         self.dtype = dtype
         self.store_dev = resolve_store_dev(self.params, self.store_dev,
-                                           sharded=self.mesh is not None)
+                                           None if self.mesh is None else self.mesh.grid)
         if self.mesh is not None:
             self._runner = resolve_sharded_runner(self.params, self.device, self.store_dev,
                                                   self.mesh)

@@ -46,7 +46,14 @@
 // second launch. Left types 0 (Zou-He pressure inlet), 2 (free-slip), 3/4
 // (the profiled velocity inlets, read from the case's [H] inlet_profile
 // tensor, never recomputed); right 0 (velocity inlet), 1 (Zou-He pressure
-// outlet with the backflow guard) or 2; top/bottom 0 or 2.
+// outlet with the backflow guard) or 2; top/bottom 0 or 2. Any other type
+// is a no-op in apply_bc (solver.py :706, :748, :768): the side's ring
+// threads store their cells' previous values (lbm_ring_from), f from f_in
+// and rho, u from the state's planes at the start of the chunk (RingPrev),
+// through the obstacle pass; a corner of an active top or bottom row reads
+// the no-op side's cell the same way. These layouts never reach the TPU
+// kernel (pallas_step.supports); the JAX package runs them on its jnp step,
+// which this branch matches.
 // Why not the neighbour's own thread, which holds these values in
 // registers: ptxas gives a kernel the register count of its hungriest
 // path, and the ring's branches inlined after the update took several
@@ -138,18 +145,47 @@ __device__ __forceinline__ bool k1_collide(const typename S::T* __restrict__ f_i
   return solid;
 }
 
-// A ring cell's BC chain and stores, from its inward neighbour's collide
-// output ``n``: out of line, so its registers stay out of the update's
-// budget (inlined, ptxas spilled a few of the update's values in some fast
-// instances; the ring threads are 0.3% of a step's cells).
+// What the ring threads of a no-op side read besides f_in: the state's rho
+// and u planes (the block's geometry) at the start of the chunk. Over a
+// chunk a no-op cell keeps its rho, and the obstacle pass of every step
+// zeroes u on a solid one; so ``fresh`` says whether rho and u are those
+// of the step before f_in (the chunk's first step), else a solid cell's u
+// reads as 0. Null and unread where every side is active. The last kernel
+// parameter, after ``nb``, so the production instances keep their register
+// allocation.
+struct RingPrev {
+  const float* rho;
+  const float* u;
+  int fresh;
+};
+
+// Cell ``c`` as the previous step left it: f from f_in, rho and u from
+// ``pv`` (RingPrev).
+template <typename S>
+__device__ __forceinline__ void k1_prev(const typename S::T* __restrict__ f_in,
+                                        const float* __restrict__ aux, const RingPrev& pv,
+                                        size_t plane, size_t c, Cell* n) {
+#pragma unroll
+  for (int k = 0; k < 9; ++k) n->f[k] = S::load(f_in, k * plane + c, k);
+  const bool zero = !pv.fresh && __float_as_int(aux[c]) < 0;
+  n->rho = pv.rho[c];
+  n->ux = zero ? 0.0f : pv.u[c];
+  n->uy = zero ? 0.0f : pv.u[plane + c];
+}
+
+// A ring cell's BC chain and stores, from ``n``: its inward neighbour's
+// collide output, or the previous values lbm_ring_from names (``from``).
+// Out of line, so its registers stay out of the update's budget (inlined,
+// ptxas spilled a few of the update's values in some fast instances; the
+// ring threads are 0.3% of a step's cells).
 template <typename S, int OBST, bool FULL>
 __device__ __noinline__ void k1_ring_store(const Cell* n, bool column, bool far, int gx,
                                            int Wg, const Scalars s, const BcTypes bc,
-                                           float u_prof, typename S::T* f_out,
+                                           float u_prof, int from, typename S::T* f_out,
                                            const float* aux, float* rho_out, float* u_out,
                                            size_t plane, size_t c) {
   lbm_store_ring<S, OBST, FULL>(f_out, aux, rho_out, u_out, plane, c,
-                                lbm_ring_values(*n, column, far, gx, Wg, s, bc, u_prof));
+                                lbm_ring_values(*n, column, far, gx, Wg, s, bc, u_prof, from));
 }
 
 // The halo slots that hold a copy of own cell (y, x) of a shard (halo.cuh):
@@ -188,9 +224,11 @@ __device__ __forceinline__ void k1_push(const ShardNbrs& nb, const BlockGeom& g,
 // global inner row) returns. It computes the collide output of the cell's
 // inward neighbour (k1_collide: the update's own arithmetic on the same
 // read-only inputs, so the same bits as the neighbour's thread), then the
-// cell's BC values (lbm_ring_values) and stores them; a shard's thread then
-// pushes what it stored into the neighbours' halos (k1_push), read back from
-// its own f_out.
+// cell's BC values (lbm_ring_values) and stores them; where a side is a
+// no-op it reads previous values instead (lbm_ring_from, k1_prev), every
+// step, into either ping-pong buffer. A shard's thread then pushes what it
+// stored into the neighbours' halos (k1_push), read back from its own
+// f_out.
 template <typename S, int OBST, bool SHARD, bool FULL>
 __device__ __forceinline__ void k1_ring(const typename S::T* __restrict__ f_in,
                                         typename S::T* __restrict__ f_out,
@@ -199,7 +237,8 @@ __device__ __forceinline__ void k1_ring(const typename S::T* __restrict__ f_in,
                                         const float* __restrict__ prof,
                                         float* __restrict__ rho_out, float* __restrict__ u_out,
                                         const Scalars& s, const BlockGeom& g, const BcTypes& bc,
-                                        const ShardNbrs& nb, int use_les, int t) {
+                                        const ShardNbrs& nb, const RingPrev& pv, int use_les,
+                                        int t) {
   const int hl = g.hl, wl = g.wl;
   bool column, far;
   int y, x, yn, xn;
@@ -226,11 +265,16 @@ __device__ __forceinline__ void k1_ring(const typename S::T* __restrict__ f_in,
     return;
   }
   const size_t plane = geom_plane(g);
+  const int from = lbm_ring_from(column, far, g.x_off + x, g.Wg, bc);
   Cell n;
-  k1_collide<S, OBST>(f_in, aux, q, plane, geom_at(g, yn, xn), g.pitch, s, use_les, &n);
+  if (from == LBM_RING_NEIGHBOUR)
+    k1_collide<S, OBST>(f_in, aux, q, plane, geom_at(g, yn, xn), g.pitch, s, use_les, &n);
+  else  // the cell itself, or at a corner the no-op side's cell one row in
+    k1_prev<S>(f_in, aux, pv, plane, from == LBM_RING_OWN ? geom_at(g, y, x) : geom_at(g, yn, x),
+               &n);
   const bool vel = bc.left == LBM_BC_VEL_INLET || bc.left == LBM_BC_VEL_INLET_NEBB;
   k1_ring_store<S, OBST, FULL>(&n, column, far, g.x_off + x, g.Wg, s, bc,
-                               vel ? prof[yn] : 0.0f, f_out, aux, rho_out, u_out, plane,
+                               vel ? prof[yn] : 0.0f, from, f_out, aux, rho_out, u_out, plane,
                                geom_at(g, y, x));
   if constexpr (SHARD) {
     const size_t c = geom_at(g, y, x);
@@ -272,9 +316,10 @@ constexpr int k1_min_blocks() {
 // stay in the out-of-line k1_ring_store. With the push inline no _shard
 // instance spills or keeps more in local memory than its whole-grid twin,
 // and none needs a register more than fits the blocks a SM its launch
-// bounds ask for (phase 1 of chip_smoke.py prints them). ``nb`` is the
-// last parameter: placed before ``use_les`` it moved ptxas's allocation of
-// the whole-grid deviation-storage instance into 8 bytes of spills.
+// bounds ask for (phase 1 of chip_smoke.py prints them). ``nb`` and ``pv``
+// are the last parameters: ``nb`` placed before ``use_les`` moved ptxas's
+// allocation of the whole-grid deviation-storage instance into 8 bytes of
+// spills.
 template <typename S, int OBST, bool SHARD, bool FULL>
 __global__ void __launch_bounds__(256, k1_min_blocks<OBST, FULL>())
 k1_step_kernel(const typename S::T* __restrict__ f_in,
@@ -283,10 +328,10 @@ k1_step_kernel(const typename S::T* __restrict__ f_in,
                const float* __restrict__ prof, float* __restrict__ rho_out,
                float* __restrict__ u_out, float* __restrict__ fpost_out,
                const Scalars s, const BlockGeom geom, const BcTypes bc,
-               const int use_les, const int nr, const ShardNbrs nb) {
+               const int use_les, const int nr, const ShardNbrs nb, const RingPrev pv) {
   const BlockGeom g = fold_geom<SHARD>(geom);
   if ((int)blockIdx.y < nr) {
-    k1_ring<S, OBST, SHARD, FULL>(f_in, f_out, aux, q, prof, rho_out, u_out, s, g, bc, nb,
+    k1_ring<S, OBST, SHARD, FULL>(f_in, f_out, aux, q, prof, rho_out, u_out, s, g, bc, nb, pv,
                                   use_les,
                                   (blockIdx.y * gridDim.x + blockIdx.x) * blockDim.x +
                                       threadIdx.x);
@@ -322,7 +367,7 @@ static void launch(const void* f_in, void* f_out, const void* aux,
                    const void* q, const void* prof, void* rho, void* u,
                    void* f_post, const Scalars& s, const BlockGeom& g,
                    const BcTypes& bc, int use_les, cudaStream_t stream,
-                   const ShardNbrs& nb = ShardNbrs{}) {
+                   const ShardNbrs& nb = ShardNbrs{}, const RingPrev& pv = RingPrev{}) {
   // the block's cells that are interior in the global grid
   const int i0 = std::max(0, 1 - g.y_off);
   const int i1 = std::min(g.hl - 1, g.Hg - 2 - g.y_off);
@@ -341,7 +386,7 @@ static void launch(const void* f_in, void* f_out, const void* aux,
       static_cast<typename S::T*>(f_out), static_cast<const float*>(aux),
       static_cast<const float*>(q), static_cast<const float*>(prof),
       static_cast<float*>(rho), static_cast<float*>(u),
-      static_cast<float*>(f_post), s, g, bc, use_les, nr, nb);
+      static_cast<float*>(f_post), s, g, bc, use_les, nr, nb, pv);
 }
 
 // The f32 step of one scheme: the full instance closes a chunk, the fast
@@ -350,13 +395,13 @@ template <int OBST, bool SHARD>
 static void launch_f32(const void* f_in, void* f_out, const void* aux, const void* q,
                        const void* prof, void* rho, void* u, void* f_post, const Scalars& s,
                        const BlockGeom& g, const BcTypes& bc, int use_les, int full,
-                       cudaStream_t st, const ShardNbrs& nb) {
+                       cudaStream_t st, const ShardNbrs& nb, const RingPrev& pv) {
   if (full)
     launch<F32Store, OBST, SHARD, true>(f_in, f_out, aux, q, prof, rho, u, f_post, s, g, bc,
-                                        use_les, st, nb);
+                                        use_les, st, nb, pv);
   else
     launch<F32Store, OBST, SHARD, false>(f_in, f_out, aux, q, prof, rho, u, f_post, s, g, bc,
-                                         use_les, st, nb);
+                                         use_les, st, nb, pv);
 }
 
 template <bool SHARD>
@@ -364,25 +409,25 @@ static int dispatch(const void* f_in, void* f_out, const void* aux,
                     const void* q, const void* prof, void* rho, void* u,
                     void* f_post, const void* scal, const BlockGeom& g,
                     const BcTypes& bc, int use_les, int full, int obst,
-                    void* stream, const ShardNbrs& nb = ShardNbrs{}) {
+                    void* stream, const RingPrev& pv, const ShardNbrs& nb = ShardNbrs{}) {
   const Scalars s = load_scalars(static_cast<const float*>(scal));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (obst) {
     case LBM_OBST_EQ:
       launch_f32<LBM_OBST_EQ, SHARD>(f_in, f_out, aux, q, prof, rho, u, f_post, s, g, bc,
-                                     use_les, full, st, nb);
+                                     use_les, full, st, nb, pv);
       break;
     case LBM_OBST_BOUNCE:
       launch_f32<LBM_OBST_BOUNCE, SHARD>(f_in, f_out, aux, q, prof, rho, u, f_post, s, g, bc,
-                                         use_les, full, st, nb);
+                                         use_les, full, st, nb, pv);
       break;
     case LBM_OBST_HALFWAY:
       launch_f32<LBM_OBST_HALFWAY, SHARD>(f_in, f_out, aux, q, prof, rho, u, f_post, s, g,
-                                          bc, use_les, full, st, nb);
+                                          bc, use_les, full, st, nb, pv);
       break;
     case LBM_OBST_BOUZIDI:
       launch_f32<LBM_OBST_BOUZIDI, SHARD>(f_in, f_out, aux, q, prof, rho, u, f_post, s, g,
-                                          bc, use_les, full, st, nb);
+                                          bc, use_les, full, st, nb, pv);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -403,19 +448,24 @@ static int dispatch(const void* f_in, void* f_out, const void* aux,
 // types, ``obst`` is LBM_OBST_*; ``q`` ([8] planes of the block) is read
 // only under BOUZIDI, ``prof`` (the block's [hl] rows of the inlet
 // profile) only for left types 3/4, rho/u/f_post written only when full;
+// ``rho_prev`` / ``u_prev`` (the state's rho [plane] and u [2] planes,
+// ``fresh`` as RingPrev says) only where a side is a no-op, else null;
 // all share the block's geometry.
 extern "C" int k1_step_launch(const void* f_in, void* f_out, const void* aux,
                               const void* q, const void* prof, void* rho,
                               void* u, void* f_post, const void* scal,
                               const int* geom, int bc_left, int bc_top,
                               int bc_right, int bc_bottom, int use_les,
-                              int full, int obst, void* stream) {
+                              int full, int obst, void* stream, const void* rho_prev,
+                              const void* u_prev, int fresh) {
   const BlockGeom g = load_geom(geom);
   const BcTypes bc{bc_left, bc_top, bc_right, bc_bottom};
+  const RingPrev pv{static_cast<const float*>(rho_prev), static_cast<const float*>(u_prev),
+                    fresh};
   return g.halo ? dispatch<true>(f_in, f_out, aux, q, prof, rho, u, f_post,
-                                 scal, g, bc, use_les, full, obst, stream)
+                                 scal, g, bc, use_les, full, obst, stream, pv)
                 : dispatch<false>(f_in, f_out, aux, q, prof, rho, u, f_post,
-                                  scal, g, bc, use_les, full, obst, stream);
+                                  scal, g, bc, use_les, full, obst, stream, pv);
 }
 
 // The fast step in 16-bit deviation storage (EQ and BOUNCE only).
@@ -423,19 +473,19 @@ template <bool SHARD>
 static int dispatch_dev(const void* f_in, void* f_out, const void* aux,
                         const void* prof, const void* scal, const BlockGeom& g,
                         const BcTypes& bc, int use_les, int obst,
-                        void* stream) {
+                        void* stream, const RingPrev& pv) {
   const Scalars s = load_scalars(static_cast<const float*>(scal));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (obst) {
     case LBM_OBST_EQ:
       launch<DevStore, LBM_OBST_EQ, SHARD, false>(f_in, f_out, aux, nullptr, prof,
                                                   nullptr, nullptr, nullptr, s, g, bc,
-                                                  use_les, st);
+                                                  use_les, st, ShardNbrs{}, pv);
       break;
     case LBM_OBST_BOUNCE:
       launch<DevStore, LBM_OBST_BOUNCE, SHARD, false>(f_in, f_out, aux, nullptr, prof,
                                                       nullptr, nullptr, nullptr, s, g,
-                                                      bc, use_les, st);
+                                                      bc, use_les, st, ShardNbrs{}, pv);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -446,35 +496,42 @@ static int dispatch_dev(const void* f_in, void* f_out, const void* aux,
 // The fast step in 16-bit deviation storage: f_in and f_out are bf16
 // planes of f - w in the block's geometry (halos included on a shard), the
 // ring quantized as the interior is. Schemes EQ and BOUNCE only.
+// ``rho_prev`` / ``u_prev`` / ``fresh`` as for k1_step_launch.
 extern "C" int k1_step_dev_launch(const void* f_in, void* f_out,
                                   const void* aux, const void* prof,
                                   const void* scal, const int* geom,
                                   int bc_left, int bc_top, int bc_right,
                                   int bc_bottom, int use_les, int obst,
-                                  void* stream) {
+                                  void* stream, const void* rho_prev, const void* u_prev,
+                                  int fresh) {
   const BlockGeom g = load_geom(geom);
   const BcTypes bc{bc_left, bc_top, bc_right, bc_bottom};
+  const RingPrev pv{static_cast<const float*>(rho_prev), static_cast<const float*>(u_prev),
+                    fresh};
   return g.halo ? dispatch_dev<true>(f_in, f_out, aux, prof, scal, g, bc,
-                                     use_les, obst, stream)
+                                     use_les, obst, stream, pv)
                 : dispatch_dev<false>(f_in, f_out, aux, prof, scal, g, bc,
-                                      use_les, obst, stream);
+                                      use_les, obst, stream, pv);
 }
 
 // n fast steps of the whole grid, one launch each, as the single-step
 // entries launch them: step i takes row i of ``rows`` by value, reads f_in
 // (step 0) or the previous step's output, and writes f_a (even i) or f_b
-// (odd i). f_b may be f_in, which only step 0 reads. After each launch
-// cudaGetLastError(); on a failure ``*failed`` is the step's index and
-// the rest are not launched.
+// (odd i). f_b may be f_in, which only step 0 reads. ``pv`` is step 0's
+// RingPrev; the later steps read the same planes, not fresh. After each
+// launch cudaGetLastError(); on a failure ``*failed`` is the step's index
+// and the rest are not launched.
 template <typename S, int OBST>
 static int steps_loop(const void* f_in, void* f_a, void* f_b, const void* aux, const void* q,
                       const void* prof, const float* rows, int n, const BlockGeom& g,
-                      const BcTypes& bc, int use_les, cudaStream_t st, int* failed) {
+                      const BcTypes& bc, int use_les, cudaStream_t st, const RingPrev& pv,
+                      int* failed) {
   const void* src = f_in;
   for (int i = 0; i < n; ++i) {
     void* dst = (i & 1) ? f_b : f_a;
     launch<S, OBST, false, false>(src, dst, aux, q, prof, nullptr, nullptr, nullptr,
-                                  load_scalars(rows + 14 * i), g, bc, use_les, st);
+                                  load_scalars(rows + 14 * i), g, bc, use_les, st, ShardNbrs{},
+                                  RingPrev{pv.rho, pv.u, i == 0 ? pv.fresh : 0});
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) {
       *failed = i;
@@ -492,27 +549,31 @@ static int steps_loop(const void* f_in, void* f_a, void* f_b, const void* aux, c
 // host table ``rows`` [n, 14] in place of the scalar row, the two
 // ping-pong buffers f_a and f_b (steps_loop) in place of f_out, and
 // ``dev`` choosing 16-bit deviation storage (bf16 f_in, f_a, f_b; EQ and
-// BOUNCE only, no q) over f32. Returns the CUDA error code (``*failed`` the
-// failing step, -1 for refused arguments) or 0.
+// BOUNCE only, no q) over f32, and ``rho_prev`` / ``u_prev`` / ``fresh`` as
+// for k1_step_launch, ``fresh`` for step 0. Returns the CUDA error code
+// (``*failed`` the failing step, -1 for refused arguments) or 0.
 extern "C" int k1_steps_launch(const void* f_in, void* f_a, void* f_b, const void* aux,
                                const void* q, const void* prof, const void* rows, int n,
                                const int* geom, int bc_left, int bc_top, int bc_right,
                                int bc_bottom, int use_les, int dev, int obst, void* stream,
-                               int* failed) {
+                               int* failed, const void* rho_prev, const void* u_prev,
+                               int fresh) {
   *failed = -1;
   const BlockGeom g = load_geom(geom);
   if (g.halo != 0 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
   const BcTypes bc{bc_left, bc_top, bc_right, bc_bottom};
+  const RingPrev pv{static_cast<const float*>(rho_prev), static_cast<const float*>(u_prev),
+                    fresh};
   const float* r = static_cast<const float*>(rows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dev) {
     switch (obst) {
       case LBM_OBST_EQ:
         return steps_loop<DevStore, LBM_OBST_EQ>(f_in, f_a, f_b, aux, nullptr, prof, r, n, g,
-                                                 bc, use_les, st, failed);
+                                                 bc, use_les, st, pv, failed);
       case LBM_OBST_BOUNCE:
         return steps_loop<DevStore, LBM_OBST_BOUNCE>(f_in, f_a, f_b, aux, nullptr, prof, r, n,
-                                                     g, bc, use_les, st, failed);
+                                                     g, bc, use_les, st, pv, failed);
       default:
         return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -520,16 +581,16 @@ extern "C" int k1_steps_launch(const void* f_in, void* f_a, void* f_b, const voi
   switch (obst) {
     case LBM_OBST_EQ:
       return steps_loop<F32Store, LBM_OBST_EQ>(f_in, f_a, f_b, aux, q, prof, r, n, g, bc,
-                                               use_les, st, failed);
+                                               use_les, st, pv, failed);
     case LBM_OBST_BOUNCE:
       return steps_loop<F32Store, LBM_OBST_BOUNCE>(f_in, f_a, f_b, aux, q, prof, r, n, g, bc,
-                                                   use_les, st, failed);
+                                                   use_les, st, pv, failed);
     case LBM_OBST_HALFWAY:
       return steps_loop<F32Store, LBM_OBST_HALFWAY>(f_in, f_a, f_b, aux, q, prof, r, n, g, bc,
-                                                    use_les, st, failed);
+                                                    use_les, st, pv, failed);
     case LBM_OBST_BOUZIDI:
       return steps_loop<F32Store, LBM_OBST_BOUZIDI>(f_in, f_a, f_b, aux, q, prof, r, n, g, bc,
-                                                    use_les, st, failed);
+                                                    use_les, st, pv, failed);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -566,14 +627,17 @@ static const void* table_at(const void* const* table, int b) {
 // same buffer (``na`` / ``nb``: each block's neighbours in f_a / f_b) --
 // parallel/sharded.py fast_step's result, with no second launch. Across
 // devices each device's step waits for its neighbours' previous step
-// (MeshDevs). After each step cudaGetLastError(); on a failure ``*failed``
-// is the step's index and the rest are not launched.
+// (MeshDevs). ``rp`` / ``up`` are each block's RingPrev planes (null
+// tables where every side is active), ``fresh`` step 0's. After each step
+// cudaGetLastError(); on a failure ``*failed`` is the step's index and the
+// rest are not launched.
 template <typename S, int OBST>
 static int shard_steps_loop(const void* const* f_in, void* const* f_a, void* const* f_b,
                             const void* const* aux, const void* const* q,
                             const void* const* prof, const BlockGeom* g, const ShardNbrs* na,
                             const ShardNbrs* nb, const float* rows, int n, const BcTypes& bc,
-                            int use_les, MeshDevs& md, int* failed) {
+                            int use_les, MeshDevs& md, const void* const* rp,
+                            const void* const* up, int fresh, int* failed) {
   md.open();
   for (int i = 0; i < n; ++i) {
     const Scalars s = load_scalars(rows + 14 * i);
@@ -585,9 +649,11 @@ static int shard_steps_loop(const void* const* f_in, void* const* f_a, void* con
       const cudaStream_t st = md.enter(d, i);
       for (int k = 0; k < md.nblk[d]; ++k) {
         const int b = md.blk[d][k];
+        const RingPrev pv{static_cast<const float*>(table_at(rp, b)),
+                          static_cast<const float*>(table_at(up, b)), i == 0 ? fresh : 0};
         launch<S, OBST, true, false>(src[b], dst[b], aux[b], table_at(q, b),
                                      table_at(prof, b), nullptr, nullptr, nullptr, s, g[b], bc,
-                                     use_les, st, nbrs[b]);
+                                     use_les, st, nbrs[b], pv);
       }
       md.leave(d, i);
     }
@@ -622,8 +688,10 @@ static bool mesh_nbrs(void* const* blocks, int ry, int rx, ShardNbrs* out) {
 // a device; peer access between the devices, mesh_peers_launch). ``rows``
 // [n, 14] is the chunk's host table of scalar rows, ``dev`` picks 16-bit
 // deviation storage (bf16 f; EQ and BOUNCE only) over f32. f_b may be f_in,
-// which only step 0 reads. Each step's output carries its halos (the
-// pushes), as the halo refresh left them. Returns the CUDA error code
+// which only step 0 reads. ``rho_prev`` / ``u_prev`` are tables of each
+// block's RingPrev planes ([hl + 2, pitch] and [2, ...]; null where every
+// side is active), ``fresh`` step 0's. Each step's output carries its halos
+// (the pushes), as the halo refresh left them. Returns the CUDA error code
 // (``*failed`` the failing step, -1 for refused arguments) or 0; the
 // caller's device stays current.
 extern "C" int k1_shard_steps_launch(const void* f_in, const void* f_a, const void* f_b,
@@ -631,7 +699,8 @@ extern "C" int k1_shard_steps_launch(const void* f_in, const void* f_a, const vo
                                      const int* geoms, int ry, int rx, const void* rows, int n,
                                      int bc_left, int bc_top, int bc_right, int bc_bottom,
                                      int use_les, int dev, int obst, const int* devs,
-                                     const void* streams, int* failed) {
+                                     const void* streams, int* failed, const void* rho_prev,
+                                     const void* u_prev, int fresh) {
   *failed = -1;
   BlockGeom g[LBM_HALO_MAX_BLOCKS];
   if (n < 0 || !mesh_geoms(geoms, ry, rx, g)) return static_cast<int>(cudaErrorInvalidValue);
@@ -649,14 +718,18 @@ extern "C" int k1_shard_steps_launch(const void* f_in, const void* f_a, const vo
     return static_cast<int>(cudaErrorInvalidValue);
   const BcTypes bc{bc_left, bc_top, bc_right, bc_bottom};
   const float* r = static_cast<const float*>(rows);
+  auto rp = static_cast<const void* const*>(rho_prev);
+  auto up = static_cast<const void* const*>(u_prev);
   if (dev) {
     switch (obst) {
       case LBM_OBST_EQ:
         return shard_steps_loop<DevStore, LBM_OBST_EQ>(fi, fa, fb, ax, nullptr, pt, g, na, nb,
-                                                       r, n, bc, use_les, md, failed);
+                                                       r, n, bc, use_les, md, rp, up, fresh,
+                                                       failed);
       case LBM_OBST_BOUNCE:
         return shard_steps_loop<DevStore, LBM_OBST_BOUNCE>(fi, fa, fb, ax, nullptr, pt, g, na,
-                                                           nb, r, n, bc, use_les, md, failed);
+                                                           nb, r, n, bc, use_les, md, rp, up,
+                                                           fresh, failed);
       default:
         return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -664,16 +737,19 @@ extern "C" int k1_shard_steps_launch(const void* f_in, const void* f_a, const vo
   switch (obst) {
     case LBM_OBST_EQ:
       return shard_steps_loop<F32Store, LBM_OBST_EQ>(fi, fa, fb, ax, qt, pt, g, na, nb, r, n,
-                                                     bc, use_les, md, failed);
+                                                     bc, use_les, md, rp, up, fresh, failed);
     case LBM_OBST_BOUNCE:
       return shard_steps_loop<F32Store, LBM_OBST_BOUNCE>(fi, fa, fb, ax, qt, pt, g, na, nb, r,
-                                                         n, bc, use_les, md, failed);
+                                                         n, bc, use_les, md, rp, up, fresh,
+                                                         failed);
     case LBM_OBST_HALFWAY:
       return shard_steps_loop<F32Store, LBM_OBST_HALFWAY>(fi, fa, fb, ax, qt, pt, g, na, nb, r,
-                                                          n, bc, use_les, md, failed);
+                                                          n, bc, use_les, md, rp, up, fresh,
+                                                          failed);
     case LBM_OBST_BOUZIDI:
       return shard_steps_loop<F32Store, LBM_OBST_BOUZIDI>(fi, fa, fb, ax, qt, pt, g, na, nb, r,
-                                                          n, bc, use_les, md, failed);
+                                                          n, bc, use_les, md, rp, up, fresh,
+                                                          failed);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -684,14 +760,16 @@ extern "C" int k1_shard_steps_launch(const void* f_in, const void* f_a, const vo
 // its edge cells pushed into the neighbours' halos of f_out, which the next
 // chunk reads. Tables as for k1_shard_steps_launch, plus rho [hl + 2,
 // pitch], u [2, ...] and f_post [9, ...] of each block and the host scalar
-// row ``scal``. Returns the CUDA error code (cudaErrorInvalidValue for
-// refused arguments) or 0.
+// row ``scal``, and ``rho_prev`` / ``u_prev`` / ``fresh`` as for
+// k1_shard_steps_launch. Returns the CUDA error code (cudaErrorInvalidValue
+// for refused arguments) or 0.
 extern "C" int k1_shard_full_launch(const void* f_in, const void* f_out, const void* aux,
                                     const void* q, const void* prof, const void* rho,
                                     const void* u, const void* f_post, const void* scal,
                                     const int* geoms, int ry, int rx, int bc_left, int bc_top,
                                     int bc_right, int bc_bottom, int use_les, int obst,
-                                    const int* devs, const void* streams) {
+                                    const int* devs, const void* streams, const void* rho_prev,
+                                    const void* u_prev, int fresh) {
   BlockGeom g[LBM_HALO_MAX_BLOCKS];
   if (!mesh_geoms(geoms, ry, rx, g) || obst < LBM_OBST_EQ || obst > LBM_OBST_BOUZIDI)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -708,15 +786,19 @@ extern "C" int k1_shard_full_launch(const void* f_in, const void* f_out, const v
   auto rt = static_cast<void* const*>(const_cast<void*>(rho));
   auto ut = static_cast<void* const*>(const_cast<void*>(u));
   auto ft = static_cast<void* const*>(const_cast<void*>(f_post));
+  auto rp = static_cast<const void* const*>(rho_prev);
+  auto up = static_cast<const void* const*>(u_prev);
   const BcTypes bc{bc_left, bc_top, bc_right, bc_bottom};
   md.open();
   for (int d = 0; d < md.nd; ++d) {
     const cudaStream_t st = md.enter(d, 0);
     for (int k = 0; k < md.nblk[d]; ++k) {
       const int b = md.blk[d][k];
+      const RingPrev pv{static_cast<const float*>(table_at(rp, b)),
+                        static_cast<const float*>(table_at(up, b)), fresh};
       const int rc = dispatch<true>(fi[b], fo[b], ax[b], table_at(qt, b), table_at(pt, b),
                                     rt[b], ut[b], ft[b], scal, g[b], bc, use_les, 1, obst, st,
-                                    no[b]);
+                                    pv, no[b]);
       if (rc != 0) return rc;
     }
     md.leave(d, 0);

@@ -1,7 +1,9 @@
 // Device functions of one lattice cell shared by the kernels that update
 // whole cells: K1 (k1_step.cu) and K3 (k3_fused.cu) call the interior
 // update and the boundary conditions of the ring; K1's ring threads pick a
-// ring cell's BCs with lbm_ring_values and store it with lbm_store_ring.
+// ring cell's BCs with lbm_ring_values and store it with lbm_store_ring. K1
+// also runs the layouts with a no-op side (lbm_ring_from); K3 is never
+// given one (cuda_step.fuse_refusal).
 //
 // Each function reads its inputs through the caller's accessors or
 // arguments, so the same arithmetic runs on global memory (K1) and on a
@@ -202,6 +204,39 @@ struct BcTypes {
   int left, top, right, bottom;
 };
 
+// Whether apply_bc has a rule for a side's BC type: the types above, for
+// which solver.bc_left_values, bc_right_values and bc_horizontal_values
+// return values. Any other type (left 1, right 3/4, top/bottom 1/3/4) is a
+// no-op: apply_bc leaves the side's cells as the previous step left them,
+// and only the obstacle pass acts on them.
+__host__ __device__ constexpr bool bc_left_active(int t) {
+  return t == 0 || t == 2 || t == LBM_BC_VEL_INLET || t == LBM_BC_VEL_INLET_NEBB;
+}
+__host__ __device__ constexpr bool bc_right_active(int t) { return t == 0 || t == 1 || t == 2; }
+__host__ __device__ constexpr bool bc_horizontal_active(int t) { return t == 0 || t == 2; }
+
+// Which values a ring cell's BCs start from (lbm_ring_from):
+//   LBM_RING_NEIGHBOUR  the collide output of its inward neighbour;
+//   LBM_RING_OWN        its own previous values: its side is a no-op (a
+//                       whole top or bottom row, corners included);
+//   LBM_RING_SIDE       a corner of an active top or bottom row next to a
+//                       no-op side: the previous values of the side cell one
+//                       row in, as apply_bc left that side before the rows.
+enum { LBM_RING_NEIGHBOUR = 0, LBM_RING_OWN = 1, LBM_RING_SIDE = 2 };
+
+// The source of ring cell (``column``, ``far``, global column ``gx``) of
+// lbm_ring_values, from the sides' types.
+__device__ __forceinline__ int lbm_ring_from(bool column, bool far, int gx, int Wg,
+                                             const BcTypes& bc) {
+  if (column)
+    return (far ? bc_right_active(bc.right) : bc_left_active(bc.left)) ? LBM_RING_NEIGHBOUR
+                                                                        : LBM_RING_OWN;
+  if (!bc_horizontal_active(far ? bc.top : bc.bottom)) return LBM_RING_OWN;
+  if ((gx == 0 && !bc_left_active(bc.left)) || (gx == Wg - 1 && !bc_right_active(bc.right)))
+    return LBM_RING_SIDE;
+  return LBM_RING_NEIGHBOUR;
+}
+
 // Stores ring cell ``c`` from its BC values ``b``, as solver.apply_bc's
 // obstacle pass leaves it: f in S's format, w rho on a solid cell unless
 // under full-way bounce-back (which keeps the BC values); with FULL, rho
@@ -229,13 +264,19 @@ __device__ __forceinline__ void lbm_store_ring(typename S::T* f, const float* au
 // H-2, except at the corners (global column ``gx`` 0 or ``Wg`` - 1), where
 // that neighbour is a side cell and its side BC comes first, as apply_bc
 // reads the side column it has just written. ``u_prof`` is the neighbour
-// row's inlet profile (left types 3/4).
+// row's inlet profile (left types 3/4). ``from`` (lbm_ring_from) says what
+// ``n`` holds instead where a side is a no-op: the cell's own previous
+// values, returned as they are (LBM_RING_OWN), or the previous values of
+// the side cell a corner reads, which take no side BC (LBM_RING_SIDE).
 __device__ __forceinline__ Cell lbm_ring_values(const Cell& n, bool column, bool far, int gx,
                                                 int Wg, const Scalars& s, const BcTypes& bc,
-                                                float u_prof) {
+                                                float u_prof, int from = LBM_RING_NEIGHBOUR) {
+  if (from == LBM_RING_OWN) return n;
   if (column) return far ? bc_right(n, s, bc.right) : bc_left(n, s, bc.left, u_prof);
   Cell m;
-  if (gx == 0)
+  if (from == LBM_RING_SIDE)
+    m = n;
+  else if (gx == 0)
     m = bc_left(n, s, bc.left, u_prof);
   else if (gx == Wg - 1)
     m = bc_right(n, s, bc.right);

@@ -44,20 +44,24 @@ _I = ctypes.c_int
 KERNELS = {
     # K1 takes host pointers to the block's geometry (8 ints,
     # cuda_step.BlockGeom: the whole grid or one shard of a spatial mesh)
-    # and to the scalar row, then the four sides' BC types
-    "k1_step": ("k1_step", "k1_step_launch", [_P] * 10 + [_I] * 7 + [_P]),
-    "k1_step_dev": ("k1_step", "k1_step_dev_launch", [_P] * 6 + [_I] * 6 + [_P]),
+    # and to the scalar row, then the four sides' BC types; each K1 entry
+    # ends with the no-op sides' previous rho and u and their ``fresh`` flag
+    # (csrc/k1_step.cu RingPrev)
+    "k1_step": ("k1_step", "k1_step_launch", [_P] * 10 + [_I] * 7 + [_P] * 3 + [_I]),
+    "k1_step_dev": ("k1_step", "k1_step_dev_launch", [_P] * 6 + [_I] * 6 + [_P] * 3 + [_I]),
     # a chunk's fast steps in one call: the host table of n scalar rows,
     # the ping-pong buffers, and a host int that names a failing step
-    "k1_steps": ("k1_step", "k1_steps_launch", [_P] * 7 + [_I, _P] + [_I] * 7 + [_P, _P]),
+    "k1_steps": ("k1_step", "k1_steps_launch",
+                 [_P] * 7 + [_I, _P] + [_I] * 7 + [_P] * 4 + [_I]),
     # a sharded chunk on a mesh whose blocks live on the cards of one
     # process: host tables of the blocks' pointers and geometries, the mesh
     # grid, then as k1_steps, with host tables of each block's device and
     # stream; the closing full step on every block; peer access between the
     # mesh's cards
     "k1_shard_steps": ("k1_step", "k1_shard_steps_launch",
-                       [_P] * 7 + [_I, _I, _P] + [_I] * 8 + [_P] * 3),
-    "k1_shard_full": ("k1_step", "k1_shard_full_launch", [_P] * 10 + [_I] * 8 + [_P] * 2),
+                       [_P] * 7 + [_I, _I, _P] + [_I] * 8 + [_P] * 5 + [_I]),
+    "k1_shard_full": ("k1_step", "k1_shard_full_launch",
+                      [_P] * 10 + [_I] * 8 + [_P] * 4 + [_I]),
     "mesh_peers": ("k1_step", "mesh_peers_launch", [_P, _I]),
     "k3_fused": ("k3_fused", "k3_fused_launch", [_P] * 5 + [_I] * 11 + [_P]),
     "k3_passes": ("k3_fused", "k3_passes_launch", [_P] * 6 + [_I] * 12 + [_P, _P]),

@@ -11,7 +11,12 @@ package's split form (``_step_kernel`` with an edge export, then
 ``_edge_bc_kernel`` rebuilding the ring) is folded into that one launch.
 Its full variant, on a chunk's last step, also writes rho, u and f_post.
 The obstacle scheme (``OBSTACLE_*``: equilibrium, full-way, half-way or
-Bouzidi bounce-back) picks a compiled variant.
+Bouzidi bounce-back) picks a compiled variant. Every BC layout apply_bc
+runs is covered: a side whose type has no rule there (``noop_sides``)
+keeps its cells, which K1's ring threads store from f_in and the state's
+rho and u (``RingPrev``), as the eager step leaves them. The JAX package
+runs those layouts on its jnp step (``layout_refusal``), so they never
+run K3 or deviation storage here either.
 
 With 16-bit deviation storage (``store_dev``, the JAX package's
 ``run_chunk_pallas(store_dev=True)``) a chunk's fast steps run
@@ -19,7 +24,9 @@ With 16-bit deviation storage (``store_dev``, the JAX package's
 the start of the chunk and dequantized for the f32 full step that closes
 it. Lossy by design (one bf16 rounding of each deviation per step),
 opt-in, only for chunks of more than one step, and, as in the JAX package,
-not for half-way or Bouzidi bounce-back (``dev_storage_refusal``).
+not for half-way or Bouzidi bounce-back or a layout with a no-op side
+(``dev_storage_refusal``); the engines engage it only on the grids where
+the JAX package's runners do (``engine_dev_storage_refusal``).
 
 Temporal blocking is opt-in, as in the JAX package (``_FUSE_STEPS`` = S >
 1): a chunk's first n - 1 steps then run as passes of K3 ``k3_fused``
@@ -76,7 +83,7 @@ import ctypes
 import functools
 import weakref
 from dataclasses import astuple, dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -247,20 +254,51 @@ def _whole_grid(H: int, W: int) -> BlockGeom:
     return BlockGeom(H, W, W, 0, 0, 0, H, W)
 
 
-def unsupported(p: CaseParams) -> Optional[str]:
-    """Why the kernels cannot run case ``p``, or None when they can (a
-    spatial mesh's own rule is ``parallel/topology.mesh_refusal``)."""
-    lt, tt, rt, bt = p.bc_type
+# the BC types each side has a rule for in apply_bc (solver.bc_left_values,
+# bc_right_values, bc_horizontal_values; csrc/lbm_cell.cuh bc_*_active):
+# any other type is a no-op there, and the side's cells keep the previous
+# step's values, the obstacle pass aside
+LEFT_ACTIVE = (BC_INLET, BC_FREE_SLIP, BC_VEL_INLET, BC_VEL_INLET_NEBB)
+RIGHT_ACTIVE = (BC_INLET, BC_OUTLET, BC_FREE_SLIP)
+ROW_ACTIVE = (BC_INLET, BC_FREE_SLIP)
+
+
+def noop_sides(bc_type) -> Tuple[str, ...]:
+    """The sides of ``bc_type`` (left, top, right, bottom) whose type is a
+    no-op in apply_bc."""
+    lt, tt, rt, bt = (int(t) for t in bc_type)
+    return tuple(side for side, t, active in (("left", lt, LEFT_ACTIVE), ("top", tt, ROW_ACTIVE),
+                                              ("right", rt, RIGHT_ACTIVE),
+                                              ("bottom", bt, ROW_ACTIVE)) if t not in active)
+
+
+def layout_refusal(p: CaseParams) -> Optional[str]:
+    """Why the JAX package's kernels do not run case ``p``'s layout
+    (``lbm2d_tpu/ops/pallas_step.py`` ``supports``: every side active, the
+    inlet profile of left types 3/4, Bouzidi's q planes), or None. Such a
+    case runs on the JAX jnp step (``lbm2d_tpu/core/engine.py:213-239``),
+    exact f32, never fused and never in deviation storage; the port runs it
+    on K1."""
+    noop = noop_sides(p.bc_type)
+    if noop:
+        return (f"bc_type {tuple(p.bc_type)} has no-op sides ({', '.join(noop)}), which the "
+                "JAX kernels do not run (pallas_step.supports): the JAX package runs them on "
+                "its jnp step")
+    lt = p.bc_type[0]
     if lt in (BC_VEL_INLET, BC_VEL_INLET_NEBB) and p.inlet_profile is None:
         return f"left bc_type {lt} without CaseParams.inlet_profile"
-    sides_ok = (
-        lt in (BC_INLET, BC_FREE_SLIP, BC_VEL_INLET, BC_VEL_INLET_NEBB)
-        and rt in (BC_INLET, BC_OUTLET, BC_FREE_SLIP)
-        and tt in (BC_INLET, BC_FREE_SLIP)
-        and bt in (BC_INLET, BC_FREE_SLIP)
-    )
-    if not sides_ok:
-        return f"bc_type {p.bc_type}: every side must be active (no port planned)"
+    if p.bouzidi_obstacle and p.bouzidi_q is None:
+        return "Bouzidi bounce-back without its q planes (CaseParams.bouzidi_q)"
+    return None
+
+
+def unsupported(p: CaseParams) -> Optional[str]:
+    """Why the kernels cannot run case ``p``, or None when they can (a
+    spatial mesh's own rule is ``parallel/topology.mesh_refusal``). Every
+    layout apply_bc runs is covered, no-op sides included."""
+    lt = p.bc_type[0]
+    if lt in (BC_VEL_INLET, BC_VEL_INLET_NEBB) and p.inlet_profile is None:
+        return f"left bc_type {lt} without CaseParams.inlet_profile"
     if p.bouzidi_obstacle and p.bouzidi_q is None:
         return "Bouzidi bounce-back without its q planes (CaseParams.bouzidi_q)"
     if p.dtype != torch.float32:
@@ -272,25 +310,79 @@ def unsupported(p: CaseParams) -> Optional[str]:
 
 
 def supports(p: CaseParams) -> bool:
-    """True if K1 implements case ``p`` (the JAX ``pallas_step.supports``
-    layouts): left BC in {0, 2, 3, 4} (3/4 with the inlet profile), right in
-    {0, 1, 2}, top/bottom in {0, 2}, any obstacle scheme (Bouzidi with its q
-    planes), f32, LES on or off."""
+    """True if K1 implements case ``p``: every BC layout apply_bc runs
+    (left 3/4 with the inlet profile; a side of another type than its
+    active ones is a no-op, its cells kept), any obstacle scheme (Bouzidi
+    with its q planes), f32, LES on or off."""
     return unsupported(p) is None
 
 
 def dev_storage_refusal(p: CaseParams, sharded: bool = False) -> Optional[str]:
-    """Why 16-bit deviation storage does not engage for case ``p``, or None.
-    The JAX package's ``run_chunk_pallas`` rules: half-way and Bouzidi
-    bounce-back read the cell's own previous populations on their links
-    and run exact f32, and while temporal blocking is requested the state
-    stays f32. The sharded runner (``sharded``) never fuses, so only the
-    first rule holds there (``run_chunk_sharded_pallas``)."""
+    """Why 16-bit deviation storage does not engage in a chunk runner for
+    case ``p``, or None. The JAX package's rules that do not depend on the
+    grid: a layout its kernels refuse runs on its jnp step, exact f32
+    (``layout_refusal``); half-way and Bouzidi bounce-back read the cell's
+    own previous populations on their links and run exact f32
+    (``run_chunk_pallas``, ``lbm2d_tpu/ops/pallas_step.py:1815-1819``); and
+    while temporal blocking is requested the state stays f32 (``:1818``).
+    The sharded runner (``sharded``) never fuses, so the last rule does not
+    hold there (``run_chunk_sharded_pallas``,
+    ``lbm2d_tpu/parallel/sharded.py:365-369``). The engines add the grid's
+    rules (``engine_dev_storage_refusal``)."""
+    why = layout_refusal(p)
+    if why is not None:
+        return f"{why}, exact f32"
     if obstacle_scheme(p) not in DEV_OBSTACLES:
         return "half-way and Bouzidi bounce-back run exact f32 (the JAX run_chunk_pallas rule)"
     if fuse_requested() and not sharded:
         return (f"temporal blocking is requested (cuda_step._FUSE_STEPS = {_FUSE_STEPS}): "
                 "the state stays f32 (the JAX run_chunk_pallas rule)")
+    return None
+
+
+# the lockstep engine's smallest grid for its kernels' runner: below it the
+# JAX BatchEngine runs its vmap jnp chunk, which ignores store_dev
+# (lbm2d_tpu/parallel/batch.py:342-347, :428-430)
+LOCKSTEP_MIN_CELLS = 1 << 16
+
+
+def engine_dev_storage_refusal(p: CaseParams, mesh_grid: Optional[Tuple[int, int]] = None,
+                               lockstep: bool = False) -> Optional[str]:
+    """Why 16-bit deviation storage does not engage for case ``p`` in an
+    engine, or None: ``dev_storage_refusal``, then the rules the JAX
+    package's engines and runners take from the grid, each of which leaves
+    that package on an exact f32 chunk.
+
+    * One device (``mesh_grid`` None): its split-BC mode, which store_dev
+      needs, engages only on W % 128 == 0, H % 8 == 0 and H >= 16
+      (``run_chunk_pallas``, ``lbm2d_tpu/ops/pallas_step.py:1793-1822``).
+    * A spatial mesh (ry, rx) of [hl, wl] blocks: with rx > 1 the kernels
+      need wl % 128 == 0, else the jnp sharded step runs
+      (``lbm2d_tpu/core/engine.py:155-180``); and the block's split-BC mode
+      needs wl % 128 == 0, hl % 8 == 0 and hl >= 16
+      (``run_chunk_sharded_pallas``, ``lbm2d_tpu/parallel/sharded.py:
+      351-369``).
+    * The lockstep engine (``lockstep``): below H W = 65536 cells it runs
+      the vmap jnp chunk (``lbm2d_tpu/parallel/batch.py:342-347``)."""
+    why = dev_storage_refusal(p, sharded=mesh_grid is not None)
+    if why is not None:
+        return why
+    H, W = p.shape
+    if mesh_grid is not None:
+        ry, rx = mesh_grid
+        hl, wl = H // ry, W // rx
+        if rx > 1 and wl % 128:
+            return (f"a {ry}x{rx} mesh of {hl}x{wl} blocks: the JAX engine runs its jnp sharded "
+                    "step where rx > 1 and the block width is not a multiple of 128, exact f32")
+        if wl % 128 or hl % 8 or hl < 16:
+            return (f"{hl}x{wl} blocks: the JAX sharded runner's split-BC mode needs "
+                    "wl % 128 == 0, hl % 8 == 0 and hl >= 16; outside it, exact f32")
+    elif W % 128 or H % 8 or H < 16:
+        return (f"grid {H}x{W}: the JAX run_chunk_pallas split-BC mode needs W % 128 == 0, "
+                "H % 8 == 0 and H >= 16; outside it, exact f32")
+    if lockstep and H * W < LOCKSTEP_MIN_CELLS:
+        return (f"grid {H}x{W}: the JAX lockstep engine runs its vmap jnp chunk below "
+                f"{LOCKSTEP_MIN_CELLS} cells, exact f32")
     return None
 
 
@@ -323,8 +415,12 @@ def fuse_requested() -> bool:
 
 def fuse_refusal(p: CaseParams) -> Optional[str]:
     """Why temporal blocking does not engage for case ``p`` while it is
-    requested, or None: the JAX package's rule, Bouzidi bounce-back is
-    never fused."""
+    requested, or None: the JAX package's rules, a layout its kernels
+    refuse runs on its jnp step (``layout_refusal``), and Bouzidi
+    bounce-back is never fused. K3 runs no no-op side."""
+    why = layout_refusal(p)
+    if why is not None:
+        return f"{why}, unfused"
     if p.bouzidi_obstacle:
         return "Bouzidi bounce-back is never fused (the JAX run_chunk_pallas rule)"
     return None
@@ -543,15 +639,34 @@ def _launch_device(dev: torch.device):
     return torch.cuda.device(dev)
 
 
-def _ring_plain(f, aux, cell, box, scal, bc_type, rho, u, to_store, prof, bounce,
-                g: BlockGeom):
+class RingPrev(NamedTuple):
+    """What K1's ring threads of a no-op side read besides f_in
+    (csrc/k1_step.cu ``RingPrev``): the state's ``rho`` [plane] and ``u``
+    [2, plane] at the start of the chunk (on a mesh, [ry][rx] lists of the
+    blocks'), and ``fresh``: whether they are those of the step before f_in,
+    the chunk's first step. A no-op cell keeps its rho over a chunk, and
+    every step's obstacle pass zeroes a solid cell's u, so on a later step
+    (``fresh`` False) a solid cell's u reads as 0. Needed only where a side
+    is a no-op (``noop_sides``); with ``fresh`` it must not be the buffers
+    the full step writes, which the ring threads of a corner would read
+    while another thread writes them."""
+
+    rho: object
+    u: object
+    fresh: bool = True
+
+
+def _ring_plain(f_in, f, aux, cell, box, scal, bc_type, rho, u, to_store, prof, bounce,
+                g: BlockGeom, prev: Optional[RingPrev]):
     """The global ring cells that block ``g`` holds, of ``f`` (and of rho/u
     when given), in apply_bc order, from ``cell`` [12, ni, nj]: the collide
     output (f_post before the obstacle overwrite, rho, ux, uy) of the
     block's globally interior cells ``box`` = (i0, i1, j0, j1), the values
     the kernel's ring threads compute for a ring cell's inward neighbour.
-    ``prof`` is the block's rows of the inlet profile and ``to_store`` maps
-    the f32 ring values [9, n] to f's storage."""
+    A no-op side's cells, and an active row's corner next to a no-op side,
+    read their previous values instead: f from ``f_in`` (f32), rho and u
+    from ``prev``. ``prof`` is the block's rows of the inlet profile and
+    ``to_store`` maps the f32 ring values [9, n] to f's storage."""
     i0, i1, j0, j1 = box
     ctype = cell.dtype
     s = scal.to(device=f.device, dtype=ctype)
@@ -559,39 +674,56 @@ def _ring_plain(f, aux, cell, box, scal, bc_type, rho, u, to_store, prof, bounce
     bcv = s[6:].view(4, 2)
     hl, wl, h = g.hl, g.wl, g.halo
     lt, tt, rt, bt = bc_type
+    solid, _ = unpack_aux(aux)
+
+    def prev_at(idx):
+        """(f [9, n], rho, ux, uy) of the cells ``idx`` as the previous step
+        left them (``RingPrev``)."""
+        ux, uy = prev.u[(0,) + idx], prev.u[(1,) + idx]
+        if not prev.fresh:
+            zero = torch.zeros_like(ux)
+            ux, uy = torch.where(solid[idx], zero, ux), torch.where(solid[idx], zero, uy)
+        return f_in[(slice(None),) + idx], prev.rho[idx], ux, uy
+
     # the side columns on the block's inner rows i0..i1, from global column
     # 1 / Wg-2 (the first / last column of the box on such a block)
-    left, right = g.x_off == 0, g.x_off + wl == g.Wg
-    vl = vr = None
-    if left:
+    rows = slice(i0 + h, i1 + h + 1)
+    cols = {}  # local column -> its BC values, for the corners
+    writes = []
+    if g.x_off == 0:
         vl = bc_left_values(cell[:9, :, 0], cell[9, :, 0], cell[10, :, 0], cell[11, :, 0],
                             ramp, lt, s[4], u_prof=None if prof is None else prof[i0:i1 + 1])
-    if right:
+        writes.append(((rows, h), vl if vl is not None else prev_at((rows, h))))
+        cols[0] = vl
+    if g.x_off + wl == g.Wg:
         vr = bc_right_values(cell[:9, :, -1], cell[9, :, -1], cell[10, :, -1], cell[11, :, -1],
                              ramp, rt, s[5], bcv[2])
-    writes = []
-    if left:
-        writes.append(((slice(i0 + h, i1 + h + 1), h), vl))
-    if right:
-        writes.append(((slice(i0 + h, i1 + h + 1), wl - 1 + h), vr))
+        writes.append(((rows, wl - 1 + h), vr if vr is not None else prev_at((rows, wl - 1 + h))))
+        cols[wl - 1] = vr
     # rows from global row 1 / Hg-2 (the first / last row of the box), the
-    # corner-adjacent neighbours taken from the side BCs
+    # corner-adjacent neighbours taken from the side BCs, or where a side is
+    # a no-op from its cell as it stood; a no-op row keeps all its cells
     for side, t, r_box, y, y_nb, on in ((1, tt, -1, hl - 1, hl - 2, g.y_off + hl == g.Hg),
                                         (3, bt, 0, 0, 1, g.y_off == 0)):
         if not on:
             continue
+        row = (y + h, slice(h, wl + h))
+        if int(t) not in ROW_ACTIVE:
+            writes.append((row, prev_at(row)))
+            continue
         nb = torch.zeros((12, wl), dtype=ctype, device=f.device)
         nb[:, j0:j1 + 1] = cell[:, r_box]
-        for x, vals in ((0, vl), (wl - 1, vr)):
-            if vals is not None:
-                nb[:9, x] = vals[0][:, y_nb - i0]
-                nb[9, x] = vals[1][y_nb - i0]
-                nb[10, x] = vals[2][y_nb - i0]
-                nb[11, x] = vals[3][y_nb - i0]
-        vals = bc_horizontal_values(nb[:9], nb[9], nb[10], nb[11], ramp, t, bcv[side])
-        writes.append(((y + h, slice(h, wl + h)), vals))
+        for x, vals in cols.items():
+            if vals is None:
+                fb, rho_b, ux_b, uy_b = prev_at((y_nb + h, x + h))
+            else:
+                k = y_nb - i0
+                fb, rho_b, ux_b, uy_b = vals[0][:, k], vals[1][k], vals[2][k], vals[3][k]
+            nb[:9, x] = fb
+            nb[9, x], nb[10, x], nb[11, x] = rho_b, ux_b, uy_b
+        writes.append((row, bc_horizontal_values(nb[:9], nb[9], nb[10], nb[11], ramp, t,
+                                                 bcv[side])))
     w9 = torch.as_tensor(W_LAT, dtype=ctype, device=f.device).reshape(9, 1)
-    solid, _ = unpack_aux(aux)
     for idx, (fb, rho_b, ux_b, uy_b) in writes:
         sol = solid[idx]
         # full-way bounce-back keeps the BC values on solid ring cells
@@ -605,13 +737,28 @@ def _ring_plain(f, aux, cell, box, scal, bc_type, rho, u, to_store, prof, bounce
             u[(1,) + idx] = torch.where(sol, zero, uy_b)
 
 
+def _check_prev(bc_type, prev: Optional[RingPrev], rho=None, u=None) -> bool:
+    """Whether K1 on ``bc_type`` reads ``prev`` (a no-op side); raise when
+    it is missing, or given ``fresh`` on the buffers the full step writes."""
+    if not noop_sides(bc_type):
+        return False
+    if prev is None:
+        raise ValueError(f"bc_type {tuple(bc_type)} has no-op sides {noop_sides(bc_type)}: K1 "
+                         "needs the state's rho and u (cuda_step.RingPrev)")
+    if prev.fresh and rho is not None and (prev.rho.data_ptr() == rho.data_ptr()
+                                           or prev.u.data_ptr() == u.data_ptr()):
+        raise ValueError("K1: a fresh RingPrev must not be the rho / u the full step writes")
+    return True
+
+
 def _k1_plain(f_in, f_out, aux, scal, use_les, bc_type, rho, u, f_post, obstacle, q, prof,
-              g: BlockGeom, to_store):
+              g: BlockGeom, to_store, prev=None):
     """K1's plain version on block ``g``: the interior update, then the ring
-    from the interior's collide output; ``to_store`` maps f32 populations to
-    f_out's storage."""
+    from the interior's collide output (no-op sides from ``prev``);
+    ``to_store`` maps f32 populations to f_out's storage."""
     if obstacle == OBSTACLE_BOUZIDI and q is None:
         raise ValueError("Bouzidi bounce-back needs the q planes")
+    _check_prev(bc_type, prev, rho, u)
     box = g.interior()
     if box is None:
         return
@@ -648,12 +795,12 @@ def _k1_plain(f_in, f_out, aux, scal, use_les, bc_type, rho, u, f_post, obstacle
         u[1, rows_, cols_] = torch.where(solid, zero, uy)
         f_post[:, rows_, cols_] = fp
     cell = torch.cat([fp, torch.stack([r, ux, uy])])
-    _ring_plain(f_out, aux, cell, box, scal, bc_type, rho, u, to_store, prof,
-                obstacle == OBSTACLE_BOUNCE, g)
+    _ring_plain(f_in, f_out, aux, cell, box, scal, bc_type, rho, u, to_store, prof,
+                obstacle == OBSTACLE_BOUNCE, g, prev)
 
 
 def k1_step_plain(f_in, f_out, aux, scal, use_les, bc_type, rho=None, u=None, f_post=None,
-                  obstacle=OBSTACLE_EQ, q=None, prof=None, geom=None):
+                  obstacle=OBSTACLE_EQ, q=None, prof=None, geom=None, prev=None):
     """Plain PyTorch version of K1 on block ``geom`` (the whole grid by
     default), writing the same cells of the same buffers: the cells
     interior in the global grid of f_out (and of rho/u/f_post when given),
@@ -662,9 +809,9 @@ def k1_step_plain(f_in, f_out, aux, scal, use_les, bc_type, rho=None, u=None, f_
     ring threads compute for themselves. Every read goes through the
     block's own cells and halo; the link predicate of half-way and Bouzidi
     bounce-back is the solid flag of ``aux`` at the pull source, as in the
-    kernel."""
+    kernel. A no-op side's cells come from f_in and ``prev``."""
     _k1_plain(f_in, f_out, aux, scal, use_les, bc_type, rho, u, f_post, obstacle, q, prof,
-              _geom(geom, f_in), lambda v: v)
+              _geom(geom, f_in), lambda v: v, prev)
 
 
 def _check_obstacle(obstacle: int, q, shape, device, allowed=tuple(range(4))) -> None:
@@ -686,6 +833,16 @@ def _prof_ptr(bc_type, prof, H: int, dev):
     return _ptr(prof)
 
 
+def _prev_args(bc_type, prev: Optional[RingPrev], g: BlockGeom, dev, rho=None, u=None):
+    """(rho_prev, u_prev, fresh) of a K1 entry: ``prev``'s pointers where a
+    side is a no-op (checked), else nulls."""
+    if not _check_prev(bc_type, prev, rho, u):
+        return None, None, 0
+    _check("prev.rho", prev.rho, g.plane, dev)
+    _check("prev.u", prev.u, (2,) + g.plane, dev)
+    return _ptr(prev.rho), _ptr(prev.u), int(bool(prev.fresh))
+
+
 def _check_k1(f_in, f_out, aux, g: BlockGeom, dtype, obstacle, q, rho, u, f_post,
               allowed=tuple(range(4))):
     """K1's argument checks, for the stored planes of block ``g``."""
@@ -703,7 +860,7 @@ def _check_k1(f_in, f_out, aux, g: BlockGeom, dtype, obstacle, q, rho, u, f_post
 
 
 def k1_step(f_in, f_out, aux, scal, use_les, bc_type, rho=None, u=None, f_post=None,
-            obstacle=OBSTACLE_EQ, q=None, prof=None, geom=None):
+            obstacle=OBSTACLE_EQ, q=None, prof=None, geom=None, prev=None):
     """K1 on ``f_in`` -> ``f_out``: one lattice step, one launch. Distinct
     [9, H, W] buffers, or with ``geom`` the [9, hl + 2, pitch] blocks of one
     shard of a spatial mesh, halos filled, of which the cells interior in
@@ -712,16 +869,18 @@ def k1_step(f_in, f_out, aux, scal, use_les, bc_type, rho=None, u=None, f_post=N
     ``rho``, ``u`` [2, ...] and ``f_post`` [9, ...] are given; aux, q and
     those share f's geometry. ``scal`` is the CPU scalar row of this step;
     ``obstacle`` an ``OBSTACLE_*`` scheme, Bouzidi with ``q`` [8, ...];
-    ``prof`` [hl] the block's rows of the inlet profile of left types 3/4.
+    ``prof`` [hl] the block's rows of the inlet profile of left types 3/4;
+    ``prev`` (``RingPrev``) the state's rho and u where a side is a no-op.
     Counted as ``k1_variant(obstacle, full, shard=geom.halo > 0)``."""
     if not f_in.is_cuda:
         return k1_step_plain(f_in, f_out, aux, scal, use_les, bc_type, rho, u, f_post,
-                             obstacle, q, prof, geom)
+                             obstacle, q, prof, geom, prev)
     g = _geom(geom, f_in)
     full = rho is not None
     dev = f_in.device
     _check_k1(f_in, f_out, aux, g, torch.float32, obstacle, q, rho, u, f_post)
     prof_ptr = _prof_ptr(bc_type, prof, g.hl, dev)
+    pv = _prev_args(bc_type, prev, g, dev, rho, u)
     sc = _scal_c(scal)
     q_ptr = _ptr(q) if obstacle == OBSTACLE_BOUZIDI else None
     lt, tt, rt, bt = (int(t) for t in bc_type)
@@ -730,6 +889,7 @@ def k1_step(f_in, f_out, aux, scal, use_les, bc_type, rho=None, u=None, f_post=N
             _ptr(f_in), _ptr(f_out), _ptr(aux), q_ptr, prof_ptr, _ptr(rho), _ptr(u),
             _ptr(f_post), ctypes.addressof(sc), ctypes.addressof(g.c_row), lt, tt, rt, bt,
             int(bool(use_les)), int(full), obstacle, torch.cuda.current_stream(dev).cuda_stream,
+            *pv,
         )
     if rc != 0:
         raise RuntimeError(f"k1_step launch failed: CUDA error {rc}")
@@ -737,36 +897,39 @@ def k1_step(f_in, f_out, aux, scal, use_les, bc_type, rho=None, u=None, f_post=N
 
 
 def k1_step_dev_plain(f_in, f_out, aux, scal, use_les, bc_type, obstacle=OBSTACLE_EQ,
-                      prof=None, geom=None):
+                      prof=None, geom=None, prev=None):
     """Plain PyTorch version of K1's deviation-storage fast step: dequantize
     f_in, step in f32 as ``k1_step_plain``, ring included, and quantize each
     written cell of f_out."""
     g = _geom(geom, f_in)
     _check_obstacle(obstacle, None, g.plane, f_in.device, DEV_OBSTACLES)
     _k1_plain(dequantize(f_in), f_out, aux, scal, use_les, bc_type, None, None, None,
-              obstacle, None, prof, g, quantize)
+              obstacle, None, prof, g, quantize, prev)
 
 
 def k1_step_dev(f_in, f_out, aux, scal, use_les, bc_type, obstacle=OBSTACLE_EQ, prof=None,
-                geom=None):
+                geom=None, prev=None):
     """K1's fast step on bf16 deviation buffers ``f_in`` -> ``f_out``
     ([9, H, W], distinct, or one shard's blocks of ``geom``, halos
-    included), ring included. Equilibrium and full-way bounce-back only."""
+    included), ring included. Equilibrium and full-way bounce-back only.
+    ``prev`` as for ``k1_step`` (the engines never run deviation storage
+    with a no-op side: ``dev_storage_refusal``)."""
     if not f_in.is_cuda:
         return k1_step_dev_plain(f_in, f_out, aux, scal, use_les, bc_type, obstacle, prof,
-                                 geom)
+                                 geom, prev)
     g = _geom(geom, f_in)
     dev = f_in.device
     _check_k1(f_in, f_out, aux, g, DEV_DTYPE, obstacle, None, None, None, None,
               DEV_OBSTACLES)
     prof_ptr = _prof_ptr(bc_type, prof, g.hl, dev)
+    pv = _prev_args(bc_type, prev, g, dev)
     sc = _scal_c(scal)
     lt, tt, rt, bt = (int(t) for t in bc_type)
     with _launch_device(dev):
         rc = cuda_build.load("k1_step_dev")(
             _ptr(f_in), _ptr(f_out), _ptr(aux), prof_ptr, ctypes.addressof(sc),
             ctypes.addressof(g.c_row), lt, tt, rt, bt, int(bool(use_les)), obstacle,
-            torch.cuda.current_stream(dev).cuda_stream,
+            torch.cuda.current_stream(dev).cuda_stream, *pv,
         )
     if rc != 0:
         raise RuntimeError(f"k1_step_dev launch failed: CUDA error {rc}")
@@ -791,36 +954,44 @@ def _loop_failed(name: str, rc: int, failed: int, n: int) -> RuntimeError:
     return RuntimeError(f"{name} {at}: CUDA error {rc}")
 
 
+def prev_at_step(prev: Optional[RingPrev], i: int) -> Optional[RingPrev]:
+    """``prev`` for step ``i`` of a loop: fresh only for step 0."""
+    return prev if prev is None or i == 0 else prev._replace(fresh=False)
+
+
 def k1_steps_plain(f_in, f_a, f_b, aux, rows, use_les, bc_type, obstacle=OBSTACLE_EQ, q=None,
-                   prof=None, dev=False):
+                   prof=None, dev=False, prev=None):
     """Plain version of ``k1_steps``: step i of the whole grid by
     ``k1_step_plain`` (``k1_step_dev_plain`` with ``dev``) with row i of
     ``rows``, reading f_in (step 0) or the previous step's output and
-    writing f_a (even i) or f_b (odd i). Returns the buffer holding f."""
+    writing f_a (even i) or f_b (odd i), ``prev`` fresh for step 0 only.
+    Returns the buffer holding f."""
     src = f_in
     for i in range(rows.shape[0]):
         dst = f_b if i % 2 else f_a
         if dev:
-            k1_step_dev_plain(src, dst, aux, rows[i], use_les, bc_type, obstacle, prof)
+            k1_step_dev_plain(src, dst, aux, rows[i], use_les, bc_type, obstacle, prof,
+                              prev=prev_at_step(prev, i))
         else:
             k1_step_plain(src, dst, aux, rows[i], use_les, bc_type, obstacle=obstacle, q=q,
-                          prof=prof)
+                          prof=prof, prev=prev_at_step(prev, i))
         src = dst
     return src
 
 
 def k1_steps(f_in, f_a, f_b, aux, rows, use_les, bc_type, obstacle=OBSTACLE_EQ, q=None,
-             prof=None, dev=False):
+             prof=None, dev=False, prev=None):
     """n = len(rows) fast K1 steps of the whole grid in one call of the
     shared library: step i takes row i of the CPU table ``rows`` [n, 14],
     reads f_in (step 0) or the previous step's output, writes f_a (even i)
     or f_b (odd i); f_b may be f_in. f32 buffers, or with ``dev`` bf16
-    deviations (equilibrium and full-way bounce-back). The arguments are
-    checked once for the n launches. Returns the buffer holding f; counted
-    as n launches of ``k1_variant(obstacle, dev=dev)``."""
+    deviations (equilibrium and full-way bounce-back). ``prev`` as for
+    ``k1_step``, fresh (if so) for step 0 only. The arguments are checked
+    once for the n launches. Returns the buffer holding f; counted as n
+    launches of ``k1_variant(obstacle, dev=dev)``."""
     if not f_in.is_cuda:
         return k1_steps_plain(f_in, f_a, f_b, aux, rows, use_les, bc_type, obstacle, q, prof,
-                              dev)
+                              dev, prev)
     n = int(rows.shape[0])
     g = BlockGeom.whole(*f_in.shape[1:])
     d = f_in.device
@@ -834,6 +1005,7 @@ def k1_steps(f_in, f_a, f_b, aux, rows, use_les, bc_type, obstacle=OBSTACLE_EQ, 
         raise ValueError("k1_steps: f_a and f_b must be distinct buffers")
     _check_rows("k1_steps", rows, n)
     prof_ptr = _prof_ptr(bc_type, prof, g.hl, d)
+    pv = _prev_args(bc_type, prev, g, d)
     q_ptr = _ptr(q) if obstacle == OBSTACLE_BOUZIDI else None
     lt, tt, rt, bt = (int(t) for t in bc_type)
     failed = ctypes.c_int(-1)
@@ -841,7 +1013,7 @@ def k1_steps(f_in, f_a, f_b, aux, rows, use_les, bc_type, obstacle=OBSTACLE_EQ, 
         rc = cuda_build.load("k1_steps")(
             _ptr(f_in), _ptr(f_a), _ptr(f_b), _ptr(aux), q_ptr, prof_ptr, _ptr(rows), n,
             ctypes.addressof(g.c_row), lt, tt, rt, bt, int(bool(use_les)), int(bool(dev)),
-            obstacle, torch.cuda.current_stream(d).cuda_stream, ctypes.addressof(failed),
+            obstacle, torch.cuda.current_stream(d).cuda_stream, ctypes.addressof(failed), *pv,
         )
     LAUNCHES[k1_variant(obstacle, dev=bool(dev))] += n if rc == 0 else max(failed.value, 0)
     if rc != 0:
@@ -879,15 +1051,21 @@ def _at(blocks, iy: int, ix: int):
     return None if blocks is None else blocks[iy][ix]
 
 
+def _block_prev(prev: Optional[RingPrev], iy: int, ix: int) -> Optional[RingPrev]:
+    """Block (iy, ix)'s ``RingPrev`` of a mesh's (lists of blocks)."""
+    return None if prev is None else RingPrev(prev.rho[iy][ix], prev.u[iy][ix], prev.fresh)
+
+
 def k1_blocks(src, dst, inputs, scal, use_les, bc_type, obstacle=OBSTACLE_EQ, dev=False,
-              rho=None, u=None, f_post=None, plain=False) -> None:
+              rho=None, u=None, f_post=None, plain=False, prev=None) -> None:
     """One K1 step on every block held, ``src`` -> ``dst`` ([ry][rx] halo'd
     blocks; a None block is another process's): ``k1_step`` on each, or
     ``k1_step_dev`` with ``dev`` (bf16 deviations), the full step when
     rho, u and f_post are given; their plain versions with ``plain``.
     ``inputs`` holds the case's [ry][rx] ``geoms``, ``aux``, ``q`` and
-    ``prof`` (``ShardTables``, ``sharded.ShardedCase``). The per-block body
-    of every sharded loop: the per-step loop and the library loop's plain
+    ``prof`` (``ShardTables``, ``sharded.ShardedCase``), ``prev`` the
+    blocks' ``RingPrev`` where a side is a no-op. The per-block body of
+    every sharded loop: the per-step loop and the library loop's plain
     versions. No halo is refreshed."""
     k1, k1d = (k1_step_plain, k1_step_dev_plain) if plain else (k1_step, k1_step_dev)
     for iy, row in enumerate(src):
@@ -895,12 +1073,13 @@ def k1_blocks(src, dst, inputs, scal, use_les, bc_type, obstacle=OBSTACLE_EQ, de
             if b is None:
                 continue
             g, aux, prof = inputs.geoms[iy][ix], inputs.aux[iy][ix], _at(inputs.prof, iy, ix)
+            pv = _block_prev(prev, iy, ix)
             if dev:
-                k1d(b, dst[iy][ix], aux, scal, use_les, bc_type, obstacle, prof, geom=g)
+                k1d(b, dst[iy][ix], aux, scal, use_les, bc_type, obstacle, prof, geom=g, prev=pv)
             else:
                 k1(b, dst[iy][ix], aux, scal, use_les, bc_type, _at(rho, iy, ix), _at(u, iy, ix),
                    _at(f_post, iy, ix), obstacle=obstacle, q=_at(inputs.q, iy, ix), prof=prof,
-                   geom=g)
+                   geom=g, prev=pv)
 
 
 def halo_exchange_plain(blocks, hl: int, wl: int) -> None:
@@ -1025,6 +1204,22 @@ class ShardTables:
         if int(bc_type[0]) in (BC_VEL_INLET, BC_VEL_INLET_NEBB) and self.prof is None:
             raise ValueError(f"left bc_type {bc_type[0]} needs the inlet profile")
 
+    def prev_args(self, bc_type, prev: Optional[RingPrev], rho=None, u=None):
+        """(host tables of the blocks' rho_prev and u_prev, fresh) of a
+        library call: ``prev``'s where a side is a no-op (checked), else
+        nulls. The tables are kept by the caller for the call."""
+        if not _check_prev(bc_type, prev):
+            return None, None, 0
+        _check_blocks("prev.rho", prev.rho, self.grid, self.geom.plane, self.devices,
+                      (torch.float32,))
+        _check_blocks("prev.u", prev.u, self.grid, (2,) + self.geom.plane, self.devices,
+                      (torch.float32,))
+        if rho is not None:
+            for iy in range(self.grid[0]):
+                for ix in range(self.grid[1]):
+                    _check_prev(bc_type, _block_prev(prev, iy, ix), rho[iy][ix], u[iy][ix])
+        return _table(prev.rho), _table(prev.u), int(bool(prev.fresh))
+
     def launch_args(self):
         """(the device to make current, host tables of each block's CUDA
         ordinal and stream) for a call, peer access enabled between the
@@ -1034,22 +1229,24 @@ class ShardTables:
 
 
 def k1_shard_steps_plain(f_in, f_a, f_b, tables: ShardTables, rows, use_les, bc_type,
-                         obstacle=OBSTACLE_EQ, dev=False):
+                         obstacle=OBSTACLE_EQ, dev=False, prev=None):
     """Plain version of ``k1_shard_steps``: step i by ``k1_blocks(plain=
     True)`` with row i of ``rows``, then ``halo_exchange_plain`` of what
     it wrote; reading f_in (step 0) or the previous step's output and
-    writing f_a (even i) or f_b (odd i). Returns the blocks holding f."""
+    writing f_a (even i) or f_b (odd i), ``prev`` fresh for step 0 only.
+    Returns the blocks holding f."""
     src = f_in
     for i in range(rows.shape[0]):
         dst = f_b if i % 2 else f_a
-        k1_blocks(src, dst, tables, rows[i], use_les, bc_type, obstacle, dev, plain=True)
+        k1_blocks(src, dst, tables, rows[i], use_les, bc_type, obstacle, dev, plain=True,
+                  prev=prev_at_step(prev, i))
         halo_exchange_plain(dst, tables.geom.hl, tables.geom.wl)
         src = dst
     return src
 
 
 def k1_shard_steps(f_in, f_a, f_b, tables: ShardTables, rows, use_les, bc_type,
-                   obstacle=OBSTACLE_EQ, dev=False):
+                   obstacle=OBSTACLE_EQ, dev=False, prev=None):
     """n = len(rows) fast steps of a sharded chunk in one call of the shared
     library, on a mesh whose blocks live on the CUDA devices of this process
     (``ShardTables``): step i launches K1's ``_shard`` form on every block,
@@ -1059,13 +1256,14 @@ def k1_shard_steps(f_in, f_a, f_b, tables: ShardTables, rows, use_les, bc_type,
     neighbours' halos of the same buffer (no other launch; across cards
     each card's step after its neighbours' previous one). f_in, f_a, f_b
     are the [ry][rx] halo'd blocks of f (f_b may be f_in): f32, or with
-    ``dev`` bf16 deviations (equilibrium and full-way bounce-back). Every
-    table is checked before the call. Returns the blocks holding f, halos
-    refreshed; counted as n launches of ``k1_variant(obstacle, dev=dev,
-    shard=True)`` a block."""
+    ``dev`` bf16 deviations (equilibrium and full-way bounce-back);
+    ``prev`` the blocks' ``RingPrev`` where a side is a no-op, fresh (if so)
+    for step 0 only. Every table is checked before the call. Returns the
+    blocks holding f, halos refreshed; counted as n launches of
+    ``k1_variant(obstacle, dev=dev, shard=True)`` a block."""
     if not f_in[0][0].is_cuda:
         return k1_shard_steps_plain(f_in, f_a, f_b, tables, rows, use_les, bc_type, obstacle,
-                                    dev)
+                                    dev, prev)
     n, nb = int(rows.shape[0]), tables.n_blocks
     dtype = DEV_DTYPE if dev else torch.float32
     tables.needs(obstacle, bc_type, DEV_OBSTACLES if dev else tuple(range(4)))
@@ -1075,6 +1273,7 @@ def k1_shard_steps(f_in, f_a, f_b, tables: ShardTables, rows, use_les, bc_type,
         if a.data_ptr() in (b.data_ptr(), i.data_ptr()):
             raise ValueError("k1_shard_steps: f_a must differ from f_in and f_b on every block")
     _check_rows("k1_shard_steps", rows, n)
+    rp, up, fresh = tables.prev_args(bc_type, prev)
     ta, tb, ti = _table(f_a), _table(f_b), _table(f_in)
     lt, tt, rt, bt = (int(t) for t in bc_type)
     failed = ctypes.c_int(-1)
@@ -1086,6 +1285,7 @@ def k1_shard_steps(f_in, f_a, f_b, tables: ShardTables, rows, use_les, bc_type,
             ctypes.addressof(tables.c_geoms), tables.grid[0], tables.grid[1], _ptr(rows), n,
             lt, tt, rt, bt, int(bool(use_les)), int(bool(dev)), obstacle,
             ctypes.addressof(ords), ctypes.addressof(streams), ctypes.addressof(failed),
+            _c_addr(rp), _c_addr(up), fresh,
         )
     done = n if rc == 0 else max(failed.value, 0)
     LAUNCHES[k1_variant(obstacle, dev=bool(dev), shard=True)] += nb * done
@@ -1095,25 +1295,26 @@ def k1_shard_steps(f_in, f_a, f_b, tables: ShardTables, rows, use_les, bc_type,
 
 
 def k1_shard_full_plain(f_in, f_out, tables: ShardTables, scal, use_les, bc_type, rho, u,
-                        f_post, obstacle=OBSTACLE_EQ):
+                        f_post, obstacle=OBSTACLE_EQ, prev=None):
     """Plain version of ``k1_shard_full``: ``k1_blocks(plain=True)``'s full
     step, then ``halo_exchange_plain`` of f_out."""
     k1_blocks(f_in, f_out, tables, scal, use_les, bc_type, obstacle, rho=rho, u=u,
-              f_post=f_post, plain=True)
+              f_post=f_post, plain=True, prev=prev)
     halo_exchange_plain(f_out, tables.geom.hl, tables.geom.wl)
 
 
 def k1_shard_full(f_in, f_out, tables: ShardTables, scal, use_les, bc_type, rho, u, f_post,
-                  obstacle=OBSTACLE_EQ):
+                  obstacle=OBSTACLE_EQ, prev=None):
     """The closing full step of a sharded chunk in one call of the shared
     library: K1's full ``_shard`` form on every block (f32 f_in -> f_out,
     writing the blocks' rho, u and f_post), the edge cells of f_out pushed
     into the neighbours' halos, which the next chunk reads; ``scal`` the
-    step's CPU scalar row. Counted as one launch of ``k1_variant(obstacle,
-    full=True, shard=True)`` a block."""
+    step's CPU scalar row, ``prev`` as for ``k1_shard_steps``. Counted as
+    one launch of ``k1_variant(obstacle, full=True, shard=True)`` a
+    block."""
     if not f_in[0][0].is_cuda:
         return k1_shard_full_plain(f_in, f_out, tables, scal, use_les, bc_type, rho, u, f_post,
-                                   obstacle)
+                                   obstacle, prev)
     tables.needs(obstacle, bc_type)
     g = tables.geom
     for name, blocks in (("f_in", f_in), ("f_out", f_out), ("f_post", f_post)):
@@ -1123,6 +1324,7 @@ def k1_shard_full(f_in, f_out, tables: ShardTables, scal, use_les, bc_type, rho,
     for a, b in zip(_flat(f_in), _flat(f_out)):
         if a.data_ptr() == b.data_ptr():
             raise ValueError("k1_shard_full: pull streaming needs distinct in/out buffers")
+    rp, up, fresh = tables.prev_args(bc_type, prev, rho, u)
     sc = _scal_c(scal)
     lt, tt, rt, bt = (int(t) for t in bc_type)
     tabs = [_table(x) for x in (f_in, f_out, rho, u, f_post)]
@@ -1134,7 +1336,7 @@ def k1_shard_full(f_in, f_out, tables: ShardTables, scal, use_les, bc_type, rho,
             ctypes.addressof(tabs[2]), ctypes.addressof(tabs[3]), ctypes.addressof(tabs[4]),
             ctypes.addressof(sc), ctypes.addressof(tables.c_geoms), tables.grid[0],
             tables.grid[1], lt, tt, rt, bt, int(bool(use_les)), obstacle,
-            ctypes.addressof(ords), ctypes.addressof(streams),
+            ctypes.addressof(ords), ctypes.addressof(streams), _c_addr(rp), _c_addr(up), fresh,
         )
     if rc != 0:
         raise RuntimeError(f"k1_shard_full launch failed: CUDA error {rc}")
@@ -1169,6 +1371,14 @@ def _roll(a: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
     return torch.roll(a, (dy, dx), dims=(-2, -1))
 
 
+def _check_k3_layout(bc_type) -> None:
+    """K3 runs every side active, as the JAX ``_fused_kernel`` does; the
+    chunk runner never fuses a layout with a no-op side (``fuse_refusal``)."""
+    if noop_sides(bc_type):
+        raise ValueError(f"K3: bc_type {tuple(bc_type)} has no-op sides "
+                         f"{noop_sides(bc_type)}; the fused kernel runs every side active")
+
+
 def k3_fused_plain(f_in, f_out, aux, scal_rows, bc_type, use_les, obstacle=OBSTACLE_EQ,
                    prof=None, tile=None):
     """Plain PyTorch version of K3, the windowed algorithm itself: every
@@ -1179,6 +1389,7 @@ def k3_fused_plain(f_in, f_out, aux, scal_rows, bc_type, use_les, obstacle=OBSTA
     windows run batched, [9, T, WH, WW]; cells outside R_s or the grid keep
     whatever they held and are never read into a stored value."""
     _check_obstacle(obstacle, None, f_in.shape[1:], f_in.device, FUSE_OBSTACLES)
+    _check_k3_layout(bc_type)
     S = scal_rows.shape[0]
     th, tw = tile or k3_tile(S)
     H, W = f_in.shape[1:]
@@ -1249,6 +1460,7 @@ def k3_fused(f_in, f_out, aux, scal_rows, bc_type, use_les, obstacle=OBSTACLE_EQ
     _check("f_out", f_out, (9, H, W), dev)
     _check("aux", aux, (H, W), dev)
     _check_obstacle(obstacle, None, (H, W), dev, FUSE_OBSTACLES)
+    _check_k3_layout(bc_type)
     if not 1 <= S <= FUSE_MAX_STEPS or tuple(scal_rows.shape) != (S, len(SCALAR_FIELDS)):
         raise ValueError(f"k3_fused: scalar rows {tuple(scal_rows.shape)}, need "
                          f"[S <= {FUSE_MAX_STEPS}, 14]")
@@ -1308,6 +1520,7 @@ def k3_passes(f_in, f_a, f_b, aux, rows, S, bc_type, use_les, obstacle=OBSTACLE_
         _check(name, t, (9, H, W), d)
     _check("aux", aux, (H, W), d)
     _check_obstacle(obstacle, None, (H, W), d, FUSE_OBSTACLES)
+    _check_k3_layout(bc_type)
     if f_a.data_ptr() in (f_in.data_ptr(), f_b.data_ptr()):
         raise ValueError("k3_passes: f_a must differ from f_in and f_b")
     _check_rows("k3_passes", rows, passes * S)
@@ -1339,11 +1552,14 @@ def run_chunk_cuda(state: LBMState, p: CaseParams, n_steps: int, store_dev: bool
     f_post keeps its ring and takes the last step's interior. The input
     state is not modified. ``store_dev`` runs steps 1..n-1 in 16-bit
     deviation storage when n > 1 and the obstacle scheme allows it (the JAX
-    package's run_chunk_pallas engages it under the same conditions).
-    While temporal blocking is requested (``_FUSE_STEPS`` = S > 1) and the
-    case allows it, steps 1..n-1 run as ``divmod(n - 1, S)`` = (k, r): k
-    passes of K3, then r single K1 steps, as the JAX package's
-    run_chunk_pallas does.
+    package's run_chunk_pallas engages it under the same conditions,
+    ``dev_storage_refusal``; the engines add the grid's rules). While
+    temporal blocking is requested (``_FUSE_STEPS`` = S > 1) and the case
+    allows it, steps 1..n-1 run as ``divmod(n - 1, S)`` = (k, r): k passes
+    of K3, then r single K1 steps, as the JAX package's run_chunk_pallas
+    does. Where a side is a no-op, K1's ring threads read the state's rho
+    and u there (``RingPrev``): its cells keep their values, as in the
+    eager step.
 
     A chunk is one program, as run_chunk_pallas's jit over lax.scan is:
     its scalar rows are built once (``scalar_rows``, no device read), and
@@ -1376,6 +1592,7 @@ def _run_chunk(state: LBMState, p: CaseParams, n_steps: int, store_dev: bool, pl
     obst = obstacle_scheme(p)
     q = p.bouzidi_q if obst == OBSTACLE_BOUZIDI else None
     prof = p.inlet_profile if p.bc_type[0] in (BC_VEL_INLET, BC_VEL_INLET_NEBB) else None
+    prev = RingPrev(state.rho, state.u) if noop_sides(p.bc_type) else None
     H, W = p.shape
     dev = state.f.device
     aux = pack_aux(p.damping, p.mask)
@@ -1389,7 +1606,7 @@ def _run_chunk(state: LBMState, p: CaseParams, n_steps: int, store_dev: bool, pl
     if plan.singles:
         first = plan.passes % 2
         src = k1s(src, bufs[first], bufs[1 - first], aux, rows[plan.k1_rows], p.use_les,
-                  p.bc_type, obst, q, prof, dev_store)
+                  p.bc_type, obst, q, prof, dev_store, prev_at_step(prev, plan.passes))
     if dev_store:
         # the closing full step runs in exact f32
         src = dequantize(src)
@@ -1400,7 +1617,7 @@ def _run_chunk(state: LBMState, p: CaseParams, n_steps: int, store_dev: bool, pl
     u = torch.empty((2, H, W), dtype=state.f.dtype, device=dev)
     f_post = state.f_post.clone()
     k1(src, dst, aux, rows[n_steps - 1], p.use_les, p.bc_type, rho, u, f_post, obstacle=obst,
-       q=q, prof=prof)
+       q=q, prof=prof, prev=prev_at_step(prev, n_steps - 1))
     new_state = LBMState(f=dst, f_post=f_post, rho=rho, u=u, step=state.step + n_steps)
     monitors = {
         "force": obstacle_force(new_state.f_post, p),
@@ -1420,6 +1637,7 @@ def run_chunk_stepwise(state: LBMState, p: CaseParams, n_steps: int, store_dev: 
     obst = obstacle_scheme(p)
     q = p.bouzidi_q if obst == OBSTACLE_BOUZIDI else None
     prof = p.inlet_profile if p.bc_type[0] in (BC_VEL_INLET, BC_VEL_INLET_NEBB) else None
+    prev = RingPrev(state.rho, state.u) if noop_sides(p.bc_type) else None
     aux = pack_aux(p.damping, p.mask)
     src = quantize(state.f) if dev_store else state.f
     step = state.step
@@ -1430,12 +1648,14 @@ def run_chunk_stepwise(state: LBMState, p: CaseParams, n_steps: int, store_dev: 
         src, step = dst, step + plan.fuse
     for _ in range(plan.singles):
         dst = torch.empty_like(src)
+        pv = prev_at_step(prev, step - state.step)
         step += 1
         if dev_store:
-            k1_step_dev(src, dst, aux, scalar_row(p, step), p.use_les, p.bc_type, obst, prof)
+            k1_step_dev(src, dst, aux, scalar_row(p, step), p.use_les, p.bc_type, obst, prof,
+                        prev=pv)
         else:
             k1_step(src, dst, aux, scalar_row(p, step), p.use_les, p.bc_type, obstacle=obst,
-                    q=q, prof=prof)
+                    q=q, prof=prof, prev=pv)
         src = dst
     if dev_store:
         src = dequantize(src)
@@ -1445,6 +1665,6 @@ def run_chunk_stepwise(state: LBMState, p: CaseParams, n_steps: int, store_dev: 
     u = torch.empty((2, H, W), dtype=src.dtype, device=src.device)
     f_post = state.f_post.clone()
     k1_step(src, dst, aux, scalar_row(p, step + 1), p.use_les, p.bc_type, rho, u, f_post,
-            obstacle=obst, q=q, prof=prof)
+            obstacle=obst, q=q, prof=prof, prev=prev_at_step(prev, n_steps - 1))
     new_state = LBMState(f=dst, f_post=f_post, rho=rho, u=u, step=state.step + n_steps)
     return new_state, {"force": obstacle_force(f_post, p), "max_v": max_velocity(u)}

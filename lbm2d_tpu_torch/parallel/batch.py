@@ -36,7 +36,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..core.engine import resolve_device, resolve_runner
+from ..core.engine import resolve_device, resolve_runner, resolve_store_dev
 from ..core.solver import (
     CaseParams,
     LBMState,
@@ -201,6 +201,10 @@ class BatchEngine:
         if self.mesh is not None:
             self.case_params = [params_to(p, d)
                                 for p, d in zip(self.case_params, self._case_device)]
+        # the JAX lockstep engine's store_dev rule, once for the group (its
+        # cases share the grid, the layout and the obstacle scheme)
+        self._store_dev = resolve_store_dev(self.case_params[0], self._store_dev,
+                                            lockstep=True)
         self._runners = [
             resolve_runner(p, d, self._store_dev)
             for p, d in zip(self.case_params, self._case_device)

@@ -428,13 +428,14 @@ def _exchange_cross(blocks, mesh: Mesh, hl: int, wl: int) -> None:
 
 
 def fast_step(src, dst, case: ShardedCase, scal: torch.Tensor, dev_store: bool,
-              plain: bool = False) -> None:
+              plain: bool = False, prev: Optional[cs.RingPrev] = None) -> None:
     """One fast step on every block, ``src`` -> ``dst`` ([ry][rx] halo'd
     blocks, bf16 deviations when ``dev_store``): one K1 call a block
-    (``cuda_step.k1_blocks``), then the halo refresh of ``dst``."""
+    (``cuda_step.k1_blocks``; ``prev`` the blocks' ``RingPrev`` where a
+    side is a no-op), then the halo refresh of ``dst``."""
     p = case.p
     cs.k1_blocks(src, dst, case, scal, p.use_les, p.bc_type, case.obstacle, dev_store,
-                 plain=plain)
+                 plain=plain, prev=prev)
     exchange_halos(dst, case.mesh, case.hl, case.wl)
 
 
@@ -454,12 +455,22 @@ def advance_blocks(bs: BlockState, case: ShardedCase, n_steps: int, store_dev: b
     meshes, ``plain``
     and ``stepwise`` issue each step from Python (``fast_step``: a K1 call a
     block, then ``exchange_halos``), the reference the library loop is held
-    to, bitwise."""
+    to, bitwise.
+
+    Where a side is a no-op K1 reads the resident rho and u there
+    (``cuda_step.RingPrev``): fresh on the chunk's first step, and copied
+    for a one-step chunk, whose full step writes them."""
     if n_steps < 1:
         raise ValueError(f"n_steps must be >= 1, got {n_steps}")
     p, mesh = case.p, case.mesh
     dev_store = (bool(store_dev) and n_steps > 1
                  and cs.dev_storage_refusal(p, sharded=True) is None)
+    prev = None
+    if cs.noop_sides(p.bc_type):
+        prev = cs.RingPrev(bs.rho, bs.u)
+        if n_steps == 1:
+            prev = cs.RingPrev(*([[b if b is None else b.clone() for b in row] for row in x]
+                                 for x in (bs.rho, bs.u)))
     f_in, f_a = bs.f, bs.f_alt
     if dev_store:
         # quantize once per chunk, halos included (the halos the last
@@ -471,11 +482,12 @@ def advance_blocks(bs: BlockState, case: ShardedCase, n_steps: int, store_dev: b
     loop = case.tables is not None and not (plain or stepwise)
     if loop:
         src = cs.k1_shard_steps(f_in, f_a, f_in, case.tables, rows[:n_steps - 1], p.use_les,
-                                p.bc_type, case.obstacle, dev_store) if n_steps > 1 else f_in
+                                p.bc_type, case.obstacle, dev_store,
+                                prev) if n_steps > 1 else f_in
     else:
         src, dst = f_in, f_a
         for i in range(n_steps - 1):
-            fast_step(src, dst, case, rows[i], dev_store, plain)
+            fast_step(src, dst, case, rows[i], dev_store, plain, cs.prev_at_step(prev, i))
             src, dst = dst, src
     if dev_store:
         # the closing full step runs in exact f32, into the resident buffer
@@ -484,12 +496,13 @@ def advance_blocks(bs: BlockState, case: ShardedCase, n_steps: int, store_dev: b
         dst = bs.f
     else:
         dst = bs.f_alt if src is bs.f else bs.f
+    prev = cs.prev_at_step(prev, n_steps - 1)
     if loop:
         cs.k1_shard_full(src, dst, case.tables, rows[-1], p.use_les, p.bc_type, bs.rho, bs.u,
-                         bs.f_post, case.obstacle)
+                         bs.f_post, case.obstacle, prev)
     else:
         cs.k1_blocks(src, dst, case, rows[-1], p.use_les, p.bc_type, case.obstacle,
-                     rho=bs.rho, u=bs.u, f_post=bs.f_post, plain=plain)
+                     rho=bs.rho, u=bs.u, f_post=bs.f_post, plain=plain, prev=prev)
         exchange_halos(dst, mesh, case.hl, case.wl)  # the next chunk reads f's halos
     if not dev_store:
         bs.f_alt = src

@@ -63,7 +63,10 @@ def test_batch_equals_per_case_runs():
 
 
 def test_store_dev_batch_matches_jax_pallas():
-    nx, ny = 128, 32
+    # 65536 cells: below them the lockstep engine runs exact f32, as the
+    # JAX auto runner does (its vmap jnp chunk); the JAX "pallas" runner
+    # engages deviation storage at any size
+    nx, ny = 1024, 64
     cfgs = [grid_config(nx, ny, rho_in=1.02), grid_config(nx, ny, rho_in=1.03)]
     masks = [block_mask(ny, nx), block_mask(ny, nx)]
     ref = JaxBatchEngine(cfgs, masks, runner="pallas", store_dev=True)
@@ -82,7 +85,7 @@ def test_store_dev_batch_matches_jax_pallas():
 
 
 def test_store_dev_from_the_config_key():
-    nx, ny = 48, 24
+    nx, ny = 1024, 64  # the lockstep engine's smallest grid for it: 65536 cells
     cfg = grid_config(nx, ny)
     cfg["simulation"]["f16_state"] = True
     assert BatchEngine([cfg], [block_mask(ny, nx)], device="cpu")._store_dev

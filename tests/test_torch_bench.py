@@ -31,6 +31,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # a tiny bench: 32^2, 1 warm-up chunk and 2 windows of 2 chunks of 10 steps
 N, CHUNK, WARM, WINDOWS, N_CHUNKS = 32, 10, 1, 2, 2
 STEPS = CHUNK * (WARM + WINDOWS * N_CHUNKS)
+# the bench's clock in the tests: each perf_counter() call advances TICK
+# seconds, so each window's dt is TICK (a power of two: exact in float), and
+# the line's rate does not depend on the host's speed or load
+TICK = 2.0 ** -10
 
 
 def rel(a, b) -> float:
@@ -38,11 +42,24 @@ def rel(a, b) -> float:
     return float(np.abs(a - b).max() / np.abs(b).max())
 
 
+class FixedClock:
+    """A perf_counter that advances ``tick`` seconds a call."""
+
+    def __init__(self, tick: float):
+        self.tick, self.now = tick, 0.0
+
+    def __call__(self) -> float:
+        self.now += self.tick
+        return self.now
+
+
 @pytest.fixture(scope="module")
 def tiny():
-    """(stdout, BenchResult) of the tiny bench on the CPU."""
+    """(stdout, BenchResult) of the tiny bench on the CPU, under the fixed
+    clock."""
     out = io.StringIO()
-    with contextlib.redirect_stdout(out):
+    with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(out):
+        mp.setattr(bench.time, "perf_counter", FixedClock(TICK))
         res = bench.run(n=N, chunk=CHUNK, warm_chunks=WARM, windows=WINDOWS, n_chunks=N_CHUNKS,
                         device="cpu")
     return out.getvalue(), res
@@ -79,6 +96,10 @@ def test_run_prints_one_json_line(tiny):
     assert line["metric"] == bench_py_constants()[0] and line["unit"] == "MLUPS"
     assert line["value"] > 0 and line["vs_baseline"] == pytest.approx(line["value"] / 1e4,
                                                                       abs=1e-4)
+    # the rate of bench.run's formula for the fixed clock's window, exactly
+    mlups = N * N * N_CHUNKS * CHUNK / TICK / 1e6
+    assert line["value"] == round(mlups, 1) == 21.0
+    assert line["vs_baseline"] == round(mlups / bench.BASELINE_MLUPS, 4) == 0.0021
     assert res.guard_rel == 0.0  # on the CPU the chunk runner is the eager step, bitwise
 
 

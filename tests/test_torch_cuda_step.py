@@ -137,12 +137,21 @@ def test_supports():
           ((0, 0, 2, 0), "equilibrium"), ((3, 2, 1, 2), "equilibrium"),
           ((4, 2, 1, 2), "equilibrium"), ((0, 2, 1, 2), "bounce_back"),
           ((0, 2, 1, 2), "bounce_back_halfway"), ((0, 2, 1, 2), "bounce_back_bouzidi"),
-          ((4, 0, 1, 0), "bounce_back_bouzidi")]
+          ((4, 0, 1, 0), "bounce_back_bouzidi"), ((1, 2, 1, 2), "equilibrium")]
     for bc, obst in ok:
         assert cs.supports(ts.make_params(make_config(bc, obst), make_mask())), (bc, obst)
+    # no-op sides (apply_bc keeps their cells): K1 runs every layout, those
+    # make_params refuses too (top/bottom 1, right/top/bottom 3 and 4)
+    for bc, obst in [((0, 1, 1, 1), "equilibrium"), ((0, 2, 3, 2), "equilibrium"),
+                     ((0, 2, 1, 4), "bounce_back"), ((3, 0, 4, 1), "bounce_back_halfway"),
+                     ((1, 3, 4, 1), "bounce_back_bouzidi")]:
+        p = dataclasses.replace(ts.make_params(make_config((bc[0], 2, 1, 2), obst), make_mask()),
+                                bc_type=bc)
+        assert cs.supports(p), (bc, obst)
+    # a layout the JAX kernels refuse never runs K3, and the reason says so
     p = ts.make_params(make_config((1, 2, 1, 2)), make_mask())
+    assert "no-op sides (left)" in cs.fuse_refusal(p)
     bad = [
-        (p, "every side"),
         (dataclasses.replace(ts.make_params(make_config((3, 2, 1, 2)), make_mask()),
                              inlet_profile=None), "inlet_profile"),
         (dataclasses.replace(ts.make_params(make_config(obstacle="bounce_back_bouzidi"),

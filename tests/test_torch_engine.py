@@ -19,10 +19,10 @@ H, W = 32, 64
 ATOL = 1e-12  # f64, values O(1)
 
 
-def make_config():
+def make_config(nx=W):
     return {
         "simulation": {
-            "nx": W, "ny": H, "name": "eng", "nu": 0.03, "ghost_moments_s": 1.2,
+            "nx": nx, "ny": H, "name": "eng", "nu": 0.03, "ghost_moments_s": 1.2,
             "characteristic_length": 8, "rho_in": 1.01, "rho_out": 1.0,
             "smagorinsky_constant": 0.1, "warmup_steps": 20,
         },
@@ -37,9 +37,9 @@ def make_config():
     }
 
 
-def make_mask():
-    mask = np.zeros((H, W), np.float32)
-    yy, xx = np.mgrid[0:H, 0:W]
+def make_mask(nx=W):
+    mask = np.zeros((H, nx), np.float32)
+    yy, xx = np.mgrid[0:H, 0:nx]
     mask[(yy - 15.5) ** 2 + (xx - 20) ** 2 < 25] = 1.0
     return mask
 
@@ -136,15 +136,17 @@ def test_engine_device_and_unported_options():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             LBMEngine(make_config(), make_mask())  # default device is cuda
     # 16-bit deviation storage engages (on the CPU through the kernels'
-    # plain versions): a chunk differs from the exact f32 one, within the
-    # quantization budget
-    dev = LBMEngine(make_config(), make_mask(), device="cpu", store_dev=True)
-    ref = LBMEngine(make_config(), make_mask(), device="cpu")
-    assert dev.store_dev and not ref.store_dev
+    # plain versions) on a grid of the JAX split-BC geometry (W % 128 == 0):
+    # a chunk differs from the exact f32 one, within the quantization budget
+    dev = LBMEngine(make_config(128), make_mask(128), device="cpu", store_dev=True)
+    exact = LBMEngine(make_config(128), make_mask(128), device="cpu")
+    assert dev.store_dev and not exact.store_dev
     dev.run_step(12)
-    ref.run_step(12)
-    diff = np.abs(dev.get_moments() - ref.get_moments()).max()
+    exact.run_step(12)
+    diff = np.abs(dev.get_moments() - exact.get_moments()).max()
     assert 0 < diff <= 5e-4
+    ref = LBMEngine(make_config(), make_mask(), device="cpu")
+    ref.run_step(12)
     # a spatial mesh runs the case on its blocks, bitwise the one-block run
     sharded = LBMEngine(make_config(), make_mask(), device="cpu", spatial_mesh="2x1")
     assert sharded.mesh.grid == (2, 1)

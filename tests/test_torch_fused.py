@@ -174,23 +174,26 @@ def test_one_k3_pass_equals_split_steps():
 
 def test_fuse_rules_and_engine_logs(caplog, monkeypatch):
     cfg_b = make_config(H, W, (4, 2, 1, 2), "bounce_back_bouzidi")
-    cfg_e = make_config(H, W)
+    # store_dev's case on a grid of the JAX split-BC geometry, where the
+    # engines engage it (W % 128 == 0, H % 8 == 0)
+    he, we = 32, 128
+    cfg_e = make_config(he, we)
     cfg_e["simulation"]["f16_state"] = True
     p_b = ts.make_params(cfg_b, make_mask(H, W))
     assert cs.fuse_refusal(p_b) and "Bouzidi" in cs.fuse_refusal(p_b)
     assert cs.fuse_steps(p_b, 10) == 0
     # not requested: no fusion, store_dev as before
-    assert cs.fuse_steps(ts.make_params(cfg_e, make_mask(H, W)), 10) == 0
+    assert cs.fuse_steps(ts.make_params(cfg_e, make_mask(he, we)), 10) == 0
     with caplog.at_level(logging.WARNING, logger="lbm2d_tpu_torch.core.engine"):
-        assert LBMEngine(cfg_e, make_mask(H, W), device="cpu").store_dev
+        assert LBMEngine(cfg_e, make_mask(he, we), device="cpu").store_dev
     assert not caplog.records
     monkeypatch.setattr(cs, "_FUSE_STEPS", 12)
-    p_e = ts.make_params(cfg_e, make_mask(H, W))
+    p_e = ts.make_params(cfg_e, make_mask(he, we))
     assert cs.fuse_steps(p_e, 10) == cs.FUSE_MAX_STEPS and cs.fuse_steps(p_e, 1) == 0
     assert cs.fuse_refusal(p_e) is None
     assert "temporal blocking" in cs.dev_storage_refusal(p_e)
     with caplog.at_level(logging.WARNING, logger="lbm2d_tpu_torch.core.engine"):
-        eng_e = LBMEngine(cfg_e, make_mask(H, W), device="cpu")
+        eng_e = LBMEngine(cfg_e, make_mask(he, we), device="cpu")
         eng_b = LBMEngine(cfg_b, make_mask(H, W), device="cpu")
     msgs = [r.getMessage() for r in caplog.records]
     assert len(msgs) == 2, msgs
@@ -201,7 +204,7 @@ def test_fuse_rules_and_engine_logs(caplog, monkeypatch):
     assert eng_b._runner is ts.run_chunk
     # the store_dev request is off in the chunk runner too: exact f32
     monkeypatch.setattr(cs, "k3_tile", lambda S: TILE)
-    s0 = seeded_state(H, W)
+    s0 = seeded_state(he, we)
     a, _ = cs.run_chunk_plain(s0, p_e, 9, store_dev=True)
     b, _ = ts.run_chunk(s0, p_e, 9)
     assert torch.equal(a.f, b.f)

@@ -144,8 +144,10 @@ def test_resident_plain_runner_equals_run_chunk_plain(shape, bc_type, obstacle, 
 
 def test_resident_engine_store_dev_equals_single_device():
     # the kernels' plain sharded runner in deviation storage, through the
-    # engine, against the single-device plain split
-    cfg, mask = engine_config(), seeded_mask()
+    # engine, against the single-device plain split, on a grid whose 2x2
+    # blocks have the JAX sharded split-BC geometry (16x128), where the
+    # engines engage it
+    cfg, mask = engine_config(ny=32, nx=256), seeded_mask(ny=32, nx=256)
     one = LBMEngine(cfg, mask, device="cpu", store_dev=True)
     res = LBMEngine(cfg, mask, device="cpu", store_dev=True, spatial_mesh="2x2")
     assert res.store_dev and isinstance(res._runner, sh.BlockRunner)

@@ -3,6 +3,7 @@
 a sharded chunk runner from ``spatial_mesh``, and ``batch_run
 --spatial_mesh`` writes the serial run's artifacts byte for byte."""
 
+import copy
 import json
 import logging
 import os
@@ -67,10 +68,17 @@ def test_engine_spatial_matches_serial(tmp_path):
 def test_engine_spatial_store_dev_and_checkpoint(tmp_path):
     cfg, mask = project_case(str(tmp_path))
     # 16-bit deviation storage on a mesh runs the sharded kernels' plain
-    # versions on the CPU, equal to the single-device plain split
-    serial = LBMEngine(cfg, mask_yx=mask, device="cpu", store_dev=True)
-    sharded = LBMEngine(cfg, mask_yx=mask, device="cpu", store_dev=True, spatial_mesh=(2, 2))
-    assert sharded.store_dev
+    # versions on the CPU, equal to the single-device plain split; the
+    # project's case widened to 256 x 32, whose 2x2 blocks (16x128) have the
+    # JAX sharded split-BC geometry, where the engines engage it
+    wide = copy.deepcopy(cfg)
+    wide["simulation"].update(nx=256, ny=32)
+    wide_mask = np.zeros((32, 256), np.float32)
+    wide_mask[:, 80:176] = mask[16:48]
+    serial = LBMEngine(wide, mask_yx=wide_mask, device="cpu", store_dev=True)
+    sharded = LBMEngine(wide, mask_yx=wide_mask, device="cpu", store_dev=True,
+                        spatial_mesh=(2, 2))
+    assert serial.store_dev and sharded.store_dev
     serial.run_step(12)
     sharded.run_step(12)
     assert torch.equal(serial.state.f, sharded.state.f)
