@@ -46,7 +46,13 @@ Phases (any failure raises and the process exits non-zero):
    on the 2x2 mesh, bitwise; time each kernel with CUDA events beside its
    bound
    (``ms``: replayed from a CUDA graph, the kernel alone;
-   ``launch_path_ms``: launched from Python one by one);
+   ``launch_path_ms``: launched from Python one by one); then each of
+   K1's lockstep-group instances (``_group``: one launch over 5 cases of
+   the production grid, one of them dead) on the smoke layout, a velocity
+   inlet and a no-op layout, and the group monitor kernel for both force
+   sums, bitwise against their plain versions, the monitors within 5e-6 of
+   the eager monitors in float64 and a NaN in u read as unstable, timed
+   over the 5 cases beside the eager monitors (``library_ms``);
 3. drive the serial main path, ``LBMEngine`` + ``run_simulation_loop``, on
    the production-shaped case in ``lbm2d_tpu_torch/data`` (3000 steps in
    chunks of 100), and check status Success, finite moments, mean jx > 0,
@@ -62,8 +68,9 @@ Phases (any failure raises and the process exits non-zero):
    --f16_retry``, on a temporary project of three sibling cases of the
    smoke case (the same mask; nu 0.02, 0.03, 0.05; video on), and check
    every case Success, finite HDF5 frames with mean jx > 0, one mp4 per
-   case, the launch counts of its kernels (k1_step_dev 3 x 2970,
-   k1_step_full 3 x 30: one a step) and no plain call, and
+   case, the launch counts of the group program (one K1 launch a step for
+   the group: k1_step_group_dev 2970, k1_step_group_full 30,
+   group_monitors 30; cases x steps 3 x each) and no plain call, and
    print the fetch pacer's record (stall fraction, final group size, its
    chunk-wall estimate and the chunks that calibrated it). Where
    the machine has no h5py, the HDF5 writer runs on an in-memory stand-in
@@ -163,7 +170,8 @@ Phases (any failure raises and the process exits non-zero):
    (c) ``BatchEngine(runner="sharded")``, 3 cases on a case mesh naming
    cuda:0 twice (one inert pad), one chunk, f32 and ``store_dev``: states
    and monitors bitwise equal to ``runner="auto"``, the pad launching
-   nothing; (d) two processes in a gloo group (``parallel/multihost``),
+   nothing, each device's cases one group program; (d) two processes in a
+   gloo group (``parallel/multihost``),
    both on cuda:0, the smoke case through ``run_one_case.main`` on a
    global 2x1 mesh: Success on both ranks, the final f bitwise equal to
    phase 3's, the monitors equal across ranks and within 5e-6 of 8(c)'s
@@ -182,8 +190,8 @@ Phases (any failure raises and the process exits non-zero):
    case is (warmup 1000, chunk 100, 3000 steps, recording and intervals
    1000, video on); (3) ``run_batch`` with the production flags over the
    five cases, one group: every case Success, finite frames with mean jx
-   > 0, one mp4 each, k1_step_dev 5 x 2970 and k1_step_full 5 x 30
-   launches and no plain call; (4) ``post.h5_to_zarr.run`` on the
+   > 0, one mp4 each, k1_step_group_dev 2970, k1_step_group_full 30 and
+   group_monitors 30 launches (5 cases each) and no plain call; (4) ``post.h5_to_zarr.run`` on the
    project's summary: ``global_stats.json`` lists the five cases, each
    case's ``turbulence`` read back with ``zarrlite.read_region`` equals
    the HDF5 frames normalised in numpy, bit for bit, and the sampling-
@@ -218,13 +226,32 @@ Phases (any failure raises and the process exits non-zero):
    step and no plain call; one chunk against ``run_chunk_plain``,
    bitwise; ``f16_state`` refused with one logged reason and 2 chunks
    bitwise the f32 engine's; us/step and a whole chunk's device time in
-   turns with the production layout.
+   turns with the production layout;
+14. hold the lockstep group's program on the card
+   (``cuda_step.run_chunk_group_cuda``; phase 2 holds its kernels, K1's
+   group instances over 5 cases with one dead and the monitor kernel,
+   bitwise against their plain versions, the monitors within 5e-6 of the
+   eager monitors in float64 and a NaN in u read as unstable): (a) a group
+   of 5 at 2432x1152 from phase 3's flow, one case dead, a 20-step chunk
+   straddling the warmup, exact f32 and ``store_dev``: f, f_post, rho, u
+   and step of every case bitwise ``run_chunk_cuda`` a case and
+   ``run_chunk_group_plain``, the dead case's bits kept, the library calls
+   and launches of the chunk; (b) a group of 8 at 256x128 under
+   ``BatchEngine(runner="vmap")`` (exact f32 with f16_state set): two
+   chunks bitwise the same references, its calls and launches a chunk and
+   us a group-step; a case diverging mid-run and one given a NaN read
+   unstable and kept bitwise frozen while the others run on; (c) the
+   other schemes' group instances on that grid (full-way under vmap and,
+   in deviation storage, pallas; half-way and Bouzidi under vmap), bitwise
+   ``run_chunk_cuda`` a case.
 
 The last two lines are the kernels' JSON record (``launches``: the sum over
-the driven paths, split in ``launches_by_path``, phase 9's under
+the driven paths, split in ``launches_by_path``, phase 3's store_dev
+kernel-path turns under ``serial_dev``, phase 9's under
 ``coord``, ``coord_lock``, ``case_sharded`` and ``multihost``, phase 10's under
 ``quickstart`` and ``quickstart_trace``, phase 11's under ``bench``, phase
-12's under ``suite``, phase 13's under ``noop``) and ``{"ok": true,
+12's under ``suite``, phase 13's under ``noop``, phase 14's under ``group``)
+and ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or without the package beside
 this script, it exits non-zero and prints no result.
 """
@@ -309,11 +336,27 @@ ROOF_N, ROOF_CHUNKS, ROOF_SPC = 4096, 2, 50
 # each timed turn (scatter and gather every chunk, then resident, in turns)
 CHECK_4K_STEPS = 6
 SHARD_4K_CHUNKS = 8
+# phases 2 and 14: the production lockstep group's size (phase 4 runs 3
+# cases, the quickstart 5), and phase 14's small grid, group and chunks
+# (the verify recipe's 256x128, a --runner vmap group of 8)
+GROUP_B = 5
+SMALL_CHUNKS = 10
 # phase 2: the chunk through the libraries' step loops against the per-step
 # wrappers (a chunk straddling its case's warmup), and the rows of each
 # loop entry's timed call
 LOOP_N = 20
 ISSUE_N = 100
+
+
+def group_launches(fast: str, full: str, mon: str, groups: int, cases: int, chunks: int,
+                   chunk: int):
+    """(launches, cases x steps) a lockstep run of ``chunks`` chunks makes
+    through the group program: a K1 launch a step for each of ``groups``
+    groups, ``cases`` cases over them, a full step and a monitor launch a
+    chunk (the monitors count every case of a group)."""
+    launches = {fast: groups * chunks * (chunk - 1), full: groups * chunks, mon: groups * chunks}
+    per_case = {fast: cases * chunks * (chunk - 1), full: cases * chunks, mon: cases * chunks}
+    return launches, per_case
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -554,7 +597,7 @@ def phase9(config, mask, f_serial, force8c, h5_8c, counted, card):
 
     # (b) lockstep --coordinate --f16_state --max_batch 2: one worker alone,
     # then two at once, each on a fresh copy of the project
-    lock = {"k1_step_dev": chunks * (chunk - 1), "k1_step_full": chunks}
+    lock = ("k1_step_group_dev", "k1_step_group_full", "group_monitors")
     runs = {}
     lock_records = []
     for n_workers in (1, 2):
@@ -565,12 +608,22 @@ def phase9(config, mask, f_serial, force8c, h5_8c, counted, card):
             recs, wall = spawn_workers("batch", [{"argv": argv}] * n_workers)
             owners = check_coordinated(os.path.join(root, "outputs", "Lock"), names, recs,
                                        f"9(b) x{n_workers}")
+        ran = 0
         for r, _ in recs:
-            k = r["launches"].get("k1_step_full", 0) // chunks
-            want = {v: c * k for v, c in lock.items() if k}
-            if r["launches"] != want or any(r["plain_calls"].values()):
-                raise AssertionError(f"9(b): launches {r['launches']} (want {want}), "
-                                     f"plain calls {r['plain_calls']}")
+            # groups and cases from the full steps: a group program a chunk
+            groups = r["launches"].get("k1_step_group_full", 0) // chunks
+            cases = r["case_steps"].get("k1_step_group_full", 0) // chunks
+            want, want_cases = group_launches(*lock, groups, cases, chunks, chunk)
+            want = {k: v for k, v in want.items() if v}
+            want_cases = {k: v for k, v in want_cases.items() if v}
+            ran += cases
+            if (r["launches"] != want or r["case_steps"] != want_cases
+                    or any(r["plain_calls"].values())):
+                raise AssertionError(f"9(b): launches {r['launches']} (want {want}), cases x "
+                                     f"steps {r['case_steps']} (want {want_cases}), plain calls "
+                                     f"{r['plain_calls']}")
+        if ran != n:
+            raise AssertionError(f"9(b) x{n_workers}: {ran} case runs for {n} cases")
         lock_records += [r for r, _ in recs]
         span = max(r["t1"] for r, _ in recs) - min(r["t0"] for r, _ in recs)
         cells = n * max_steps * H * W
@@ -606,8 +659,9 @@ def phase9(config, mask, f_serial, force8c, h5_8c, counted, card):
         got = dict(cs.LAUNCHES)
         auto = BatchEngine(cfgs, [mask] * 3, store_dev=store_dev, device="cuda")
         m_auto = auto.run_step(chunk)
-        kind = "k1_step_dev" if store_dev else "k1_step"
-        want = {kind: 3 * (chunk - 1), "k1_step_full": 3}
+        kind = "k1_step_group_dev" if store_dev else "k1_step_group"
+        # two group programs on the card: cases 0-1, and case 2 beside its pad
+        want, _ = group_launches(kind, "k1_step_group_full", "group_monitors", 2, 3, 1, chunk)
         if {k: v for k, v in got.items() if v} != want or any(counted.values()):
             raise AssertionError(f"9(c): launches {got} (want {want}), plain calls {counted}")
         if sh9._shard_pad != 1 or len(sh9.mesh) != 2 or any(
@@ -751,7 +805,8 @@ def phase10(config, mask, counted, card):
     H, W = mask.shape
     n = len(QS_NUS)
     chunks = QS_DEPTH["max_steps"] // QS_DEPTH["chunk"]
-    want = {"k1_step_dev": n * chunks * (QS_DEPTH["chunk"] - 1), "k1_step_full": n * chunks}
+    want, want_cases = group_launches("k1_step_group_dev", "k1_step_group_full",
+                                      "group_monitors", 1, n, chunks, QS_DEPTH["chunk"])
     walls = {}
     by_path = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_qs_") as root, contextlib.chdir(root):
@@ -828,15 +883,17 @@ def phase10(config, mask, counted, card):
               f"{walls['3 batch_run --lockstep']:.2f} s = "
               f"{n * QS_DEPTH['max_steps'] * H * W / walls['3 batch_run --lockstep'] / 1e6:.1f} "
               f"MLUPS aggregate wall [{card}]", flush=True)
-        print(f"    statuses {statuses}; launches {launches} (want {want}), plain calls "
-              f"{counted}", flush=True)
+        cases10 = {k: v for k, v in cs.CASE_STEPS.items() if v}
+        print(f"    statuses {statuses}; launches {launches} (want {want}), cases x steps "
+              f"{cases10} (want {want_cases}), plain calls {counted}", flush=True)
         if set(statuses.values()) != {"Success"} or stats.get("success") != n:
             for f, e in results.items():
                 if e["status"] != "Success":
                     print(f"    {f}: {json.dumps(e.get('run_summary', e))[:600]}", flush=True)
             raise AssertionError(f"step 3: not every case succeeded: {statuses}")
-        if launches != want or any(counted.values()):
-            raise AssertionError(f"step 3: launches {launches} (want {want}), plain {counted}")
+        if launches != want or cases10 != want_cases or any(counted.values()):
+            raise AssertionError(f"step 3: launches {launches} (want {want}), cases x steps "
+                                 f"{cases10} (want {want_cases}), plain {counted}")
         frames = {}
         n_frames = (QS_DEPTH["max_steps"] - QS_DEPTH["interval"]) // QS_DEPTH["interval"] + 1
         for c in cfgs.values():
@@ -1215,6 +1272,225 @@ def phase13(config, mask, counted, card):
     return launches
 
 
+def phase14(config, mask, s3, counted, card):
+    """The lockstep group's program on the card (see the module docstring);
+    returns its launches."""
+    from lbm2d_tpu_torch.core import solver
+    from lbm2d_tpu_torch.ops import cuda_build, cuda_step as cs
+    from lbm2d_tpu_torch.parallel.batch import BatchEngine
+    from lbm2d_tpu_torch.tools.lockstep_bench import SMALL_B, SMALL_GRID, small_config, small_mask
+
+    dev = torch.device("cuda", 0)
+    H, W = mask.shape
+    launches = {k: 0 for k in cs.KERNEL_VARIANTS}
+
+    def tally():
+        for k, v in cs.LAUNCHES.items():
+            launches[k] += v
+
+    def same(tag, a, b):
+        if not torch.equal(bits(a), bits(b)):
+            raise AssertionError(f"14 {tag}: not bitwise equal")
+
+    def calls_and_launches(fn):
+        """(library calls, launches, cases x steps) of ``fn()``."""
+        cuda_build.CALLS.clear()
+        cs.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        tally()
+        return (dict(cuda_build.CALLS), {k: v for k, v in cs.LAUNCHES.items() if v},
+                {k: v for k, v in cs.CASE_STEPS.items() if v})
+
+    # (a) the production grid: a group of GROUP_B cases (nu apart) from
+    # phase 3's developed flow, one case dead, a 20-step chunk straddling
+    # the warmup, in exact f32 and in deviation storage: the group program
+    # against run_chunk_cuda a case and against its plain version
+    nus = [0.02, 0.025, 0.03, 0.04, 0.05][:GROUP_B]
+    cfgs = []
+    for nu in nus:
+        c = json.loads(json.dumps(config))
+        c["simulation"]["nu"] = nu
+        cfgs.append(c)
+    ps = [solver.make_params(c, mask, dtype=torch.float32, device=dev) for c in cfgs]
+    g = cs.GroupParams(ps)
+    warmup = int(config["simulation"]["warmup_steps"])
+    alive = [c != 2 for c in range(GROUP_B)]
+    n = LOOP_N
+
+    def start():
+        st = solver.LBMState(
+            f=torch.stack([s3.f] * GROUP_B).contiguous(),
+            f_post=torch.stack([s3.f_post] * GROUP_B).contiguous(),
+            rho=torch.stack([s3.rho] * GROUP_B).contiguous(),
+            u=torch.stack([s3.u] * GROUP_B).contiguous(),
+            step=torch.full((GROUP_B,), warmup - n // 2, dtype=torch.int32))
+        return st
+
+    for store_dev in (False, True):
+        st0 = start()
+        sk = start()
+        out = {}
+        calls, la, ca = calls_and_launches(
+            lambda: out.update(k=cs.run_chunk_group_cuda(sk, g, alive, n, store_dev)))
+        sk, alk, pk_ = out["k"]
+        sp, alp, pp_ = cs.run_chunk_group_plain(start(), g, alive, n, store_dev)
+        torch.cuda.synchronize()
+        tag = "f32" if not store_dev else "store_dev"
+        for k in ("f", "f_post", "rho", "u"):
+            same(f"(a) {tag} {k} vs plain", getattr(sk, k), getattr(sp, k))
+            same(f"(a) {tag} dead case {k}", getattr(sk, k)[2], getattr(st0, k)[2])
+        same(f"(a) {tag} monitors vs plain", pk_, pp_)
+        if not torch.equal(alk, alp) or sk.step.tolist() != sp.step.tolist():
+            raise AssertionError(f"14 (a) {tag}: alive {alk} / {alp}, step {sk.step}")
+        for c in range(GROUP_B):
+            if not alive[c]:
+                continue
+            one = solver.LBMState(f=s3.f, f_post=s3.f_post, rho=s3.rho, u=s3.u,
+                                  step=warmup - n // 2)
+            sc, mc = cs.run_chunk_cuda(one, ps[c], n, store_dev=store_dev)
+            for k in ("f", "f_post", "rho", "u"):
+                same(f"(a) {tag} case {c} {k} vs run_chunk_cuda", getattr(sk, k)[c],
+                     getattr(sc, k))
+            if int(sk.step[c]) != sc.step:
+                raise AssertionError(f"14 (a) {tag}: case {c} step {sk.step[c]} vs {sc.step}")
+        want_fast = cs.k1_variant(cs.OBSTACLE_EQ, dev=store_dev, group=True)
+        want = {want_fast: n - 1, "k1_step_group_full": 1, "group_monitors": 1}
+        if la != want:
+            raise AssertionError(f"14 (a) {tag}: launches {la} (want {want})")
+        print(f"[14] (a) group of {GROUP_B} at {H}x{W}, {tag}, case 2 dead, steps "
+              f"{warmup - n // 2 + 1}-{warmup + n // 2}: f, f_post, rho, u and step of every case "
+              f"bitwise run_chunk_cuda a case and run_chunk_group_plain, the monitors bitwise "
+              f"the plain version's, the dead case's bits kept; a chunk: library calls {calls}, "
+              f"launches {la}, cases x steps {ca} [{card}]", flush=True)
+        del st0, sk, sp
+
+    # (b) the verify recipe's 256x128, a group of SMALL_B under --runner
+    # vmap (exact f32 although f16_state is set), through BatchEngine: two
+    # chunks bitwise run_chunk_cuda a case and run_chunk_group_plain; then a
+    # case that diverges (nu < 0: tau < 1/2) freezing bit for bit while the
+    # others run on, a NaN planted in a case's f read as unstable, and the
+    # group's us a group-step
+    chunk = int(config["simulation"]["compute_step_size"])
+    cfgs_s = [small_config(0.02 + 0.004 * c, 1.02 + 0.002 * c) for c in range(SMALL_B)]
+    masks_s = [small_mask(c) for c in range(SMALL_B)]
+    eng = BatchEngine(cfgs_s, masks_s, device="cuda", runner="vmap")
+    if eng._store_dev:
+        raise AssertionError("14 (b): the vmap runner engaged deviation storage")
+    counted.clear()
+    per_chunk = []
+    for _ in range(2):
+        per_chunk.append(calls_and_launches(lambda: eng.run_step(chunk)))
+    if any(counted.values()):
+        raise AssertionError(f"14 (b): plain calls {counted}")
+    ps_s = [solver.make_params(c, m, dtype=torch.float32, device=dev)
+            for c, m in zip(cfgs_s, masks_s)]
+    ny, nx = SMALL_GRID
+    ref = solver.init_state(ny, nx, torch.float32, dev)
+    st_e = eng.state
+    for c in range(SMALL_B):
+        sc = ref
+        for _ in range(2):
+            sc, _ = cs.run_chunk_cuda(sc, ps_s[c], chunk)
+        for k in ("f", "f_post", "rho", "u"):
+            same(f"(b) case {c} {k} vs run_chunk_cuda", getattr(st_e, k)[c], getattr(sc, k))
+    gp = cs.GroupParams(ps_s)
+    from lbm2d_tpu_torch.parallel.batch import init_batch_state
+
+    sp = init_batch_state(SMALL_B, ny, nx, torch.float32, dev)
+    for _ in range(2):
+        sp, _, _ = cs.run_chunk_group_plain(sp, gp, [True] * SMALL_B, chunk)
+    for k in ("f", "f_post", "rho", "u"):
+        same(f"(b) {k} vs plain", getattr(st_e, k), getattr(sp, k))
+    calls, la, ca = per_chunk[-1]
+    want = {"k1_step_group": chunk - 1, "k1_step_group_full": 1, "group_monitors": 1}
+    if la != want:
+        raise AssertionError(f"14 (b): launches a chunk {la} (want {want})")
+    print(f"[14] (b) --runner vmap, a group of {SMALL_B} at {ny}x{nx} (f16_state set, exact f32): "
+          f"2 chunks of {chunk} bitwise run_chunk_cuda a case and run_chunk_group_plain; a "
+          f"chunk: library calls {calls}, launches {la}, cases x steps {ca}", flush=True)
+    # the group-step: host-paced, the monitors fetched every chunk as the
+    # lockstep loop fetches them (the comparisons' launches above not counted)
+    torch.cuda.synchronize()
+    cs.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(SMALL_CHUNKS):
+        eng.run_step(chunk)
+    torch.cuda.synchronize()
+    us_group = (time.perf_counter() - t0) * 1e6 / (SMALL_CHUNKS * chunk)
+    tally()
+    cs.reset_launch_counts()
+    print(f"    {us_group:.2f} us a group-step = {us_group / SMALL_B:.2f} us a case-step over "
+          f"{SMALL_CHUNKS} chunks, monitors synced each chunk [{card}]", flush=True)
+    # a diverging case and a NaN: case 5 unstable (past V_THRESHOLD after
+    # its warmup, mid-run), case 6's f given a NaN far from its disc
+    cfgs_d = [dict(c, simulation=dict(c["simulation"])) for c in cfgs_s]
+    cfgs_d[5]["simulation"].update(nu=-0.01)  # tau < 1/2: past 0.25 after its warmup
+    eng = BatchEngine(cfgs_d, masks_s, device="cuda", runner="vmap")
+    st = eng.state
+    st.f[6, :, 4, nx - 6] = float("nan")
+    eng.set_state(st, np.ones(SMALL_B, bool))
+    died, frozen = {}, {}
+    for i in range(8):
+        cs.reset_launch_counts()
+        eng.run_step(chunk)
+        tally()
+        alive_now = eng.alive_mask
+        for c in (5, 6):
+            if not alive_now[c] and c not in died:
+                died[c] = i
+                snap = eng.state
+                frozen[c] = {k: getattr(snap, k)[c].clone() for k in ("f", "f_post", "rho", "u")}
+                frozen[c]["step"] = int(snap.step[c])
+    snap = eng.state
+    if (sorted(died) != [5, 6] or died[6] != 0 or died[5] < 1
+            or not eng.alive_mask[[0, 1, 2, 3, 4, 7]].all()):
+        raise AssertionError(f"14 (b): died at chunks {died}, alive {eng.alive_mask}")
+    for c in (5, 6):
+        for k in ("f", "f_post", "rho", "u"):
+            same(f"(b) dead case {c} {k} frozen", getattr(snap, k)[c], frozen[c][k])
+        if int(snap.step[c]) != frozen[c]["step"]:
+            raise AssertionError(f"14 (b): dead case {c} step moved")
+    mon = eng.last_monitors
+    print(f"    case 5 (nu -0.01) diverged in chunk {died[5]}, case 6 (NaN in f) read unstable in "
+          f"chunk {died[6]} (max_v {mon['max_v'][6]}); both bitwise frozen through chunk 7, "
+          f"steps {snap.step.tolist()}", flush=True)
+    del eng
+    # (c) the other schemes' group instances on the same grid: full-way
+    # bounce-back under vmap (f32) and pallas (deviation storage at any
+    # size), half-way and Bouzidi under vmap; 2 chunks each, bitwise
+    # run_chunk_cuda a case
+    for obstacle, runner in (("bounce_back", "vmap"), ("bounce_back", "pallas"),
+                             ("bounce_back_halfway", "vmap"), ("bounce_back_bouzidi", "vmap")):
+        cfgs_o = [small_config(0.02 + 0.004 * c, 1.02 + 0.002 * c, obstacle=obstacle)
+                  for c in range(SMALL_B)]
+        eng = BatchEngine(cfgs_o, masks_s, device="cuda", runner=runner)
+        counted.clear()
+        cs.reset_launch_counts()
+        for _ in range(2):
+            eng.run_step(chunk)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in cs.LAUNCHES.items() if v}
+        tally()
+        if any(counted.values()) or not eng.alive_mask.all():
+            raise AssertionError(f"14 (c) {obstacle} {runner}: plain calls {counted}, alive "
+                                 f"{eng.alive_mask}")
+        st_o = eng.state
+        for c in range(SMALL_B):
+            pk = solver.make_params(cfgs_o[c], masks_s[c], dtype=torch.float32, device=dev)
+            sc = solver.init_state(ny, nx, torch.float32, dev)
+            for _ in range(2):
+                sc, _ = cs.run_chunk_cuda(sc, pk, chunk, store_dev=eng._store_dev)
+            for k in ("f", "f_post", "rho", "u"):
+                same(f"(c) {obstacle} {runner} case {c} {k}", getattr(st_o, k)[c],
+                     getattr(sc, k))
+        print(f"[14] (c) {obstacle}, --runner {runner} (store_dev {eng._store_dev}), a group of "
+              f"{SMALL_B} at {ny}x{nx}: 2 chunks bitwise run_chunk_cuda a case; launches {got}",
+              flush=True)
+        del eng
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1230,6 +1506,7 @@ def main() -> int:
     from lbm2d_tpu_torch.analysis import dfg_validation
     from lbm2d_tpu_torch.core.lattice import E as E_LAT
     from lbm2d_tpu_torch.core.lattice import f_eq
+    from lbm2d_tpu_torch.core.stability import is_stable_device
     from lbm2d_tpu_torch.ops import cuda_build, cuda_step as cs
     from lbm2d_tpu_torch.parallel import sharded as sh
     from lbm2d_tpu_torch.parallel.topology import make_mesh
@@ -1276,9 +1553,23 @@ def main() -> int:
         print(f"    K1 {store:<8s} {cs.k1_variant(obst, full, store == 'DevStore', shard):<28s} "
               f"{nreg} registers, spills {st} / {ld} B, stack frame "
               f"{stack.get((store, obst, shard, full))} B", flush=True)
+    regs_g = cuda_build.k1_group_registers(cuda_build.BUILD_LOG.get("k1_step", ""))
+    stack_g = cuda_build.k1_group_stack_frames(cuda_build.BUILD_LOG.get("k1_step", ""))
+    for (store, obst, full), (nreg, st, ld) in sorted(regs_g.items()):
+        print(f"    K1 {store:<8s} {cs.k1_variant(obst, full, store == 'DevStore', group=True):<28s} "
+              f"{nreg} registers, spills {st} / {ld} B, stack frame "
+              f"{stack_g.get((store, obst, full))} B", flush=True)
+    regs_m = cuda_build.monitor_registers(cuda_build.BUILD_LOG.get("monitors", ""))
+    for bz, (nreg, st, ld) in sorted(regs_m.items()):
+        print(f"    {cs.monitor_variant(cs.OBSTACLE_BOUZIDI if bz else cs.OBSTACLE_EQ):<33s} "
+              f"{nreg} registers, spills {st} / {ld} B", flush=True)
     regs3 = cuda_build.k3_registers(cuda_build.BUILD_LOG.get("k3_fused", ""))
-    if not regs or not regs3:
-        raise AssertionError("no ptxas register lines for K1 or K3 in the build log")
+    if not regs or not regs3 or len(regs_g) != 10 or len(regs_m) != 2:
+        raise AssertionError("no ptxas register lines for K1, K1's group instances, the "
+                             "monitors or K3 in the build log")
+    spilled = {k: v for k, v in list(regs_g.items()) + list(regs_m.items()) if v[1] or v[2]}
+    if spilled:
+        raise AssertionError(f"group instances spill: {spilled}")
     for (obst, ww), (nreg, st, ld) in sorted(regs3.items()):
         print(f"    K3 {cs.k3_variant(obst, 0):<20s} window {ww:<3d} columns {nreg} registers, "
               f"spills {st} / {ld} B", flush=True)
@@ -1393,7 +1684,7 @@ def main() -> int:
         """A variant's readings; ``usage`` is ptxas's (registers, spill
         store bytes, spill load bytes) of its instance."""
         launch_ms, host_ms = median_ms(kernel_call)
-        return dict(max_abs_err=max_abs,
+        return dict(max_abs_err=max_abs, bytes=nbytes, ops=ops,
                     max_rel_err=max(errs.values()), ms=graph_ms(kernel_call), launch_ms=launch_ms,
                     host_ms=host_ms,
                     plain_ms=median_ms(plain_call, batches=5, per_batch=2)[0],
@@ -1679,6 +1970,153 @@ def main() -> int:
     for obst in cs.DEV_OBSTACLES:
         mesh_record(cs.k1_variant(obst, dev=True, shard=True), False, obst, True,
                     regs.get(("DevStore", obst, True, False)))
+
+    # the lockstep group's program, one launch over GROUP_B cases of the
+    # production grid (phase 14 holds whole chunks): each K1 group instance
+    # against its plain version (K1's plain step on each alive case), the
+    # smoke layout, a velocity inlet and a no-op layout (fresh and not), one
+    # case dead (its slices must stay NaN in both), raw bits of the whole
+    # outputs; then the monitor kernel against its plain version, bitwise,
+    # and the eager monitors in float64, within 5e-6 of max(1, |F|). Timed
+    # at GROUP_B alive cases (bound: GROUP_B times the case's)
+    def scheme_params(pk, obst, nu):
+        pk = dataclasses.replace(pk, bounce_obstacle=obst == cs.OBSTACLE_BOUNCE,
+                                 halfway_obstacle=obst == cs.OBSTACLE_HALFWAY,
+                                 bouzidi_obstacle=obst == cs.OBSTACLE_BOUZIDI,
+                                 bouzidi_q=qplanes if obst == cs.OBSTACLE_BOUZIDI else None)
+        return dataclasses.replace(pk, tau0=torch.tensor(3.0 * nu + 0.5, device=dev))
+
+    group_nus = [0.02 + 0.005 * c for c in range(GROUP_B)]
+    fG = torch.stack([state.f * (1.0 + 1e-4 * c) for c in range(GROUP_B)]).contiguous()
+    fpG = torch.stack([state.f_post * (1.0 + 1e-4 * c) for c in range(GROUP_B)]).contiguous()
+    uG = torch.stack([state.u * (1.0 + 0.01 * c) for c in range(GROUP_B)]).contiguous()
+    prevG = {fresh: cs.RingPrev(torch.stack([rho_prev] * GROUP_B).contiguous(),
+                                torch.stack([u_prev] * GROUP_B).contiguous(), fresh)
+             for fresh in (True, False)}
+    fqG = cs.quantize(fG)
+    all_alive = [True] * GROUP_B
+    one_dead = [c != 1 for c in range(GROUP_B)]
+    group_combos = [(combo_params(bc), prev) for bc, prev in (
+        (BC_COMBOS[0], None), ((4, 0, 1, 2), None), (NOOP_COMBOS[0], True),
+        (NOOP_COMBOS[0], False))]
+
+    def group_of(pk, obst):
+        return cs.GroupParams([scheme_params(pk, obst, nu) for nu in group_nus])
+
+    def group_buffers(full, dtype=torch.float32):
+        nan = float("nan")
+        out = {"f_out": torch.full_like(fG, nan, dtype=dtype)}
+        if full:
+            out.update(rho=torch.full((GROUP_B, H, W), nan, device=dev),
+                       u=torch.full((GROUP_B, 2, H, W), nan, device=dev), f_post=fpG.clone())
+        return out
+
+    def run_group(kernel, g, b, full, dev_store, rows, alive, prev=None):
+        pv = None if prev is None else prevG[prev]
+        if full:
+            (cs.k1_group_full if kernel else cs.k1_group_full_plain)(
+                fG, b["f_out"], g, rows, alive, b["rho"], b["u"], b["f_post"], pv)
+        else:
+            fin = fqG if dev_store else fG
+            (cs.k1_group_steps if kernel else cs.k1_group_steps_plain)(
+                fin, b["f_out"], fin, g, rows, alive, 1, dev_store, pv)
+
+    group_work = {}
+    for obst, full, dev_store in ([(o, f, False) for o in range(4) for f in (False, True)]
+                                  + [(o, False, True) for o in cs.DEV_OBSTACLES]):
+        name = cs.k1_variant(obst, full, dev_store, group=True)
+        dtype = cs.DEV_DTYPE if dev_store else torch.float32
+        errs = {}
+        for pk, prev in group_combos:
+            g = group_of(pk, obst)
+            rows = g.rows([state.step] * GROUP_B, 1)
+            bk, bp = group_buffers(full, dtype), group_buffers(full, dtype)
+            run_group(True, g, bk, full, dev_store, rows, one_dead, prev)
+            run_group(False, g, bp, full, dev_store, rows, one_dead, prev)
+            torch.cuda.synchronize()
+            for k in bk:
+                tag = f"{name} bc {bc_tag(pk)}{'' if prev is None else f' prev {prev}'} {k}"
+                if not torch.equal(bits(bk[k]), bits(bp[k])):
+                    raise AssertionError(f"{tag}: not bitwise equal to its plain version")
+                errs[tag] = 0.0
+        g = group_of(p, obst)
+        rows = g.rows([state.step] * GROUP_B, 1)
+        bk, bp = group_buffers(full, dtype), group_buffers(full, dtype)
+        single = records[cs.k1_variant(obst, full, dev_store)]
+        nbytes, ops = GROUP_B * single["bytes"], GROUP_B * single["ops"]
+        group_work[name] = (nbytes, ops)
+        records[name] = record(
+            0.0, errs, lambda: run_group(True, g, bk, full, dev_store, rows, all_alive),
+            lambda: run_group(False, g, bp, full, dev_store, rows, all_alive), nbytes, ops,
+            regs_g.get(("DevStore" if dev_store else "F32Store", obst, full)))
+        records[name]["timed_as"] = f"one launch over {GROUP_B} cases of {H}x{W}"
+        print(f"  {name:<30s} {len(errs)} outputs over {len(group_combos)} layouts, a dead case "
+              f"among {GROUP_B}, bitwise; {records[name]['ms'] * 1e3:.1f} us a launch over "
+              f"{GROUP_B} cases = {records[name]['ms'] * 1e3 / GROUP_B:.1f} us a case (the "
+              f"single case's {single['ms'] * 1e3:.1f}) [{card}]", flush=True)
+
+    def eager_monitors(g, fp, u, later):
+        """The monitors as the per-case route computes them (~60 torch ops
+        a case), at a step past each case's warmup (``later``) or at it."""
+        out = []
+        for c, pk in enumerate(g.cases):
+            force = solver.obstacle_force(fp[c], pk)
+            max_v = solver.max_velocity(u[c])
+            step = int(g.warmup[c]) + (1 if later else 0)
+            out.append((force, max_v, is_stable_device(force, max_v, step, pk.warmup_steps)))
+        return out
+
+    for obst in (cs.OBSTACLE_EQ, cs.OBSTACLE_BOUZIDI):
+        name = cs.monitor_variant(obst)
+        g = group_of(p, obst)
+        n_links_g = sum(int(x.numel()) for x in g.links_host)
+        errs = {}
+        for later in (False, True):
+            ka, kal = cs.group_monitors(fpG, uG, g, one_dead, [later] * GROUP_B)
+            pa, pal = cs.group_monitors_plain(fpG, uG, g, one_dead, [later] * GROUP_B)
+            torch.cuda.synchronize()
+            if not (torch.equal(bits(ka), bits(pa)) and torch.equal(kal, pal)):
+                raise AssertionError(f"{name} later={later}: not bitwise equal to its plain "
+                                     f"version: {ka.tolist()} vs {pa.tolist()}")
+            g64 = [dataclasses.replace(pk, bouzidi_q=None if pk.bouzidi_q is None
+                                       else pk.bouzidi_q.double()) for pk in g.cases]
+            for c, pk in enumerate(g64):
+                f64 = solver.obstacle_force(fpG[c].double(), pk).cpu().numpy()
+                dforce = float(np.abs(ka[2 * c:2 * c + 2].double().cpu().numpy() - f64).max())
+                if dforce > 5e-6 * max(1.0, float(np.abs(f64).max())):
+                    raise AssertionError(f"{name}: case {c} force {ka[2 * c:2 * c + 2].tolist()} "
+                                         f"vs the eager force in float64 {f64.tolist()}")
+                errs[f"{name} later={later} case {c} force"] = dforce
+            for c, (force, max_v, stable) in enumerate(eager_monitors(g, fpG, uG, later)):
+                if not torch.equal(ka[2 * GROUP_B + c], max_v.reshape(())) or (
+                        bool(ka[3 * GROUP_B + c] > 0.5) != bool(stable)):
+                    raise AssertionError(f"{name}: case {c} max_v / stable differ from the eager "
+                                         f"monitors")
+        # a NaN planted in one case's u, far from the obstacle: unstable
+        uN = uG.clone()
+        uN[3, 0, 5, W - 7] = float("nan")
+        ka, kal = cs.group_monitors(fpG, uN, g, all_alive, [False] * GROUP_B)
+        torch.cuda.synchronize()
+        if not (torch.isnan(ka[2 * GROUP_B + 3]) and ka[3 * GROUP_B + 3] == 0 and not kal[3]
+                and bool(kal[0])):
+            raise AssertionError(f"{name}: a NaN in u not read as unstable: {ka.tolist()}")
+        # u read once, each link's index and the populations its term reads
+        nbytes = GROUP_B * 8 * H * W + (8 if obst == cs.OBSTACLE_EQ else 20) * n_links_g
+        ops = GROUP_B * 4 * H * W + (3 if obst == cs.OBSTACLE_EQ else 14) * n_links_g
+        group_work[name] = (nbytes, ops)
+        records[name] = record(
+            max(errs.values()), errs,
+            lambda: cs.group_monitors(fpG, uG, g, all_alive, [True] * GROUP_B),
+            lambda: cs.group_monitors_plain(fpG, uG, g, all_alive, [True] * GROUP_B),
+            nbytes, ops, regs_m.get(obst == cs.OBSTACLE_BOUZIDI))
+        records[name]["library_ms"] = graph_ms(lambda: eager_monitors(g, fpG, uG, True))
+        records[name]["timed_as"] = f"one launch over {GROUP_B} cases of {H}x{W}"
+        print(f"  {name:<30s} bitwise its plain version, the force within "
+              f"{max(errs.values()):.2e} of the eager force in float64, max_v and stable equal "
+              f"to the eager monitors, a NaN in u unstable; {n_links_g} links; "
+              f"{records[name]['ms'] * 1e3:.1f} us over {GROUP_B} cases, the eager monitors "
+              f"{records[name]['library_ms'] * 1e3:.1f} us [{card}]", flush=True)
+    del fG, fpG, uG, fqG, prevG
 
     missing = set(cs.KERNEL_VARIANTS) - set(records)
     if missing:
@@ -1991,7 +2429,15 @@ def main() -> int:
     def dev_chunk():
         box3["s"], _ = cs.run_chunk_cuda(box3["s"], p, chunk, store_dev=True)
 
+    # the serial engine's chunk runner under f16_state (resolve_runner's),
+    # counted as the path "serial_dev"
+    torch.cuda.synchronize()
+    cs.reset_launch_counts()
     us_dev3, text_dev3 = two_turns(dev_chunk)
+    torch.cuda.synchronize()
+    launches3d = dict(cs.LAUNCHES)
+    if {k for k, v in launches3d.items() if v} != {"k1_step_dev", "k1_step_full"}:
+        raise AssertionError(f"the store_dev chunks launched {launches3d}")
     print(f"    kernel path, store_dev, two turns: {text_dev3} = {H * W / us_dev3:.1f} MLUPS; one "
           f"step's device time {records['k1_step_dev']['ms'] * 1e3:.1f} us (k1_step_dev in a "
           f"CUDA graph) [{card}]", flush=True)
@@ -2031,7 +2477,10 @@ def main() -> int:
     nus = smoke_case.SIBLING_NUS
     n_cases = len(nus)
     chunks = max_steps // chunk
-    want = {"k1_step_dev": n_cases * chunks * (chunk - 1), "k1_step_full": n_cases * chunks}
+    # the group's chunk is one program: one K1 launch a step over its cases,
+    # one full step and one monitor launch a chunk
+    want, want_cases = group_launches("k1_step_group_dev", "k1_step_group_full",
+                                      "group_monitors", 1, n_cases, chunks, chunk)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         names = smoke_case.write_sibling_project(root, config, mask, nus)
         counted.clear()
@@ -2043,6 +2492,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wall4 = time.perf_counter() - t0
         launches4 = dict(cs.LAUNCHES)
+        cases4 = {k: v for k, v in cs.CASE_STEPS.items() if v}
         out = os.path.join(root, "outputs", "Smoke4")
         with open(os.path.join(out, "plots", "sim_results.json")) as fh:
             results = {e["config_filename"]: e for e in json.load(fh)}
@@ -2050,8 +2500,9 @@ def main() -> int:
               f"= {n_cases * max_steps * H * W / wall4 / 1e6:.1f} MLUPS aggregate wall "
               f"(monitors, device resize and render, fetches, HDF5 and mp4 included) [{card}]",
               flush=True)
-        print(f"    launches {({k: v for k, v in launches4.items() if v})}, plain calls {counted}; "
-              f"{per_step(launches4, n_cases * max_steps)}", flush=True)
+        print(f"    launches {({k: v for k, v in launches4.items() if v})} (cases x steps "
+              f"{cases4}), plain calls {counted}; {per_step(launches4, max_steps)} for the group "
+              f"of {n_cases}", flush=True)
         transfer = results[names[0][0]].get("run_summary", {}).get("transfer", {})
         print(f"    transfer record: {transfer}", flush=True)
         pacer = pacers[-1]
@@ -2068,9 +2519,10 @@ def main() -> int:
         bad = {n: results[n]["status"] for n, _ in names if results[n]["status"] != "Success"}
         if bad or stats.get("success") != n_cases:
             raise AssertionError(f"lockstep cases did not all succeed: {stats}, {bad}")
-        if {k: v for k, v in launches4.items() if v} != want or any(counted.values()):
-            raise AssertionError(f"lockstep path: launches {launches4} (want {want}), "
-                                 f"plain calls {counted}")
+        if ({k: v for k, v in launches4.items() if v} != want or cases4 != want_cases
+                or any(counted.values())):
+            raise AssertionError(f"lockstep path: launches {launches4} (want {want}), cases x "
+                                 f"steps {cases4} (want {want_cases}), plain calls {counted}")
         for _, case in names:
             turb = smoke_case.read_turbulence(os.path.join(out, "raw", f"{case}.h5"))
             n_frames = (max_steps - int(config["outputs"]["start_record_step"])) // int(
@@ -2765,15 +3217,21 @@ def main() -> int:
     # -- phase 13: a layout with a no-op side through the engine ---------------
     launches13 = phase13(config, mask, counted, card)
 
+    # -- phase 14: the lockstep group's program ---------------------------------
+    launches14 = phase14(config, mask, s3, counted, card)
+
     kernels = []
-    by_path = {"serial": launches, "lockstep": launches4, "dfg": launches5,
+    by_path = {"serial": launches, "serial_dev": launches3d, "lockstep": launches4,
+               "dfg": launches5,
                "dfg_pairs": launches5b, "fused": launches6, "fused_pairs": launches6b,
                "roofline": launches7, "sharded": launches8c, "sharded_pairs": launches8a,
                "sharded_dfg": launches8b, "sharded_4096": launches8d, **launches9,
-               **launches10, "bench": launches11, "suite": launches12, "noop": launches13}
+               **launches10, "bench": launches11, "suite": launches12, "noop": launches13,
+               "group": launches14}
     sources = {"k1": ("k1_step.cu", "lbm2d_tpu/ops/pallas_step.py:824"),
                "k3": ("k3_fused.cu", "lbm2d_tpu/ops/pallas_step.py:610"),
-               "co": ("copy_probe.cu", "tools_roofline_4096.py:95")}
+               "co": ("copy_probe.cu", "tools_roofline_4096.py:95"),
+               "gr": ("monitors.cu", "lbm2d_tpu/parallel/batch.py:71")}
     for name in list(cs.KERNEL_VARIANTS) + list(cp.VARIANTS):
         r = records[name]
         if name in cp.VARIANTS:
@@ -2798,7 +3256,9 @@ def main() -> int:
         if "copy_ms" in r:
             entry["copy_ms"] = r["copy_ms"]
         if "timed_as" in r:
-            entry.update(timed_as=r["timed_as"], no_push_ms=r["no_push_ms"])
+            entry["timed_as"] = r["timed_as"]
+        if "no_push_ms" in r:
+            entry["no_push_ms"] = r["no_push_ms"]
         if name.startswith("k3"):
             entry["tile"] = list(tile3)
         if name == "k3_fused":

@@ -139,19 +139,33 @@ def make_spatial_mesh(mesh_shape: Tuple[int, int], device: torch.device, grid_sh
     return make_mesh(mesh_shape, devices)
 
 
+# the lockstep engine's runners (the JAX BatchEngine's): the rule each
+# takes for 16-bit deviation storage (lbm2d_tpu/parallel/batch.py:336-347)
+LOCKSTEP_RUNNERS = ("auto", "vmap", "pallas", "sharded")
+
+
 def resolve_store_dev(p: CaseParams, store_dev: bool, mesh_grid=None,
-                      lockstep: bool = False) -> bool:
+                      lockstep: bool = False, runner: str = "auto") -> bool:
     """``store_dev`` where the JAX package's runners would engage it
     (``cuda_step.engine_dev_storage_refusal``: the layout its kernels run,
     neither half-way nor Bouzidi bounce-back, no temporal blocking, and the
     split-BC geometry of the grid, or of a spatial mesh ``mesh_grid``'s
-    blocks, or the lockstep engine's smallest grid). A request that a rule
-    turns down is logged with the reason; the kernels still run, in f32."""
+    blocks, or the lockstep engine's smallest grid). In the lockstep engine
+    (``lockstep``) ``runner`` picks the JAX BatchEngine's rule: ``auto`` and
+    ``sharded`` the kernels' rules and the smallest grid, ``pallas`` the
+    kernels' rules alone (its sequential chunk runs the kernels at any
+    size), ``vmap`` none: exact f32, as the JAX vmap chunk ignores
+    store_dev. A request that a rule turns down is logged with the reason;
+    the kernels still run, in f32."""
     if not store_dev:
+        return False
+    if lockstep and runner == "vmap":
+        log.warning("16-bit deviation storage (f16_state) not engaged: the vmap runner runs "
+                    "exact f32 (the JAX vmap chunk ignores store_dev)")
         return False
     from ..ops.cuda_step import engine_dev_storage_refusal
 
-    why = engine_dev_storage_refusal(p, mesh_grid, lockstep)
+    why = engine_dev_storage_refusal(p, mesh_grid, lockstep and runner != "pallas")
     if why is not None:
         log.warning("16-bit deviation storage (f16_state) not engaged: %s", why)
         return False

@@ -117,6 +117,17 @@
 // as run_chunk_sharded_pallas's jit over shard_map and lax.scan issues
 // them. The pushes across cards are peer stores over NVLink; they retire
 // before the kernel completes, so ahead of the card's event.
+//
+// A lockstep group's chunk (k1_group_steps_launch, k1_group_full_launch):
+// the JAX BatchEngine advances its B cases in one program (the vmap
+// lockstep, or its fused kernels one case after another inside one jit,
+// lbm2d_tpu/parallel/batch.py:77-176). Here one launch a step covers the
+// group's alive cases: k1_group_kernel, the whole-grid body (k1_body) on
+// case blockIdx.z's planes of the [B, ...] group buffers, each case with
+// its scalar row from a device table, the alive cases' indices a device
+// table read from global memory (a dead case launches nothing). Its own
+// instances with their own launch bounds, so the single block's keep their
+// registers; the same bits as k1_step_kernel on each case alone.
 #include <algorithm>
 
 #include "halo.cuh"
@@ -320,16 +331,19 @@ constexpr int k1_min_blocks() {
 // are the last parameters: ``nb`` placed before ``use_les`` moved ptxas's
 // allocation of the whole-grid deviation-storage instance into 8 bytes of
 // spills.
+// One K1 launch's work on block ``g`` (already folded), the body of every
+// K1 kernel: the single block's (k1_step_kernel) and each case's of a
+// lockstep group (k1_group_kernel, the same code on the case's planes).
 template <typename S, int OBST, bool SHARD, bool FULL>
-__global__ void __launch_bounds__(256, k1_min_blocks<OBST, FULL>())
-k1_step_kernel(const typename S::T* __restrict__ f_in,
-               typename S::T* __restrict__ f_out,
-               const float* __restrict__ aux, const float* __restrict__ q,
-               const float* __restrict__ prof, float* __restrict__ rho_out,
-               float* __restrict__ u_out, float* __restrict__ fpost_out,
-               const Scalars s, const BlockGeom geom, const BcTypes bc,
-               const int use_les, const int nr, const ShardNbrs nb, const RingPrev pv) {
-  const BlockGeom g = fold_geom<SHARD>(geom);
+__device__ __forceinline__ void k1_body(const typename S::T* __restrict__ f_in,
+                                        typename S::T* __restrict__ f_out,
+                                        const float* __restrict__ aux,
+                                        const float* __restrict__ q,
+                                        const float* __restrict__ prof,
+                                        float* __restrict__ rho_out, float* __restrict__ u_out,
+                                        float* __restrict__ fpost_out, const Scalars& s,
+                                        const BlockGeom& g, const BcTypes& bc, int use_les, int nr,
+                                        const ShardNbrs& nb, const RingPrev& pv) {
   if ((int)blockIdx.y < nr) {
     k1_ring<S, OBST, SHARD, FULL>(f_in, f_out, aux, q, prof, rho_out, u_out, s, g, bc, nb, pv,
                                   use_les,
@@ -363,25 +377,114 @@ k1_step_kernel(const typename S::T* __restrict__ f_in,
 }
 
 template <typename S, int OBST, bool SHARD, bool FULL>
+__global__ void __launch_bounds__(256, k1_min_blocks<OBST, FULL>())
+k1_step_kernel(const typename S::T* __restrict__ f_in,
+               typename S::T* __restrict__ f_out,
+               const float* __restrict__ aux, const float* __restrict__ q,
+               const float* __restrict__ prof, float* __restrict__ rho_out,
+               float* __restrict__ u_out, float* __restrict__ fpost_out,
+               const Scalars s, const BlockGeom geom, const BcTypes bc,
+               const int use_les, const int nr, const ShardNbrs nb, const RingPrev pv) {
+  k1_body<S, OBST, SHARD, FULL>(f_in, f_out, aux, q, prof, rho_out, u_out, fpost_out, s,
+                                fold_geom<SHARD>(geom), bc, use_les, nr, nb, pv);
+}
+
+// A lockstep group's step (k1_group_kernel): blockIdx.z is a slot of the
+// device table ``slots`` of the alive cases' indices, read from global
+// memory, so a dead case launches nothing and keeps every bit; case c's
+// planes start c times their per-case size into each group buffer ([B, 9,
+// H, W] f, [B, H, W] aux and rho, [B, 8, H, W] q, [B, H] prof, [B, 2, H, W]
+// u), and its scalar row at ``rows`` + c ``row_stride`` floats of the
+// device table [B, n, 14] (the cases differ in nu, rho_in, ...). The last
+// kernel parameter, as RingPrev is.
+struct GroupArgs {
+  const int* slots;
+  const float* rows;
+  int row_stride;
+};
+
+// A scalar row read from device memory (the group's table): all of it
+// (``ring``, what a ring thread's BCs read), or the collision's three and
+// zeros, so an interior thread holds no BC value in its registers.
+__device__ __forceinline__ Scalars k1_row(const float* __restrict__ row, bool ring) {
+  Scalars s{};
+  s.tau0 = __ldg(row + 0);
+  s.cs_factor = __ldg(row + 1);
+  s.s_ghost = __ldg(row + 2);
+  if (ring) {
+    s.ramp = __ldg(row + 3);
+    s.rho_in = __ldg(row + 4);
+    s.rho_out = __ldg(row + 5);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s.bcv[i] = __ldg(row + 6 + i);
+  }
+  return s;
+}
+
+// Blocks a SM the group instances' launch bounds keep. The case offsets
+// and the scalar row read from memory cost the fast step a few registers:
+// held to the single block's 6 blocks (40 registers) it spilled 12-32 B a
+// thread, at 5 it takes 48 and spills nothing; Bouzidi's fast step, at 64
+// registers a thread alone, takes 3 (80 registers). The full step keeps the
+// single block's bounds (56-80 registers, no spills; ptxas, phase 1).
+template <int OBST, bool FULL>
+constexpr int k1_group_min_blocks() {
+  return FULL ? k1_min_blocks<OBST, FULL>() : (OBST == LBM_OBST_BOUZIDI ? 3 : 5);
+}
+
+// One step of every alive case of a lockstep group (whole grids, no halo),
+// one launch: the single-block body on the case's planes, so the same bits
+// as k1_step_kernel on that case alone. Its own instances, so the single
+// block's keep their registers.
+template <typename S, int OBST, bool FULL>
+__global__ void __launch_bounds__(256, k1_group_min_blocks<OBST, FULL>())
+k1_group_kernel(const typename S::T* __restrict__ f_in, typename S::T* __restrict__ f_out,
+                const float* __restrict__ aux, const float* __restrict__ q,
+                const float* __restrict__ prof, float* __restrict__ rho_out,
+                float* __restrict__ u_out, float* __restrict__ fpost_out,
+                const BlockGeom geom, const BcTypes bc, const int use_les, const int nr,
+                const RingPrev pv, const GroupArgs ga) {
+  const BlockGeom g = fold_geom<false>(geom);
+  const size_t plane = geom_plane(g);
+  const size_t c = (size_t)__ldg(ga.slots + blockIdx.z);
+  const RingPrev pc{pv.rho == nullptr ? nullptr : pv.rho + c * plane,
+                    pv.u == nullptr ? nullptr : pv.u + c * 2 * plane, pv.fresh};
+  k1_body<S, OBST, false, FULL>(
+      f_in + c * 9 * plane, f_out + c * 9 * plane, aux + c * plane,
+      OBST == LBM_OBST_BOUZIDI ? q + c * 8 * plane : nullptr,
+      prof == nullptr ? nullptr : prof + c * g.hl, FULL ? rho_out + c * plane : nullptr,
+      FULL ? u_out + c * 2 * plane : nullptr, FULL ? fpost_out + c * 9 * plane : nullptr,
+      k1_row(ga.rows + c * ga.row_stride, (int)blockIdx.y < nr), g, bc, use_les, nr,
+      ShardNbrs{}, pc);
+}
+
+// The launch shape of block ``g``: false where it has no cell interior in
+// the global grid; else ``grid`` (x, y) and ``nr``, the rows of ring blocks:
+// enough for 2 (hl + wl) ring threads (K2's count: those off the global ring
+// return), then the interior's rows, one thread a stored column up to the
+// last interior one.
+static bool k1_shape(const BlockGeom& g, dim3* grid, int* nr) {
+  const int i0 = std::max(0, 1 - g.y_off);
+  const int i1 = std::min(g.hl - 1, g.Hg - 2 - g.y_off);
+  const int j0 = std::max(0, 1 - g.x_off);
+  const int j1 = std::min(g.wl - 1, g.Wg - 2 - g.x_off);
+  if (i1 < i0 || j1 < j0) return false;
+  const int bx = (j1 + g.halo + 256) / 256;
+  *nr = (2 * (g.hl + g.wl) + 256 * bx - 1) / (256 * bx);
+  *grid = dim3(bx, *nr + i1 - i0 + 1, 1);
+  return true;
+}
+
+template <typename S, int OBST, bool SHARD, bool FULL>
 static void launch(const void* f_in, void* f_out, const void* aux,
                    const void* q, const void* prof, void* rho, void* u,
                    void* f_post, const Scalars& s, const BlockGeom& g,
                    const BcTypes& bc, int use_les, cudaStream_t stream,
                    const ShardNbrs& nb = ShardNbrs{}, const RingPrev& pv = RingPrev{}) {
-  // the block's cells that are interior in the global grid
-  const int i0 = std::max(0, 1 - g.y_off);
-  const int i1 = std::min(g.hl - 1, g.Hg - 2 - g.y_off);
-  const int j0 = std::max(0, 1 - g.x_off);
-  const int j1 = std::min(g.wl - 1, g.Wg - 2 - g.x_off);
-  if (i1 < i0 || j1 < j0) return;
-  // enough rows of blocks for 2 (hl + wl) ring threads (K2's count: those
-  // off the global ring return), then the interior's rows, one thread a
-  // stored column up to the last interior one
-  const int bx = (j1 + g.halo + 256) / 256;
-  const int nr = (2 * (g.hl + g.wl) + 256 * bx - 1) / (256 * bx);
-  const dim3 block(256, 1, 1);
-  const dim3 grid(bx, nr + i1 - i0 + 1, 1);
-  k1_step_kernel<S, OBST, SHARD, FULL><<<grid, block, 0, stream>>>(
+  dim3 grid;
+  int nr;
+  if (!k1_shape(g, &grid, &nr)) return;
+  k1_step_kernel<S, OBST, SHARD, FULL><<<grid, dim3(256, 1, 1), 0, stream>>>(
       static_cast<const typename S::T*>(f_in),
       static_cast<typename S::T*>(f_out), static_cast<const float*>(aux),
       static_cast<const float*>(q), static_cast<const float*>(prof),
@@ -594,6 +697,164 @@ extern "C" int k1_steps_launch(const void* f_in, void* f_a, void* f_b, const voi
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// ---------------------------------------------------------------------------
+// A lockstep group's chunk: one launch a step over the group's alive cases
+// ---------------------------------------------------------------------------
+
+// Launches K1's group instance over the ``n_slots`` alive cases of
+// ``ga.slots`` (blockIdx.z); nothing when n_slots is 0.
+template <typename S, int OBST, bool FULL>
+static void launch_group(const void* f_in, void* f_out, const void* aux, const void* q,
+                         const void* prof, void* rho, void* u, void* f_post, const BlockGeom& g,
+                         const BcTypes& bc, int use_les, cudaStream_t stream, const RingPrev& pv,
+                         const GroupArgs& ga, int n_slots) {
+  dim3 grid;
+  int nr;
+  if (n_slots < 1 || !k1_shape(g, &grid, &nr)) return;
+  grid.z = n_slots;
+  k1_group_kernel<S, OBST, FULL><<<grid, dim3(256, 1, 1), 0, stream>>>(
+      static_cast<const typename S::T*>(f_in), static_cast<typename S::T*>(f_out),
+      static_cast<const float*>(aux), static_cast<const float*>(q),
+      static_cast<const float*>(prof), static_cast<float*>(rho), static_cast<float*>(u),
+      static_cast<float*>(f_post), g, bc, use_les, nr, pv, ga);
+}
+
+// n fast steps of the group, one launch each: step i takes column i of the
+// row table (``rows`` + 14 i for case 0), reads f_in (step 0) or the
+// previous step's output and writes f_a (even i) or f_b (odd i), as
+// steps_loop does for one case; ``pv`` is step 0's RingPrev.
+template <typename S, int OBST>
+static int group_steps_loop(const void* f_in, void* f_a, void* f_b, const void* aux,
+                            const void* q, const void* prof, const float* rows, int n,
+                            int row_stride, const int* slots, int n_slots, const BlockGeom& g,
+                            const BcTypes& bc, int use_les, cudaStream_t st, const RingPrev& pv,
+                            int* failed) {
+  const void* src = f_in;
+  for (int i = 0; i < n; ++i) {
+    void* dst = (i & 1) ? f_b : f_a;
+    launch_group<S, OBST, false>(src, dst, aux, q, prof, nullptr, nullptr, nullptr, g, bc,
+                                 use_les, st, RingPrev{pv.rho, pv.u, i == 0 ? pv.fresh : 0},
+                                 GroupArgs{slots, rows + 14 * i, row_stride}, n_slots);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) {
+      *failed = i;
+      return static_cast<int>(err);
+    }
+    src = dst;
+  }
+  return 0;
+}
+
+// The fast steps of a lockstep group's chunk in one call, the counterpart of
+// the JAX BatchEngine's chunk program (run_chunk_batched's vmap over
+// lax.scan, _chunk_sequential's fused kernels inside one jit,
+// lbm2d_tpu/parallel/batch.py:77-176): n steps, each one launch over the
+// ``n_slots`` alive cases whose indices the device table ``slots`` holds.
+// The group buffers are [B, 9, H, W] (f_in, f_a, f_b: f32, or bf16
+// deviations with ``dev``, EQ and BOUNCE only), aux [B, H, W], q [B, 8, H,
+// W] (Bouzidi only, else null), prof [B, H] (left types 3/4 only, else
+// null), ``rows`` the device table [B, R, 14] of the cases' scalar rows
+// (``row_stride`` = 14 R floats; step i reads column i), ``rho_prev`` /
+// ``u_prev`` the state's [B, H, W] / [B, 2, H, W] where a side is a no-op
+// (``fresh`` for step 0), else null. A dead case's slices are never read or
+// written. Returns the CUDA error code (``*failed`` the failing step, -1 for
+// refused arguments) or 0; on the current stream, no sync.
+extern "C" int k1_group_steps_launch(const void* f_in, void* f_a, void* f_b, const void* aux,
+                                     const void* q, const void* prof, const void* rows, int n,
+                                     int row_stride, const void* slots, int n_slots, int H, int W,
+                                     int bc_left, int bc_top, int bc_right, int bc_bottom,
+                                     int use_les, int dev, int obst, void* stream, int* failed,
+                                     const void* rho_prev, const void* u_prev, int fresh) {
+  *failed = -1;
+  if (n < 0 || n_slots < 0 || H < 3 || W < 3 || row_stride < 14 * n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BlockGeom g{H, W, W, 0, 0, 0, H, W};
+  const BcTypes bc{bc_left, bc_top, bc_right, bc_bottom};
+  const RingPrev pv{static_cast<const float*>(rho_prev), static_cast<const float*>(u_prev),
+                    fresh};
+  const float* r = static_cast<const float*>(rows);
+  const int* sl = static_cast<const int*>(slots);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dev) {
+    switch (obst) {
+      case LBM_OBST_EQ:
+        return group_steps_loop<DevStore, LBM_OBST_EQ>(f_in, f_a, f_b, aux, nullptr, prof, r, n,
+                                                       row_stride, sl, n_slots, g, bc, use_les,
+                                                       st, pv, failed);
+      case LBM_OBST_BOUNCE:
+        return group_steps_loop<DevStore, LBM_OBST_BOUNCE>(f_in, f_a, f_b, aux, nullptr, prof, r,
+                                                           n, row_stride, sl, n_slots, g, bc,
+                                                           use_les, st, pv, failed);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  switch (obst) {
+    case LBM_OBST_EQ:
+      return group_steps_loop<F32Store, LBM_OBST_EQ>(f_in, f_a, f_b, aux, q, prof, r, n,
+                                                     row_stride, sl, n_slots, g, bc, use_les, st,
+                                                     pv, failed);
+    case LBM_OBST_BOUNCE:
+      return group_steps_loop<F32Store, LBM_OBST_BOUNCE>(f_in, f_a, f_b, aux, q, prof, r, n,
+                                                         row_stride, sl, n_slots, g, bc, use_les,
+                                                         st, pv, failed);
+    case LBM_OBST_HALFWAY:
+      return group_steps_loop<F32Store, LBM_OBST_HALFWAY>(f_in, f_a, f_b, aux, q, prof, r, n,
+                                                          row_stride, sl, n_slots, g, bc, use_les,
+                                                          st, pv, failed);
+    case LBM_OBST_BOUZIDI:
+      return group_steps_loop<F32Store, LBM_OBST_BOUZIDI>(f_in, f_a, f_b, aux, q, prof, r, n,
+                                                          row_stride, sl, n_slots, g, bc, use_les,
+                                                          st, pv, failed);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The closing full step of a lockstep group's chunk: one launch of K1's full
+// group instance over the alive cases (f32 f_in -> f_out, writing their rho
+// [B, H, W], u [B, 2, H, W] and f_post [B, 9, H, W] slices); ``rows`` points
+// at case 0's row of this step in the device table, the other arguments as
+// for k1_group_steps_launch. Returns the CUDA error code or 0.
+extern "C" int k1_group_full_launch(const void* f_in, void* f_out, const void* aux,
+                                    const void* q, const void* prof, void* rho, void* u,
+                                    void* f_post, const void* rows, int row_stride,
+                                    const void* slots, int n_slots, int H, int W, int bc_left,
+                                    int bc_top, int bc_right, int bc_bottom, int use_les, int obst,
+                                    void* stream, const void* rho_prev, const void* u_prev,
+                                    int fresh) {
+  if (n_slots < 0 || H < 3 || W < 3 || row_stride < 14)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BlockGeom g{H, W, W, 0, 0, 0, H, W};
+  const BcTypes bc{bc_left, bc_top, bc_right, bc_bottom};
+  const RingPrev pv{static_cast<const float*>(rho_prev), static_cast<const float*>(u_prev),
+                    fresh};
+  const GroupArgs ga{static_cast<const int*>(slots), static_cast<const float*>(rows),
+                     row_stride};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (obst) {
+    case LBM_OBST_EQ:
+      launch_group<F32Store, LBM_OBST_EQ, true>(f_in, f_out, aux, q, prof, rho, u, f_post, g, bc,
+                                                use_les, st, pv, ga, n_slots);
+      break;
+    case LBM_OBST_BOUNCE:
+      launch_group<F32Store, LBM_OBST_BOUNCE, true>(f_in, f_out, aux, q, prof, rho, u, f_post, g,
+                                                    bc, use_les, st, pv, ga, n_slots);
+      break;
+    case LBM_OBST_HALFWAY:
+      launch_group<F32Store, LBM_OBST_HALFWAY, true>(f_in, f_out, aux, q, prof, rho, u, f_post,
+                                                     g, bc, use_les, st, pv, ga, n_slots);
+      break;
+    case LBM_OBST_BOUZIDI:
+      launch_group<F32Store, LBM_OBST_BOUZIDI, true>(f_in, f_out, aux, q, prof, rho, u, f_post,
+                                                     g, bc, use_les, st, pv, ga, n_slots);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------

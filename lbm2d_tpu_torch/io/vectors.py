@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 from typing import Dict, List
 
 import numpy as np
@@ -106,11 +107,17 @@ def build_npz(summary_json_path: str, npz_output_path: str) -> str:
             vectors[idx] = _extract_vector(entry)
 
     os.makedirs(os.path.dirname(npz_output_path) or ".", exist_ok=True)
-    np.savez_compressed(
-        npz_output_path,
-        vectors=vectors,
-        case_names=case_names,
-        statuses=statuses,
-        feature_names=np.array(FEATURE_NAMES, dtype=object),
-    )
+    # write-temp-then-rename: several --coordinate workers finishing at once
+    # each build the NPZ; writing the path itself, one truncated the file
+    # while another wrote it, and a reader found a broken zip
+    tmp = f"{npz_output_path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    with open(tmp, "wb") as fh:
+        np.savez_compressed(
+            fh,
+            vectors=vectors,
+            case_names=case_names,
+            statuses=statuses,
+            feature_names=np.array(FEATURE_NAMES, dtype=object),
+        )
+    os.replace(tmp, npz_output_path)
     return npz_output_path

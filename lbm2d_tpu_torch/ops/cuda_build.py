@@ -35,7 +35,8 @@ NVCC_FLAGS = [
 ]
 
 # library name -> source
-SOURCES = {"k1_step": "k1_step.cu", "k3_fused": "k3_fused.cu", "copy_probe": "copy_probe.cu"}
+SOURCES = {"k1_step": "k1_step.cu", "k3_fused": "k3_fused.cu", "copy_probe": "copy_probe.cu",
+           "monitors": "monitors.cu"}
 
 # C entry name -> (library, C entry, argtypes); each entry launches the
 # variants ops/cuda_step.py counts under their own names
@@ -63,6 +64,16 @@ KERNELS = {
     "k1_shard_full": ("k1_step", "k1_shard_full_launch",
                       [_P] * 10 + [_I] * 8 + [_P] * 4 + [_I]),
     "mesh_peers": ("k1_step", "mesh_peers_launch", [_P, _I]),
+    # a lockstep group's chunk: its fast steps (one launch a step over the
+    # alive cases of a device slot table, the scalar rows a device table
+    # [B, n, 14] with its row stride) and its closing full step; then the
+    # group's monitors in one launch (the CSR link lists, the case table,
+    # the f64 scratch and ticket counters, the packed output)
+    "k1_group_steps": ("k1_step", "k1_group_steps_launch",
+                       [_P] * 7 + [_I] * 2 + [_P] + [_I] * 10 + [_P] * 4 + [_I]),
+    "k1_group_full": ("k1_step", "k1_group_full_launch",
+                      [_P] * 9 + [_I] + [_P] + [_I] * 9 + [_P] * 3 + [_I]),
+    "group_monitors": ("monitors", "group_monitors_launch", [_P] * 10 + [_I] * 5 + [_P]),
     "k3_fused": ("k3_fused", "k3_fused_launch", [_P] * 5 + [_I] * 11 + [_P]),
     "k3_passes": ("k3_fused", "k3_passes_launch", [_P] * 6 + [_I] * 12 + [_P, _P]),
     "copy_probe": ("copy_probe", "copy_probe_launch", [_P] * 3 + [_I] * 2 + [_P]),
@@ -74,6 +85,7 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _ENTRIES: Dict[str, object] = {}
 BUILD_LOG: Dict[str, str] = {}  # library -> nvcc's stderr (ptxas usage)
 BUILD_SECONDS: Dict[str, float] = {}
+CALLS: Dict[str, int] = {}  # calls of each C entry (``load``'s name), a run's library calls
 
 
 def nvcc_path() -> str:
@@ -130,9 +142,23 @@ def build_all() -> Dict[str, str]:
     return paths
 
 
+class _Counted:
+    """A C entry that counts its calls in ``CALLS``."""
+
+    __slots__ = ("name", "fn")
+
+    def __init__(self, name: str, fn):
+        self.name, self.fn = name, fn
+
+    def __call__(self, *args):
+        CALLS[self.name] = CALLS.get(self.name, 0) + 1
+        return self.fn(*args)
+
+
 def load(name: str):
     """The C entry of kernel ``name`` (a ctypes function returning the CUDA
-    error code), its library built on first use."""
+    error code, its calls counted in ``CALLS``), its library built on first
+    use."""
     with _LOCK:
         fn = _ENTRIES.get(name)
         if fn is None:
@@ -143,7 +169,7 @@ def load(name: str):
             fn = getattr(lib, entry)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _ENTRIES[name] = fn
+            fn = _ENTRIES[name] = _Counted(name, fn)
         return fn
 
 
@@ -207,6 +233,36 @@ def k1_stack_frames(log: str):
     """{(storage, scheme, shard, full): stack frame bytes} of the K1
     instances in ptxas's -v output."""
     return {_k1_key(e): n for e, n in ptxas_stack(log).items() if _k1_key(e)}
+
+
+def _group_key(entry: str):
+    """(storage, scheme, full) of a K1 group instance's mangled name
+    (k1_group_kernel<S, OBST, FULL>), or None."""
+    k = re.search(r"k1_group_kernelI\d+(F32Store|DevStore)Li(\d)ELb([01])E", entry)
+    return k and (k.group(1), int(k.group(2)), k.group(3) == "1")
+
+
+def k1_group_registers(log: str):
+    """{(storage, scheme, full): (registers a thread, spill stores, spill
+    loads)} of K1's lockstep-group instances in ptxas's -v output."""
+    return {_group_key(e): use for e, use in ptxas_usage(log).items() if _group_key(e)}
+
+
+def k1_group_stack_frames(log: str):
+    """{(storage, scheme, full): stack frame bytes} of K1's group
+    instances."""
+    return {_group_key(e): n for e, n in ptxas_stack(log).items() if _group_key(e)}
+
+
+def monitor_registers(log: str):
+    """{bouzidi: (registers a thread, spill stores, spill loads)} of the
+    group monitor kernel's instances (group_monitors_kernel<BOUZIDI>)."""
+    out = {}
+    for entry, use in ptxas_usage(log).items():
+        k = re.search(r"group_monitors_kernelILb([01])E", entry)
+        if k:
+            out[k.group(1) == "1"] = use
+    return out
 
 
 def k3_registers(log: str):

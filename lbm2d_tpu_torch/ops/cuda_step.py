@@ -66,14 +66,24 @@ The per-step wrappers (``k1_step``, ``k1_step_dev``, ``k3_fused``) serve
 the sharded runner and the tools, and ``run_chunk_stepwise`` issues a chunk
 through them, one call a step.
 
+A lockstep group's chunk is one program too, as the JAX BatchEngine's
+``run_chunk_batched`` / ``_chunk_sequential`` are: ``run_chunk_group_cuda``
+runs the group's stacked state ([B, 9, H, W] f) through ``k1_group_steps``
+(C entry ``k1_group_steps_launch``: one K1 launch a step over the alive
+cases, K1's ``_group`` instances), ``k1_group_full`` and ``group_monitors``
+(csrc/monitors.cu: every case's force, max |u| and stability flag in one
+launch, into the packed array the engine fetches), from ``GroupParams``
+cut once a group; the alive cases are a device table rebuilt only when one
+dies. ``CASE_STEPS`` counts the cases a group launch advanced.
+
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes its
 plain PyTorch version (``k1_step_plain``, ``k1_step_dev_plain``,
 ``k1_steps_plain``, ``k3_fused_plain`` and ``k3_passes_plain``, each with
 the same arguments) only for CPU tensors.
 ``LAUNCHES`` counts kernel launches by variant (``k1_variant`` /
-``k3_variant`` names), so a run can show that it went through the kernels.
-The monitors are plain torch reductions, as the JAX package computes them
-outside its kernels.
+``k3_variant`` / ``monitor_variant`` names), so a run can show that it went
+through the kernels. Outside the lockstep group the monitors are plain
+torch reductions, as the JAX package computes them outside its kernels.
 """
 
 from __future__ import annotations
@@ -85,6 +95,7 @@ import weakref
 from dataclasses import astuple, dataclass
 from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..core.lattice import E as E_LAT
@@ -141,11 +152,19 @@ def obstacle_scheme(p: CaseParams) -> int:
 
 
 def k1_variant(obstacle: int, full: bool = False, dev: bool = False,
-               shard: bool = False) -> str:
+               shard: bool = False, group: bool = False) -> str:
     """Launch-count name of a K1 variant: k1_step[_bounce|_halfway|_bouzidi]
-    [_shard][_full|_dev]."""
+    [_shard|_group][_full|_dev]; ``_group`` is one launch over a lockstep
+    group's alive cases."""
     return ("k1_step" + _OBSTACLE_SUFFIX[obstacle] + ("_shard" if shard else "")
-            + ("_full" if full else "_dev" if dev else ""))
+            + ("_group" if group else "") + ("_full" if full else "_dev" if dev else ""))
+
+
+def monitor_variant(obstacle: int) -> str:
+    """Launch-count name of the group monitor kernel's instance for an
+    obstacle scheme: group_monitors (the 2 f_j links of equilibrium,
+    full-way and half-way) or group_monitors_bouzidi."""
+    return "group_monitors" + ("_bouzidi" if obstacle == OBSTACLE_BOUZIDI else "")
 
 
 def k3_variant(obstacle: int, left_type: int) -> str:
@@ -164,15 +183,24 @@ KERNEL_VARIANTS = (
     + [k3_variant(o, t) for o in FUSE_OBSTACLES for t in (BC_INLET, BC_VEL_INLET)]
     + [k1_variant(o, full, shard=True) for o in range(4) for full in (False, True)]
     + [k1_variant(o, dev=True, shard=True) for o in DEV_OBSTACLES]
+    + [k1_variant(o, full, group=True) for o in range(4) for full in (False, True)]
+    + [k1_variant(o, dev=True, group=True) for o in DEV_OBSTACLES]
+    + [monitor_variant(o) for o in (OBSTACLE_EQ, OBSTACLE_BOUZIDI)]
 )
+GROUP_VARIANTS = tuple(v for v in KERNEL_VARIANTS if "_group" in v or v.startswith("group_"))
 
-# launches of each kernel variant, added to where the launch is made
+# launches of each kernel variant, added to where the launch is made; and
+# of each group variant the cases it advanced times its launches (K1) or
+# the cases it read (the monitors)
 LAUNCHES = {name: 0 for name in KERNEL_VARIANTS}
+CASE_STEPS = {name: 0 for name in GROUP_VARIANTS}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for k in CASE_STEPS:
+        CASE_STEPS[k] = 0
 
 
 def pack_aux(damping: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -598,8 +626,9 @@ def _scal_c(scal: torch.Tensor):
 
 
 def _w_col(f: torch.Tensor) -> torch.Tensor:
-    """The lattice weights as f32, shaped to broadcast over f's first axis."""
-    return _w_on(f.device).reshape((9,) + (1,) * (f.dim() - 1))
+    """The lattice weights as f32, shaped to broadcast over f's population
+    axis: the first, or the second of a lockstep group's [B, 9, H, W]."""
+    return _w_on(f.device).reshape((9,) + (1,) * (min(f.dim(), 3) - 1))
 
 
 @functools.lru_cache(maxsize=None)
@@ -1668,3 +1697,481 @@ def run_chunk_stepwise(state: LBMState, p: CaseParams, n_steps: int, store_dev: 
             obstacle=obst, q=q, prof=prof, prev=prev_at_step(prev, n_steps - 1))
     new_state = LBMState(f=dst, f_post=f_post, rho=rho, u=u, step=state.step + n_steps)
     return new_state, {"force": obstacle_force(f_post, p), "max_v": max_velocity(u)}
+
+
+# ---------------------------------------------------------------------------
+# A lockstep group's chunk: one program over the group's cases
+# ---------------------------------------------------------------------------
+
+# the monitor kernel's threads a block and its blocks a case
+# (csrc/monitors.cu): enough blocks that a group fills the card at the
+# production grid, about 16 cells a thread below it
+MON_THREADS = 256
+MON_MAX_BLOCKS = 128
+MON_CELLS_A_THREAD = 16
+# a boundary link: (cell << LINK_CELL_SHIFT) | (cell - e_j in the grid) <<
+# 4 | j
+LINK_CELL_SHIFT = 5
+_LINK_UP = 16
+
+
+def monitor_blocks(H: int, W: int) -> int:
+    """The monitor kernel's blocks a case on an H x W grid (the plain
+    version repeats its order, so both take them from here)."""
+    return max(1, min(MON_MAX_BLOCKS, -(-H * W // (MON_THREADS * MON_CELLS_A_THREAD))))
+
+
+def boundary_links(p: CaseParams) -> torch.Tensor:
+    """Case ``p``'s boundary links, the momentum-exchange force's terms, as
+    a CPU int32 list: each fluid cell x (row major, x = y W + x') with a
+    solid neighbour x + e_j in the grid, for j = 1 .. 8 in turn, packed as
+    (x << 5) | (x - e_j in the grid) << 4 | j. The same links for every
+    obstacle scheme: force_on_obstacle's (solid s, fluid s + e_k) pairs are
+    these with j = opp k. Built on the host once a mask (a lockstep group's
+    cases often share one)."""
+    solid = (p.mask > 0.5).cpu().numpy()
+    H, W = solid.shape
+    if H * W >= 1 << (31 - LINK_CELL_SHIFT):
+        raise ValueError(f"grid {H}x{W}: a boundary link's cell index needs "
+                         f"H W < 2^{31 - LINK_CELL_SHIFT}")
+    return _links_of(np.packbits(solid).tobytes(), H, W)
+
+
+@functools.lru_cache(maxsize=16)
+def _links_of(packed: bytes, H: int, W: int) -> torch.Tensor:
+    solid = np.unpackbits(np.frombuffer(packed, np.uint8), count=H * W).reshape(H, W) > 0
+    # from the solid cells s (row major): x = s - e_j is a link's fluid cell
+    # where it lies in the grid and is fluid, in row-major order again
+    sy, sx = np.nonzero(solid)
+    out = []
+    for j in range(1, 9):
+        ex, ey = int(E_LAT[j, 0]), int(E_LAT[j, 1])
+        ys, xs = sy - ey, sx - ex
+        keep = (ys >= 0) & (ys < H) & (xs >= 0) & (xs < W)
+        ys, xs = ys[keep], xs[keep]
+        keep = ~solid[ys, xs]
+        ys, xs = ys[keep], xs[keep]
+        up = (ys - ey >= 0) & (ys - ey < H) & (xs - ex >= 0) & (xs - ex < W)
+        cell = ys.astype(np.int64) * W + xs
+        out.append((cell << LINK_CELL_SHIFT) | (up.astype(np.int64) << 4) | j)
+    return torch.from_numpy(np.concatenate(out).astype(np.int32))
+
+
+def _upload(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``host`` on ``device``: from pinned memory without a sync on a card
+    (a copy from pageable memory waits for the stream), as is on the CPU."""
+    if device.type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
+
+
+class GroupParams:
+    """What a lockstep group's program takes of its cases, cut once a group
+    (the JAX BatchEngine's stacked CaseParams): the cases' CaseParams (each
+    case's host scalar rows, read once), their packed aux planes [B, H, W],
+    Bouzidi q planes [B, 8, H, W] and inlet profiles [B, H] where the
+    scheme and the layout read them, their boundary links in CSR form on
+    the device (``boundary_links``), the monitor kernel's scratch, and the
+    device tables a chunk reads: the alive cases' indices (``slots``) and
+    the alive and past-the-warmup flags (``case_table``), rebuilt only when
+    they change (a case never comes back to life), and the cases' scalar
+    rows (``device_rows``), uploaded only when they change (past the warmup
+    never). The cases share the grid, the BC layout, the LES flag, the
+    obstacle scheme and the device; the kernels must cover them
+    (``unsupported``)."""
+
+    def __init__(self, params):
+        params = list(params)
+        if not params:
+            raise ValueError("a group needs at least one case")
+        p0 = params[0]
+        for p in params:
+            why = unsupported(p)
+            if why is not None:
+                raise ValueError(f"the group program does not cover {why}")
+            if (p.shape != p0.shape or tuple(p.bc_type) != tuple(p0.bc_type)
+                    or bool(p.use_les) != bool(p0.use_les)
+                    or obstacle_scheme(p) != obstacle_scheme(p0)
+                    or p.mask.device != p0.mask.device):
+                raise ValueError("a group's cases must share the grid, bc_type, use_les, the "
+                                 "obstacle scheme and the device")
+        self.cases = params
+        self.B = len(params)
+        self.shape = tuple(p0.shape)
+        self.bc_type = tuple(int(t) for t in p0.bc_type)
+        self.use_les = bool(p0.use_les)
+        self.obstacle = obstacle_scheme(p0)
+        self.device = p0.mask.device
+        self.aux = torch.stack([pack_aux(p.damping, p.mask) for p in params]).contiguous()
+        self.q = (torch.stack([p.bouzidi_q for p in params]).contiguous()
+                  if self.obstacle == OBSTACLE_BOUZIDI else None)
+        vel = self.bc_type[0] in (BC_VEL_INLET, BC_VEL_INLET_NEBB)
+        self.prof = torch.stack([p.inlet_profile for p in params]).contiguous() if vel else None
+        self.warmup = [_host_scalars(p)[1] for p in params]
+        self.links_host = [boundary_links(p) for p in params]
+        counts = [0] + [int(x.numel()) for x in self.links_host]
+        self.offsets_host = torch.tensor(np.cumsum(counts), dtype=torch.int32)
+        # one entry more than the links, so an empty list still has a pointer
+        self.links = torch.cat(self.links_host + [torch.zeros(1, dtype=torch.int32)]).to(
+            self.device)
+        self.offsets = self.offsets_host.to(self.device)
+        H, W = self.shape
+        self.mon_blocks = monitor_blocks(H, W)
+        self.partial = torch.empty((self.B, self.mon_blocks, 3), dtype=torch.float64,
+                                   device=self.device)
+        self.counter = torch.zeros(self.B, dtype=torch.int32, device=self.device)
+        self._slots = self._table = self._rows = None
+
+    def rows(self, steps, n: int) -> torch.Tensor:
+        """The cases' scalar rows of lattice steps step_c + 1 .. step_c + n,
+        a contiguous CPU table [B, n, 14] (``scalar_rows`` a case)."""
+        return torch.stack([scalar_rows(p, int(s), n) for p, s in zip(self.cases, steps)])
+
+    def slots(self, alive):
+        """(device int32 table of the alive cases' indices, their count)."""
+        key = tuple(bool(a) for a in alive)
+        if len(key) != self.B:
+            raise ValueError(f"alive has {len(key)} entries, the group {self.B} cases")
+        if self._slots is None or self._slots[0] != key:
+            idx = torch.tensor([i for i, a in enumerate(key) if a] or [0], dtype=torch.int32)
+            self._slots = (key, _upload(idx, self.device), sum(key))
+        return self._slots[1], self._slots[2]
+
+    def case_table(self, alive, later):
+        """Device int32 [2 B]: the alive flags, then whether each case is past
+        its warmup (``is_stable_device``'s velocity rule)."""
+        key = tuple(bool(a) for a in alive) + tuple(bool(x) for x in later)
+        if self._table is None or self._table[0] != key:
+            self._table = (key, _upload(torch.tensor(key, dtype=torch.int32), self.device))
+        return self._table[1]
+
+    def device_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """``rows`` [B, R, 14] on the device, uploaded when it differs from
+        the last table."""
+        _check_group_rows(rows, self.B)
+        if (self._rows is None or self._rows[0].shape != rows.shape
+                or not torch.equal(self._rows[0], rows)):
+            self._rows = (rows.clone(), _upload(rows, self.device))
+        return self._rows[1]
+
+    def later(self, steps):
+        """Whether each case at lattice step ``steps[c]`` is past its warmup."""
+        return [int(s) > w for s, w in zip(steps, self.warmup)]
+
+
+def _check_group_rows(rows: torch.Tensor, B: int) -> None:
+    if rows.is_cuda or rows.dtype != torch.float32 or rows.dim() != 3 or rows.shape[0] != B \
+            or rows.shape[2] != len(SCALAR_FIELDS) or not rows.is_contiguous():
+        raise ValueError(f"need a contiguous f32 CPU table [{B}, R, 14] of scalar rows, got "
+                         f"{tuple(rows.shape)} {rows.dtype} on {rows.device}")
+
+
+def _case_prev(prev: Optional[RingPrev], c: int) -> Optional[RingPrev]:
+    return None if prev is None else RingPrev(prev.rho[c], prev.u[c], prev.fresh)
+
+
+def _alive_idx(alive):
+    return [i for i, a in enumerate(alive) if a]
+
+
+def _check_group(g: GroupParams, f_in, outs, dtype, prev, rho=None, u=None, f_post=None):
+    """The group wrappers' checks: [B, 9, H, W] f buffers of ``dtype`` on
+    the group's device, rho [B, H, W], u [B, 2, H, W], f_post [B, 9, H, W],
+    and ``prev`` where a side is a no-op."""
+    H, W = g.shape
+    dev = g.device
+    for name, t in (("f_in", f_in),) + tuple(outs):
+        _check(name, t, (g.B, 9, H, W), dev, dtype)
+    if rho is not None:
+        _check("rho", rho, (g.B, H, W), dev)
+        _check("u", u, (g.B, 2, H, W), dev)
+        _check("f_post", f_post, (g.B, 9, H, W), dev)
+    if _check_prev(g.bc_type, prev, rho, u):
+        _check("prev.rho", prev.rho, (g.B, H, W), dev)
+        _check("prev.u", prev.u, (g.B, 2, H, W), dev)
+        return _ptr(prev.rho), _ptr(prev.u), int(bool(prev.fresh))
+    return None, None, 0
+
+
+def k1_group_steps_plain(f_in, f_a, f_b, g: GroupParams, rows, alive, n: int, dev=False,
+                         prev=None):
+    """Plain version of ``k1_group_steps``: ``k1_steps_plain`` on each alive
+    case's slices, with its rows 0 .. n - 1. Returns the buffer holding f."""
+    for c in _alive_idx(alive):
+        k1_steps_plain(f_in[c], f_a[c], f_b[c], g.aux[c], rows[c, :n].contiguous(), g.use_les,
+                       g.bc_type, g.obstacle, None if g.q is None else g.q[c],
+                       None if g.prof is None else g.prof[c], dev, _case_prev(prev, c))
+    return _ping_pong(f_in, f_a, f_b, n)
+
+
+def k1_group_steps(f_in, f_a, f_b, g: GroupParams, rows, alive, n: int, dev=False, prev=None):
+    """n fast K1 steps of a lockstep group in one call of the shared
+    library, one launch a step over the alive cases (``alive``, host flags
+    a case): step i takes column i of the host table ``rows`` [B, R, 14],
+    reads f_in (step 0) or the previous step's output and writes f_a (even
+    i) or f_b (odd i), each [B, 9, H, W]: f32, or with ``dev`` bf16
+    deviations (equilibrium and full-way bounce-back); a dead case's slices
+    are neither read nor written. ``prev`` the state's [B] rho and u where a
+    side is a no-op, fresh (if so) for step 0. Returns the buffer holding f;
+    counted as n launches of ``k1_variant(obstacle, dev=dev, group=True)``
+    (none with no alive case), and n times the alive cases in
+    ``CASE_STEPS``."""
+    if not f_in.is_cuda:
+        return k1_group_steps_plain(f_in, f_a, f_b, g, rows, alive, n, dev, prev)
+    if dev:
+        _check_obstacle(g.obstacle, None, g.shape, f_in.device, DEV_OBSTACLES)
+    dtype = DEV_DTYPE if dev else torch.float32
+    rp, up, fresh = _check_group(g, f_in, (("f_a", f_a), ("f_b", f_b)), dtype, prev)
+    if f_a.data_ptr() in (f_b.data_ptr(), f_in.data_ptr()):
+        raise ValueError("k1_group_steps: f_a must differ from f_in and f_b")
+    if not 0 <= n <= rows.shape[1]:
+        raise ValueError(f"k1_group_steps: {n} steps, the table holds {rows.shape[1]} rows")
+    rows_d = g.device_rows(rows)
+    slots, n_slots = g.slots(alive)
+    H, W = g.shape
+    lt, tt, rt, bt = g.bc_type
+    failed = ctypes.c_int(-1)
+    with _launch_device(f_in.device):
+        rc = cuda_build.load("k1_group_steps")(
+            _ptr(f_in), _ptr(f_a), _ptr(f_b), _ptr(g.aux),
+            _ptr(g.q) if g.obstacle == OBSTACLE_BOUZIDI else None, _ptr(g.prof), _ptr(rows_d),
+            n, rows.shape[1] * len(SCALAR_FIELDS), _ptr(slots), n_slots, H, W, lt, tt, rt, bt,
+            int(g.use_les), int(bool(dev)), g.obstacle,
+            torch.cuda.current_stream(f_in.device).cuda_stream, ctypes.addressof(failed), rp, up,
+            fresh,
+        )
+    done = n if rc == 0 else max(failed.value, 0)
+    name = k1_variant(g.obstacle, dev=bool(dev), group=True)
+    if n_slots:
+        LAUNCHES[name] += done
+        CASE_STEPS[name] += done * n_slots
+    if rc != 0:
+        raise _loop_failed("k1_group_steps", rc, failed.value, n)
+    return _ping_pong(f_in, f_a, f_b, n)
+
+
+def k1_group_full_plain(f_in, f_out, g: GroupParams, rows, alive, rho, u, f_post, prev=None,
+                        row: int = -1):
+    """Plain version of ``k1_group_full``: ``k1_step_plain``'s full step on
+    each alive case's slices with its row ``row``."""
+    for c in _alive_idx(alive):
+        k1_step_plain(f_in[c], f_out[c], g.aux[c], rows[c, row], g.use_les, g.bc_type, rho[c],
+                      u[c], f_post[c], obstacle=g.obstacle,
+                      q=None if g.q is None else g.q[c],
+                      prof=None if g.prof is None else g.prof[c], prev=_case_prev(prev, c))
+
+
+def k1_group_full(f_in, f_out, g: GroupParams, rows, alive, rho, u, f_post, prev=None,
+                  row: int = -1):
+    """The closing full step of a lockstep group's chunk, one launch over
+    its alive cases: f32 f_in -> f_out [B, 9, H, W], writing their rho [B,
+    H, W], u [B, 2, H, W] and f_post [B, 9, H, W] (the interior) slices,
+    each case with column ``row`` of the host table ``rows`` [B, R, 14];
+    ``prev`` as for ``k1_group_steps`` (not fresh on the buffers it writes).
+    Counted as one launch of ``k1_variant(obstacle, full=True,
+    group=True)`` (none with no alive case)."""
+    if not f_in.is_cuda:
+        return k1_group_full_plain(f_in, f_out, g, rows, alive, rho, u, f_post, prev, row)
+    rp, up, fresh = _check_group(g, f_in, (("f_out", f_out),), torch.float32, prev, rho, u,
+                                 f_post)
+    if f_in.data_ptr() == f_out.data_ptr():
+        raise ValueError("k1_group_full: pull streaming needs distinct in/out buffers")
+    rows_d = g.device_rows(rows)
+    R = rows.shape[1]
+    row = row % R
+    slots, n_slots = g.slots(alive)
+    H, W = g.shape
+    lt, tt, rt, bt = g.bc_type
+    with _launch_device(f_in.device):
+        rc = cuda_build.load("k1_group_full")(
+            _ptr(f_in), _ptr(f_out), _ptr(g.aux),
+            _ptr(g.q) if g.obstacle == OBSTACLE_BOUZIDI else None, _ptr(g.prof), _ptr(rho),
+            _ptr(u), _ptr(f_post), _ptr(rows_d) + 4 * len(SCALAR_FIELDS) * row,
+            R * len(SCALAR_FIELDS), _ptr(slots), n_slots, H, W, lt, tt, rt, bt, int(g.use_les),
+            g.obstacle, torch.cuda.current_stream(f_in.device).cuda_stream, rp, up, fresh,
+        )
+    if rc != 0:
+        raise RuntimeError(f"k1_group_full launch failed: CUDA error {rc}")
+    name = k1_variant(g.obstacle, full=True, group=True)
+    if n_slots:
+        LAUNCHES[name] += 1
+        CASE_STEPS[name] += n_slots
+
+
+def _link_terms(f_post_c, q_c, links: torch.Tensor, W: int, bouzidi: bool):
+    """(term f32, j) of each boundary link of one case, the monitor
+    kernel's ``mon_term`` in the eager force's operation order."""
+    fp = f_post_c.reshape(9, -1)
+    cell = (links >> LINK_CELL_SHIFT).long()
+    j = (links & 15).long()
+    fj = fp[j, cell]
+    if not bouzidi:
+        return 2.0 * fj, j
+    ex = torch.as_tensor(E_LAT[:, 0], device=fp.device)[j]
+    ey = torch.as_tensor(E_LAT[:, 1], device=fp.device)[j]
+    up_ok = (links & _LINK_UP) != 0
+    up_cell = torch.where(up_ok, cell - (ey * W + ex), cell)
+    up = torch.where(up_ok, fp[j, up_cell], torch.zeros_like(fj))
+    qv = q_c.reshape(8, -1)[j - 1, cell]
+    fk = fp[torch.as_tensor(OPP_LAT, device=fp.device)[j], cell]
+    two_q = 2.0 * qv
+    lo = two_q * fj + (1.0 - two_q) * up
+    hi = fj / two_q + (two_q - 1.0) / two_q * fk
+    return fj + torch.where(qv < 0.5, lo, hi), j
+
+
+def _block_sums(terms: torch.Tensor, nb: int) -> torch.Tensor:
+    """The monitor kernel's order over one case's link terms (f64 [L]):
+    block b's thread t sums terms b T + t + k nb T in k order from +0.0,
+    the block halves its threads' sums, and the blocks' sums add in block
+    order from +0.0."""
+    T = MON_THREADS
+    K = max(1, -(-terms.numel() // (nb * T)))
+    padded = torch.zeros(K * nb * T, dtype=torch.float64, device=terms.device)
+    padded[:terms.numel()] = terms
+    padded = padded.view(K, nb, T)
+    acc = torch.zeros((nb, T), dtype=torch.float64, device=terms.device)
+    for k in range(K):
+        acc = acc + padded[k]
+    h = T // 2
+    while h:
+        acc = torch.cat([acc[:, :h] + acc[:, h:2 * h], acc[:, 2 * h:]], dim=1)
+        h //= 2
+    total = torch.zeros((), dtype=torch.float64, device=terms.device)
+    for b in range(nb):
+        total = total + acc[b, 0]
+    return total
+
+
+def group_monitors_plain(f_post, u, g: GroupParams, alive, later):
+    """Plain version of ``group_monitors``, in the kernel's summation
+    order, so bit for bit its output: (packed [Fx, Fy a case | max_v |
+    stable] f32 [4 B], alive & stable bool [B])."""
+    B = g.B
+    H, W = g.shape
+    dev = f_post.device
+    force = torch.empty((B, 2), dtype=torch.float32, device=dev)
+    ex_all = torch.as_tensor(E_LAT[:, 0], dtype=torch.float64, device=dev)
+    ey_all = torch.as_tensor(E_LAT[:, 1], dtype=torch.float64, device=dev)
+    bouzidi = g.obstacle == OBSTACLE_BOUZIDI
+    for c in range(B):
+        links = g.links_host[c].to(dev)
+        term, j = _link_terms(f_post[c], None if g.q is None else g.q[c], links, W, bouzidi)
+        t64 = term.double()
+        force[c, 0] = _block_sums(t64 * ex_all[j], g.mon_blocks).float()
+        force[c, 1] = _block_sums(t64 * ey_all[j], g.mon_blocks).float()
+    max_v = torch.sqrt(u[:, 0] * u[:, 0] + u[:, 1] * u[:, 1]).reshape(B, -1).amax(dim=1)
+    # torch's max propagates NaN (amax does too); is_stable_device's rules
+    later_t = torch.tensor([bool(x) for x in later], device=dev)
+    f_ok = torch.isfinite(force).all(dim=1) & (force.abs() <= 1e6).all(dim=1)
+    v_ok = torch.isfinite(max_v) & (~later_t | (max_v <= 0.25))
+    stable = f_ok & v_ok
+    packed = torch.cat([force.reshape(-1), max_v, stable.float()])
+    return packed, stable & torch.tensor([bool(a) for a in alive], device=dev)
+
+
+def group_monitors(f_post, u, g: GroupParams, alive, later):
+    """The monitors of every case of a lockstep group in one launch
+    (csrc/monitors.cu): its momentum-exchange force (the scheme's
+    ``obstacle_force``, over its boundary links, summed in f64 in a fixed
+    order), ``max_velocity`` (NaN kept) and ``is_stable_device`` (``later``:
+    host flags, past the warmup), from f_post [B, 9, H, W] and u [B, 2, H,
+    W]; a dead case's from the state it keeps. Returns (packed [Fx, Fy a
+    case | max_v | stable] f32 [4 B], alive & stable bool [B]) on the
+    device. Counted as one launch of ``monitor_variant(obstacle)``."""
+    if not f_post.is_cuda:
+        return group_monitors_plain(f_post, u, g, alive, later)
+    H, W = g.shape
+    _check("f_post", f_post, (g.B, 9, H, W), g.device)
+    _check("u", u, (g.B, 2, H, W), g.device)
+    table = g.case_table(alive, later)
+    out = torch.empty(4 * g.B, dtype=torch.float32, device=g.device)
+    alive_out = torch.empty(g.B, dtype=torch.bool, device=g.device)
+    bouzidi = g.obstacle == OBSTACLE_BOUZIDI
+    with _launch_device(g.device):
+        rc = cuda_build.load("group_monitors")(
+            _ptr(f_post), _ptr(u), _ptr(g.q) if bouzidi else None, _ptr(g.links),
+            _ptr(g.offsets), _ptr(table), _ptr(g.partial), _ptr(g.counter), _ptr(out),
+            _ptr(alive_out), g.B, H, W, g.mon_blocks, int(bouzidi),
+            torch.cuda.current_stream(g.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"group_monitors launch failed: CUDA error {rc}")
+    name = monitor_variant(g.obstacle)
+    LAUNCHES[name] += 1
+    CASE_STEPS[name] += g.B
+    return out, alive_out
+
+
+def run_chunk_group_cuda(state_b: LBMState, p_b: GroupParams, alive, n_steps: int,
+                         store_dev: bool = False):
+    """Advance a lockstep group's alive cases ``n_steps`` through the kernels,
+    as one program: the counterpart of the JAX ``run_chunk_batched`` /
+    ``_chunk_sequential`` (lbm2d_tpu/parallel/batch.py:77-176). ``state_b``
+    is the group's stacked state ([B, 9, H, W] f and f_post, [B, H, W] rho,
+    [B, 2, H, W] u, a CPU int [B] step), ``p_b`` its ``GroupParams``,
+    ``alive`` host flags a case. Returns ``(state_b, alive, packed)``: the
+    state (f, f_post, rho and u updated in place, a dead case's bits and step
+    untouched), alive & stable (bool [B] on the device), and the monitors
+    packed as [Fx, Fy a case | max_v | stable] (f32 [4 B] on the device)
+    for every case, a dead one's of the state it keeps.
+
+    A chunk is at most three library calls and two torch ops whatever B
+    is: the n - 1 fast steps (``k1_group_steps``, one K1 launch a step over
+    the alive cases), the closing full step (``k1_group_full``), the
+    monitors (``group_monitors``), and with ``store_dev`` (n > 1, the
+    schemes it runs) a quantize before and a dequantize after the fast
+    steps, once for the group. The scalar rows are one host table [B, n,
+    14] uploaded only when it changes. Never fused: a group with temporal
+    blocking requested runs its cases through ``run_chunk_cuda`` instead
+    (parallel/batch.py)."""
+    return _run_chunk_group(state_b, p_b, alive, n_steps, store_dev, plain=False)
+
+
+def run_chunk_group_plain(state_b: LBMState, p_b: GroupParams, alive, n_steps: int,
+                          store_dev: bool = False):
+    """``run_chunk_group_cuda`` through the kernels' plain versions on any
+    device: the plain version of the group program."""
+    return _run_chunk_group(state_b, p_b, alive, n_steps, store_dev, plain=True)
+
+
+def _run_chunk_group(state_b: LBMState, g: GroupParams, alive, n_steps: int, store_dev: bool,
+                     plain: bool):
+    if n_steps < 1:
+        raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+    if plain:
+        k1s, k1f, mon = k1_group_steps_plain, k1_group_full_plain, group_monitors_plain
+    else:
+        k1s, k1f, mon = k1_group_steps, k1_group_full, group_monitors
+    alive = [bool(a) for a in alive]
+    steps = [int(s) for s in state_b.step]
+    dev_store = bool(store_dev) and n_steps > 1 and dev_storage_refusal(g.cases[0]) is None
+    rows = g.rows(steps, n_steps)
+    prev = RingPrev(state_b.rho, state_b.u) if noop_sides(g.bc_type) else None
+    f = state_b.f
+    if n_steps > 1:
+        # quantize once per chunk; the fast steps ping-pong two buffers and
+        # the full step writes the state's f in place, so a dead case's
+        # slices are never written
+        src = quantize(f) if dev_store else f
+        src = k1s(src, torch.empty_like(src), torch.empty_like(src), g, rows, alive,
+                  n_steps - 1, dev_store, prev)
+        if dev_store:
+            src = dequantize(src)
+        dst = f
+    else:
+        src, dst = f, torch.empty_like(f)
+        if prev is not None:  # the full step writes the rho and u it would read
+            prev = RingPrev(prev.rho.clone(), prev.u.clone())
+    k1f(src, dst, g, rows, alive, state_b.rho, state_b.u, state_b.f_post,
+        prev_at_step(prev, n_steps - 1))
+    if dst is not f:
+        dead = [c for c, a in enumerate(alive) if not a]
+        if dead:
+            idx = torch.tensor(dead, device=f.device)
+            dst.index_copy_(0, idx, f.index_select(0, idx))
+    new_steps = [s + n_steps if a else s for s, a in zip(steps, alive)]
+    packed, alive_out = mon(state_b.f_post, state_b.u, g, alive, g.later(new_steps))
+    state = LBMState(f=dst, f_post=state_b.f_post, rho=state_b.rho, u=state_b.u,
+                     step=torch.tensor(new_steps, dtype=torch.int32))
+    return state, alive_out, packed

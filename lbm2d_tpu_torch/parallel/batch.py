@@ -5,24 +5,38 @@ batched leaves of a stacked CaseParams, and divergence is handled with a
 per-case ``alive`` flag -- a diverged case freezes in place instead of
 killing the batch (the reference circuit breaker, made batch-safe).
 
-On the card every alive case advances through ``run_chunk_cuda`` in turn
-(the JAX package's sequential Pallas runner, ``_chunk_sequential``); on the
-CPU the eager step per case stands in for the vmap lockstep. A dead case
-is skipped on the host and keeps its state, which is the JAX package's
-freeze semantics. The JAX package's dead-case ladder compaction and buffer
-donation exist to bound XLA recompiles and TPU HBM; eager PyTorch has
-neither problem (a skipped case costs nothing), so they have no
-counterpart here.
+The state is stacked as the JAX BatchEngine holds it: [B, 9, H, W] f and
+f_post, [B, H, W] rho, [B, 2, H, W] u, and a [B] step (on the host here,
+where the chunk's scalar rows are built). On the card a lockstep group's
+chunk is one program, as the JAX ``run_chunk_batched`` (the ``vmap``
+runner) and ``_chunk_sequential`` (``pallas``) are: one K1 launch a step
+over the group's alive cases, one for the closing full step and one
+monitor launch, however many cases it holds
+(``ops/cuda_step.run_chunk_group_cuda``); the alive cases are a device
+table rebuilt only when a case dies, which replaces the JAX package's
+dead-case ladder compaction (a dead case launches nothing and keeps every
+bit). A group with temporal blocking requested (``cuda_step._FUSE_STEPS``)
+runs its cases through ``run_chunk_cuda`` a case, K3 included. On the CPU
+the ``pallas`` runner runs the group program's plain version, and the
+others the eager step a case (the kernels' plain chunk a case under
+``store_dev``), writing each case's slices of the stack.
+
+The runners are the JAX BatchEngine's (``runner``): ``auto``, ``vmap``,
+``pallas`` and ``sharded`` all run the group program on the card, and
+differ in the 16-bit deviation storage rule (``core/engine.
+resolve_store_dev``): ``auto`` and ``sharded`` engage it where the kernels
+would and the grid has at least 65,536 cells, ``pallas`` wherever the
+kernels would, ``vmap`` never (the JAX vmap chunk ignores it).
 
 ``runner="sharded"`` spreads the cases over a 1-D case mesh of devices
 (``case_mesh``; the JAX package's ``shard_map`` over a ``('cases',)``
 mesh): device d owns cases d * B/D .. (d + 1) * B/D - 1 and runs them as
-the ``auto`` runner does, with no host sync between devices inside a
-chunk, so the devices run concurrently; each device sends its monitors
-back in one transfer. A batch that does not divide by D is padded with
-inert duplicates of the last case that start dead, as in the JAX package
-(5 cases on 4 devices must not collapse onto one); here a dead case
-launches nothing, so a pad slot holds no state and costs nothing.
+one group program, with no host sync between devices inside a chunk, so
+the devices run concurrently; each device sends its monitors back in one
+transfer. A batch that does not divide by D is padded with inert
+duplicates of the last case that start dead, as in the JAX package (5
+cases on 4 devices must not collapse onto one); here a dead case launches
+nothing, so a pad slot holds no state and costs nothing.
 
 All cases of a batch must share (ny, nx), bc_type and the LES on/off flag.
 """
@@ -36,17 +50,24 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..core.engine import resolve_device, resolve_runner, resolve_store_dev
+from ..core.engine import (
+    LOCKSTEP_RUNNERS,
+    resolve_device,
+    resolve_fuse,
+    resolve_runner,
+    resolve_store_dev,
+)
+from ..core.lattice import moments_from_f
 from ..core.solver import (
     CaseParams,
     LBMState,
     init_state,
     make_params,
     max_velocity,
-    moments_output,
     obstacle_force,
 )
 from ..core.stability import is_stable_device
+from ..ops import cuda_step as cs
 
 
 def stack_params(params: Sequence[CaseParams]) -> CaseParams:
@@ -114,24 +135,37 @@ def init_batch_state(batch: int, ny: int, nx: int, dtype=torch.float32, device="
     )
 
 
-def stack_states(states: Sequence[LBMState]) -> LBMState:
-    """Per-case states -> one batched state ([B] int32 step)."""
-    return LBMState(
-        f=torch.stack([s.f for s in states]),
-        f_post=torch.stack([s.f_post for s in states]),
-        rho=torch.stack([s.rho for s in states]),
-        u=torch.stack([s.u for s in states]),
-        step=torch.tensor([int(s.step) for s in states], dtype=torch.int32),
-    )
+def moments_batched(state: LBMState) -> torch.Tensor:
+    """[B, 9, H, W] MRT moments of a batched state's f_post (the JAX
+    ``moments_batched``): ``moments_from_f`` over the whole stack."""
+    return moments_from_f(state.f_post.transpose(0, 1)).transpose(0, 1).contiguous()
 
 
-def unstack_state(state: LBMState, i: int) -> LBMState:
-    """Case ``i`` of a batched state, as contiguous per-case tensors."""
-    return LBMState(
-        f=state.f[i].contiguous(), f_post=state.f_post[i].contiguous(),
-        rho=state.rho[i].contiguous(), u=state.u[i].contiguous(),
-        step=int(state.step[i]),
-    )
+def _case_state(st: LBMState, k: int) -> LBMState:
+    """Case ``k`` of a stacked state: views of its slices, its step an int."""
+    return LBMState(f=st.f[k], f_post=st.f_post[k], rho=st.rho[k], u=st.u[k],
+                    step=int(st.step[k]))
+
+
+class _Group:
+    """The cases of one device, stacked: ``idx`` their indices in the batch,
+    ``state`` their [B, ...] state, and how a chunk runs them: the group
+    program (``tables``, ``cuda_step.GroupParams``; ``plain`` for its plain
+    version) or ``runners`` a case."""
+
+    def __init__(self, idx, device, case_params, ny, nx, dtype, store_dev, program,
+                 plain=False):
+        self.idx = list(idx)
+        self.device = device
+        self.case_params = list(case_params)
+        self.state = init_batch_state(len(self.idx), ny, nx, dtype, device)
+        if program:
+            self.tables = cs.GroupParams(self.case_params)
+            self.run = cs.run_chunk_group_plain if plain else cs.run_chunk_group_cuda
+            self.runners = None
+        else:
+            self.tables = self.run = None
+            self.runners = [resolve_runner(p, device, store_dev) for p in self.case_params]
 
 
 class BatchEngine:
@@ -140,12 +174,16 @@ class BatchEngine:
     ``run_step(n)`` advances every alive case by one n-step chunk and
     returns per-case monitors {"force": [B, 2], "max_v": [B], "stable":
     [B]}; a case whose monitors fail the circuit breaker is frozen from the
-    next chunk on. ``store_dev`` (or the first config's
-    ``simulation.f16_state``) runs the chunks in 16-bit deviation storage.
+    next chunk on. ``runner`` is the JAX BatchEngine's (``auto``,
+    ``vmap``, ``pallas``, ``sharded``; module docstring). ``store_dev``
+    (or the first config's ``simulation.f16_state``) runs the chunks in
+    16-bit deviation storage where the runner's rule engages it.
     ``runner="sharded"`` spreads the cases over ``case_mesh(n_devices,
     device, case_devices)``, at most one device a case; the batched
     outputs (``state``, the moments and velocity) are gathered on the
-    first device of the mesh, ``device``.
+    first device of the mesh, ``device``. On one device ``state`` and
+    ``get_velocity_device`` are views of the engine's buffers, which the
+    next ``run_step`` overwrites.
     """
 
     def __init__(
@@ -159,16 +197,16 @@ class BatchEngine:
         n_devices: Optional[int] = None,
         case_devices: Optional[Sequence] = None,
     ):
-        if runner not in ("auto", "sharded"):
-            raise ValueError(f"unknown runner {runner!r}")
-        if runner == "auto" and (n_devices is not None or case_devices is not None):
+        if runner not in LOCKSTEP_RUNNERS:
+            raise ValueError(f"unknown runner {runner!r}; one of {LOCKSTEP_RUNNERS}")
+        if runner != "sharded" and (n_devices is not None or case_devices is not None):
             raise ValueError("n_devices / case_devices need runner='sharded'")
         if len(configs) != len(masks_yx):
             raise ValueError("configs and masks must align")
         self.configs = list(configs)
+        self.runner = runner
         if store_dev is None:
             store_dev = bool(configs[0]["simulation"].get("f16_state", False))
-        self._store_dev = bool(store_dev)
         sim0 = configs[0]["simulation"]
         self.ny, self.nx = int(sim0["ny"]), int(sim0["nx"])
         self.batch = len(configs)
@@ -186,32 +224,34 @@ class BatchEngine:
             lb = (self.batch + self._shard_pad) // len(mesh)
             # case i on device i // lb; the pad slots are the last ones, so
             # the last devices may hold pads only
-            self._case_device = [mesh[i // lb] for i in range(self.batch)]
             self._parts = [r for r in (range(d * lb, min((d + 1) * lb, self.batch))
                                        for d in range(len(mesh))) if len(r)]
+            part_devices = [mesh[r[0] // lb] for r in self._parts]
             self.device = mesh[0]
         else:
             self.device = resolve_device(device)
-            self._case_device = [self.device] * self.batch
+            self._parts = [range(self.batch)]
+            part_devices = [self.device]
         self.case_params = [
             make_params(c, m, dtype=dtype, device=self.device)
             for c, m in zip(configs, masks_yx)
         ]
         self.params = stack_params(self.case_params)
-        if self.mesh is not None:
-            self.case_params = [params_to(p, d)
-                                for p, d in zip(self.case_params, self._case_device)]
-        # the JAX lockstep engine's store_dev rule, once for the group (its
-        # cases share the grid, the layout and the obstacle scheme)
-        self._store_dev = resolve_store_dev(self.case_params[0], self._store_dev,
-                                            lockstep=True)
-        self._runners = [
-            resolve_runner(p, d, self._store_dev)
-            for p, d in zip(self.case_params, self._case_device)
-        ]
-        self._states: List[LBMState] = [
-            init_state(self.ny, self.nx, dtype, d) for d in self._case_device
-        ]
+        # the JAX lockstep engine's store_dev rule for this runner, once for
+        # the group (its cases share the grid, the layout and the scheme)
+        self._store_dev = resolve_store_dev(self.case_params[0], bool(store_dev),
+                                            lockstep=True, runner=runner)
+        # a group with temporal blocking requested keeps K3 a case; the CPU
+        # runs the group program's plain version under the pallas runner
+        fused = resolve_fuse(self.case_params[0])
+        self._groups = []
+        for part, d in zip(self._parts, part_devices):
+            params = [self.case_params[i] if d == self.device else params_to(self.case_params[i], d)
+                      for i in part]
+            on_card = d.type == "cuda"
+            program = not fused and (on_card or runner == "pallas")
+            self._groups.append(_Group(part, d, params, self.ny, self.nx, dtype,
+                                       self._store_dev, program, plain=not on_card))
         self._alive_np = np.ones((self.batch,), bool)
         self._pending = None  # a run_step(sync=False) monitor array not read yet
         self.last_monitors: Optional[Dict[str, np.ndarray]] = None
@@ -224,32 +264,36 @@ class BatchEngine:
         if self._pending is not None:
             # a dead case must not advance: read the flags it left behind
             self.sync_monitors(self._pending)
-        # every case's chunk is issued before any monitor is read, so the
-        # devices of a case mesh run concurrently
-        mons = [self._run_case(i, n) for i in range(self.batch)]
-        if self.mesh is None:
-            # ONE device-to-host transfer for all monitors of the chunk
-            packed = _pack(mons)
-        else:
-            # one transfer a device: each packs its own cases' monitors
-            packed = [_pack([mons[i] for i in part]) for part in self._parts]
+        # every group's chunk is issued before any monitor is read, so the
+        # devices of a case mesh run concurrently; each group's monitors are
+        # ONE array, so one device-to-host transfer a device
+        packs = [self._run_group(g, n) for g in self._groups]
+        packed = packs[0] if self.mesh is None else packs
         self._pending = packed
         if not sync:
             return packed
         return self.sync_monitors(packed)
 
-    def _run_case(self, i: int, n: int):
-        """Case i's chunk (alive) or the monitors of the state it keeps
-        (frozen): (force [2], max_v, stable) on its device."""
-        p = self.case_params[i]
-        if self._alive_np[i]:
-            self._states[i], mon = self._runners[i](self._states[i], p, n)
-            force, max_v = mon["force"], mon["max_v"]
-        else:
-            st = self._states[i]
-            force, max_v = obstacle_force(st.f_post, p), max_velocity(st.u)
-        return (force.reshape(2), max_v.reshape(()),
-                is_stable_device(force, max_v, self._states[i].step, p.warmup_steps))
+    def _run_group(self, g: _Group, n: int) -> torch.Tensor:
+        """Group ``g``'s chunk; returns its packed monitors on its device."""
+        alive = [bool(self._alive_np[i]) for i in g.idx]
+        if g.tables is not None:
+            g.state, _, packed = g.run(g.state, g.tables, alive, n, self._store_dev)
+            return packed
+        mons, st = [], g.state
+        for k, p in enumerate(g.case_params):
+            case = _case_state(st, k)
+            if alive[k]:
+                new, mon = g.runners[k](case, p, n)
+                for name in ("f", "f_post", "rho", "u"):
+                    getattr(case, name).copy_(getattr(new, name))
+                st.step[k] = new.step
+                force, max_v = mon["force"], mon["max_v"]
+            else:
+                force, max_v = obstacle_force(case.f_post, p), max_velocity(case.u)
+            mons.append((force.reshape(2), max_v.reshape(()),
+                         is_stable_device(force, max_v, int(st.step[k]), p.warmup_steps)))
+        return _pack(mons)
 
     def sync_monitors(self, packed_dev) -> Dict[str, np.ndarray]:
         """Fetch and unpack a run_step(sync=False) monitor array (a list of
@@ -268,28 +312,33 @@ class BatchEngine:
         self._alive_np &= out["stable"]
         return out
 
+    def _gathered(self, fn) -> torch.Tensor:
+        """``fn(group state)`` of every group, in batch order on ``device``."""
+        if len(self._groups) == 1:
+            return fn(self._groups[0].state)
+        return torch.cat([fn(g.state).to(self.device) for g in self._groups])
+
     @property
     def state(self) -> LBMState:
-        """The batched state ([B, ...] tensors, [B] int32 step), on
-        ``device``."""
-        return stack_states([self._on_device(s) for s in self._states])
-
-    def _on_device(self, st: LBMState) -> LBMState:
-        if st.f.device == self.device:
-            return st
-        return LBMState(f=st.f.to(self.device), f_post=st.f_post.to(self.device),
-                        rho=st.rho.to(self.device), u=st.u.to(self.device), step=st.step)
+        """The batched state ([B, ...] tensors on ``device``, a CPU int32 [B]
+        step)."""
+        return LBMState(
+            f=self._gathered(lambda s: s.f), f_post=self._gathered(lambda s: s.f_post),
+            rho=self._gathered(lambda s: s.rho), u=self._gathered(lambda s: s.u),
+            step=torch.cat([g.state.step for g in self._groups]),
+        )
 
     def set_state(self, state: LBMState, alive) -> None:
         """Restore engine state + alive flags (checkpoint resume)."""
-        self._states = []
-        for i in range(self.batch):
-            to = dict(device=self._case_device[i], dtype=self.dtype)
-            st = unstack_state(state, i)
-            self._states.append(LBMState(
-                f=st.f.to(**to), f_post=st.f_post.to(**to), rho=st.rho.to(**to),
-                u=st.u.to(**to), step=st.step,
-            ))
+        step = torch.as_tensor(state.step).to(torch.int32).cpu()
+        for g in self._groups:
+            idx = torch.tensor(g.idx)
+            to = dict(device=g.device, dtype=self.dtype)
+            new = {k: getattr(state, k)[idx.to(getattr(state, k).device)].to(**to)
+                   for k in ("f", "f_post", "rho", "u")}
+            for k, v in new.items():
+                getattr(g.state, k).copy_(v)
+            g.state = dataclasses.replace(g.state, step=step[idx].clone())
         self._alive_np = np.asarray(alive).astype(bool).copy()
         self._pending = None
 
@@ -299,14 +348,14 @@ class BatchEngine:
 
     def get_moments_device(self) -> torch.Tensor:
         """[B, 9, H, W] moments on the device (for on-device resize)."""
-        return torch.stack([moments_output(s).to(self.device) for s in self._states])
+        return self._gathered(lambda s: moments_batched(s))
 
     def get_moments(self) -> np.ndarray:
         return self.get_moments_device().cpu().numpy()
 
     def get_velocity_device(self) -> torch.Tensor:
         """[B, 2, H, W] velocity on the device (for the frame renderer)."""
-        return torch.stack([s.u.to(self.device) for s in self._states])
+        return self._gathered(lambda s: s.u)
 
 
 def _pack(mons) -> torch.Tensor:

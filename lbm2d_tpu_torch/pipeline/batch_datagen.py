@@ -35,7 +35,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..core.engine import resolve_device
+from ..core.engine import LOCKSTEP_RUNNERS, resolve_device
 from ..core.solver import LBMState
 from ..core.stability import check_stability
 from ..io import results_store, summary
@@ -636,7 +636,8 @@ def run_batched(
     names this worker in the claims and the Running entries.
 
     ``runner`` / ``n_devices``: the BatchEngine runner of every group
-    ("auto", or "sharded" over ``n_devices`` devices).
+    (``LOCKSTEP_RUNNERS``: "auto", "vmap", "pallas", or "sharded" over
+    ``n_devices`` devices; parallel/batch.py).
     """
     if reclaim_stale_s is not None and not coordinate:
         raise ValueError("--reclaim_stale requires --coordinate")
@@ -853,8 +854,11 @@ def main() -> None:
         "(group-granular; prior runs count)",
     )
     ap.add_argument(
-        "--runner", choices=("auto", "sharded"), default="auto",
-        help="batch execution strategy; 'sharded' spreads each group's cases "
+        "--runner", choices=LOCKSTEP_RUNNERS, default="auto",
+        help="batch execution strategy, the JAX BatchEngine's: each runs a "
+        "group's chunk as one program on the card; 'vmap' keeps exact f32 "
+        "(ignores --f16_state), 'pallas' takes --f16_state at any grid size "
+        "('auto' from 65,536 cells), 'sharded' spreads each group's cases "
         "over --n_devices devices (cross-card independent-case parallelism)",
     )
     ap.add_argument(

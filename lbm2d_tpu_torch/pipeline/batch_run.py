@@ -30,7 +30,7 @@ import threading
 import time
 from typing import Dict, List, Set, Tuple
 
-from ..core.engine import resolve_device
+from ..core.engine import LOCKSTEP_RUNNERS, resolve_device
 from ..io import results_store, summary
 from ..io.vectors import build_npz
 from ..utils.config import load_config
@@ -113,8 +113,8 @@ def run_batch(
     """
     if reclaim_stale_s is not None and not coordinate:
         raise ValueError("--reclaim_stale requires --coordinate")
-    if runner != "auto" and not lockstep:
-        raise ValueError(f"runner={runner!r} requires --lockstep")
+    if (runner != "auto" or n_devices is not None) and not lockstep:
+        raise ValueError(f"runner={runner!r} / n_devices={n_devices} require --lockstep")
     if f16_retry and not (lockstep and f16_state):
         # without lockstep + f16_state nothing runs in f16, so a silently
         # ignored --f16_retry would fake retry protection
@@ -343,6 +343,11 @@ def main() -> None:
     ap.add_argument("--f16_retry", action="store_true",
                     help="re-run cases that fail under --f16_state once in "
                     "exact f32 before recording them Failed")
+    ap.add_argument("--runner", choices=LOCKSTEP_RUNNERS, default="auto",
+                    help="the lockstep engine's runner (with --lockstep; "
+                    "batch_datagen --runner has the details)")
+    ap.add_argument("--n_devices", type=int, default=None,
+                    help="device count for --runner sharded (with --lockstep)")
     ap.add_argument("--spatial_mesh", default=None, metavar="RxC",
                     help="run each case spatially sharded over a device "
                     "mesh, e.g. '2x4' or 'auto' (most-square over all "
@@ -368,6 +373,7 @@ def main() -> None:
         f16_retry=args.f16_retry, adaptive_fetch=not args.no_adaptive_fetch,
         device=args.device, spatial_mesh=args.spatial_mesh,
         coordinate=args.coordinate, reclaim_stale_s=args.reclaim_stale,
+        runner=args.runner, n_devices=args.n_devices,
     )
 
 

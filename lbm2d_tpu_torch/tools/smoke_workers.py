@@ -14,7 +14,8 @@ engine.
 Both put the HDF5 writer on the in-memory stand-in where h5py is missing
 (``tools/smoke_case.use_memory_h5``) and save each case file's datasets
 they wrote beside it as ``<file>.npz``, so the parent can compare them.
-They count the kernels' launches (``ops/cuda_step.LAUNCHES``) and every
+They count the kernels' launches (``ops/cuda_step.LAUNCHES``, and the
+lockstep group's cases x steps, ``CASE_STEPS``) and every
 call of a plain version or of the eager step, and end with one line
 ``WORKER {json}``. A faulthandler tripwire ends a worker that hangs.
 """
@@ -77,6 +78,12 @@ def _launches() -> dict:
     return {k: v for k, v in cs.LAUNCHES.items() if v}
 
 
+def _case_steps() -> dict:
+    from ..ops import cuda_step as cs
+
+    return {k: v for k, v in cs.CASE_STEPS.items() if v}
+
+
 def run_batch_worker(args: dict) -> dict:
     """One batch CLI run (``args["argv"]``); the case files it wrote are
     dumped."""
@@ -91,7 +98,8 @@ def run_batch_worker(args: dict) -> dict:
     batch_run.main()
     t1 = time.time()
     _dump_h5(written)
-    return {"t0": t0, "t1": t1, "launches": _launches(), "plain_calls": counted}
+    return {"t0": t0, "t1": t1, "launches": _launches(), "case_steps": _case_steps(),
+            "plain_calls": counted}
 
 
 def run_multihost_worker(args: dict) -> dict:

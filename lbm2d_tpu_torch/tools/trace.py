@@ -19,12 +19,16 @@ kernel, and the host time by Python function (``cProfile`` over one chunk).
 ``lockstep``: the lockstep production command (``run_batch`` with the
 README's flags) on the sibling project of three cases, four times in one
 process: twice without profilers, cold and warm (set-up and wind-down
-against the group loop, ``run_summary.transfer.group_wall_s``); under a
-sampler of the main thread's stack (``MainThreadSampler``: its wall time
-by line of ``run_lockstep_group`` and by innermost function; cProfile
+against the group loop, ``run_summary.transfer.group_wall_s``; the warm
+run's library calls and kernel launches a chunk, ``cuda_build.CALLS`` and
+``cuda_step.LAUNCHES``); under a sampler of the main thread's stack
+(``MainThreadSampler``: its wall time by line of ``run_lockstep_group``
+and by innermost function, and the loop's lines by kind, ``LOOP_KINDS``:
+issuing the chunk, waiting on its monitors, host writes, fetches; cProfile
 would mix in the fetch, writer and encoder threads, which Python 3.12's
 profiler also sees); and under ``torch.profiler`` (the device's busy share
-of the group loop and the device time by kernel).
+of the group loop and the device time by kernel), the idle share beside
+the main thread's time by kind.
 
 With ``--out`` the tables also go to ``DIR/trace_<mode>.txt``. Without a
 CUDA device it exits non-zero.
@@ -107,6 +111,15 @@ class MainThreadSampler:
                 frame = frame.f_back
             self.by_line[line] += dt
 
+    def by_kind(self, loop_start: int, loop_end: int) -> collections.Counter:
+        """The time charged to the anchor's lines loop_start .. loop_end, by
+        ``loop_kind``."""
+        kinds = collections.Counter()
+        for line, t in self.by_line.items():
+            if line is not None and loop_start <= line <= loop_end:
+                kinds[loop_kind(linecache.getline(self.anchor.co_filename, line))] += t
+        return kinds
+
     def report(self, loop_start: int, loop_end: int, rows: int = 25) -> str:
         """Time by phase (set-up before ``loop_start``, the loop, wind-down
         after ``loop_end``, outside the anchor), the top lines of the
@@ -121,9 +134,30 @@ class MainThreadSampler:
         for line, t in self.by_line.most_common(rows):
             src = "(outside)" if line is None else linecache.getline(path, line).strip()
             out.append(f"  {t:8.3f} s  {line}: {src}")
+        out.append("main thread in the group loop by kind: " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in self.by_kind(loop_start, loop_end).most_common()))
         out.append("main thread by innermost function:")
         out += [f"  {t:8.3f} s  {name}" for name, t in self.by_leaf.most_common(rows)]
         return "\n".join(out)
+
+
+# the group loop's lines by what they do, matched on their source text in
+# order: issuing the chunk, waiting on its monitors, host writes of fetched
+# data, queueing and fetching saves and video frames
+LOOP_KINDS = (("issue", ("run_step(",)),
+              ("monitors", ("sync_monitors(",)),
+              ("writes", ("write_fetched(",)),
+              ("fetches", ("fetch", "get_moments_device(", "get_velocity_device(", "renderer(",
+                           "resizer(", "pending_moments.append", "pending_videos.append")))
+
+
+def loop_kind(src: str) -> str:
+    """The ``LOOP_KINDS`` kind of a source line of the group loop, or
+    "other"."""
+    for kind, marks in LOOP_KINDS:
+        if any(m in src for m in marks):
+            return kind
+    return "other"
 
 
 def loop_lines(fn, marker: str = "while steps < max_steps:"):
@@ -202,25 +236,41 @@ def trace_lockstep(config, mask, card: str) -> dict:
             raise RuntimeError(f"lockstep run {tag} did not succeed: {stats}")
         return wall, float(entry["run_summary"]["transfer"]["group_wall_s"])
 
+    from ..ops import cuda_build
+    from ..ops import cuda_step as cs
+
+    chunks = steps // int(config["simulation"]["compute_step_size"])
     lines = []
     for tag in ("cold", "warm"):
+        cuda_build.CALLS.clear()
+        cs.reset_launch_counts()
         wall, loop = run(tag)
         lines.append(
             f"[lockstep {tag}] wall {wall:.3f} s = {cells / wall / 1e6:.1f} MLUPS aggregate; "
             f"group loop {loop:.2f} s = {cells / loop / 1e6:.1f} MLUPS = "
             f"{loop / (cells / (H * W)) * 1e6:.1f} us per case-step; set-up and wind-down "
             f"{wall - loop:.3f} s [{card}]")
+    calls = {k: v / chunks for k, v in cuda_build.CALLS.items()}
+    launches = {k: v / chunks for k, v in cs.LAUNCHES.items() if v}
+    lines.append(f"[lockstep warm] a chunk of the group: {sum(calls.values()):g} library calls "
+                 f"{calls}, {sum(launches.values()):g} kernel launches {launches}")
     sampler = MainThreadSampler(run_lockstep_group)
-    wall, loop = run("sampled", sampler)
-    lines.append(f"[lockstep sampled] wall {wall:.3f} s, group loop {loop:.2f} s [{card}]")
-    lines.append(sampler.report(*loop_lines(run_lockstep_group)))
+    wall, loop_s = run("sampled", sampler)
+    lines.append(f"[lockstep sampled] wall {wall:.3f} s, group loop {loop_s:.2f} s [{card}]")
+    bounds = loop_lines(run_lockstep_group)
+    lines.append(sampler.report(*bounds))
     prof = torch.profiler.profile(activities=acts)
     wall, loop = run("torch_profiler", prof)
     dev_us = device_us(prof)
+    idle = 1.0 - dev_us / 1e6 / loop
     lines.append(
         f"[lockstep torch.profiler] wall {wall:.3f} s, group loop {loop:.2f} s; device busy "
         f"{dev_us / 1e6:.3f} s = {100 * dev_us / 1e6 / loop:.1f}% of the group loop, "
         f"{dev_us / (cells / (H * W)):.1f} us per case-step [{card}]")
+    lines.append(
+        f"[lockstep] device idle {100 * idle:.1f}% of the group loop; the main thread's share "
+        f"of its loop (sampled run, {loop_s:.2f} s) by kind: " + ", ".join(
+            f"{k} {100 * v / loop_s:.1f}%" for k, v in sorted(sampler.by_kind(*bounds).items())))
     text = "\n".join(lines + [
         prof.key_averages().table(sort_by="self_device_time_total", row_limit=20),
     ])

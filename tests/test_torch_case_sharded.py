@@ -91,8 +91,11 @@ def test_case_mesh_and_refusals():
     with pytest.raises(ValueError):
         case_mesh(3, devices=["cpu"])
     cfgs, masks = _configs(2)
+    # the JAX runner choices are accepted (tests/test_torch_group_chunk.py
+    # runs each); any other name is refused
     with pytest.raises(ValueError, match="runner"):
-        BatchEngine(cfgs, masks, device="cpu", runner="vmap")
+        BatchEngine(cfgs, masks, device="cpu", runner="lockstep")
+    assert BatchEngine(cfgs, masks, device="cpu", runner="vmap").runner == "vmap"
     with pytest.raises(ValueError, match="sharded"):
         BatchEngine(cfgs, masks, device="cpu", n_devices=2)
     # a case mesh is never wider than the batch

@@ -246,3 +246,38 @@ def test_concurrent_stealers_leave_one_owner(tmp_path):
     outs = [p.communicate(timeout=60)[0].strip() for p in procs]
     assert sorted(outs).count("WON") == 1, outs
     assert [f for f in os.listdir(os.path.join(plots, ".claims"))] == ["x.yaml.claim"]
+
+
+def test_workers_building_the_npz_at_once_leave_a_whole_file(tmp_path):
+    # --coordinate workers that finish together each build the project's
+    # NPZ; the port writes a temporary file and renames it, so the path
+    # always holds a whole archive (writing the path itself, one worker
+    # truncated it while another wrote it)
+    import threading
+
+    import numpy as np
+
+    from lbm2d_tpu_torch.io.vectors import build_npz
+
+    summary = tmp_path / "all_cases_summary.json"
+    summary.write_text(json.dumps([{"case_name": f"c{i}", "status": "Failed"}
+                                   for i in range(200)]))
+    out = str(tmp_path / "all_cases_vectors.npz")
+    errors = []
+
+    def build():
+        try:
+            for _ in range(10):
+                build_npz(str(summary), out)
+        except Exception as exc:  # noqa: BLE001 -- reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=build) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors
+    with np.load(out, allow_pickle=True) as z:
+        assert len(z["case_names"]) == 200
+    assert sorted(os.listdir(tmp_path)) == ["all_cases_summary.json", "all_cases_vectors.npz"]

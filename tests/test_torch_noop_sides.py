@@ -403,5 +403,8 @@ def test_engines_run_a_no_op_layout_on_card(caplog):
         f = st.f[0] if st.f.dim() == 4 else st.f
         assert torch.equal(f, ref.f)
         launched = {k for k, v in cs.LAUNCHES.items() if v}
+        # the lockstep engine's chunk is the group program (K1's _group
+        # instances and the group monitor kernel)
         assert launched in ({"k1_step", "k1_step_full"},
-                            {"k1_step_shard", "k1_step_shard_full"}), launched
+                            {"k1_step_shard", "k1_step_shard_full"},
+                            {"k1_step_group", "k1_step_group_full", "group_monitors"}), launched

@@ -9,7 +9,7 @@ import threading
 import time
 
 from lbm2d_tpu_torch.pipeline.batch_datagen import run_lockstep_group
-from lbm2d_tpu_torch.tools.trace import MainThreadSampler, loop_lines
+from lbm2d_tpu_torch.tools.trace import MainThreadSampler, loop_kind, loop_lines
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -56,3 +56,21 @@ def test_trace_refuses_to_run_without_a_card():
     r = subprocess.run([sys.executable, "-m", "lbm2d_tpu_torch.tools.trace"], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode != 0 and "no CUDA device" in r.stderr
+
+
+def test_loop_kinds_cover_the_group_loop():
+    # the idle split's kinds: every line of the loop that issues the chunk,
+    # waits on its monitors, writes or fetches is named so
+    import linecache
+
+    first, last = loop_lines(run_lockstep_group)
+    path = run_lockstep_group.__code__.co_filename
+    kinds = {}
+    for n in range(first, last + 1):
+        src = linecache.getline(path, n)
+        kinds.setdefault(loop_kind(src), []).append(src.strip())
+    assert any("engine.run_step(chunk" in s for s in kinds["issue"])
+    assert any("engine.sync_monitors(" in s for s in kinds["monitors"])
+    assert any("write_fetched(" in s for s in kinds["writes"])
+    assert any("start_fetch()" in s for s in kinds["fetches"])
+    assert loop_kind("steps += chunk") == "other"
