@@ -30,7 +30,9 @@ Phases (any failure raises and the process exits non-zero):
    developed state, with each variant's time, bound, registers per thread
    and host issue per launch; then a 20-step ``run_chunk_cuda``
    against the eager ``run_chunk`` and, with ``store_dev``, against its
-   plain version: max relative error (max |a - b| / max |b|) <= 1e-5 each;
+   plain version: max relative error (max |a - b| / max |b|) <= 1e-5 each
+   (the force, the monitor kernel's float64 sum: within 5e-6 of max(1,
+   |F|) of the eager force in float64);
    the ``store_dev`` chunk within the JAX package's 5e-4 budget of the
    exact chunk (and > 0) under that budget test's conditions; then
    ``run_chunk_cuda`` chunks (a chunk's fast steps in one call of the
@@ -92,7 +94,8 @@ Phases (any failure raises and the process exits non-zero):
 6. drive the serial main path of phase 3 again with temporal blocking on
    (``cuda_step._FUSE_STEPS = 4``, opt-in, as the JAX package's
    ``_FUSE_STEPS``): check Success, finite moments, mean jx > 0, Fx > 0,
-   the launch counts (k3_fused 720, k1_step 90, k1_step_full 30) and no
+   the launch counts (k3_fused 720, k1_step 90, k1_step_full 30,
+   group_monitors 30) and no
    plain call, and its final f against phase 3's
    (bitwise expected; gated at the relative tolerance); print its
    kernel-path and wall MLUPS beside phase 3's and the chunk's device
@@ -155,8 +158,8 @@ Phases (any failure raises and the process exits non-zero):
    in each loop (CUDA graphs), one block's K1 alone and ``exchange_halos``
    timed, the per-chunk cost of what is still gathered (the closing f_post
    into the global f_post) and of the chunk's monitors. Every ``_shard``
-   variant is launched in phase 8, one K1 launch a block a step and no
-   other launch;
+   variant is launched in phase 8, one K1 launch a block a step, and one
+   monitor launch a chunk (the global f_post's links and the blocks' u);
 9. drive the multi-worker and multi-process paths, each worker an OS
    process (``lbm2d_tpu_torch/tools/smoke_workers.py``, hard time limit)
    on sibling cases of the smoke case (nu 0.02, 0.03, 0.04, 0.05): (a) two
@@ -203,7 +206,7 @@ Phases (any failure raises and the process exits non-zero):
    in this process: the 1024^2 demo cylinder, 8 warm-up chunks and three
    windows of 20 chunks of 500 steps, then the 40-step guard against the
    eager step (1e-5); print its one JSON line, and check the line's keys
-   and metric, k1_step 68 x 499 + 39 and k1_step_full 68 + 1 launches (the
+   and metric, k1_step 68 x 499 + 39, k1_step_full and group_monitors 68 + 1 launches (the
    timed chunks and the guard's chunk) and no plain call but the guard's
    40 eager steps; then a whole chunk's and one K1 step's device time
    (CUDA graphs) beside the bytes bound;
@@ -250,8 +253,9 @@ the driven paths, split in ``launches_by_path``, phase 3's store_dev
 kernel-path turns under ``serial_dev``, phase 9's under
 ``coord``, ``coord_lock``, ``case_sharded`` and ``multihost``, phase 10's under
 ``quickstart`` and ``quickstart_trace``, phase 11's under ``bench``, phase
-12's under ``suite``, phase 13's under ``noop``, phase 14's under ``group``)
-and ``{"ok": true,
+12's under ``suite``, phase 13's under ``noop``, phase 14's under ``group``;
+the monitor kernel's also summed by chunk path in ``launches_by_chunk_path``:
+serial, DFG, sharded, lockstep) and ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or without the package beside
 this script, it exits non-zero and prints no result.
 """
@@ -547,7 +551,8 @@ def phase9(config, mask, f_serial, force8c, h5_8c, counted, card):
     max_steps = int(config["simulation"]["max_steps"])
     chunk = int(config["simulation"]["compute_step_size"])
     chunks = max_steps // chunk
-    per_case = {"k1_step": chunks * (chunk - 1), "k1_step_full": chunks}
+    per_case = {"k1_step": chunks * (chunk - 1), "k1_step_full": chunks,
+                "group_monitors": chunks}
     n = len(COORD_NUS)
     by_path = {}
 
@@ -708,7 +713,8 @@ def phase9(config, mask, f_serial, force8c, h5_8c, counted, card):
             recs, wall = spawn_workers("multihost", args)
             mh_records.extend(r for r, _ in recs)
             left = (max_steps - start) // chunk
-            want = {"k1_step_shard": left * (chunk - 1), "k1_step_shard_full": left}
+            want = {"k1_step_shard": left * (chunk - 1), "k1_step_shard_full": left,
+                    "group_monitors": left}
             for r, out in recs:
                 if r["status"] != "Success" or not r.get("multihost"):
                     raise AssertionError(f"9(d): rank {r['rank']}: {r['status']} ({r['reason']})")
@@ -1020,16 +1026,18 @@ def phase11(counted, card):
     n, chunk = 1024, 500
     chunks = 8 + 3 * 20
     # the timed chunks, then the guard's chunk; the guard's eager reference
-    # is the one plain call
-    want = {"k1_step": chunks * (chunk - 1) + bench.GUARD_STEPS - 1, "k1_step_full": chunks + 1}
+    # (its steps and its monitors) is the one plain call
+    want = {"k1_step": chunks * (chunk - 1) + bench.GUARD_STEPS - 1, "k1_step_full": chunks + 1,
+            "group_monitors": chunks + 1}
     print(f"    {chunks * chunk} steps and the guard in {wall:.2f} s; guard max |f_k - f_e| / "
           f"max |f_e| = {res.guard_rel:.3e} (tolerance {bench.GUARD_TOL:g}); launches "
           f"{({k: v for k, v in launches.items() if v})}, plain calls {counted}", flush=True)
     if {k: v for k, v in launches.items() if v} != want:
         raise AssertionError(f"bench: launches {launches} (want {want})")
-    if {k: v for k, v in counted.items() if v} != {"step": bench.GUARD_STEPS}:
+    if {k: v for k, v in counted.items() if v} != {"step": bench.GUARD_STEPS,
+                                                   "obstacle_force": 1, "max_velocity": 1}:
         raise AssertionError(f"bench: plain calls {counted} (want only the guard's "
-                             f"{bench.GUARD_STEPS} eager steps)")
+                             f"{bench.GUARD_STEPS} eager steps and its eager monitors)")
     if res.state.step != chunks * chunk or not res.guard_rel < bench.GUARD_TOL:
         raise AssertionError(f"bench: step {res.state.step}, guard {res.guard_rel}")
     # where the bench's time goes: a whole chunk's device time (a CUDA graph
@@ -1112,6 +1120,9 @@ def phase12(mask, counted, card, engines, exact_state):
         fast = scheme[m["obstacle"]]
         want[fast] = want.get(fast, 0) + SUITE_STEPS // chunk * (chunk - 1)
         want[fast + "_full"] = want.get(fast + "_full", 0) + SUITE_STEPS // chunk
+        # a chunk's monitors and the cylinder's force: two monitor launches
+        mon = "group_monitors" + ("_bouzidi" if fast == "k1_step_bouzidi" else "")
+        want[mon] = want.get(mon, 0) + 2 * (SUITE_STEPS // chunk)
     if {k: v for k, v in launches.items() if v} != want or any(counted.values()):
         raise AssertionError(f"suite: launches {launches} (want {want}), plain calls {counted}")
     walls = ", ".join(format(r["wall_s"], ".2f") for r in rows)
@@ -1188,7 +1199,8 @@ def phase13(config, mask, counted, card):
           f"mean jx {jx:.4e}, max |u| {engine.get_max_velocity():.4f}; launches "
           f"{({k: v for k, v in launches.items() if v})}, plain calls {counted} [{card}]",
           flush=True)
-    want = {"k1_step": steps - NOOP_CHUNKS, "k1_step_full": NOOP_CHUNKS}
+    want = {"k1_step": steps - NOOP_CHUNKS, "k1_step_full": NOOP_CHUNKS,
+            "group_monitors": NOOP_CHUNKS}
     if md["status"] != "Success" or len(checked) != NOOP_CHUNKS:
         raise AssertionError(f"[13] {md['status']}: {md['reason']}, {len(checked)} chunks")
     if mom.shape != (9, H, W) or not np.isfinite(mom).all() or not jx > 0:
@@ -2066,11 +2078,53 @@ def main() -> int:
             out.append((force, max_v, is_stable_device(force, max_v, step, pk.warmup_steps)))
         return out
 
+    # the monitor kernel in each of its forms, bitwise its plain version,
+    # the force within 5e-6 of max(1, |F|) of the eager force in float64
+    # and max_v bitwise the eager max_velocity, a NaN in u kept: a group of
+    # GROUP_B with a case dead, a group of one (the serial chunk's), the
+    # DFG override mask's force alone (the smoke mask without its first and
+    # last rows, the DFG path's walls-excluded form) and a card's blocks of
+    # a 2x2 mesh (the window links of each block on their halo'd planes,
+    # one launch); each timed beside its plain version, the eager monitors
+    # (``library_ms``) and its bound
+    cyl2 = p.mask.clone()
+    cyl2[0, :] = 0.0
+    cyl2[-1, :] = 0.0
+
+    def f64_err(force, f_post, pk, mask=None):
+        """|force - the eager force in float64| / max(1, |F|)."""
+        q64 = None if pk.bouzidi_q is None else pk.bouzidi_q.double()
+        f64 = solver.obstacle_force(f_post.double(), dataclasses.replace(pk, bouzidi_q=q64),
+                                    mask=mask).cpu()
+        err = float((force.double().cpu() - f64).abs().max()) / max(1.0, float(f64.abs().max()))
+        if err > 5e-6:
+            raise AssertionError(f"monitor force {force.tolist()} vs the eager force in float64 "
+                                 f"{f64.tolist()}: {err:.3e} > 5e-6")
+        return err
+
+    def same_bits(tag, a, b):
+        if not torch.equal(bits(a), bits(b)):
+            raise AssertionError(f"{tag}: not bitwise equal to its plain version: "
+                                 f"{a.tolist()} vs {b.tolist()}")
+
+    def mon_bound(cells, n_link, obst):
+        """(bytes, ops) of a monitor launch: u read once, each link's index
+        and the populations its term reads."""
+        bz = obst == cs.OBSTACLE_BOUZIDI
+        return 8 * cells + (20 if bz else 8) * n_link, 4 * cells + (14 if bz else 3) * n_link
+
+    def form_record(ms_call, plain_call, eager_call, nbytes, ops, err):
+        return {"ms": graph_ms(ms_call), "plain_ms": median_ms(plain_call, batches=5,
+                                                               per_batch=2)[0],
+                "library_ms": graph_ms(eager_call), "bound_ms": bound_ms(nbytes, ops)[0],
+                "force_vs_eager_f64": err}
+
+    mon_forms = {}
     for obst in (cs.OBSTACLE_EQ, cs.OBSTACLE_BOUZIDI):
         name = cs.monitor_variant(obst)
         g = group_of(p, obst)
-        n_links_g = sum(int(x.numel()) for x in g.links_host)
-        errs = {}
+        n_links_g = sum(int(x.numel()) for x in g.mon.links_host)
+        errs, eager_errs = {}, {}
         for later in (False, True):
             ka, kal = cs.group_monitors(fpG, uG, g, one_dead, [later] * GROUP_B)
             pa, pal = cs.group_monitors_plain(fpG, uG, g, one_dead, [later] * GROUP_B)
@@ -2078,15 +2132,10 @@ def main() -> int:
             if not (torch.equal(bits(ka), bits(pa)) and torch.equal(kal, pal)):
                 raise AssertionError(f"{name} later={later}: not bitwise equal to its plain "
                                      f"version: {ka.tolist()} vs {pa.tolist()}")
-            g64 = [dataclasses.replace(pk, bouzidi_q=None if pk.bouzidi_q is None
-                                       else pk.bouzidi_q.double()) for pk in g.cases]
-            for c, pk in enumerate(g64):
-                f64 = solver.obstacle_force(fpG[c].double(), pk).cpu().numpy()
-                dforce = float(np.abs(ka[2 * c:2 * c + 2].double().cpu().numpy() - f64).max())
-                if dforce > 5e-6 * max(1.0, float(np.abs(f64).max())):
-                    raise AssertionError(f"{name}: case {c} force {ka[2 * c:2 * c + 2].tolist()} "
-                                         f"vs the eager force in float64 {f64.tolist()}")
-                errs[f"{name} later={later} case {c} force"] = dforce
+            errs[f"{name} later={later}"] = 0.0  # bitwise its plain version
+            for c, pk in enumerate(g.cases):
+                eager_errs[f"{name} later={later} case {c} force"] = f64_err(
+                    ka[2 * c:2 * c + 2], fpG[c], pk)
             for c, (force, max_v, stable) in enumerate(eager_monitors(g, fpG, uG, later)):
                 if not torch.equal(ka[2 * GROUP_B + c], max_v.reshape(())) or (
                         bool(ka[3 * GROUP_B + c] > 0.5) != bool(stable)):
@@ -2100,22 +2149,91 @@ def main() -> int:
         if not (torch.isnan(ka[2 * GROUP_B + 3]) and ka[3 * GROUP_B + 3] == 0 and not kal[3]
                 and bool(kal[0])):
             raise AssertionError(f"{name}: a NaN in u not read as unstable: {ka.tolist()}")
-        # u read once, each link's index and the populations its term reads
-        nbytes = GROUP_B * 8 * H * W + (8 if obst == cs.OBSTACLE_EQ else 20) * n_links_g
-        ops = GROUP_B * 4 * H * W + (3 if obst == cs.OBSTACLE_EQ else 14) * n_links_g
+        nbytes, ops = mon_bound(GROUP_B * H * W, n_links_g, obst)
         group_work[name] = (nbytes, ops)
         records[name] = record(
-            max(errs.values()), errs,
+            0.0, errs,
             lambda: cs.group_monitors(fpG, uG, g, all_alive, [True] * GROUP_B),
             lambda: cs.group_monitors_plain(fpG, uG, g, all_alive, [True] * GROUP_B),
             nbytes, ops, regs_m.get(obst == cs.OBSTACLE_BOUZIDI))
         records[name]["library_ms"] = graph_ms(lambda: eager_monitors(g, fpG, uG, True))
         records[name]["timed_as"] = f"one launch over {GROUP_B} cases of {H}x{W}"
-        print(f"  {name:<30s} bitwise its plain version, the force within "
-              f"{max(errs.values()):.2e} of the eager force in float64, max_v and stable equal "
-              f"to the eager monitors, a NaN in u unstable; {n_links_g} links; "
-              f"{records[name]['ms'] * 1e3:.1f} us over {GROUP_B} cases, the eager monitors "
-              f"{records[name]['library_ms'] * 1e3:.1f} us [{card}]", flush=True)
+        records[name]["force_vs_eager_f64"] = max(eager_errs.values())
+        forms = {"group": {k: records[name][k] for k in ("ms", "plain_ms", "library_ms")}
+                 | {"bound_ms": records[name]["bound"][0],
+                    "force_vs_eager_f64": max(eager_errs.values())}}
+
+        # a group of one: the serial chunk's monitors
+        pk = g.cases[0]
+        cl = cs.case_links(pk)
+        n_l = int(cl.mon.links_host[0].numel())
+        fp1, u1 = fpG[0], uG[0]
+        km = cs.case_monitors(fp1, u1, cl)
+        pm = cs.case_monitors_plain(fp1, u1, cl)
+        torch.cuda.synchronize()
+        same_bits(f"{name} one case force", km["force"], pm["force"])
+        if not torch.equal(km["max_v"], solver.max_velocity(u1)):
+            raise AssertionError(f"{name} one case: max_v differs from the eager max_velocity")
+        err1 = f64_err(km["force"], fp1, pk)
+        km = cs.case_monitors(fp1, uN[3], cl)
+        torch.cuda.synchronize()
+        if not torch.isnan(km["max_v"]):
+            raise AssertionError(f"{name} one case: a NaN in u not kept")
+        forms["case"] = form_record(
+            lambda: cs.case_monitors(fp1, u1, cl), lambda: cs.case_monitors_plain(fp1, u1, cl),
+            lambda: (solver.obstacle_force(fp1, pk), solver.max_velocity(u1)),
+            *mon_bound(H * W, n_l, obst), err1)
+
+        # the DFG override mask's force alone (no u read)
+        clm = cs.CaseLinks(pk, mask=cyl2)
+        n_m = int(clm.mon.links_host[0].numel())
+        kf, pf = cs.case_force(fp1, clm), cs.case_force_plain(fp1, clm)
+        torch.cuda.synchronize()
+        same_bits(f"{name} DFG override mask force", kf, pf)
+        forms["dfg_mask"] = form_record(
+            lambda: cs.case_force(fp1, clm), lambda: cs.case_force_plain(fp1, clm),
+            lambda: solver.obstacle_force(fp1, pk, mask=cyl2), *mon_bound(0, n_m, obst),
+            f64_err(kf, fp1, pk, mask=cyl2))
+
+        # a card's blocks of a 2x2 mesh: each block's window links (the
+        # scheme's rule) on its halo'd f_post, the seams' halos refreshed,
+        # the blocks' sums added in block order
+        q22 = cut(pk.bouzidi_q) if obst == cs.OBSTACLE_BOUZIDI else None
+        bm = sh.BlockMonitors(pk, mesh22, hl2, wl2, pitch2, q22, per_card=True)
+        bsm = sh.BlockState.place(dataclasses.replace(state, f_post=fp1, u=u1), mesh22, halo=1,
+                                  pitch=pitch2)
+        kb = sh.kernel_block_monitors(bsm, bm)
+        pb = sh.kernel_block_monitors(bsm, bm, plain=True)
+        torch.cuda.synchronize()
+        same_bits(f"{name} 2x2 blocks force", kb["force"], pb["force"])
+        if not torch.equal(kb["max_v"], solver.max_velocity(u1)):
+            raise AssertionError(f"{name} 2x2 blocks: max_v differs from the eager max_velocity")
+        errb = f64_err(kb["force"], fp1, pk)
+        ml22 = bm.cards[dev][0]
+        table22 = bm.table(bsm, dev)
+        n_b = sum(int(x.numel()) for x in ml22.links_host)
+        forms["blocks_2x2"] = form_record(
+            lambda: cs.launch_monitors(ml22, [0] * 10, table=table22, bouzidi=bm.bouzidi,
+                                       cells=hl2 * wl2),
+            lambda: sh.kernel_block_monitors(bsm, bm, plain=True),
+            lambda: (solver.obstacle_force(fp1, pk), solver.max_velocity(u1)),
+            *mon_bound(H * W, n_b, obst), errb)
+        bsN = sh.BlockState.place(dataclasses.replace(state, f_post=fp1, u=uN[3]), mesh22,
+                                  halo=1, pitch=pitch2)
+        kbN = sh.kernel_block_monitors(bsN, bm)
+        torch.cuda.synchronize()
+        if not torch.isnan(kbN["max_v"]):
+            raise AssertionError(f"{name} 2x2 blocks: a NaN in u not kept")
+        del bsm, bsN
+        records[name]["forms"] = forms
+        mon_forms[name] = forms
+        text = "; ".join(f"{k} {v['ms'] * 1e3:.1f} us (bound {v['bound_ms'] * 1e3:.1f}, eager "
+                         f"{v['library_ms'] * 1e3:.1f}, force {v['force_vs_eager_f64']:.2e} off "
+                         f"the float64 eager)" for k, v in forms.items())
+        print(f"  {name:<30s} each form bitwise its plain version, max_v equal to the eager "
+              f"max_velocity, a NaN in u kept (a group: unstable); {n_links_g} links over "
+              f"{GROUP_B} cases, {n_l} a case, {n_m} of the override mask, {n_b} in the 4 "
+              f"blocks' windows; {text} [{card}]", flush=True)
     del fG, fpG, uG, fqG, prevG
 
     missing = set(cs.KERNEL_VARIANTS) - set(records)
@@ -2128,7 +2246,10 @@ def main() -> int:
     torch.cuda.synchronize()
     for k in ("f", "f_post", "rho", "u"):
         check(f"run_chunk_cuda(20) {k}", rel_err(getattr(sk, k), getattr(se, k)))
-    check("run_chunk_cuda(20) force", rel_err(mk["force"], me["force"]))
+    # the force is the monitor kernel's f64 sum: within 5e-6 of max(1, |F|)
+    # of the eager force in float64; max_v the same reduction, bitwise
+    print(f"  {'run_chunk_cuda(20) force':<34s} {f64_err(mk['force'], sk.f_post, p):.3e} off "
+          f"the eager force in float64 (tol 5e-6 of max(1, |F|))", flush=True)
     check("run_chunk_cuda(20) max_v", rel_err(mk["max_v"], me["max_v"]))
     # the same chunk in deviation storage against its plain version, on the
     # developed state
@@ -2225,8 +2346,10 @@ def main() -> int:
             exact(f"chunk loop {tag} {k}", ma_[k], mb_[k])
             exact(f"chunk loop {tag} vs plain {k}", ma_[k], mc_[k])
             exact(f"mesh loop {tag} vs plain {k}", md_[k], mc_[k])
-        want_m = {"k1_step_shard": 4 * (LOOP_N - 1), "k1_step_shard_full": 4}
-        if la != lb or la != {"k1_step": LOOP_N - 1, "k1_step_full": 1} or lm != want_m:
+        want_m = {"k1_step_shard": 4 * (LOOP_N - 1), "k1_step_shard_full": 4,
+                  "group_monitors": 1}
+        if la != lb or la != {"k1_step": LOOP_N - 1, "k1_step_full": 1,
+                              "group_monitors": 1} or lm != want_m:
             raise AssertionError(f"{tag}: launches {la}, per-step {lb}, mesh {lm}")
         print(f"  {tag}: run_chunk_cuda({LOOP_N}) = per-step wrappers = run_chunk_plain, and "
               f"the 2x2 mesh's library loop = run_chunk_plain: f, f_post, rho, u, force, max_v "
@@ -2337,7 +2460,13 @@ def main() -> int:
     for mod, attr in ((solver, "step"), (cs, "k1_step_plain"), (cs, "k1_step_dev_plain"),
                       (cs, "k3_fused_plain"), (sh, "local_step")):
         counting(mod, attr)
+    # from here on an eager monitor on a CUDA tensor counts as a plain call
+    # (every chunk path's monitors are the monitor kernel's launches); this
+    # script's own comparisons call the unwatched functions
+    eager = smoke_case.watch_eager_monitors(counted)
+    eager_force, eager_max_v = eager["obstacle_force"], eager["max_velocity"]
     serial_kernels = ("k1_step", "k1_step_full")
+    chunk = int(config["simulation"]["compute_step_size"])
 
     def per_step(counts, steps):
         """Kernel launches per lattice step, and the names launched."""
@@ -2364,8 +2493,9 @@ def main() -> int:
           f"{per_step(launches, max_steps)}", flush=True)
     if md["status"] != "Success":
         raise AssertionError(f"main path ended {md['status']}: {md['reason']}")
-    if ({k for k, v in launches.items() if v} != set(serial_kernels)
-            or sum(launches.values()) != max_steps or any(counted.values())):
+    if ({k for k, v in launches.items() if v} != set(serial_kernels) | {"group_monitors"}
+            or sum(launches[k] for k in serial_kernels) != max_steps
+            or launches["group_monitors"] != max_steps // chunk or any(counted.values())):
         raise AssertionError(f"main path did not run on the kernels: {launches}, {counted}")
     if not sink.frames:
         raise AssertionError("no moment frames were written")
@@ -2393,7 +2523,6 @@ def main() -> int:
 
     # steady chunk rate of the kernel path alone: host-paced us/step (CUDA
     # events around 5 chunks) and the host's time to issue them
-    chunk = int(config["simulation"]["compute_step_size"])
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
 
@@ -2436,25 +2565,35 @@ def main() -> int:
     us_dev3, text_dev3 = two_turns(dev_chunk)
     torch.cuda.synchronize()
     launches3d = dict(cs.LAUNCHES)
-    if {k for k, v in launches3d.items() if v} != {"k1_step_dev", "k1_step_full"}:
+    if {k for k, v in launches3d.items() if v} != {"k1_step_dev", "k1_step_full",
+                                                    "group_monitors"}:
         raise AssertionError(f"the store_dev chunks launched {launches3d}")
     print(f"    kernel path, store_dev, two turns: {text_dev3} = {H * W / us_dev3:.1f} MLUPS; one "
           f"step's device time {records['k1_step_dev']['ms'] * 1e3:.1f} us (k1_step_dev in a "
           f"CUDA graph) [{card}]", flush=True)
     # a whole chunk's device time, kernels, monitors and the chunk's own
     # copies included (run_chunk_cuda replayed from a CUDA graph), and what
-    # the monitors (force, max |u|) take of it and of the host
+    # the monitors (force, max |u|: one launch of the monitor kernel) take
+    # of it and of the host, beside the eager ops they replace
+    cl3 = cs.case_links(p)
+
     def monitors3():
-        return solver.obstacle_force(s3.f_post, p), solver.max_velocity(s3.u)
+        return cs.case_monitors(s3.f_post, s3.u, cl3)
+
+    def eager3():
+        return eager_force(s3.f_post, p), eager_max_v(s3.u)
 
     chunk3_us = {sd: graph_ms(lambda sd=sd: cs.run_chunk_cuda(s3, p, chunk, store_dev=sd),
                               per_graph=2, replays=3) * 1e3 / chunk for sd in (False, True)}
     mon3_us = graph_ms(monitors3, per_graph=4) * 1e3
     mon3_host = median_ms(monitors3, batches=5, per_batch=4)[1] * 1e3
+    eager3_us = graph_ms(eager3, per_graph=4) * 1e3
+    eager3_host = median_ms(eager3, batches=5, per_batch=4)[1] * 1e3
     print(f"    a whole chunk's device time (run_chunk_cuda in a CUDA graph): f32 "
           f"{chunk3_us[False]:.1f} us/step, store_dev {chunk3_us[True]:.1f} us/step; of it the "
-          f"monitors {mon3_us:.1f} us a chunk = {mon3_us / chunk:.1f} us/step (their host issue "
-          f"{mon3_host:.1f} us a chunk) [{card}]", flush=True)
+          f"monitors {mon3_us:.1f} us a chunk = {mon3_us / chunk:.2f} us/step (their host issue "
+          f"{mon3_host:.1f} us a chunk; the eager monitors they replace {eager3_us:.1f} us, "
+          f"issued in {eager3_host:.1f} us) [{card}]", flush=True)
 
     # -- phase 4: the lockstep production path ------------------------------
     from lbm2d_tpu_torch.pipeline.batch_run import run_batch
@@ -2541,11 +2680,17 @@ def main() -> int:
     engines = []
 
     class RecordingEngine(LBMEngine):
-        """LBMEngine that keeps a handle on itself for the checks below."""
+        """LBMEngine that keeps a handle on itself for the checks below,
+        and the host clock at the start of each chunk."""
 
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
+            self.chunk_starts = []
             engines.append(self)
+
+        def run_step(self, steps=1):
+            self.chunk_starts.append(time.perf_counter())
+            return super().run_step(steps)
 
     dfg_validation.LBMEngine = RecordingEngine
     print(f"[5] DFG-2D validation path: run_validation({DFG_RUN}, device='cuda')", flush=True)
@@ -2562,6 +2707,14 @@ def main() -> int:
     print(f"    {H5}x{W5}, {res['steps']} steps in {wall5:.2f} s = {wall5 / res['steps'] * 1e6:.1f} "
           f"us/step = {res['steps'] * H5 * W5 / wall5 / 1e6:.1f} MLUPS wall (force, monitors and "
           f"breaker per chunk included) [{card}]", flush=True)
+    # the loop alone: chunk start to chunk start (each chunk's device time,
+    # its force and monitor reads and the host's work between), without
+    # the run's set-up and analysis
+    starts5 = eng.chunk_starts
+    loop5 = (starts5[-1] - starts5[0]) * 1e6 / ((len(starts5) - 1) * DFG_RUN["chunk"])
+    print(f"    the loop alone {loop5:.1f} us/step (chunk start to chunk start over "
+          f"{len(starts5)} chunks); set-up and analysis "
+          f"{wall5 - (starts5[-1] - starts5[0]):.2f} s of the run [{card}]", flush=True)
     print(f"    launches {({k: v for k, v in launches5.items() if v})}, plain calls {counted}; "
           f"{per_step(launches5, res['steps'])}", flush=True)
     # one fast step's device time on the developed flow (a CUDA graph)
@@ -2577,21 +2730,32 @@ def main() -> int:
           f"graph) against {wall5 / res['steps'] * 1e6:.1f} us/step on the path [{card}]",
           flush=True)
     # the monitors of a DFG chunk: the chunk's own (Bouzidi force, max |u|)
-    # and run_validation's force on the cylinder alone, then its reads
+    # and run_validation's force on the cylinder alone, two launches of the
+    # monitor kernel; their device time and the host's issue, beside the
+    # eager ops they replace
     cyl5 = torch.as_tensor(eng.params.mask.cpu().numpy().copy(), device=dev)
     cyl5[0, :] = 0.0
     cyl5[-1, :] = 0.0
+    cl5, clm5 = cs.case_links(p5), cs.CaseLinks(p5, mask=cyl5)
+
     def monitors5():
-        return (solver.obstacle_force(eng.state.f_post, p5), solver.max_velocity(eng.state.u),
-                solver.obstacle_force(eng.state.f_post, p5, mask=cyl5))
+        return (cs.case_monitors(eng.state.f_post, eng.state.u, cl5),
+                cs.case_force(eng.state.f_post, clm5))
+
+    def eager5():
+        return (eager_force(eng.state.f_post, p5), eager_max_v(eng.state.u),
+                eager_force(eng.state.f_post, p5, mask=cyl5))
 
     chunk5_us = graph_ms(lambda: cs.run_chunk_cuda(eng.state, p5, DFG_RUN["chunk"]),
                          per_graph=1, replays=3) * 1e3 / DFG_RUN["chunk"]
+    mon5_dev = graph_ms(monitors5, per_graph=4) * 1e3
     mon5_host = median_ms(monitors5, batches=5, per_batch=4)[1] * 1e3
+    eager5_host = median_ms(eager5, batches=5, per_batch=4)[1] * 1e3
     print(f"    a whole chunk's device time {chunk5_us:.1f} us/step (run_chunk_cuda in a CUDA "
-          f"graph); the host issues a chunk's monitors and the cylinder's force in "
-          f"{mon5_host:.1f} us = {mon5_host / DFG_RUN['chunk']:.1f} us/step at chunks of "
-          f"{DFG_RUN['chunk']} [{card}]", flush=True)
+          f"graph); a chunk's monitors and the cylinder's force: {mon5_dev:.1f} us of device "
+          f"time, issued in {mon5_host:.1f} us = {mon5_host / DFG_RUN['chunk']:.2f} us/step at "
+          f"chunks of {DFG_RUN['chunk']} (the eager ops they replace issued in "
+          f"{eager5_host:.1f} us) [{card}]", flush=True)
     with open(os.path.join(HERE, "docs", "benchmarks", "dfg2d_results.json")) as fh:
         recorded = next(r for r in json.load(fh) if r.get("ny") == DFG_RUN["ny"]
                         and r.get("obstacle") == DFG_RUN["obstacle"]
@@ -2603,7 +2767,7 @@ def main() -> int:
               f"{recorded[k]:.6f}  difference {got - recorded[k]:+.6f}", flush=True)
     chunks5 = DFG_RUN["steps"] // DFG_RUN["chunk"]
     want5 = {"k1_step_bouzidi": chunks5 * (DFG_RUN["chunk"] - 1),
-             "k1_step_bouzidi_full": chunks5}
+             "k1_step_bouzidi_full": chunks5, "group_monitors_bouzidi": 2 * chunks5}
     if res["steps"] != DFG_RUN["steps"] or not res["shedding_detected"]:
         raise AssertionError(f"DFG run: {res['steps']} steps, shedding {res['shedding_detected']}")
     for k, (lo, hi) in DFG_RANGES.items():
@@ -2643,7 +2807,8 @@ def main() -> int:
     print(f"[6] fused serial path: cuda_step._FUSE_STEPS = {FUSE_S}, the phase 3 case", flush=True)
     chunks = max_steps // chunk
     passes6, split6 = divmod(chunk - 1, FUSE_S)
-    want6 = {"k3_fused": chunks * passes6, "k1_step": chunks * split6, "k1_step_full": chunks}
+    want6 = {"k3_fused": chunks * passes6, "k1_step": chunks * split6, "k1_step_full": chunks,
+             "group_monitors": chunks}
     cs._FUSE_STEPS = FUSE_S
     try:
         engine6 = LBMEngine(config, mask_yx=mask, device="cuda")
@@ -2919,8 +3084,12 @@ def main() -> int:
     print(f"    launches {mesh_launches(launches8a)}, plain calls {counted}; "
           f"{per_step(mesh_launches(launches8a), 4 * chunk)} on 4 blocks = one K1 a block a "
           f"step and no halo launch (the pushes)", flush=True)
-    if mesh_launches(launches8a) != want8a or any(counted.values()):
-        raise AssertionError(f"phase 8(a): launches {launches8a} (want {want8a}), {counted}")
+    # and one monitor launch a chunk (the global f_post's links and the
+    # blocks' u: a one-device mesh), 2 chunks in each storage
+    mon8a = launches8a.get("group_monitors", 0)
+    if mesh_launches(launches8a) != want8a or mon8a != 4 or any(counted.values()):
+        raise AssertionError(f"phase 8(a): launches {launches8a} (want {want8a} and 4 monitor "
+                             f"launches), {counted}")
 
     # (b) a (5, 1) mesh at the DFG grid: the seams at rows 66 and 99 cut the
     # cylinder; from phase 5's developed flow
@@ -2955,9 +3124,12 @@ def main() -> int:
     print(f"    launches {mesh_launches(launches8b)}, plain calls {counted}; "
           f"{per_step(mesh_launches(launches8b), steps8b)} on 5 blocks = one K1 a block "
           f"a step and no halo launch (the pushes)", flush=True)
-    if any(counted.values()) or sum(launches8b.values()) != 5 * steps8b:
-        raise AssertionError(f"phase 8(b): launches {mesh_launches(launches8b)}, "
-                             f"plain calls {counted}")
+    n8b = DFG_PAIR_STEPS // DFG_PAIR_CHUNK
+    want8b_mon = {"group_monitors": 3 * n8b, "group_monitors_bouzidi": n8b}
+    if (any(counted.values()) or sum(mesh_launches(launches8b).values()) != 5 * steps8b
+            or {k: launches8b[k] for k in want8b_mon} != want8b_mon):
+        raise AssertionError(f"phase 8(b): launches {launches8b} (monitors: want "
+                             f"{want8b_mon}), plain calls {counted}")
 
     # (c) the production entry on a 1x1 mesh: the smoke case through
     # run_batch -> execute_case -> run_one_case -> LBMEngine(spatial_mesh)
@@ -3000,10 +3172,11 @@ def main() -> int:
     p8 = engines8[-1].params
     p64 = dataclasses.replace(p8, **{k: v.double() for k, v in vars(p8).items()
                                      if torch.is_tensor(v) and v.is_floating_point()})
-    force8c = (solver.obstacle_force(engines8[-1].state.f_post.double(), p64).cpu().numpy(),
+    force8c = (eager_force(engines8[-1].state.f_post.double(), p64).cpu().numpy(),
                np.array(engines8[-1].get_force()))
     e8 = engines8[-1]
-    want8c = {"k1_step_shard": chunks * (chunk - 1), "k1_step_shard_full": chunks}
+    want8c = {"k1_step_shard": chunks * (chunk - 1), "k1_step_shard_full": chunks,
+              "group_monitors": chunks}
     print(f"    (c) run_batch(spatial_mesh='1x1'): {stats8}, {status8} in {wall8:.2f} s "
           f"(HDF5 and monitors included) [{card}]", flush=True)
     print(f"    launches {({k: v for k, v in launches8c.items() if v})}, plain calls {counted}; "
@@ -3158,8 +3331,9 @@ def main() -> int:
     idle4k = {k: issue_us(lambda r=r: r.advance(bs4k, p4k, ROOF_SPC), ROOF_SPC, repeats=3)[0]
               for k, r in (("library", runner4k), ("per-step", stepwise4k))}
     fp4k_ms = median_ms(bs4k.collect_f_post, batches=5, per_batch=4)[0]
-    mon4k_ms = median_ms(lambda: sh.block_monitors(bs4k, p4k, None), batches=5,
+    mon4k_ms = median_ms(lambda: sh.block_monitors(bs4k, case4k), batches=5,
                          per_batch=4)[0]
+    mon4k_dev = graph_ms(lambda: sh.block_monitors(bs4k, case4k), per_graph=4)
     del bs4k
 
     def summary(kind):
@@ -3189,14 +3363,17 @@ def main() -> int:
           f"{100 * exch4k_ms / step4k_ms:.1f}% of the per-step loop's step; still gathered a "
           f"chunk: f_post into "
           f"the global f_post, {fp4k_ms:.3f} ms = {fp4k_ms * 1e3 / ROOF_SPC:.1f} us/step at "
-          f"{ROOF_SPC} steps; the chunk's monitors (force on the global f_post, max_v from "
-          f"the blocks) {mon4k_ms:.3f} ms = {mon4k_ms * 1e3 / ROOF_SPC:.1f} us/step; "
+          f"{ROOF_SPC} steps; the chunk's monitors (one launch: the force on the global "
+          f"f_post, max_v from the blocks) {mon4k_dev * 1e3:.1f} us of device time, "
+          f"{mon4k_ms:.3f} ms from the host = {mon4k_ms * 1e3 / ROOF_SPC:.2f} us/step; "
           f"unsharded (phase 7) K1 {roof['k1_us']:.1f} us, "
           f"{roof['us_per_step']:.1f} us/step [{card}]", flush=True)
     print(f"    launches {({k: v for k, v in launches8d.items() if v})}, plain calls {counted}; "
           f"{per_step(launches8d, steps8d)} on 4 blocks", flush=True)
-    if any(counted.values()):
-        raise AssertionError(f"phase 8(d): plain calls {counted}")
+    want8d_mon = 2 + 4 * SHARD_4K_CHUNKS  # the check chunk, the warm-up, 4 counted turns
+    if any(counted.values()) or launches8d["group_monitors"] != want8d_mon:
+        raise AssertionError(f"phase 8(d): plain calls {counted}, monitor launches "
+                             f"{launches8d['group_monitors']} (want {want8d_mon})")
     launches8 = {k: launches8a[k] + launches8b[k] + launches8c[k] + launches8d[k]
                  for k in cs.KERNEL_VARIANTS}
     idle8 = [k for k in cs.KERNEL_VARIANTS if "_shard" in k and not launches8[k]]
@@ -3232,6 +3409,16 @@ def main() -> int:
                "k3": ("k3_fused.cu", "lbm2d_tpu/ops/pallas_step.py:610"),
                "co": ("copy_probe.cu", "tools_roofline_4096.py:95"),
                "gr": ("monitors.cu", "lbm2d_tpu/parallel/batch.py:71")}
+    # the monitor kernel's launches by chunk path: serial (3, 5's pairs, 6,
+    # 7, 9(a), 11, 13), DFG (5, 12: two a chunk), sharded (8, 9(d)) and
+    # lockstep (4, 9(b), 9(c), 10, 14)
+    mon_paths = {"serial": ("serial", "serial_dev", "dfg_pairs", "fused", "fused_pairs",
+                            "roofline", "coord", "bench", "noop"),
+                 "dfg": ("dfg", "suite"),
+                 "sharded": ("sharded", "sharded_pairs", "sharded_dfg", "sharded_4096",
+                             "multihost"),
+                 "lockstep": ("lockstep", "coord_lock", "case_sharded", "quickstart",
+                              "quickstart_trace", "group")}
     for name in list(cs.KERNEL_VARIANTS) + list(cp.VARIANTS):
         r = records[name]
         if name in cp.VARIANTS:
@@ -3257,6 +3444,11 @@ def main() -> int:
             entry["copy_ms"] = r["copy_ms"]
         if "timed_as" in r:
             entry["timed_as"] = r["timed_as"]
+        if "forms" in r:
+            entry["forms"] = r["forms"]
+            entry["force_vs_eager_f64"] = r["force_vs_eager_f64"]
+            entry["launches_by_chunk_path"] = {
+                k: sum(paths.get(x, 0) for x in v) for k, v in mon_paths.items()}
         if "no_push_ms" in r:
             entry["no_push_ms"] = r["no_push_ms"]
         if name.startswith("k3"):

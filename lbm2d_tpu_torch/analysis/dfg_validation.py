@@ -4,7 +4,10 @@ Counterpart of ``lbm2d_tpu/analysis/dfg_validation.py`` on the port's
 engine: on a CUDA device every chunk runs on the hand-written kernels
 (``ops/cuda_step.run_chunk_cuda``: K1 with the cylinder's bounce-back
 scheme and the profiled inlet, one launch a step), on the CPU the eager
-step.
+step. In DFG mode the cylinder-only force of a chunk is one more launch of
+the monitor kernel on the card (``cuda_step.case_force`` over the links of
+the walls-excluded mask, cut once a run), the eager ``obstacle_force(...,
+mask=)`` on the CPU.
 
 The reference ships DFG-benchmark machinery (momentum-exchange force,
 LBM2D_MRT_LES.py:588-641; Cd/Cl, physics_utils.py:112-126; Karman-street
@@ -33,6 +36,7 @@ import torch
 from ..core import stability
 from ..core.engine import LBMEngine
 from ..core.solver import obstacle_force
+from ..ops import cuda_step
 from ..utils.physics import compute_coefficients, fit_sine_wave, strouhal_number
 
 
@@ -177,12 +181,18 @@ def run_validation(
         cyl[0, :] = 0.0
         cyl[-1, :] = 0.0
         force_mask = torch.as_tensor(cyl, dtype=engine.dtype, device=engine.device)
+    # on the card the cylinder's links, cut once, for the monitor kernel
+    force_links = None
+    if force_mask is not None and engine.device.type == "cuda":
+        force_links = cuda_step.CaseLinks(engine.params, mask=force_mask)
 
     fx, fy, ts = [], [], []
     n_chunks = steps // chunk
     for i in range(n_chunks):
         engine.run_step(chunk)
-        if force_mask is not None:
+        if force_links is not None:
+            f = cuda_step.case_force(engine.field("f_post"), force_links).cpu().numpy()
+        elif force_mask is not None:
             f = obstacle_force(
                 engine.field("f_post"), engine.params, mask=force_mask
             ).cpu().numpy()

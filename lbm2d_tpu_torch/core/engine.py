@@ -235,6 +235,17 @@ def resolve_sharded_runner(p: CaseParams, device: torch.device, store_dev: bool,
     return BlockRunner(mesh, "cuda" if device.type == "cuda" else "plain", store_dev)
 
 
+def _state_monitors(state: LBMState, p: CaseParams):
+    """The monitors of a state no chunk has reported: the monitor kernel on
+    a card (``cuda_step.case_monitors``), the eager reductions on the
+    CPU."""
+    if state.f_post.is_cuda:
+        from ..ops import cuda_step as cs
+
+        return cs.case_monitors(state.f_post, state.u, cs.case_links(p))
+    return {"force": obstacle_force(state.f_post, p), "max_v": max_velocity(state.u)}
+
+
 class LBMEngine:
     """One simulation case on one device, or on the blocks of a spatial
     mesh (``spatial_mesh``)."""
@@ -353,8 +364,7 @@ class LBMEngine:
             mon = self._last_monitors
             if mon is None:
                 mon = (self._runner.monitors(self._blocks, self.params) if self.mesh is not None
-                       else {"force": obstacle_force(self._state.f_post, self.params),
-                             "max_v": max_velocity(self._state.u)})
+                       else _state_monitors(self._state, self.params))
             self._monitors_np = (
                 torch.cat([mon["force"].reshape(-1), mon["max_v"].reshape(1)]).cpu().numpy()
             )

@@ -67,13 +67,17 @@ KERNELS = {
     # a lockstep group's chunk: its fast steps (one launch a step over the
     # alive cases of a device slot table, the scalar rows a device table
     # [B, n, 14] with its row stride) and its closing full step; then the
-    # group's monitors in one launch (the CSR link lists, the case table,
-    # the f64 scratch and ticket counters, the packed output)
+    # group's monitors in one launch
     "k1_group_steps": ("k1_step", "k1_group_steps_launch",
                        [_P] * 7 + [_I] * 2 + [_P] + [_I] * 10 + [_P] * 4 + [_I]),
     "k1_group_full": ("k1_step", "k1_group_full_launch",
                       [_P] * 9 + [_I] + [_P] + [_I] * 9 + [_P] * 3 + [_I]),
-    "group_monitors": ("monitors", "group_monitors_launch", [_P] * 10 + [_I] * 5 + [_P]),
+    # the monitors of every chunk path, one launch (csrc/monitors.cu): a
+    # host array of the base item and its strides, the device item table,
+    # the CSR link lists, the case table, the scratch and slots, the
+    # outputs (part, packed, alive, total), then I, the blocks an item,
+    # the scheme's instance and the stream
+    "monitors": ("monitors", "monitors_launch", [_P] * 11 + [_I] * 3 + [_P]),
     "k3_fused": ("k3_fused", "k3_fused_launch", [_P] * 5 + [_I] * 11 + [_P]),
     "k3_passes": ("k3_fused", "k3_passes_launch", [_P] * 6 + [_I] * 12 + [_P, _P]),
     "copy_probe": ("copy_probe", "copy_probe_launch", [_P] * 3 + [_I] * 2 + [_P]),
@@ -256,10 +260,10 @@ def k1_group_stack_frames(log: str):
 
 def monitor_registers(log: str):
     """{bouzidi: (registers a thread, spill stores, spill loads)} of the
-    group monitor kernel's instances (group_monitors_kernel<BOUZIDI>)."""
+    monitor kernel's instances (monitors_kernel<BOUZIDI>)."""
     out = {}
     for entry, use in ptxas_usage(log).items():
-        k = re.search(r"group_monitors_kernelILb([01])E", entry)
+        k = re.search(r"monitors_kernelILb([01])E", entry)
         if k:
             out[k.group(1) == "1"] = use
     return out

@@ -71,10 +71,20 @@ A lockstep group's chunk is one program too, as the JAX BatchEngine's
 runs the group's stacked state ([B, 9, H, W] f) through ``k1_group_steps``
 (C entry ``k1_group_steps_launch``: one K1 launch a step over the alive
 cases, K1's ``_group`` instances), ``k1_group_full`` and ``group_monitors``
-(csrc/monitors.cu: every case's force, max |u| and stability flag in one
-launch, into the packed array the engine fetches), from ``GroupParams``
-cut once a group; the alive cases are a device table rebuilt only when one
-dies. ``CASE_STEPS`` counts the cases a group launch advanced.
+(every case's force, max |u| and stability flag in one launch, into the
+packed array the engine fetches), from ``GroupParams`` cut once a group;
+the alive cases are a device table rebuilt only when one dies.
+``CASE_STEPS`` counts the cases a group launch advanced.
+
+The monitors are one launch of the monitor kernel (csrc/monitors.cu) on
+every chunk path, as the JAX package's are part of its chunk program: a
+group's cases (``group_monitors``), a serial chunk's case
+(``case_monitors``, a group of one), the DFG path's cylinder-only force
+(``case_force`` on a ``CaseLinks`` of another mask) and a mesh's blocks
+(``parallel/sharded.py``, ``block_monitors``, from a device table of
+``monitor_item`` rows). The force's f64 sum has one fixed order whatever
+the grid (``monitor_sum_plain`` repeats it), so every form is bitwise its
+plain version.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes its
 plain PyTorch version (``k1_step_plain``, ``k1_step_dev_plain``,
@@ -82,8 +92,7 @@ plain PyTorch version (``k1_step_plain``, ``k1_step_dev_plain``,
 the same arguments) only for CPU tensors.
 ``LAUNCHES`` counts kernel launches by variant (``k1_variant`` /
 ``k3_variant`` / ``monitor_variant`` names), so a run can show that it went
-through the kernels. Outside the lockstep group the monitors are plain
-torch reductions, as the JAX package computes them outside its kernels.
+through the kernels.
 """
 
 from __future__ import annotations
@@ -114,9 +123,7 @@ from ..core.solver import (
     bc_right_values,
     full_way_bounce,
     link_bounce_at,
-    max_velocity,
     mrt_collide_arrays,
-    obstacle_force,
     warmup_ramp,
 )
 from . import cuda_build
@@ -1592,10 +1599,11 @@ def run_chunk_cuda(state: LBMState, p: CaseParams, n_steps: int, store_dev: bool
 
     A chunk is one program, as run_chunk_pallas's jit over lax.scan is:
     its scalar rows are built once (``scalar_rows``, no device read), and
-    it makes at most three calls of the shared libraries, each launching
+    it makes at most four calls of the shared libraries, each launching
     on the current stream with no sync: the K3 passes (``k3_passes``), the
-    single K1 steps (``k1_steps``) and the closing full step
-    (``k1_step``).
+    single K1 steps (``k1_steps``), the closing full step (``k1_step``)
+    and the monitors (``case_monitors``: the case as a group of one, its
+    links, scratch and tickets cut once a params object, ``case_links``).
     """
     return _run_chunk(state, p, n_steps, store_dev, plain=False)
 
@@ -1648,11 +1656,7 @@ def _run_chunk(state: LBMState, p: CaseParams, n_steps: int, store_dev: bool, pl
     k1(src, dst, aux, rows[n_steps - 1], p.use_les, p.bc_type, rho, u, f_post, obstacle=obst,
        q=q, prof=prof, prev=prev_at_step(prev, n_steps - 1))
     new_state = LBMState(f=dst, f_post=f_post, rho=rho, u=u, step=state.step + n_steps)
-    monitors = {
-        "force": obstacle_force(new_state.f_post, p),
-        "max_v": max_velocity(new_state.u),
-    }
-    return new_state, monitors
+    return new_state, (case_monitors_plain if plain else case_monitors)(f_post, u, case_links(p))
 
 
 def run_chunk_stepwise(state: LBMState, p: CaseParams, n_steps: int, store_dev: bool = False):
@@ -1696,40 +1700,57 @@ def run_chunk_stepwise(state: LBMState, p: CaseParams, n_steps: int, store_dev: 
     k1_step(src, dst, aux, scalar_row(p, step + 1), p.use_les, p.bc_type, rho, u, f_post,
             obstacle=obst, q=q, prof=prof, prev=prev_at_step(prev, n_steps - 1))
     new_state = LBMState(f=dst, f_post=f_post, rho=rho, u=u, step=state.step + n_steps)
-    return new_state, {"force": obstacle_force(f_post, p), "max_v": max_velocity(u)}
+    return new_state, case_monitors(f_post, u, case_links(p))
 
 
 # ---------------------------------------------------------------------------
 # A lockstep group's chunk: one program over the group's cases
 # ---------------------------------------------------------------------------
 
-# the monitor kernel's threads a block and its blocks a case
-# (csrc/monitors.cu): enough blocks that a group fills the card at the
-# production grid, about 16 cells a thread below it
+# the monitor kernel's geometry (csrc/monitors.cu): threads a block, the
+# link warps an item's force is summed by (the order ``monitor_sum_plain``
+# repeats), the blocks an item's link warps take, and the blocks a SM its
+# launch bounds hold, which its one wave is sized for
 MON_THREADS = 256
-MON_MAX_BLOCKS = 128
-MON_CELLS_A_THREAD = 16
+MON_LINK_WARPS = 128
+MON_LINK_LANES = MON_LINK_WARPS * 32
+MON_LINK_BLOCKS = MON_LINK_WARPS * 32 // MON_THREADS
+MON_BLOCKS_A_SM = 4
+MON_MAX_TOTAL_ITEMS = 96
 # a boundary link: (cell << LINK_CELL_SHIFT) | (cell - e_j in the grid) <<
 # 4 | j
 LINK_CELL_SHIFT = 5
 _LINK_UP = 16
 
 
-def monitor_blocks(H: int, W: int) -> int:
-    """The monitor kernel's blocks a case on an H x W grid (the plain
-    version repeats its order, so both take them from here)."""
-    return max(1, min(MON_MAX_BLOCKS, -(-H * W // (MON_THREADS * MON_CELLS_A_THREAD))))
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def monitor_blocks(cells: int, items: int, device: torch.device) -> int:
+    """The monitor kernel's u blocks an item: what one wave over the card's
+    SMs holds for the ``items`` beside their MON_LINK_BLOCKS link blocks,
+    no more than an item's ``cells`` (read 4 a thread) fill, at least one.
+    The force's order does not depend on it."""
+    wave = _sm_count(device.index or 0) * MON_BLOCKS_A_SM // items - MON_LINK_BLOCKS
+    return max(1, min(wave, -(-cells // (4 * MON_THREADS))))
 
 
 def boundary_links(p: CaseParams) -> torch.Tensor:
-    """Case ``p``'s boundary links, the momentum-exchange force's terms, as
-    a CPU int32 list: each fluid cell x (row major, x = y W + x') with a
-    solid neighbour x + e_j in the grid, for j = 1 .. 8 in turn, packed as
-    (x << 5) | (x - e_j in the grid) << 4 | j. The same links for every
-    obstacle scheme: force_on_obstacle's (solid s, fluid s + e_k) pairs are
-    these with j = opp k. Built on the host once a mask (a lockstep group's
-    cases often share one)."""
-    solid = (p.mask > 0.5).cpu().numpy()
+    """Case ``p``'s boundary links (``mask_links`` of ``p.mask``): the same
+    links for every obstacle scheme, force_on_obstacle's (solid s, fluid s
+    + e_k) pairs being these with j = opp k."""
+    return mask_links(p.mask)
+
+
+def mask_links(mask: torch.Tensor) -> torch.Tensor:
+    """The boundary links of a solid mask [H, W], the momentum-exchange
+    force's terms, as a CPU int32 list: each fluid cell x (row major, x = y
+    W + x') with a solid neighbour x + e_j in the grid, for j = 1 .. 8 in
+    turn, packed as (x << 5) | (x - e_j in the grid) << 4 | j. Built on the
+    host once a mask (a lockstep group's cases often share one)."""
+    solid = (mask > 0.5).cpu().numpy()
     H, W = solid.shape
     if H * W >= 1 << (31 - LINK_CELL_SHIFT):
         raise ValueError(f"grid {H}x{W}: a boundary link's cell index needs "
@@ -1765,15 +1786,71 @@ def _upload(host: torch.Tensor, device: torch.device) -> torch.Tensor:
     return host.pin_memory().to(device, non_blocking=True)
 
 
+class MonitorLinks:
+    """The monitor kernel's inputs of I items that do not change between
+    chunks, cut once (a group, a case, a mesh's blocks on one card): their
+    link lists (``mask_links``, in each item's f_post layout) in CSR form
+    on ``device`` (``links``, ``offsets``; the host lists ``links_host``),
+    the kernel's f64 scratch [I, MON_LINK_WARPS, 2] and its int32 slots
+    [3 I + 1] (max bits and tickets, zero between launches). A launch
+    reuses them: the launches of one ``MonitorLinks`` follow each other on
+    a stream."""
+
+    def __init__(self, links_host, device):
+        self.links_host = [x.to(torch.int32) for x in links_host]
+        self.I = len(self.links_host)
+        self.device = torch.device(device)
+        counts = [0] + [int(x.numel()) for x in self.links_host]
+        self.offsets_host = torch.tensor(np.cumsum(counts), dtype=torch.int32)
+        # one entry more than the links, so an empty list still has a pointer
+        self.links = torch.cat(self.links_host + [torch.zeros(1, dtype=torch.int32)]).to(
+            self.device)
+        self.offsets = self.offsets_host.to(self.device)
+        self.partial = torch.zeros((self.I, MON_LINK_WARPS, 2), dtype=torch.float64,
+                                   device=self.device)
+        self.slots = torch.zeros(3 * self.I + 1, dtype=torch.int32, device=self.device)
+
+    def item_links(self, c: int) -> torch.Tensor:
+        """Item ``c``'s links on the device (a view)."""
+        return self.links[int(self.offsets_host[c]):int(self.offsets_host[c + 1])]
+
+
+class CaseLinks:
+    """A case's monitor inputs, cut once: its scheme, its Bouzidi q planes
+    and the ``MonitorLinks`` of one item, the links of ``p.mask`` or of
+    ``mask`` (the DFG path's walls-excluded cylinder)."""
+
+    def __init__(self, p: CaseParams, mask: Optional[torch.Tensor] = None):
+        self.shape = tuple(p.shape)
+        self.bouzidi = obstacle_scheme(p) == OBSTACLE_BOUZIDI
+        self.q = p.bouzidi_q if self.bouzidi else None
+        links = boundary_links(p) if mask is None else mask_links(mask)
+        self.mon = MonitorLinks([links], p.mask.device)
+
+
+_CASE_LINKS: Dict[int, CaseLinks] = {}
+
+
+def case_links(p: CaseParams) -> CaseLinks:
+    """``CaseLinks(p)``, cut once per params object (a new ``CaseParams``
+    cuts again), as ``_host_scalars`` reads its row once."""
+    key = id(p)
+    hit = _CASE_LINKS.get(key)
+    if hit is None:
+        hit = _CASE_LINKS[key] = CaseLinks(p)
+        weakref.finalize(p, _CASE_LINKS.pop, key, None)
+    return hit
+
+
 class GroupParams:
     """What a lockstep group's program takes of its cases, cut once a group
     (the JAX BatchEngine's stacked CaseParams): the cases' CaseParams (each
     case's host scalar rows, read once), their packed aux planes [B, H, W],
     Bouzidi q planes [B, 8, H, W] and inlet profiles [B, H] where the
-    scheme and the layout read them, their boundary links in CSR form on
-    the device (``boundary_links``), the monitor kernel's scratch, and the
-    device tables a chunk reads: the alive cases' indices (``slots``) and
-    the alive and past-the-warmup flags (``case_table``), rebuilt only when
+    scheme and the layout read them, their boundary links and the monitor
+    kernel's scratch (``MonitorLinks``), and the device tables a chunk
+    reads: the alive cases' indices (``slots``) and the alive and
+    past-the-warmup flags (``case_table``), rebuilt only when
     they change (a case never comes back to life), and the cases' scalar
     rows (``device_rows``), uploaded only when they change (past the warmup
     never). The cases share the grid, the BC layout, the LES flag, the
@@ -1808,18 +1885,7 @@ class GroupParams:
         vel = self.bc_type[0] in (BC_VEL_INLET, BC_VEL_INLET_NEBB)
         self.prof = torch.stack([p.inlet_profile for p in params]).contiguous() if vel else None
         self.warmup = [_host_scalars(p)[1] for p in params]
-        self.links_host = [boundary_links(p) for p in params]
-        counts = [0] + [int(x.numel()) for x in self.links_host]
-        self.offsets_host = torch.tensor(np.cumsum(counts), dtype=torch.int32)
-        # one entry more than the links, so an empty list still has a pointer
-        self.links = torch.cat(self.links_host + [torch.zeros(1, dtype=torch.int32)]).to(
-            self.device)
-        self.offsets = self.offsets_host.to(self.device)
-        H, W = self.shape
-        self.mon_blocks = monitor_blocks(H, W)
-        self.partial = torch.empty((self.B, self.mon_blocks, 3), dtype=torch.float64,
-                                   device=self.device)
-        self.counter = torch.zeros(self.B, dtype=torch.int32, device=self.device)
+        self.mon = MonitorLinks([boundary_links(p) for p in params], self.device)
         self._slots = self._table = self._rows = None
 
     def rows(self, steps, n: int) -> torch.Tensor:
@@ -1998,9 +2064,10 @@ def k1_group_full(f_in, f_out, g: GroupParams, rows, alive, rho, u, f_post, prev
         CASE_STEPS[name] += n_slots
 
 
-def _link_terms(f_post_c, q_c, links: torch.Tensor, W: int, bouzidi: bool):
-    """(term f32, j) of each boundary link of one case, the monitor
-    kernel's ``mon_term`` in the eager force's operation order."""
+def _link_terms(f_post_c, q_c, links: torch.Tensor, pitch: int, bouzidi: bool):
+    """(term f32, j) of each boundary link of one item, the monitor
+    kernel's ``mon_term`` in the eager force's operation order; ``links``
+    index the item's f_post planes [9, rows, pitch] (q's [8, rows, pitch])."""
     fp = f_post_c.reshape(9, -1)
     cell = (links >> LINK_CELL_SHIFT).long()
     j = (links & 15).long()
@@ -2010,7 +2077,7 @@ def _link_terms(f_post_c, q_c, links: torch.Tensor, W: int, bouzidi: bool):
     ex = torch.as_tensor(E_LAT[:, 0], device=fp.device)[j]
     ey = torch.as_tensor(E_LAT[:, 1], device=fp.device)[j]
     up_ok = (links & _LINK_UP) != 0
-    up_cell = torch.where(up_ok, cell - (ey * W + ex), cell)
+    up_cell = torch.where(up_ok, cell - (ey * pitch + ex), cell)
     up = torch.where(up_ok, fp[j, up_cell], torch.zeros_like(fj))
     qv = q_c.reshape(8, -1)[j - 1, cell]
     fk = fp[torch.as_tensor(OPP_LAT, device=fp.device)[j], cell]
@@ -2020,27 +2087,103 @@ def _link_terms(f_post_c, q_c, links: torch.Tensor, W: int, bouzidi: bool):
     return fj + torch.where(qv < 0.5, lo, hi), j
 
 
-def _block_sums(terms: torch.Tensor, nb: int) -> torch.Tensor:
-    """The monitor kernel's order over one case's link terms (f64 [L]):
-    block b's thread t sums terms b T + t + k nb T in k order from +0.0,
-    the block halves its threads' sums, and the blocks' sums add in block
-    order from +0.0."""
-    T = MON_THREADS
-    K = max(1, -(-terms.numel() // (nb * T)))
-    padded = torch.zeros(K * nb * T, dtype=torch.float64, device=terms.device)
-    padded[:terms.numel()] = terms
-    padded = padded.view(K, nb, T)
-    acc = torch.zeros((nb, T), dtype=torch.float64, device=terms.device)
+def _tree(acc: torch.Tensor) -> torch.Tensor:
+    """The kernel's warp tree over the last axis (32 lanes): lane i adds
+    lane i + h, h = 16 .. 1; lane 0's sum."""
+    h = 16
+    while h:
+        acc = acc[..., :h] + acc[..., h:2 * h]
+        h //= 2
+    return acc[..., 0]
+
+
+def monitor_sum_plain(terms: torch.Tensor) -> torch.Tensor:
+    """The monitor kernel's order over one item's link terms (f64 [L]) ->
+    f64 0-d: lane g of MON_LINK_LANES adds terms g + k MON_LINK_LANES in k
+    order from +0.0; each warp of 32 lanes adds them by ``_tree``; the
+    warps' partials, lane i taking partials i, i + 32, ... in order from
+    +0.0, by ``_tree`` again. No links: +0.0."""
+    n = MON_LINK_LANES
+    L = terms.numel()
+    if L == 0:
+        return torch.zeros((), dtype=torch.float64, device=terms.device)
+    K = -(-L // n)
+    padded = torch.zeros(K * n, dtype=torch.float64, device=terms.device)
+    padded[:L] = terms
+    padded = padded.view(K, n)
+    acc = torch.zeros(n, dtype=torch.float64, device=terms.device)
     for k in range(K):
         acc = acc + padded[k]
-    h = T // 2
-    while h:
-        acc = torch.cat([acc[:, :h] + acc[:, h:2 * h], acc[:, 2 * h:]], dim=1)
-        h //= 2
-    total = torch.zeros((), dtype=torch.float64, device=terms.device)
-    for b in range(nb):
-        total = total + acc[b, 0]
-    return total
+    part = _tree(acc.view(MON_LINK_WARPS, 32)).view(MON_LINK_WARPS // 32, 32)
+    lanes = torch.zeros(32, dtype=torch.float64, device=terms.device)
+    for k in range(MON_LINK_WARPS // 32):
+        lanes = lanes + part[k]
+    return _tree(lanes)
+
+
+def item_force_plain(f_post_c, q_c, links: torch.Tensor, pitch: int, bouzidi: bool):
+    """One item's force as the kernel sums it: f64 [2] (Fx, Fy)."""
+    term, j = _link_terms(f_post_c, q_c, links, pitch, bouzidi)
+    t64 = term.double()
+    e = torch.as_tensor(E_LAT, dtype=torch.float64, device=term.device)
+    return torch.stack([monitor_sum_plain(t64 * e[j, 0]), monitor_sum_plain(t64 * e[j, 1])])
+
+
+def speed_max_plain(u: torch.Tensor) -> torch.Tensor:
+    """max |u| over the cells of u [2, ...] (``solver.max_velocity``; NaN
+    kept), the kernel's max bit for bit."""
+    return torch.sqrt(u[0] * u[0] + u[1] * u[1]).amax()
+
+
+def monitor_item(f_post=None, q=None, u=None, pitch: int = 0, plane: int = 0,
+                 region=None) -> list:
+    """An item row of the monitor kernel (``MonItem``, 10 int64 words):
+    f_post / q planes of ``plane`` floats whose rows are ``pitch`` apart,
+    and u's region ``region`` = (u plane floats, rows, row stride, first
+    column, columns) from ``u``'s first pointer. A missing tensor is 0."""
+    uplane, urows, ustride, ucol0, ucols = region or (0, 0, 0, 0, 0)
+    return [_ptr(f_post) or 0, _ptr(q) or 0, _ptr(u) or 0, plane, uplane, pitch, urows,
+            ustride, ucol0, ucols]
+
+
+def whole_item(f_post, q, u, H: int, W: int) -> list:
+    """The item of a whole [H, W] grid: u read as one row of H W cells."""
+    HW = H * W
+    return monitor_item(f_post, q, u, W, HW, None if u is None else (HW, 1, HW, 0, HW))
+
+
+def launch_monitors(ml: MonitorLinks, base: list, strides=(0, 0, 0), table=None,
+                    bouzidi: bool = False, cells: int = 0, packed=None, alive_out=None,
+                    case_table=None, total=None) -> torch.Tensor:
+    """One launch of the monitor kernel over ``ml``'s items on the current
+    stream: item c is ``table[c]`` (a device int64 [I, 10] of
+    ``monitor_item`` rows) or, without one, ``base`` shifted by c times
+    ``strides`` (f_post, q, u; in floats). Writes ``packed`` [4 I] and
+    ``alive_out`` [I] where given (``case_table`` the group's [alive I |
+    later I]) and ``total`` [3] (the items' sum in item order and their
+    max); returns ``part`` f64 [I, 3] (each item's Fx, Fy and max_v).
+    ``cells``: an item's u cells (the grid's size). Raises if the launch
+    fails; no sync. Counted as one launch of ``monitor_variant`` and its
+    I items in ``CASE_STEPS``."""
+    I = ml.I
+    if total is not None and I > MON_MAX_TOTAL_ITEMS:
+        raise ValueError(f"a monitor total takes {MON_MAX_TOTAL_ITEMS} items, got {I}")
+    part = torch.empty((I, 3), dtype=torch.float64, device=ml.device)
+    host = (ctypes.c_longlong * 13)(*(list(base) + list(strides)))
+    nb = monitor_blocks(cells, I, ml.device)
+    with _launch_device(ml.device):
+        rc = cuda_build.load("monitors")(
+            host, _ptr(table), _ptr(ml.links), _ptr(ml.offsets), _ptr(case_table),
+            _ptr(ml.partial), _ptr(ml.slots), _ptr(part), _ptr(packed), _ptr(alive_out),
+            _ptr(total), I, nb, int(bool(bouzidi)),
+            torch.cuda.current_stream(ml.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"monitor kernel launch failed: CUDA error {rc}")
+    name = monitor_variant(OBSTACLE_BOUZIDI if bouzidi else OBSTACLE_EQ)
+    LAUNCHES[name] += 1
+    CASE_STEPS[name] += I
+    return part
 
 
 def group_monitors_plain(f_post, u, g: GroupParams, alive, later):
@@ -2050,16 +2193,11 @@ def group_monitors_plain(f_post, u, g: GroupParams, alive, later):
     B = g.B
     H, W = g.shape
     dev = f_post.device
-    force = torch.empty((B, 2), dtype=torch.float32, device=dev)
-    ex_all = torch.as_tensor(E_LAT[:, 0], dtype=torch.float64, device=dev)
-    ey_all = torch.as_tensor(E_LAT[:, 1], dtype=torch.float64, device=dev)
     bouzidi = g.obstacle == OBSTACLE_BOUZIDI
-    for c in range(B):
-        links = g.links_host[c].to(dev)
-        term, j = _link_terms(f_post[c], None if g.q is None else g.q[c], links, W, bouzidi)
-        t64 = term.double()
-        force[c, 0] = _block_sums(t64 * ex_all[j], g.mon_blocks).float()
-        force[c, 1] = _block_sums(t64 * ey_all[j], g.mon_blocks).float()
+    force = torch.stack([
+        item_force_plain(f_post[c], None if g.q is None else g.q[c],
+                         g.mon.item_links(c).to(dev), W, bouzidi)
+        for c in range(B)]).float()
     max_v = torch.sqrt(u[:, 0] * u[:, 0] + u[:, 1] * u[:, 1]).reshape(B, -1).amax(dim=1)
     # torch's max propagates NaN (amax does too); is_stable_device's rules
     later_t = torch.tensor([bool(x) for x in later], device=dev)
@@ -2088,19 +2226,69 @@ def group_monitors(f_post, u, g: GroupParams, alive, later):
     out = torch.empty(4 * g.B, dtype=torch.float32, device=g.device)
     alive_out = torch.empty(g.B, dtype=torch.bool, device=g.device)
     bouzidi = g.obstacle == OBSTACLE_BOUZIDI
-    with _launch_device(g.device):
-        rc = cuda_build.load("group_monitors")(
-            _ptr(f_post), _ptr(u), _ptr(g.q) if bouzidi else None, _ptr(g.links),
-            _ptr(g.offsets), _ptr(table), _ptr(g.partial), _ptr(g.counter), _ptr(out),
-            _ptr(alive_out), g.B, H, W, g.mon_blocks, int(bouzidi),
-            torch.cuda.current_stream(g.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"group_monitors launch failed: CUDA error {rc}")
-    name = monitor_variant(g.obstacle)
-    LAUNCHES[name] += 1
-    CASE_STEPS[name] += g.B
+    q = g.q if bouzidi else None
+    plane = H * W
+    launch_monitors(g.mon, whole_item(f_post, q, u, H, W), (9 * plane, 8 * plane, 2 * plane),
+                    bouzidi=bouzidi, cells=plane, packed=out, alive_out=alive_out,
+                    case_table=table)
     return out, alive_out
+
+
+def case_monitors_plain(f_post, u, cl: CaseLinks):
+    """Plain version of ``case_monitors``: {"force": [2], "max_v": 0-d} of
+    f_post's dtype, the kernel's bits."""
+    H, W = cl.shape
+    force = item_force_plain(f_post, cl.q, cl.mon.item_links(0).to(f_post.device), W,
+                             cl.bouzidi)
+    return {"force": force.to(f_post.dtype), "max_v": speed_max_plain(u)}
+
+
+def _case_launch(f_post, u, cl: CaseLinks) -> torch.Tensor:
+    """The packed monitors [Fx, Fy, max_v, stable] of one case (a group of
+    one) in one launch; without ``u`` the force alone (max_v 0)."""
+    H, W = cl.shape
+    dev = cl.mon.device
+    _check("f_post", f_post, (9, H, W), dev)
+    if u is not None:
+        _check("u", u, (2, H, W), dev)
+    if cl.bouzidi:
+        _check("q", cl.q, (8, H, W), dev)
+    packed = torch.empty(4, dtype=torch.float32, device=dev)
+    alive_out = torch.empty(1, dtype=torch.bool, device=dev)
+    launch_monitors(cl.mon, whole_item(f_post, cl.q, u, H, W), bouzidi=cl.bouzidi,
+                    cells=0 if u is None else H * W, packed=packed, alive_out=alive_out)
+    return packed
+
+
+def case_monitors(f_post, u, cl: CaseLinks):
+    """A serial chunk's monitors in one launch of the monitor kernel, its
+    case a group of one: {"force": f32 [2] (the scheme's
+    ``obstacle_force`` over ``cl``'s links, summed in f64 in the kernel's
+    order), "max_v": f32 0-d (``max_velocity``, NaN kept)}, views of one
+    device array, from f_post [9, H, W] and u [2, H, W]. Counted as one
+    launch of ``monitor_variant``. CPU tensors take
+    ``case_monitors_plain``."""
+    if not f_post.is_cuda:
+        return case_monitors_plain(f_post, u, cl)
+    packed = _case_launch(f_post, u, cl)
+    return {"force": packed[:2], "max_v": packed[2]}
+
+
+def case_force_plain(f_post, cl: CaseLinks) -> torch.Tensor:
+    """Plain version of ``case_force``."""
+    H, W = cl.shape
+    return item_force_plain(f_post, cl.q, cl.mon.item_links(0).to(f_post.device), W,
+                            cl.bouzidi).to(f_post.dtype)
+
+
+def case_force(f_post, cl: CaseLinks) -> torch.Tensor:
+    """The force over ``cl``'s links alone (f32 [2] on the device) in one
+    launch of the monitor kernel, no u read: the DFG path's cylinder-only
+    force (``CaseLinks(p, mask=...)``, the eager ``obstacle_force(f_post,
+    p, mask=...)``). CPU tensors take ``case_force_plain``."""
+    if not f_post.is_cuda:
+        return case_force_plain(f_post, cl)
+    return _case_launch(f_post, None, cl)[:2]
 
 
 def run_chunk_group_cuda(state_b: LBMState, p_b: GroupParams, alive, n_steps: int,

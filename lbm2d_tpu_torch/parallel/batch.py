@@ -289,6 +289,9 @@ class BatchEngine:
                     getattr(case, name).copy_(getattr(new, name))
                 st.step[k] = new.step
                 force, max_v = mon["force"], mon["max_v"]
+            elif case.f_post.is_cuda:
+                mon = cs.case_monitors(case.f_post, case.u, cs.case_links(p))
+                force, max_v = mon["force"], mon["max_v"]
             else:
                 force, max_v = obstacle_force(case.f_post, p), max_velocity(case.u)
             mons.append((force.reshape(2), max_v.reshape(()),

@@ -51,15 +51,18 @@ reads one. Two runners advance the blocks:
   steps run on bf16 deviations quantized once a chunk, halos included,
   and the closing full step dequantizes, as the single-device runner does.
 
-The monitors come from the blocks. ``max_v`` is the largest of the
-blocks' maxima over their own cells, exact in any order. On a mesh whose
-blocks all share one device the closing f_post is copied into one
+The monitors come from the blocks, in one launch of the monitor kernel
+a card (``cuda_step.launch_monitors``, ``BlockMonitors``; the eager
+per-shard runner keeps the eager reductions). ``max_v`` is the largest of
+the blocks' maxima over their own cells, exact in any order. On a mesh
+whose blocks all share one device the closing f_post is copied into one
 resident global f_post there (``BlockState.f_post_global``), whose force
-is the single-device runner's, bitwise; f, rho and u stay in blocks.
-Elsewhere each block's force is its partial sums in float64 over its own
-cells' links, the f_post halos refreshed once at the chunk's end so a
-seam link reads its neighbour's values, added in block order and then
-over the processes in rank order.
+is the single-device runner's, bitwise: one launch reads its links and
+the blocks' u. Elsewhere each block's force is its float64 sum over the
+links of its window (``window_links``: the scheme's rule), the f_post
+halos refreshed once at the chunk's end so a seam link reads its
+neighbour's values; a card's blocks are one launch, and their sums are
+added in block order and then over the processes in rank order.
 
 On a mesh whose blocks belong to several processes
 (``multihost.make_global_mesh``) each process places and advances only
@@ -217,8 +220,8 @@ def local_step(st: LBMState, p: CaseParams, f_halo: torch.Tensor, solid_halo: to
 class EagerCase:
     """The inputs of a case on a mesh for the eager step, cut once: each
     block's params (``topology.shard_params``) and solid flags with the
-    1-cell halo, and the force windows (``force_windows``) on a mesh that
-    is not on one device."""
+    1-cell halo, and the eager force's windows (``force_windows``) on a
+    mesh that is not on one device."""
 
     def __init__(self, p: CaseParams, mesh: Mesh):
         self.p, self.mesh = p, mesh
@@ -246,7 +249,7 @@ def advance_eager(bs: BlockState, case: EagerCase, n_steps: int):
     for k in ("f", "f_post", "rho", "u"):
         setattr(bs, k, [[b and getattr(b, k) for b in row] for row in blocks])
     bs.step += n_steps
-    return _close_chunk(bs, p, case.windows)
+    return _close_chunk(bs, case)
 
 
 # ---------------------------------------------------------------------------
@@ -255,11 +258,11 @@ def advance_eager(bs: BlockState, case: EagerCase, n_steps: int):
 
 
 def force_windows(p: CaseParams, mesh: Mesh):
-    """[ry][rx] (params, region) of the force on each of this process's
-    blocks: ``p`` with the mask and Bouzidi q planes of the block and its
-    halo ring ([hl + 2, wl + 2]; fluid beyond the global edge, where the
-    f_post halo holds zeros, so a link there adds 0 as the global sum's
-    fill does), and the region of the block's own cells."""
+    """[ry][rx] (params, region) of the eager force on each of this
+    process's blocks: ``p`` with the mask and Bouzidi q planes of the
+    block and its halo ring ([hl + 2, wl + 2]; fluid beyond the global
+    edge, where the f_post halo holds zeros, so a link there adds 0 as the
+    global sum's fill does), and the region of the block's own cells."""
     mask = halo_blocks(p.mask, mesh, 0.0)
     q = None if p.bouzidi_q is None else halo_blocks(p.bouzidi_q, mesh, 0.5)
     out = [[None] * len(row) for row in mesh.devices]
@@ -271,20 +274,185 @@ def force_windows(p: CaseParams, mesh: Mesh):
     return out
 
 
-def _close_chunk(bs: BlockState, p: CaseParams, windows):
+def window_links(links: torch.Tensor, W: int, obstacle: int, y0: int, x0: int, hl: int,
+                 wl: int, pitch: int) -> torch.Tensor:
+    """The global boundary links (``cuda_step.boundary_links`` of a grid W
+    wide) that the block at (y0, x0) sums, re-indexed into its halo'd
+    layout [hl + 2, pitch]. The window rule is the eager force's
+    (``solver.force_on_obstacle``'s ``region`` keeps a link whose solid
+    cell x + e_j lies in the block, equilibrium and full-way;
+    ``force_on_obstacle_halfway`` / ``_bouzidi`` one whose fluid cell x
+    does), so each link falls in one block; a link's fluid or upstream
+    cell on a seam lies in the block's halo. The upstream flag stays the
+    global grid's: beyond the global edge it adds 0, as ``shift2d``'s fill
+    does."""
+    if (hl + 2) * pitch >= 1 << (31 - cs.LINK_CELL_SHIFT):
+        raise ValueError(f"block {hl}x{wl} (pitch {pitch}): a link's cell index does not fit")
+    lk = links.long()
+    cell, flags = lk >> cs.LINK_CELL_SHIFT, lk & 31
+    j = lk & 15
+    y, x = cell // W, cell % W
+    if obstacle in (cs.OBSTACLE_EQ, cs.OBSTACLE_BOUNCE):
+        e = torch.as_tensor(E, dtype=torch.long)
+        ry, rx = y + e[j, 1], x + e[j, 0]
+    else:
+        ry, rx = y, x
+    keep = (ry >= y0) & (ry < y0 + hl) & (rx >= x0) & (rx < x0 + wl)
+    local = (y - y0 + 1) * pitch + (x - x0 + 1)
+    return ((local << cs.LINK_CELL_SHIFT) | flags)[keep].to(torch.int32)
+
+
+class BlockMonitors:
+    """The monitor kernel's inputs of a case on a mesh of K1's halo'd
+    blocks [C, hl + 2, pitch], cut once (``ShardedCase``). On a mesh whose
+    blocks share one device: one ``MonitorLinks`` of 1 + n items, the
+    global f_post's links (``boundary_links``) and each block's u, summed
+    into one total. Elsewhere, for each card of this process (in the order
+    its first block comes), one of its blocks' window links
+    (``window_links``) in block order. The device item tables
+    (``cuda_step.monitor_item`` rows) are uploaded when the blocks'
+    buffers change (they are resident: once a placement)."""
+
+    def __init__(self, p: CaseParams, mesh: Mesh, hl: int, wl: int, pitch: int, q_blocks,
+                 per_card: bool = False):
+        H, W = p.shape
+        self.hl, self.wl, self.pitch = hl, wl, pitch
+        self.obstacle = cs.obstacle_scheme(p)
+        self.bouzidi = self.obstacle == cs.OBSTACLE_BOUZIDI
+        self.q_blocks = q_blocks
+        self.coords = _coords(mesh)
+        # ``per_card`` True takes the block form on a one-device mesh too
+        # (its blocks one card's launch: how the checks hold that form on
+        # one card)
+        self.single = None if per_card else mesh.single_device
+        links = cs.boundary_links(p)
+        self.cards = {}
+        if self.single is not None:
+            self.W = W
+            self.q_global = p.bouzidi_q.to(self.single) if self.bouzidi else None
+            empty = torch.zeros(0, dtype=torch.int32)
+            self.cards[self.single] = (cs.MonitorLinks([links] + [empty] * len(self.coords),
+                                                       self.single), list(self.coords))
+        else:
+            by_dev = {}
+            for iy, ix in self.coords:
+                by_dev.setdefault(mesh.devices[iy][ix], []).append((iy, ix))
+            for dev, blocks in by_dev.items():
+                lists = [window_links(links, W, self.obstacle, iy * hl, ix * wl, hl, wl, pitch)
+                         for iy, ix in blocks]
+                self.cards[dev] = (cs.MonitorLinks(lists, dev), blocks)
+        self._tables = {}
+
+    def _u_item(self, u_block, f_post=None, q=None):
+        plane = (self.hl + 2) * self.pitch
+        return cs.monitor_item(f_post, q, u_block[:, 1:], self.pitch, plane,
+                               (plane, self.hl, self.pitch, 1, self.wl))
+
+    def rows(self, bs: BlockState, dev):
+        """The item rows of card ``dev``'s launch."""
+        ml, blocks = self.cards[dev]
+        if self.single is not None:
+            H = bs.f_post_global.shape[-2]
+            return [cs.whole_item(bs.f_post_global, self.q_global, None, H, self.W)] + [
+                self._u_item(bs.u[iy][ix]) for iy, ix in blocks]
+        return [self._u_item(bs.u[iy][ix], bs.f_post[iy][ix], _at(self.q_blocks, iy, ix))
+                for iy, ix in blocks]
+
+    def table(self, bs: BlockState, dev) -> torch.Tensor:
+        rows = self.rows(bs, dev)
+        key = tuple(map(tuple, rows))
+        hit = self._tables.get(dev)
+        if hit is None or hit[0] != key:
+            hit = self._tables[dev] = (key, cs._upload(torch.tensor(rows, dtype=torch.int64),
+                                                       dev))
+        return hit[1]
+
+
+def _block_parts_plain(bs: BlockState, bm: BlockMonitors, dev):
+    """Plain version of a card's launch: its items' part rows f64 [n, 3]
+    (Fx, Fy, max_v) in the kernel's order."""
+    ml, blocks = bm.cards[dev]
+    own_u = bs.own("u")
+    rows = []
+    for c, (iy, ix) in enumerate(blocks):
+        fp = bs.f_post[iy][ix]
+        links = ml.item_links(c).to(fp.device)
+        force = cs.item_force_plain(fp, _at(bm.q_blocks, iy, ix), links, bm.pitch, bm.bouzidi)
+        rows.append(torch.cat([force, cs.speed_max_plain(own_u[iy][ix]).double().reshape(1)]))
+    return torch.stack(rows)
+
+
+def _single_plain(bs: BlockState, bm: BlockMonitors):
+    """Plain version of the one-device mesh's launch: (force, max_v)."""
+    ml, blocks = bm.cards[bm.single]
+    own_u = bs.own("u")
+    fp = bs.f_post_global
+    force = cs.item_force_plain(fp, bm.q_global, ml.item_links(0).to(fp.device), bm.W,
+                                bm.bouzidi)
+    max_v = torch.stack([cs.speed_max_plain(own_u[iy][ix]) for iy, ix in blocks]).amax()
+    return force.to(max_v.dtype), max_v
+
+
+def kernel_block_monitors(bs: BlockState, bm: BlockMonitors, plain: bool = False):
+    """{"force", "max_v"} of the resident halo'd blocks through the monitor
+    kernel (its plain version with ``plain`` or on CPU tensors): one launch
+    a card. On a mesh spanning processes a collective."""
+    from . import multihost
+
+    mesh, dev = bs.mesh, bs.device
+    if bm.single is not None:
+        if plain or not bs.f_post_global.is_cuda:
+            force, max_v = _single_plain(bs, bm)
+            return {"force": force, "max_v": max_v}
+        ml, blocks = bm.cards[bm.single]
+        total = torch.empty(3, dtype=torch.float32, device=bm.single)
+        cs.launch_monitors(ml, [0] * 10, table=bm.table(bs, bm.single), bouzidi=bm.bouzidi,
+                           cells=bm.hl * bm.wl, total=total)
+        return {"force": total[:2], "max_v": total[2]}
+    exchange_halos(bs.f_post, mesh, bs.hl, bs.wl)
+    parts = {}
+    for d, (ml, blocks) in bm.cards.items():
+        if plain or d.type != "cuda":
+            part = _block_parts_plain(bs, bm, d)
+        else:
+            part = cs.launch_monitors(ml, [0] * 10, table=bm.table(bs, d), bouzidi=bm.bouzidi,
+                                      cells=bm.hl * bm.wl)
+        parts[d] = part.to(dev)
+    # each block's sum in block order, as the eager partial sums add
+    rows = {b: parts[d][c] for d, (ml, blocks) in bm.cards.items()
+            for c, b in enumerate(blocks)}
+    force = None
+    for b in bm.coords:
+        force = rows[b][:2] if force is None else force + rows[b][:2]
+    max_v = torch.cat([p[:, 2] for p in parts.values()]).amax().float()
+    if multihost.is_cross_rank(mesh):
+        force, max_v = multihost.reduce_monitors(force, max_v)
+    return {"force": force.to(max_v.dtype), "max_v": max_v}
+
+
+def _close_chunk(bs: BlockState, case, plain: bool = False):
     """After a chunk: on a one-device mesh the blocks' f_post copied into
     ``bs.f_post_global``; then the monitors (``block_monitors``)."""
     if bs.f_post_global is not None:
         bs.collect_f_post()
-    return block_monitors(bs, p, windows)
+    return block_monitors(bs, case, plain)
 
 
-def block_monitors(bs: BlockState, p: CaseParams, windows):
-    """{"force", "max_v"} of the resident state (module docstring): on a
-    one-device mesh the force of ``bs.f_post_global``; elsewhere the
-    blocks' float64 partial sums over ``windows`` (``force_windows``),
-    after refreshing the f_post halos, added in block order and over the
-    processes in rank order. On a mesh spanning processes a collective."""
+def block_monitors(bs: BlockState, case, plain: bool = False):
+    """{"force", "max_v"} of the resident state (module docstring): through
+    the monitor kernel for a ``ShardedCase`` (``kernel_block_monitors``),
+    the eager reductions for an ``EagerCase`` (``eager_block_monitors``)."""
+    if isinstance(case, ShardedCase):
+        return kernel_block_monitors(bs, case.monitors, plain)
+    return eager_block_monitors(bs, case.p, case.windows)
+
+
+def eager_block_monitors(bs: BlockState, p: CaseParams, windows):
+    """The eager monitors of bare blocks: on a one-device mesh the force of
+    ``bs.f_post_global``; elsewhere the blocks' float64 partial sums over
+    ``windows`` (``force_windows``), after refreshing the f_post halos,
+    added in block order and over the processes in rank order. On a mesh
+    spanning processes a collective."""
     from . import multihost
 
     mesh, dev = bs.mesh, bs.device
@@ -293,11 +461,7 @@ def block_monitors(bs: BlockState, p: CaseParams, windows):
     max_v = torch.stack([max_velocity(u[iy][ix]).to(dev) for iy, ix in coords]).max()
     if bs.f_post_global is not None:
         return {"force": obstacle_force(bs.f_post_global, p), "max_v": max_v}
-    if bs.halo:
-        exchange_halos(bs.f_post, mesh, bs.hl, bs.wl)
-        fp = [[b if b is None else b[:, :, :bs.wl + 2] for b in row] for row in bs.f_post]
-    else:
-        fp = exchange_halo_f(bs.f_post, mesh)
+    fp = exchange_halo_f(bs.f_post, mesh)
     force = None
     for iy, ix in coords:
         wp, region = windows[iy][ix]
@@ -318,8 +482,8 @@ class ShardedCase:
     cut once: each block's geometry, its aux plane with the 1-cell halo
     (the link predicate reads the pull source's solid flag across a seam;
     a zero halo would turn seam links into fluid links), its Bouzidi q
-    planes, its rows of the inlet profile, and the force windows
-    (``force_windows``) on a mesh that is not on one device."""
+    planes, its rows of the inlet profile, and the monitor kernel's inputs
+    (``BlockMonitors``)."""
 
     def __init__(self, p: CaseParams, mesh: Mesh):
         why = cs.unsupported(p)
@@ -340,7 +504,7 @@ class ShardedCase:
             self.prof = [[p.inlet_profile[iy * hl:(iy + 1) * hl].to(dev).contiguous()
                           if mesh.owns(iy, ix) else None
                           for ix, dev in enumerate(row)] for iy, row in enumerate(mesh.devices)]
-        self.windows = None if mesh.single_device is not None else force_windows(p, mesh)
+        self.monitors = BlockMonitors(p, mesh, hl, wl, self.pitch, self.q)
         # the library loop's host tables; the mesh decides (others keep the
         # per-step loop)
         self.tables = None
@@ -508,7 +672,7 @@ def advance_blocks(bs: BlockState, case: ShardedCase, n_steps: int, store_dev: b
         bs.f_alt = src
     bs.f = dst
     bs.step += n_steps
-    return _close_chunk(bs, p, case.windows)
+    return _close_chunk(bs, case, plain)
 
 
 class BlockRunner:
@@ -551,7 +715,7 @@ class BlockRunner:
 
     def monitors(self, bs: BlockState, p: CaseParams):
         """The monitors of ``bs`` as placed (before its first chunk)."""
-        return block_monitors(bs, p, self.case(p).windows)
+        return block_monitors(bs, self.case(p), self.kind == "plain")
 
 
 def _run_wrapped(state, p, n_steps, mesh, kind, store_dev=False, case=None):

@@ -77,11 +77,15 @@ class Mesh:
 
 def make_mesh(shape: Optional[Tuple[int, int]] = None,
               devices: Optional[Sequence] = None) -> Mesh:
-    """2D mesh over ``devices`` (the CUDA devices, else the CPU, by
-    default); shape defaults to most-square."""
+    """2D mesh over ``devices`` (by default the CUDA devices, which must
+    exist: a CPU mesh is asked for by naming its devices, as
+    ``engine.resolve_device`` asks for the CPU); shape defaults to
+    most-square."""
     if devices is None:
-        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        devices = [torch.device("cuda", i) for i in range(n)] or [torch.device("cpu")]
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_mesh: no CUDA device is available; pass devices "
+                               "(e.g. ['cpu'] * n) for a mesh on the CPU")
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     devices = [torch.device(d) for d in devices]
     if shape is None:
         shape = best_grid(len(devices))

@@ -234,3 +234,32 @@ def cut_depth(cfg_dir: str, warmup: int = 1000, chunk: int = 100, max_steps: int
 # the lockstep production command's flags (README.md)
 PRODUCTION_FLAGS = dict(lockstep=True, device_resize=True, max_batch=5, f16_state=True,
                         f16_transfer=True, yuv_video=True, f16_retry=True)
+
+
+# the eager monitors every chunk path now takes from the monitor kernel
+EAGER_MONITORS = ("obstacle_force", "max_velocity")
+
+
+def watch_eager_monitors(counted: dict) -> dict:
+    """Count in ``counted`` every call of the eager monitors
+    (``solver.obstacle_force``, ``solver.max_velocity``) on a CUDA tensor,
+    in each module of the port that calls them, so a run can show that its
+    chunk paths computed no monitor eagerly on the card. Returns the
+    unwatched functions, for a caller's own comparisons. Idempotent."""
+    from ..analysis import dfg_validation
+    from ..core import engine, solver
+    from ..parallel import batch, sharded
+
+    orig = {name: getattr(getattr(solver, name), "__wrapped__", getattr(solver, name))
+            for name in EAGER_MONITORS}
+    for name, fn in orig.items():
+        def wrapper(t, *a, _fn=fn, _name=name, **kw):
+            if t.is_cuda:
+                counted[_name] = counted.get(_name, 0) + 1
+            return _fn(t, *a, **kw)
+
+        wrapper.__wrapped__ = fn
+        for mod in (solver, engine, batch, sharded, dfg_validation):
+            if hasattr(mod, name):
+                setattr(mod, name, wrapper)
+    return orig

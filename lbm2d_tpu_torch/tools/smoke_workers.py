@@ -33,10 +33,14 @@ import numpy as np
 
 
 def _count_plain_calls(counted: dict) -> None:
-    """Wrap the plain versions and the eager steps so a call is counted."""
+    """Wrap the plain versions and the eager steps so a call is counted,
+    and the eager monitors where they run on a CUDA tensor."""
     from ..core import solver
     from ..ops import cuda_step as cs
     from ..parallel import sharded as sh
+    from .smoke_case import watch_eager_monitors
+
+    watch_eager_monitors(counted)
 
     for mod, attr in ((solver, "step"), (cs, "k1_step_plain"), (cs, "k1_step_dev_plain"),
                       (cs, "k3_fused_plain"), (sh, "local_step")):

@@ -27,6 +27,7 @@ from lbm2d_tpu.ops.pallas_step import _scalars  # noqa: E402
 from lbm2d_tpu_torch.core import solver as ts  # noqa: E402
 from lbm2d_tpu_torch.core.lattice import f_eq  # noqa: E402
 from lbm2d_tpu_torch.ops import cuda_step as cs  # noqa: E402
+from torch_monitor_checks import assert_runner_monitors  # noqa: E402
 
 H, W = 20, 36
 WARMUP = 12
@@ -190,7 +191,7 @@ def test_plain_runner_equals_eager(bc_type, obstacle):
     a, ma = cs.run_chunk_plain(a, p, 8)
     b, mb = ts.run_chunk(s0, p, 17)
     assert_bitwise(a, b)
-    assert torch.equal(ma["force"], mb["force"])
+    assert_runner_monitors(ma, a, p, mb)
 
 
 def test_chunk_runner_matches_jax():

@@ -3,8 +3,9 @@ versions on the CPU, and (on a card only) the kernels themselves.
 
 On CPU tensors ``run_chunk_cuda`` runs ``k1_step_plain``: the interior
 step, then the ring from the interior's collide output, the values the
-kernel's ring threads compute. It must equal the eager ``run_chunk`` exactly,
-since both round the same f32 operations in the same order.
+kernel's ring threads compute. Its state must equal the eager ``run_chunk``
+exactly, since both round the same f32 operations in the same order; its
+force is the monitor kernel's f64 sum (``tests/torch_monitor_checks.py``).
 """
 
 import copy
@@ -17,6 +18,7 @@ import torch
 from lbm2d_tpu_torch.core import solver as ts
 from lbm2d_tpu_torch.core.lattice import f_eq
 from lbm2d_tpu_torch.ops import cuda_step as cs
+from torch_monitor_checks import assert_runner_monitors
 
 H, W = 20, 36
 
@@ -84,7 +86,7 @@ def test_plain_chunk_runner_equals_eager(bc_type, cs_):
     a, ma = cs.run_chunk_cuda(a, p, 5)  # second chunk starts mid-warmup
     b, mb = ts.run_chunk(s0, p, 12)
     assert_same(a, b)
-    assert torch.equal(ma["force"], mb["force"]) and torch.equal(ma["max_v"], mb["max_v"])
+    assert_runner_monitors(ma, a, p, mb)
     assert cs.LAUNCHES == before  # CPU tensors never count as launches
     # the input state is left as it was
     assert torch.equal(s0.f, seeded_state().f)
@@ -176,7 +178,7 @@ def test_plain_chunk_runner_bounce_schemes_equal_eager(obstacle, bc_type):
     a, ma = cs.run_chunk_cuda(seeded_state(4), p, 9)
     b, mb = ts.run_chunk(seeded_state(4), p, 9)
     assert_same(a, b)
-    assert torch.equal(ma["force"], mb["force"])
+    assert_runner_monitors(ma, a, p, mb)
 
 
 def test_kernel_wrappers_reject_bad_tensors():
@@ -200,7 +202,8 @@ def test_kernels_match_plain_on_card():
     s0 = seeded_state(device=dev)
     cs.reset_launch_counts()
     a, ma = cs.run_chunk_cuda(s0, p, 9)
-    assert {k: v for k, v in cs.LAUNCHES.items() if v} == {"k1_step": 8, "k1_step_full": 1}
+    assert {k: v for k, v in cs.LAUNCHES.items() if v} == {"k1_step": 8, "k1_step_full": 1,
+                                                           "group_monitors": 1}
     b, mb = ts.run_chunk(s0, p, 9)
     assert_same(a, b, tol=1e-5)
     cfg = copy.deepcopy(make_config())
@@ -222,7 +225,8 @@ def test_bounce_and_inlet_variants_match_plain_on_card(obstacle, bc_type):
     a, _ = cs.run_chunk_cuda(s0, p, 9)
     scheme = cs.obstacle_scheme(p)
     assert {k: v for k, v in cs.LAUNCHES.items() if v} == {
-        cs.k1_variant(scheme): 8, cs.k1_variant(scheme, full=True): 1}
+        cs.k1_variant(scheme): 8, cs.k1_variant(scheme, full=True): 1,
+        cs.monitor_variant(scheme): 1}
     b, _ = cs.run_chunk_plain(s0, p, 9)
     assert_same(a, b)
     if obstacle == "bounce_back":  # deviation storage: EQ and BOUNCE only
@@ -254,7 +258,7 @@ def test_k3_matches_plain_on_card(obstacle, bc_type, S, tile, monkeypatch):
     scheme = cs.obstacle_scheme(p)
     passes, split = divmod(8, S)
     want = {cs.k3_variant(scheme, bc_type[0]): passes, cs.k1_variant(scheme): split,
-            cs.k1_variant(scheme, full=True): 1}
+            cs.k1_variant(scheme, full=True): 1, cs.monitor_variant(scheme): 1}
     assert {k: v for k, v in cs.LAUNCHES.items() if v} == {k: v for k, v in want.items() if v}
     b, _ = cs.run_chunk_plain(s0, p, 9)
     assert_same(a, b)
@@ -369,7 +373,8 @@ def test_shard_kernels_match_plain_on_card(obstacle, bc_type):
     cs.reset_launch_counts()
     a, ma = sh.run_chunk_sharded_cuda(s0, p, 9, mesh)
     assert {k: v for k, v in cs.LAUNCHES.items() if v} == {
-        cs.k1_variant(scheme, shard=True): 32, cs.k1_variant(scheme, full=True, shard=True): 4}
+        cs.k1_variant(scheme, shard=True): 32, cs.k1_variant(scheme, full=True, shard=True): 4,
+        cs.monitor_variant(scheme): 1}
     b, mb = sh.run_chunk_sharded_plain(s0, p, 9, mesh)
     assert_same(a, b)
     assert torch.equal(ma["force"], mb["force"])
@@ -380,7 +385,7 @@ def test_shard_kernels_match_plain_on_card(obstacle, bc_type):
         a, _ = sh.run_chunk_sharded_cuda(s0, p, 9, mesh, store_dev=True)
         assert {k: v for k, v in cs.LAUNCHES.items() if v} == {
             cs.k1_variant(scheme, dev=True, shard=True): 32,
-            cs.k1_variant(scheme, full=True, shard=True): 4}
+            cs.k1_variant(scheme, full=True, shard=True): 4, cs.monitor_variant(scheme): 1}
         b, _ = sh.run_chunk_sharded_plain(s0, p, 9, mesh, store_dev=True)
         assert_same(a, b)
         c, _ = cs.run_chunk_cuda(s0, p, 9, store_dev=True)

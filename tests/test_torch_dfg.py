@@ -41,6 +41,7 @@ from lbm2d_tpu_torch.core import solver as ts  # noqa: E402
 from lbm2d_tpu_torch.core import stability as tstab  # noqa: E402
 from lbm2d_tpu_torch.core.engine import LBMEngine  # noqa: E402
 from lbm2d_tpu_torch.ops import cuda_step as cs  # noqa: E402
+from torch_monitor_checks import assert_runner_monitors  # noqa: E402
 
 OBSTACLES = ("bounce_back", "bounce_back_halfway", "bounce_back_bouzidi")
 INLETS = ("equilibrium", "nebb")
@@ -115,7 +116,7 @@ def test_chunk_runner_equals_eager_f32(obstacle, inlet):
     b, mb = ts.run_chunk(s0, p, 12)
     for k in ("f", "f_post", "rho", "u"):
         assert torch.equal(getattr(a, k), getattr(b, k)), k
-    assert torch.equal(ma["force"], mb["force"]) and torch.equal(ma["max_v"], mb["max_v"])
+    assert_runner_monitors(ma, a, p, mb)
     assert cs.LAUNCHES == before  # CPU tensors never count as launches
     c, _ = cs.run_chunk_plain(s0, p, 12)
     assert torch.equal(c.f, b.f)

@@ -335,7 +335,8 @@ def test_k1_no_op_ring_matches_plain_on_card(bc_type, obstacle):
         assert_equal(a, b)
         assert torch.equal(ma["force"], mb["force"]) and torch.equal(ma["max_v"], mb["max_v"])
     assert {k: v for k, v in cs.LAUNCHES.items() if v} == {
-        cs.k1_variant(scheme): 7, cs.k1_variant(scheme, full=True): 2}
+        cs.k1_variant(scheme): 7, cs.k1_variant(scheme, full=True): 2,
+        cs.monitor_variant(scheme): 2}
 
 
 @pytest.mark.cuda
@@ -404,7 +405,7 @@ def test_engines_run_a_no_op_layout_on_card(caplog):
         assert torch.equal(f, ref.f)
         launched = {k for k, v in cs.LAUNCHES.items() if v}
         # the lockstep engine's chunk is the group program (K1's _group
-        # instances and the group monitor kernel)
-        assert launched in ({"k1_step", "k1_step_full"},
-                            {"k1_step_shard", "k1_step_shard_full"},
+        # instances); every chunk's monitors are the monitor kernel's
+        assert launched in ({"k1_step", "k1_step_full", "group_monitors"},
+                            {"k1_step_shard", "k1_step_shard_full", "group_monitors"},
                             {"k1_step_group", "k1_step_group_full", "group_monitors"}), launched

@@ -618,8 +618,10 @@ def test_shard_loop_on_the_card_equals_stepwise(cuda_dev, shape, bc_type, obstac
     for k in ("force", "max_v"):
         assert torch.equal(ma[k], mb[k]), k
     # one K1 a block a step, the same as the per-step loop's, and no other
-    # launch: 10 fast steps and 3 closing ones
-    assert la == lb and sum(la.values()) == 13 * shape[0] * shape[1]
+    # launch but the monitors' one a chunk: 10 fast steps and 3 closing ones
+    mon = cs.monitor_variant(cs.obstacle_scheme(p))
+    assert la == lb and la[mon] == 3
+    assert sum(v for k, v in la.items() if k != mon) == 13 * shape[0] * shape[1]
     c, mc = run_blocks(p, leaves, mesh, [7, 5, 1], store_dev, stepwise=False)  # plain
     torch.cuda.synchronize()
     assert_blocks_equal(a, c)
