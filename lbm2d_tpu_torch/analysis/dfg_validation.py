@@ -38,6 +38,7 @@ from ..core.engine import LBMEngine
 from ..core.solver import obstacle_force
 from ..ops import cuda_step
 from ..utils.physics import compute_coefficients, fit_sine_wave, strouhal_number
+from ..utils.profiling import span
 
 
 def cylinder_case(nx=800, ny=400, diameter=40, u_target=0.08, re=150.0):
@@ -189,28 +190,30 @@ def run_validation(
     fx, fy, ts = [], [], []
     n_chunks = steps // chunk
     for i in range(n_chunks):
-        engine.run_step(chunk)
-        if force_links is not None:
-            f = cuda_step.case_force(engine.field("f_post"), force_links).cpu().numpy()
-        elif force_mask is not None:
-            f = obstacle_force(
-                engine.field("f_post"), engine.params, mask=force_mask
-            ).cpu().numpy()
-        else:
-            f = engine.get_force()
-        max_v = engine.get_max_velocity()
-        ok, reason = stability.check_stability(
-            f, max_v, (i + 1) * chunk,
-            warmup_step=cfg["simulation"]["warmup_steps"],
-        )
-        if not ok:
-            print(f"  [breaker] {reason}")
-            break
-        fx.append(float(f[0]))
-        fy.append(float(f[1]))
-        ts.append((i + 1) * chunk)
-        if progress and (i + 1) % max(1, n_chunks // 10) == 0:
-            print(f"  step {ts[-1]}/{steps}  Fx={fx[-1]:.4f} Fy={fy[-1]:+.4f}")
+        with span("serial.chunk", chunk=i + 1):
+            engine.run_step(chunk)
+            if force_mask is not None:
+                with span("serial.readback"):
+                    if force_links is not None:
+                        f = cuda_step.case_force(engine.field("f_post"), force_links)
+                    else:
+                        f = obstacle_force(engine.field("f_post"), engine.params, mask=force_mask)
+                    f = f.cpu().numpy()
+            else:
+                f = engine.get_force()
+            max_v = engine.get_max_velocity()
+            ok, reason = stability.check_stability(
+                f, max_v, (i + 1) * chunk,
+                warmup_step=cfg["simulation"]["warmup_steps"],
+            )
+            if not ok:
+                print(f"  [breaker] {reason}")
+                break
+            fx.append(float(f[0]))
+            fy.append(float(f[1]))
+            ts.append((i + 1) * chunk)
+            if progress and (i + 1) % max(1, n_chunks // 10) == 0:
+                print(f"  step {ts[-1]}/{steps}  Fx={fx[-1]:.4f} Fy={fy[-1]:+.4f}")
 
     fx = np.asarray(fx)
     fy = np.asarray(fy)

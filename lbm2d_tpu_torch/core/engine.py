@@ -63,6 +63,7 @@ from .solver import (
     obstacle_force,
     run_chunk,
 )
+from ..utils.profiling import span
 
 log = logging.getLogger(__name__)
 
@@ -351,11 +352,12 @@ class LBMEngine:
         self._set_state(init_state(self.ny, self.nx, self.dtype, self.device))
 
     def run_step(self, steps: int = 1) -> None:
-        if self.mesh is None:
-            self._state, self._last_monitors = self._runner(self._state, self.params, steps)
-        else:
-            self._snapshot = None
-            self._last_monitors = self._runner.advance(self._blocks, self.params, steps)
+        with span("serial.issue"):
+            if self.mesh is None:
+                self._state, self._last_monitors = self._runner(self._state, self.params, steps)
+            else:
+                self._snapshot = None
+                self._last_monitors = self._runner.advance(self._blocks, self.params, steps)
         self._monitors_np = None
 
     def _fetch_monitors(self) -> np.ndarray:
@@ -365,9 +367,10 @@ class LBMEngine:
             if mon is None:
                 mon = (self._runner.monitors(self._blocks, self.params) if self.mesh is not None
                        else _state_monitors(self._state, self.params))
-            self._monitors_np = (
-                torch.cat([mon["force"].reshape(-1), mon["max_v"].reshape(1)]).cpu().numpy()
-            )
+            with span("serial.readback"):
+                self._monitors_np = (
+                    torch.cat([mon["force"].reshape(-1), mon["max_v"].reshape(1)]).cpu().numpy()
+                )
         return self._monitors_np
 
     def get_force(self) -> np.ndarray:

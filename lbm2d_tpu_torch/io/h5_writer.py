@@ -48,6 +48,7 @@ except Exception:  # pragma: no cover
 
 from .sdf import signed_distance_field
 from ..ops.resize import resize_area, resize_nearest
+from ..utils.profiling import current_chunk, span
 
 
 class LBMCaseWriter:
@@ -213,16 +214,19 @@ class AsyncLBMCaseWriter:
                 continue
             if item is None:
                 break
-            data, pre_resized = item
+            data, pre_resized, chunk = item
             try:
-                self.writer.append(data, pre_resized=pre_resized)
+                with span("h5.append", chunk=chunk):
+                    self.writer.append(data, pre_resized=pre_resized)
             except Exception as exc:  # keep draining; surface at close
                 self.errors.append(exc)
             finally:
                 self.queue.task_done()
 
     def append(self, moments_chw, pre_resized: bool = False) -> None:
-        self.queue.put((np.asarray(moments_chw), pre_resized))
+        """Queue a frame; a full queue blocks. The worker's span carries the
+        chunk of the caller's innermost span."""
+        self.queue.put((np.asarray(moments_chw), pre_resized, current_chunk()))
 
     def finalize(self) -> None:
         self.stop_event.set()

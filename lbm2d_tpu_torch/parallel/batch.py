@@ -68,6 +68,7 @@ from ..core.solver import (
 )
 from ..core.stability import is_stable_device
 from ..ops import cuda_step as cs
+from ..utils.profiling import span
 
 
 def stack_params(params: Sequence[CaseParams]) -> CaseParams:
@@ -267,7 +268,8 @@ class BatchEngine:
         # every group's chunk is issued before any monitor is read, so the
         # devices of a case mesh run concurrently; each group's monitors are
         # ONE array, so one device-to-host transfer a device
-        packs = [self._run_group(g, n) for g in self._groups]
+        with span("program.issue"):
+            packs = [self._run_group(g, n) for g in self._groups]
         packed = packs[0] if self.mesh is None else packs
         self._pending = packed
         if not sync:

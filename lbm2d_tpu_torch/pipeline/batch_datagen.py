@@ -45,6 +45,7 @@ from ..io.vectors import build_npz
 from ..parallel.batch import BatchEngine
 from ..utils.config import load_config
 from ..utils.masks import create_mask
+from ..utils.profiling import REGISTRY, recording, span, totals
 from ..utils.scaling import calculate_physical_params
 from . import paths
 from .batch_run import build_resume_plan, find_config_files
@@ -104,6 +105,20 @@ def group_configs(
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
+
+
+# the ``outputs.enable_profiling`` progress line: its keys and the spans
+# each sums
+PROFILE_KEYS = (("dispatch", ("program.issue",)), ("write", ("loop.fetch_join", "loop.write")),
+                ("monitor", ("loop.monitor_wait",)), ("queue", ("loop.queue",)),
+                ("fetch", ("loop.fetch_start",)))
+
+
+def profile_line(spans, n_chunks: int) -> str:
+    """The keys' ms a chunk over ``spans`` of ``n_chunks`` chunks."""
+    tot = totals(spans)[0]
+    return " ".join(f"{key}={sum(tot.get(n, 0.0) for n in names) / n_chunks * 1e3:.0f}"
+                    for key, names in PROFILE_KEYS)
 
 
 def run_lockstep_group(
@@ -292,6 +307,8 @@ def run_lockstep_group(
     fetch_thread: Optional[threading.Thread] = None
     fetch_box: Dict[str, Any] = {}
     bytes_fetched = [0]  # cumulative device-to-host payload (run stats)
+    group_uid = uuid.uuid4().hex[:8]  # the group's request id in its spans
+    chunk_id = None  # (group_uid, chunk index) of the chunk the loop runs
 
     if pacer is None:
         pacer = FetchPacer() if (adaptive_fetch and fetch_overlap) else None
@@ -304,28 +321,32 @@ def run_lockstep_group(
         pending_videos = []
         return pm, pv
 
-    def _fetch(pm, pv):
-        """Device tensors -> host dict for write_fetched."""
+    def _fetch(pm, pv, started_by=None):
+        """Device tensors -> host dict for write_fetched; ``started_by`` is
+        the chunk that started the fetch on a worker thread (its span's
+        request id; on the loop's thread the span inherits it)."""
         out: Dict[str, Any] = {}
         nb = 0
-        if pv:
-            if yuv_video:
-                planes = [(_to_host(y), _to_host(uv)) for y, uv in pv]
-                nb += sum(y.nbytes + uv.nbytes for y, uv in planes)
-                out["frames_yuv"] = planes
-            else:
-                frames = [_to_host(f) for f in pv]
-                nb += sum(f.nbytes for f in frames)
-                out["frames"] = frames
-        if pm:
-            moms = []
-            for dev, pre in pm:
-                moments = _to_host(dev)
-                nb += moments.nbytes
-                if moments.dtype != np.float32:
-                    moments = moments.astype(np.float32)
-                moms.append((moments, pre))
-            out["moments"] = moms
+        with span("fetch.d2h", chunk=started_by) as sp:
+            if pv:
+                if yuv_video:
+                    planes = [(_to_host(y), _to_host(uv)) for y, uv in pv]
+                    nb += sum(y.nbytes + uv.nbytes for y, uv in planes)
+                    out["frames_yuv"] = planes
+                else:
+                    frames = [_to_host(f) for f in pv]
+                    nb += sum(f.nbytes for f in frames)
+                    out["frames"] = frames
+            if pm:
+                moms = []
+                for dev, pre in pm:
+                    moments = _to_host(dev)
+                    nb += moments.nbytes
+                    if moments.dtype != np.float32:
+                        moments = moments.astype(np.float32)
+                    moms.append((moments, pre))
+                out["moments"] = moms
+            sp.set(bytes=nb)
         bytes_fetched[0] += nb
         return out
 
@@ -338,9 +359,10 @@ def run_lockstep_group(
         safely queue new pending events."""
         nonlocal fetch_thread
         pm, pv = _take_pending()
+        started_by = chunk_id
 
         def _worker():
-            fetch_box.update(_fetch(pm, pv))
+            fetch_box.update(_fetch(pm, pv, started_by))
 
         fetch_thread = threading.Thread(target=_worker, daemon=True)
         fetch_thread.start()
@@ -359,32 +381,46 @@ def run_lockstep_group(
         """Host-side writes of already-fetched data (no device traffic)."""
         if not out:
             return
-        for frames_ev, yuv_ev in _frame_events(out):
-            from ..io.video import i420_to_rgb
+        with span("loop.write"):
+            _write_video(out)
+            _write_h5(out)
 
-            for b in range(n_cases):
-                if fail_reason[b] is None and recorders[b] is not None:
-                    if yuv_ev is not None and zones is None:
-                        # planes go straight to the recorder (the native
-                        # backend feeds them to its yuv420p encoder)
-                        recorders[b].write_frame_i420(yuv_ev[0][b], yuv_ev[1][b])
-                        continue
-                    if yuv_ev is not None:
-                        frame = i420_to_rgb(yuv_ev[0][b], yuv_ev[1][b])
-                    else:
-                        frame = (
-                            frames_ev[b].copy() if zones is not None
-                            else frames_ev[b]
-                        )
-                    if zones is not None:
-                        from ..viz.frames import draw_zone_overlay
+    def _write_video(out):
+        events = _frame_events(out)
+        if not events:
+            return
+        from ..io.video import i420_to_rgb
 
-                        frame = draw_zone_overlay(frame, zones)
-                    recorders[b].write_frame_u8(frame)
-        for moments, pre in out.get("moments", ()):
-            for b in range(n_cases):
-                if fail_reason[b] is None and writers[b] is not None:
-                    writers[b].append(moments[b], pre_resized=pre)
+        with span("loop.write.video"):
+            for frames_ev, yuv_ev in events:
+                for b in range(n_cases):
+                    if fail_reason[b] is None and recorders[b] is not None:
+                        if yuv_ev is not None and zones is None:
+                            # planes go straight to the recorder (the native
+                            # backend feeds them to its yuv420p encoder)
+                            recorders[b].write_frame_i420(yuv_ev[0][b], yuv_ev[1][b])
+                            continue
+                        if yuv_ev is not None:
+                            frame = i420_to_rgb(yuv_ev[0][b], yuv_ev[1][b])
+                        else:
+                            frame = (
+                                frames_ev[b].copy() if zones is not None
+                                else frames_ev[b]
+                            )
+                        if zones is not None:
+                            from ..viz.frames import draw_zone_overlay
+
+                            frame = draw_zone_overlay(frame, zones)
+                        recorders[b].write_frame_u8(frame)
+
+    def _write_h5(out):
+        if "moments" not in out:
+            return
+        with span("loop.write.h5"):
+            for moments, pre in out["moments"]:
+                for b in range(n_cases):
+                    if fail_reason[b] is None and writers[b] is not None:
+                        writers[b].append(moments[b], pre_resized=pre)
 
     def _frame_events(out):
         if "frames" in out:
@@ -396,104 +432,98 @@ def run_lockstep_group(
     def flush_pending():
         write_fetched(fetch_pending())
 
-    # opt-in per-phase wall breakdown (outputs.enable_profiling), printed
-    # with each progress line
+    # opt-in per-phase wall breakdown (outputs.enable_profiling): the
+    # chunks' spans, summed for each progress line
     profiling = bool(cfg0["outputs"].get("enable_profiling"))
-    prof = {"dispatch": 0.0, "write": 0.0, "monitor": 0.0, "queue": 0.0,
-            "fetch": 0.0}
     fetched = {}
 
     t0 = time.perf_counter()
-    while steps < max_steps:
-        tp0 = time.perf_counter()
-        mon_dev = engine.run_step(chunk, sync=False)
-        tp1 = time.perf_counter()
-        steps += chunk
-        stall_s = 0.0
-        fetching = fetch_thread is not None
-        if fetching:
-            tj = time.perf_counter()
-            fetched = join_fetch()
-            stall_s = time.perf_counter() - tj
-        tw = time.perf_counter()
-        write_fetched(fetched)  # host-only IO
-        fetched = {}
-        tp2 = time.perf_counter()
-        mon = engine.sync_monitors(mon_dev)
-        tp3 = time.perf_counter()
-        prof["dispatch"] += tp1 - tp0
-        prof["write"] += tp2 - tp1
-        prof["monitor"] += tp3 - tp2
-        if pacer is not None:
-            # the chunk's wall without the host writes: they take as long
-            # however the fetches are grouped
-            pacer.record_wall(tp3 - tp0 - (tp2 - tw), tp3 - tp2, stall_s, fetching)
-        alive = engine.alive_mask
-        for b in range(n_cases):
-            if fail_reason[b] is None and not alive[b]:
-                ok, reason = check_stability(
-                    mon["force"][b], mon["max_v"][b], steps,
-                    warmup_step=members[b][1]["simulation"]["warmup_steps"],
-                )
-                fail_reason[b] = reason or f"Instability at step {steps}"
-        if (
-            dataset_on
-            and data_interval
-            and steps % data_interval == 0
-            and steps >= start_record
-        ):
-            if resizer is not None:
-                dev = resizer(engine.get_moments_device()[_crop])
-                pre = True
-            else:
-                dev = engine.get_moments_device()
-                pre = False
-            if f16_transfer:
-                dev = dev.to(torch.float16)
-            pending_moments.append((dev, pre))
-        if (
-            video_on
-            and steps % vid_interval == 0
-            and steps >= start_record
-        ):
-            pending_videos.append(
-                renderer(engine.get_velocity_device(), engine.params.mask)
-            )
-        if (
-            ckpt_path
-            and ckpt_interval
-            and steps % ckpt_interval < chunk
-        ):
-            save_group_ckpt()
-        tp4 = time.perf_counter()
-        prof["queue"] += tp4 - tp3
-        n_pending = len(pending_moments) + len(pending_videos)
-        if fetch_overlap:
-            # with the pacer, a stalling link grows the group: several save
-            # events coalesce into one transfer spanning several chunks
-            if n_pending and (pacer is None or pacer.should_fetch(n_pending)):
-                start_fetch()
-        elif n_pending:
-            fetched = fetch_pending()
-        prof["fetch"] += time.perf_counter() - tp4
-        if heartbeat_cb is not None and steps % (chunk * 50) == 0:
-            heartbeat_cb()
-        if progress and steps % (chunk * 50) == 0:
-            done = steps / max_steps
-            line = f"  [lockstep x{n_cases}] {steps}/{max_steps} ({done:.0%})"
-            if profiling:
-                line += (
-                    f" | per-chunk ms: dispatch={prof['dispatch']/50*1e3:.0f}"
-                    f" write={prof['write']/50*1e3:.0f}"
-                    f" monitor={prof['monitor']/50*1e3:.0f}"
-                    f" queue={prof['queue']/50*1e3:.0f}"
-                    f" fetch={prof['fetch']/50*1e3:.0f}"
-                )
-                prof = {k: 0.0 for k in prof}
-            print(line, flush=True)
-    write_fetched(join_fetch())  # in-flight overlapped transfer, if any
-    write_fetched(fetched)  # last iteration's fetched-but-unwritten frame
-    flush_pending()
+    with recording(profiling):
+        mark = REGISTRY.mark()
+        while steps < max_steps:
+            chunk_id = (group_uid, steps // chunk + 1)
+            with span("loop.chunk", chunk=chunk_id):
+                tp0 = time.perf_counter()
+                mon_dev = engine.run_step(chunk, sync=False)
+                steps += chunk
+                stall_s = 0.0
+                fetching = fetch_thread is not None
+                if fetching:
+                    tj = time.perf_counter()
+                    with span("loop.fetch_join"):
+                        fetched = join_fetch()
+                    stall_s = time.perf_counter() - tj
+                tw = time.perf_counter()
+                write_fetched(fetched)  # host-only IO
+                fetched = {}
+                tp2 = time.perf_counter()
+                with span("loop.monitor_wait"):
+                    mon = engine.sync_monitors(mon_dev)
+                tp3 = time.perf_counter()
+                if pacer is not None:
+                    # the chunk's wall without the host writes: they take as
+                    # long however the fetches are grouped
+                    pacer.record_wall(tp3 - tp0 - (tp2 - tw), tp3 - tp2, stall_s, fetching)
+                alive = engine.alive_mask
+                for b in range(n_cases):
+                    if fail_reason[b] is None and not alive[b]:
+                        ok, reason = check_stability(
+                            mon["force"][b], mon["max_v"][b], steps,
+                            warmup_step=members[b][1]["simulation"]["warmup_steps"],
+                        )
+                        fail_reason[b] = reason or f"Instability at step {steps}"
+                with span("loop.queue"):
+                    if (
+                        dataset_on
+                        and data_interval
+                        and steps % data_interval == 0
+                        and steps >= start_record
+                    ):
+                        if resizer is not None:
+                            dev = resizer(engine.get_moments_device()[_crop])
+                            pre = True
+                        else:
+                            dev = engine.get_moments_device()
+                            pre = False
+                        if f16_transfer:
+                            dev = dev.to(torch.float16)
+                        pending_moments.append((dev, pre))
+                    if (
+                        video_on
+                        and steps % vid_interval == 0
+                        and steps >= start_record
+                    ):
+                        pending_videos.append(
+                            renderer(engine.get_velocity_device(), engine.params.mask)
+                        )
+                    if (
+                        ckpt_path
+                        and ckpt_interval
+                        and steps % ckpt_interval < chunk
+                    ):
+                        save_group_ckpt()
+                with span("loop.fetch_start"):
+                    n_pending = len(pending_moments) + len(pending_videos)
+                    if fetch_overlap:
+                        # with the pacer, a stalling link grows the group:
+                        # several save events coalesce into one transfer
+                        # spanning several chunks
+                        if n_pending and (pacer is None or pacer.should_fetch(n_pending)):
+                            start_fetch()
+                    elif n_pending:
+                        fetched = fetch_pending()
+                if heartbeat_cb is not None and steps % (chunk * 50) == 0:
+                    heartbeat_cb()
+                if progress and steps % (chunk * 50) == 0:
+                    done = steps / max_steps
+                    line = f"  [lockstep x{n_cases}] {steps}/{max_steps} ({done:.0%})"
+                    if profiling:
+                        line += " | per-chunk ms: " + profile_line(REGISTRY.since(mark), 50)
+                        mark = REGISTRY.mark()
+                    print(line, flush=True)
+        write_fetched(join_fetch())  # in-flight overlapped transfer, if any
+        write_fetched(fetched)  # last iteration's fetched-but-unwritten frame
+        flush_pending()
     wall = time.perf_counter() - t0
     if ckpt_path and os.path.exists(ckpt_path):
         os.remove(ckpt_path)  # completed groups don't need restart state
@@ -507,7 +537,7 @@ def run_lockstep_group(
     transfer_stats = None
     if link_pre is not None:
         transfer_stats = {
-            "group_uid": uuid.uuid4().hex[:8],  # group members share one record
+            "group_uid": group_uid,  # group members share one record
             "link_d2h_mbps_pre": link_pre,
             "link_d2h_mbps_post": probe_d2h_mbps(device=engine.device),
             "bytes_fetched": int(bytes_fetched[0]),

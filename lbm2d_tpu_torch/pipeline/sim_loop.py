@@ -11,7 +11,6 @@ supported (the reference can only restart a case from step 0).
 
 from __future__ import annotations
 
-import time
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -19,6 +18,7 @@ import numpy as np
 from ..core.engine import LBMEngine
 from ..core.stability import check_stability
 from ..utils.config import get_zone_config
+from ..utils.profiling import REGISTRY, recording, span
 from ..viz.frames import FrameComposer, draw_zone_overlay
 
 
@@ -100,7 +100,13 @@ def run_simulation_loop(
             composer.height,
             viz_sigma=out_cfg["gui"].get("gaussian_sigma", 1.0),
         )
-    timings = {"compute": 0.0, "viz_proc": 0.0, "video_io": 0.0, "moment_fetch": 0.0, "hdf5_io": 0.0}
+    # the [Profile] line (outputs.enable_profiling) reads the newest span of
+    # each phase this loop recorded
+    first = REGISTRY.mark()
+
+    def last_ms(name):
+        s = REGISTRY.last.get(name)
+        return s.seconds * 1e3 if s is not None and s.seq >= first else 0.0
 
     pbar = None
     if progress:
@@ -112,102 +118,99 @@ def run_simulation_loop(
             pbar = None
 
     try:
-        while current_steps < max_steps:
-            # user closed the live window -> abort the case (reference
-            # core/simulation_ops.py:91-95)
-            if gui is not None and not gui.running:
-                exit_status = "Aborted"
-                exit_reason = "GUI closed by user"
-                break
-            t0 = time.perf_counter()
-            engine.run_step(chunk)
-            forces = engine.get_force()
-            max_v = engine.get_max_velocity()
-            current_steps += chunk
-            timings["compute"] = (time.perf_counter() - t0) * 1000
+        with recording(profiling):
+            while current_steps < max_steps:
+                # user closed the live window -> abort the case (reference
+                # core/simulation_ops.py:91-95)
+                if gui is not None and not gui.running:
+                    exit_status = "Aborted"
+                    exit_reason = "GUI closed by user"
+                    break
+                with span("compute"):
+                    engine.run_step(chunk)
+                    forces = engine.get_force()
+                    max_v = engine.get_max_velocity()
+                current_steps += chunk
 
-            is_stable, reason = check_stability(
-                forces, max_v, current_steps, warmup_step=sim_cfg["warmup_steps"]
-            )
-            if not is_stable:
-                exit_status = "Failed"
-                exit_reason = reason
-                break
-
-            if pbar:
-                pbar.set_postfix(
-                    Fx=f"{forces[0]:.2e}", Fy=f"{forces[1]:.2e}", MaxV=f"{max_v:.4f}"
+                is_stable, reason = check_stability(
+                    forces, max_v, current_steps, warmup_step=sim_cfg["warmup_steps"]
                 )
-                pbar.update(chunk)
+                if not is_stable:
+                    exit_status = "Failed"
+                    exit_reason = reason
+                    break
 
-            is_vid_frame = (
-                out_cfg["video"]["enable"]
-                and vid_interval
-                and current_steps % vid_interval == 0
-                and current_steps >= start_record
-            )
-            is_gui_frame = (
-                out_cfg["gui"]["enable"]
-                and gui_interval
-                and current_steps % gui_interval == 0
-            )
-            if (is_vid_frame or is_gui_frame) and composer is not None:
-                t0 = time.perf_counter()
-                if dev_renderer is not None:
-                    img = dev_renderer(engine.field("u"), engine.params.mask).cpu().numpy()
-                    if show_overlay:
-                        img = draw_zone_overlay(img.copy(), zones)
-                else:
-                    u_np, mask_np = engine.get_physical_fields()  # collective on multihost
-                    # a rank with no window and no recorder joins the fetch only
-                    if recorder is not None or gui is not None:
-                        img = composer.process_frame(u_np, mask_np)
-                        if show_overlay:
-                            img = draw_zone_overlay(img, zones)
-                timings["viz_proc"] = (time.perf_counter() - t0) * 1000
-                if is_gui_frame and gui is not None:
-                    gui.set_image(img)
-                    gui.show()
-                if is_vid_frame and recorder:
-                    t0 = time.perf_counter()
-                    if dev_renderer is not None:
-                        recorder.write_frame_u8(img)
-                    else:
-                        recorder.write_frame(img)
-                    timings["video_io"] = (time.perf_counter() - t0) * 1000
+                if pbar:
+                    pbar.set_postfix(
+                        Fx=f"{forces[0]:.2e}", Fy=f"{forces[1]:.2e}", MaxV=f"{max_v:.4f}"
+                    )
+                    pbar.update(chunk)
 
-            is_data_step = (
-                out_cfg["dataset"]["enable"]
-                and data_interval
-                and current_steps % data_interval == 0
-                and current_steps >= start_record
-            )
-            if is_data_step and (writer is not None or multihost):
-                t0 = time.perf_counter()
-                if resizer is not None:
-                    moments = resizer(engine.get_moments_device()[_crop]).cpu().numpy()
-                else:
-                    moments = engine.get_moments()  # collective on multihost
-                timings["moment_fetch"] = (time.perf_counter() - t0) * 1000
-                if writer is not None:
-                    t0 = time.perf_counter()
-                    writer.append(moments, pre_resized=resizer is not None)
-                    timings["hdf5_io"] = (time.perf_counter() - t0) * 1000
-
-            if (
-                checkpoint_path
-                and checkpoint_interval
-                and current_steps % checkpoint_interval == 0
-            ):
-                engine.save_checkpoint(checkpoint_path)
-
-            if profiling and (current_steps // chunk) % 10 == 0:
-                mlups = chunk * engine.nx * engine.ny / max(timings["compute"], 1e-9) / 1e3
-                print(
-                    f"[Profile] step {current_steps} compute={timings['compute']:.1f}ms "
-                    f"({mlups:.0f} MLUPS) viz={timings['viz_proc']:.1f}ms "
-                    f"h5={timings['moment_fetch'] + timings['hdf5_io']:.1f}ms"
+                is_vid_frame = (
+                    out_cfg["video"]["enable"]
+                    and vid_interval
+                    and current_steps % vid_interval == 0
+                    and current_steps >= start_record
                 )
+                is_gui_frame = (
+                    out_cfg["gui"]["enable"]
+                    and gui_interval
+                    and current_steps % gui_interval == 0
+                )
+                if (is_vid_frame or is_gui_frame) and composer is not None:
+                    with span("viz_proc"):
+                        if dev_renderer is not None:
+                            img = dev_renderer(engine.field("u"), engine.params.mask).cpu().numpy()
+                            if show_overlay:
+                                img = draw_zone_overlay(img.copy(), zones)
+                        else:
+                            u_np, mask_np = engine.get_physical_fields()  # collective on multihost
+                            # a rank with no window and no recorder joins the fetch only
+                            if recorder is not None or gui is not None:
+                                img = composer.process_frame(u_np, mask_np)
+                                if show_overlay:
+                                    img = draw_zone_overlay(img, zones)
+                    if is_gui_frame and gui is not None:
+                        gui.set_image(img)
+                        gui.show()
+                    if is_vid_frame and recorder:
+                        with span("video_io"):
+                            if dev_renderer is not None:
+                                recorder.write_frame_u8(img)
+                            else:
+                                recorder.write_frame(img)
+
+                is_data_step = (
+                    out_cfg["dataset"]["enable"]
+                    and data_interval
+                    and current_steps % data_interval == 0
+                    and current_steps >= start_record
+                )
+                if is_data_step and (writer is not None or multihost):
+                    with span("moment_fetch"):
+                        if resizer is not None:
+                            moments = resizer(engine.get_moments_device()[_crop]).cpu().numpy()
+                        else:
+                            moments = engine.get_moments()  # collective on multihost
+                    if writer is not None:
+                        with span("hdf5_io"):
+                            writer.append(moments, pre_resized=resizer is not None)
+
+                if (
+                    checkpoint_path
+                    and checkpoint_interval
+                    and current_steps % checkpoint_interval == 0
+                ):
+                    engine.save_checkpoint(checkpoint_path)
+
+                if profiling and (current_steps // chunk) % 10 == 0:
+                    compute = last_ms("compute")
+                    mlups = chunk * engine.nx * engine.ny / max(compute, 1e-9) / 1e3
+                    print(
+                        f"[Profile] step {current_steps} compute={compute:.1f}ms "
+                        f"({mlups:.0f} MLUPS) viz={last_ms('viz_proc'):.1f}ms "
+                        f"h5={last_ms('moment_fetch') + last_ms('hdf5_io'):.1f}ms"
+                    )
 
     except KeyboardInterrupt:
         exit_status = "Aborted"

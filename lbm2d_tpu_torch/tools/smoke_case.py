@@ -34,12 +34,21 @@ def load_smoke_case():
 
 class MemDataset:
     """The part of h5py.Dataset the case writer and the readers use, kept in
-    memory."""
+    memory. Growing along axis 0 doubles a buffer, as a chunked HDF5
+    dataset grows without copying what it holds: the case writer grows its
+    dataset by one frame an append, and a copy of every frame held on each
+    would put host work into a run that the real file never does."""
 
     def __init__(self, data=None, shape=None, dtype=None, compression=None):
-        self.a = np.array(data, dtype=dtype) if data is not None else np.zeros(shape, dtype)
+        self._buf = np.array(data, dtype=dtype) if data is not None else np.zeros(shape, dtype)
+        self._n = self._buf.shape[0] if self._buf.ndim else 0
         self.attrs = {}
         self.compression = compression
+
+    @property
+    def a(self) -> np.ndarray:
+        """What the dataset holds (a view of the buffer)."""
+        return self._buf[: self._n] if self._buf.ndim else self._buf
 
     @property
     def shape(self):
@@ -47,15 +56,22 @@ class MemDataset:
 
     @property
     def dtype(self):
-        return self.a.dtype
+        return self._buf.dtype
 
     def __getitem__(self, idx):
         return self.a[idx].copy()
 
     def resize(self, n, axis=0):
-        grown = np.zeros((n,) + self.a.shape[1:], self.a.dtype)
-        grown[: min(n, self.a.shape[0])] = self.a[:n]
-        self.a = grown
+        if axis != 0:
+            raise ValueError("the stand-in grows along axis 0 only")
+        if n > self._buf.shape[0]:
+            grown = np.zeros((max(n, 2 * self._buf.shape[0]),) + self._buf.shape[1:],
+                             self._buf.dtype)
+            grown[: self._n] = self._buf[: self._n]
+            self._buf = grown
+        elif n < self._n:
+            self._buf[n: self._n] = 0
+        self._n = n
 
     def __setitem__(self, idx, value):
         self.a[idx] = value

@@ -12,23 +12,25 @@ Both modes use the production-shaped smoke case (``tools/smoke_case.py``,
 ``chunk``: after one warm-up chunk, ``--chunks`` chunks of
 ``run_chunk_cuda`` (100 steps each) in f32 and in 16-bit deviation storage.
 For each it prints the wall time per step (CUDA events around the chunks),
-the device's busy share (the kernel and copy time that ``torch.profiler``
-records over the same chunks, over their wall time), the device time by
-kernel, and the host time by Python function (``cProfile`` over one chunk).
+the device's busy share (the union of the kernel and copy intervals that
+``torch.profiler`` records over the same chunks, over their wall time), the
+device time by kernel, and the host time by Python function (``cProfile``
+over one chunk).
 
 ``lockstep``: the lockstep production command (``run_batch`` with the
-README's flags) on the sibling project of three cases, four times in one
-process: twice without profilers, cold and warm (set-up and wind-down
+README's flags) on the sibling project of three cases, three times in one
+process: twice without a profiler, cold and warm (set-up and wind-down
 against the group loop, ``run_summary.transfer.group_wall_s``; the warm
 run's library calls and kernel launches a chunk, ``cuda_build.CALLS`` and
-``cuda_step.LAUNCHES``); under a sampler of the main thread's stack
-(``MainThreadSampler``: its wall time by line of ``run_lockstep_group``
-and by innermost function, and the loop's lines by kind, ``LOOP_KINDS``:
-issuing the chunk, waiting on its monitors, host writes, fetches; cProfile
-would mix in the fetch, writer and encoder threads, which Python 3.12's
-profiler also sees); and under ``torch.profiler`` (the device's busy share
-of the group loop and the device time by kernel), the idle share beside
-the main thread's time by kind.
+``cuda_step.LAUNCHES``); and under ``torch.profiler`` on every thread,
+where the program's spans (``utils/profiling.span``) are user annotations:
+the group loop's device idle time, each gap named by the innermost span
+open on the loop's thread at its midpoint (the host operation where none
+is), and each span's self time on the loop's, the fetch worker's and the
+HDF5 writers' threads.
+
+Every mode first prints what a span site costs on this host, with
+recording off, on, and under a profiler.
 
 With ``--out`` the tables also go to ``DIR/trace_<mode>.txt``. Without a
 CUDA device it exits non-zero.
@@ -40,28 +42,19 @@ import argparse
 import collections
 import contextlib
 import cProfile
-import inspect
+import heapq
 import io
 import json
-import linecache
 import os
 import pstats
 import subprocess
 import sys
 import tempfile
-import threading
 import time
+import timeit
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
-
-
-def device_us(prof) -> float:
-    """Kernel and copy time in a torch.profiler run, in us. An operator's
-    own device time repeats that of the kernels it launched, so only the
-    device-side events count."""
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.is_user_annotation)
 
 
 def host_table(prof_host, sort: str, rows: int) -> str:
@@ -70,106 +63,163 @@ def host_table(prof_host, sort: str, rows: int) -> str:
     return out.getvalue()
 
 
-class MainThreadSampler:
-    """Samples the main thread's Python stack from a daemon thread every
-    ``interval`` seconds (or as soon as the GIL lets it) and charges the
-    time since the previous sample to what the stack shows: the line of
-    ``anchor`` being run (the outermost frame of that function), and the
-    innermost function."""
-
-    def __init__(self, anchor, interval: float = 1e-3):
-        self.anchor = anchor.__code__
-        self.interval = interval
-        self.by_line = collections.Counter()
-        self.by_leaf = collections.Counter()
-        self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._run, daemon=True)
-
-    def __enter__(self):
-        self._thread.start()
-        return self
-
-    def __exit__(self, *exc):
-        self._stop.set()
-        self._thread.join()
-
-    def _run(self):
-        main = threading.main_thread().ident
-        last = time.perf_counter()
-        while not self._stop.wait(self.interval):
-            frame = sys._current_frames().get(main)
-            now = time.perf_counter()
-            dt, last = now - last, now
-            if frame is None:
-                continue
-            code = frame.f_code
-            self.by_leaf[f"{os.path.basename(code.co_filename)}:{code.co_name}"] += dt
-            line = None
-            while frame is not None:
-                if frame.f_code is self.anchor:
-                    line = frame.f_lineno  # keep the outermost
-                frame = frame.f_back
-            self.by_line[line] += dt
-
-    def by_kind(self, loop_start: int, loop_end: int) -> collections.Counter:
-        """The time charged to the anchor's lines loop_start .. loop_end, by
-        ``loop_kind``."""
-        kinds = collections.Counter()
-        for line, t in self.by_line.items():
-            if line is not None and loop_start <= line <= loop_end:
-                kinds[loop_kind(linecache.getline(self.anchor.co_filename, line))] += t
-        return kinds
-
-    def report(self, loop_start: int, loop_end: int, rows: int = 25) -> str:
-        """Time by phase (set-up before ``loop_start``, the loop, wind-down
-        after ``loop_end``, outside the anchor), the top lines of the
-        anchor with their source, and the top innermost functions."""
-        phase = collections.Counter()
-        for line, t in self.by_line.items():
-            phase["outside the group" if line is None else "set-up" if line < loop_start
-                  else "group loop" if line <= loop_end else "wind-down"] += t
-        path = self.anchor.co_filename
-        out = ["main thread by phase: " + ", ".join(f"{k} {v:.3f} s" for k, v in phase.items())]
-        out.append(f"main thread by line of {self.anchor.co_name}:")
-        for line, t in self.by_line.most_common(rows):
-            src = "(outside)" if line is None else linecache.getline(path, line).strip()
-            out.append(f"  {t:8.3f} s  {line}: {src}")
-        out.append("main thread in the group loop by kind: " + ", ".join(
-            f"{k} {v:.3f} s" for k, v in self.by_kind(loop_start, loop_end).most_common()))
-        out.append("main thread by innermost function:")
-        out += [f"  {t:8.3f} s  {name}" for name, t in self.by_leaf.most_common(rows)]
-        return "\n".join(out)
+def merge(intervals: Sequence[Tuple[float, float]]) -> List[Tuple[float, float]]:
+    """The union of [start, end) intervals as disjoint, sorted intervals
+    (the benchmark's rule, ``lbmbench/trace.py``: two that overlap, on two
+    streams, count once)."""
+    out: List[Tuple[float, float]] = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            if e > out[-1][1]:
+                out[-1] = (out[-1][0], e)
+        else:
+            out.append((s, e))
+    return out
 
 
-# the group loop's lines by what they do, matched on their source text in
-# order: issuing the chunk, waiting on its monitors, host writes of fetched
-# data, queueing and fetching saves and video frames
-LOOP_KINDS = (("issue", ("run_step(",)),
-              ("monitors", ("sync_monitors(",)),
-              ("writes", ("write_fetched(",)),
-              ("fetches", ("fetch", "get_moments_device(", "get_velocity_device(", "renderer(",
-                           "resizer(", "pending_moments.append", "pending_videos.append")))
+def gaps(merged: Sequence[Tuple[float, float]]) -> List[Tuple[float, float]]:
+    """The idle intervals between disjoint sorted intervals."""
+    return [(a[1], b[0]) for a, b in zip(merged, merged[1:]) if b[0] > a[1]]
 
 
-def loop_kind(src: str) -> str:
-    """The ``LOOP_KINDS`` kind of a source line of the group loop, or
-    "other"."""
-    for kind, marks in LOOP_KINDS:
-        if any(m in src for m in marks):
-            return kind
-    return "other"
+def clip(merged, lo: float, hi: float) -> List[Tuple[float, float]]:
+    """Disjoint sorted intervals cut to [lo, hi]."""
+    return [(max(s, lo), min(e, hi)) for s, e in merged if e > lo and s < hi]
 
 
-def loop_lines(fn, marker: str = "while steps < max_steps:"):
-    """First and last source line of the ``while`` loop that ``marker``
-    opens in ``fn`` (by indentation)."""
-    src, first = inspect.getsourcelines(fn)
-    i = next(k for k, l in enumerate(src) if l.strip() == marker)
-    indent = len(src[i]) - len(src[i].lstrip())
-    j = i + 1
-    while j < len(src) and (not src[j].strip() or len(src[j]) - len(src[j].lstrip()) > indent):
-        j += 1
-    return first + i, first + j - 1
+def innermost(points: Sequence[float], intervals: Sequence[Tuple[float, float, str]]):
+    """For each point (in any order), the name of the interval begun last
+    among those open at it (the innermost, where they nest), or None."""
+    order = sorted(range(len(points)), key=points.__getitem__)
+    ivs = sorted(intervals)
+    live: list = []  # heap of (-start, end, name) of intervals begun
+    out: List[Optional[str]] = [None] * len(points)
+    i = 0
+    for k in order:
+        p = points[k]
+        while i < len(ivs) and ivs[i][0] <= p:
+            heapq.heappush(live, (-ivs[i][0], ivs[i][1], ivs[i][2]))
+            i += 1
+        # an interval begun later than one still open ends before it where
+        # they nest, so the heap's top is open or can be dropped
+        while live and live[0][1] < p:
+            heapq.heappop(live)
+        out[k] = live[0][2] if live else None
+    return out
+
+
+def name_gaps(idle, spans, host) -> Dict[str, float]:
+    """Idle time summed by the innermost program span open on the loop's
+    thread at each gap's midpoint; where none is, by the host operation
+    begun last among those running then ("host: <op>"), else "host: no
+    operation"."""
+    mids = [0.5 * (s + e) for s, e in idle]
+    by_span = innermost(mids, spans)
+    by_op = innermost(mids, host)
+    out: Dict[str, float] = collections.Counter()
+    for (s, e), sp, op in zip(idle, by_span, by_op):
+        out[sp if sp is not None else f"host: {op or 'no operation'}"] += e - s
+    return dict(out)
+
+
+def self_times(spans: Sequence[Tuple[float, float, str]]) -> Dict[str, float]:
+    """Each name's self time over one thread's spans: their time less the
+    part their child spans (the spans nested in them) cover."""
+    out: Dict[str, float] = collections.Counter()
+    stack: list = []  # [end, name, children's time]
+    for s, e, name in sorted(spans, key=lambda x: (x[0], -x[1])):
+        while stack and stack[-1][0] <= s:
+            end, n, kids, start = stack.pop()
+            out[n] += end - start - kids
+        if stack:
+            stack[-1][2] += e - s
+        stack.append([e, name, 0.0, s])
+    while stack:
+        end, n, kids, start = stack.pop()
+        out[n] += end - start - kids
+    return dict(out)
+
+
+def profile_events(prof):
+    """(device intervals, host operations by thread, program spans by
+    thread) of a torch.profiler run, in seconds on the profiler's clock:
+    device kernels, copies and memsets; host operations that are not user
+    annotations; and the user annotations, which in the program are its
+    spans (``utils/profiling.span``)."""
+    dev = []
+    host: Dict[int, list] = collections.defaultdict(list)
+    spans: Dict[int, list] = collections.defaultdict(list)
+    for e in prof.profiler.kineto_results.events():
+        s = e.start_ns() * 1e-9
+        t = s + e.duration_ns() * 1e-9
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            if not e.is_user_annotation():
+                dev.append((s, t, e.name()))
+        elif e.is_user_annotation():
+            spans[e.start_thread_id()].append((s, t, e.name()))
+        elif t > s:
+            host[e.start_thread_id()].append((s, t, e.name()))
+    return dev, host, spans
+
+
+def lockstep_report(dev, host, spans) -> str:
+    """The group loop's device idle time named by the program's spans, and
+    each span's self time by thread, from ``profile_events``."""
+    loop_thread = max(spans, key=lambda t: sum(n == "loop.chunk" for _, _, n in spans[t]))
+    chunks = [(s, e) for s, e, n in spans[loop_thread] if n == "loop.chunk"]
+    lo, hi = min(s for s, _ in chunks), max(e for _, e in chunks)
+    busy = clip(merge([(s, e) for s, e, _ in dev]), lo, hi)
+    idle = gaps([(lo, lo)] + busy + [(hi, hi)])
+    wall = hi - lo
+    idle_s = sum(e - s for s, e in idle)
+    named = name_gaps(idle, spans[loop_thread], host[loop_thread])
+    outside = sum(t for n, t in named.items() if n.startswith("host: "))
+    lines = [
+        f"[lockstep spans] group loop {wall:.3f} s over {len(chunks)} chunks: device busy "
+        f"{wall - idle_s:.3f} s (union of intervals), idle {idle_s:.3f} s = "
+        f"{100 * idle_s / wall:.1f}%; idle outside every program span {outside:.3f} s = "
+        f"{100 * outside / max(idle_s, 1e-12):.1f}% of the idle time",
+        "device idle in the group loop by the loop thread's innermost span:",
+    ]
+    lines += [f"  {t:8.3f} s  {100 * t / max(idle_s, 1e-12):5.1f}%  {n}"
+              for n, t in sorted(named.items(), key=lambda kv: -kv[1])]
+    lines.append("self time by span, on the loop's thread and on the worker threads:")
+    for tag, tids in (("loop", [loop_thread]), ("workers", [t for t in spans if t != loop_thread])):
+        own: Dict[str, float] = collections.Counter()
+        n_spans: Dict[str, int] = collections.Counter()
+        for tid in tids:
+            own.update(self_times(spans[tid]))
+            n_spans.update(n for _, _, n in spans[tid])
+        lines += [f"  {tag:>7} {n:<18} {t:8.4f} s  x{n_spans[n]}"
+                  for n, t in sorted(own.items(), key=lambda kv: -kv[1])]
+    own = self_times(spans[loop_thread]).get("loop.chunk", 0.0)
+    total = sum(e - s for s, e in chunks)
+    lines.append(f"loop.chunk outside its named children: {own:.4f} s = "
+                 f"{100 * own / total:.1f}% of loop.chunk")
+    return "\n".join(lines)
+
+
+def span_cost(n: int = 200_000) -> str:
+    """ns a span site costs with recording off, on (``recording()``, no
+    profiler) and under a CPU profiler."""
+    from ..utils import profiling
+
+    reg = profiling.Registry(capacity=1024)
+
+    def site():
+        with reg.span("site"):
+            pass
+
+    def ns(k):
+        return min(timeit.repeat(site, number=k, repeat=5)) / k * 1e9
+
+    off = ns(n)
+    with reg.recording():
+        on = ns(n // 20)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        prof = ns(n // 200)
+    return (f"[span cost] a span site: {off:.0f} ns off, {on:.0f} ns recording, "
+            f"{prof:.0f} ns under torch.profiler (record_function included)")
 
 
 def trace_chunk(p, chunk: int, n_chunks: int, card: str) -> dict:
@@ -194,7 +244,7 @@ def trace_chunk(p, chunk: int, n_chunks: int, card: str) -> dict:
             b.record()
             b.synchronize()
         wall_us = a.elapsed_time(b) * 1e3
-        dev_us = device_us(prof)
+        dev_us = 1e6 * sum(e - s for s, e in merge([(s, e) for s, e, _ in profile_events(prof)[0]]))
         table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=15)
         prof_host = cProfile.Profile()
         prof_host.enable()
@@ -209,7 +259,6 @@ def trace_chunk(p, chunk: int, n_chunks: int, card: str) -> dict:
 
 
 def trace_lockstep(config, mask, card: str) -> dict:
-    from ..pipeline.batch_datagen import run_lockstep_group
     from ..pipeline.batch_run import run_batch
     from . import smoke_case
 
@@ -217,7 +266,6 @@ def trace_lockstep(config, mask, card: str) -> dict:
     H, W = mask.shape
     steps = int(config["simulation"]["max_steps"])
     cells = len(smoke_case.SIBLING_NUS) * steps * H * W
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
 
     def run(tag, profiler=None):
         """(wall s, group loop s) of one run of the production command."""
@@ -228,7 +276,7 @@ def trace_lockstep(config, mask, card: str) -> dict:
             with profiler or contextlib.nullcontext():
                 stats = run_batch("Smoke4", root=root, progress=False, device="cuda",
                                   **smoke_case.PRODUCTION_FLAGS)
-            torch.cuda.synchronize()
+                torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             with open(os.path.join(root, "outputs", "Smoke4", "plots", "sim_results.json")) as fh:
                 entry = {e["config_filename"]: e for e in json.load(fh)}[names[0][0]]
@@ -254,23 +302,15 @@ def trace_lockstep(config, mask, card: str) -> dict:
     launches = {k: v / chunks for k, v in cs.LAUNCHES.items() if v}
     lines.append(f"[lockstep warm] a chunk of the group: {sum(calls.values()):g} library calls "
                  f"{calls}, {sum(launches.values()):g} kernel launches {launches}")
-    sampler = MainThreadSampler(run_lockstep_group)
-    wall, loop_s = run("sampled", sampler)
-    lines.append(f"[lockstep sampled] wall {wall:.3f} s, group loop {loop_s:.2f} s [{card}]")
-    bounds = loop_lines(run_lockstep_group)
-    lines.append(sampler.report(*bounds))
-    prof = torch.profiler.profile(activities=acts)
+    # every thread's spans: the fetch worker's and the HDF5 writers' too
+    from torch._C._profiler import _ExperimentalConfig
+
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA],
+        experimental_config=_ExperimentalConfig(profile_all_threads=True))
     wall, loop = run("torch_profiler", prof)
-    dev_us = device_us(prof)
-    idle = 1.0 - dev_us / 1e6 / loop
-    lines.append(
-        f"[lockstep torch.profiler] wall {wall:.3f} s, group loop {loop:.2f} s; device busy "
-        f"{dev_us / 1e6:.3f} s = {100 * dev_us / 1e6 / loop:.1f}% of the group loop, "
-        f"{dev_us / (cells / (H * W)):.1f} us per case-step [{card}]")
-    lines.append(
-        f"[lockstep] device idle {100 * idle:.1f}% of the group loop; the main thread's share "
-        f"of its loop (sampled run, {loop_s:.2f} s) by kind: " + ", ".join(
-            f"{k} {100 * v / loop_s:.1f}%" for k, v in sorted(sampler.by_kind(*bounds).items())))
+    lines.append(f"[lockstep torch.profiler] wall {wall:.3f} s, group loop {loop:.2f} s [{card}]")
+    lines.append(lockstep_report(*profile_events(prof)))
     text = "\n".join(lines + [
         prof.key_averages().table(sort_by="self_device_time_total", row_limit=20),
     ])
@@ -296,7 +336,7 @@ def main() -> int:
     ).stdout.strip()
     cuda_build.build_all()
     config, mask = smoke_case.load_smoke_case()
-    tables = {}
+    tables = {"spans": span_cost()}
     if args.mode in ("chunk", "all"):
         p = solver.make_params(config, mask, dtype=torch.float32, device=torch.device("cuda", 0))
         chunk = int(config["simulation"]["compute_step_size"])

@@ -124,6 +124,29 @@ def test_memory_h5_reads_back_as_h5py_does(tmp_path, monkeypatch, capsys):
     assert "turbulence: (3, 9, 256, 554) float32 [lzf]" in trees["mem"]
 
 
+def test_memory_h5_grows_by_doubling():
+    """Appending a frame grows the stand-in's buffer by doubling, so the
+    frames it holds are copied O(log n) times, not on every append; the
+    dataset still reads back every frame, and shrinking clears the tail."""
+    d = smoke_case.MemDataset(shape=(0, 2, 3), dtype=np.float32)
+    bufs, frames = [], []
+    for i in range(9):
+        n = d.shape[0]
+        d.resize(n + 1, axis=0)
+        frames.append(np.full((2, 3), i, np.float32))
+        d[n] = frames[-1]
+        bufs.append(d._buf)
+    assert d.shape == (9, 2, 3) and d.dtype == np.float32
+    np.testing.assert_array_equal(d.a, np.stack(frames))
+    np.testing.assert_array_equal(d[3:5], np.stack(frames[3:5]))
+    assert len({id(b) for b in bufs}) == 5  # buffers of 1, 2, 4, 8 and 16 frames
+    assert d._buf.shape[0] == 16
+    d.resize(4)
+    assert d.shape == (4, 2, 3) and not d._buf[4:].any()
+    with pytest.raises(ValueError):
+        d.resize(3, axis=1)
+
+
 def test_memory_h5_read_mode(tmp_path, monkeypatch):
     _use_memory_h5(monkeypatch)
     path = str(tmp_path / "x.h5")
