@@ -73,8 +73,7 @@ Phases (any failure raises and the process exits non-zero):
    case, the launch counts of the group program (one K1 launch a step for
    the group: k1_step_group_dev 2970, k1_step_group_full 30,
    group_monitors 30; cases x steps 3 x each) and no plain call, and
-   print the fetch pacer's record (stall fraction, final group size, its
-   chunk-wall estimate and the chunks that calibrated it). Where
+   print the fetch pacer's record (stall fraction, final group size). Where
    the machine has no h5py, the HDF5 writer runs on an in-memory stand-in
    of ``h5py.File`` and the frames are read back from it;
 5. drive the DFG-2D validation path, ``analysis.dfg_validation.
@@ -2601,18 +2600,6 @@ def main() -> int:
     if smoke_case.use_memory_h5():
         print("[4] h5py is not installed here: the HDF5 writer runs on an in-memory "
               "stand-in of h5py.File", flush=True)
-    from lbm2d_tpu_torch.pipeline import batch_datagen
-
-    pacers = []
-
-    class RecordingPacer(batch_datagen.FetchPacer):
-        """FetchPacer that keeps a handle on itself for the record below."""
-
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            pacers.append(self)
-
-    batch_datagen.FetchPacer = RecordingPacer
     nus = smoke_case.SIBLING_NUS
     n_cases = len(nus)
     chunks = max_steps // chunk
@@ -2644,11 +2631,8 @@ def main() -> int:
               f"of {n_cases}", flush=True)
         transfer = results[names[0][0]].get("run_summary", {}).get("transfer", {})
         print(f"    transfer record: {transfer}", flush=True)
-        pacer = pacers[-1]
         print(f"    fetch pacer: fetch_stall_fraction {transfer.get('fetch_stall_fraction')}, "
-              f"fetch_group_size_final {transfer.get('fetch_group_size_final')}, chunk-wall "
-              f"estimate c_est {pacer.chunk_wall_est} s from {pacer.calibrating_chunks} "
-              f"calibrating chunks", flush=True)
+              f"fetch_group_size_final {transfer.get('fetch_group_size_final')}", flush=True)
         loop_s = transfer.get("group_wall_s")
         if loop_s:
             print(f"    group loop {loop_s:.2f} s = {n_cases * max_steps * H * W / loop_s / 1e6:.1f} "

@@ -9,13 +9,17 @@ clamp, vertical flip, float->uint8). Backend ladder, best first:
    thread. I420 frames from the device renderer are consumed natively (no
    YUV->RGB->YUV host round trip). Disable with LBM2D_NO_NATIVE=1.
 2. **cv2.VideoWriter** (mp4v) -- no ffmpeg binary is assumed in this
-   environment, so this is the best pure-Python fallback.
+   environment, so this is the best pure-Python fallback. It encodes on a
+   thread of the recorder's own too, in write order: a write hands it the
+   frame (flipped, in BGR, copied) and returns.
 3. **PNG frame directory** when no video backend exists at all.
 """
 
 from __future__ import annotations
 
 import os
+import queue
+import threading
 from typing import Optional
 
 import numpy as np
@@ -78,6 +82,9 @@ class VideoRecorder:
         self._writer = None
         self._frame_dir: Optional[str] = None
         self._frame_idx = 0
+        self._frames: Optional[queue.Queue] = None  # the cv2 encoder thread's input
+        self._encoder: Optional[threading.Thread] = None
+        self._errors: list = []
 
     def start(self) -> None:
         os.makedirs(os.path.dirname(self.filename) or ".", exist_ok=True)
@@ -104,6 +111,10 @@ class VideoRecorder:
                 self._writer = None
         if self._writer is not None:
             self.backend = "cv2-mp4v"
+            self._frames = queue.Queue(maxsize=8)
+            self._encoder = threading.Thread(target=self._encode, name="video-encoder",
+                                             daemon=True)
+            self._encoder.start()
         else:
             # PNG-frame fallback directory next to the target file
             self._frame_dir = self.filename + ".frames"
@@ -157,7 +168,9 @@ class VideoRecorder:
 
     def _emit(self, frame8: np.ndarray) -> None:
         if self._writer is not None:
-            self._writer.write(frame8[:, :, ::-1])  # RGB -> BGR
+            # RGB -> BGR, the copy cv2 would make, taken here so the caller
+            # may reuse its array; a full queue blocks
+            self._frames.put(np.ascontiguousarray(frame8[:, :, ::-1]))
         elif self._frame_dir is not None:
             from PIL import Image
 
@@ -166,7 +179,22 @@ class VideoRecorder:
             )
             self._frame_idx += 1
 
+    def _encode(self) -> None:
+        while True:
+            frame = self._frames.get()
+            if frame is None:
+                return
+            if not self._errors:
+                try:
+                    self._writer.write(frame)
+                except Exception as exc:  # surfaced by stop()
+                    self._errors.append(exc)
+
     def stop(self) -> None:
+        if self._encoder is not None:
+            self._frames.put(None)
+            self._encoder.join()
+            self._encoder = None
         if self.is_recording and self._native is not None:
             self._native.close()
         if self.is_recording and self._writer is not None:
@@ -174,3 +202,5 @@ class VideoRecorder:
         self._native = None
         self._writer = None
         self.is_recording = False
+        if self._errors:
+            raise RuntimeError(f"video encoder failed: {self._errors[0]}") from self._errors[0]

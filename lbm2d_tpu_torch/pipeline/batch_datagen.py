@@ -26,7 +26,6 @@ from __future__ import annotations
 import argparse
 import hashlib
 import os
-import threading
 import time
 import uuid
 from collections import defaultdict
@@ -50,6 +49,7 @@ from ..utils.scaling import calculate_physical_params
 from . import paths
 from .batch_run import build_resume_plan, find_config_files
 from .fetch_pacer import FetchPacer, probe_d2h_mbps
+from .save_stage import SaveStage
 
 def _group_key(cfg: Dict[str, Any]) -> Tuple:
     sim = cfg["simulation"]
@@ -108,9 +108,10 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
 
 
 # the ``outputs.enable_profiling`` progress line: its keys and the spans
-# each sums
+# each sums (a hand-off's wait, loop.fetch_join, is inside its
+# loop.fetch_start: "fetch" holds it too)
 PROFILE_KEYS = (("dispatch", ("program.issue",)), ("write", ("loop.fetch_join", "loop.write")),
-                ("monitor", ("loop.monitor_wait",)), ("queue", ("loop.queue",)),
+                ("monitor", ("loop.monitor_wait",)), ("queue", ("loop.queue", "loop.render")),
                 ("fetch", ("loop.fetch_start",)))
 
 
@@ -157,11 +158,13 @@ def run_lockstep_group(
     fetch only the composed uint8 frames; respects outputs.video.enable.
     ``yuv_video`` fetches them as YUV 4:2:0 (half the bytes of RGB).
 
-    ``fetch_overlap``: run the device-to-host save/video fetch on a worker
-    thread while the next chunk is issued. ``adaptive_fetch`` (with
-    ``fetch_overlap``) feeds the measured per-chunk fetch stall into a
-    FetchPacer that coalesces save/video events into grouped transfers when
-    the link can't hide them; artifact bytes are identical either way.
+    ``fetch_overlap``: copy and write each save on the save stage
+    (pipeline/save_stage.py), on a copy stream and a save worker beside the
+    chunks that follow it; False copies and writes it at its chunk, on the
+    loop's thread. ``adaptive_fetch`` (with ``fetch_overlap``) feeds the
+    loop's waits on the stage into a FetchPacer that coalesces save/video
+    events into grouped hand-offs when the stage can't keep up; artifact
+    bytes are identical either way.
     ``pacer`` injects a pre-built controller (tests).
 
     ``runner`` / ``n_devices``: the BatchEngine runner ("sharded" spreads
@@ -295,97 +298,29 @@ def run_lockstep_group(
             )
         os.replace(tmp, ckpt_path)
 
-    # Save/video fetch pipeline. With fetch_overlap the device-to-host copy
-    # runs on a worker thread while the next chunk is issued; otherwise it
-    # runs right after a chunk's monitors sync. Either way only host-side
-    # work -- video encode, HDF5 queueing -- rides in write_fetched. Pending
-    # save/video events accumulate as lists of device tensors: the
-    # FetchPacer may coalesce several events into one grouped transfer
-    # (order within each list is write order -- preserved).
+    # The save stage (pipeline/save_stage.py): a chunk's save producers are
+    # queued behind it on the compute stream; the stage copies them to the
+    # host on a stream of its own and writes them on its worker while the
+    # next chunks run. Pending save/video events accumulate as lists of
+    # device tensors until a hand-off: the FetchPacer may coalesce several
+    # events into one (order within each list is write order -- preserved).
     pending_moments: List[Tuple[Any, bool]] = []
     pending_videos: List[Any] = []
-    fetch_thread: Optional[threading.Thread] = None
-    fetch_box: Dict[str, Any] = {}
-    bytes_fetched = [0]  # cumulative device-to-host payload (run stats)
     group_uid = uuid.uuid4().hex[:8]  # the group's request id in its spans
-    chunk_id = None  # (group_uid, chunk index) of the chunk the loop runs
 
     if pacer is None:
         pacer = FetchPacer() if (adaptive_fetch and fetch_overlap) else None
     link_pre = probe_d2h_mbps(device=engine.device) if (dataset_on or video_on) else None
 
-    def _take_pending():
-        nonlocal pending_moments, pending_videos
-        pm, pv = pending_moments, pending_videos
-        pending_moments = []
-        pending_videos = []
-        return pm, pv
+    def write(out, failed):
+        """Host-side writes of fetched data (the save worker's; no device
+        traffic), skipping the cases failed at the hand-off. The HDF5
+        enqueue first: the writer threads then work while the loop waits on
+        the next chunk's monitors, not while it renders."""
+        _write_h5(out, failed)
+        _write_video(out, failed)
 
-    def _fetch(pm, pv, started_by=None):
-        """Device tensors -> host dict for write_fetched; ``started_by`` is
-        the chunk that started the fetch on a worker thread (its span's
-        request id; on the loop's thread the span inherits it)."""
-        out: Dict[str, Any] = {}
-        nb = 0
-        with span("fetch.d2h", chunk=started_by) as sp:
-            if pv:
-                if yuv_video:
-                    planes = [(_to_host(y), _to_host(uv)) for y, uv in pv]
-                    nb += sum(y.nbytes + uv.nbytes for y, uv in planes)
-                    out["frames_yuv"] = planes
-                else:
-                    frames = [_to_host(f) for f in pv]
-                    nb += sum(f.nbytes for f in frames)
-                    out["frames"] = frames
-            if pm:
-                moms = []
-                for dev, pre in pm:
-                    moments = _to_host(dev)
-                    nb += moments.nbytes
-                    if moments.dtype != np.float32:
-                        moments = moments.astype(np.float32)
-                    moms.append((moments, pre))
-                out["moments"] = moms
-            sp.set(bytes=nb)
-        bytes_fetched[0] += nb
-        return out
-
-    def fetch_pending():
-        return _fetch(*_take_pending())
-
-    def start_fetch():
-        """Start the device-to-host copy on a worker thread; the device
-        tensors are captured now (main thread) so the next iteration can
-        safely queue new pending events."""
-        nonlocal fetch_thread
-        pm, pv = _take_pending()
-        started_by = chunk_id
-
-        def _worker():
-            fetch_box.update(_fetch(pm, pv, started_by))
-
-        fetch_thread = threading.Thread(target=_worker, daemon=True)
-        fetch_thread.start()
-
-    def join_fetch():
-        nonlocal fetch_thread
-        if fetch_thread is None:
-            return {}
-        fetch_thread.join()
-        fetch_thread = None
-        out = dict(fetch_box)
-        fetch_box.clear()
-        return out
-
-    def write_fetched(out):
-        """Host-side writes of already-fetched data (no device traffic)."""
-        if not out:
-            return
-        with span("loop.write"):
-            _write_video(out)
-            _write_h5(out)
-
-    def _write_video(out):
+    def _write_video(out, failed):
         events = _frame_events(out)
         if not events:
             return
@@ -394,7 +329,7 @@ def run_lockstep_group(
         with span("loop.write.video"):
             for frames_ev, yuv_ev in events:
                 for b in range(n_cases):
-                    if fail_reason[b] is None and recorders[b] is not None:
+                    if b not in failed and recorders[b] is not None:
                         if yuv_ev is not None and zones is None:
                             # planes go straight to the recorder (the native
                             # backend feeds them to its yuv420p encoder)
@@ -413,13 +348,17 @@ def run_lockstep_group(
                             frame = draw_zone_overlay(frame, zones)
                         recorders[b].write_frame_u8(frame)
 
-    def _write_h5(out):
+    def _write_h5(out, failed):
         if "moments" not in out:
             return
         with span("loop.write.h5"):
             for moments, pre in out["moments"]:
+                if not pre and moments.dtype != np.float32:
+                    moments = moments.astype(np.float32)  # the host resize reads float32
+                # a resized f16 frame is cast to float32 by its case's writer
+                # thread (LBMCaseWriter.append), not here on the save worker
                 for b in range(n_cases):
-                    if fail_reason[b] is None and writers[b] is not None:
+                    if b not in failed and writers[b] is not None:
                         writers[b].append(moments[b], pre_resized=pre)
 
     def _frame_events(out):
@@ -429,16 +368,26 @@ def run_lockstep_group(
             return [(None, yv) for yv in out["frames_yuv"]]
         return []
 
-    def flush_pending():
-        write_fetched(fetch_pending())
+    def hand_off(stage, chunk_id):
+        """Give the pending events to the stage; returns ``behind`` and the
+        seconds the loop waited for the stage (SaveStage.submit)."""
+        nonlocal pending_moments, pending_videos
+        failed = frozenset(b for b in range(n_cases) if fail_reason[b] is not None)
+        out = stage.submit(pending_moments, pending_videos, failed, chunk_id)
+        pending_moments, pending_videos = [], []
+        return out
 
     # opt-in per-phase wall breakdown (outputs.enable_profiling): the
     # chunks' spans, summed for each progress line
     profiling = bool(cfg0["outputs"].get("enable_profiling"))
-    fetched = {}
 
+    def saves(interval):
+        return bool(interval) and steps % interval == 0 and steps >= start_record
+
+    chunk_id = None  # (group_uid, chunk index) of the chunk the loop runs
     t0 = time.perf_counter()
-    with recording(profiling):
+    stage = SaveStage(write, overlap=fetch_overlap, yuv=yuv_video)
+    with recording(profiling), stage:
         mark = REGISTRY.mark()
         while steps < max_steps:
             chunk_id = (group_uid, steps // chunk + 1)
@@ -447,38 +396,10 @@ def run_lockstep_group(
                 mon_dev = engine.run_step(chunk, sync=False)
                 steps += chunk
                 stall_s = 0.0
-                fetching = fetch_thread is not None
-                if fetching:
-                    tj = time.perf_counter()
-                    with span("loop.fetch_join"):
-                        fetched = join_fetch()
-                    stall_s = time.perf_counter() - tj
-                tw = time.perf_counter()
-                write_fetched(fetched)  # host-only IO
-                fetched = {}
-                tp2 = time.perf_counter()
-                with span("loop.monitor_wait"):
-                    mon = engine.sync_monitors(mon_dev)
-                tp3 = time.perf_counter()
-                if pacer is not None:
-                    # the chunk's wall without the host writes: they take as
-                    # long however the fetches are grouped
-                    pacer.record_wall(tp3 - tp0 - (tp2 - tw), tp3 - tp2, stall_s, fetching)
-                alive = engine.alive_mask
-                for b in range(n_cases):
-                    if fail_reason[b] is None and not alive[b]:
-                        ok, reason = check_stability(
-                            mon["force"][b], mon["max_v"][b], steps,
-                            warmup_step=members[b][1]["simulation"]["warmup_steps"],
-                        )
-                        fail_reason[b] = reason or f"Instability at step {steps}"
                 with span("loop.queue"):
-                    if (
-                        dataset_on
-                        and data_interval
-                        and steps % data_interval == 0
-                        and steps >= start_record
-                    ):
+                    # producers that never wait on the device, right behind
+                    # the chunk they read
+                    if dataset_on and saves(data_interval):
                         if resizer is not None:
                             dev = resizer(engine.get_moments_device()[_crop])
                             pre = True
@@ -488,30 +409,38 @@ def run_lockstep_group(
                         if f16_transfer:
                             dev = dev.to(torch.float16)
                         pending_moments.append((dev, pre))
-                    if (
-                        video_on
-                        and steps % vid_interval == 0
-                        and steps >= start_record
-                    ):
+                with span("loop.monitor_wait"):
+                    mon = engine.sync_monitors(mon_dev)
+                alive = engine.alive_mask
+                for b in range(n_cases):
+                    if fail_reason[b] is None and not alive[b]:
+                        ok, reason = check_stability(
+                            mon["force"][b], mon["max_v"][b], steps,
+                            warmup_step=members[b][1]["simulation"]["warmup_steps"],
+                        )
+                        fail_reason[b] = reason or f"Instability at step {steps}"
+                if video_on and saves(vid_interval):
+                    # the renderer uploads its index tables with blocking
+                    # copies, each a wait on the stream: it runs once the
+                    # chunk is done
+                    with span("loop.render"):
                         pending_videos.append(
                             renderer(engine.get_velocity_device(), engine.params.mask)
                         )
-                    if (
-                        ckpt_path
-                        and ckpt_interval
-                        and steps % ckpt_interval < chunk
-                    ):
-                        save_group_ckpt()
-                with span("loop.fetch_start"):
+                if ckpt_path and ckpt_interval and steps % ckpt_interval < chunk:
+                    save_group_ckpt()
+                with span("loop.fetch_start") as sp:
                     n_pending = len(pending_moments) + len(pending_videos)
-                    if fetch_overlap:
-                        # with the pacer, a stalling link grows the group:
-                        # several save events coalesce into one transfer
-                        # spanning several chunks
-                        if n_pending and (pacer is None or pacer.should_fetch(n_pending)):
-                            start_fetch()
-                    elif n_pending:
-                        fetched = fetch_pending()
+                    # with the pacer, a stalling stage grows the group:
+                    # several save events coalesce into one hand-off. It
+                    # waits (loop.fetch_join) only while the stage's queue
+                    # is full (save_stage.HELD)
+                    if n_pending and (pacer is None or pacer.should_fetch(n_pending)):
+                        behind, stall_s = hand_off(stage, chunk_id)
+                        sp.set(behind=behind)
+                if pacer is not None:
+                    wall_s = time.perf_counter() - tp0
+                    pacer.record_chunk(wall_s - stall_s, stall_s)
                 if heartbeat_cb is not None and steps % (chunk * 50) == 0:
                     heartbeat_cb()
                 if progress and steps % (chunk * 50) == 0:
@@ -521,16 +450,14 @@ def run_lockstep_group(
                         line += " | per-chunk ms: " + profile_line(REGISTRY.since(mark), 50)
                         mark = REGISTRY.mark()
                     print(line, flush=True)
-        write_fetched(join_fetch())  # in-flight overlapped transfer, if any
-        write_fetched(fetched)  # last iteration's fetched-but-unwritten frame
-        flush_pending()
+        if pending_moments or pending_videos:
+            hand_off(stage, chunk_id)  # events the pacer was still grouping
+    for rec in recorders:
+        if rec is not None:
+            rec.stop()  # drains the encoder threads' frames
     wall = time.perf_counter() - t0
     if ckpt_path and os.path.exists(ckpt_path):
         os.remove(ckpt_path)  # completed groups don't need restart state
-
-    for rec in recorders:
-        if rec is not None:
-            rec.stop()
 
     # structured link/transfer record, into sim_results via
     # run_summary.transfer
@@ -540,7 +467,7 @@ def run_lockstep_group(
             "group_uid": group_uid,  # group members share one record
             "link_d2h_mbps_pre": link_pre,
             "link_d2h_mbps_post": probe_d2h_mbps(device=engine.device),
-            "bytes_fetched": int(bytes_fetched[0]),
+            "bytes_fetched": int(stage.bytes_fetched),
             "group_wall_s": round(wall, 2),
         }
         if pacer is not None:

@@ -1,16 +1,17 @@
 """Adaptive device-to-host fetch pacing for transfer-bound links.
 
 Counterpart of ``lbm2d_tpu/pipeline/fetch_pacer.py``. The lockstep datagen
-loop (pipeline/batch_datagen.run_lockstep_group) overlaps each save/video
-fetch with the next chunk's compute on a worker thread. On a healthy link
-the transfer finishes under the compute and the join wait ("stall") is ~0.
-When the link cannot keep up, the solver silently binds on transfer.
+loop (pipeline/batch_datagen.run_lockstep_group) hands each save/video
+event to its save stage (pipeline/save_stage.py), which copies and writes
+it beside the next chunks. While the stage keeps up the loop never waits on
+it ("stall" 0); when it cannot, the loop waits and the solver binds on the
+save path.
 
 This pacer makes that degradation graceful: it watches the measured stall
 fraction stall/(stall+compute) over a rolling window and grows the *fetch
 group size* -- how many save events accumulate on the device before one
-coalesced fetch -- when the link can't keep up, shrinking it back when the
-link recovers. Artifacts are byte-identical: frames are only coalesced in
+coalesced hand-off -- when the stage can't keep up, shrinking it back when
+it recovers. Artifacts are byte-identical: frames are only coalesced in
 transit, never dropped, reordered or re-encoded.
 
 Deliberately not automatic: switching --f16_transfer/--yuv_video on at
@@ -22,7 +23,7 @@ from __future__ import annotations
 
 import time
 from collections import deque
-from typing import Deque, Optional, Tuple
+from typing import Deque, Tuple
 
 import torch
 
@@ -97,10 +98,6 @@ class FetchPacer:
         self.total_compute_s = 0.0
         self.total_stall_s = 0.0
         self.adaptations = 0
-        # the chunk wall without a transfer stall (record_wall) and the
-        # number of chunks that calibrated it
-        self.chunk_wall_est: Optional[float] = None
-        self.calibrating_chunks = 0
 
     # ------------------------------------------------------------- telemetry
 
@@ -115,40 +112,6 @@ class FetchPacer:
         if self._since_adapt >= self.window:
             self._adapt()
             self._since_adapt = 0
-
-    # monitor waits below this are the bare sync floor
-    M_EPS = 0.05
-
-    def record_wall(self, chunk_wall: float, monitor_wait: float, join_wait: float,
-                    fetching: bool = True) -> float:
-        """Feed one chunk's walls (the lockstep loop's): the chunk without
-        its host writes, its monitor wait and its wait to join the fetch
-        thread; ``fetching`` says whether a fetch was in flight. Returns the
-        true stall charged to ``record_chunk``.
-
-        The join wait is the full transfer duration, not the un-hidden
-        residual, so a chunk only truly lost wall time when its total wall
-        exceeds the chunk wall without a transfer. Chunks whose monitor wait
-        is non-trivial are device-bound (transfers hidden -> stall 0), and
-        chunks with no fetch in flight lose nothing to one: both calibrate
-        ``chunk_wall_est``. The others charge the excess over it, or the raw
-        join wait while there is no estimate. (The JAX package calibrates
-        from the device-bound chunks alone; a host-paced loop, as on the
-        H100, never waits M_EPS for its monitors, so the estimate never
-        formed there and every join wait counted as stall.)"""
-        if monitor_wait > self.M_EPS or not fetching:
-            true_stall = 0.0  # device-bound or no transfer: nothing to hide
-            self.calibrating_chunks += 1
-            self.chunk_wall_est = (
-                chunk_wall if self.chunk_wall_est is None
-                else 0.7 * self.chunk_wall_est + 0.3 * chunk_wall
-            )
-        elif self.chunk_wall_est is not None:
-            true_stall = max(0.0, chunk_wall - self.chunk_wall_est)
-        else:
-            true_stall = join_wait  # no estimate yet: conservative
-        self.record_chunk(chunk_wall - true_stall, true_stall)
-        return true_stall
 
     def stall_fraction(self) -> float:
         """Windowed stall fraction (0 = transfers fully hidden)."""

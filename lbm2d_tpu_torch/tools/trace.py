@@ -26,7 +26,7 @@ run's library calls and kernel launches a chunk, ``cuda_build.CALLS`` and
 where the program's spans (``utils/profiling.span``) are user annotations:
 the group loop's device idle time, each gap named by the innermost span
 open on the loop's thread at its midpoint (the host operation where none
-is), and each span's self time on the loop's, the fetch worker's and the
+is), and each span's self time on the loop's, the save worker's and the
 HDF5 writers' threads.
 
 Every mode first prints what a span site costs on this host, with
@@ -302,7 +302,7 @@ def trace_lockstep(config, mask, card: str) -> dict:
     launches = {k: v / chunks for k, v in cs.LAUNCHES.items() if v}
     lines.append(f"[lockstep warm] a chunk of the group: {sum(calls.values()):g} library calls "
                  f"{calls}, {sum(launches.values()):g} kernel launches {launches}")
-    # every thread's spans: the fetch worker's and the HDF5 writers' too
+    # every thread's spans: the save worker's and the HDF5 writers' too
     from torch._C._profiler import _ExperimentalConfig
 
     prof = torch.profiler.profile(

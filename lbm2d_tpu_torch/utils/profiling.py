@@ -8,7 +8,9 @@ innermost span open on its thread) and the id of the request it serves:
 ``chunk=``, inherited from the parent where not given (a lockstep group's
 ``(group_uid, chunk index)``, a validation's chunk index). Other keyword
 arguments, and ``set(**attrs)`` on the span while it is open, are kept
-with it.
+with it. ``took(seconds)`` on an open span gives it the length of work
+timed elsewhere (a device copy, between two CUDA events), ending where the
+span closes.
 
 Recording is on while a ``torch.profiler`` is active (the profiler's own
 process-wide flag, which worker threads see too) or inside
@@ -86,6 +88,9 @@ class _Off:
     def set(self, **attrs) -> None:
         pass
 
+    def took(self, seconds: float) -> None:
+        pass
+
 
 _OFF = _Off()
 _LOCAL = threading.local()  # the stack of this thread's open spans
@@ -101,13 +106,17 @@ def _stack() -> list:
 class _Open:
     """A span being recorded."""
 
-    __slots__ = ("reg", "rec", "rf")
+    __slots__ = ("reg", "rec", "rf", "ns")
 
     def __init__(self, reg, rec, rf):
         self.reg, self.rec, self.rf = reg, rec, rf
+        self.ns = None  # the length ``took`` gave, where it was called
 
     def set(self, **attrs) -> None:
         self.rec.attrs.update(attrs)
+
+    def took(self, seconds: float) -> None:
+        self.ns = int(seconds * 1e9)
 
     def __enter__(self):
         if self.rf is not None:
@@ -119,6 +128,8 @@ class _Open:
     def __exit__(self, typ, val, tb):
         rec = self.rec
         rec.t1 = time.perf_counter_ns()
+        if self.ns is not None:
+            rec.t0 = rec.t1 - self.ns
         stack = _stack()
         if stack and stack[-1] is rec:
             stack.pop()

@@ -9,18 +9,25 @@ Every run here is compared with one default lockstep run of the same
 two-case project (``reference``), made once for the module.
 """
 
+import collections
 import hashlib
+import json
 import os
+import threading
 
 import h5py
 import numpy as np
 import pytest
 import yaml
 
+from lbm2d_tpu_torch.io.h5_writer import AsyncLBMCaseWriter
+from lbm2d_tpu_torch.io.video import VideoRecorder
 from lbm2d_tpu_torch.parallel.batch import BatchEngine
 from lbm2d_tpu_torch.pipeline import batch_datagen, paths
 from lbm2d_tpu_torch.pipeline.batch_datagen import run_batched
 from lbm2d_tpu_torch.pipeline.batch_run import run_batch
+from lbm2d_tpu_torch.pipeline.save_stage import HELD, SaveStage
+from lbm2d_tpu_torch.utils import profiling
 from lbm2d_tpu_torch.utils.masks import create_mask
 from test_batch_datagen import make_two_case_project
 from test_pipeline_e2e import make_project
@@ -83,6 +90,130 @@ def test_fetch_at_idle_matches_overlapped(reference, tmp_path_factory):
         da, db = _h5(reference, case), _h5(idle, case)
         for ds in ("turbulence", "mean_vel_field", "sum_vor"):
             np.testing.assert_array_equal(db[ds], da[ds])
+
+
+def _video_project(root):
+    """The two-case project with its video on (a frame every 20 steps)."""
+    make_two_case_project(root)
+    cfg_dir = os.path.join(root, "SimCases", PROJECT, "configs")
+    for fname in os.listdir(cfg_dir):
+        path = os.path.join(cfg_dir, fname)
+        with open(path) as fh:
+            cfg = yaml.safe_load(fh)
+        cfg["outputs"]["video"]["enable"] = True
+        with open(path, "w") as fh:
+            yaml.safe_dump(cfg, fh, sort_keys=False)
+
+
+def _fed_run(root, monkeypatch, hold=False, **flags):
+    """run_batch on ``root``; with ``hold`` the save worker takes the first
+    save and writes nothing until a hand-off finds the stage's queue full.
+    Returns the run's stats and the frames each recorder was fed, in
+    order."""
+    fed = collections.defaultdict(list)
+    gate, entered = threading.Event(), threading.Event()
+    if not hold:
+        gate.set()
+    submit, write_u8, append = (SaveStage.submit, VideoRecorder.write_frame_u8,
+                                AsyncLBMCaseWriter.append)
+
+    def gated_submit(self, *args, **kwargs):
+        if self.held and not gate.is_set():
+            assert entered.wait(30)  # the worker has taken the first save
+        if self.held > HELD:
+            gate.set()  # this hand-off waits for the worker: let it write
+        return submit(self, *args, **kwargs)
+
+    def held_write_u8(self, img8):
+        entered.set()
+        assert gate.wait(30)
+        fed[os.path.basename(self.filename)].append(np.asarray(img8).tobytes())
+        return write_u8(self, img8)
+
+    def held_append(self, moments, pre_resized=False):
+        entered.set()
+        assert gate.wait(30)
+        return append(self, moments, pre_resized)
+
+    with monkeypatch.context() as m:
+        m.setattr(SaveStage, "submit", gated_submit)
+        m.setattr(VideoRecorder, "write_frame_u8", held_write_u8)
+        m.setattr(AsyncLBMCaseWriter, "append", held_append)
+        stats = run_batch(PROJECT, root=root, progress=False, lockstep=True, device="cpu",
+                          **flags)
+    return stats, dict(fed)
+
+
+def test_slow_save_stage_keeps_every_frame_once_in_order(reference, tmp_path, monkeypatch):
+    # saves at chunks 2-6, video at 2, 4, 6; the save worker holds the first
+    # save until a hand-off finds the stage's queue full (HELD saves waiting)
+    runs = {}
+    for tag, hold, overlap in (("slow", True, True), ("idle", False, False)):
+        root = str(tmp_path / tag)
+        _video_project(root)
+        profiling.REGISTRY.reset()
+        with profiling.REGISTRY.recording():
+            stats, fed = _fed_run(root, monkeypatch, hold, fetch_overlap=overlap)
+        assert stats["success"] == 2, stats
+        runs[tag] = (root, fed, profiling.REGISTRY.snapshot(reset=True))
+    (slow, fed, spans), (_, fed_idle, _) = runs["slow"], runs["idle"]
+    assert sorted(fed) == sorted(f"{c}.mp4" for c in CASES)
+    assert fed == fed_idle and all(len(v) == 3 for v in fed.values())
+    for case in CASES:
+        da, db = _h5(reference, case), _h5(slow, case)
+        assert sorted(da) == sorted(db)
+        for k in da:
+            np.testing.assert_array_equal(db[k], da[k], err_msg=k)
+    # behind counts the hand-offs not yet written; the loop waits only at a
+    # hand-off that finds more than HELD of them
+    handed = {s.chunk[1]: s.attrs["behind"] for s in spans
+              if s.name == "loop.fetch_start" and "behind" in s.attrs}
+    assert handed == {k: k - 2 for k in range(2, 7)}
+    joins = [s.chunk[1] for s in spans if s.name == "loop.fetch_join"]
+    assert joins and joins == [k for k in sorted(handed) if handed[k] > HELD], (joins, handed)
+
+
+def test_case_failing_mid_group_writes_nothing_from_its_failing_chunk(tmp_path, monkeypatch):
+    root = str(tmp_path)
+    _video_project(root)
+    calls = collections.Counter()
+    sync = BatchEngine.sync_monitors
+
+    def sync_monitors(self, packed):
+        # the group's second case breaks at its fourth chunk (step 40)
+        out = sync(self, packed)
+        calls[id(self)] += 1
+        if calls[id(self)] >= 4:
+            out["stable"][1] = False
+            self._alive_np[1] = False
+        return out
+
+    appended = collections.defaultdict(list)
+    append = AsyncLBMCaseWriter.append
+
+    def spy_append(self, moments, pre_resized=False):
+        appended[os.path.basename(self.writer.file_path)].append(profiling.current_chunk()[1])
+        return append(self, moments, pre_resized)
+
+    monkeypatch.setattr(BatchEngine, "sync_monitors", sync_monitors)
+    monkeypatch.setattr(AsyncLBMCaseWriter, "append", spy_append)
+    profiling.REGISTRY.reset()
+    with profiling.REGISTRY.recording():
+        stats = run_batch(PROJECT, root=root, progress=False, lockstep=True, device="cpu")
+    profiling.REGISTRY.reset()
+    assert stats["success"] == 1 and stats["failed"] == 1, stats
+    with open(os.path.join(root, "outputs", PROJECT, "plots", "sim_results.json")) as fh:
+        status = {e["config_filename"]: e["status"] for e in json.load(fh)}
+    names = sorted(status)
+    assert status[names[0]] == "Success" and status[names[1]] == "Failed"
+    ok, bad = (n.replace("_cfg", "").replace(".yaml", "") for n in names)
+    # saves from chunk 2: the failed case's frames stop before chunk 4
+    assert appended[ok + ".h5"] == [2, 3, 4, 5, 6]
+    assert appended[bad + ".h5"] == [2, 3]
+    out = os.path.join(root, "outputs", PROJECT)
+    for case, kept in ((ok, True), (bad, False)):
+        for path in (os.path.join(out, "raw", case + ".h5"), os.path.join(out, "vis", case + ".mp4")):
+            assert os.path.exists(path) == kept, path
 
 
 def test_serial_device_resize_matches_host_path(tmp_path):

@@ -1,0 +1,124 @@
+"""The lockstep loop's save stage (``pipeline/save_stage.py``) alone: its
+worker's order and errors on the CPU, and on the card a copy that waits on
+its producers and not on the work queued after it. The loop's own use of it
+is held in ``test_torch_lockstep_options.py`` and ``test_torch_spans.py``.
+No JAX here: the card's tests run with ``--noconftest -m cuda``."""
+
+import sys
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from lbm2d_tpu_torch.pipeline.save_stage import HELD, SaveStage
+from lbm2d_tpu_torch.utils import profiling
+
+
+def test_worker_writes_in_hand_off_order_and_inline_on_the_callers_thread():
+    for overlap in (True, False):
+        seen = []
+
+        def write(out, failed):
+            time.sleep(0.01)
+            seen.append((threading.get_ident(), int(out["moments"][0][0][0]), failed))
+
+        with SaveStage(write, overlap=overlap) as stage:
+            behind = [stage.submit([(torch.full((2,), float(k)), True)], [], frozenset({k}))[0]
+                      for k in range(4)]
+        assert [(v, f) for _, v, f in seen] == [(k, frozenset({k})) for k in range(4)]
+        threads = {t for t, _, _ in seen}
+        assert len(threads) == 1
+        assert (threading.get_ident() not in threads) == overlap
+        assert behind[0] == 0 and (max(behind) > 0) == overlap
+        assert stage.bytes_fetched == 4 * 2 * 4
+
+
+def test_hand_offs_under_stress_are_each_written_once_in_order():
+    # 12 loops, each with its stage and worker (more threads than cores), the
+    # interpreter switching threads as often as it can
+    n_loops, n_saves = 12, 60
+    written = {k: [] for k in range(n_loops)}
+    errors = []
+
+    def loop(k):
+        try:
+            def write(out, failed):
+                written[k].append(int(out["moments"][0][0][0]))
+
+            with SaveStage(write) as stage:
+                for i in range(n_saves):
+                    behind, waited = stage.submit([(torch.full((4,), float(i)), True)], [],
+                                                  frozenset())
+                    assert behind <= HELD + 1 and (waited == 0.0 or behind >= HELD)
+            assert stage.held == 0 and stage.bytes_fetched == n_saves * 16
+        except Exception as exc:  # noqa: BLE001 -- reported below
+            errors.append(exc)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=loop, args=(k,)) for k in range(n_loops)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert all(w == list(range(n_saves)) for w in written.values())
+
+
+def test_worker_error_is_raised_on_the_loops_next_call():
+    def write(out, failed):
+        raise OSError("disk full")
+
+    stage = SaveStage(write)
+    stage.submit([(torch.zeros(3), False)], [], frozenset())
+    with pytest.raises(RuntimeError, match="save worker failed") as err:
+        stage.close()
+    assert isinstance(err.value.__cause__, OSError)
+    assert stage.held == 0
+
+
+@pytest.mark.cuda
+def test_copy_waits_on_its_producers_not_on_what_follows():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    x = torch.arange(5 * 9 * 256 * 512, dtype=torch.float32, device=dev).reshape(5, 9, 256, 512)
+    want = (x * 1e-6).to(torch.float16).cpu().numpy()
+    y_rgb = torch.randint(0, 256, (5, 970, 1024, 3), dtype=torch.uint8, device=dev)
+    want_rgb = y_rgb.cpu().numpy()
+    torch.cuda.synchronize()
+    after = torch.cuda.Event()
+    recorded = threading.Event()
+    seen = {}
+
+    def write(out, failed):
+        # the copy is complete here; ``after`` follows the sleep queued
+        # behind the hand-off
+        assert recorded.wait(10)
+        seen["after_done"] = after.query()
+        seen["out"] = out
+
+    cycles = int(0.05 * torch.cuda.get_device_properties(dev).clock_rate * 1e3)  # ~50 ms
+    profiling.REGISTRY.reset()
+    with profiling.REGISTRY.recording(), SaveStage(write) as stage:
+        y = (x * 1e-6).to(torch.float16)  # the producers, on the compute stream
+        stage.submit([(y, True)], [y_rgb.clone()], frozenset(), chunk=("g", 1))
+        del y  # its block is not reused before the copy has read it
+        torch.cuda._sleep(cycles)  # what follows the hand-off
+        after.record()
+        recorded.set()
+    d2h, = [s for s in profiling.REGISTRY.snapshot(reset=True) if s.name == "fetch.d2h"]
+    assert seen["after_done"] is False
+    # the span holds the copies' own time: 26.7 MB into pinned memory, well
+    # under the sleep queued behind them
+    assert d2h.chunk == ("g", 1) and d2h.attrs["bytes"] == want.nbytes + want_rgb.nbytes
+    assert 0 < d2h.seconds < 0.025, d2h
+    (moments, pre), = seen["out"]["moments"]
+    assert pre and moments.dtype == np.float16
+    np.testing.assert_array_equal(moments, want)
+    np.testing.assert_array_equal(seen["out"]["frames"][0], want_rgb)

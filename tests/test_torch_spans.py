@@ -16,6 +16,7 @@ import yaml
 
 from lbm2d_tpu_torch.pipeline.batch_datagen import PROFILE_KEYS, profile_line
 from lbm2d_tpu_torch.pipeline.batch_run import run_batch
+from lbm2d_tpu_torch.pipeline.save_stage import HELD
 from lbm2d_tpu_torch.utils import profiling
 from lbm2d_tpu_torch.utils.profiling import Registry
 from test_batch_datagen import make_two_case_project
@@ -112,6 +113,7 @@ def test_parents_chunks_and_threads(registry):
     def worker(chunk):
         with profiling.span("fetch.d2h", chunk=chunk) as sp:
             sp.set(bytes=123)
+            sp.took(0.25)  # timed elsewhere (a device copy)
         seen["thread"] = threading.get_ident()
 
     with registry.recording():
@@ -132,6 +134,7 @@ def test_parents_chunks_and_threads(registry):
     d2h = spans["fetch.d2h"]
     assert d2h.chunk == ("g", 7) and d2h.parent is None and d2h.attrs == {"bytes": 123}
     assert d2h.thread == seen["thread"] != chunk.thread
+    assert d2h.t1 - d2h.t0 == 250_000_000  # the length ``took`` gave it
     assert spans["loop.queue"].chunk is None and spans["loop.queue"].parent is None
     assert chunk.t0 <= write.t0 <= h5.t0 <= h5.t1 <= write.t1 <= chunk.t1
 
@@ -191,25 +194,43 @@ def test_lockstep_group_records_a_span_tree_a_chunk(tmp_path, registry):
     assert sorted(chunks) == [(uid, k) for k in range(1, 7)]
     assert all(s.whole for s in spans)
     per = collections.defaultdict(collections.Counter)
+    first = collections.defaultdict(dict)
     for s in spans:
         per[s.chunk][s.name] += 1
+        first[s.chunk].setdefault(s.name, s)
     for cid in chunks:
         assert per[cid]["program.issue"] == per[cid]["loop.monitor_wait"] == 1, cid
         assert per[cid]["loop.queue"] == per[cid]["loop.fetch_start"] == 1, cid
-    # a chunk writes what the chunk before it fetched: saves start at step 20
-    started = {s.chunk for s in spans if s.name == "fetch.d2h" and s.chunk in chunks}
-    assert started == {(uid, k) for k in range(2, 7)}
-    writes = {s.chunk for s in spans if s.name == "loop.write" and s.chunk in chunks}
-    assert writes == {(uid, k + 1) for _, k in started if k < 6}
-    assert writes == {s.chunk for s in spans if s.name == "loop.write.h5" and s.chunk in chunks}
+        # the save producers are queued before the wait on the chunk's monitors
+        assert first[cid]["loop.queue"].t1 <= first[cid]["loop.monitor_wait"].t0, cid
+    # each save is handed off in the chunk that queued it (saves start at
+    # step 20); its copy and its write carry that chunk's id, the copy
+    # taken after the chunk began and before the write
+    saving = {(uid, k) for k in range(2, 7)}
+    d2h = {s.chunk: s for s in spans if s.name == "fetch.d2h"}
+    assert set(d2h) == saving
+    handed = {s.chunk: s.attrs["behind"] for s in spans
+              if s.name == "loop.fetch_start" and "behind" in s.attrs}
+    assert set(handed) == saving and all(0 <= b <= HELD + 1 for b in handed.values())
+    writes = [s for s in spans if s.name == "loop.write"]
+    assert {s.chunk for s in writes} == saving and len(writes) == len(saving)
+    for w in writes:
+        assert chunks[w.chunk].t0 <= d2h[w.chunk].t0 <= d2h[w.chunk].t1 <= w.t0, w
+    assert {s.chunk for s in spans if s.name == "loop.write.h5"} == saving
     main = chunks[(uid, 1)].thread
+    worker = {s.thread for s in writes}
+    assert len(worker) == 1 and main not in worker  # one save worker a group
     for s in spans:
-        if s.name in ("fetch.d2h", "h5.append") and s.chunk in chunks:
-            assert s.thread != main and s.parent is None, s
+        if s.name in ("fetch.d2h", "loop.write") and s.chunk in chunks:
+            assert s.thread in worker and s.parent is None, s
+        elif s.name == "loop.write.h5":
+            assert s.thread in worker and s.parent is not None, s
+        elif s.name == "h5.append":
+            assert s.thread != main and s.thread not in worker and s.parent is None, s
         elif s.name != "loop.chunk" and s.chunk in chunks:
             assert s.thread == main and s.parent is not None, s
     # each save: one HDF5 append a case, on the writers' threads
-    assert sum(s.name == "h5.append" for s in spans) == 2 * len(started)
+    assert sum(s.name == "h5.append" for s in spans) == 2 * len(saving)
     # the bytes loop.fetch_mbps reads are those the transfer record counts
     assert sum(s.attrs["bytes"] for s in spans if s.name == "fetch.d2h") == \
         transfer["bytes_fetched"] > 0
@@ -233,13 +254,13 @@ def test_enable_profiling_progress_line_keeps_its_keys(tmp_path, capsys):
 def test_profile_line_sums_the_spans_of_each_key():
     reg = Registry(always=True)
     for name in ("program.issue", "loop.fetch_join", "loop.write", "loop.write", "loop.queue",
-                 "loop.monitor_wait", "loop.fetch_start", "fetch.d2h"):
+                 "loop.render", "loop.monitor_wait", "loop.fetch_start", "fetch.d2h"):
         with reg.span(name):
             pass
     spans = reg.snapshot()
     for s in spans:
         s.t1 = s.t0 + 10_000_000  # 10 ms each
-    assert profile_line(spans, 2) == "dispatch=5 write=15 monitor=5 queue=5 fetch=5"
+    assert profile_line(spans, 2) == "dispatch=5 write=15 monitor=5 queue=10 fetch=5"
 
 
 def test_serial_profile_line_reads_the_newest_spans(tmp_path, capsys):

@@ -77,14 +77,16 @@ def test_lockstep_report_on_a_profiled_cpu_group():
     assert dev == []
     loop = max(spans, key=lambda t: len(spans[t]))
     names = {n for _, _, n in spans[loop]}
-    assert {"loop.chunk", "program.issue", "loop.monitor_wait", "loop.write"} <= names
+    assert {"loop.chunk", "program.issue", "loop.monitor_wait", "loop.queue"} <= names
+    assert "loop.write" not in names  # the save worker's
     workers = {n for t in spans if t != loop for _, _, n in spans[t]}
-    assert workers == {"fetch.d2h", "h5.append"}
+    assert workers == {"fetch.d2h", "loop.write", "loop.write.h5", "h5.append"}
     # the device "busy" during each chunk's issue: its idle time is the rest
     busy = [(s, e, "k1") for s, e, n in spans[loop] if n == "program.issue"]
     text = trace.lockstep_report(busy, host, spans)
     assert "over 6 chunks" in text and "loop.chunk outside its named children" in text
     assert "workers h5.append" in text and "workers fetch.d2h" in text
+    assert "workers loop.write" in text
 
 
 def test_span_cost_reads_three_costs():
