@@ -148,17 +148,20 @@ def _case_state(st: LBMState, k: int) -> LBMState:
                     step=int(st.step[k]))
 
 
-class _Group:
+class Part:
     """The cases of one device, stacked: ``idx`` their indices in the batch,
-    ``state`` their [B, ...] state, and how a chunk runs them: the group
-    program (``tables``, ``cuda_step.GroupParams``; ``plain`` for its plain
-    version) or ``runners`` a case."""
+    ``state`` their [B, ...] state, ``mask`` their [B, H, W] masks, and how
+    a chunk runs them: the group program (``tables``,
+    ``cuda_step.GroupParams``; ``plain`` for its plain version) or
+    ``runners`` a case. ``moments()`` and ``velocity()`` read its state on
+    its own device."""
 
-    def __init__(self, idx, device, case_params, ny, nx, dtype, store_dev, program,
+    def __init__(self, idx, device, case_params, mask, ny, nx, dtype, store_dev, program,
                  plain=False):
         self.idx = list(idx)
         self.device = device
         self.case_params = list(case_params)
+        self.mask = mask
         self.state = init_batch_state(len(self.idx), ny, nx, dtype, device)
         if program:
             self.tables = cs.GroupParams(self.case_params)
@@ -167,6 +170,15 @@ class _Group:
         else:
             self.tables = self.run = None
             self.runners = [resolve_runner(p, device, store_dev) for p in self.case_params]
+
+    def moments(self) -> torch.Tensor:
+        """[B, 9, H, W] moments of the part's cases, on its device."""
+        return moments_batched(self.state)
+
+    def velocity(self) -> torch.Tensor:
+        """[B, 2, H, W] velocity of the part's cases, on its device (a view
+        the next chunk overwrites)."""
+        return self.state.u
 
 
 class BatchEngine:
@@ -182,7 +194,9 @@ class BatchEngine:
     ``runner="sharded"`` spreads the cases over ``case_mesh(n_devices,
     device, case_devices)``, at most one device a case; the batched
     outputs (``state``, the moments and velocity) are gathered on the
-    first device of the mesh, ``device``. On one device ``state`` and
+    first device of the mesh, ``device`` (span ``engine.gather``, with the
+    ``bytes`` of the parts behind the first); ``parts`` are the cases of
+    each device, read on their own device. On one device ``state`` and
     ``get_velocity_device`` are views of the engine's buffers, which the
     next ``run_step`` overwrites.
     """
@@ -228,6 +242,10 @@ class BatchEngine:
             self._parts = [r for r in (range(d * lb, min((d + 1) * lb, self.batch))
                                        for d in range(len(mesh))) if len(r)]
             part_devices = [mesh[r[0] // lb] for r in self._parts]
+            if len(self._parts) < len(mesh):
+                print(f"[BatchEngine] {self.batch} cases at {lb} a device leave "
+                      f"{len(mesh) - len(self._parts)} of {len(mesh)} devices without a case; "
+                      f"a batch of a multiple of {len(mesh)} fills every device")
             self.device = mesh[0]
         else:
             self.device = resolve_device(device)
@@ -251,8 +269,10 @@ class BatchEngine:
                       for i in part]
             on_card = d.type == "cuda"
             program = not fused and (on_card or runner == "pallas")
-            self._groups.append(_Group(part, d, params, self.ny, self.nx, dtype,
-                                       self._store_dev, program, plain=not on_card))
+            mask = self.params.mask if len(self._parts) == 1 else \
+                torch.stack([p.mask for p in params])
+            self._groups.append(Part(part, d, params, mask, self.ny, self.nx, dtype,
+                                     self._store_dev, program, plain=not on_card))
         self._alive_np = np.ones((self.batch,), bool)
         self._pending = None  # a run_step(sync=False) monitor array not read yet
         self.last_monitors: Optional[Dict[str, np.ndarray]] = None
@@ -269,14 +289,17 @@ class BatchEngine:
         # devices of a case mesh run concurrently; each group's monitors are
         # ONE array, so one device-to-host transfer a device
         with span("program.issue"):
-            packs = [self._run_group(g, n) for g in self._groups]
+            packs = []
+            for g in self._groups:
+                with span("program.card", device=str(g.device), cases=len(g.idx)):
+                    packs.append(self._run_group(g, n))
         packed = packs[0] if self.mesh is None else packs
         self._pending = packed
         if not sync:
             return packed
         return self.sync_monitors(packed)
 
-    def _run_group(self, g: _Group, n: int) -> torch.Tensor:
+    def _run_group(self, g: Part, n: int) -> torch.Tensor:
         """Group ``g``'s chunk; returns its packed monitors on its device."""
         alive = [bool(self._alive_np[i]) for i in g.idx]
         if g.tables is not None:
@@ -317,11 +340,20 @@ class BatchEngine:
         self._alive_np &= out["stable"]
         return out
 
+    @property
+    def parts(self) -> List[Part]:
+        """The cases of each device of the mesh (one part off a mesh), in
+        batch order."""
+        return list(self._groups)
+
     def _gathered(self, fn) -> torch.Tensor:
         """``fn(group state)`` of every group, in batch order on ``device``."""
         if len(self._groups) == 1:
             return fn(self._groups[0].state)
-        return torch.cat([fn(g.state).to(self.device) for g in self._groups])
+        with span("engine.gather") as sp:
+            parts = [fn(g.state) for g in self._groups]
+            sp.set(bytes=sum(t.numel() * t.element_size() for t in parts[1:]))
+            return torch.cat([t.to(self.device) for t in parts])
 
     @property
     def state(self) -> LBMState:

@@ -107,6 +107,11 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def _nbytes(out) -> int:
+    """Bytes of a tensor or a tuple of tensors."""
+    return sum(t.numel() * t.element_size() for t in (out if isinstance(out, tuple) else (out,)))
+
+
 # the ``outputs.enable_profiling`` progress line: its keys and the spans
 # each sums (a hand-off's wait, loop.fetch_join, is inside its
 # loop.fetch_start: "fetch" holds it too)
@@ -168,7 +173,10 @@ def run_lockstep_group(
     ``pacer`` injects a pre-built controller (tests).
 
     ``runner`` / ``n_devices``: the BatchEngine runner ("sharded" spreads
-    the cases over ``n_devices`` devices). ``heartbeat_cb``: zero-arg
+    the cases over ``n_devices`` devices; each device then produces the
+    saves and renders of its own cases, behind its own chunk, and the save
+    stage copies each device's part, so no field crosses between devices
+    inside the chunk loop). ``heartbeat_cb``: zero-arg
     callable invoked at each progress interval (the multi-worker claim
     heartbeat, pipeline/coordination.py).
     """
@@ -241,6 +249,7 @@ def run_lockstep_group(
         device=device, runner=runner, n_devices=n_devices,
     )
     n_cases = len(members)
+    parts = engine.parts
 
     resizer = None
     if device_resize and dataset_on and writers[0] is not None:
@@ -353,13 +362,16 @@ def run_lockstep_group(
             return
         with span("loop.write.h5"):
             for moments, pre in out["moments"]:
-                if not pre and moments.dtype != np.float32:
-                    moments = moments.astype(np.float32)  # the host resize reads float32
                 # a resized f16 frame is cast to float32 by its case's writer
-                # thread (LBMCaseWriter.append), not here on the save worker
+                # thread (LBMCaseWriter.append), not here on the save worker;
+                # ``moments[b]`` is case b's row (of its part's array on a
+                # case mesh, save_stage.CaseRows)
                 for b in range(n_cases):
                     if b not in failed and writers[b] is not None:
-                        writers[b].append(moments[b], pre_resized=pre)
+                        row = moments[b]
+                        if not pre and row.dtype != np.float32:
+                            row = row.astype(np.float32)  # the host resize reads float32
+                        writers[b].append(row, pre_resized=pre)
 
     def _frame_events(out):
         if "frames" in out:
@@ -386,7 +398,8 @@ def run_lockstep_group(
 
     chunk_id = None  # (group_uid, chunk index) of the chunk the loop runs
     t0 = time.perf_counter()
-    stage = SaveStage(write, overlap=fetch_overlap, yuv=yuv_video)
+    stage = SaveStage(write, overlap=fetch_overlap, yuv=yuv_video,
+                      parts=[part.idx for part in parts])
     with recording(profiling), stage:
         mark = REGISTRY.mark()
         while steps < max_steps:
@@ -398,17 +411,21 @@ def run_lockstep_group(
                 stall_s = 0.0
                 with span("loop.queue"):
                     # producers that never wait on the device, right behind
-                    # the chunk they read
+                    # the chunk they read, each device's on its own cases
                     if dataset_on and saves(data_interval):
-                        if resizer is not None:
-                            dev = resizer(engine.get_moments_device()[_crop])
-                            pre = True
-                        else:
-                            dev = engine.get_moments_device()
-                            pre = False
-                        if f16_transfer:
-                            dev = dev.to(torch.float16)
-                        pending_moments.append((dev, pre))
+                        pre = resizer is not None
+                        per_part = []
+                        for part in parts:
+                            with span("loop.produce", device=str(part.device),
+                                      what="moments") as sp:
+                                dev = part.moments()
+                                if pre:
+                                    dev = resizer(dev[_crop])
+                                if f16_transfer:
+                                    dev = dev.to(torch.float16)
+                                sp.set(bytes=_nbytes(dev))
+                            per_part.append(dev)
+                        pending_moments.append((per_part, pre))
                 with span("loop.monitor_wait"):
                     mon = engine.sync_monitors(mon_dev)
                 alive = engine.alive_mask
@@ -424,9 +441,14 @@ def run_lockstep_group(
                     # copies, each a wait on the stream: it runs once the
                     # chunk is done
                     with span("loop.render"):
-                        pending_videos.append(
-                            renderer(engine.get_velocity_device(), engine.params.mask)
-                        )
+                        per_part = []
+                        for part in parts:
+                            with span("loop.produce", device=str(part.device),
+                                      what="video") as sp:
+                                frame = renderer(part.velocity(), part.mask)
+                                sp.set(bytes=_nbytes(frame))
+                            per_part.append(frame)
+                        pending_videos.append(per_part)
                 if ckpt_path and ckpt_interval and steps % ckpt_interval < chunk:
                     save_group_ckpt()
                 with span("loop.fetch_start") as sp:
@@ -821,7 +843,10 @@ def main() -> None:
     ap.add_argument(
         "--n_devices", type=int, default=None,
         help="device count for --runner sharded (default: all CUDA devices; "
-        "with --device cpu, the CPU named that many times)",
+        "with --device cpu, the CPU named that many times). A group of B "
+        "cases puts ceil(B / n) on each device, so a B that n does not divide "
+        "may leave a device without a case (5 on 4: 2/2/1/0, said in one "
+        "line); a --max_batch that n divides fills every device",
     )
     ap.add_argument(
         "--coordinate", action="store_true",

@@ -347,7 +347,9 @@ def main() -> None:
                     help="the lockstep engine's runner (with --lockstep; "
                     "batch_datagen --runner has the details)")
     ap.add_argument("--n_devices", type=int, default=None,
-                    help="device count for --runner sharded (with --lockstep)")
+                    help="device count for --runner sharded (with --lockstep); "
+                    "a --max_batch it does not divide may leave a device "
+                    "without a case (5 on 4: 2/2/1/0)")
     ap.add_argument("--spatial_mesh", default=None, metavar="RxC",
                     help="run each case spatially sharded over a device "
                     "mesh, e.g. '2x4' or 'auto' (most-square over all "

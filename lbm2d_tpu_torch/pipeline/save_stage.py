@@ -29,6 +29,12 @@ stops the worker.
 ``overlap=False`` runs each hand-off at once on the caller's thread (the
 loop's ``--fetch_at_idle``). On the CPU the stage copies nothing: the host
 arrays are the producers' own tensors, which are fresh.
+
+A case mesh's engine (``parallel/batch.BatchEngine(runner="sharded")``)
+produces each save on every device, for that device's cases: an event is
+then a list of tensors, one a part, each copied on its own device's copy
+stream, and the writer reads case ``b``'s row from its part's host array
+through ``CaseRows``.
 """
 
 from __future__ import annotations
@@ -46,6 +52,27 @@ from ..utils.profiling import span
 HELD = 3  # hand-offs that wait for the worker before a hand-off waits
 
 
+class CaseRows:
+    """A save's host arrays of a case mesh, one a part: ``rows[b]`` is case
+    ``b``'s row, read from the part that holds it (``where[b]``, its part
+    and its row there)."""
+
+    def __init__(self, parts: List[Any], where: List[Tuple[int, int]]):
+        self.parts, self.where = parts, where
+
+    def __getitem__(self, b: int):
+        p, r = self.where[b]
+        return self.parts[p][r]
+
+    def __len__(self) -> int:
+        return len(self.where)
+
+
+def _parts(item) -> list:
+    """An event's tensors: a list a part, or one part's own."""
+    return item if isinstance(item, list) else [item]
+
+
 class SaveStage:
     """Copies and writes of a lockstep group's saves (module docstring).
 
@@ -53,13 +80,19 @@ class SaveStage:
     ``"moments"`` ([(array, pre_resized)], in save order) and ``"frames"``
     (RGB u8 arrays) or ``"frames_yuv"`` ([(Y, UV)]), host arrays in the
     dtypes the producers gave; ``failed`` the case indices failed at the
-    hand-off."""
+    hand-off. Each tensor of ``submit`` may be a list of one a part
+    instead, ``parts`` (each part's case indices, in part order) saying
+    which cases each holds; ``out`` then holds ``CaseRows``."""
 
     def __init__(self, write: Callable[[Dict[str, Any], frozenset], None], overlap: bool = True,
-                 yuv: bool = False):
+                 yuv: bool = False, parts: Optional[List[List[int]]] = None):
         self._write = write
         self.overlap = overlap
         self.yuv = yuv
+        self._where: List[Tuple[int, int]] = [(0, 0)] * sum(len(idx) for idx in parts or [])
+        for p, idx in enumerate(parts or []):
+            for r, b in enumerate(idx):
+                self._where[b] = (p, r)
         self.bytes_fetched = 0
         self._streams: Dict[torch.device, Any] = {}
         self._jobs: queue.Queue = queue.Queue(maxsize=HELD)
@@ -76,10 +109,14 @@ class SaveStage:
         """Start the copies of one hand-off and give it to the worker;
         returns (``behind``, seconds waited for a place in the queue)."""
         self._raise()
-        tensors = [t for t, _ in moments]
+        tensors = []
+        for t, _ in moments:
+            tensors += _parts(t)
         for v in videos:
-            tensors += list(v) if self.yuv else [v]
-        job = (*self._copy(tensors), [pre for _, pre in moments], len(videos), failed, chunk)
+            for part in _parts(v):
+                tensors += list(part) if self.yuv else [part]
+        layout = ([(len(_parts(t)), pre) for t, pre in moments], [len(_parts(v)) for v in videos])
+        job = (*self._copy(tensors), layout, failed, chunk)
         if not self.overlap:
             self._run(job)
             return 0, 0.0
@@ -140,8 +177,11 @@ class SaveStage:
             events.append((start, done))
         return host, events
 
+    def _rows(self, arrays: list):
+        return arrays[0] if len(arrays) == 1 else CaseRows(arrays, self._where)
+
     def _run(self, job) -> None:
-        host, events, pres, n_videos, failed, chunk = job
+        host, events, (moment_parts, video_parts), failed, chunk = job
         with span("fetch.d2h", chunk=chunk) as sp:
             for _, done in events:
                 done.synchronize()
@@ -153,12 +193,23 @@ class SaveStage:
                 sp.took(max(a.elapsed_time(b) for a, b in events) * 1e-3)
         self.bytes_fetched += nb
         out: Dict[str, Any] = {}
-        if pres:
-            out["moments"] = list(zip(arrays[:len(pres)], pres))
-        frames = arrays[len(pres):]
-        if n_videos:
-            out["frames_yuv" if self.yuv else "frames"] = (
-                list(zip(frames[0::2], frames[1::2])) if self.yuv else frames)
+        at = 0
+        if moment_parts:
+            out["moments"] = []
+            for k, pre in moment_parts:
+                out["moments"].append((self._rows(arrays[at:at + k]), pre))
+                at += k
+        if video_parts:
+            frames = []
+            for k in video_parts:
+                if self.yuv:
+                    both = arrays[at:at + 2 * k]
+                    frames.append((self._rows(both[0::2]), self._rows(both[1::2])))
+                    at += 2 * k
+                else:
+                    frames.append(self._rows(arrays[at:at + k]))
+                    at += k
+            out["frames_yuv" if self.yuv else "frames"] = frames
         with span("loop.write", chunk=chunk):
             self._write(out, failed)
 
