@@ -54,7 +54,11 @@ Phases (any failure raises and the process exits non-zero):
    inlet and a no-op layout, and the group monitor kernel for both force
    sums, bitwise against their plain versions, the monitors within 5e-6 of
    the eager monitors in float64 and a NaN in u read as unstable, timed
-   over the 5 cases beside the eager monitors (``library_ms``);
+   over the 5 cases beside the eager monitors (``library_ms``); then the
+   render kernel (``csrc/render.cu``): the video frames of 5 cases of the
+   production grid at the production frame size in one launch, RGB and
+   I420, bitwise against the plain torch render, timed beside its bound
+   and the plain render, with its instances' registers;
 3. drive the serial main path, ``LBMEngine`` + ``run_simulation_loop``, on
    the production-shaped case in ``lbm2d_tpu_torch/data`` (3000 steps in
    chunks of 100), and check status Success, finite moments, mean jx > 0,
@@ -72,7 +76,8 @@ Phases (any failure raises and the process exits non-zero):
    every case Success, finite HDF5 frames with mean jx > 0, one mp4 per
    case, the launch counts of the group program (one K1 launch a step for
    the group: k1_step_group_dev 2970, k1_step_group_full 30,
-   group_monitors 30; cases x steps 3 x each) and no plain call, and
+   group_monitors 30; cases x steps 3 x each), the render kernel's (one a
+   saving video chunk: 3) and no plain call, and
    print the fetch pacer's record (stall fraction, final group size). Where
    the machine has no h5py, the HDF5 writer runs on an in-memory stand-in
    of ``h5py.File`` and the frames are read back from it;
@@ -168,7 +173,8 @@ Phases (any failure raises and the process exits non-zero):
    one-worker run, one launch a step and no plain call in each worker;
    (b) ``batch_run --coordinate --lockstep --f16_state --max_batch 2``,
    one worker alone, then two at once, on fresh copies of the project:
-   the same checks, and wall, aggregate wall MLUPS and cases/hour of each;
+   the same checks, one render launch a group a saving video chunk, and
+   wall, aggregate wall MLUPS and cases/hour of each;
    (c) ``BatchEngine(runner="sharded")``, 3 cases on a case mesh naming
    cuda:0 twice (one inert pad), one chunk, f32 and ``store_dev``: states
    and monitors bitwise equal to ``runner="auto"``, the pad launching
@@ -193,7 +199,8 @@ Phases (any failure raises and the process exits non-zero):
    1000, video on); (3) ``run_batch`` with the production flags over the
    five cases, one group: every case Success, finite frames with mean jx
    > 0, one mp4 each, k1_step_group_dev 2970, k1_step_group_full 30 and
-   group_monitors 30 launches (5 cases each) and no plain call; (4) ``post.h5_to_zarr.run`` on the
+   group_monitors 30 launches (5 cases each), 3 render launches and no
+   plain call; (4) ``post.h5_to_zarr.run`` on the
    project's summary: ``global_stats.json`` lists the five cases, each
    case's ``turbulence`` read back with ``zarrlite.read_region`` equals
    the HDF5 frames normalised in numpy, bit for bit, and the sampling-
@@ -360,6 +367,18 @@ def group_launches(fast: str, full: str, mon: str, groups: int, cases: int, chun
     launches = {fast: groups * chunks * (chunk - 1), full: groups * chunks, mon: groups * chunks}
     per_case = {fast: cases * chunks * (chunk - 1), full: cases * chunks, mon: cases * chunks}
     return launches, per_case
+
+
+# the render kernel's launches by lockstep path (phase 4, 9(b), 10)
+RENDER_BY_PATH: dict = {}
+
+
+def video_saves(interval: int, start: int, max_steps: int, chunk: int) -> int:
+    """The chunks of a lockstep run that save a video frame: those ending
+    on a multiple of ``interval`` from ``start`` on. The loop renders each
+    one with one launch a part."""
+    return sum(1 for k in range(1, max_steps // chunk + 1)
+               if (k * chunk) % interval == 0 and k * chunk >= start)
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -626,6 +645,13 @@ def phase9(config, mask, f_serial, force8c, h5_8c, counted, card):
                 raise AssertionError(f"9(b): launches {r['launches']} (want {want}), cases x "
                                      f"steps {r['case_steps']} (want {want_cases}), plain calls "
                                      f"{r['plain_calls']}")
+            # the video: one render launch a group a saving chunk (one card)
+            want_render = groups * video_saves(
+                int(config["outputs"]["video"]["interval_steps"]),
+                int(config["outputs"]["start_record_step"]), max_steps, chunk)
+            if r["render"] != want_render:
+                raise AssertionError(f"9(b): {r['render']} render launches (want {want_render})")
+            RENDER_BY_PATH["coord_lock"] = RENDER_BY_PATH.get("coord_lock", 0) + r["render"]
         if ran != n:
             raise AssertionError(f"9(b) x{n_workers}: {ran} case runs for {n} cases")
         lock_records += [r for r, _ in recs]
@@ -800,7 +826,7 @@ def phase10(config, mask, counted, card):
 
     from lbm2d_tpu_torch.analysis import io_bench, video_stats
     from lbm2d_tpu_torch.core.engine import LBMEngine
-    from lbm2d_tpu_torch.ops import cuda_step as cs
+    from lbm2d_tpu_torch.ops import cuda_build, cuda_step as cs
     from lbm2d_tpu_torch.pipeline.batch_run import run_batch
     from lbm2d_tpu_torch.post import h5_to_zarr, zarrlite
     from lbm2d_tpu_torch.tools import config_batch_gen, gen_masks, smoke_case
@@ -872,12 +898,14 @@ def phase10(config, mask, counted, card):
         counted.clear()
         torch.cuda.synchronize()
         cs.reset_launch_counts()
+        cuda_build.CALLS["render"] = 0
         t0 = time.perf_counter()
         stats = run_batch(QS_PROJECT, root=root, progress=False, device="cuda",
                           **smoke_case.PRODUCTION_FLAGS)
         torch.cuda.synchronize()
         walls["3 batch_run --lockstep"] = time.perf_counter() - t0
         launches = {k: v for k, v in cs.LAUNCHES.items() if v}
+        RENDER_BY_PATH["quickstart"] = cuda_build.CALLS["render"]
         by_path["quickstart"] = dict(cs.LAUNCHES)
         with open(os.path.join(out, "plots", "sim_results.json")) as fh:
             results = {e["config_filename"]: e for e in json.load(fh)}
@@ -899,6 +927,14 @@ def phase10(config, mask, counted, card):
         if launches != want or cases10 != want_cases or any(counted.values()):
             raise AssertionError(f"step 3: launches {launches} (want {want}), cases x steps "
                                  f"{cases10} (want {want_cases}), plain {counted}")
+        # one group on one card: one render launch a saving chunk
+        want_render = video_saves(QS_DEPTH["interval"], QS_DEPTH["interval"],
+                                  QS_DEPTH["max_steps"], QS_DEPTH["chunk"])
+        print(f"    render launches {RENDER_BY_PATH['quickstart']} (want {want_render})",
+              flush=True)
+        if RENDER_BY_PATH["quickstart"] != want_render:
+            raise AssertionError(f"step 3: {RENDER_BY_PATH['quickstart']} render launches "
+                                 f"(want {want_render})")
         frames = {}
         n_frames = (QS_DEPTH["max_steps"] - QS_DEPTH["interval"]) // QS_DEPTH["interval"] + 1
         for c in cfgs.values():
@@ -2235,6 +2271,49 @@ def main() -> int:
               f"blocks' windows; {text} [{card}]", flush=True)
     del fG, fpG, uG, fqG, prevG
 
+    # the render kernel (csrc/render.cu): the video frames of GROUP_B cases
+    # of the production grid at the production frame size in one launch,
+    # bitwise the plain torch render, RGB and I420; timed beside its bound
+    # (u 8 B and the mask 4 B a cell, the frame once) and the plain render
+    from lbm2d_tpu_torch.ops import render as render_mod
+    from lbm2d_tpu_torch.viz.frames import calc_gui_size
+
+    gui_w, gui_h = calc_gui_size(W, H, config["outputs"]["gui"]["max_size"])
+    sigma = config["outputs"]["gui"]["gaussian_sigma"]
+    uR = torch.stack([state.u * (1.0 + 0.1 * k) for k in range(GROUP_B)]).contiguous()
+    mR = p.mask.repeat(GROUP_B, 1, 1)
+    regs_r = {e: use for e, use in cuda_build.ptxas_usage(
+        cuda_build.BUILD_LOG.get("render", "")).items() if "render_kernel" in e}
+    render_rec = {}
+    for yuv in (False, True):
+        kw = dict(viz_sigma=sigma, batched=True, yuv420=yuv)
+        ren = render_mod.make_device_frame_renderer(gui_w, gui_h, **kw)
+        ren_plain = render_mod.make_device_frame_renderer(gui_w, gui_h, plain=True, **kw)
+        calls = cuda_build.CALLS.get("render", 0)
+        outs, refs = ren(uR, mR), ren_plain(uR, mR)
+        torch.cuda.synchronize()
+        if cuda_build.CALLS.get("render", 0) != calls + 1:
+            raise AssertionError("render: not one launch for the group's frames")
+        for a, b in zip(outs if yuv else (outs,), refs if yuv else (refs,)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"render (yuv {yuv}): {int((a != b).sum())} bytes differ "
+                                     f"from the plain render")
+        frame_bytes = sum(t.numel() for t in (outs if yuv else (outs,)))
+        ms, host = median_ms(lambda: ren(uR, mR))
+        plain_ms, _ = median_ms(lambda: ren_plain(uR, mR), batches=3, per_batch=3)
+        bound = bound_ms(GROUP_B * H * W * 12 + frame_bytes, 0)[0]
+        tag = "i420" if yuv else "rgb"
+        render_rec[tag] = {"ms": ms, "host_ms": host, "plain_ms": plain_ms, "bound_ms": bound,
+                           "frame_bytes": frame_bytes}
+        print(f"  render ({tag}) {GROUP_B} cases of {H}x{W} into {gui_h}x{gui_w} frames, one "
+              f"launch, bitwise the plain render: {ms * 1e3:.1f} us (bound {bound * 1e3:.1f} us, "
+              f"{100 * bound / ms:.1f}%; host issue {host * 1e3:.1f} us; plain "
+              f"{plain_ms * 1e3:.1f} us) [{card}]", flush=True)
+    print(f"    render kernel instances: {regs_r}, tile "
+          f"{render_mod._tile_plan(H, W, gui_h, gui_w, render_mod._radius(sigma), True)}",
+          flush=True)
+    del uR, mR
+
     missing = set(cs.KERNEL_VARIANTS) - set(records)
     if missing:
         raise AssertionError(f"phase 2 did not check {sorted(missing)}")
@@ -2612,12 +2691,14 @@ def main() -> int:
         counted.clear()
         torch.cuda.synchronize()
         cs.reset_launch_counts()
+        cuda_build.CALLS["render"] = 0
         t0 = time.perf_counter()
         stats = run_batch("Smoke4", root=root, progress=False, device="cuda",
                           **smoke_case.PRODUCTION_FLAGS)
         torch.cuda.synchronize()
         wall4 = time.perf_counter() - t0
         launches4 = dict(cs.LAUNCHES)
+        RENDER_BY_PATH["lockstep"] = cuda_build.CALLS["render"]
         cases4 = {k: v for k, v in cs.CASE_STEPS.items() if v}
         out = os.path.join(root, "outputs", "Smoke4")
         with open(os.path.join(out, "plots", "sim_results.json")) as fh:
@@ -2626,9 +2707,13 @@ def main() -> int:
               f"= {n_cases * max_steps * H * W / wall4 / 1e6:.1f} MLUPS aggregate wall "
               f"(monitors, device resize and render, fetches, HDF5 and mp4 included) [{card}]",
               flush=True)
+        # one group on one card: one render launch a saving chunk
+        want_render = video_saves(int(config["outputs"]["video"]["interval_steps"]),
+                                  int(config["outputs"]["start_record_step"]), max_steps, chunk)
         print(f"    launches {({k: v for k, v in launches4.items() if v})} (cases x steps "
               f"{cases4}), plain calls {counted}; {per_step(launches4, max_steps)} for the group "
-              f"of {n_cases}", flush=True)
+              f"of {n_cases}; render launches {RENDER_BY_PATH['lockstep']} (want {want_render})",
+              flush=True)
         transfer = results[names[0][0]].get("run_summary", {}).get("transfer", {})
         print(f"    transfer record: {transfer}", flush=True)
         print(f"    fetch pacer: fetch_stall_fraction {transfer.get('fetch_stall_fraction')}, "
@@ -2643,9 +2728,11 @@ def main() -> int:
         if bad or stats.get("success") != n_cases:
             raise AssertionError(f"lockstep cases did not all succeed: {stats}, {bad}")
         if ({k: v for k, v in launches4.items() if v} != want or cases4 != want_cases
-                or any(counted.values())):
+                or any(counted.values()) or RENDER_BY_PATH["lockstep"] != want_render):
             raise AssertionError(f"lockstep path: launches {launches4} (want {want}), cases x "
-                                 f"steps {cases4} (want {want_cases}), plain calls {counted}")
+                                 f"steps {cases4} (want {want_cases}), plain calls {counted}, "
+                                 f"render launches {RENDER_BY_PATH['lockstep']} (want "
+                                 f"{want_render})")
         for _, case in names:
             turb = smoke_case.read_turbulence(os.path.join(out, "raw", f"{case}.h5"))
             n_frames = (max_steps - int(config["outputs"]["start_record_step"])) // int(
@@ -3440,6 +3527,11 @@ def main() -> int:
         if name == "k3_fused":
             entry.update({f"ms_s{FUSE_S_MAX}": k3_s8["ms"], f"tile_s{FUSE_S_MAX}": list(tile8)})
         kernels.append(entry)
+    kernels.append({"name": "render", "route": "cuda", "source": "lbm2d_tpu_torch/csrc/render.cu",
+                    "replaces": None, "bitwise_plain": True, "forms": render_rec,
+                    "launches": sum(RENDER_BY_PATH.values()),
+                    "launches_by_path": dict(RENDER_BY_PATH),
+                    "registers": {e: u[0] for e, u in regs_r.items()}})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

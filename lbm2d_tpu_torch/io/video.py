@@ -11,7 +11,10 @@ clamp, vertical flip, float->uint8). Backend ladder, best first:
 2. **cv2.VideoWriter** (mp4v) -- no ffmpeg binary is assumed in this
    environment, so this is the best pure-Python fallback. It encodes on a
    thread of the recorder's own too, in write order: a write hands it the
-   frame (flipped, in BGR, copied) and returns.
+   frame (flipped, in BGR, copied) and returns. An I420 frame goes to the
+   thread as its planes, with the zone overlay to draw, and the thread
+   converts it (span ``video.convert``): the caller's thread makes one queue
+   put a frame.
 3. **PNG frame directory** when no video backend exists at all.
 """
 
@@ -24,12 +27,29 @@ from typing import Optional
 
 import numpy as np
 
+from ..utils.profiling import span
+
 try:
     import cv2
 
     _HAS_CV2 = True
 except Exception:  # pragma: no cover
     _HAS_CV2 = False
+
+
+def _i420_buffer(y8: np.ndarray, uv8: np.ndarray) -> np.ndarray:
+    """The planes packed FLAT, as cv2's I420 conversions read them: Y (h*w
+    bytes) then U then V (h*w/4 each), contiguous. Row-sliced packing would
+    need h % 4 == 0 (each chroma plane spanning h/4 buffer rows), but
+    stacked-panel frames are only guaranteed even -- e.g. h=970 broke the
+    reshape."""
+    h, w = y8.shape
+    buf = np.empty(h * w * 3 // 2, np.uint8)
+    n = h * w
+    buf[:n] = np.ascontiguousarray(y8).ravel()
+    buf[n : n + n // 4] = np.ascontiguousarray(uv8[..., 0]).ravel()
+    buf[n + n // 4 :] = np.ascontiguousarray(uv8[..., 1]).ravel()
+    return buf.reshape(h * 3 // 2, w)
 
 
 def i420_to_rgb(y8: np.ndarray, uv8: np.ndarray) -> np.ndarray:
@@ -41,18 +61,7 @@ def i420_to_rgb(y8: np.ndarray, uv8: np.ndarray) -> np.ndarray:
     """
     h, w = y8.shape
     if _HAS_CV2:
-        # pack planes FLAT: the I420 buffer is Y (h*w bytes) then U then V
-        # (h*w/4 each), contiguous. Row-sliced packing would need h % 4 == 0
-        # (each chroma plane spanning h/4 buffer rows), but stacked-panel
-        # frames are only guaranteed even -- e.g. h=970 broke the reshape.
-        buf = np.empty(h * w * 3 // 2, np.uint8)
-        n = h * w
-        buf[:n] = np.ascontiguousarray(y8).ravel()
-        buf[n : n + n // 4] = np.ascontiguousarray(uv8[..., 0]).ravel()
-        buf[n + n // 4 :] = np.ascontiguousarray(uv8[..., 1]).ravel()
-        return cv2.cvtColor(
-            buf.reshape(h * 3 // 2, w), cv2.COLOR_YUV2RGB_I420
-        )
+        return cv2.cvtColor(_i420_buffer(y8, uv8), cv2.COLOR_YUV2RGB_I420)
     yf = y8.astype(np.float32) - 16.0
     up = np.repeat(np.repeat(uv8.astype(np.float32) - 128.0, 2, 0), 2, 1)
     u, v = up[:h, :w, 0], up[:h, :w, 1]
@@ -60,6 +69,16 @@ def i420_to_rgb(y8: np.ndarray, uv8: np.ndarray) -> np.ndarray:
     g = 1.164 * yf - 0.813 * v - 0.391 * u
     b = 1.164 * yf + 2.018 * u
     return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
+
+
+def _overlaid_rgb(y8, uv8, zones) -> np.ndarray:
+    """RGB u8 of I420 planes, with the zone overlay drawn where ``zones``."""
+    rgb = i420_to_rgb(np.asarray(y8), np.asarray(uv8))
+    if zones is not None:
+        from ..viz.frames import draw_zone_overlay
+
+        draw_zone_overlay(rgb, zones)
+    return rgb
 
 
 class VideoRecorder:
@@ -144,27 +163,35 @@ class VideoRecorder:
             return
         self._emit(frame8[::-1])
 
-    def write_frame_i420(self, y8: np.ndarray, uv8: np.ndarray) -> None:
+    def write_frame_i420(self, y8: np.ndarray, uv8: np.ndarray, zones=None) -> None:
         """YUV 4:2:0 frame from the device renderer's yuv420 mode: Y u8
         [rec_h, rec_w], UV u8 [rec_h/2, rec_w/2, 2] (even-dim crop already
         applied on device). Reconstructs RGB via cv2's own I420 inverse --
         the device forward transform pixel-matches cv2.COLOR_RGB2YUV_I420 --
-        then flips/encodes like write_frame_u8.
+        draws the zone overlay where ``zones`` (utils.config.get_zone_config)
+        is given, then flips/encodes like write_frame_u8.
 
-        On the native backend the planes go straight to the yuv420p encoder
-        (flip applied plane-wise in C++) -- no RGB reconstruction at all.
-        The chroma rows of a plane-flipped I420 image sit one luma row off
-        from re-subsampling the flipped RGB (top-left siting); both paths
-        are within the encoder's own 4:2:0 siting tolerance."""
+        On the cv2 backend the planes themselves go to the encoder thread,
+        which does all of that in write order: the call returns before the
+        frame is converted, and the caller leaves the planes unchanged (the
+        queue holds them until then). On the native backend without zones
+        the planes go straight to the yuv420p encoder (flip applied
+        plane-wise in C++) -- no RGB reconstruction at all. The chroma rows
+        of a plane-flipped I420 image sit one luma row off from
+        re-subsampling the flipped RGB (top-left siting); both paths are
+        within the encoder's own 4:2:0 siting tolerance."""
         if not self.is_recording:
             return
-        if self._native is not None:
+        if self._native is not None and zones is None:
             rh, rw = self.rec_height, self.rec_width
             y = np.asarray(y8)[:rh, :rw]
             uv = np.asarray(uv8)[: rh // 2, : rw // 2, :]
             self._native.send_i420(y, uv, flip=True)
             return
-        self.write_frame_u8(i420_to_rgb(np.asarray(y8), np.asarray(uv8)))
+        if self._writer is not None:
+            self._frames.put((y8, uv8, zones))  # a full queue blocks
+            return
+        self.write_frame_u8(_overlaid_rgb(y8, uv8, zones))
 
     def _emit(self, frame8: np.ndarray) -> None:
         if self._writer is not None:
@@ -184,11 +211,29 @@ class VideoRecorder:
             frame = self._frames.get()
             if frame is None:
                 return
-            if not self._errors:
-                try:
-                    self._writer.write(frame)
-                except Exception as exc:  # surfaced by stop()
-                    self._errors.append(exc)
+            if self._errors:
+                continue
+            try:
+                if isinstance(frame, tuple):  # I420 planes and zones
+                    with span("video.convert") as sp:
+                        frame = self._flipped_bgr(*frame)
+                        sp.set(bytes=frame.nbytes)
+                self._writer.write(frame)
+            except Exception as exc:  # surfaced by stop()
+                self._errors.append(exc)
+
+    def _flipped_bgr(self, y8, uv8, zones) -> np.ndarray:
+        """The frame write_frame_u8 would give the writer for the RGB frame
+        of the planes with the zones drawn, made by cv2's own BGR
+        conversion and flip (the same bytes; the copies run without the
+        interpreter lock): the overlay's RGB colours go through a
+        channel-reversed view."""
+        bgr = cv2.cvtColor(_i420_buffer(np.asarray(y8), np.asarray(uv8)), cv2.COLOR_YUV2BGR_I420)
+        if zones is not None:
+            from ..viz.frames import draw_zone_overlay
+
+            draw_zone_overlay(bgr[:, :, ::-1], zones)
+        return cv2.flip(np.ascontiguousarray(bgr[: self.rec_height, : self.rec_width]), 0)
 
     def stop(self) -> None:
         if self._encoder is not None:

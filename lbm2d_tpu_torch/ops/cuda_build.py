@@ -36,7 +36,7 @@ NVCC_FLAGS = [
 
 # library name -> source
 SOURCES = {"k1_step": "k1_step.cu", "k3_fused": "k3_fused.cu", "copy_probe": "copy_probe.cu",
-           "monitors": "monitors.cu"}
+           "monitors": "monitors.cu", "render": "render.cu"}
 
 # C entry name -> (library, C entry, argtypes); each entry launches the
 # variants ops/cuda_step.py counts under their own names
@@ -81,6 +81,11 @@ KERNELS = {
     "k3_fused": ("k3_fused", "k3_fused_launch", [_P] * 5 + [_I] * 11 + [_P]),
     "k3_passes": ("k3_fused", "k3_passes_launch", [_P] * 6 + [_I] * 12 + [_P, _P]),
     "copy_probe": ("copy_probe", "copy_probe_launch", [_P] * 3 + [_I] * 2 + [_P]),
+    # the video frames of a call's cases (csrc/render.cu): u, mask, the two
+    # outputs, the device tables, host arrays of the strides and the
+    # colour ranges, then B, H, W, gui_h, gui_w, the gaussian's radius,
+    # smooth, yuv, the tile and its shared bytes, and the stream
+    "render": ("render", "render_launch", [_P] * 8 + [_I] * 11 + [_P]),
 }
 _HEADERS = ("lbm_common.cuh", "lbm_cell.cuh", "halo.cuh")
 

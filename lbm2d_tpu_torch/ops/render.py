@@ -9,8 +9,13 @@ composed uint8 frame: gaussian smoothing, velocity magnitude and vorticity
 panel stacking and a cv2.INTER_LINEAR-convention bilinear resize, in the
 host composer's stage order (colorize at raw resolution, then resize).
 
-These are plain torch ops, as the JAX package leaves them to XLA (no
-Pallas kernel). Parity with the host path:
+On a CUDA tensor the frame is one launch of a hand-written kernel over all
+the cases of a call (``csrc/render.cu``), bitwise the plain torch ops of
+this module on the card; its tables are made once a shape and device
+(``_kernel_tables``), so a call makes no host sync and no host-to-device
+copy and queues behind the chunk it reads. On a CPU tensor the plain torch
+ops run, as the JAX package leaves them to XLA (no Pallas kernel). Parity
+with the host path:
   * scipy.ndimage.gaussian_filter: truncate=4.0, 9-tap separable kernel,
     'reflect' boundary (numpy's 'symmetric' padding).
   * matplotlib colormap indexing: idx = clip(floor(norm * 256), 0, 255);
@@ -23,6 +28,7 @@ Pallas kernel). Parity with the host path:
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import os
 
@@ -88,12 +94,15 @@ def build_render_luts(path: str = LUTS_PATH) -> None:
     np.savez_compressed(path, **out)
 
 
-def _symmetric_index(n: int, radius: int, device) -> torch.Tensor:
+def _symmetric_np(n: int, radius: int) -> np.ndarray:
     """Indices of numpy's 'symmetric' padding of an axis of length n."""
     i = np.arange(-radius, n + radius)
     i = np.where(i < 0, -i - 1, i)
-    i = np.where(i >= n, 2 * n - i - 1, i)
-    return torch.as_tensor(i, device=device)
+    return np.where(i >= n, 2 * n - i - 1, i)
+
+
+def _symmetric_index(n: int, radius: int, device) -> torch.Tensor:
+    return torch.as_tensor(_symmetric_np(n, radius), device=device)
 
 
 def _smooth(a: torch.Tensor, kern, radius: int) -> torch.Tensor:
@@ -130,16 +139,23 @@ def _colorize(field, vmin: float, vmax: float, lut: torch.Tensor, mask) -> torch
     return torch.where((mask > 0.5)[:, :, None], torch.full_like(rgb, 0.5), rgb)
 
 
-def _resize_axis(img: torch.Tensor, target: int, axis: int) -> torch.Tensor:
-    """cv2.INTER_LINEAR-convention bilinear along one axis."""
-    n = img.shape[axis]
-    if n == target:
-        return img
+def _linear_np(n: int, target: int):
+    """(lo, hi, w_hi f32) of cv2.INTER_LINEAR from n to ``target`` samples:
+    output i is a[lo] (1 - w_hi) + a[hi] w_hi, edge-clamped."""
     src = (np.arange(target) + 0.5) * (n / target) - 0.5
     lo = np.clip(np.floor(src).astype(np.int64), 0, n - 1)
     hi = np.clip(lo + 1, 0, n - 1)
     w_hi = np.clip(src - np.floor(src), 0.0, 1.0).astype(np.float32)
     w_hi = np.where(src < 0, 0.0, w_hi).astype(np.float32)  # edge clamp
+    return lo, hi, w_hi
+
+
+def _resize_axis(img: torch.Tensor, target: int, axis: int) -> torch.Tensor:
+    """cv2.INTER_LINEAR-convention bilinear along one axis."""
+    n = img.shape[axis]
+    if n == target:
+        return img
+    lo, hi, w_hi = _linear_np(n, target)
     shape = [1] * img.dim()
     shape[axis] = target
     w_hi_b = torch.as_tensor(w_hi, device=img.device).reshape(shape)
@@ -164,6 +180,137 @@ def _rgb_to_i420(rgb8f: torch.Tensor):
     return quant(y), torch.stack([quant(u), quant(v)], dim=-1)
 
 
+# the kernel's output tiles (rows x columns of frame pixels), tried in order:
+# the first whose largest source footprint fits a block's shared memory
+RENDER_TILES = ((16, 32), (8, 32), (8, 16), (4, 16), (4, 8), (2, 8), (2, 4), (1, 4), (1, 2),
+                (1, 1))
+RENDER_SMEM_MAX = 232_448  # an H100 block's dynamic shared memory, bytes
+
+
+def _radius(viz_sigma: float) -> int:
+    return int(4.0 * viz_sigma + 0.5)
+
+
+def _axis_np(n: int, target: int):
+    """(lo, hi, w_hi, 1 - w_hi) of the resize along an axis, the identity
+    (lo = hi, not read by the kernel) where the size is kept."""
+    if n == target:
+        idx = np.arange(n)
+        zero = np.zeros(n, np.float32)
+        return idx, idx, zero, zero + np.float32(1.0)
+    lo, hi, w_hi = _linear_np(n, target)
+    return lo, hi, w_hi, np.float32(1.0) - w_hi
+
+
+def _tile_plan(H: int, W: int, gui_h: int, gui_w: int, radius: int, smooth: bool):
+    """(tile rows, tile columns, shared bytes) of the kernel: the first of
+    ``RENDER_TILES`` whose largest footprint (csrc/render.cu: stacked rows
+    and grid columns, one more each side, and the gaussian's column halo)
+    fits ``RENDER_SMEM_MAX``."""
+    ylo, yhi = _axis_np(2 * H, gui_h)[:2]
+    xlo, xhi = _axis_np(W, gui_w)[:2]
+    hh = (gui_h + 1) // 2
+    taps = 2 * radius + 1
+
+    def most(lo, hi, n, spans, size):
+        out = 0
+        for start, end in spans:
+            a = np.arange(start, end, size)
+            if a.size:
+                b = np.minimum(a + size, end) - 1
+                out = max(out, int((np.minimum(hi[b] + 1, n - 1) - np.maximum(lo[a] - 1, 0)).max()) + 1)
+        return out
+
+    for th, tw in RENDER_TILES:
+        nsr = most(ylo, yhi, 2 * H, ((0, hh), (hh, gui_h)), th)
+        nsc = most(xlo, xhi, W, ((0, gui_w),), tw)
+        floats = 2 * nsr * nsc + (taps + 2 * nsr * (nsc + 2 * radius) if smooth else 0)
+        if 4 * floats <= RENDER_SMEM_MAX:
+            return th, tw, 4 * floats
+    raise ValueError(f"the render kernel's smallest tile needs {4 * floats} B of shared memory "
+                     f"(gaussian radius {radius}), above {RENDER_SMEM_MAX}")
+
+
+def _tables_np(H: int, W: int, gui_h: int, gui_w: int, viz_sigma: float):
+    """(ints, floats) of the kernel's tables, in csrc/render.cu's order:
+    the padding indices (with smoothing), the resize's lo and hi of the
+    stacked rows and of the columns; the gaussian's taps (with smoothing),
+    w and 1 - w of the rows and of the columns, the two LUTs."""
+    if H < 2 or W < 2:
+        raise ValueError(f"the vorticity's one-sided differences need 2 cells an axis, got "
+                         f"{H}x{W}")
+    ints, floats = [], []
+    if viz_sigma > 0:
+        radius = _radius(viz_sigma)
+        for n in (H, W):
+            pad = _symmetric_np(n, radius)
+            if pad.min() < 0 or pad.max() >= n:
+                raise ValueError(f"the gaussian's radius {radius} is beyond the 'symmetric' "
+                                 f"padding of {n} cells")
+            ints.append(pad)
+        floats.append(_gaussian_kernel1d(viz_sigma, radius).astype(np.float32))
+    rows, cols = _axis_np(2 * H, gui_h), _axis_np(W, gui_w)
+    ints += [rows[0], rows[1], cols[0], cols[1]]
+    floats += [rows[2], rows[3], cols[2], cols[3], *(lut.reshape(-1) for lut in render_luts())]
+    return (np.concatenate(ints).astype(np.int32),
+            np.concatenate([np.asarray(f, np.float32) for f in floats]))
+
+
+@functools.lru_cache(maxsize=64)
+def _kernel_tables(device: torch.device, H: int, W: int, gui_h: int, gui_w: int,
+                   viz_sigma: float):
+    """The kernel's tables on ``device`` and its launch plan, made once a
+    process a shape and device (the copies wait on the stream once)."""
+    ints, floats = _tables_np(H, W, gui_h, gui_w, viz_sigma)
+    smooth = viz_sigma > 0
+    radius = _radius(viz_sigma) if smooth else 0
+    plan = _tile_plan(H, W, gui_h, gui_w, radius, smooth)
+    return (torch.as_tensor(ints, device=device), torch.as_tensor(floats, device=device),
+            radius, smooth) + plan
+
+
+def _render_cuda(u, mask, gui_w, gui_h, viz_sigma, ranges, yuv420):
+    """The frames of u [B, 2, H, W] and mask [B, H, W] (float32, one CUDA
+    device, any strides) in one launch of csrc/render.cu on the device's
+    current stream: RGB u8 [B, gui_h, gui_w, 3], or (Y [B, He, We], UV [B,
+    He/2, We/2, 2]). Raises where the kernel cannot take the inputs or the
+    launch fails; no sync."""
+    from . import cuda_build
+
+    if u.dtype != torch.float32 or mask.dtype != torch.float32:
+        raise ValueError(f"the render kernel takes float32 u and mask, got {u.dtype} and "
+                         f"{mask.dtype}")
+    if u.dim() != 4 or u.shape[1] != 2 or tuple(mask.shape) != (u.shape[0],) + tuple(u.shape[2:]):
+        raise ValueError(f"the render kernel takes u [B, 2, H, W] and mask [B, H, W], got "
+                         f"{tuple(u.shape)} and {tuple(mask.shape)}")
+    if mask.device != u.device:
+        raise ValueError(f"u on {u.device}, mask on {mask.device}")
+    B, _, H, W = u.shape
+    if not 0 < B <= 65535:
+        raise ValueError(f"the render kernel takes 1 to 65535 cases a launch, got {B}")
+    itab, ftab, radius, smooth, tile_h, tile_w, smem = _kernel_tables(
+        u.device, H, W, gui_h, gui_w, float(viz_sigma))
+    rec_h, rec_w = gui_h - gui_h % 2, gui_w - gui_w % 2
+    if yuv420:
+        out0 = torch.empty((B, rec_h, rec_w), dtype=torch.uint8, device=u.device)
+        out1 = torch.empty((B, rec_h // 2, rec_w // 2, 2), dtype=torch.uint8, device=u.device)
+        outs = (out0, out1)
+    else:
+        out0 = out1 = torch.empty((B, gui_h, gui_w, 3), dtype=torch.uint8, device=u.device)
+        outs = out0
+    if out0.numel() == 0:
+        return outs
+    strides = (ctypes.c_longlong * 7)(*u.stride(), *mask.stride())
+    with torch.cuda.device(u.device):
+        rc = cuda_build.load("render")(
+            u.data_ptr(), mask.data_ptr(), out0.data_ptr(), out1.data_ptr(), itab.data_ptr(),
+            ftab.data_ptr(), strides, ranges, B, H, W, gui_h, gui_w, radius, int(smooth),
+            int(bool(yuv420)), tile_h, tile_w, smem, torch.cuda.current_stream(u.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"render launch failed: CUDA error {rc}")
+    return outs
+
+
 def make_device_frame_renderer(
     gui_w: int,
     gui_h: int,
@@ -172,6 +319,7 @@ def make_device_frame_renderer(
     vorticity_range: float = 0.03,
     batched: bool = False,
     yuv420: bool = False,
+    plain: bool = False,
 ):
     """(u, mask) -> uint8 RGB frame [gui_h, gui_w, 3] on u's device.
 
@@ -185,18 +333,28 @@ def make_device_frame_renderer(
     being gui_h/gui_w clamped to even (the recorder's crop, applied here):
     half the device-to-host bytes of the RGB frame, pixel-matching
     cv2.COLOR_RGB2YUV_I420 of it to 1 lsb.
+
+    On CUDA tensors one launch of the render kernel makes the frames of all
+    the call's cases (counted in ``cuda_build.CALLS["render"]``); on CPU
+    tensors, or with ``plain``, the plain torch ops run on any device.
     """
-    radius = int(4.0 * viz_sigma + 0.5)
-    kern_np = _gaussian_kernel1d(viz_sigma, radius).astype(np.float32)
+    radius = _radius(viz_sigma)
+    kern_np = _gaussian_kernel1d(viz_sigma, radius).astype(np.float32) if viz_sigma > 0 else None
     plasma_np, vort_np = render_luts()
     rec_h = gui_h - 1 if gui_h % 2 else gui_h
     rec_w = gui_w - 1 if gui_w % 2 else gui_w
     consts = {}
+    # vmin and 1 / (vmax - vmin) of each panel in f32: torch's CUDA division
+    # by a host scalar multiplies by its reciprocal, taken in double and
+    # rounded to f32
+    ranges = (ctypes.c_float * 4)(*(float(np.float32(x)) for x in (
+        0.0, 1.0 / (u_norm_max - 0.0), -vorticity_range,
+        1.0 / (vorticity_range - (-vorticity_range)))))
 
     def on(device):
         if device not in consts:
             consts[device] = (
-                torch.as_tensor(kern_np, device=device),
+                None if kern_np is None else torch.as_tensor(kern_np, device=device),
                 torch.as_tensor(plasma_np, device=device),
                 torch.as_tensor(vort_np, device=device),
             )
@@ -223,6 +381,11 @@ def make_device_frame_renderer(
 
     @torch.no_grad()
     def render(u: torch.Tensor, mask: torch.Tensor):
+        if u.is_cuda and not plain:
+            if batched:
+                return _render_cuda(u, mask, gui_w, gui_h, viz_sigma, ranges, yuv420)
+            out = _render_cuda(u[None], mask[None], gui_w, gui_h, viz_sigma, ranges, yuv420)
+            return tuple(t[0] for t in out) if yuv420 else out[0]
         if not batched:
             return render_one(u, mask)
         frames = [render_one(u[b], mask[b]) for b in range(u.shape[0])]

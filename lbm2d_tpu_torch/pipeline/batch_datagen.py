@@ -116,7 +116,7 @@ def _nbytes(out) -> int:
 # each sums (a hand-off's wait, loop.fetch_join, is inside its
 # loop.fetch_start: "fetch" holds it too)
 PROFILE_KEYS = (("dispatch", ("program.issue",)), ("write", ("loop.fetch_join", "loop.write")),
-                ("monitor", ("loop.monitor_wait",)), ("queue", ("loop.queue", "loop.render")),
+                ("monitor", ("loop.monitor_wait",)), ("queue", ("loop.queue",)),
                 ("fetch", ("loop.fetch_start",)))
 
 
@@ -323,9 +323,7 @@ def run_lockstep_group(
 
     def write(out, failed):
         """Host-side writes of fetched data (the save worker's; no device
-        traffic), skipping the cases failed at the hand-off. The HDF5
-        enqueue first: the writer threads then work while the loop waits on
-        the next chunk's monitors, not while it renders."""
+        traffic), skipping the cases failed at the hand-off."""
         _write_h5(out, failed)
         _write_video(out, failed)
 
@@ -333,24 +331,16 @@ def run_lockstep_group(
         events = _frame_events(out)
         if not events:
             return
-        from ..io.video import i420_to_rgb
-
         with span("loop.write.video"):
             for frames_ev, yuv_ev in events:
                 for b in range(n_cases):
                     if b not in failed and recorders[b] is not None:
-                        if yuv_ev is not None and zones is None:
-                            # planes go straight to the recorder (the native
-                            # backend feeds them to its yuv420p encoder)
-                            recorders[b].write_frame_i420(yuv_ev[0][b], yuv_ev[1][b])
-                            continue
                         if yuv_ev is not None:
-                            frame = i420_to_rgb(yuv_ev[0][b], yuv_ev[1][b])
-                        else:
-                            frame = (
-                                frames_ev[b].copy() if zones is not None
-                                else frames_ev[b]
-                            )
+                            # the planes go to the recorder as they are: its
+                            # own thread converts them and draws the zones
+                            recorders[b].write_frame_i420(yuv_ev[0][b], yuv_ev[1][b], zones)
+                            continue
+                        frame = frames_ev[b].copy() if zones is not None else frames_ev[b]
                         if zones is not None:
                             from ..viz.frames import draw_zone_overlay
 
@@ -381,13 +371,14 @@ def run_lockstep_group(
         return []
 
     def hand_off(stage, chunk_id):
-        """Give the pending events to the stage; returns ``behind`` and the
-        seconds the loop waited for the stage (SaveStage.submit)."""
+        """Start the pending events' copies; the stage holds them for the
+        worker until the next chunk is issued (SaveStage.hold). Returns
+        ``behind``."""
         nonlocal pending_moments, pending_videos
         failed = frozenset(b for b in range(n_cases) if fail_reason[b] is not None)
-        out = stage.submit(pending_moments, pending_videos, failed, chunk_id)
+        behind = stage.hold(pending_moments, pending_videos, failed, chunk_id)
         pending_moments, pending_videos = [], []
-        return out
+        return behind
 
     # opt-in per-phase wall breakdown (outputs.enable_profiling): the
     # chunks' spans, summed for each progress line
@@ -407,11 +398,21 @@ def run_lockstep_group(
             with span("loop.chunk", chunk=chunk_id):
                 tp0 = time.perf_counter()
                 mon_dev = engine.run_step(chunk, sync=False)
+                # the save held since the last hand-off goes to the save
+                # worker now that this chunk is issued: its writer and
+                # encoder threads then run beside the chunk's device work,
+                # not beside its issue, which they would slow by contending
+                # for the interpreter lock. The loop waits here
+                # (loop.fetch_join) only while the stage's queue is full
+                # (save_stage.HELD)
+                stall_s = stage.release()
                 steps += chunk
-                stall_s = 0.0
                 with span("loop.queue"):
                     # producers that never wait on the device, right behind
-                    # the chunk they read, each device's on its own cases
+                    # the chunk they read, each device's on its own cases:
+                    # the moments, then the video frames (one render kernel
+                    # launch a device, reading the chunk's u before the next
+                    # chunk is issued)
                     if dataset_on and saves(data_interval):
                         pre = resizer is not None
                         per_part = []
@@ -426,6 +427,16 @@ def run_lockstep_group(
                                 sp.set(bytes=_nbytes(dev))
                             per_part.append(dev)
                         pending_moments.append((per_part, pre))
+                    if video_on and saves(vid_interval):
+                        with span("loop.render"):
+                            per_part = []
+                            for part in parts:
+                                with span("loop.produce", device=str(part.device),
+                                          what="video") as sp:
+                                    frame = renderer(part.velocity(), part.mask)
+                                    sp.set(bytes=_nbytes(frame))
+                                per_part.append(frame)
+                            pending_videos.append(per_part)
                 with span("loop.monitor_wait"):
                     mon = engine.sync_monitors(mon_dev)
                 alive = engine.alive_mask
@@ -436,30 +447,16 @@ def run_lockstep_group(
                             warmup_step=members[b][1]["simulation"]["warmup_steps"],
                         )
                         fail_reason[b] = reason or f"Instability at step {steps}"
-                if video_on and saves(vid_interval):
-                    # the renderer uploads its index tables with blocking
-                    # copies, each a wait on the stream: it runs once the
-                    # chunk is done
-                    with span("loop.render"):
-                        per_part = []
-                        for part in parts:
-                            with span("loop.produce", device=str(part.device),
-                                      what="video") as sp:
-                                frame = renderer(part.velocity(), part.mask)
-                                sp.set(bytes=_nbytes(frame))
-                            per_part.append(frame)
-                        pending_videos.append(per_part)
                 if ckpt_path and ckpt_interval and steps % ckpt_interval < chunk:
                     save_group_ckpt()
                 with span("loop.fetch_start") as sp:
                     n_pending = len(pending_moments) + len(pending_videos)
                     # with the pacer, a stalling stage grows the group:
-                    # several save events coalesce into one hand-off. It
-                    # waits (loop.fetch_join) only while the stage's queue
-                    # is full (save_stage.HELD)
+                    # several save events coalesce into one hand-off
                     if n_pending and (pacer is None or pacer.should_fetch(n_pending)):
-                        behind, stall_s = hand_off(stage, chunk_id)
-                        sp.set(behind=behind)
+                        sp.set(behind=hand_off(stage, chunk_id))
+                        if steps >= max_steps:
+                            stall_s += stage.release()  # no chunk follows
                 if pacer is not None:
                     wall_s = time.perf_counter() - tp0
                     pacer.record_chunk(wall_s - stall_s, stall_s)
@@ -474,6 +471,7 @@ def run_lockstep_group(
                     print(line, flush=True)
         if pending_moments or pending_videos:
             hand_off(stage, chunk_id)  # events the pacer was still grouping
+            stage.release()
     for rec in recorders:
         if rec is not None:
             rec.stop()  # drains the encoder threads' frames

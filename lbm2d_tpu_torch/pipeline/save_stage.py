@@ -19,12 +19,16 @@ compute stream and hands them to the stage with ``submit``. The stage
    ``write(out, failed)`` under ``loop.write``, both with the chunk id that
    queued them.
 
-``submit`` returns ``behind``, the hand-offs not yet written (0 where the
-previous save was written under the chunk), and the seconds it waited for a
-place in the queue: it waits, under ``loop.fetch_join``, only while ``HELD``
-hand-offs wait for the worker, which bounds the copies in flight (device
-and pinned memory) at a few saves a group. ``close`` drains the stage and
-stops the worker.
+``submit`` is ``hold`` and ``release`` at once. ``hold`` starts the copies
+and keeps the hand-off in the stage; ``release`` puts it on the queue, so
+the loop can start a save's copies behind its chunk and let the worker
+write it only once the next chunk is issued. ``hold`` returns ``behind``,
+the hand-offs not yet written (0 where the previous save was written under
+the chunk); ``release`` the seconds it waited for a place in the queue: it
+waits, under ``loop.fetch_join``, only while ``HELD`` hand-offs wait for
+the worker, which bounds the copies in flight (device and pinned memory) at
+a few saves a group. ``close`` releases the held hand-off, drains the stage
+and stops the worker.
 
 ``overlap=False`` runs each hand-off at once on the caller's thread (the
 loop's ``--fetch_at_idle``). On the CPU the stage copies nothing: the host
@@ -97,6 +101,7 @@ class SaveStage:
         self._streams: Dict[torch.device, Any] = {}
         self._jobs: queue.Queue = queue.Queue(maxsize=HELD)
         self._thread: Optional[threading.Thread] = None
+        self._held_job: Optional[tuple] = None
         self._error: Optional[Exception] = None
 
     @property
@@ -108,7 +113,16 @@ class SaveStage:
                failed: frozenset, chunk=None) -> Tuple[int, float]:
         """Start the copies of one hand-off and give it to the worker;
         returns (``behind``, seconds waited for a place in the queue)."""
+        behind = self.hold(moments, videos, failed, chunk)
+        return behind, self.release()
+
+    def hold(self, moments: List[Tuple[torch.Tensor, bool]], videos: List[Any],
+             failed: frozenset, chunk=None) -> int:
+        """Start the copies of one hand-off and keep it for ``release``
+        (a hand-off still held is released first); returns ``behind``.
+        Without overlap the hand-off runs at once."""
         self._raise()
+        self.release()
         tensors = []
         for t, _ in moments:
             tensors += _parts(t)
@@ -119,18 +133,26 @@ class SaveStage:
         job = (*self._copy(tensors), layout, failed, chunk)
         if not self.overlap:
             self._run(job)
-            return 0, 0.0
+            return 0
+        self._held_job = job
+        return self.held
+
+    def release(self) -> float:
+        """Give the held hand-off, if any, to the worker; returns the
+        seconds waited for a place in the queue."""
+        job, self._held_job = self._held_job, None
+        if job is None:
+            return 0.0
         if self._thread is None:
             self._thread = threading.Thread(target=self._work, name="save-worker", daemon=True)
             self._thread.start()
-        behind = self.held
         if not self._jobs.full():  # only this thread puts: no wait
             self._jobs.put(job)
-            return behind, 0.0
+            return 0.0
         t = time.perf_counter()
         with span("loop.fetch_join"):
             self._jobs.put(job)
-        return behind, time.perf_counter() - t
+        return time.perf_counter() - t
 
     def close(self) -> None:
         """Drain the stage and stop the worker; raises the worker's error."""
@@ -227,6 +249,7 @@ class SaveStage:
                 self._jobs.task_done()
 
     def _stop(self) -> None:
+        self.release()
         if self._thread is not None:
             self._jobs.put(None)
             self._thread.join()

@@ -90,7 +90,8 @@ def _case_steps() -> dict:
 
 def run_batch_worker(args: dict) -> dict:
     """One batch CLI run (``args["argv"]``); the case files it wrote are
-    dumped."""
+    dumped. The record counts the render kernel's launches too."""
+    from ..ops import cuda_build
     from ..pipeline import batch_run
 
     counted: dict = {}
@@ -103,7 +104,7 @@ def run_batch_worker(args: dict) -> dict:
     t1 = time.time()
     _dump_h5(written)
     return {"t0": t0, "t1": t1, "launches": _launches(), "case_steps": _case_steps(),
-            "plain_calls": counted}
+            "plain_calls": counted, "render": cuda_build.CALLS.get("render", 0)}
 
 
 def run_multihost_worker(args: dict) -> dict:

@@ -107,22 +107,22 @@ def _video_project(root):
 
 def _fed_run(root, monkeypatch, hold=False, **flags):
     """run_batch on ``root``; with ``hold`` the save worker takes the first
-    save and writes nothing until a hand-off finds the stage's queue full.
+    save and writes nothing until a release finds the stage's queue full.
     Returns the run's stats and the frames each recorder was fed, in
     order."""
     fed = collections.defaultdict(list)
     gate, entered = threading.Event(), threading.Event()
     if not hold:
         gate.set()
-    submit, write_u8, append = (SaveStage.submit, VideoRecorder.write_frame_u8,
-                                AsyncLBMCaseWriter.append)
+    release, write_u8, append = (SaveStage.release, VideoRecorder.write_frame_u8,
+                                 AsyncLBMCaseWriter.append)
 
-    def gated_submit(self, *args, **kwargs):
+    def gated_release(self):
         if self.held and not gate.is_set():
             assert entered.wait(30)  # the worker has taken the first save
         if self.held > HELD:
-            gate.set()  # this hand-off waits for the worker: let it write
-        return submit(self, *args, **kwargs)
+            gate.set()  # this release waits for the worker: let it write
+        return release(self)
 
     def held_write_u8(self, img8):
         entered.set()
@@ -136,7 +136,7 @@ def _fed_run(root, monkeypatch, hold=False, **flags):
         return append(self, moments, pre_resized)
 
     with monkeypatch.context() as m:
-        m.setattr(SaveStage, "submit", gated_submit)
+        m.setattr(SaveStage, "release", gated_release)
         m.setattr(VideoRecorder, "write_frame_u8", held_write_u8)
         m.setattr(AsyncLBMCaseWriter, "append", held_append)
         stats = run_batch(PROJECT, root=root, progress=False, lockstep=True, device="cpu",
@@ -146,7 +146,7 @@ def _fed_run(root, monkeypatch, hold=False, **flags):
 
 def test_slow_save_stage_keeps_every_frame_once_in_order(reference, tmp_path, monkeypatch):
     # saves at chunks 2-6, video at 2, 4, 6; the save worker holds the first
-    # save until a hand-off finds the stage's queue full (HELD saves waiting)
+    # save until a release finds the stage's queue full (HELD saves waiting)
     runs = {}
     for tag, hold, overlap in (("slow", True, True), ("idle", False, False)):
         root = str(tmp_path / tag)
@@ -165,7 +165,8 @@ def test_slow_save_stage_keeps_every_frame_once_in_order(reference, tmp_path, mo
         for k in da:
             np.testing.assert_array_equal(db[k], da[k], err_msg=k)
     # behind counts the hand-offs not yet written; the loop waits only at a
-    # hand-off that finds more than HELD of them
+    # release that finds more than HELD of them: the last chunk's, which
+    # releases its own hand-off at once
     handed = {s.chunk[1]: s.attrs["behind"] for s in spans
               if s.name == "loop.fetch_start" and "behind" in s.attrs}
     assert handed == {k: k - 2 for k in range(2, 7)}

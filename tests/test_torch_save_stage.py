@@ -35,6 +35,28 @@ def test_worker_writes_in_hand_off_order_and_inline_on_the_callers_thread():
         assert stage.bytes_fetched == 4 * 2 * 4
 
 
+def test_held_hand_off_reaches_the_worker_only_once_released():
+    # the loop's use: hold a save behind its chunk, release it after the
+    # next chunk's issue; the next hold and the stage's close release a
+    # hand-off still held, in order
+    seen, wrote = [], threading.Event()
+
+    def write(out, failed):
+        seen.append(int(out["moments"][0][0][0]))
+        wrote.set()
+
+    with SaveStage(write) as stage:
+        assert stage.hold([(torch.full((2,), 0.0), True)], [], frozenset()) == 0
+        time.sleep(0.05)
+        assert seen == [] and stage.held == 0
+        assert stage.release() == 0.0 and wrote.wait(10)
+        assert stage.release() == 0.0  # nothing held
+        stage.hold([(torch.full((2,), 1.0), True)], [], frozenset())
+        stage.hold([(torch.full((2,), 2.0), True)], [], frozenset())
+        stage.hold([(torch.full((2,), 3.0), True)], [], frozenset())
+    assert seen == [0, 1, 2, 3] and stage.held == 0
+
+
 def test_hand_offs_under_stress_are_each_written_once_in_order():
     # 12 loops, each with its stage and worker (more threads than cores), the
     # interpreter switching threads as often as it can
