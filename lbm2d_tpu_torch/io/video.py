@@ -12,10 +12,14 @@ clamp, vertical flip, float->uint8). Backend ladder, best first:
    environment, so this is the best pure-Python fallback. It encodes on a
    thread of the recorder's own too, in write order: a write hands it the
    frame (flipped, in BGR, copied) and returns. An I420 frame goes to the
-   thread as its planes, with the zone overlay to draw, and the thread
-   converts it (span ``video.convert``): the caller's thread makes one queue
-   put a frame.
+   thread as its planes, and an RGB frame with zones to draw as its copy;
+   the thread converts it (span ``video.convert``): the caller's thread
+   makes one queue put a frame.
 3. **PNG frame directory** when no video backend exists at all.
+
+A recorder made with ``zones`` (utils.config.get_zone_config) draws the zone
+overlay on every frame it is given, on every backend: they are fixed for
+its life.
 """
 
 from __future__ import annotations
@@ -71,16 +75,6 @@ def i420_to_rgb(y8: np.ndarray, uv8: np.ndarray) -> np.ndarray:
     return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
 
 
-def _overlaid_rgb(y8, uv8, zones) -> np.ndarray:
-    """RGB u8 of I420 planes, with the zone overlay drawn where ``zones``."""
-    rgb = i420_to_rgb(np.asarray(y8), np.asarray(uv8))
-    if zones is not None:
-        from ..viz.frames import draw_zone_overlay
-
-        draw_zone_overlay(rgb, zones)
-    return rgb
-
-
 class VideoRecorder:
     def __init__(
         self,
@@ -89,8 +83,10 @@ class VideoRecorder:
         height: int,
         fps: int = 30,
         crf: int = 20,
+        zones: Optional[dict] = None,
     ):
         self.filename = filename
+        self.zones = zones
         self.rec_width = width - 1 if width % 2 else width
         self.rec_height = height - 1 if height % 2 else height
         self.fps = fps
@@ -143,33 +139,36 @@ class VideoRecorder:
 
     def write_frame(self, img: np.ndarray) -> None:
         """img: [H, W, 3] float RGB in [0, 1]."""
-        if not self.is_recording:
-            return
-        frame = img[: self.rec_height, : self.rec_width, :]
-        frame8 = (np.clip(frame, 0, 1) * 255).astype(np.uint8)
-        if self._native is not None:
-            self._native.send_rgb(frame8, flip=True)
-            return
-        self._emit(frame8[::-1])  # vertical flip, reference orientation
+        self.write_frame_u8((np.clip(img, 0, 1) * 255).astype(np.uint8))
 
     def write_frame_u8(self, img8: np.ndarray) -> None:
         """img8: [H, W, 3] uint8 RGB, already byte-quantized on device
-        (ops/render.py); same even-dim crop + flip as the float path."""
+        (ops/render.py): the zone overlay drawn on the whole frame, then the
+        even-dim crop and the vertical flip (reference orientation). On the
+        cv2 backend with zones the frame goes to the encoder thread as a
+        copy, which draws them there."""
         if not self.is_recording:
             return
-        frame8 = np.asarray(img8)[: self.rec_height, : self.rec_width, :]
+        if self._writer is not None and self.zones is not None:
+            self._frames.put((np.array(img8),))  # a full queue blocks
+            return
+        frame8 = np.asarray(img8)
+        if self.zones is not None:
+            from ..viz.frames import draw_zone_overlay
+
+            frame8 = draw_zone_overlay(frame8.copy(), self.zones)
+        frame8 = frame8[: self.rec_height, : self.rec_width, :]
         if self._native is not None:
             self._native.send_rgb(frame8, flip=True)
             return
         self._emit(frame8[::-1])
 
-    def write_frame_i420(self, y8: np.ndarray, uv8: np.ndarray, zones=None) -> None:
+    def write_frame_i420(self, y8: np.ndarray, uv8: np.ndarray) -> None:
         """YUV 4:2:0 frame from the device renderer's yuv420 mode: Y u8
         [rec_h, rec_w], UV u8 [rec_h/2, rec_w/2, 2] (even-dim crop already
         applied on device). Reconstructs RGB via cv2's own I420 inverse --
         the device forward transform pixel-matches cv2.COLOR_RGB2YUV_I420 --
-        draws the zone overlay where ``zones`` (utils.config.get_zone_config)
-        is given, then flips/encodes like write_frame_u8.
+        then draws the zones and flips/encodes like write_frame_u8.
 
         On the cv2 backend the planes themselves go to the encoder thread,
         which does all of that in write order: the call returns before the
@@ -182,16 +181,16 @@ class VideoRecorder:
         within the encoder's own 4:2:0 siting tolerance."""
         if not self.is_recording:
             return
-        if self._native is not None and zones is None:
+        if self._native is not None and self.zones is None:
             rh, rw = self.rec_height, self.rec_width
             y = np.asarray(y8)[:rh, :rw]
             uv = np.asarray(uv8)[: rh // 2, : rw // 2, :]
             self._native.send_i420(y, uv, flip=True)
             return
         if self._writer is not None:
-            self._frames.put((y8, uv8, zones))  # a full queue blocks
+            self._frames.put((y8, uv8))  # a full queue blocks
             return
-        self.write_frame_u8(_overlaid_rgb(y8, uv8, zones))
+        self.write_frame_u8(i420_to_rgb(np.asarray(y8), np.asarray(uv8)))
 
     def _emit(self, frame8: np.ndarray) -> None:
         if self._writer is not None:
@@ -214,7 +213,7 @@ class VideoRecorder:
             if self._errors:
                 continue
             try:
-                if isinstance(frame, tuple):  # I420 planes and zones
+                if isinstance(frame, tuple):  # I420 planes, or an RGB frame's copy
                     with span("video.convert") as sp:
                         frame = self._flipped_bgr(*frame)
                         sp.set(bytes=frame.nbytes)
@@ -222,17 +221,21 @@ class VideoRecorder:
             except Exception as exc:  # surfaced by stop()
                 self._errors.append(exc)
 
-    def _flipped_bgr(self, y8, uv8, zones) -> np.ndarray:
-        """The frame write_frame_u8 would give the writer for the RGB frame
-        of the planes with the zones drawn, made by cv2's own BGR
-        conversion and flip (the same bytes; the copies run without the
-        interpreter lock): the overlay's RGB colours go through a
-        channel-reversed view."""
-        bgr = cv2.cvtColor(_i420_buffer(np.asarray(y8), np.asarray(uv8)), cv2.COLOR_YUV2BGR_I420)
-        if zones is not None:
+    def _flipped_bgr(self, *planes) -> np.ndarray:
+        """The frame a synchronous write_frame_u8 would give the writer for
+        the RGB frame of the I420 planes (Y, UV), or of an RGB frame's copy
+        (one plane), with the zones drawn, made by cv2's own BGR conversion
+        and flip (the same bytes; the copies run without the interpreter
+        lock): the overlay's RGB colours go through a channel-reversed
+        view."""
+        if len(planes) == 2:
+            bgr = cv2.cvtColor(_i420_buffer(*map(np.asarray, planes)), cv2.COLOR_YUV2BGR_I420)
+        else:
+            bgr = planes[0][:, :, ::-1]
+        if self.zones is not None:
             from ..viz.frames import draw_zone_overlay
 
-            draw_zone_overlay(bgr[:, :, ::-1], zones)
+            draw_zone_overlay(bgr[:, :, ::-1], self.zones)
         return cv2.flip(np.ascontiguousarray(bgr[: self.rec_height, : self.rec_width]), 0)
 
     def stop(self) -> None:

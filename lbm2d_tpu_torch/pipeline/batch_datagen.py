@@ -49,7 +49,7 @@ from ..utils.scaling import calculate_physical_params
 from . import paths
 from .batch_run import build_resume_plan, find_config_files
 from .fetch_pacer import FetchPacer, probe_d2h_mbps
-from .save_stage import SaveStage
+from .save_stage import Save, SaveStage
 
 def _group_key(cfg: Dict[str, Any]) -> Tuple:
     sim = cfg["simulation"]
@@ -220,7 +220,6 @@ def run_lockstep_group(
     # transfers (u8 frames at display size, ~1/30 the bytes of the raw field)
     recorders: List[Optional[Any]] = [None] * len(members)
     renderer = None
-    zones = None
     if video_on:
         from ..io.video import VideoRecorder
         from ..ops.render import make_device_frame_renderer
@@ -234,12 +233,11 @@ def run_lockstep_group(
             gui_w, gui_h, viz_sigma=gui_cfg.get("gaussian_sigma", 1.0),
             batched=True, yuv420=yuv_video,
         )
-        if gui_cfg.get("show_zone_overlay", False):
-            zones = get_zone_config(cfg0)
+        zones = get_zone_config(cfg0) if gui_cfg.get("show_zone_overlay", False) else None
         for b, _ in enumerate(members):
             rec = VideoRecorder(
                 video_paths[b], width=gui_w, height=gui_h,
-                fps=vid_cfg.get("fps", 30),
+                fps=vid_cfg.get("fps", 30), zones=zones,
             )
             rec.start()
             recorders[b] = rec
@@ -310,74 +308,53 @@ def run_lockstep_group(
     # The save stage (pipeline/save_stage.py): a chunk's save producers are
     # queued behind it on the compute stream; the stage copies them to the
     # host on a stream of its own and writes them on its worker while the
-    # next chunks run. Pending save/video events accumulate as lists of
-    # device tensors until a hand-off: the FetchPacer may coalesce several
-    # events into one (order within each list is write order -- preserved).
-    pending_moments: List[Tuple[Any, bool]] = []
-    pending_videos: List[Any] = []
+    # next chunks run. Pending save events (save_stage.Save: the device
+    # tensors and their write) accumulate in production order until a
+    # hand-off: the FetchPacer may coalesce several events into one, so the
+    # worker may then interleave moments and video events. They go to
+    # different sinks, and each writer and recorder gets its rows in save
+    # order.
+    pending: List[Save] = []
     group_uid = uuid.uuid4().hex[:8]  # the group's request id in its spans
+    pre = resizer is not None
 
     if pacer is None:
         pacer = FetchPacer() if (adaptive_fetch and fetch_overlap) else None
     link_pre = probe_d2h_mbps(device=engine.device) if (dataset_on or video_on) else None
 
-    def write(out, failed):
-        """Host-side writes of fetched data (the save worker's; no device
-        traffic), skipping the cases failed at the hand-off."""
-        _write_h5(out, failed)
-        _write_video(out, failed)
-
-    def _write_video(out, failed):
-        events = _frame_events(out)
-        if not events:
-            return
-        with span("loop.write.video"):
-            for frames_ev, yuv_ev in events:
-                for b in range(n_cases):
-                    if b not in failed and recorders[b] is not None:
-                        if yuv_ev is not None:
-                            # the planes go to the recorder as they are: its
-                            # own thread converts them and draws the zones
-                            recorders[b].write_frame_i420(yuv_ev[0][b], yuv_ev[1][b], zones)
-                            continue
-                        frame = frames_ev[b].copy() if zones is not None else frames_ev[b]
-                        if zones is not None:
-                            from ..viz.frames import draw_zone_overlay
-
-                            frame = draw_zone_overlay(frame, zones)
-                        recorders[b].write_frame_u8(frame)
-
-    def _write_h5(out, failed):
-        if "moments" not in out:
-            return
+    def write_h5(rows, failed):
+        """A moments event's write (the save worker's; no device traffic):
+        each live case's row to its HDF5 writer. A resized f16 frame is
+        cast to float32 by its case's writer thread (LBMCaseWriter.append),
+        not here."""
         with span("loop.write.h5"):
-            for moments, pre in out["moments"]:
-                # a resized f16 frame is cast to float32 by its case's writer
-                # thread (LBMCaseWriter.append), not here on the save worker;
-                # ``moments[b]`` is case b's row (of its part's array on a
-                # case mesh, save_stage.CaseRows)
-                for b in range(n_cases):
-                    if b not in failed and writers[b] is not None:
-                        row = moments[b]
-                        if not pre and row.dtype != np.float32:
-                            row = row.astype(np.float32)  # the host resize reads float32
-                        writers[b].append(row, pre_resized=pre)
+            for b in range(n_cases):
+                if b not in failed:
+                    row = rows[b]
+                    if not pre and row.dtype != np.float32:
+                        row = row.astype(np.float32)  # the host resize reads float32
+                    writers[b].append(row, pre_resized=pre)
 
-    def _frame_events(out):
-        if "frames" in out:
-            return [(f, None) for f in out["frames"]]
-        if "frames_yuv" in out:
-            return [(None, yv) for yv in out["frames_yuv"]]
-        return []
+    def write_video(rows, failed):
+        """A video event's write: each live case's frame, or its I420
+        planes, to its recorder, whose own thread converts them and draws
+        the zones."""
+        with span("loop.write.video"):
+            for b in range(n_cases):
+                if b not in failed:
+                    if yuv_video:
+                        recorders[b].write_frame_i420(rows[0][b], rows[1][b])
+                    else:
+                        recorders[b].write_frame_u8(rows[b])
 
     def hand_off(stage, chunk_id):
         """Start the pending events' copies; the stage holds them for the
         worker until the next chunk is issued (SaveStage.hold). Returns
         ``behind``."""
-        nonlocal pending_moments, pending_videos
+        nonlocal pending
         failed = frozenset(b for b in range(n_cases) if fail_reason[b] is not None)
-        behind = stage.hold(pending_moments, pending_videos, failed, chunk_id)
-        pending_moments, pending_videos = [], []
+        behind = stage.hold(pending, failed, chunk_id)
+        pending = []
         return behind
 
     # opt-in per-phase wall breakdown (outputs.enable_profiling): the
@@ -389,8 +366,7 @@ def run_lockstep_group(
 
     chunk_id = None  # (group_uid, chunk index) of the chunk the loop runs
     t0 = time.perf_counter()
-    stage = SaveStage(write, overlap=fetch_overlap, yuv=yuv_video,
-                      parts=[part.idx for part in parts])
+    stage = SaveStage(overlap=fetch_overlap, parts=[part.idx for part in parts])
     with recording(profiling), stage:
         mark = REGISTRY.mark()
         while steps < max_steps:
@@ -414,7 +390,6 @@ def run_lockstep_group(
                     # launch a device, reading the chunk's u before the next
                     # chunk is issued)
                     if dataset_on and saves(data_interval):
-                        pre = resizer is not None
                         per_part = []
                         for part in parts:
                             with span("loop.produce", device=str(part.device),
@@ -426,7 +401,7 @@ def run_lockstep_group(
                                     dev = dev.to(torch.float16)
                                 sp.set(bytes=_nbytes(dev))
                             per_part.append(dev)
-                        pending_moments.append((per_part, pre))
+                        pending.append(Save(per_part, write_h5))
                     if video_on and saves(vid_interval):
                         with span("loop.render"):
                             per_part = []
@@ -436,7 +411,7 @@ def run_lockstep_group(
                                     frame = renderer(part.velocity(), part.mask)
                                     sp.set(bytes=_nbytes(frame))
                                 per_part.append(frame)
-                            pending_videos.append(per_part)
+                            pending.append(Save(per_part, write_video))
                 with span("loop.monitor_wait"):
                     mon = engine.sync_monitors(mon_dev)
                 alive = engine.alive_mask
@@ -450,7 +425,7 @@ def run_lockstep_group(
                 if ckpt_path and ckpt_interval and steps % ckpt_interval < chunk:
                     save_group_ckpt()
                 with span("loop.fetch_start") as sp:
-                    n_pending = len(pending_moments) + len(pending_videos)
+                    n_pending = len(pending)
                     # with the pacer, a stalling stage grows the group:
                     # several save events coalesce into one hand-off
                     if n_pending and (pacer is None or pacer.should_fetch(n_pending)):
@@ -469,7 +444,7 @@ def run_lockstep_group(
                         line += " | per-chunk ms: " + profile_line(REGISTRY.since(mark), 50)
                         mark = REGISTRY.mark()
                     print(line, flush=True)
-        if pending_moments or pending_videos:
+        if pending:
             hand_off(stage, chunk_id)  # events the pacer was still grouping
             stage.release()
     for rec in recorders:

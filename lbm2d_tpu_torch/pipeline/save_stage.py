@@ -3,7 +3,9 @@ the chunks that follow them.
 
 ``run_lockstep_group`` (pipeline/batch_datagen.py) queues a chunk's save
 producers (moments, resize, f16 cast, render) behind the chunk on the
-compute stream and hands them to the stage with ``submit``. The stage
+compute stream. Each save event is a ``Save``: its device tensors and the
+``write`` that puts their host arrays into its sinks. The loop hands the
+stage its pending events with ``hold``, which
 
 1. records an event on each producing device's current stream and, on a
    copy stream of its own for that device, waits on it and copies every
@@ -11,17 +13,15 @@ compute stream and hands them to the stage with ``submit``. The stage
    (``record_stream`` keeps the device blocks from reuse until the copy has
    read them). The copy depends only on its producers, so it runs on the
    copy engine while the next chunk computes;
-2. puts the copies, their events and the failed cases as they stand at the
-   hand-off on a queue of ``HELD`` places, read by the save worker, one
-   persistent thread, which in hand-off order waits on the copies (span
-   ``fetch.d2h``, carrying their ``bytes`` and, on the card, the copies'
-   own time, between two events on the copy stream) and calls
-   ``write(out, failed)`` under ``loop.write``, both with the chunk id that
-   queued them.
+2. keeps the copies, their events and the failed cases as they stand at
+   the hand-off until ``release`` puts them on a queue of ``HELD`` places,
+   read by the save worker, one persistent thread, which in hand-off order
+   waits on the copies (span ``fetch.d2h``, carrying their ``bytes`` and,
+   on the card, the copies' own time, between two events on the copy
+   stream) and calls each event's ``write(rows, failed)`` in turn under
+   ``loop.write``, both with the chunk id that queued them.
 
-``submit`` is ``hold`` and ``release`` at once. ``hold`` starts the copies
-and keeps the hand-off in the stage; ``release`` puts it on the queue, so
-the loop can start a save's copies behind its chunk and let the worker
+So the loop can start a save's copies behind its chunk and let the worker
 write it only once the next chunk is issued. ``hold`` returns ``behind``,
 the hand-offs not yet written (0 where the previous save was written under
 the chunk); ``release`` the seconds it waited for a place in the queue: it
@@ -35,10 +35,10 @@ loop's ``--fetch_at_idle``). On the CPU the stage copies nothing: the host
 arrays are the producers' own tensors, which are fresh.
 
 A case mesh's engine (``parallel/batch.BatchEngine(runner="sharded")``)
-produces each save on every device, for that device's cases: an event is
-then a list of tensors, one a part, each copied on its own device's copy
-stream, and the writer reads case ``b``'s row from its part's host array
-through ``CaseRows``.
+produces each save on every device, for that device's cases: a ``Save``
+then holds one tensor a part, each copied on its own device's copy stream,
+and ``write`` reads case ``b``'s row from its part's host array through
+``CaseRows``.
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ import collections
 import queue
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -72,27 +72,37 @@ class CaseRows:
         return len(self.where)
 
 
-def _parts(item) -> list:
-    """An event's tensors: a list a part, or one part's own."""
-    return item if isinstance(item, list) else [item]
+class Save(NamedTuple):
+    """One save event. ``tensors``: one entry a part, in part order, each a
+    tensor or a tuple of tensors (an I420 frame's Y and UV planes).
+    ``write(rows, failed)`` runs on the save worker with their host arrays
+    in case order (``rows[b]`` is case ``b``'s row; a tuple of such rows,
+    one a plane, for tuple entries) and the case indices failed at the
+    hand-off."""
+
+    tensors: List[Any]
+    write: Callable[[Any, frozenset], None]
+
+
+def _flat(saves: List[Save]) -> list:
+    return [t for ev in saves for part in ev.tensors
+            for t in (part if isinstance(part, tuple) else (part,))]
+
+
+def _refill(saves: List[Save], flat: list) -> List[Save]:
+    """``saves`` with their tensors replaced, in ``_flat`` order, by ``flat``."""
+    it = iter(flat)
+    return [ev._replace(tensors=[tuple(next(it) for _ in part) if isinstance(part, tuple)
+                                 else next(it) for part in ev.tensors]) for ev in saves]
 
 
 class SaveStage:
     """Copies and writes of a lockstep group's saves (module docstring).
+    ``parts`` (each part's case indices, in part order) says which cases
+    each part of a ``Save`` holds."""
 
-    ``write(out, failed)`` runs on the save worker: ``out`` holds
-    ``"moments"`` ([(array, pre_resized)], in save order) and ``"frames"``
-    (RGB u8 arrays) or ``"frames_yuv"`` ([(Y, UV)]), host arrays in the
-    dtypes the producers gave; ``failed`` the case indices failed at the
-    hand-off. Each tensor of ``submit`` may be a list of one a part
-    instead, ``parts`` (each part's case indices, in part order) saying
-    which cases each holds; ``out`` then holds ``CaseRows``."""
-
-    def __init__(self, write: Callable[[Dict[str, Any], frozenset], None], overlap: bool = True,
-                 yuv: bool = False, parts: Optional[List[List[int]]] = None):
-        self._write = write
+    def __init__(self, overlap: bool = True, parts: Optional[List[List[int]]] = None):
         self.overlap = overlap
-        self.yuv = yuv
         self._where: List[Tuple[int, int]] = [(0, 0)] * sum(len(idx) for idx in parts or [])
         for p, idx in enumerate(parts or []):
             for r, b in enumerate(idx):
@@ -109,28 +119,14 @@ class SaveStage:
         """Hand-offs not yet written."""
         return self._jobs.unfinished_tasks
 
-    def submit(self, moments: List[Tuple[torch.Tensor, bool]], videos: List[Any],
-               failed: frozenset, chunk=None) -> Tuple[int, float]:
-        """Start the copies of one hand-off and give it to the worker;
-        returns (``behind``, seconds waited for a place in the queue)."""
-        behind = self.hold(moments, videos, failed, chunk)
-        return behind, self.release()
-
-    def hold(self, moments: List[Tuple[torch.Tensor, bool]], videos: List[Any],
-             failed: frozenset, chunk=None) -> int:
+    def hold(self, saves: List[Save], failed: frozenset, chunk=None) -> int:
         """Start the copies of one hand-off and keep it for ``release``
         (a hand-off still held is released first); returns ``behind``.
         Without overlap the hand-off runs at once."""
         self._raise()
         self.release()
-        tensors = []
-        for t, _ in moments:
-            tensors += _parts(t)
-        for v in videos:
-            for part in _parts(v):
-                tensors += list(part) if self.yuv else [part]
-        layout = ([(len(_parts(t)), pre) for t, pre in moments], [len(_parts(v)) for v in videos])
-        job = (*self._copy(tensors), layout, failed, chunk)
+        host, events = self._copy(_flat(saves))
+        job = (_refill(saves, host), events, failed, chunk)
         if not self.overlap:
             self._run(job)
             return 0
@@ -199,41 +195,28 @@ class SaveStage:
             events.append((start, done))
         return host, events
 
-    def _rows(self, arrays: list):
+    def _rows(self, parts: list):
+        """An event's host arrays, from its host tensors (one a part), in
+        case order."""
+        if isinstance(parts[0], tuple):
+            return tuple(self._rows(list(plane)) for plane in zip(*parts))
+        arrays = [t.numpy() for t in parts]
         return arrays[0] if len(arrays) == 1 else CaseRows(arrays, self._where)
 
     def _run(self, job) -> None:
-        host, events, (moment_parts, video_parts), failed, chunk = job
+        saves, events, failed, chunk = job
         with span("fetch.d2h", chunk=chunk) as sp:
             for _, done in events:
                 done.synchronize()
-            arrays = [t.numpy() for t in host]
-            nb = sum(a.nbytes for a in arrays)
+            nb = sum(t.numel() * t.element_size() for t in _flat(saves))
             sp.set(bytes=nb)
             if events:
                 # the copies' own time, not the worker's wait for them
                 sp.took(max(a.elapsed_time(b) for a, b in events) * 1e-3)
         self.bytes_fetched += nb
-        out: Dict[str, Any] = {}
-        at = 0
-        if moment_parts:
-            out["moments"] = []
-            for k, pre in moment_parts:
-                out["moments"].append((self._rows(arrays[at:at + k]), pre))
-                at += k
-        if video_parts:
-            frames = []
-            for k in video_parts:
-                if self.yuv:
-                    both = arrays[at:at + 2 * k]
-                    frames.append((self._rows(both[0::2]), self._rows(both[1::2])))
-                    at += 2 * k
-                else:
-                    frames.append(self._rows(arrays[at:at + k]))
-                    at += k
-            out["frames_yuv" if self.yuv else "frames"] = frames
         with span("loop.write", chunk=chunk):
-            self._write(out, failed)
+            for ev in saves:
+                ev.write(self._rows(ev.tensors), failed)
 
     def _work(self) -> None:
         while True:

@@ -22,6 +22,7 @@ from lbm2d_tpu.post import zarrlite as j_zarrlite
 from lbm2d_tpu_torch.analysis import h5_inspect, io_bench, video_stats
 from lbm2d_tpu_torch.post import zarrlite
 from test_analysis import _write_tiny_mp4
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -20,6 +20,7 @@ from lbm2d_tpu.parallel.batch import init_batch_state as jax_init_batch_state
 from lbm2d_tpu_torch.core import solver as ts
 from lbm2d_tpu_torch.parallel.batch import BatchEngine, init_batch_state, stack_params
 from test_parallel import block_mask, grid_config
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 BUDGET = 5e-4  # the JAX package's store_dev budget
 

@@ -26,6 +26,7 @@ from lbm2d_tpu_torch.pipeline import batch_datagen
 from lbm2d_tpu_torch.pipeline.batch_datagen import group_configs, run_batched
 from lbm2d_tpu_torch.pipeline.batch_run import run_batch
 from test_batch_datagen import _fake_group_runner, make_two_case_project
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 CASES = ("mask_00_Nu0-0500", "mask_00_Nu0-0300")
 RTOL = 1e-5

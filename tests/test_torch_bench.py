@@ -26,6 +26,7 @@ import __graft_entry__
 from __graft_entry__ import _cylinder_mask, _demo_config
 from lbm2d_tpu.core import solver as js
 from lbm2d_tpu_torch.tools import bench, demo_case
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # a tiny bench: 32^2, 1 warm-up chunk and 2 windows of 2 chunks of 10 steps

@@ -11,6 +11,7 @@ q = 1/2 the scheme is half-way bounce-back, bitwise.
 import copy
 
 import jax
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 jax.config.update("jax_enable_x64", True)
 

@@ -21,6 +21,7 @@ from lbm2d_tpu_torch.parallel.batch import BatchEngine
 from lbm2d_tpu_torch.pipeline.batch_run import run_batch
 from lbm2d_tpu_torch.utils import profiling
 from test_pipeline_e2e import make_project
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 PROJECT = "CardsProj"
 NX, NY = 1024, 64

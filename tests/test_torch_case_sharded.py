@@ -11,6 +11,7 @@ import torch
 from lbm2d_tpu.parallel.batch import BatchEngine as JaxBatchEngine
 from lbm2d_tpu_torch.parallel.batch import BatchEngine, case_mesh
 from test_parallel import block_mask, grid_config
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 NX, NY = 48, 24
 CHUNKS, STEPS = 5, 10

@@ -14,6 +14,7 @@ inputs with the tolerance stated.
 import gc
 
 import jax
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 jax.config.update("jax_enable_x64", True)
 

@@ -10,6 +10,7 @@ import pytest
 
 from lbm2d_tpu.viz import colorize as jax_colorize
 from lbm2d_tpu_torch.viz import colorize as port_colorize
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 
 def _field(seed, shape=(48, 64)):

@@ -19,6 +19,7 @@ import pytest
 from lbm2d_tpu.pipeline.coordination import ClaimStore as JaxClaimStore
 from lbm2d_tpu_torch.pipeline import coordination
 from lbm2d_tpu_torch.pipeline.coordination import ClaimStore as PortClaimStore
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 STORES = {"jax": JaxClaimStore, "port": PortClaimStore}
 

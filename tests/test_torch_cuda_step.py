@@ -19,6 +19,7 @@ from lbm2d_tpu_torch.core import solver as ts
 from lbm2d_tpu_torch.core.lattice import f_eq
 from lbm2d_tpu_torch.ops import cuda_step as cs
 from torch_monitor_checks import assert_runner_monitors
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 H, W = 20, 36
 

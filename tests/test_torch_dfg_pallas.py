@@ -34,6 +34,7 @@ from lbm2d_tpu.ops.pallas_step import run_chunk_pallas
 from lbm2d_tpu_torch.core import solver as ts
 from lbm2d_tpu_torch.ops import cuda_step as cs
 from test_torch_dfg import PAIR_IDS, PAIRS, STEPS, seeded_fields, small_case, torch_state
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 F32_TOL = 1e-6
 VS_JAX_DEV = 5e-5

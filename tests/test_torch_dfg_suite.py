@@ -17,6 +17,7 @@ import torch
 
 from lbm2d_tpu_torch.analysis.dfg_validation import run_validation
 from lbm2d_tpu_torch.tools import dfg_suite
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TPU_FILE = os.path.join(REPO, "docs", "benchmarks", "dfg2d_results.json")

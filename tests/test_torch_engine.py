@@ -3,6 +3,7 @@ moments and fields after the same chunks, and checkpoints that resume in
 the other package."""
 
 import jax
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 jax.config.update("jax_enable_x64", True)
 

@@ -18,6 +18,7 @@ from lbm2d_tpu.pipeline.fetch_pacer import FetchPacer as JaxFetchPacer
 from lbm2d_tpu_torch.pipeline.fetch_pacer import FetchPacer, probe_d2h_mbps
 from test_fetch_pacer import FakeLink
 from tests.test_multiworker import make_four_case_project
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 
 def _stall_sequences():

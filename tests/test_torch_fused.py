@@ -28,6 +28,7 @@ from lbm2d_tpu_torch.core import solver as ts
 from lbm2d_tpu_torch.core.engine import LBMEngine
 from lbm2d_tpu_torch.core.lattice import f_eq
 from lbm2d_tpu_torch.ops import cuda_step as cs
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 H, W = 34, 50
 TILE = (8, 16)

@@ -32,6 +32,7 @@ from lbm2d_tpu_torch.core.lattice import f_eq
 from lbm2d_tpu_torch.core.stability import is_stable_device
 from lbm2d_tpu_torch.ops import cuda_step as cs
 from lbm2d_tpu_torch.parallel.batch import BatchEngine, init_batch_state, params_to
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 H, W = 32, 64
 FORCE_TOL = 5e-6

@@ -11,6 +11,7 @@ import numpy as np
 from lbm2d_tpu.io.h5_writer import AsyncLBMCaseWriter as JaxAsyncWriter
 from lbm2d_tpu_torch.io.h5_writer import AsyncLBMCaseWriter
 from lbm2d_tpu_torch.tools import smoke_case
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 
 def _frames(writer, n):

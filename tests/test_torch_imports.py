@@ -10,6 +10,7 @@ import sys
 import pytest
 
 import lbm2d_tpu_torch
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(os.path.abspath(lbm2d_tpu_torch.__file__))

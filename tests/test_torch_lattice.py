@@ -1,6 +1,7 @@
 """Port lattice functions vs the JAX package, in f64 on seeded fields."""
 
 import jax
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 jax.config.update("jax_enable_x64", True)
 

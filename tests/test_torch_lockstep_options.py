@@ -31,6 +31,7 @@ from lbm2d_tpu_torch.utils import profiling
 from lbm2d_tpu_torch.utils.masks import create_mask
 from test_batch_datagen import make_two_case_project
 from test_pipeline_e2e import make_project
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 PROJECT = "LockProj"
 CASES = ("mask_00_Nu0-0500", "mask_00_Nu0-0300")

@@ -28,6 +28,7 @@ from lbm2d_tpu_torch.pipeline.batch_run import run_batch
 from lbm2d_tpu_torch.utils import profiling
 from lbm2d_tpu_torch.viz.frames import calc_gui_size, draw_zone_overlay
 from test_batch_datagen import make_two_case_project
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 PROJECT = "LockProj"
 SAMPLE = 4  # a saving chunk; chunk 3 saves no frame
@@ -61,13 +62,12 @@ def _outputs(root):
     return h5, vid
 
 
-def _sync_i420(self, y8, uv8, zones=None):
+def _sync_i420(self, y8, uv8):
     """The earlier path: the save worker converts the planes and draws the
-    zones itself, then hands the recorder the RGB frame."""
-    frame = i420_to_rgb(np.asarray(y8), np.asarray(uv8))
-    if zones is not None:
-        frame = draw_zone_overlay(frame, zones)
-    self.write_frame_u8(frame)
+    recorder's zones itself, then hands the recorder the flipped RGB frame
+    to encode."""
+    frame = draw_zone_overlay(i420_to_rgb(np.asarray(y8), np.asarray(uv8)), self.zones)
+    self._emit(frame[: self.rec_height, : self.rec_width][::-1])
 
 
 @pytest.fixture(scope="module")

@@ -42,6 +42,7 @@ from lbm2d_tpu_torch.parallel import sharded as sh
 from lbm2d_tpu_torch.parallel import topology
 from lbm2d_tpu_torch.parallel.topology import BlockState, make_mesh
 from torch_monitor_checks import FORCE_TOL, eager_force64, force_err
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 H, W = 32, 64
 STEPS = 9

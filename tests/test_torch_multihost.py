@@ -47,6 +47,7 @@ from lbm2d_tpu_torch.pipeline import run_one_case
 from test_parallel import block_mask, grid_config
 from test_pipeline_e2e import make_project
 from test_torch_spatial_pipeline import _h5_tree
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NX, NY, STEPS = 64, 32, 12

@@ -28,6 +28,7 @@ from lbm2d_tpu.pipeline.batch_run import run_batch as jax_run_batch
 from lbm2d_tpu_torch.pipeline.batch_datagen import run_batched
 from lbm2d_tpu_torch.pipeline.batch_run import run_batch
 from test_multiworker import make_cases_project
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT_S = 300

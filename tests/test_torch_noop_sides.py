@@ -50,6 +50,7 @@ from lbm2d_tpu_torch.ops import cuda_step as cs
 from lbm2d_tpu_torch.parallel import sharded as sh
 from lbm2d_tpu_torch.parallel.batch import BatchEngine
 from lbm2d_tpu_torch.parallel.topology import make_mesh
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 H, W = 32, 64
 STEPS = 20

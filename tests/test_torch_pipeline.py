@@ -20,6 +20,7 @@ import pytest
 from lbm2d_tpu.pipeline.batch_run import run_batch as jax_run_batch
 from lbm2d_tpu_torch.pipeline.batch_run import run_batch
 from test_pipeline_e2e import make_project
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 CASE = "mask_00_Nu0-0500"
 RTOL = 1e-5

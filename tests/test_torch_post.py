@@ -21,6 +21,7 @@ from lbm2d_tpu_torch.post.h5_to_zarr import run as h5_to_zarr
 from test_post import make_fake_case
 from test_torch_tools import assert_same_tree
 from zarr_spec_reader import read_array, read_group_attrs
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

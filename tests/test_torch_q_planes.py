@@ -17,6 +17,7 @@ import yaml
 from lbm2d_tpu.core import solver as js
 from lbm2d_tpu_torch.core import solver as ts
 from lbm2d_tpu_torch.tools.map_generators import HybridMapGenerator
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEED = 5

@@ -34,6 +34,7 @@ from lbm2d_tpu_torch.tools import config_batch_gen, gen_masks, smoke_case
 from lbm2d_tpu_torch.utils.masks import load_grayscale
 from test_torch_batch_datagen import _close_production
 from test_torch_tools import assert_same_tree, tree_bytes
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROJECT = "QS"

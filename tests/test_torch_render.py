@@ -20,6 +20,7 @@ from lbm2d_tpu.ops.resize import make_device_resizer as jax_resizer
 from lbm2d_tpu_torch.ops import render
 from lbm2d_tpu_torch.ops.resize import make_device_resizer, resize_area
 from lbm2d_tpu_torch.viz.frames import calc_gui_size
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 # fraction of RGB bytes allowed to differ (LUT bin edges), and by how much
 EDGE_FRACTION = 0.01

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from lbm2d_tpu_torch.ops import cuda_build, render
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 
 def _field(B, H, W, seed):

@@ -25,6 +25,7 @@ spatial mesh), on the CPU, on grids of at most 64 x 128.
 import dataclasses
 
 import jax
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 jax.config.update("jax_enable_x64", True)
 

@@ -11,6 +11,7 @@ import torch
 from __graft_entry__ import _cylinder_mask, _demo_config
 from lbm2d_tpu_torch.ops import copy_probe as cp
 from lbm2d_tpu_torch.tools import demo_case, roofline
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 
 @pytest.mark.parametrize("shape", [(16, 24), (7, 9)], ids=["vector", "scalar-tail"])

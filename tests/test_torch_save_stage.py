@@ -12,21 +12,25 @@ import numpy as np
 import pytest
 import torch
 
-from lbm2d_tpu_torch.pipeline.save_stage import HELD, SaveStage
+from lbm2d_tpu_torch.pipeline.save_stage import HELD, Save, SaveStage
 from lbm2d_tpu_torch.utils import profiling
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 
 def test_worker_writes_in_hand_off_order_and_inline_on_the_callers_thread():
     for overlap in (True, False):
         seen = []
 
-        def write(out, failed):
+        def write(rows, failed):
             time.sleep(0.01)
-            seen.append((threading.get_ident(), int(out["moments"][0][0][0]), failed))
+            seen.append((threading.get_ident(), int(rows[0]), failed))
 
-        with SaveStage(write, overlap=overlap) as stage:
-            behind = [stage.submit([(torch.full((2,), float(k)), True)], [], frozenset({k}))[0]
-                      for k in range(4)]
+        with SaveStage(overlap=overlap) as stage:
+            behind = []
+            for k in range(4):
+                behind.append(stage.hold([Save([torch.full((2,), float(k))], write)],
+                                         frozenset({k})))
+                stage.release()
         assert [(v, f) for _, v, f in seen] == [(k, frozenset({k})) for k in range(4)]
         threads = {t for t, _, _ in seen}
         assert len(threads) == 1
@@ -38,23 +42,27 @@ def test_worker_writes_in_hand_off_order_and_inline_on_the_callers_thread():
 def test_held_hand_off_reaches_the_worker_only_once_released():
     # the loop's use: hold a save behind its chunk, release it after the
     # next chunk's issue; the next hold and the stage's close release a
-    # hand-off still held, in order
+    # hand-off still held, in order, and the events of a coalesced hand-off
+    # are written in their order
     seen, wrote = [], threading.Event()
 
-    def write(out, failed):
-        seen.append(int(out["moments"][0][0][0]))
+    def write(rows, failed):
+        seen.append(int(rows[0]))
         wrote.set()
 
-    with SaveStage(write) as stage:
-        assert stage.hold([(torch.full((2,), 0.0), True)], [], frozenset()) == 0
+    def save(k):
+        return Save([torch.full((2,), float(k))], write)
+
+    with SaveStage() as stage:
+        assert stage.hold([save(0)], frozenset()) == 0
         time.sleep(0.05)
         assert seen == [] and stage.held == 0
         assert stage.release() == 0.0 and wrote.wait(10)
         assert stage.release() == 0.0  # nothing held
-        stage.hold([(torch.full((2,), 1.0), True)], [], frozenset())
-        stage.hold([(torch.full((2,), 2.0), True)], [], frozenset())
-        stage.hold([(torch.full((2,), 3.0), True)], [], frozenset())
-    assert seen == [0, 1, 2, 3] and stage.held == 0
+        stage.hold([save(1)], frozenset())
+        stage.hold([save(2), save(3)], frozenset())
+        stage.hold([save(4)], frozenset())
+    assert seen == [0, 1, 2, 3, 4] and stage.held == 0
 
 
 def test_hand_offs_under_stress_are_each_written_once_in_order():
@@ -66,13 +74,13 @@ def test_hand_offs_under_stress_are_each_written_once_in_order():
 
     def loop(k):
         try:
-            def write(out, failed):
-                written[k].append(int(out["moments"][0][0][0]))
+            def write(rows, failed):
+                written[k].append(int(rows[0]))
 
-            with SaveStage(write) as stage:
+            with SaveStage() as stage:
                 for i in range(n_saves):
-                    behind, waited = stage.submit([(torch.full((4,), float(i)), True)], [],
-                                                  frozenset())
+                    behind = stage.hold([Save([torch.full((4,), float(i))], write)], frozenset())
+                    waited = stage.release()
                     assert behind <= HELD + 1 and (waited == 0.0 or behind >= HELD)
             assert stage.held == 0 and stage.bytes_fetched == n_saves * 16
         except Exception as exc:  # noqa: BLE001 -- reported below
@@ -93,11 +101,12 @@ def test_hand_offs_under_stress_are_each_written_once_in_order():
 
 
 def test_worker_error_is_raised_on_the_loops_next_call():
-    def write(out, failed):
+    def write(rows, failed):
         raise OSError("disk full")
 
-    stage = SaveStage(write)
-    stage.submit([(torch.zeros(3), False)], [], frozenset())
+    stage = SaveStage()
+    stage.hold([Save([torch.zeros(3)], write)], frozenset())
+    stage.release()
     with pytest.raises(RuntimeError, match="save worker failed") as err:
         stage.close()
     assert isinstance(err.value.__cause__, OSError)
@@ -112,35 +121,46 @@ def test_copy_waits_on_its_producers_not_on_what_follows():
     x = torch.arange(5 * 9 * 256 * 512, dtype=torch.float32, device=dev).reshape(5, 9, 256, 512)
     want = (x * 1e-6).to(torch.float16).cpu().numpy()
     y_rgb = torch.randint(0, 256, (5, 970, 1024, 3), dtype=torch.uint8, device=dev)
-    want_rgb = y_rgb.cpu().numpy()
+    y_i420 = (torch.randint(0, 256, (5, 970, 1024), dtype=torch.uint8, device=dev),
+              torch.randint(0, 256, (5, 485, 512, 2), dtype=torch.uint8, device=dev))
+    want_rgb, want_i420 = y_rgb.cpu().numpy(), [t.cpu().numpy() for t in y_i420]
     torch.cuda.synchronize()
     after = torch.cuda.Event()
     recorded = threading.Event()
     seen = {}
 
-    def write(out, failed):
-        # the copy is complete here; ``after`` follows the sleep queued
-        # behind the hand-off
-        assert recorded.wait(10)
-        seen["after_done"] = after.query()
-        seen["out"] = out
+    def writer(key):
+        def write(rows, failed):
+            # the copies are complete here; ``after`` follows the sleep
+            # queued behind the hand-off
+            assert recorded.wait(10)
+            seen.setdefault("after_done", after.query())
+            seen[key] = rows
+        return write
 
     cycles = int(0.05 * torch.cuda.get_device_properties(dev).clock_rate * 1e3)  # ~50 ms
     profiling.REGISTRY.reset()
-    with profiling.REGISTRY.recording(), SaveStage(write) as stage:
+    with profiling.REGISTRY.recording(), SaveStage() as stage:
         y = (x * 1e-6).to(torch.float16)  # the producers, on the compute stream
-        stage.submit([(y, True)], [y_rgb.clone()], frozenset(), chunk=("g", 1))
+        stage.hold([Save([y], writer("moments")), Save([y_rgb.clone()], writer("rgb")),
+                    Save([tuple(t.clone() for t in y_i420)], writer("i420"))],
+                   frozenset(), chunk=("g", 1))
         del y  # its block is not reused before the copy has read it
+        stage.release()
         torch.cuda._sleep(cycles)  # what follows the hand-off
         after.record()
         recorded.set()
     d2h, = [s for s in profiling.REGISTRY.snapshot(reset=True) if s.name == "fetch.d2h"]
     assert seen["after_done"] is False
-    # the span holds the copies' own time: 26.7 MB into pinned memory, well
+    # the span holds the copies' own time: 34.2 MB into pinned memory, well
     # under the sleep queued behind them
-    assert d2h.chunk == ("g", 1) and d2h.attrs["bytes"] == want.nbytes + want_rgb.nbytes
+    nbytes = want.nbytes + want_rgb.nbytes + sum(a.nbytes for a in want_i420)
+    assert d2h.chunk == ("g", 1) and d2h.attrs["bytes"] == nbytes
     assert 0 < d2h.seconds < 0.025, d2h
-    (moments, pre), = seen["out"]["moments"]
-    assert pre and moments.dtype == np.float16
-    np.testing.assert_array_equal(moments, want)
-    np.testing.assert_array_equal(seen["out"]["frames"][0], want_rgb)
+    assert seen["moments"].dtype == np.float16
+    np.testing.assert_array_equal(seen["moments"], want)
+    np.testing.assert_array_equal(seen["rgb"], want_rgb)
+    assert isinstance(seen["i420"], tuple) and len(seen["i420"]) == 2
+    for got, exp in zip(seen["i420"], want_i420):
+        np.testing.assert_array_equal(got, exp)
+

@@ -60,6 +60,7 @@ from lbm2d_tpu_torch.core.lattice import f_eq
 from lbm2d_tpu_torch.ops import cuda_step as cs
 from lbm2d_tpu_torch.parallel import sharded as sh
 from lbm2d_tpu_torch.parallel.topology import Mesh, make_mesh
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 H, W = 48, 64
 MESHES = [(2, 2), (1, 2), (3, 1), (4, 1)]

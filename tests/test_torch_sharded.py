@@ -24,6 +24,7 @@ same seeded inputs; limits, each set from a reading on the CPU (PERF.md):
 """
 
 import jax
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 jax.config.update("jax_enable_x64", True)
 

@@ -15,6 +15,7 @@ import yaml
 
 from lbm2d_tpu_torch.io import h5_writer
 from lbm2d_tpu_torch.tools import smoke_case
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 
 def test_smoke_case_is_the_production_grid():

@@ -13,6 +13,7 @@ of max |u| there.
 import copy
 
 import jax
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 jax.config.update("jax_enable_x64", True)
 

@@ -21,6 +21,7 @@ from lbm2d_tpu_torch.utils import profiling
 from lbm2d_tpu_torch.utils.profiling import Registry
 from test_batch_datagen import make_two_case_project
 from test_pipeline_e2e import make_project
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 
 @pytest.fixture

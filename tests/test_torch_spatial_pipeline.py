@@ -20,6 +20,7 @@ from lbm2d_tpu_torch.ops import cuda_step as cs
 from lbm2d_tpu_torch.pipeline import batch_run
 from lbm2d_tpu_torch.utils.masks import create_mask
 from test_pipeline_e2e import make_project
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 CFG = "mask_00_cfg_Nu0-0500.yaml"
 CASE = "mask_00_Nu0-0500"

@@ -27,6 +27,7 @@ from lbm2d_tpu_torch.core import solver as ts
 from lbm2d_tpu_torch.core.engine import LBMEngine
 from lbm2d_tpu_torch.ops import cuda_step as cs
 from test_pallas import block_mask, cfg_grid
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 NX, NY = 128, 64
 STEPS = 12

@@ -29,6 +29,7 @@ from lbm2d_tpu_torch.tools import config_batch_gen, file_ops, gen_masks, re_calc
 from lbm2d_tpu_torch.tools import shapes, validators
 from lbm2d_tpu_torch.tools import configgen
 from lbm2d_tpu_torch.tools.configgen import nu_sampler
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

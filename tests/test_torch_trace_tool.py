@@ -14,6 +14,7 @@ import torch
 
 from lbm2d_tpu_torch.tools import trace
 from test_batch_datagen import make_two_case_project
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -18,6 +18,7 @@ from lbm2d_tpu.utils import profiling as j_profiling
 from lbm2d_tpu.utils import system as j_system
 from lbm2d_tpu_torch.ops import cuda_build, cuda_step
 from lbm2d_tpu_torch.utils import profiling, system
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 
 from lbm2d_tpu_torch.io.video import VideoRecorder
+import torch_threads  # noqa: F401  (the test processes' torch thread budget)
 
 cv2 = pytest.importorskip("cv2")
 
@@ -50,12 +51,15 @@ class _Writer:
         pass
 
 
-@pytest.mark.parametrize("with_zones", [False, True], ids=["planes", "zones"])
-def test_cv2_recorder_converts_i420_planes_on_its_thread(tmp_path, monkeypatch, with_zones):
-    """The save worker hands the recorder I420 planes (and the zones): the
-    write returns before they are converted, and the writer gets, in order,
-    the arrays the synchronous conversion makes (RGB, the overlay, the
-    crop, the flip and the BGR copy)."""
+@pytest.mark.parametrize("fmt,with_zones", [("i420", False), ("i420", True), ("rgb", True)],
+                         ids=["planes", "zones", "rgb_zones"])
+def test_cv2_recorder_converts_i420_planes_on_its_thread(tmp_path, monkeypatch, fmt, with_zones):
+    """The save worker hands the recorder I420 planes, or an RGB frame,
+    the recorder holding the zones from its construction: the write
+    returns before the frame is converted, and the writer gets, in order,
+    the arrays a recorder without zones gets from ``write_frame_u8`` of the
+    RGB frame with ``draw_zone_overlay`` drawn (the overlay on the whole
+    frame, the crop, the flip and the BGR copy)."""
     import threading
 
     from lbm2d_tpu_torch.io import video
@@ -65,43 +69,60 @@ def test_cv2_recorder_converts_i420_planes_on_its_thread(tmp_path, monkeypatch, 
     monkeypatch.setenv("LBM2D_NO_NATIVE", "1")
     monkeypatch.setattr(video.cv2, "VideoWriter", _Writer)
     gate, converted = threading.Event(), []
-    pack = video._i420_buffer
+    flipped_bgr = video.VideoRecorder._flipped_bgr
 
-    def gated_pack(y8, uv8):
+    def gated(self, *planes):
         assert gate.wait(30)
         converted.append(threading.get_ident())
-        return pack(y8, uv8)
+        return flipped_bgr(self, *planes)
 
-    monkeypatch.setattr(video, "_i420_buffer", gated_pack)
+    monkeypatch.setattr(video.VideoRecorder, "_flipped_bgr", gated)
     h, w = 40, 56
     rng = np.random.default_rng(5)
-    planes = [(rng.integers(16, 236, (h, w), dtype=np.uint8),
-               rng.integers(16, 241, (h // 2, w // 2, 2), dtype=np.uint8)) for _ in range(10)]
+    if fmt == "i420":
+        frames = [(rng.integers(16, 236, (h, w), dtype=np.uint8),
+                   rng.integers(16, 241, (h // 2, w // 2, 2), dtype=np.uint8))
+                  for _ in range(10)]
+        rgbs = [video.i420_to_rgb(y8, uv8) for y8, uv8 in frames]
+    else:  # the renderer's RGB frame is uncropped: the overlay is drawn before the crop
+        rgbs = [rng.integers(0, 256, (h + 1, w + 1, 3), dtype=np.uint8) for _ in range(10)]
+        frames = [(f,) for f in rgbs]
     zones = ({"nx": 112, "ny": 40, "sponge_in": 8, "sponge_out": 16, "sponge_bot": 4,
               "sponge_top": 4, "roi_x_start": 12, "roi_x_end": 92, "roi_y_start": 8,
               "roi_y_end": 32} if with_zones else None)
-    rec = video.VideoRecorder(str(tmp_path / "v.mp4"), width=w + 1, height=h, fps=10)
+    rec = video.VideoRecorder(str(tmp_path / "v.mp4"), width=w + 1, height=h + 1, fps=10,
+                              zones=zones)
     rec.start()
     assert rec.backend == "cv2-mp4v"
+    buf = np.empty_like(frames[0][0])
+
+    def write(frame):
+        if fmt == "i420":
+            rec.write_frame_i420(*frame)
+        else:
+            buf[...] = frame[0]
+            rec.write_frame_u8(buf)  # one array, reused: the recorder copies it
+            buf[...] = 0
+
     REGISTRY.reset()
     with REGISTRY.recording():
-        rec.write_frame_i420(*planes[0], zones)
+        write(frames[0])
         assert converted == [] and rec._writer.frames == []  # returned first
         gate.set()
-        for y8, uv8 in planes[1:]:
-            rec.write_frame_i420(y8, uv8, zones)
+        for frame in frames[1:]:
+            write(frame)
         writer = rec._writer
         rec.stop()
     spans = [s for s in REGISTRY.snapshot(reset=True) if s.name == "video.convert"]
-    assert len(spans) == len(planes) and all(s.attrs["bytes"] == h * w * 3 for s in spans)
+    assert len(spans) == len(frames) and all(s.attrs["bytes"] == h * w * 3 for s in spans)
     assert threading.get_ident() not in {s.thread for s in spans} | set(converted)
-    want = []
-    for y8, uv8 in planes:
-        rgb = video.i420_to_rgb(y8, uv8)
-        if zones is not None:
-            rgb = draw_zone_overlay(rgb, zones)
-        want.append(np.ascontiguousarray(rgb[:h, :w][::-1, :, ::-1]))
-    assert len(writer.frames) == len(want)
+    plain = video.VideoRecorder(str(tmp_path / "plain.mp4"), width=w + 1, height=h + 1, fps=10)
+    plain.start()
+    for rgb in rgbs:
+        plain.write_frame_u8(draw_zone_overlay(rgb.copy(), zones) if zones is not None else rgb)
+    want = plain._writer.frames
+    plain.stop()
+    assert len(writer.frames) == len(want) == len(frames)
     for got, exp in zip(writer.frames, want):
         assert got.flags["C_CONTIGUOUS"]
         np.testing.assert_array_equal(got, exp)
